@@ -1,0 +1,61 @@
+"""Instance-level memo for likelihood functions (a NumPy copy of
+``tpu21cmvae/models/_memo.py``).
+
+The model-level likelihood factories (``loglik_fn``,
+``loglik_and_grad_fn``) build a fresh closure per call; the fused
+kernel wrapper also caches its folded weights on itself. Memoizing the
+factory on the model instance makes the likelihood object identity
+follow the VALUE of ``(obs, noise_var, flags)``: repeated sampling
+calls on the same observation reuse one wrapper, its folded weights and
+its launch counter.
+
+Bounded at ``_CAP`` entries per model with LRU eviction; callers that
+manage likelihood lifetimes themselves pass ``memo=False``.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import numpy as np
+
+_CAP = 8
+
+
+def _key_part(p):
+    if isinstance(p, np.ndarray):
+        return p.tobytes()
+    return p
+
+
+def noise_key(noise_var):
+    """Value-identity key part for a noise spec: arrays/scalars key by
+    float64 bytes; objects exposing ``memo_key()`` (e.g.
+    the JAX package's ``MarginalizedNoise``) key by it."""
+    mk = getattr(noise_var, "memo_key", None)
+    if callable(mk):
+        return mk()
+    return np.asarray(noise_var, np.float64)
+
+
+def memo_program(model, key_parts, build, *, memo: bool = True):
+    """Return ``build()`` memoized on ``model`` under ``key_parts``.
+
+    ``key_parts``: tuple of hashables; ``np.ndarray`` entries are keyed
+    by their bytes (callers normalize dtype first so byte-equality
+    means value-equality). ``memo=False`` bypasses the cache entirely.
+    """
+    if not memo:
+        return build()
+    key = tuple(_key_part(p) for p in key_parts)
+    cache = model.__dict__.setdefault(
+        "_t21_loglik_memo", collections.OrderedDict()
+    )
+    fn = cache.get(key)
+    if fn is None:
+        fn = cache[key] = build()
+        if len(cache) > _CAP:
+            cache.popitem(last=False)
+    else:
+        cache.move_to_end(key)
+    return fn

@@ -16,10 +16,14 @@ import torch
 from tpu21cmvae.models.direct import DirectEmulator as JaxEmulator
 from tpu21cmvae.ops.loglik import make_loglik as jax_make_loglik
 from tpu21cmvae.ops.loglik import make_loglik_and_grad as jax_make_loglik_and_grad
+from tpu21cmvae.ops.pallas.fused_loglik import make_fused_loglik_gram as jax_fused_gram
+from tpu21cmvae.sampling._common import valgrad_from_loglik as jax_valgrad_from_loglik
 from tpu21cmvae.utils.config import DirectEmulatorConfig as JaxConfig
 from tpu21cmvae_torch.models.direct import DirectEmulator
 from tpu21cmvae_torch.ops import fold
-from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad
+from tpu21cmvae_torch.ops.kernels.fused_loglik import make_fused_loglik_gram
+from tpu21cmvae_torch.ops.loglik import KernelLoglik, make_loglik, make_loglik_and_grad
+from tpu21cmvae_torch.sampling._common import valgrad_from_loglik
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 
 SMALL = (32, 48, 32, 24)
@@ -245,8 +249,9 @@ def test_refusals(pair):
         make_loglik(cfg, norm, obs, backend="cuda")
     with pytest.raises(ValueError, match="method"):
         make_loglik(cfg, norm, obs, method="cholesky")
-    with pytest.raises(NotImplementedError, match="K1"):
-        make_loglik(cfg, norm, obs, backend="kernel")
+    with pytest.raises(NotImplementedError, match="ReLU"):
+        make_loglik(DirectEmulatorConfig(hidden_dims=SMALL, activation="tanh"), norm, obs,
+                    backend="kernel")
     with pytest.raises(ValueError, match="variant"):
         make_loglik_and_grad(cfg, norm, obs, variant="nope")
     with pytest.raises(ValueError, match="analytic"):
@@ -255,3 +260,91 @@ def test_refusals(pair):
         make_loglik_and_grad(cfg, norm, obs, backend="kernel", method="direct")
     with pytest.raises(ValueError, match="precision"):
         make_loglik(cfg, norm, obs, precision="high-stacked")
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_plain_k2_matches_pallas_k2(pair, splits, precision):
+    """K2's plain version against the JAX package's Pallas K2 (interpret
+    mode, one 40-row grid step) on 37 rows with an fx == 0 row, at
+    test_loglik tolerance; the wrapper ran no kernel on CPU tensors."""
+    jm, tm, obs = pair
+    raw = _raw(splits, 37, fx_zero_row=5)
+    want = np.asarray(jax_fused_gram(jm.config, jm.normalizer, obs, 25.0, precision=precision,
+                                     block_rows=40, interpret=True)(jm.params, jnp.asarray(raw)))
+    fn = make_fused_loglik_gram(tm.config, tm.normalizer, obs, 25.0, precision=precision,
+                                device="cpu")
+    got = fn(tm.params, torch.as_tensor(raw)).numpy()
+    assert got.shape == (37,) and np.isfinite(got).all()
+    _close_values(got, want)
+    assert fn.launches == 0
+    assert fn.operands(tm.params).wt == ()  # K2 never reads the backward operands
+    assert fn(tm.params, torch.as_tensor(raw[5])).shape == (1,)
+
+
+@pytest.mark.parametrize("method", ["direct", "gram"])
+def test_kernel_backend_on_cpu_equals_torch_backend(pair, splits, method):
+    """``loglik_fn(backend="kernel")`` runs K1/K2's plain version on CPU
+    tensors: the same values as ``backend="torch"``, one memoised object
+    whose launch count stays 0."""
+    _, tm, obs = pair
+    raw = torch.as_tensor(_raw(splits, 29, fx_zero_row=1))
+    kern = tm.loglik_fn(obs, 25.0, backend="kernel", method=method)
+    assert isinstance(kern, KernelLoglik)
+    assert tm.loglik_fn(obs, 25.0, backend="kernel", method=method) is kern
+    with torch.no_grad():
+        got = kern(tm.params, raw).numpy()
+        want = tm.loglik_fn(obs, 25.0, method=method)(tm.params, raw).numpy()
+    _close_values(got, want)
+    if method == "gram":  # the same folds and products in the same order
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    assert kern.launches == 0
+    kern.launches = 5
+    assert kern.fused.launches == 5
+
+
+@pytest.mark.parametrize("method", ["direct", "gram"])
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+def test_loglik_fn_gradient_matches_jax_autodiff(pair, splits, method, backend):
+    """``loglik_fn`` is differentiable again (it ran under no_grad):
+    ``valgrad_from_loglik`` over it — through the kernel backend's
+    autograd.Function, whose backward is the plain twin's — matches JAX's
+    ``valgrad_from_loglik(jm.loglik_fn(...))`` at the default bf16x3 tier
+    (JAX's XLA HIGH is fp32 on the CPU), rtol 2e-3; the fx == 0 slot is 0.
+    The weight gradient of one layer matches ``jax.grad`` too."""
+    jm, tm, obs = pair
+    raw = _raw(splits, 33, fx_zero_row=4)
+    vj, gj = jax_valgrad_from_loglik(jm.loglik_fn(obs, 25.0, method=method))(
+        jm.params, jnp.asarray(raw))
+    fn = tm.loglik_fn(obs, 25.0, backend=backend, method=method)
+    vt, gt = valgrad_from_loglik(fn)(tm.params, torch.as_tensor(raw))
+    assert not vt.requires_grad
+    _close_values(vt.numpy(), np.asarray(vj))
+    _close_grads(gt.numpy(), np.asarray(gj))
+    assert gt[4, 2] == 0.0
+    wj = jax.grad(lambda p: jnp.sum(jm.loglik_fn(obs, 25.0, method=method)(
+        p, jnp.asarray(raw))))(jm.params)[1]["w"]
+    (wt,) = torch.autograd.grad(fn(tm.params, torch.as_tensor(raw)).sum(), tm.params[1]["w"])
+    _close_grads(wt.numpy(), np.asarray(wj))
+
+
+def test_tier_dense_gradient_keeps_the_tier():
+    """Autograd through the bf16x3 split alone dropped the ``w_lo``
+    term (the integer mask passes no gradient); ``tier_dense`` gives the
+    gradient of the exact product to the bf16x3 tier's accuracy, and the
+    single-pass bf16 gradient to bf16's."""
+    rng = np.random.default_rng(2)
+    a = torch.tensor(rng.normal(size=(16, 40)), dtype=torch.float32, requires_grad=True)
+    w = torch.tensor(rng.normal(size=(40, 24)), dtype=torch.float32, requires_grad=True)
+    g = torch.tensor(rng.normal(size=(16, 24)), dtype=torch.float32)
+    a64, w64, g64 = (t.detach().double() for t in (a, w, g))
+    want = (g64 @ w64.T, a64.T @ g64)
+    bound = (g64.abs() @ w64.abs().T, a64.abs().T @ g64.abs())  # Σ|products|
+    # per product: bf16x3 drops lo·lo and rounds lo once (≤ ~2⁻¹⁵ of
+    # |a·w|), bf16 rounds both operands (≤ ~2⁻⁷)
+    for tier, rel in (("f32", 1e-6), ("bf16x3", 3e-5), ("bf16", 1e-2)):
+        got = torch.autograd.grad(fold.tier_dense(a, w, tier), (a, w), g)
+        for mine, ref, b in zip(got, want, bound):
+            assert ((mine.double() - ref).abs() <= rel * b).all(), tier
+    split = fold.tier_matmul(a, fold.prepare_operand(w, "bf16x3"), "bf16x3")
+    ga, _ = torch.autograd.grad(split, (a, w), g)
+    assert ((ga.double() - want[0]).abs() > 1e-3 * bound[0]).any()  # the fault

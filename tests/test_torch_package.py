@@ -19,7 +19,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import tpu21cmvae_torch, tpu21cmvae_torch.ops.kernels.fused_loglik, "
-        "tpu21cmvae_torch.ops.kernels._build, tpu21cmvae_torch.sampling.gradient, "
+        "tpu21cmvae_torch.ops.kernels.fused_mlp, tpu21cmvae_torch.ops.kernels._build, "
+        "tpu21cmvae_torch.sampling.gradient, tpu21cmvae_torch.sampling.mh, "
         "tpu21cmvae_torch.models._memo, tpu21cmvae_torch.utils.metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu21cmvae'))\n"

@@ -1,8 +1,9 @@
-"""The ported slice end to end on the CPU, on the shipped flagship
+"""The ported slices end to end on the CPU, on the shipped flagship
 checkpoint: load, predict, likelihood, the K3 value-and-gradient wrapper
 (its plain version here) against the JAX package's analytic XLA twin of
-K3 (``tests/test_loglik.py:445-473``), and a short HMC run through
-``sample_posterior``.
+K3 (``tests/test_loglik.py:445-473``), the value kernels K1 and K2
+behind ``loglik_fn(backend="kernel")``, and short HMC, MH and ensemble
+runs through ``sample_posterior``.
 
 Tolerance: test_loglik tolerance (``tests/test_loglik.py:468-472``:
 values rtol 2e-4, atol 2e-3·max|v|; gradients rtol 2e-3, atol 2e-3·max|g|).
@@ -44,7 +45,8 @@ def test_flagship_slice_matches_jax(slice_setup, tiers):
         rtol=0, atol=1e-5 * np.abs(tm.predict(raw)).max(),
     )
     v_want = np.asarray(jm.loglik_fn(obs, 25.0, precision=prec)(jm.params, jnp.asarray(raw)))
-    v_got = tm.loglik_fn(obs, 25.0, precision=prec)(tm.params, torch.as_tensor(raw)).numpy()
+    with torch.no_grad():  # loglik_fn is differentiable; only values here
+        v_got = tm.loglik_fn(obs, 25.0, precision=prec)(tm.params, torch.as_tensor(raw)).numpy()
     np.testing.assert_allclose(v_got, v_want, rtol=2e-4, atol=2e-3 * np.abs(v_want).max())
     vj, gj = jm.loglik_and_grad_fn(obs, 25.0, backend="xla", precision=prec,
                                    grad_precision=gprec)(jm.params, jnp.asarray(raw))
@@ -70,4 +72,34 @@ def test_short_hmc_through_sample_posterior(slice_setup):
     lo, hi = PAR_RANGES.T  # the default prior box
     assert (res.flat >= lo * (1 - 1e-6)).all() and (res.flat <= hi * (1 + 1e-6)).all()
     with pytest.raises(NotImplementedError, match="queue 6"):
-        tm.sample_posterior(obs, 25.0, sampler="mh")
+        tm.sample_posterior(obs, 25.0, sampler="nuts")
+
+
+@pytest.mark.parametrize("method", ["gram", "direct"])
+def test_flagship_value_kernels_match_jax(slice_setup, method):
+    """The value-only path of the slice: ``loglik_fn(backend="kernel")``
+    (K2 for gram, K1 with its sumsq tail for direct; their plain
+    versions on the CPU) against the JAX package's ``loglik_fn`` at the
+    default bf16x3 tier, and its gradient against JAX autodiff."""
+    from tpu21cmvae.sampling._common import valgrad_from_loglik as jax_valgrad
+    from tpu21cmvae_torch.sampling._common import valgrad_from_loglik
+
+    jm, tm, obs, raw = slice_setup
+    vj, gj = jax_valgrad(jm.loglik_fn(obs, 25.0, method=method))(jm.params, jnp.asarray(raw))
+    kern = tm.loglik_fn(obs, 25.0, backend="kernel", method=method)
+    vt, gt = valgrad_from_loglik(kern)(tm.params, torch.as_tensor(raw))
+    vj, gj, vt, gt = np.asarray(vj), np.asarray(gj), vt.numpy(), gt.numpy()
+    np.testing.assert_allclose(vt, vj, rtol=2e-4, atol=2e-3 * np.abs(vj).max())
+    np.testing.assert_allclose(gt, gj, rtol=2e-3, atol=2e-3 * np.abs(gj).max())
+    assert gt[4, 2] == 0.0 and kern.launches == 0
+
+
+@pytest.mark.parametrize("sampler", ["mh", "ensemble"])
+def test_short_gradient_free_run_through_sample_posterior(slice_setup, sampler):
+    _, tm, obs, _ = slice_setup
+    res = tm.sample_posterior(obs, 25.0, sampler=sampler, n_walkers=64, n_warmup=10,
+                              n_steps=20, seed=3)
+    assert res.chain.shape == (2, 64, 7) and np.isfinite(res.chain).all()
+    lo, hi = PAR_RANGES.T
+    assert (res.flat >= lo).all() and (res.flat <= hi).all()
+    assert np.isfinite(res.logp).all() and 0.0 < float(res.accept_rate.mean()) < 1.0

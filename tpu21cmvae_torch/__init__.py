@@ -14,5 +14,6 @@ from tpu21cmvae_torch.models.direct import DirectEmulator  # noqa: F401
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad  # noqa: F401
 from tpu21cmvae_torch.ops.transforms import Normalizer  # noqa: F401
 from tpu21cmvae_torch.sampling.gradient import sample_hmc  # noqa: F401
+from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh  # noqa: F401
 from tpu21cmvae_torch.sampling.results import SampleResult  # noqa: F401
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig, MLPConfig  # noqa: F401

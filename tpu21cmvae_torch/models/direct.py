@@ -5,8 +5,8 @@ layers, linear output).
 
 The model is an :class:`~tpu21cmvae_torch.ops.mlp.MLP` plus a
 :class:`~tpu21cmvae_torch.ops.transforms.Normalizer`, both on the device
-the caller names. Training, the other samplers, evidence, VI, flows and
-serving are not ported yet (ROADMAP).
+the caller names. Training, the samplers beyond HMC, MH and the stretch
+ensemble, evidence, VI, flows and serving are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -220,7 +220,13 @@ class DirectEmulator:
                   method: str = "gram", precision=None, memo: bool = True):
         """Gaussian log-likelihood ``(params, raw) → (B,)`` against an
         observed signal (see :func:`tpu21cmvae_torch.ops.loglik.make_loglik`);
-        ``precision="contract"`` for absolute log-densities."""
+        ``precision="contract"`` for absolute log-densities. The function
+        is differentiable by ``torch.autograd`` with respect to ``raw``
+        and the weights on both backends (call it under
+        ``torch.no_grad()`` when only values are wanted). Value-identical
+        calls return the SAME object, so with ``backend="kernel"`` its
+        ``launches`` count (K2 for ``method="gram"``, K1 for
+        ``"direct"``) persists across sampling calls."""
         from tpu21cmvae_torch.models._memo import memo_program, noise_key
         from tpu21cmvae_torch.ops.loglik import make_loglik
 
@@ -228,10 +234,10 @@ class DirectEmulator:
             self,
             ("loglik", _host(obs), noise_key(noise_var), backend, method,
              str(precision)),
-            lambda: torch.no_grad()(make_loglik(
+            lambda: make_loglik(
                 self.config, self.normalizer, obs, noise_var,
                 backend=backend, method=method, precision=precision,
-            )),
+            ),
             memo=memo,
         )
 
@@ -261,20 +267,55 @@ class DirectEmulator:
     def sample_posterior(self, obs, noise_var=1.0, *, sampler: str = "hmc",
                          bounds=None, **kwargs):
         """Sample the posterior over the 7 parameters given an observed
-        spectrum with HMC (:func:`tpu21cmvae_torch.sampling.gradient.sample_hmc`;
-        kwargs forward to it). On a CUDA model every leapfrog step runs
-        the fused value+gradient kernel K3, on the CPU its plain version;
-        the backward runs at the single-pass bf16 tier, which only costs
-        acceptance rate. Returns a
-        :class:`~tpu21cmvae_torch.sampling.results.SampleResult`."""
-        if sampler != "hmc":
+        spectrum; kwargs forward to the sampler, and the result is a
+        :class:`~tpu21cmvae_torch.sampling.results.SampleResult`.
+
+        * ``sampler="hmc"`` (default,
+          :func:`~tpu21cmvae_torch.sampling.gradient.sample_hmc`): every
+          leapfrog step runs the fused value+gradient kernel K3 on a CUDA
+          model, its plain version on the CPU; the backward runs at the
+          single-pass bf16 tier, which only costs acceptance rate.
+        * ``sampler="mh"`` (random-walk Metropolis,
+          :func:`~tpu21cmvae_torch.sampling.mh.sample_mh`) and
+          ``"ensemble"`` (the stretch move,
+          :func:`~tpu21cmvae_torch.sampling.mh.sample_ensemble`) score
+          every proposal batch through ``loglik_fn(obs, noise_var,
+          backend=…)`` — the gram form at the bf16x3 tier — which on a
+          CUDA model is ``backend="kernel"`` (K2) and on the CPU its
+          plain version. The JAX package defaults these samplers to its
+          XLA path because that measured fastest on a TPU v5e; that
+          measurement says nothing about this port, so the port takes
+          the kernel, as it does for HMC (PERF.md).
+
+        ``target_ess=`` (``sample_to_ess``) and the samplers ``"pt"``,
+        ``"smc"``, ``"chees"`` and ``"nuts"`` are not ported yet (ROADMAP
+        queues 6 and 7).
+        """
+        backend = "kernel" if self.device.type == "cuda" else "torch"
+        if sampler in ("mh", "ensemble"):
+            if "target_ess" in kwargs:
+                raise NotImplementedError(
+                    "target_ess= (sample_to_ess) is not ported yet (ROADMAP "
+                    "queue 6); pass n_steps"
+                )
+            from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
+
+            run = sample_mh if sampler == "mh" else sample_ensemble
+            return run(self.loglik_fn(obs, noise_var, backend=backend), self.params,
+                       bounds=bounds, device=self.device, **kwargs)
+        if sampler in ("pt", "smc", "chees", "nuts"):
+            queue = 6 if sampler in ("chees", "nuts") else 7
             raise NotImplementedError(
-                f"sampler={sampler!r} is not ported yet (ROADMAP queue 6); "
-                "the port samples with 'hmc'"
+                f"sampler={sampler!r} is not ported yet (ROADMAP queue {queue}); "
+                "the port samples with 'hmc', 'mh' or 'ensemble'"
+            )
+        if sampler != "hmc":
+            raise ValueError(
+                "sampler must be 'mh', 'ensemble', 'hmc', 'chees', 'nuts', "
+                f"'pt' or 'smc'; got {sampler!r}"
             )
         from tpu21cmvae_torch.sampling.gradient import sample_hmc
 
-        backend = "kernel" if self.device.type == "cuda" else "torch"
         valgrad = self.loglik_and_grad_fn(
             obs, noise_var, backend=backend, grad_precision="default"
         )

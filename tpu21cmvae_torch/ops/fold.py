@@ -108,6 +108,39 @@ def tier_matmul(a: torch.Tensor, w_op: torch.Tensor, tier: str) -> torch.Tensor:
     return torch.cat([a_hi, a_hi, a_lo], dim=-1) @ w_op
 
 
+class _TierDense(torch.autograd.Function):
+    """``a @ w`` at a bf16 tier whose gradients are products at the same
+    tier. Autograd through :func:`_split_hi_lo` would be wrong: the
+    integer mask passes no gradient to ``hi``, so the bf16x3 gradient
+    lost the ``w_lo`` term (~1e-2 relative). The backward calls this
+    function again, so higher derivatives keep the tier too."""
+
+    @staticmethod
+    def forward(ctx, a, w, tier):
+        ctx.save_for_backward(a, w)
+        ctx.tier = tier
+        return tier_matmul(a, prepare_operand(w, tier), tier)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = _TierDense.apply(g, w.T, ctx.tier)
+        if ctx.needs_input_grad[1]:
+            gw = _TierDense.apply(a.T, g, ctx.tier)
+        return ga, gw, None
+
+
+def tier_dense(a: torch.Tensor, w: torch.Tensor, tier: str) -> torch.Tensor:
+    """``a @ w`` at ``tier`` from the raw weight ``w`` (K, N), with
+    gradients (to ``a`` and ``w``) computed at the same tier — what the
+    JAX package's XLA paths get from a dot's ``precision``."""
+    if tier == "f32":
+        return a @ w
+    return _TierDense.apply(a, w, tier)
+
+
 def _log_clamp(x: torch.Tensor) -> torch.Tensor:
     """log10 on columns 0..2 with the ``fx == 0 → 1e-6`` clamp
     (reference ``preprocess.py:74-76``); other columns pass through."""

@@ -1,12 +1,14 @@
-"""Build the port's CUDA kernels from the ``csrc/*.cu`` sources at first
-use, and load them with ``ctypes``.
+"""Build the port's CUDA kernels from the ``csrc/`` sources at first use,
+and load them with ``ctypes``.
 
-Every ``.cu`` file in ``csrc/`` is compiled by ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The library lands in ``build/tpu21cmvae_torch/`` at the root of
-the checkout, named by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads the library already there.
-Nothing here runs at import time.
+Every ``.cu`` file in ``csrc/`` (each may include the shared ``.cuh``
+headers there) is compiled by its own ``nvcc`` process, all of them at
+once, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The library
+lands in ``build/tpu21cmvae_torch/`` at the root of the checkout, named
+by a hash of the sources, headers and flags, so an edited source
+rebuilds and an unchanged one loads the library already there. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ BUILD_DIR = os.path.join(
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -45,20 +47,34 @@ def _nvcc() -> str:
     return path
 
 
-def _sources():
+def _files(*suffixes):
     return sorted(
-        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(suffixes)
     )
 
 
 def library_path() -> str:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _files(".cu", ".cuh"):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"libt21kernels-{h.hexdigest()[:16]}.so")
+
+
+def _run_all(commands):
+    """Start every command at once; raise with the stderr of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in commands]
+    failed = []
+    for cmd, proc in zip(commands, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def build() -> str:
@@ -68,21 +84,18 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.part")
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objects = []
+        compiles = []
+        for src in _files(".cu"):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            objects.append(obj)
+            compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
+        _run_all(compiles)
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
+        os.replace(lib, out)
     return out
 
 
@@ -92,8 +105,12 @@ def load_library() -> ctypes.CDLL:
     signatures."""
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k1_fused_mlp.argtypes = [p, p, i, i, p, p, i, i, i, p]
+    lib.k1_fused_mlp.restype = i
+    lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, i, p]
+    lib.k2_fused_loglik_gram.restype = i
     lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, i, i, p]
     lib.k3_fused_loglik_grad_gram.restype = i
-    lib.k3_error_string.argtypes = [i]
-    lib.k3_error_string.restype = ctypes.c_char_p
+    lib.t21_error_string.argtypes = [i]
+    lib.t21_error_string.restype = ctypes.c_char_p
     return lib

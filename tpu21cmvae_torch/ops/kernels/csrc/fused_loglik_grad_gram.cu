@@ -30,33 +30,15 @@
 // directions at every tier. Tensor cores (mma/wgmma), TMA and persistent
 // CTAs are left for later work.
 //
-// Tiers (per product a·w, fp32 accumulation):
-//   f32:    a · w
-//   bf16:   bf16_rn(a) · w, with w pre-rounded to bf16 by the caller
-//   bf16x3: hi(a)·w_hi + hi(a)·w_lo + lo(a)·w_hi, hi(x) = bits(x) & 0xFFFF0000,
-//           lo(x) = bf16_rn(x − hi(x)); w_hi, w_lo pre-split by the caller
-// Every product of bf16-representable values is exact in fp32, so the
-// kernel and its plain PyTorch version differ only in summation order.
+// The tiers, the tile layout and the dense layers are in trunk.cuh, which
+// K1 and K2 share.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "trunk.cuh"
 
 namespace {
-
-constexpr int kMaxLayers = 8;   // trunk layers (layer 0 is the skinny input layer)
-constexpr int kMaxIn = 8;       // widest skinny input
-constexpr int kThreads = 256;
-constexpr int kRows = 16;       // rows per CTA
-constexpr int kLogCols = 3;     // log10 on input columns 0..2
-constexpr int kMaxSmem = 232448;
-
-enum Tier : int { kF32 = 0, kBF16 = 1, kBF16x3 = 2 };
-enum Epilogue : int { kBiasRelu = 0, kStore = 1, kMask = 2 };
 
 struct Net {
   int n_layers;
@@ -74,91 +56,6 @@ struct Net {
   const float* g_lo;               // bf16x3 only
   const float* u;                  // (H,)
 };
-
-__device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float hi_part(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
-}
-
-template <int TIER>
-__device__ __forceinline__ float tier_fma(float a, float w_hi, float w_lo, float acc) {
-  if constexpr (TIER == kF32) {
-    return fmaf(a, w_hi, acc);
-  } else if constexpr (TIER == kBF16) {
-    return fmaf(bf16_rn(a), w_hi, acc);
-  } else {
-    const float a_hi = hi_part(a);
-    const float a_lo = bf16_rn(a - a_hi);
-    return fmaf(a_lo, w_hi, fmaf(a_hi, w_lo, fmaf(a_hi, w_hi, acc)));
-  }
-}
-
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }  // keeps NaN
-
-__device__ __forceinline__ float log_clamp(float v, int c) {
-  if (c >= kLogCols) return v;
-  if (c == kLogCols - 1 && v == 0.f) v = 1e-6f;
-  return log10f(v);
-}
-
-__device__ __forceinline__ float log_clamp_grad(float v, int c) {
-  if (c >= kLogCols) return 1.f;
-  if (c == kLogCols - 1 && v == 0.f) return 0.f;  // the fx == 0 clamp is flat
-  return 1.f / (v * 2.302585093f);
-}
-
-// out[j, r] = epilogue(Σ_k in[k, r] · W[k, j]) for every j < n_out, with W
-// (n_in, n_out) row-major in device memory and in/out tiles in shared memory.
-template <int TIER, int EPI>
-__device__ void dense(const float* in, int n_in, const float* __restrict__ w_hi,
-                      const float* __restrict__ w_lo, const float* __restrict__ bias,
-                      float* out, int n_out) {
-  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 2
-    for (int k = 0; k < n_in; ++k) {
-      const size_t at = static_cast<size_t>(k) * n_out + j;
-      const float wh = __ldg(w_hi + at);
-      const float wl = TIER == kBF16x3 ? __ldg(w_lo + at) : 0.f;
-      const float4* a4 = reinterpret_cast<const float4*>(in + k * kRows);
-#pragma unroll
-      for (int q = 0; q < kRows / 4; ++q) {
-        const float4 a = a4[q];
-        acc[4 * q + 0] = tier_fma<TIER>(a.x, wh, wl, acc[4 * q + 0]);
-        acc[4 * q + 1] = tier_fma<TIER>(a.y, wh, wl, acc[4 * q + 1]);
-        acc[4 * q + 2] = tier_fma<TIER>(a.z, wh, wl, acc[4 * q + 2]);
-        acc[4 * q + 3] = tier_fma<TIER>(a.w, wh, wl, acc[4 * q + 3]);
-      }
-    }
-    float* o = out + j * kRows;
-    if constexpr (EPI == kBiasRelu) {
-      const float bj = __ldg(bias + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] = relu(acc[r] + bj);
-    } else if constexpr (EPI == kStore) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] = acc[r];
-    } else {  // backward: mask by the forward activation held in `out`, in place
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] = o[r] > 0.f ? acc[r] : 0.f;
-    }
-  }
-}
-
-template <int EPI>
-__device__ void dense_at(int tier, const float* in, int n_in, const float* w_hi,
-                         const float* w_lo, const float* bias, float* out, int n_out) {
-  switch (tier) {
-    case kF32: dense<kF32, EPI>(in, n_in, w_hi, w_lo, bias, out, n_out); break;
-    case kBF16: dense<kBF16, EPI>(in, n_in, w_hi, w_lo, bias, out, n_out); break;
-    default: dense<kBF16x3, EPI>(in, n_in, w_hi, w_lo, bias, out, n_out); break;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ quad,
@@ -181,28 +78,11 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
   float* hg = next;
 
   // 1. input tile, log-clamped; rows past the batch are zero and never stored
-  for (int t = threadIdx.x; t < kRows * n_in; t += blockDim.x) {
-    const int r = t / n_in;
-    const int c = t % n_in;
-    const int row = row0 + r;
-    xl[c * kRows + r] = row < n_rows ? log_clamp(x[static_cast<size_t>(row) * n_in + c], c) : 0.f;
-  }
+  load_input_tile(x, n_rows, row0, n_in, true, xl);
   __syncthreads();
 
   // 2. skinny first layer, exact fp32 at every tier
-  for (int j = threadIdx.x; j < n1; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int c = 0; c < n_in; ++c) {
-      const float w = __ldg(net.w0 + c * n1 + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(xl[c * kRows + r], w, acc[r]);
-    }
-    const float bj = __ldg(net.b0 + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) act[0][j * kRows + r] = relu(acc[r] + bj);
-  }
+  skinny_relu_layer(xl, n_in, net.w0, net.b0, act[0], n1);
   __syncthreads();
 
   // 3. hidden layers, ReLU
@@ -217,27 +97,9 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
                    hidden);
   __syncthreads();
 
-  // 5. quad = Σ_j (hg + 2u)_j h_j per row (one warp per row); the backward
-  //    signal ½·dquad/dh = hg + u (G is symmetric, so h@G is reused),
-  //    masked by the last ReLU, replaces hg in place
-  {
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const float* h = act[n_layers - 1];
-    for (int r = warp; r < kRows; r += blockDim.x / 32) {
-      float s = 0.f;
-      for (int j = lane; j < hidden; j += 32) {
-        const float g = hg[j * kRows + r];
-        const float hj = h[j * kRows + r];
-        const float uj = __ldg(net.u + j);
-        s = fmaf(g + 2.f * uj, hj, s);
-        hg[j * kRows + r] = hj > 0.f ? g + uj : 0.f;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0 && row0 + r < n_rows) quad[row0 + r] = s;
-    }
-  }
+  // 5. quad = Σ_j (hg + 2u)_j h_j per row; the backward signal
+  //    ½·dquad/dh = hg + u, masked by the last ReLU, replaces hg in place
+  gram_quad(act[n_layers - 1], hg, net.u, hidden, row0, n_rows, quad, true);
   __syncthreads();
 
   // 6. backward through hidden layers n_layers-1 … 1: e ← (e @ W_iᵀ) masked
@@ -270,7 +132,8 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
 
 extern "C" {
 
-const char* k3_error_string(int code) {
+// The message of a cudaError_t code, for every kernel of the library.
+const char* t21_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

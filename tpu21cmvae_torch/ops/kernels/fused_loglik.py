@@ -1,27 +1,39 @@
-"""K3: the fused gram-form value-and-gradient kernel, its plain PyTorch
-version, and the wrapper that picks between them by the input's device.
+"""The fused likelihood kernels, their plain PyTorch versions, and the
+wrappers that pick between them by the input's device.
 
-The port of ``tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram``
-— the HMC inner loop. Both versions read the same :class:`GramOperands`:
-the network folded with ``ops/fold.py::gram_fold`` (normalizer, the
-observation and the diagonal noise all in the weights; the 451-wide output
-layer collapsed into ``G = WWᵀ``, ``u``, ``c``) and split for the value and
-backward tiers. The CUDA kernel (``csrc/fused_loglik_grad_gram.cu``) keeps
-every activation of a row tile on chip; :func:`loglik_grad_gram_reference`
-does the same arithmetic — same folds, same hi/lo split, same epilogue —
-in plain tensor operations.
+* K2 (``csrc/fused_loglik_gram.cu``, plain :func:`loglik_gram_reference`)
+  — the port of ``tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_gram``:
+  the gram-form value, which the gradient-free samplers call once per
+  proposal batch.
+* K3 (``csrc/fused_loglik_grad_gram.cu``, plain
+  :func:`loglik_grad_gram_reference`) — the port of
+  ``make_fused_loglik_grad_gram``: the value and its gradient, the HMC
+  inner loop.
+* :func:`make_fused_loglik` — the direct-method likelihood, K1 with its
+  ``sumsq`` tail (:mod:`tpu21cmvae_torch.ops.kernels.fused_mlp`).
+
+K2 and K3 read the same :class:`GramOperands`: the network folded with
+``ops/fold.py::gram_fold`` (normalizer, the observation and the diagonal
+noise all in the weights; the 451-wide output layer collapsed into
+``G = WWᵀ``, ``u``, ``c``) and split for the value and backward tiers.
+The CUDA kernels keep a row tile's activations on chip; the plain
+versions do the same arithmetic — same folds, same hi/lo split, same
+epilogue — in plain tensor operations.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 
 from tpu21cmvae_torch.ops.fold import (
     _log_clamp,
     _log_clamp_grad,
+    fold_loglik_constants,
     gram_fold,
     noise_log_norm,
     noise_scale,
@@ -30,27 +42,36 @@ from tpu21cmvae_torch.ops.fold import (
     resolve_tier,
     tier_matmul,
 )
+from tpu21cmvae_torch.ops.kernels._common import (
+    MAX_LAYERS,
+    MAX_SHARED_BYTES,
+    ROWS_PER_BLOCK,
+    TIER_CODE,
+    OperandCache,
+    check_rows,
+    hi_lo,
+    launch,
+    pointers,
+)
+from tpu21cmvae_torch.ops.kernels.fused_mlp import FusedMLP
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
-
-ROWS_PER_BLOCK = 16  # kRows in the CUDA source
-MAX_LAYERS = 8  # kMaxLayers in the CUDA source
-MAX_SHARED_BYTES = 232448  # an H100 block's dynamic shared-memory limit
-_TIER_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
 
 
 @dataclasses.dataclass(frozen=True)
 class GramOperands:
-    """Everything K3 and its plain version read besides the input rows.
+    """Everything K2, K3 and their plain versions read besides the input
+    rows.
 
     ``w0``/``b0``: the skinny first layer, exact fp32. ``w``/``b``: the
     other trunk layers, ``w`` prepared at ``tier``
     (:func:`~tpu21cmvae_torch.ops.fold.prepare_operand`); ``wt``: the same
-    weights transposed, prepared at ``grad_tier``. ``g``: ``G`` at
-    ``tier``. ``u``, ``c``, ``log_norm``: the rest of the gram form.
+    weights transposed, prepared at ``grad_tier`` — empty, and
+    ``grad_tier`` None, for the value-only K2. ``g``: ``G`` at ``tier``.
+    ``u``, ``c``, ``log_norm``: the rest of the gram form.
     """
 
     tier: str
-    grad_tier: str
+    grad_tier: Optional[str]
     w0: torch.Tensor
     b0: torch.Tensor
     w: tuple
@@ -67,16 +88,16 @@ class GramOperands:
         return (*self.w0.shape, *(b.shape[0] for b in self.b))
 
 
-def gram_operands(params, norm, obs, scale, log_norm, tier, grad_tier) -> GramOperands:
-    """Fold ``params`` (exact fp32) and split them for the tiers. The
-    operands are detached: nothing differentiates through K3."""
-    params = tuple({k: v.detach() for k, v in layer.items()} for layer in params)
+def gram_operands(params, norm, obs, scale, log_norm, tier,
+                  grad_tier=None) -> GramOperands:
+    """Fold ``params`` (exact fp32) and split them for the tiers; with
+    ``grad_tier`` None the transposed backward operands are not built."""
     trunk, G, u, c = gram_fold(params, norm, obs, scale)
     first, *rest = trunk
     if first["w"].shape[0] > SKINNY_DENSE_MAX_IN:
         raise NotImplementedError(
-            f"K3 needs a skinny first layer (fan-in ≤ {SKINNY_DENSE_MAX_IN}); "
-            f"got fan-in {first['w'].shape[0]}"
+            f"the gram kernels need a skinny first layer (fan-in ≤ "
+            f"{SKINNY_DENSE_MAX_IN}); got fan-in {first['w'].shape[0]}"
         )
     return GramOperands(
         tier=tier,
@@ -85,7 +106,9 @@ def gram_operands(params, norm, obs, scale, log_norm, tier, grad_tier) -> GramOp
         b0=first["b"].contiguous(),
         w=tuple(prepare_operand(layer["w"], tier) for layer in rest),
         b=tuple(layer["b"].contiguous() for layer in rest),
-        wt=tuple(prepare_operand(layer["w"].T, grad_tier) for layer in rest),
+        wt=() if grad_tier is None else tuple(
+            prepare_operand(layer["w"].T, grad_tier) for layer in rest
+        ),
         g=prepare_operand(G, tier),
         u=u.contiguous(),
         c=c,
@@ -93,70 +116,72 @@ def gram_operands(params, norm, obs, scale, log_norm, tier, grad_tier) -> GramOp
     )
 
 
-def _epilogue(ops: GramOperands, quad, half_dquad):
-    """``(−½·(quad + c) + log_norm, −½·dquad/dx)``: the value and its
-    gradient from the kernel's two outputs."""
-    return -0.5 * (quad + ops.c) + ops.log_norm, -half_dquad
+def _value(ops: GramOperands, quad):
+    """``−½·(quad + c) + log_norm``: the value from the kernels' quad."""
+    return -0.5 * (quad + ops.c) + ops.log_norm
 
 
-def loglik_grad_gram_reference(ops: GramOperands, x: torch.Tensor):
-    """K3 in plain PyTorch: ``(logL (B,), dlogL/dx (B, n_in))`` for raw
-    rows ``x`` (B, n_in) float32 on ``ops``' device."""
+def _gram_forward(ops: GramOperands, x: torch.Tensor):
+    """The trunk activations, ``h@G`` and ``quad`` per row."""
     h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
     acts = [h]
     for w, b in zip(ops.w, ops.b):
         h = torch.relu(tier_matmul(h, w, ops.tier) + b)
         acts.append(h)
     g1 = tier_matmul(h, ops.g, ops.tier)
-    quad = torch.sum((g1 + 2.0 * ops.u) * h, dim=-1)
+    return acts, g1, torch.sum((g1 + 2.0 * ops.u) * h, dim=-1)
+
+
+def loglik_gram_reference(ops: GramOperands, x: torch.Tensor) -> torch.Tensor:
+    """K2 in plain PyTorch: ``logL (B,)`` for raw rows ``x`` (B, n_in)
+    float32 on ``ops``' device."""
+    return _value(ops, _gram_forward(ops, x)[2])
+
+
+def loglik_grad_gram_reference(ops: GramOperands, x: torch.Tensor):
+    """K3 in plain PyTorch: ``(logL (B,), dlogL/dx (B, n_in))`` for raw
+    rows ``x`` (B, n_in) float32 on ``ops``' device."""
+    acts, g1, quad = _gram_forward(ops, x)
     # ½·dquad/dh = h@G + u: G is symmetric, so the forward's product is reused
     e = g1 + ops.u
     for i in range(len(acts) - 1, 0, -1):
         e = torch.where(acts[i] > 0.0, e, 0.0)
         e = tier_matmul(e, ops.wt[i - 1], ops.grad_tier)
     e = torch.where(acts[0] > 0.0, e, 0.0) @ ops.w0.T  # skinny layer: exact fp32
-    return _epilogue(ops, quad, _log_clamp_grad(x) * e)
+    return _value(ops, quad), -(_log_clamp_grad(x) * e)
 
 
-def _hi_lo(op: torch.Tensor, tier: str):
-    """The kernel's (hi, lo) views of a prepared operand (lo: None
-    unless bf16x3, whose operand stacks [hi; lo; hi])."""
-    if tier != "bf16x3":
-        return op, None
-    k = op.shape[0] // 3
-    return op[:k], op[k: 2 * k]
+def _trunk_pointers(ops: GramOperands, with_backward: bool) -> list:
+    tensors = [ops.w0, ops.b0]
+    for i, (w, b) in enumerate(zip(ops.w, ops.b)):
+        tensors += [*hi_lo(w, ops.tier), b]
+        if with_backward:
+            tensors += [*hi_lo(ops.wt[i], ops.grad_tier)]
+    return tensors + [*hi_lo(ops.g, ops.tier), ops.u]
+
+
+def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor) -> torch.Tensor:
+    """Launch K2 on PyTorch's current stream (no synchronisation)."""
+    quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    if x.shape[0]:
+        widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
+        launch("K2", "k2_fused_loglik_gram", x,
+               x.data_ptr(), quad.data_ptr(), x.shape[0], len(ops.widths) - 1, widths,
+               pointers(_trunk_pointers(ops, False)), TIER_CODE[ops.tier])
+    return _value(ops, quad)
 
 
 def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor):
     """Launch K3 on PyTorch's current stream (no synchronisation)."""
-    from tpu21cmvae_torch.ops.kernels._build import load_library
-
-    lib = load_library()
-    n, n_in = x.shape
-    quad = torch.empty((n,), dtype=torch.float32, device=x.device)
+    quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    if n == 0:
-        return _epilogue(ops, quad, dx)
-    tensors = [ops.w0, ops.b0]
-    for w, b, wt in zip(ops.w, ops.b, ops.wt):
-        tensors += [*_hi_lo(w, ops.tier), b, *_hi_lo(wt, ops.grad_tier)]
-    tensors += [*_hi_lo(ops.g, ops.tier), ops.u]
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *(None if t is None else t.data_ptr() for t in tensors)
-    )
-    widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
-    with torch.cuda.device(x.device):
-        rc = lib.k3_fused_loglik_grad_gram(
-            x.data_ptr(), quad.data_ptr(), dx.data_ptr(), n,
-            len(ops.widths) - 1, widths, ptrs,
-            _TIER_CODE[ops.tier], _TIER_CODE[ops.grad_tier],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"K3 launch failed: {lib.k3_error_string(rc).decode()} (cudaError {rc})"
-        )
-    return _epilogue(ops, quad, dx)
+    if x.shape[0]:
+        widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
+        launch("K3", "k3_fused_loglik_grad_gram", x,
+               x.data_ptr(), quad.data_ptr(), dx.data_ptr(), x.shape[0],
+               len(ops.widths) - 1, widths, pointers(_trunk_pointers(ops, True)),
+               TIER_CODE[ops.tier], TIER_CODE[ops.grad_tier])
+    return _value(ops, quad), -dx
 
 
 def shared_bytes(widths) -> int:
@@ -165,101 +190,131 @@ def shared_bytes(widths) -> int:
     return 4 * ROWS_PER_BLOCK * (sum(widths) + widths[-1])
 
 
-class FusedLoglikGradGram:
-    """``(params, raw) → (logL (B,), dlogL/draw (B, n_params))``; a 1-D
-    ``raw`` is scored as one row.
+def gram_shared_bytes(widths) -> int:
+    """Dynamic shared memory of one K2 block: the input tile and two
+    activation buffers as wide as the widest trunk layer (they take
+    turns as a layer's input and output; ``h@G`` lands in the one ``h``
+    does not hold)."""
+    return 4 * ROWS_PER_BLOCK * (widths[0] + 2 * max(widths[1:]))
 
-    ``raw`` must be a contiguous float32 tensor on the wrapper's
-    ``device``. On a CUDA device every call with at least one row
-    launches K3 and adds one to :attr:`launches`; on the CPU it runs
-    :func:`loglik_grad_gram_reference`.
-    The folded operands are cached against the identity and version of
-    the ``params`` tensors, so an in-place weight update refolds.
-    """
 
-    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
-                 grad_precision=None, device):
+class _GramWrapper:
+    """What K2's and K3's wrappers share: the refusals, the folded
+    observation and noise, the operand cache and the launch count."""
+
+    name: str
+
+    def __init__(self, config, norm, obs, noise_var, *, precision, grad_precision,
+                 smem, device):
         if config.activation != "relu":
             raise NotImplementedError(
-                "K3 hard-codes ReLU hidden layers; got "
+                f"{self.name} hard-codes ReLU hidden layers; got "
                 f"activation={config.activation!r}"
             )
         widths = (config.n_params, *config.hidden_dims)
         if not 1 <= len(config.hidden_dims) <= MAX_LAYERS:
             raise NotImplementedError(
-                f"K3 takes 1 to {MAX_LAYERS} hidden layers; got "
+                f"{self.name} takes 1 to {MAX_LAYERS} hidden layers; got "
                 f"{len(config.hidden_dims)}"
             )
         if config.n_params > SKINNY_DENSE_MAX_IN:
             raise NotImplementedError(
-                f"K3 takes at most {SKINNY_DENSE_MAX_IN} input parameters; "
-                f"got {config.n_params}"
+                f"{self.name} takes at most {SKINNY_DENSE_MAX_IN} input "
+                f"parameters; got {config.n_params}"
             )
-        if shared_bytes(widths) > MAX_SHARED_BYTES:
+        if smem(widths) > MAX_SHARED_BYTES:
             raise NotImplementedError(
-                f"hidden widths {config.hidden_dims} need "
-                f"{shared_bytes(widths)} bytes of shared memory per K3 "
-                f"block; the limit is {MAX_SHARED_BYTES}"
+                f"hidden widths {config.hidden_dims} need {smem(widths)} bytes "
+                f"of shared memory per {self.name} block; the limit is "
+                f"{MAX_SHARED_BYTES}"
             )
         self.device = torch.empty(0, device=device).device
         self.n_params = config.n_params
         self.tier = resolve_tier(precision, "high")
-        self.grad_tier = (
-            self.tier if grad_precision is None else resolve_tier(grad_precision)
-        )
-        self.norm = norm
-        self.obs = obs_tensor(obs, config.n_bins, device=self.device)
-        self.scale = noise_scale(noise_var, config.n_bins, device=self.device)
-        self.log_norm = noise_log_norm(noise_var)
+        self.grad_tier = grad_precision
         self.launches = 0
-        self._cached = None
+        obs = obs_tensor(obs, config.n_bins, device=self.device)
+        scale = noise_scale(noise_var, config.n_bins, device=self.device)
+        fold = functools.partial(
+            gram_operands, norm=norm, obs=obs, scale=scale,
+            log_norm=noise_log_norm(noise_var), tier=self.tier,
+            grad_tier=self.grad_tier,
+        )
 
-    def operands(self, params) -> GramOperands:
-        """The folded, tier-split operands for ``params`` (cached)."""
-        tensors = tuple(t for layer in params for t in (layer["w"], layer["b"]))
-        versions = tuple(t._version for t in tensors)
-        hit = self._cached
-        if (
-            hit is not None
-            and len(hit[0]) == len(tensors)
-            and all(a is b for a, b in zip(hit[0], tensors))
-            and hit[1] == versions
-        ):
-            return hit[2]
-        with torch.no_grad():
-            ops = gram_operands(params, self.norm, self.obs, self.scale,
-                                self.log_norm, self.tier, self.grad_tier)
-        self._cached = (tensors, versions, ops)
-        return ops
+        def build(params) -> GramOperands:
+            ops = fold(params)
+            if ops.widths != widths:
+                raise ValueError(
+                    f"params have trunk widths {ops.widths}; this {self.name} takes {widths}"
+                )
+            return ops
 
-    def _rows(self, raw) -> torch.Tensor:
-        if not isinstance(raw, torch.Tensor):
-            raise TypeError(f"raw must be a torch.Tensor; got {type(raw).__name__}")
-        if raw.device != self.device:
-            raise ValueError(f"raw is on {raw.device}; this wrapper runs on {self.device}")
-        if raw.dtype != torch.float32:
-            raise TypeError(f"raw must be float32; got {raw.dtype}")
-        if not raw.is_contiguous():
-            raise ValueError("raw must be contiguous")
-        x = raw.reshape(1, -1) if raw.ndim == 1 else raw
-        if x.ndim != 2 or x.shape[1] != self.n_params:
-            raise ValueError(
-                f"raw must be ({self.n_params},) or (B, {self.n_params}); got "
-                f"{tuple(raw.shape)}"
-            )
-        return x
+        self.operands = OperandCache(build)
+
+    def _run(self, params, raw, plain, kernel):
+        x = check_rows(raw, self.device, self.n_params)
+        ops = self.operands(params)
+        if x.device.type == "cpu":
+            return plain(ops, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"{self.name} runs on CUDA or (plain) on the CPU; got {x.device}")
+        if x.shape[0]:  # an empty batch launches nothing
+            self.launches += 1
+        return kernel(ops, x)
+
+
+class FusedLoglikGram(_GramWrapper):
+    """K2: ``(params, raw) → logL (B,)``; a 1-D ``raw`` is scored as one
+    row.
+
+    ``raw`` must be a contiguous float32 tensor on the wrapper's
+    ``device``. On a CUDA device every call with at least one row
+    launches K2 and adds one to :attr:`launches`; on the CPU it runs
+    :func:`loglik_gram_reference`. Nothing here is differentiable (see
+    ``make_loglik(backend="kernel")`` for the autograd rule).
+    """
+
+    name = "K2"
+
+    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high", device):
+        super().__init__(config, norm, obs, noise_var, precision=precision,
+                         grad_precision=None, smem=gram_shared_bytes, device=device)
 
     @torch.no_grad()
     def __call__(self, params, raw):
-        x = self._rows(raw)
-        ops = self.operands(params)
-        if x.device.type == "cpu":
-            return loglik_grad_gram_reference(ops, x)
-        if x.device.type != "cuda":
-            raise ValueError(f"K3 runs on CUDA or (plain) on the CPU; got {x.device}")
-        if x.shape[0]:  # an empty batch launches nothing
-            self.launches += 1
-        return _loglik_grad_gram_cuda(ops, x)
+        return self._run(params, raw, loglik_gram_reference, _loglik_gram_cuda)
+
+
+class FusedLoglikGradGram(_GramWrapper):
+    """K3: ``(params, raw) → (logL (B,), dlogL/draw (B, n_params))``; a
+    1-D ``raw`` is scored as one row.
+
+    The input rules, the device rule and :attr:`launches` are K2's
+    (:class:`FusedLoglikGram`); on the CPU it runs
+    :func:`loglik_grad_gram_reference`. The folded operands are cached
+    against the identity and version of the ``params`` tensors, so an
+    in-place weight update refolds.
+    """
+
+    name = "K3"
+
+    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
+                 grad_precision=None, device):
+        tier = resolve_tier(precision, "high")
+        grad_tier = tier if grad_precision is None else resolve_tier(grad_precision)
+        super().__init__(config, norm, obs, noise_var, precision=precision,
+                         grad_precision=grad_tier, smem=shared_bytes, device=device)
+
+    @torch.no_grad()
+    def __call__(self, params, raw):
+        return self._run(params, raw, loglik_grad_gram_reference, _loglik_grad_gram_cuda)
+
+
+def make_fused_loglik_gram(config, norm, obs, noise_var=1.0, *, precision="high",
+                           device) -> FusedLoglikGram:
+    """Fused gram-form value (the builder of the JAX package's same
+    name): ``precision`` tiers the trunk and ``G`` products."""
+    return FusedLoglikGram(config, norm, obs, noise_var, precision=precision, device=device)
 
 
 def make_fused_loglik_grad_gram(config, norm, obs, noise_var=1.0, *,
@@ -275,3 +330,49 @@ def make_fused_loglik_grad_gram(config, norm, obs, noise_var=1.0, *,
         config, norm, obs, noise_var, precision=precision,
         grad_precision=grad_precision, device=device,
     )
+
+
+class FusedLoglik:
+    """The direct-method likelihood on K1: ``(params, raw) → logL (B,)``
+    = ``−½·Σ_bins r² + log_norm`` with ``r`` the folded network's output
+    (obs and noise folded into its last layer), reduced inside the
+    kernel, so the (B, n_bins) signal never reaches device memory.
+    Input and device rules, and :attr:`launches`, are K1's
+    (:class:`~tpu21cmvae_torch.ops.kernels.fused_mlp.FusedMLP`)."""
+
+    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high", device):
+        if config.activation != "relu":
+            raise NotImplementedError(
+                "K1 hard-codes ReLU hidden layers; got "
+                f"activation={config.activation!r}"
+            )
+        device = torch.empty(0, device=device).device
+        obs = obs_tensor(obs, config.n_bins, device=device)
+        scale = noise_scale(noise_var, config.n_bins, device=device)
+        self.log_norm = noise_log_norm(noise_var)
+        self.mlp = FusedMLP(
+            config.mlp().sizes, log_clamp_input=True,
+            precision="high" if precision is None else precision,
+            reduce="sumsq", device=device,
+            fold=functools.partial(fold_loglik_constants, norm=norm, obs=obs, scale=scale),
+        )
+
+    @property
+    def launches(self) -> int:
+        return self.mlp.launches
+
+    @launches.setter
+    def launches(self, n: int):
+        self.mlp.launches = n
+
+    @torch.no_grad()
+    def __call__(self, params, raw):
+        return -0.5 * self.mlp(params, raw) + self.log_norm
+
+
+def make_fused_loglik(config, norm, obs, noise_var=1.0, *, precision="high",
+                      device) -> FusedLoglik:
+    """Fused direct-method Gaussian log-likelihood (the builder of the
+    JAX package's same name): K1 over the network with the normalizer,
+    the observation and the noise folded in, reduced by ``sumsq``."""
+    return FusedLoglik(config, norm, obs, noise_var, precision=precision, device=device)

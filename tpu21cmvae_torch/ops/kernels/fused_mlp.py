@@ -1,0 +1,198 @@
+"""K1: the whole MLP as one kernel per row tile, its plain PyTorch
+version, and the wrapper that picks between them by the input's device.
+
+The port of ``tpu21cmvae/ops/pallas/fused_mlp.py::make_fused_mlp``:
+optional log10/clamp of input columns 0–2, a skinny first layer (fan-in
+≤ 8) as exact fp32 FMA at every tier or else a tier matmul, then (matmul
++ bias, ReLU) for every hidden layer, then a linear last layer.
+``reduce="sumsq"`` returns each row's Σy² in place of the signal — the
+direct likelihood's tail, reduced inside the kernel
+(:func:`~tpu21cmvae_torch.ops.kernels.fused_loglik.make_fused_loglik`).
+:func:`make_fused_emulate` folds the normalizer into the first and last
+layers (``ops/fold.py::fold_emulator_constants``) and predicts.
+
+The CUDA kernel is ``csrc/fused_mlp.cu``; :func:`fused_mlp_reference`
+does the same arithmetic — same folds, same hi/lo split — in plain
+tensor operations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from tpu21cmvae_torch.ops.fold import (
+    _log_clamp,
+    fold_emulator_constants,
+    prepare_operand,
+    resolve_tier,
+    tier_matmul,
+)
+from tpu21cmvae_torch.ops.kernels._common import (
+    MAX_LAYERS,
+    MAX_SHARED_BYTES,
+    ROWS_PER_BLOCK,
+    TIER_CODE,
+    OperandCache,
+    check_rows,
+    hi_lo,
+    launch,
+    pointers,
+)
+from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
+
+WARPS_PER_BLOCK = 8  # kThreads / 32 in csrc/trunk.cuh
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPOperands:
+    """Everything K1 and its plain version read besides the input rows:
+    per layer ``w`` (prepared at ``tier``, or exact fp32 for a skinny
+    first layer) and ``b``."""
+
+    tier: str
+    skinny: bool
+    log_clamp: bool
+    reduce: str
+    widths: tuple  # (n_in, *layer widths)
+    w: tuple
+    b: tuple
+
+
+def mlp_operands(params, tier: str, log_clamp: bool, reduce: str) -> MLPOperands:
+    """Split (already folded) layer dicts for ``tier``; a first layer of
+    fan-in ≤ 8 stays exact fp32."""
+    skinny = params[0]["w"].shape[0] <= SKINNY_DENSE_MAX_IN
+    return MLPOperands(
+        tier=tier,
+        skinny=skinny,
+        log_clamp=log_clamp,
+        reduce=reduce,
+        widths=(params[0]["w"].shape[0], *(layer["b"].shape[0] for layer in params)),
+        w=tuple(
+            layer["w"].to(torch.float32).contiguous() if i == 0 and skinny
+            else prepare_operand(layer["w"], tier)
+            for i, layer in enumerate(params)
+        ),
+        b=tuple(layer["b"].to(torch.float32).contiguous() for layer in params),
+    )
+
+
+def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
+    """K1 in plain PyTorch: (B, n_out), or (B,) under ``sumsq``, for rows
+    ``x`` (B, n_in) float32 on ``ops``' device."""
+    h = _log_clamp(x) if ops.log_clamp else x
+    last = len(ops.w) - 1
+    for i, (w, b) in enumerate(zip(ops.w, ops.b)):
+        if i == 0 and ops.skinny:
+            h = skinny_dense(h, w, b)
+        else:
+            h = tier_matmul(h, w, ops.tier) + b
+        if i < last:
+            h = torch.relu(h)
+    return torch.sum(h * h, dim=-1) if ops.reduce == "sumsq" else h
+
+
+def shared_bytes(widths) -> int:
+    """Dynamic shared memory of one K1 block: the input tile, two
+    activation buffers as wide as the widest hidden layer (they take
+    turns as a layer's input and output; the last layer writes from
+    registers), and the per-warp partial sums of ``sumsq``."""
+    hidden = max(widths[1:-1], default=0)
+    return 4 * ROWS_PER_BLOCK * (widths[0] + 2 * hidden + WARPS_PER_BLOCK)
+
+
+def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on PyTorch's current stream (no synchronisation)."""
+    n = x.shape[0]
+    shape = (n,) if ops.reduce == "sumsq" else (n, ops.widths[-1])
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    if n:
+        tensors = []
+        for i, (w, b) in enumerate(zip(ops.w, ops.b)):
+            tensors += [*((w, None) if i == 0 and ops.skinny else hi_lo(w, ops.tier)), b]
+        widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
+        launch("K1", "k1_fused_mlp", x,
+               x.data_ptr(), out.data_ptr(), n, len(ops.w), widths, pointers(tensors),
+               TIER_CODE[ops.tier], int(ops.log_clamp), int(ops.reduce == "sumsq"))
+    return out
+
+
+class FusedMLP:
+    """K1: ``(params, x) → y``, the MLP of widths ``sizes`` with ReLU
+    hidden layers and a linear last layer; a 1-D ``x`` is one row.
+
+    ``x`` must be a contiguous float32 tensor on the wrapper's
+    ``device``. On a CUDA device every call with at least one row
+    launches K1 and adds one to :attr:`launches`; on the CPU it runs
+    :func:`fused_mlp_reference`. ``fold`` (optional) maps ``params`` to
+    the layers K1 runs (a normalizer or likelihood fold); the folded,
+    tier-split operands are cached against the identity and version of
+    the ``params`` tensors.
+    """
+
+    def __init__(self, sizes, *, log_clamp_input=False, precision="highest",
+                 reduce="none", fold=None, device):
+        self.sizes = tuple(int(s) for s in sizes)
+        if reduce not in ("none", "sumsq"):
+            raise ValueError(f"reduce must be 'none' or 'sumsq'; got {reduce!r}")
+        if not 1 <= len(self.sizes) - 1 <= MAX_LAYERS:
+            raise NotImplementedError(
+                f"K1 takes 1 to {MAX_LAYERS} layers; got {len(self.sizes) - 1}"
+            )
+        if shared_bytes(self.sizes) > MAX_SHARED_BYTES:
+            raise NotImplementedError(
+                f"widths {self.sizes} need {shared_bytes(self.sizes)} bytes of "
+                f"shared memory per K1 block; the limit is {MAX_SHARED_BYTES}"
+            )
+        self.device = torch.empty(0, device=device).device
+        self.tier = resolve_tier(precision, "highest")
+        self.reduce = reduce
+        self.launches = 0
+        self._fold = fold or (lambda params: params)
+        self._log_clamp = log_clamp_input
+        self.operands = OperandCache(self._build)
+
+    def _build(self, params) -> MLPOperands:
+        ops = mlp_operands(self._fold(params), self.tier, self._log_clamp, self.reduce)
+        if ops.widths != self.sizes:
+            raise ValueError(f"params have widths {ops.widths}; this K1 takes {self.sizes}")
+        return ops
+
+    @torch.no_grad()
+    def __call__(self, params, x):
+        x = check_rows(x, self.device, self.sizes[0])
+        ops = self.operands(params)
+        if x.device.type == "cpu":
+            return fused_mlp_reference(ops, x)
+        if x.device.type != "cuda":
+            raise ValueError(f"K1 runs on CUDA or (plain) on the CPU; got {x.device}")
+        if x.shape[0]:  # an empty batch launches nothing
+            self.launches += 1
+        return _fused_mlp_cuda(ops, x)
+
+
+def make_fused_mlp(sizes, *, log_clamp_input=False, precision="highest",
+                   reduce="none", device) -> FusedMLP:
+    """The whole MLP as one kernel (the builder of the JAX package's same
+    name). ``precision``: ``"highest"``/``"contract"`` exact fp32,
+    ``"high"`` bf16x3, ``"default"`` single-pass bf16; a fan-in ≤ 8 first
+    layer is exact fp32 at every tier."""
+    return FusedMLP(sizes, log_clamp_input=log_clamp_input, precision=precision,
+                    reduce=reduce, device=device)
+
+
+def make_fused_emulate(config, norm, *, precision="highest", device) -> FusedMLP:
+    """Fused flagship inference: ``(params, raw) → signals`` in mK on
+    unfolded ``params`` (the builder of the JAX package's same name;
+    same contract as ``DirectEmulator.predict_fn``)."""
+    if config.activation != "relu":
+        raise NotImplementedError(
+            "K1 hard-codes ReLU hidden layers; got "
+            f"activation={config.activation!r}"
+        )
+    return FusedMLP(config.mlp().sizes, log_clamp_input=True, precision=precision,
+                    device=device, fold=functools.partial(fold_emulator_constants, norm=norm))

@@ -5,10 +5,13 @@ its per-row gradient (the port of ``tpu21cmvae/ops/loglik.py``).
 draws. Two backends:
 
 * ``"torch"`` (the JAX package's ``"xla"``) — plain tensor operations;
-* ``"kernel"`` (its ``"pallas"``) — the value and gradient as one CUDA
-  kernel, K3 (:mod:`tpu21cmvae_torch.ops.kernels.fused_loglik`). The
-  value-only kernels (K1 for ``method="direct"``, K2 for ``"gram"``) are
-  not ported yet.
+* ``"kernel"`` (its ``"pallas"``) — one CUDA kernel per call
+  (:mod:`tpu21cmvae_torch.ops.kernels.fused_loglik`): the value alone
+  by K1 (``method="direct"``) or K2 (``"gram"``), the value with its
+  gradient by K3. Each wrapper runs its plain version for CPU tensors.
+
+Both backends' value functions are differentiable by ``torch.autograd``
+with respect to the raw rows and the weights, as the JAX package's are.
 
 Noise is diagonal only: a scalar or per-bin variance σ².
 """
@@ -24,13 +27,14 @@ from tpu21cmvae_torch.ops.fold import (
     noise_log_norm,
     noise_scale,
     obs_tensor,
-    prepare_operand,
     resolve_tier,
-    tier_matmul,
+    tier_dense,
 )
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     gram_operands,
     loglik_grad_gram_reference,
+    make_fused_loglik,
+    make_fused_loglik_gram,
     make_fused_loglik_grad_gram,
 )
 from tpu21cmvae_torch.ops.mlp import (
@@ -46,6 +50,59 @@ def _rows(raw, device) -> torch.Tensor:
     return torch.atleast_2d(torch.as_tensor(raw, dtype=torch.float32, device=device))
 
 
+class _KernelValue(torch.autograd.Function):
+    """A value kernel's forward, with the backward of its plain twin:
+    autograd through ``make_loglik(backend="torch")`` at the same tier,
+    recomputed from the saved inputs (the JAX package's ``custom_vjp``
+    around its Pallas likelihoods, ``ops/loglik.py:184-206``)."""
+
+    @staticmethod
+    def forward(ctx, fused, twin, raw, *weights):
+        ctx.twin = twin
+        ctx.save_for_backward(raw, *weights)
+        return fused(_layers(weights), raw)
+
+    @staticmethod
+    def backward(ctx, g):
+        raw, *weights = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((raw, *weights), ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            val = ctx.twin(_layers(inputs[1:]), inputs[0])
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(val, wanted, g, allow_unused=True))
+        return (None, None, *(next(grads) if t.requires_grad else None for t in inputs))
+
+
+def _layers(weights) -> tuple:
+    """``(w0, b0, w1, b1, …)`` back into layer dicts."""
+    return tuple({"w": w, "b": b} for w, b in zip(weights[::2], weights[1::2]))
+
+
+class KernelLoglik:
+    """``(params, raw) → (B,)`` by a value kernel (K1 or K2), with
+    gradients by the plain twin (:class:`_KernelValue`). ``raw`` follows
+    the kernel wrapper's rules: a contiguous float32 tensor on its
+    device, which launches the kernel on CUDA and runs the plain version
+    on the CPU. :attr:`launches` is the kernel wrapper's count."""
+
+    def __init__(self, fused, twin):
+        self.fused = fused
+        self.twin = twin
+
+    @property
+    def launches(self) -> int:
+        return self.fused.launches
+
+    @launches.setter
+    def launches(self, n: int):
+        self.fused.launches = n
+
+    def __call__(self, params, raw):
+        weights = [t for layer in params for t in (layer["w"], layer["b"])]
+        return _KernelValue.apply(self.fused, self.twin, raw, *weights)
+
+
 def make_loglik(config, norm, obs, noise_var=1.0, *, backend: str = "torch",
                 method: str = "direct", precision=None):
     """Build ``fn(params, raw) → (B,)`` Gaussian log-likelihoods; a 1-D
@@ -57,14 +114,20 @@ def make_loglik(config, norm, obs, noise_var=1.0, *, backend: str = "torch",
     451-wide output never exists), at the price of cancellation near the
     posterior mode. ``precision`` (default ``"high"``) tiers the
     non-skinny matmuls; ``"contract"``/``"highest"`` is exact fp32.
+    ``backend="kernel"`` returns a :class:`KernelLoglik`: K1 (direct) or
+    K2 (gram) forward, whose ``raw`` must be a contiguous float32 tensor
+    on ``norm``'s device, and this backend's gradient.
     """
     if method not in ("direct", "gram"):
         raise ValueError(f"method must be 'direct' or 'gram'; got {method!r}")
     if backend == "kernel":
-        raise NotImplementedError(
-            "the value-only kernels K1 (method='direct') and K2 "
-            "(method='gram') are not ported yet (ROADMAP queue 2); use "
-            "backend='torch', or make_loglik_and_grad(backend='kernel')"
+        build = make_fused_loglik if method == "direct" else make_fused_loglik_gram
+        return KernelLoglik(
+            build(config, norm, obs, noise_var,
+                  precision="high" if precision is None else precision,
+                  device=norm.device),
+            make_loglik(config, norm, obs, noise_var, backend="torch",
+                        method=method, precision=precision),
         )
     if backend != "torch":
         raise ValueError(f"backend must be 'torch' or 'kernel'; got {backend!r}")
@@ -84,9 +147,9 @@ def make_loglik(config, norm, obs, noise_var=1.0, *, backend: str = "torch",
                 if i == 0 and layer["w"].shape[0] <= SKINNY_DENSE_MAX_IN:
                     h = skinny_dense(h, layer["w"], layer["b"])
                 else:
-                    h = tier_matmul(h, prepare_operand(layer["w"], tier), tier) + layer["b"]
+                    h = tier_dense(h, layer["w"], tier) + layer["b"]
                 h = act(h)
-            g = tier_matmul(h, prepare_operand(G, tier), tier)
+            g = tier_dense(h, G, tier)
             return -0.5 * (torch.sum((g + 2.0 * u) * h, dim=-1) + c) + log_norm
 
         return loglik_gram

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu21cmvae_torch.ops.fold import prepare_operand, resolve_tier, tier_matmul
+from tpu21cmvae_torch.ops.fold import resolve_tier, tier_dense
 
 MLPParams = Tuple[dict, ...]
 
@@ -99,7 +99,7 @@ def mlp_apply(params: MLPParams, x: torch.Tensor, activation="relu",
         if i == 0 and x.ndim == 2 and w.shape[0] <= SKINNY_DENSE_MAX_IN:
             x = skinny_dense(x, w, layer["b"])
         else:
-            x = tier_matmul(x, prepare_operand(w, tier), tier) + layer["b"]
+            x = tier_dense(x, w, tier) + layer["b"]
         if i < len(params) - 1:
             x = act(x)
     return x

@@ -1,9 +1,11 @@
 """Shared sampler helpers: prior box, walker init, thinning, prior
-resolution (the parts of ``tpu21cmvae/sampling/_common.py`` that HMC
-needs)."""
+resolution, dual-averaging constants and the autodiff gradient adapter
+(the parts of ``tpu21cmvae/sampling/_common.py`` that the ported
+samplers need)."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -52,3 +54,27 @@ def _resolve_log_prior(log_prior):
             "support waits for ROADMAP queue 8"
         )
     return lambda x: torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
+def _dual_averaging_consts(init: float):
+    """(mu, gamma, t0, kappa) — Hoffman & Gelman (2014) Alg. 5 defaults,
+    shared by the HMC step and the MH proposal-scale adaptation."""
+    return math.log(10.0 * init), 0.05, 10.0, 0.75
+
+
+def valgrad_from_loglik(loglik):
+    """``(params, raw) → (logL, ∇logL)`` over a pure VALUE likelihood by
+    autodiff: a row-wise VJP with a ones cotangent, exact because the
+    likelihood is row-independent. The gradient is with respect to
+    ``raw``; both outputs are detached. (The JAX package caches the
+    adapter on the likelihood for its compiled-program caches; eager
+    PyTorch has none to keep, so each call builds a new one.)"""
+
+    def valgrad(params, raw):
+        with torch.enable_grad():
+            x = torch.as_tensor(raw).detach().requires_grad_(True)
+            ll = loglik(params, x)
+            (g,) = torch.autograd.grad(ll, x, torch.ones_like(ll))
+        return ll.detach(), g
+
+    return valgrad

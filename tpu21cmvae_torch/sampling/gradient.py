@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu21cmvae_torch.sampling._common import (
+    _dual_averaging_consts,
     _init_walkers,
     _resolve_bounds,
     _resolve_log_prior,
@@ -31,7 +32,7 @@ from tpu21cmvae_torch.sampling._common import (
 )
 from tpu21cmvae_torch.sampling.results import SampleResult
 
-_GAMMA, _T0, _KAPPA = 0.05, 10.0, 0.75  # dual averaging (Hoffman & Gelman 2014)
+_, _GAMMA, _T0, _KAPPA = _dual_averaging_consts(1.0)  # Hoffman & Gelman 2014
 
 
 def _whiten_init(x, lo, span):

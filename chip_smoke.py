@@ -24,15 +24,19 @@ Phases, one line each:
    (``make_fused_emulate``) and as the direct likelihood's sum of squares
    (``make_fused_loglik``), and K2 (the fused gram value) against its
    plain version, at the flagship widths for batches 1, 37, 8192 and
-   65,537 and tiers highest, high and default;
+   65,537 and tiers highest, high and default (K1 runs ``fused_mlp.cu``
+   at highest and the tensor-core ``fused_mlp_mma.cu`` at high and
+   default);
 7. time K1 (predict and sumsq) and K2 against their plain versions at
    8192 rows (the MH batch) and 1,048,576 rows (``bench_mcmc.py``'s
    batch), and print the achieved TFLOP/s;
 8. the gradient-free main path through the public entry points:
    ``sample_posterior(sampler="mh")`` and ``sampler="ensemble"``, whose
-   every proposal batch runs K2, then the draws' exact-tier likelihoods
-   through ``loglik_fn(method="direct", precision="contract",
-   backend="kernel")``, which runs K1.
+   every proposal batch runs K2, then the draws' likelihoods through
+   ``loglik_fn(method="direct", backend="kernel")`` at the exact tier
+   (``precision="contract"``: ``fused_mlp.cu``) and at bf16x3
+   (``precision="high"``: ``fused_mlp_mma.cu``), the bf16x3 scores held
+   to the exact ones by ``bench_mcmc.py``'s likelihood gate.
 
 Then one JSON line listing every kernel, the card's name and power
 limit, and a last line
@@ -63,12 +67,17 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     make_fused_loglik_gram,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import fused_mlp_reference, make_fused_emulate
-from tpu21cmvae_torch.utils.metrics import grad_gate_violation, grad_rel_error
+from tpu21cmvae_torch.utils.metrics import (
+    grad_gate_violation,
+    grad_rel_error,
+    loglik_gate_violation,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "pretrained", "direct_synthetic.npz")
 KERNELS = "tpu21cmvae_torch/ops/kernels/csrc/"
 K1_SOURCE, K1_REPLACES = KERNELS + "fused_mlp.cu", "tpu21cmvae/ops/pallas/fused_mlp.py:357"
+K1_MMA_SOURCE = KERNELS + "fused_mlp_mma.cu"  # K1 at the bf16 tiers
 K2_SOURCE = KERNELS + "fused_loglik_gram.cu"
 K2_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:204"
 K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"
@@ -190,10 +199,11 @@ def value_kernels(model, obs, tier, dev):
 
 def value_kernels_vs_plain(model, obs, rng, dev):
     """Phase 6: K1 (predict, sumsq) and K2 against their plain versions.
-    Returns the largest |Δ logL| of K1's sumsq at the contract tier and of
-    K2 at the bf16x3 tier (the tiers of the main path), in nats."""
+    Returns the largest |Δ logL| of K1's sumsq at the contract tier
+    (``fused_mlp.cu``) and at bf16x3 (``fused_mlp_mma.cu``) and of K2 at
+    bf16x3 (the tiers of the main path), in nats."""
     report = {}
-    k1_err = k2_err = 0.0
+    k1_err = k1_mma_err = k2_err = 0.0
     for tier in TIERS:
         pairs, half_c = value_kernels(model, obs, tier, dev)
         for n in (1, 37, 8192, 65537):
@@ -221,11 +231,12 @@ def value_kernels_vs_plain(model, obs, rng, dev):
             if tier == "highest":
                 k1_err = max(k1_err, entry["k1_sumsq_max_abs"])
             if tier == "high":
+                k1_mma_err = max(k1_mma_err, entry["k1_sumsq_max_abs"])
                 k2_err = max(k2_err, entry["k2_max_abs"])
             report[f"{tier}/{n}"] = entry
     print("phase 6: K1 and K2 == plain within tolerance at every batch and tier "
           + json.dumps(report), flush=True)
-    return k1_err, k2_err
+    return k1_err, k1_mma_err, k2_err
 
 
 def time_value_kernels(model, obs, rng, dev) -> dict:
@@ -261,14 +272,18 @@ def time_value_kernels(model, obs, rng, dev) -> dict:
 
 def gradient_free_main_path(model, truth, obs, dev):
     """Phase 8: MH and the stretch ensemble through ``sample_posterior``
-    (K2 on every proposal batch), then each chain's draws scored at the
-    exact tier through the direct likelihood (K1). Returns the K1 and K2
-    launch counts of these runs."""
+    (K2 on every proposal batch), then each chain's draws scored through
+    the direct likelihood (K1) at the exact tier (``fused_mlp.cu``) and
+    at bf16x3 (``fused_mlp_mma.cu``), the bf16x3 scores under the
+    likelihood gate against the exact ones. Returns the launch counts of
+    these runs: K1 exact, K1 bf16x3, K2."""
     k2 = model.loglik_fn(obs, NOISE_VAR, backend="kernel")
     k1 = model.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract",
                          backend="kernel")
+    k1_mma = model.loglik_fn(obs, NOISE_VAR, method="direct", precision="high",
+                             backend="kernel")
     out = {}
-    k1_launches = k2_launches = 0
+    k1_launches = k1_mma_launches = k2_launches = 0
     for sampler, kw in (
         ("mh", dict(n_walkers=MH_WALKERS, n_warmup=MH_WARMUP, n_steps=MH_STEPS)),
         ("ensemble", dict(n_walkers=ENS_WALKERS, n_warmup=ENS_WARMUP, n_steps=ENS_STEPS)),
@@ -296,16 +311,25 @@ def gradient_free_main_path(model, truth, obs, dev):
         else:
             check(0.05 <= acc <= 0.95, f"ensemble: mean acceptance {acc:.3f}")
         flat = res.flat
-        k1.launches = 0
+        k1.launches = k1_mma.launches = 0
         with torch.no_grad():
-            ll_draws = k1(model.params, torch.as_tensor(flat, device=dev)).cpu().numpy()
+            draws = torch.as_tensor(flat, device=dev)
+            ll_draws = k1(model.params, draws).cpu().numpy()
             ll_truth = float(k1(model.params, torch.as_tensor(truth, dtype=torch.float32,
                                                               device=dev))[0])
+            ll_high = k1_mma(model.params, draws).cpu().numpy()
         torch.cuda.synchronize()
         k1_launches += k1.launches
+        k1_mma_launches += k1_mma.launches
         k2_launches += launches
         check(k1.launches == 2, f"{sampler}: K1 launches {k1.launches} != 2")
-        check(bool(np.isfinite(ll_draws).all()), f"{sampler}: finite draw likelihoods")
+        check(k1_mma.launches == 1, f"{sampler}: K1 bf16x3 launches {k1_mma.launches} != 1")
+        check(bool(np.isfinite(ll_draws).all() and np.isfinite(ll_high).all()),
+              f"{sampler}: finite draw likelihoods")
+        # bf16x3 against the exact tier on the same draws: bench_mcmc.py's
+        # gate, |ΔlogL| ≤ 0.25 + 1.5e-3·(max logL − logL)
+        gate = loglik_gate_violation(ll_high, ll_draws)
+        check(gate <= 0.0, f"{sampler}: bf16x3 likelihood gate {gate:.3g}")
         # The samplers reach the mode: the best draw is at least as likely
         # as the truth, less 5 nats. The typical-truth check of phase 5
         # (the truth inside every marginal's central 99.9 %, its likelihood
@@ -321,6 +345,8 @@ def gradient_free_main_path(model, truth, obs, dev):
         lo_q, hi_q = np.quantile(flat, [0.0005, 0.9995], axis=0)
         out[sampler] = {
             "wall_s": wall, "k2_launches": launches, "k1_launches": k1.launches,
+            "k1_bf16x3_launches": k1_mma.launches, "bf16x3_gate_violation": gate,
+            "bf16x3_max_abs_dlogl": float(np.abs(ll_high - ll_draws).max()),
             "accept": acc, "step_size": res.step_size,
             "rhat_max": float(res.rhat().max()),
             "z": (np.abs(mean - truth) / sd).tolist(),
@@ -331,7 +357,7 @@ def gradient_free_main_path(model, truth, obs, dev):
             "share_far_below_minus_1000": float(np.mean(ll_draws < -1000.0)),
         }
     print("phase 8: " + json.dumps(out), flush=True)
-    return k1_launches, k2_launches
+    return k1_launches, k1_mma_launches, k2_launches
 
 
 def main() -> int:
@@ -490,15 +516,18 @@ def main() -> int:
     }), flush=True)
 
     # -- phases 6-8: the value kernels and the gradient-free samplers -------
-    k1_err, k2_err = value_kernels_vs_plain(model, obs, rng, dev)
+    k1_err, k1_mma_err, k2_err = value_kernels_vs_plain(model, obs, rng, dev)
     value_t = time_value_kernels(model, obs, rng, dev)
-    k1_launches, k2_launches = gradient_free_main_path(model, truth, obs, dev)
+    k1_launches, k1_mma_launches, k2_launches = gradient_free_main_path(model, truth, obs, dev)
 
     main_t = timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"]
     k1_t = value_t["k1_sumsq/highest/1048576"]  # the tier and scale K1 scores draws at
+    k1_mma_t = value_t["k1_sumsq/high/1048576"]
     k2_t = value_t["k2/high/8192"]  # what MH runs K2 at
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err, k1_t),
+        kernel_entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
+                     k1_mma_t),
         kernel_entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES, k2_launches, k2_err, k2_t),
         kernel_entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, launches, main_err,
                      main_t),

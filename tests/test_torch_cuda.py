@@ -29,6 +29,7 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     make_fused_loglik_grad_gram,
     make_fused_loglik_gram,
 )
+from tpu21cmvae_torch.ops.kernels import fused_mlp
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     fused_mlp_reference,
     make_fused_emulate,
@@ -184,6 +185,68 @@ def test_k1_generic_networks_match_plain(cuda, sizes, tier):
         assert yk.shape == ((37,) if reduce == "sumsq" else (37, sizes[-1]))
         rtol = AMPLITUDE_RTOL[tier] * (2 if reduce == "sumsq" else 1)
         assert np.abs(yk - yp).max() <= rtol * np.abs(yp).max() + 1e-6
+
+
+def _random_params(sizes, dev):
+    gen = torch.Generator().manual_seed(sum(sizes))
+    return tuple({"w": (torch.randn(a, b, generator=gen) / a ** 0.5).to(dev),
+                  "b": (0.1 * torch.randn(b, generator=gen)).to(dev)}
+                 for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [(7, 33, 40, 20), (12, 40, 33, 451)])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100])
+@pytest.mark.parametrize("tier", ["high", "default"])
+def test_k1_tensor_cores_pad_and_mask(cuda, sizes, n, tier):
+    """The tensor-core K1 (``fused_mlp_mma.cu``) at widths that need
+    padding (hidden 33 and 40, fan-in 12, outputs 20 and 451) and batches
+    around its 32-row tile; predict and sumsq."""
+    params = _random_params(sizes, cuda)
+    gen = torch.Generator().manual_seed(n)
+    x = (torch.rand(n, sizes[0], generator=gen) + 0.05)
+    x[0, 2] = 0.0  # the fx == 0 clamp
+    x = x.to(cuda)
+    for reduce in ("none", "sumsq"):
+        fn = make_fused_mlp(sizes, log_clamp_input=True, precision=tier, reduce=reduce,
+                            device=cuda)
+        yk = fn(params, x)
+        ops = fn.operands(params)
+        yp = fused_mlp_reference(ops, x)
+        torch.cuda.synchronize()
+        assert ops.packed is not None and fn.launches == 1
+        yk, yp = yk.cpu().numpy(), yp.cpu().numpy()
+        assert yk.shape == ((n,) if reduce == "sumsq" else (n, sizes[-1]))
+        assert np.isfinite(yk).all()
+        rtol = AMPLITUDE_RTOL[tier] * (2 if reduce == "sumsq" else 1)
+        assert np.abs(yk - yp).max() <= rtol * np.abs(yp).max() + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["high", "default"])
+def test_k1_tensor_cores_single_row_equals_batch_row(cuda, tier):
+    """A row's result does not depend on its place in the tile: one row
+    alone equals the same row inside a batch of 100, bit for bit."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    x = _rows(data, 100, cuda)
+    for fn in (make_fused_emulate(m.config, m.normalizer, precision=tier, device=cuda),
+               make_fused_loglik(m.config, m.normalizer, obs, 25.0, precision=tier,
+                                 device=cuda)):
+        for i in (0, 7, 45, 99):
+            one, batch = fn(m.params, x[i]), fn(m.params, x)
+            np.testing.assert_array_equal(one.cpu().numpy()[0], batch.cpu().numpy()[i])
+
+
+@pytest.mark.cuda
+def test_k1_tensor_cores_refused_launch_raises(cuda, monkeypatch):
+    """A launch the C entry point refuses raises with its CUDA error
+    string; nothing falls back to the plain version."""
+    sizes = (7, 33, 20)
+    fn = make_fused_mlp(sizes, precision="high", device=cuda)
+    x = torch.rand(5, 7, device=cuda) + 0.05
+    monkeypatch.setitem(fused_mlp.TIER_CODE, "bf16x3", 0)  # fp32 is not a tensor-core tier
+    with pytest.raises(RuntimeError, match="K1 launch failed: invalid argument"):
+        fn(_random_params(sizes, cuda), x)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,12 @@ test_loglik tolerance (``tests/test_loglik.py:468-472``: rtol 2e-4,
 atol 2e-3·max|y|) at ``high``; the forward gate of ``bench.py:71``
 (1.5e-3 relative to amplitude) at ``default``, where the JAX package on
 the CPU computes in fp32 and the port rounds both operands to bf16.
+
+The bf16 tiers' tensor-core kernel (``csrc/fused_mlp_mma.cu``) reads
+weights that :func:`pack_mma_operands` packed into ``mma`` fragments.
+Here those fragments are read back by the PTX ISA's m16n8k16 layout, and
+a pure-torch emulation that computes through them is held to
+:func:`fused_mlp_reference` and to the Pallas K1.
 """
 
 import jax
@@ -23,14 +29,23 @@ from tpu21cmvae.ops.pallas import make_fused_emulate as jax_make_fused_emulate
 from tpu21cmvae.ops.pallas import make_fused_mlp as jax_make_fused_mlp
 from tpu21cmvae.utils.config import DirectEmulatorConfig as JaxConfig
 from tpu21cmvae_torch.models.direct import DirectEmulator
+from tpu21cmvae_torch.ops.fold import _log_clamp, _split_hi_lo, bf16_round
+from tpu21cmvae_torch.ops.kernels._common import MAX_SHARED_BYTES
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
+    fused_mlp_reference,
     make_fused_emulate,
     make_fused_mlp,
+    pack_mma_operands,
     shared_bytes,
 )
+from tpu21cmvae_torch.ops.mlp import skinny_dense
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 
 SMALL = (32, 48, 32, 24)
+FLAGSHIP = (7, 288, 352, 288, 224, 451)
+# the generic networks of tests/test_torch_cuda.py, the flagship, and
+# widths that need padding (hidden 33 and 40, fan-in 12, outputs 20, 451)
+MMA_SIZES = [(7, 33), (12, 40, 20), (7, 64, 96, 33), FLAGSHIP, (7, 33, 40, 20), (12, 40, 33, 451)]
 
 
 def _jax_params(sizes, seed):
@@ -194,3 +209,136 @@ def test_wrapper_rejects_bad_inputs_and_caches(small_model, splits):
     finally:
         with torch.no_grad():
             w.div_(2.0)
+
+
+def _random_params(sizes, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple({"w": torch.randn(a, b, generator=gen) / a ** 0.5,
+                  "b": 0.1 * torch.randn(b, generator=gen)}
+                 for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def _unpack(packed: torch.Tensor) -> torch.Tensor:
+    """The (parts, 16·k-steps, 8·n-tiles) weights a packed operand holds,
+    read by the PTX ISA's mma.m16n8k16 B-fragment layout (bf16, ``.col``):
+    lane 4·groupID + tig holds rows 2·tig, 2·tig + 1 (register b0) and
+    2·tig + 8, 2·tig + 9 (b1) of column groupID, the lower row in the
+    lower half of each 32-bit register."""
+    n_tiles, k_steps, lanes, parts, q = packed.shape
+    t, s, lane, p, q = np.meshgrid(*map(np.arange, packed.shape), indexing="ij")
+    rows = 16 * s + 2 * (lane % 4) + np.array([0, 1, 8, 9])[q]
+    cols = 8 * t + lane // 4
+    out = np.full((parts, 16 * k_steps, 8 * n_tiles), np.nan, np.float32)
+    out[p, rows, cols] = packed.float().numpy()
+    assert not np.isnan(out).any()  # every weight slot is in some fragment
+    return torch.as_tensor(out)
+
+
+def _emulate_mma(ops, x):
+    """``csrc/fused_mlp_mma.cu``'s arithmetic in plain torch, through the
+    packed, padded operands: each activation split (bf16x3) or rounded
+    (bf16) once per layer, the products summed in fp32, padded columns
+    carried as zeros."""
+    h = _log_clamp(x) if ops.log_clamp else x
+    last = len(ops.packed) - 1
+    for i, (w, b) in enumerate(ops.packed):
+        if i == 0 and ops.skinny:
+            h = skinny_dense(h, w, b)
+        else:
+            wp = _unpack(w)
+            a = torch.nn.functional.pad(h, (0, wp.shape[1] - h.shape[1]))
+            if ops.tier == "bf16x3":
+                hi, lo = _split_hi_lo(a)
+                h = hi @ wp[0] + hi @ wp[1] + lo @ wp[0] + b
+            else:
+                h = bf16_round(a) @ wp[0] + b
+        if i < last:
+            h = torch.relu(h)
+    h = h[:, : ops.widths[-1]]
+    return torch.sum(h * h, dim=-1) if ops.reduce == "sumsq" else h
+
+
+@pytest.mark.parametrize("sizes", MMA_SIZES)
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_packed_operands_unpack_to_the_tier_parts(sizes, precision):
+    """Each tensor-core layer's packed bf16 fragments hold exactly
+    ``w_hi`` and ``w_lo`` (bf16x3) or ``bf16_rn(w)`` (bf16), zero past
+    the layer's widths; the bias is zero-padded to the same grid; a
+    skinny first layer stays exact fp32; a lone skinny layer packs
+    nothing (it runs ``fused_mlp.cu``)."""
+    fn = make_fused_mlp(sizes, precision=precision, device="cpu")
+    ops = fn.operands(_random_params(sizes, sum(sizes)))
+    if sizes == (7, 33):
+        assert ops.packed is None
+        return
+    assert len(ops.packed) == len(sizes) - 1
+    for i, ((w, b), raw_w, raw_b) in enumerate(zip(ops.packed, ops.w, ops.b)):
+        k, n = sizes[i], sizes[i + 1]
+        if i == 0 and ops.skinny:
+            assert w is raw_w and b is raw_b and w.dtype == torch.float32
+            continue
+        assert w.dtype == torch.bfloat16 and w.is_contiguous()
+        kp, np_ = -(-k // 16) * 16, -(-n // 16) * 16
+        assert w.shape == (np_ // 8, kp // 16, 32, 2 if precision == "high" else 1, 4)
+        got = _unpack(w)
+        parts = (_split_hi_lo(fn._fold(_random_params(sizes, sum(sizes)))[i]["w"])
+                 if precision == "high" else (raw_w,))
+        for p, want in enumerate(parts):
+            assert torch.equal(got[p, :k, :n], want)
+        assert not got[:, k:].any() and not got[:, :, n:].any()
+        assert b.shape == (np_,) and torch.equal(b[:n], raw_b) and not b[n:].any()
+
+
+@pytest.mark.parametrize("sizes", MMA_SIZES[1:])
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("reduce", ["none", "sumsq"])
+def test_mma_emulation_matches_plain(sizes, precision, reduce):
+    """Through the packed, padded operands, the tensor-core arithmetic
+    equals :func:`fused_mlp_reference`, which multiplies the unpadded
+    operands in one matmul (``[hi, hi, lo] @ [w_hi; w_lo; w_hi]`` at
+    bf16x3): the two differ only in fp32 summation order, so within
+    1e-5 of the amplitude (rows with an fx == 0 and a ragged count)."""
+    params = _random_params(sizes, 3 * sum(sizes))
+    x = torch.as_tensor(np.abs(_inputs(37, sizes[0], 5)) + 0.05)
+    x[4, 2] = 0.0
+    fn = make_fused_mlp(sizes, log_clamp_input=True, precision=precision, reduce=reduce,
+                        device="cpu")
+    ops = fn.operands(params)
+    got, want = _emulate_mma(ops, x), fused_mlp_reference(ops, x)
+    assert got.shape == want.shape == ((37,) if reduce == "sumsq" else (37, sizes[-1]))
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_mma_emulation_matches_pallas_k1():
+    """The emulation at bf16x3 against the JAX package's Pallas K1
+    (interpret mode), on ``test_plain_k1_matches_pallas_k1``'s network
+    and tolerance."""
+    sizes = (7, 64, 96, 33)
+    jp = _jax_params(sizes, 1)
+    x = _inputs(100, 7, 11)
+    want = np.asarray(jax_make_fused_mlp(sizes, block_rows=64, interpret=True,
+                                         precision="high")(jp, jnp.asarray(x)))
+    ops = make_fused_mlp(sizes, precision="high", device="cpu").operands(_torch_params(jp))
+    got = _emulate_mma(ops, torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-3 * np.abs(want).max())
+
+
+def test_shared_bytes_per_kernel():
+    """``fused_mlp.cu`` (fp32, and a lone skinny layer at every tier)
+    keeps fp32 tiles of 16 rows; ``fused_mlp_mma.cu`` bf16 tiles of 32
+    rows, hi and lo at bf16x3, with rows padded to the widest padded
+    layer input + 8; the wrapper refuses by the kernel its tier runs."""
+    assert shared_bytes(FLAGSHIP) == shared_bytes(FLAGSHIP, "f32") == 4 * 16 * (7 + 2 * 352 + 8)
+    assert shared_bytes(FLAGSHIP, "bf16x3") == 2 * 2 * 2 * 32 * 360 + 4 * 32 * (7 + 8)
+    assert shared_bytes(FLAGSHIP, "bf16") == 2 * 2 * 32 * 360 + 4 * 32 * (7 + 8)
+    assert shared_bytes((7, 33), "bf16x3") == 4 * 16 * (7 + 8)
+    # fan-in 12 is a tensor-core layer: its padded input joins the width
+    assert shared_bytes((12, 40, 20), "bf16") == 2 * 2 * 32 * 56 + 4 * 32 * (12 + 8)
+    assert shared_bytes((40, 20), "bf16x3") == 2 * 2 * 2 * 32 * 56 + 4 * 32 * (40 + 8)
+    wide = (7, 1000, 3)  # fits the fp32 and bf16 kernels, not bf16x3's two tiles
+    assert shared_bytes(wide, "bf16x3") > MAX_SHARED_BYTES
+    for precision in ("highest", "default"):
+        make_fused_mlp(wide, precision=precision, device="cpu")
+    with pytest.raises(NotImplementedError, match="bf16x3"):
+        make_fused_mlp(wide, precision="high", device="cpu")

@@ -82,6 +82,21 @@ def test_grad_gate_matches_bench():
         )
 
 
+def test_loglik_gate_matches_bench():
+    """The port's likelihood gate is bench_mcmc.py's, number for number,
+    on both sides of the bound."""
+    import bench_mcmc
+    from tpu21cmvae_torch.utils.metrics import loglik_gate_violation
+
+    rng = np.random.default_rng(6)
+    ref = -np.abs(rng.normal(0.0, 300.0, size=500)) - 200.0
+    for scale in (1e-3, 0.1, 2.0):
+        got = ref + scale * rng.normal(size=ref.shape)
+        want = bench_mcmc._gate_violation(got, ref)
+        assert loglik_gate_violation(got, ref) == pytest.approx(want, rel=1e-12, abs=1e-12)
+    assert loglik_gate_violation(ref + 0.2, ref) < 0.0 < loglik_gate_violation(ref + 0.3, ref)
+
+
 def test_sample_result_diagnostics_match():
     """The NumPy/SciPy SampleResult copy gives the JAX package's R̂, bulk
     ESS and tail ESS on the same chain."""

@@ -1,22 +1,23 @@
-// K1 for Hopper: a whole dense MLP (ReLU hidden layers, linear last
-// layer) for a batch of rows, in one kernel; optionally reduced to each
-// row's sum of squares.
+// K1 for Hopper at the fp32 tier: a whole dense MLP (ReLU hidden layers,
+// linear last layer) for a batch of rows, in one kernel; optionally
+// reduced to each row's sum of squares. The bf16 tiers run on the tensor
+// cores (fused_mlp_mma.cu); a network whose only layer is skinny runs
+// here at every tier, since that layer is exact fp32 at every tier.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_mlp.py::make_fused_mlp (kernel
-// body _mlp_kernel, products _dot_refs). Same contract: optional
-// log10/clamp of input columns 0–2, a skinny first layer (fan-in ≤ 8) as
-// exact fp32 FMA at every tier or else a tier matmul, (matmul + bias,
-// ReLU) for every hidden layer, a linear last layer; with reduce = sumsq
-// it writes Σ_j y_j² per row instead of y. The callers fold the
-// normalizer (predict) or the normalizer, observation and noise (the
-// direct likelihood) into the first and last layers.
+// body _mlp_kernel, products _dot_refs), at its exact tier. Same
+// contract: optional log10/clamp of input columns 0–2, a skinny first
+// layer (fan-in ≤ 8) as exact fp32 FMA, (matmul + bias, ReLU) for every
+// hidden layer, a linear last layer; with reduce = sumsq it writes
+// Σ_j y_j² per row instead of y. The callers fold the normalizer
+// (predict) or the normalizer, observation and noise (the direct
+// likelihood) into the first and last layers.
 //
 // What bounds it on an H100: fp32 FMA throughput on the CUDA cores. At the
-// flagship widths (7→288→352→288→224→451) a row needs ≈0.74 MFLOP at the
-// f32 tier, 27 % of it in the 451-wide output layer; the bf16x3
-// ("high") tier issues three FMAs per product of the non-skinny layers.
-// Each row reads 28 bytes; predict writes 1804 bytes per row (at 1 M rows,
-// 1.8 GB, about half a millisecond of device-memory time), sumsq 4 bytes.
+// flagship widths (7→288→352→288→224→451) a row needs ≈0.74 MFLOP, 27 %
+// of it in the 451-wide output layer. Each row reads 28 bytes; predict
+// writes 1804 bytes per row (at 1 M rows, 1.8 GB, about half a
+// millisecond of device-memory time), sumsq 4 bytes.
 // The weights (≈1.5 MB of fp32 at the flagship) are read once per row
 // tile, from L2.
 //
@@ -33,8 +34,9 @@
 // memory, in a fixed order, so the (B, 451) signal never reaches device
 // memory. Rows past the batch are zero in the input tile and never
 // stored. Shared memory per CTA: 4·kRows·(n_in + 2·max hidden width +
-// kWarps) bytes, 46,016 at the flagship. Tensor cores (mma/wgmma), TMA
-// and persistent CTAs are left for later work.
+// kWarps) bytes, 46,016 at the flagship. The tensor cores have no IEEE
+// fp32 product; register tiling (several rows and columns per thread),
+// TMA and persistent CTAs are left for later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
@@ -47,32 +49,29 @@ struct MlpNet {
   int n_layers;
   int width[kMaxLayers + 1];  // width[0] = n_in; layer i maps width[i] → width[i+1]
   int max_hidden;             // widest hidden layer (0 with a single layer)
-  int tier;
   int skinny;                 // layer 0 is exact fp32 FMA (n_in ≤ kMaxIn)
   int log_clamp;              // log10/clamp input columns 0..2
   int sumsq;                  // write Σ y² per row instead of y
-  const float* w_hi[kMaxLayers];  // (width[i], width[i+1]) at tier; exact fp32 if skinny
-  const float* w_lo[kMaxLayers];  // bf16x3 only
-  const float* b[kMaxLayers];     // (width[i+1],)
+  const float* w[kMaxLayers];  // (width[i], width[i+1])
+  const float* b[kMaxLayers];  // (width[i+1],)
 };
 
 // The linear last layer from registers: y[r, j] = Σ_k in[k, r]·W[k, j] +
 // b[j], stored row-major into out (n_rows, n_out), or, under sumsq,
 // reduced to out[row] = Σ_j y[r, j]² through `red` (kWarps·kRows floats).
-template <int TIER, bool SKINNY>
-__device__ void output_layer(const float* in, int n_in, const float* __restrict__ w_hi,
-                             const float* __restrict__ w_lo, const float* __restrict__ bias,
-                             int n_out, int row0, int n_rows, bool sumsq,
-                             float* __restrict__ out, float* red) {
+template <bool SKINNY>
+__device__ void output_layer(const float* in, int n_in, const float* __restrict__ w,
+                             const float* __restrict__ bias, int n_out, int row0, int n_rows,
+                             bool sumsq, float* __restrict__ out, float* red) {
   float ss[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) ss[r] = 0.f;
   for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
     float acc[kRows];
     if constexpr (SKINNY) {
-      skinny_column(in, n_in, w_hi, n_out, j, acc);
+      skinny_column(in, n_in, w, n_out, j, acc);
     } else {
-      dot_column<TIER>(in, n_in, w_hi, w_lo, n_out, j, acc);
+      dot_column<kF32>(in, n_in, w, nullptr, n_out, j, acc);
     }
     const float bj = __ldg(bias + j);
 #pragma unroll
@@ -103,31 +102,6 @@ __device__ void output_layer(const float* in, int n_in, const float* __restrict_
   }
 }
 
-__device__ void output_layer_at(const MlpNet& net, bool skinny, const float* in, int n_in,
-                                int layer, int row0, int n_rows, float* out, float* red) {
-  const int n_out = net.width[layer + 1];
-  const bool s = net.sumsq != 0;
-  if (skinny) {
-    output_layer<kF32, true>(in, n_in, net.w_hi[layer], nullptr, net.b[layer], n_out, row0,
-                             n_rows, s, out, red);
-    return;
-  }
-  switch (net.tier) {
-    case kF32:
-      output_layer<kF32, false>(in, n_in, net.w_hi[layer], net.w_lo[layer], net.b[layer], n_out,
-                                row0, n_rows, s, out, red);
-      break;
-    case kBF16:
-      output_layer<kBF16, false>(in, n_in, net.w_hi[layer], net.w_lo[layer], net.b[layer],
-                                 n_out, row0, n_rows, s, out, red);
-      break;
-    default:
-      output_layer<kBF16x3, false>(in, n_in, net.w_hi[layer], net.w_lo[layer], net.b[layer],
-                                   n_out, row0, n_rows, s, out, red);
-      break;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n_rows, MlpNet net) {
   extern __shared__ float4 smem4[];
@@ -147,37 +121,39 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n_row
   int cur = 0;
   for (int i = 0; i < last; ++i) {  // hidden layers, ReLU
     if (i == 0 && net.skinny) {
-      skinny_relu_layer(in, n_in, net.w_hi[0], net.b[0], buf[cur], net.width[1]);
+      skinny_relu_layer(in, n_in, net.w[0], net.b[0], buf[cur], net.width[1]);
     } else {
-      dense_at<kBiasRelu>(net.tier, in, net.width[i], net.w_hi[i], net.w_lo[i], net.b[i],
-                          buf[cur], net.width[i + 1]);
+      dense<kF32, kBiasRelu>(in, net.width[i], net.w[i], nullptr, net.b[i], buf[cur],
+                             net.width[i + 1]);
     }
     __syncthreads();
     in = buf[cur];
     cur ^= 1;
   }
-  output_layer_at(net, last == 0 && net.skinny, in, net.width[last], last, row0, n_rows, out,
-                  red);
+  const int n_out = net.width[last + 1];
+  if (last == 0 && net.skinny) {
+    output_layer<true>(in, n_in, net.w[0], net.b[0], n_out, row0, n_rows, net.sumsq, out, red);
+  } else {
+    output_layer<false>(in, net.width[last], net.w[last], net.b[last], n_out, row0, n_rows,
+                        net.sumsq, out, red);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// ptrs, in order, for each layer i = 0 … n_layers-1: w_hi, w_lo, b (w_hi is
-// the exact fp32 weight of a skinny first layer, whose w_lo is null). A
-// w_lo pointer may be null unless the tier is bf16x3. out is (n_rows,
-// widths[n_layers]), or (n_rows,) with sumsq. Launches on `stream`,
-// allocates nothing and does not synchronise; returns the cudaError_t of
-// the launch.
+// ptrs, in order, for each layer i = 0 … n_layers-1: w, b, in fp32. out
+// is (n_rows, widths[n_layers]), or (n_rows,) with sumsq. Launches on
+// `stream`, allocates nothing and does not synchronise; returns the
+// cudaError_t of the launch.
 int k1_fused_mlp(const float* x, float* out, int n_rows, int n_layers, const int* widths,
-                 const void* const* ptrs, int tier, int log_clamp, int sumsq, void* stream) {
-  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || tier < kF32 || tier > kBF16x3) {
+                 const void* const* ptrs, int log_clamp, int sumsq, void* stream) {
+  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MlpNet net{};
   net.n_layers = n_layers;
-  net.tier = tier;
   net.skinny = widths[0] <= kMaxIn;
   net.log_clamp = log_clamp;
   net.sumsq = sumsq;
@@ -190,12 +166,9 @@ int k1_fused_mlp(const float* x, float* out, int n_rows, int n_layers, const int
       static_cast<size_t>(widths[0] + 2 * net.max_hidden + kWarps) * kRows * sizeof(float);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
 
-  int k = 0;
-  auto next = [&]() { return static_cast<const float*>(ptrs[k++]); };
   for (int i = 0; i < n_layers; ++i) {
-    net.w_hi[i] = next();
-    net.w_lo[i] = next();
-    net.b[i] = next();
+    net.w[i] = static_cast<const float*>(ptrs[2 * i]);
+    net.b[i] = static_cast<const float*>(ptrs[2 * i + 1]);
   }
 
   cudaError_t err = cudaFuncSetAttribute(fused_mlp_kernel,

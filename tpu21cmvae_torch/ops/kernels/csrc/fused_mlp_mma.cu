@@ -1,0 +1,424 @@
+// K1 for Hopper at the bf16 tiers ("high" bf16x3, "default" bf16): the
+// whole dense MLP for a batch of rows in one kernel, its products on the
+// tensor cores; optionally reduced to each row's sum of squares. The fp32
+// tier and a network whose only layer is skinny stay on fused_mlp.cu.
+//
+// Replaces: tpu21cmvae/ops/pallas/fused_mlp.py::make_fused_mlp (kernel
+// body _mlp_kernel, products _dot_refs), at its bf16 tiers. Same
+// contract as fused_mlp.cu: optional log10/clamp of input columns 0–2, a
+// skinny first layer (fan-in ≤ 8) as exact fp32 FMA, else a tier matmul,
+// (matmul + bias, ReLU that keeps NaN) for every hidden layer, a linear
+// last layer; with sumsq it writes Σ_j y_j² per row instead of y. Rows
+// past the batch are zero in the input tile and never stored.
+//
+// Arithmetic: the products of the plain version (ops/fold.py). bf16x3:
+// hi(a)·w_hi + hi(a)·w_lo + lo(a)·w_hi with hi(x) = bits(x) & 0xFFFF0000
+// and lo(x) = bf16_rn(x − hi(x)); bf16: bf16_rn(a)·bf16_rn(w). Every
+// product is of bf16 values and exact in fp32, so the kernel and the
+// plain version differ only in summation order. Each k-step's 16 (bf16)
+// or 48 (bf16x3: three mmas) products are summed by mma.sync.m16n8k16
+// from zero and then added to the running fp32 sum by an IEEE add: the
+// tensor cores' own accumulation does not round to nearest, and with the
+// running sum as the mma's addend the kernel's bf16 results sat farther
+// from both the plain version and the CUDA-core kernel (K1 sumsq at bf16,
+// 65,537 rows: 1.82 of the value tolerance; PERF.md). The add costs
+// nothing measurable at bf16 and 2 % at bf16x3.
+//
+// What bounds it on an H100: at the flagship widths (7→288→352→288→224→
+// 451) a row needs 0.74 MFLOP of tier products, 2.2 MFLOP of bf16 tensor
+// work at bf16x3, and the CTA streams every layer's weights from L2 once
+// per row tile (bf16x3: hi and lo, 1.47 MB; bf16: 0.74 MB). At 1 M rows
+// and 32 rows a tile that is ≈ 48 GB of L2 reads at bf16x3, the larger
+// bound; the tensor cores' share is a few ms. The bf16 tiers of the
+// CUDA-core kernel were bound by fp32 FMA issue instead, with a split and
+// three FMAs (bf16x3) or a rounding (bf16) for every product.
+//
+// What the design does about it:
+// - Tensor cores: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
+//   A fragments by ldmatrix from shared memory, B fragments straight
+//   from device memory (L2), the next k-step's loaded before this step's
+//   mmas.
+// - Split or round once per element per layer: a layer's epilogue adds
+//   the bias to the fp32 accumulator, applies ReLU and writes the
+//   activation into the next layer's tile already in bf16 (hi and lo
+//   tiles at bf16x3, one rounded tile at bf16). Tiles are row-major with
+//   a row stride of (widest padded width + 8) bf16, so ldmatrix's eight
+//   16-byte rows fall in eight different bank groups.
+// - Work split: one CTA of 8 warps per tile of 32 rows (two m16 tiles);
+//   the warps split a layer's n8 output tiles evenly (288 = 36 tiles: 4
+//   or 5 each) and carry up to kNTiles of them at once, so one ldmatrix
+//   feeds kNTiles·2 (bf16) or kNTiles·6 (bf16x3) mmas. A 64-row tile (two
+//   such row groups, 16 warps, one CTA per SM) halves the weight stream
+//   if the second group's fragment loads hit L1, but measured no faster
+//   on an H100 (PERF.md), so the tile is 32 rows.
+// - Weights are packed once by the wrapper (ops/kernels/fused_mlp.py::
+//   pack_mma_operands) as bf16 B fragments, transposed and zero-padded to
+//   multiples of 16: each lane's fragment for one n8 tile and one k-step
+//   is 8 (bf16) or 16 (bf16x3: hi then lo) contiguous bytes, so a warp's
+//   load is one coalesced 256- or 512-byte read. Padded columns have zero
+//   weights and bias, so they come out 0 and the next layer's padded k
+//   rows read zeros, never uninitialised shared memory.
+// - The last layer stays in registers: predict stores its (row, column)
+//   pairs, masked past the batch and past the width; sumsq squares and
+//   sums in registers, reduces over the 4 lanes of a row with shuffles and
+//   over the 8 warps through shared memory in a fixed order.
+// Shared memory per CTA: 2 buffers · parts · rows · stride · 2 bytes, plus
+// the fp32 input tile and the sumsq partials: 94,080 bytes at the
+// flagship, bf16x3, 32 rows (two CTAs per SM). wgmma, TMA and warp
+// specialisation are left for later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
+
+#include <algorithm>
+#include <cstdint>
+
+#include "trunk.cuh"
+
+namespace {
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kTileRows = 32;  // rows per CTA
+constexpr int kMTiles = kTileRows / 16;
+constexpr int kNTiles = 4;      // n8 tiles a warp carries at once
+
+enum MmaEpilogue : int { kHidden = 0, kPredict = 1, kSumsq = 2 };
+
+struct MmaNet {
+  int n_layers;
+  int width[kMaxLayers + 1];  // width[0] = n_in; layer i maps width[i] → width[i+1]
+  int first;                  // first tensor-core layer: 1 after a skinny layer 0
+  int stride;                 // row stride of the bf16 tiles, in elements
+  int log_clamp;
+  int sumsq;
+  const uint32_t* w[kMaxLayers];  // packed B fragments; fp32 (n_in, width[1]) if skinny
+  const float* b[kMaxLayers];     // padded to a multiple of 16; exact if skinny
+};
+
+__device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(at));
+}
+
+// d += a · b on the tensor cores: a 16×16 (row), b 16×8 (col), fp32 d.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One lane's B fragment words: (b0, b1) of w_hi, then of w_lo at bf16x3.
+template <int PARTS>
+__device__ __forceinline__ void load_b(uint32_t (&b)[2 * PARTS], const uint32_t* p) {
+  if constexpr (PARTS == 2) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    b[0] = v.x;
+    b[1] = v.y;
+    b[2] = v.z;
+    b[3] = v.w;
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    b[0] = v.x;
+    b[1] = v.y;
+  }
+}
+
+// An activation into a layer's input tile(s), split (bf16x3) or rounded
+// (bf16) once: hi at tile[at], lo at tile[at + tile_elems].
+template <int PARTS>
+__device__ __forceinline__ void store_one(__nv_bfloat16* tile, int tile_elems, int at, float v) {
+  if constexpr (PARTS == 2) {
+    const float h = hi_part(v);
+    tile[at] = __float2bfloat16_rn(h);
+    tile[at + tile_elems] = __float2bfloat16_rn(v - h);
+  } else {
+    tile[at] = __float2bfloat16_rn(v);
+  }
+}
+
+// Two neighbouring columns at once (at even).
+template <int PARTS>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* tile, int tile_elems, int at, float v0,
+                                           float v1) {
+  if constexpr (PARTS == 2) {
+    const float h0 = hi_part(v0);
+    const float h1 = hi_part(v1);
+    *reinterpret_cast<__nv_bfloat162*>(tile + at) = __floats2bfloat162_rn(h0, h1);
+    *reinterpret_cast<__nv_bfloat162*>(tile + at + tile_elems) =
+        __floats2bfloat162_rn(v0 - h0, v1 - h1);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(tile + at) = __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// The skinny first layer, exact fp32 FMA in fused_mlp.cu's order, from
+// the fp32 input tile xl (rows × n_in, row-major) into the next tile;
+// columns n_out .. pad16(n_out) are written as 0.
+template <int PARTS>
+__device__ void skinny_layer(const float* xl, int rows, int n_in, const float* __restrict__ w0,
+                             const float* __restrict__ b0, int n_out, __nv_bfloat16* out,
+                             int tile_elems, int stride) {
+  const int np = pad16(n_out);
+  for (int t = threadIdx.x; t < rows * np; t += blockDim.x) {
+    const int r = t / np;
+    const int j = t % np;
+    float v = 0.f;
+    if (j < n_out) {
+      float acc = 0.f;
+      for (int c = 0; c < n_in; ++c) acc = fmaf(xl[r * n_in + c], __ldg(w0 + c * n_out + j), acc);
+      v = relu(acc + __ldg(b0 + j));
+    }
+    store_one<PARTS>(out, tile_elems, r * stride + j, v);
+  }
+}
+
+// One tensor-core layer of this warp's n8 tiles: y = in @ W + b over the
+// in tile's kp columns, then the epilogue. kHidden: relu(y) into the
+// `out` tile; kPredict: y into device memory rows row0 … (width n);
+// kSumsq: Σ y² into ss (this lane's rows g and g + 8 of each m tile).
+template <int PARTS, int EPI>
+__device__ void mma_layer(const __nv_bfloat16* in, int kp, const uint32_t* __restrict__ w,
+                          const float* __restrict__ bias, int n, int stride, int tile_elems,
+                          __nv_bfloat16* out, float* __restrict__ y, int row0, int n_rows,
+                          float (&ss)[kMTiles][2]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int tiles = pad16(n) / 8;
+  const int ksteps = kp / 16;
+  const int t_begin = warp * tiles / kMmaWarps;
+  const int mine = (warp + 1) * tiles / kMmaWarps - t_begin;
+  const int chunks = (mine + kNTiles - 1) / kNTiles;
+  const size_t tile_words = static_cast<size_t>(ksteps) * 32 * 2 * PARTS;  // one n8 tile
+  constexpr int kstep_words = 32 * 2 * PARTS;
+  // this lane's ldmatrix row: rows 0-15 of an m tile, k columns 0-7 or 8-15
+  const __nv_bfloat16* a_row = in + (lane & 15) * stride + (lane >> 4) * 8;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = t_begin + c * mine / chunks;
+    const int cnt = t_begin + (c + 1) * mine / chunks - t0;
+    const uint32_t* wt = w + static_cast<size_t>(t0) * tile_words + lane * 2 * PARTS;
+    float acc[kMTiles][kNTiles][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
+
+    uint32_t bc[kNTiles][2 * PARTS];
+    uint32_t bn[kNTiles][2 * PARTS];
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+      if (j < cnt) load_b<PARTS>(bc[j], wt + j * tile_words);
+
+    for (int s = 0; s < ksteps; ++s) {
+      if (s + 1 < ksteps) {
+#pragma unroll
+        for (int j = 0; j < kNTiles; ++j)
+          if (j < cnt) load_b<PARTS>(bn[j], wt + j * tile_words + (s + 1) * kstep_words);
+      }
+      uint32_t a[kMTiles][PARTS][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+        for (int p = 0; p < PARTS; ++p)
+          ldmatrix_x4(a[mt][p], a_row + p * tile_elems + mt * 16 * stride + s * 16);
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        if (j < cnt) {
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step's products alone
+            mma_bf16(t, a[mt][0], bc[j][0], bc[j][1]);  // hi·w_hi (bf16: a·w)
+            if constexpr (PARTS == 2) {
+              mma_bf16(t, a[mt][0], bc[j][2], bc[j][3]);  // hi·w_lo
+              mma_bf16(t, a[mt][1], bc[j][0], bc[j][1]);  // lo·w_hi
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][j][q] += t[q];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+        for (int q = 0; q < 2 * PARTS; ++q) bc[j][q] = bn[j][q];
+    }
+
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j) {
+      if (j >= cnt) continue;
+      const int col = (t0 + j) * 8 + 2 * tig;
+      const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // accumulator rows g and g + 8
+          const float v0 = acc[mt][j][2 * h] + bj.x;
+          const float v1 = acc[mt][j][2 * h + 1] + bj.y;
+          const int r = mt * 16 + h * 8 + g;
+          if constexpr (EPI == kHidden) {
+            store_pair<PARTS>(out, tile_elems, r * stride + col, relu(v0), relu(v1));
+          } else if constexpr (EPI == kSumsq) {
+            ss[mt][h] = fmaf(v1, v1, fmaf(v0, v0, ss[mt][h]));  // padded columns add 0
+          } else if (row0 + r < n_rows) {
+            float* yr = y + static_cast<size_t>(row0 + r) * n + col;
+            if (col < n) yr[0] = v0;
+            if (col + 1 < n) yr[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int PARTS>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_rows, MmaNet net) {
+  extern __shared__ uint4 smem_mma[];
+  const int tile_elems = kTileRows * net.stride;
+  const int buf_elems = PARTS * tile_elems;  // buffer b at buf + b * buf_elems
+  __nv_bfloat16* const buf = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  float* xl = reinterpret_cast<float*>(buf + 2 * buf_elems);
+  const int n_in = net.width[0];
+  float* red = xl + kTileRows * n_in;
+  const int last = net.n_layers - 1;
+  const int row0 = blockIdx.x * kTileRows;
+
+  if (net.first == 1) {  // skinny layer 0 from the fp32 input tile
+    for (int t = threadIdx.x; t < kTileRows * n_in; t += blockDim.x) {
+      const int row = row0 + t / n_in;
+      const int c = t % n_in;
+      float v = 0.f;
+      if (row < n_rows) {
+        v = x[static_cast<size_t>(row) * n_in + c];
+        if (net.log_clamp) v = log_clamp(v, c);
+      }
+      xl[t] = v;
+    }
+    __syncthreads();
+    skinny_layer<PARTS>(xl, kTileRows, n_in, reinterpret_cast<const float*>(net.w[0]),
+                        net.b[0], net.width[1], buf, tile_elems, net.stride);
+  } else {  // the input itself is layer 0's A operand, split once
+    const int kp = pad16(n_in);
+    for (int t = threadIdx.x; t < kTileRows * kp; t += blockDim.x) {
+      const int r = t / kp;
+      const int c = t % kp;
+      const int row = row0 + r;
+      float v = 0.f;
+      if (c < n_in && row < n_rows) {
+        v = x[static_cast<size_t>(row) * n_in + c];
+        if (net.log_clamp) v = log_clamp(v, c);
+      }
+      store_one<PARTS>(buf, tile_elems, r * net.stride + c, v);
+    }
+  }
+  __syncthreads();
+
+  float ss[kMTiles][2] = {};
+  int cur = 0;
+  for (int i = net.first; i < last; ++i) {  // hidden layers, ReLU
+    mma_layer<PARTS, kHidden>(buf + cur * buf_elems, pad16(net.width[i]), net.w[i], net.b[i],
+                              net.width[i + 1], net.stride, tile_elems,
+                              buf + (cur ^ 1) * buf_elems, nullptr, 0, 0, ss);
+    __syncthreads();
+    cur ^= 1;
+  }
+  const __nv_bfloat16* in = buf + cur * buf_elems;
+  const int kp = pad16(net.width[last]);
+  const int n_out = net.width[last + 1];
+  if (!net.sumsq) {
+    mma_layer<PARTS, kPredict>(in, kp, net.w[last], net.b[last], n_out, net.stride, tile_elems,
+                               nullptr, y, row0, n_rows, ss);
+    return;
+  }
+  mma_layer<PARTS, kSumsq>(in, kp, net.w[last], net.b[last], n_out, net.stride, tile_elems,
+                           nullptr, nullptr, 0, 0, ss);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = ss[mt][h];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if ((lane & 3) == 0) red[warp * kTileRows + mt * 16 + h * 8 + (lane >> 2)] = s;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kTileRows && row0 + threadIdx.x < n_rows) {
+    float s = 0.f;
+    for (int k = 0; k < kMmaWarps; ++k) s += red[k * kTileRows + threadIdx.x];
+    y[row0 + threadIdx.x] = s;
+  }
+}
+
+template <int PARTS>
+cudaError_t launch_mma(const float* x, float* y, int n_rows, const MmaNet& net, size_t smem,
+                       cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(fused_mlp_mma_kernel<PARTS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_mlp_mma_kernel<PARTS><<<(n_rows + kTileRows - 1) / kTileRows, kMmaThreads, smem, stream>>>(
+      x, y, n_rows, net);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// ptrs, in order, for each layer i = 0 … n_layers-1: w, b. w is the
+// packed bf16 B fragments of ops/kernels/fused_mlp.py::pack_mma_operands
+// and b its bias zero-padded to a multiple of 16, except for a skinny
+// first layer (n_in ≤ 8), whose w (n_in, width[1]) and b are exact fp32.
+// tier: 1 bf16, 2 bf16x3. out is (n_rows, widths[n_layers]), or
+// (n_rows,) with sumsq. Launches on `stream`,
+// allocates nothing and does not synchronise; returns the cudaError_t of
+// the launch.
+int k1_fused_mlp_mma(const float* x, float* out, int n_rows, int n_layers, const int* widths,
+                     const void* const* ptrs, int tier, int log_clamp, int sumsq, void* stream) {
+  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || (tier != kBF16 && tier != kBF16x3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MmaNet net{};
+  net.n_layers = n_layers;
+  net.first = widths[0] <= kMaxIn ? 1 : 0;
+  net.log_clamp = log_clamp;
+  net.sumsq = sumsq;
+  if (net.first >= n_layers) return static_cast<int>(cudaErrorInvalidValue);  // fused_mlp.cu's
+  int kp_max = 0;
+  for (int i = 0; i <= n_layers; ++i) {
+    if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    net.width[i] = widths[i];
+    if (i >= net.first && i < n_layers) kp_max = std::max(kp_max, (widths[i] + 15) & ~15);
+  }
+  net.stride = kp_max + 8;
+  const int parts = tier == kBF16x3 ? 2 : 1;
+  const size_t smem =
+      static_cast<size_t>(2) * parts * kTileRows * net.stride * sizeof(__nv_bfloat16) +
+      static_cast<size_t>(kTileRows) * (widths[0] + kMmaWarps) * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < n_layers; ++i) {
+    net.w[i] = static_cast<const uint32_t*>(ptrs[2 * i]);
+    net.b[i] = static_cast<const float*>(ptrs[2 * i + 1]);
+  }
+
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(parts == 2 ? launch_mma<2>(x, out, n_rows, net, smem, s)
+                                     : launch_mma<1>(x, out, n_rows, net, smem, s));
+}
+
+}  // extern "C"

@@ -11,9 +11,12 @@ direct likelihood's tail, reduced inside the kernel
 :func:`make_fused_emulate` folds the normalizer into the first and last
 layers (``ops/fold.py::fold_emulator_constants``) and predicts.
 
-The CUDA kernel is ``csrc/fused_mlp.cu``; :func:`fused_mlp_reference`
-does the same arithmetic — same folds, same hi/lo split — in plain
-tensor operations.
+Two CUDA kernels: ``csrc/fused_mlp_mma.cu`` runs the bf16 tiers on the
+tensor cores, from weights that :func:`pack_mma_operands` packed once
+into bf16 ``mma`` fragments; ``csrc/fused_mlp.cu`` runs the fp32 tier on
+the CUDA cores, and a network whose only layer is skinny at every tier.
+:func:`fused_mlp_reference` does the same arithmetic — same folds, same
+hi/lo split — in plain tensor operations.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ from tpu21cmvae_torch.ops.kernels._common import (
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
 
-WARPS_PER_BLOCK = 8  # kThreads / 32 in csrc/trunk.cuh
+WARPS_PER_BLOCK = 8  # kThreads / 32 in csrc/trunk.cuh; kMmaWarps in csrc/fused_mlp_mma.cu
+MMA_ROWS_PER_BLOCK = 32  # kTileRows in csrc/fused_mlp_mma.cu
+MMA_TIERS = ("bf16", "bf16x3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,25 +65,67 @@ class MLPOperands:
     widths: tuple  # (n_in, *layer widths)
     w: tuple
     b: tuple
+    # per layer (w, b) for fused_mlp_mma.cu (pack_mma_operands; a skinny
+    # first layer's exact fp32 pair as it is), or None where K1 runs
+    # fused_mlp.cu
+    packed: tuple | None = None
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def runs_on_tensor_cores(widths, tier: str) -> bool:
+    """Whether K1 at ``tier`` runs ``fused_mlp_mma.cu``: a bf16 tier and
+    at least one layer that is not the skinny exact-fp32 one."""
+    return tier in MMA_TIERS and not (len(widths) == 2 and widths[0] <= SKINNY_DENSE_MAX_IN)
+
+
+def pack_mma_operands(w_op: torch.Tensor, b: torch.Tensor, tier: str):
+    """One layer's prepared operand ``w_op`` (:func:`prepare_operand` at
+    a bf16 tier) and bias as ``fused_mlp_mma.cu`` reads them: the
+    ``mma.m16n8k16`` B fragments in bf16 (exact: the values are
+    bf16-representable), and the bias zero-padded to the fragment grid.
+
+    ``w`` (K, N) is zero-padded to (K₁₆, N₁₆), multiples of 16, and laid
+    out as (N₁₆/8 n8 tiles, K₁₆/16 k-steps, 32 lanes, parts, 4): lane
+    ``4g + t`` of the fragment for tile ``n`` and step ``s`` holds
+    ``w[16s + 2t + {0, 1, 8, 9}, 8n + g]``, for each part — ``w_hi`` then
+    ``w_lo`` at bf16x3, ``bf16_rn(w)`` alone at bf16. So a warp reads one
+    tile's fragment for one k-step as one contiguous block."""
+    parts = [p for p in hi_lo(w_op, tier) if p is not None]
+    k, n = parts[0].shape
+    kp, np_ = _pad16(k), _pad16(n)
+    frags = []
+    for part in parts:
+        padded = torch.zeros((kp, np_), dtype=torch.float32, device=part.device)
+        padded[:k, :n] = part
+        # k = 16s + 8h + 2t + e, n = 8·tile + g  →  (tile, s, g, t, h, e)
+        f = padded.reshape(kp // 16, 2, 4, 2, np_ // 8, 8).permute(4, 0, 5, 2, 1, 3)
+        frags.append(f.reshape(np_ // 8, kp // 16, 32, 4))
+    packed = torch.stack(frags, dim=3).to(torch.bfloat16).contiguous()
+    bias = torch.zeros(np_, dtype=torch.float32, device=b.device)
+    bias[:n] = b
+    return packed, bias
 
 
 def mlp_operands(params, tier: str, log_clamp: bool, reduce: str) -> MLPOperands:
     """Split (already folded) layer dicts for ``tier``; a first layer of
     fan-in ≤ 8 stays exact fp32."""
     skinny = params[0]["w"].shape[0] <= SKINNY_DENSE_MAX_IN
-    return MLPOperands(
-        tier=tier,
-        skinny=skinny,
-        log_clamp=log_clamp,
-        reduce=reduce,
-        widths=(params[0]["w"].shape[0], *(layer["b"].shape[0] for layer in params)),
-        w=tuple(
-            layer["w"].to(torch.float32).contiguous() if i == 0 and skinny
-            else prepare_operand(layer["w"], tier)
-            for i, layer in enumerate(params)
-        ),
-        b=tuple(layer["b"].to(torch.float32).contiguous() for layer in params),
+    widths = (params[0]["w"].shape[0], *(layer["b"].shape[0] for layer in params))
+    w = tuple(
+        layer["w"].to(torch.float32).contiguous() if i == 0 and skinny
+        else prepare_operand(layer["w"], tier)
+        for i, layer in enumerate(params)
     )
+    b = tuple(layer["b"].to(torch.float32).contiguous() for layer in params)
+    packed = None
+    if runs_on_tensor_cores(widths, tier):
+        packed = tuple((wi, bi) if i == 0 and skinny else pack_mma_operands(wi, bi, tier)
+                       for i, (wi, bi) in enumerate(zip(w, b)))
+    return MLPOperands(tier=tier, skinny=skinny, log_clamp=log_clamp, reduce=reduce,
+                       widths=widths, w=w, b=b, packed=packed)
 
 
 def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
@@ -96,13 +143,22 @@ def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
     return torch.sum(h * h, dim=-1) if ops.reduce == "sumsq" else h
 
 
-def shared_bytes(widths) -> int:
-    """Dynamic shared memory of one K1 block: the input tile, two
-    activation buffers as wide as the widest hidden layer (they take
-    turns as a layer's input and output; the last layer writes from
-    registers), and the per-warp partial sums of ``sumsq``."""
-    hidden = max(widths[1:-1], default=0)
-    return 4 * ROWS_PER_BLOCK * (widths[0] + 2 * hidden + WARPS_PER_BLOCK)
+def shared_bytes(widths, tier: str = "f32") -> int:
+    """Dynamic shared memory of one K1 block at ``tier``: the fp32 input
+    tile, two activation buffers (they take turns as a layer's input and
+    output; the last layer writes from registers) and the per-warp
+    partial sums of ``sumsq``. ``fused_mlp.cu`` keeps fp32 buffers as
+    wide as the widest hidden layer; ``fused_mlp_mma.cu`` keeps bf16
+    tiles (hi and lo at bf16x3) as wide as the widest tensor-core layer
+    input padded to 16, plus 8 columns of row padding."""
+    if not runs_on_tensor_cores(widths, tier):
+        hidden = max(widths[1:-1], default=0)
+        return 4 * ROWS_PER_BLOCK * (widths[0] + 2 * hidden + WARPS_PER_BLOCK)
+    first = 1 if widths[0] <= SKINNY_DENSE_MAX_IN else 0
+    stride = max(_pad16(k) for k in widths[first:-1]) + 8
+    parts = 2 if tier == "bf16x3" else 1
+    return (2 * 2 * parts * MMA_ROWS_PER_BLOCK * stride
+            + 4 * MMA_ROWS_PER_BLOCK * (widths[0] + WARPS_PER_BLOCK))
 
 
 def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
@@ -110,14 +166,18 @@ def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     shape = (n,) if ops.reduce == "sumsq" else (n, ops.widths[-1])
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    if n:
-        tensors = []
-        for i, (w, b) in enumerate(zip(ops.w, ops.b)):
-            tensors += [*((w, None) if i == 0 and ops.skinny else hi_lo(w, ops.tier)), b]
-        widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
-        launch("K1", "k1_fused_mlp", x,
-               x.data_ptr(), out.data_ptr(), n, len(ops.w), widths, pointers(tensors),
-               TIER_CODE[ops.tier], int(ops.log_clamp), int(ops.reduce == "sumsq"))
+    if not n:
+        return out
+    widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
+    args = (x.data_ptr(), out.data_ptr(), n, len(ops.w), widths)
+    flags = (int(ops.log_clamp), int(ops.reduce == "sumsq"))
+    if ops.packed is not None:
+        tensors = [t for pair in ops.packed for t in pair]
+        launch("K1", "k1_fused_mlp_mma", x, *args, pointers(tensors), TIER_CODE[ops.tier],
+               *flags)
+    else:  # the fp32 tier, or a lone skinny layer (exact fp32 at every tier)
+        tensors = [t for pair in zip(ops.w, ops.b) for t in pair]
+        launch("K1", "k1_fused_mlp", x, *args, pointers(tensors), *flags)
     return out
 
 
@@ -143,13 +203,14 @@ class FusedMLP:
             raise NotImplementedError(
                 f"K1 takes 1 to {MAX_LAYERS} layers; got {len(self.sizes) - 1}"
             )
-        if shared_bytes(self.sizes) > MAX_SHARED_BYTES:
+        self.tier = resolve_tier(precision, "highest")
+        need = shared_bytes(self.sizes, self.tier)
+        if need > MAX_SHARED_BYTES:
             raise NotImplementedError(
-                f"widths {self.sizes} need {shared_bytes(self.sizes)} bytes of "
-                f"shared memory per K1 block; the limit is {MAX_SHARED_BYTES}"
+                f"widths {self.sizes} need {need} bytes of shared memory per K1 "
+                f"block at the {self.tier} tier; the limit is {MAX_SHARED_BYTES}"
             )
         self.device = torch.empty(0, device=device).device
-        self.tier = resolve_tier(precision, "highest")
         self.reduce = reduce
         self.launches = 0
         self._fold = fold or (lambda params: params)

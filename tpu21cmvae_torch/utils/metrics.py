@@ -3,8 +3,9 @@
 ``error`` and ``band_mask`` are copies of ``tpu21cmvae/utils/metrics.py``
 (Eq. 1 of Bye et al. 2022, reference ``emulator.py:129-192``, with
 ``flow=0`` honoured as a bound and a boolean band mask).
-:func:`grad_gate_violation` is the gradient accuracy gate of
-``bench_mcmc.py::_grad_gate_violation``.
+:func:`loglik_gate_violation` and :func:`grad_gate_violation` are the
+likelihood and gradient accuracy gates of ``bench_mcmc.py``
+(``_gate_violation``, ``_grad_gate_violation``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,12 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+LOGLIK_ATOL = 0.25
+"""Likelihood gate: |ΔlogL| allowed at the posterior mode."""
+
+LOGLIK_RTOL = 1.5e-3
+"""Likelihood gate: |ΔlogL| allowed per unit of depth below the mode."""
 
 GRAD_RTOL = 1e-2
 """Gradient gate: q99.9 of the per-row relative error."""
@@ -71,6 +78,18 @@ def band_mask(nu_arr, flow=None, fhigh=None) -> np.ndarray:
     if fhigh is not None:
         mask &= nu_arr <= fhigh
     return mask
+
+
+def loglik_gate_violation(got, ref) -> float:
+    """Worst excess of |got − ref| over the depth-scaled allowance
+    :data:`LOGLIK_ATOL` + :data:`LOGLIK_RTOL` · (max ref − ref) (≤ 0
+    passes), ``ref`` the exact-tier log-likelihoods of the same rows: an
+    accept decision compares two proposals' logL, so the bound is tight
+    at the mode and grows with the depth below it."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    depth = ref.max() - ref
+    return float((np.abs(got - ref) - (LOGLIK_ATOL + LOGLIK_RTOL * depth)).max())
 
 
 def grad_rel_error(got, ref) -> np.ndarray:

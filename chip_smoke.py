@@ -10,36 +10,46 @@ Phases, one line each:
 
 1. require a CUDA device; pin TF32 off for matmuls and convolutions;
    print the card's ``nvidia-smi`` name and power limit;
-2. build the port's CUDA kernels from ``tpu21cmvae_torch/ops/kernels/csrc``;
+2. build the port's CUDA kernels from ``tpu21cmvae_torch/ops/kernels/csrc``
+   and print each kernel's ``ptxas`` registers and spill bytes;
 3. hold K3 (the fused gram value-and-gradient kernel) against its plain
    PyTorch version on the card, at the flagship widths of
    ``pretrained/direct_synthetic.npz``, for batches 1, 37, 4096 and
-   65,537 and three tier pairs;
+   65,537 and three tier pairs (the bf16 pairs run the tensor-core
+   ``fused_gram_mma.cu``, (highest, highest) ``fused_loglik_grad_gram.cu``);
 4. time K3 and its plain version at 4096 and 65,536 rows (CUDA events,
-   warmup excluded, median of repeats);
+   warmup excluded, median of repeats), and the kernel's device time per
+   call over back-to-back calls;
 5. the main path through the public entry points: load the checkpoint,
-   predict (held to a float64 NumPy forward of the same file), and sample
-   a posterior with HMC, whose every leapfrog step runs K3;
+   predict (held to a float64 NumPy forward of the same file), sample a
+   posterior with HMC, whose every leapfrog step runs K3 at (high,
+   default) on ``fused_gram_mma.cu``, and score the draws and the truth
+   by the plain likelihood at the exact tier;
 6. hold K1 (the fused MLP) against its plain version, as predict
    (``make_fused_emulate``) and as the direct likelihood's sum of squares
    (``make_fused_loglik``), and K2 (the fused gram value) against its
    plain version, at the flagship widths for batches 1, 37, 8192 and
    65,537 and tiers highest, high and default (K1 runs ``fused_mlp.cu``
    at highest and the tensor-core ``fused_mlp_mma.cu`` at high and
-   default);
+   default; K2 ``fused_loglik_gram.cu`` at highest and
+   ``fused_gram_mma.cu`` at high and default);
 7. time K1 (predict and sumsq) and K2 against their plain versions at
    8192 rows (the MH batch) and 1,048,576 rows (``bench_mcmc.py``'s
-   batch), and print the achieved TFLOP/s;
+   batch), with the kernels' device time per call over back-to-back
+   calls, and print the achieved TFLOP/s;
 8. the gradient-free main path through the public entry points:
    ``sample_posterior(sampler="mh")`` and ``sampler="ensemble"``, whose
-   every proposal batch runs K2, then the draws' likelihoods through
-   ``loglik_fn(method="direct", backend="kernel")`` at the exact tier
-   (``precision="contract"``: ``fused_mlp.cu``) and at bf16x3
-   (``precision="high"``: ``fused_mlp_mma.cu``), the bf16x3 scores held
-   to the exact ones by ``bench_mcmc.py``'s likelihood gate.
+   every proposal batch runs K2 at high (``fused_gram_mma.cu``), then
+   the draws' likelihoods through ``loglik_fn(method="direct",
+   backend="kernel")`` at the exact tier (``precision="contract"``:
+   ``fused_mlp.cu``) and at bf16x3 (``precision="high"``:
+   ``fused_mlp_mma.cu``), the bf16x3 scores held to the exact ones by
+   ``bench_mcmc.py``'s likelihood gate, and through the gram form at the
+   exact tier (K2 on ``fused_loglik_gram.cu``), held to the direct form.
 
-Then one JSON line listing every kernel, the card's name and power
-limit, and a last line
+Then one JSON line listing every kernel with its time, its plain
+version's and its bound, the card's name and power limit, and a last
+line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line; it also exits non-zero, with
 no result, where no CUDA device is present.
@@ -49,6 +59,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +93,7 @@ K2_SOURCE = KERNELS + "fused_loglik_gram.cu"
 K2_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:204"
 K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"
 K3_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:401"
+GRAM_MMA_SOURCE = KERNELS + "fused_gram_mma.cu"  # K2 and K3 at the bf16 tiers
 TIERS = ("highest", "high", "default")
 TIER_PAIRS = (("highest", "highest"), ("high", "high"), ("high", "default"))
 MAIN_TIERS = ("high", "default")  # what sample_posterior runs K3 at
@@ -117,6 +129,9 @@ TIMING_ROWS = ((8192, 20), (1_048_576, 3))  # (rows, repeats)
 MH_WALKERS, MH_WARMUP, MH_STEPS = 8192, 200, 500  # bench_mcmc's MH batch, JAX defaults
 ENS_WALKERS, ENS_WARMUP, ENS_STEPS = 8192, 100, 500  # sample_ensemble's JAX defaults
 GRAD_Q999_F32 = 1e-4  # q99.9 of per-row gradient error at (highest, highest)
+# Published dense peaks of one H100 SXM at its 700 W limit: bf16 on the
+# tensor cores, fp32 on the CUDA cores, HBM3 bytes per second.
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def check(ok: bool, what: str):
@@ -167,10 +182,91 @@ def time_ms(fn, repeats: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def kernel_entry(name, source, replaces, launches, err, t) -> dict:
+def stream_ms(fn, calls: int, rounds: int = 3) -> float:
+    """Device time of one call: ``calls`` back-to-back calls between one
+    pair of CUDA events, over ``calls``, the median of ``rounds``, after
+    a warmup. Unlike :func:`time_ms` it leaves out the host's time before
+    each launch once the host keeps ahead of the device."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel in an anonymous
+    namespace (``_ZN<len><namespace><len><name>I…E``), else ``mangled``."""
+    found = re.match(r"_ZN(\d+)", mangled)
+    if not found:
+        return mangled
+    rest = mangled[found.end() + int(found.group(1)):]
+    found = re.match(r"(\d+)", rest)
+    if not found:
+        return mangled
+    end = found.end() + int(found.group(1))
+    args = re.match(r"I((?:L[a-z]-?\d+E)+)E", rest[end:])
+    values = re.findall(r"L[a-z](-?\d+)E", args.group(1)) if args else []
+    return rest[found.end():end] + (f"<{','.join(values)}>" if values else "")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill-store bytes of every kernel in a ``ptxas -v``
+    log, by :func:`kernel_name`."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+            report[name] = {}
+        elif name and "spill stores" in line:
+            report[name]["spill_store_bytes"] = int(line.split("bytes spill stores")[0]
+                                                    .split(",")[-1])
+        elif name and "registers" in line:
+            report[name]["registers"] = int(line.split("Used ")[1].split(" ")[0])
+    return report
+
+
+def bound(kernel, widths, n, tier, grad_tier=None):
+    """The least time (ms) an H100 could take for one call on ``n`` rows
+    and what bounds it: the larger of the bytes the call must move (the
+    rows in, the results out, the weights as the kernel reads them, each
+    once) over the HBM rate, and its products over the peak rate of
+    their type (bf16x3: three bf16 products each; the skinny layer and
+    the fp32 tier on the CUDA cores). ``widths``: K1's layer sizes, or
+    K2's and K3's trunk (n_in, hidden…) with the gram head H×H."""
+    dense = [a * b for a, b in zip(widths[1:-1], widths[2:])]
+    skinny = widths[0] * widths[1]
+    products = {"k1": [(sum(dense), tier)],
+                "k2": [(sum(dense) + widths[-1] ** 2, tier)],
+                "k3": [(sum(dense) + widths[-1] ** 2, tier), (sum(dense), grad_tier)]}[kernel]
+    bf16 = sum(2 * p * {"bf16x3": 3, "bf16": 1, "f32": 0}[t] for p, t in products)
+    f32 = sum(2 * p for p, t in products if t == "f32")
+    f32 += 2 * skinny * (2 if kernel == "k3" else 1)
+    weights = sum(p * {"bf16x3": 4, "bf16": 2, "f32": 4}[t] for p, t in products)
+    weights += 4 * (skinny + sum(widths[1:]))
+    out = {"k1": 4, "k2": 4, "k3": 4 + 4 * widths[0]}[kernel]
+    t_bytes = (weights + n * (4 * widths[0] + out)) / PEAK_BYTES
+    t_ops = n * (bf16 / PEAK_BF16 + f32 / PEAK_F32)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def kernel_entry(name, source, replaces, launches, err, t, bound_ms) -> dict:
+    """One entry of the kernels line; no single PyTorch call computes a
+    whole folded network with its gram head or backward, so library_ms
+    is null."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["kernel_ms"],
-            "plain_ms": t["plain_ms"]}
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
+            "library_ms": None}
 
 
 def trunk_flops(widths) -> int:
@@ -186,6 +282,7 @@ def value_kernels(model, obs, tier, dev):
                                precision=tier, device=dev)
     gram = make_fused_loglik_gram(model.config, model.normalizer, obs, NOISE_VAR,
                                   precision=tier, device=dev)
+    check(gram.tensor_cores == (tier != "highest"), f"K2 route at {tier}")
     ops_e, ops_d = emulate.operands(model.params), direct.mlp.operands(model.params)
     ops_g = gram.operands(model.params)
     return {
@@ -201,9 +298,10 @@ def value_kernels_vs_plain(model, obs, rng, dev):
     """Phase 6: K1 (predict, sumsq) and K2 against their plain versions.
     Returns the largest |Δ logL| of K1's sumsq at the contract tier
     (``fused_mlp.cu``) and at bf16x3 (``fused_mlp_mma.cu``) and of K2 at
-    bf16x3 (the tiers of the main path), in nats."""
+    the contract tier (``fused_loglik_gram.cu``) and at bf16x3
+    (``fused_gram_mma.cu``), the tiers of the main path, in nats."""
     report = {}
-    k1_err = k1_mma_err = k2_err = 0.0
+    k1_err = k1_mma_err = k2_err = k2_mma_err = 0.0
     for tier in TIERS:
         pairs, half_c = value_kernels(model, obs, tier, dev)
         for n in (1, 37, 8192, 65537):
@@ -230,13 +328,14 @@ def value_kernels_vs_plain(model, obs, rng, dev):
                 entry[f"{key}_worst_over_tol"] = float((dv / tol).max())
             if tier == "highest":
                 k1_err = max(k1_err, entry["k1_sumsq_max_abs"])
+                k2_err = max(k2_err, entry["k2_max_abs"])
             if tier == "high":
                 k1_mma_err = max(k1_mma_err, entry["k1_sumsq_max_abs"])
-                k2_err = max(k2_err, entry["k2_max_abs"])
+                k2_mma_err = max(k2_mma_err, entry["k2_max_abs"])
             report[f"{tier}/{n}"] = entry
     print("phase 6: K1 and K2 == plain within tolerance at every batch and tier "
           + json.dumps(report), flush=True)
-    return k1_err, k1_mma_err, k2_err
+    return k1_err, k1_mma_err, k2_err, k2_mma_err
 
 
 def time_value_kernels(model, obs, rng, dev) -> dict:
@@ -258,8 +357,10 @@ def time_value_kernels(model, obs, rng, dev) -> dict:
                          for fn in (lambda: plain(x), lambda: kernel(x),
                                     lambda: kernel(x), lambda: plain(x))]
                 kernel_ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+                with torch.no_grad():
+                    device_ms = stream_ms(lambda: kernel(x), repeats)
                 timings[f"{key}/{tier}/{n}"] = {
-                    "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                    "kernel_ms": kernel_ms, "kernel_stream_ms": device_ms, "plain_ms": plain_ms,
                     "kernel_tflops": flops[key] * n / kernel_ms / 1e9,
                     "plain_tflops": flops[key] * n / plain_ms / 1e9,
                 }
@@ -276,14 +377,17 @@ def gradient_free_main_path(model, truth, obs, dev):
     the direct likelihood (K1) at the exact tier (``fused_mlp.cu``) and
     at bf16x3 (``fused_mlp_mma.cu``), the bf16x3 scores under the
     likelihood gate against the exact ones. Returns the launch counts of
-    these runs: K1 exact, K1 bf16x3, K2."""
+    these runs: K1 exact, K1 bf16x3, K2 exact, K2 bf16x3."""
     k2 = model.loglik_fn(obs, NOISE_VAR, backend="kernel")
     k1 = model.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract",
                          backend="kernel")
     k1_mma = model.loglik_fn(obs, NOISE_VAR, method="direct", precision="high",
                              backend="kernel")
+    k2_exact = model.loglik_fn(obs, NOISE_VAR, precision="contract", backend="kernel")
+    check(k2.fused.tensor_cores and not k2_exact.fused.tensor_cores, "K2 routes")
+    half_c = 0.5 * abs(float(k2_exact.fused.operands(model.params).c))
     out = {}
-    k1_launches = k1_mma_launches = k2_launches = 0
+    k1_launches = k1_mma_launches = k2_launches = k2_exact_launches = 0
     for sampler, kw in (
         ("mh", dict(n_walkers=MH_WALKERS, n_warmup=MH_WARMUP, n_steps=MH_STEPS)),
         ("ensemble", dict(n_walkers=ENS_WALKERS, n_warmup=ENS_WARMUP, n_steps=ENS_STEPS)),
@@ -311,19 +415,27 @@ def gradient_free_main_path(model, truth, obs, dev):
         else:
             check(0.05 <= acc <= 0.95, f"ensemble: mean acceptance {acc:.3f}")
         flat = res.flat
-        k1.launches = k1_mma.launches = 0
+        k1.launches = k1_mma.launches = k2_exact.launches = 0
         with torch.no_grad():
             draws = torch.as_tensor(flat, device=dev)
             ll_draws = k1(model.params, draws).cpu().numpy()
             ll_truth = float(k1(model.params, torch.as_tensor(truth, dtype=torch.float32,
                                                               device=dev))[0])
             ll_high = k1_mma(model.params, draws).cpu().numpy()
+            ll_gram = k2_exact(model.params, draws).cpu().numpy()
         torch.cuda.synchronize()
         k1_launches += k1.launches
         k1_mma_launches += k1_mma.launches
         k2_launches += launches
+        k2_exact_launches += k2_exact.launches
         check(k1.launches == 2, f"{sampler}: K1 launches {k1.launches} != 2")
         check(k1_mma.launches == 1, f"{sampler}: K1 bf16x3 launches {k1_mma.launches} != 1")
+        check(k2_exact.launches == 1, f"{sampler}: K2 exact launches {k2_exact.launches} != 1")
+        # the gram form (K2) against the direct form (K1), both at the exact
+        # tier, on the same draws: the fold's cancellation scale, as phase 6
+        gram_tol = VALUE_RTOL["highest"] * (np.abs(ll_draws) + half_c) + VALUE_ATOL
+        gram_worst = float((np.abs(ll_gram - ll_draws) / gram_tol).max())
+        check(gram_worst <= 1.0, f"{sampler}: exact gram vs direct, worst |Δ|/tol {gram_worst:.3g}")
         check(bool(np.isfinite(ll_draws).all() and np.isfinite(ll_high).all()),
               f"{sampler}: finite draw likelihoods")
         # bf16x3 against the exact tier on the same draws: bench_mcmc.py's
@@ -346,6 +458,8 @@ def gradient_free_main_path(model, truth, obs, dev):
         out[sampler] = {
             "wall_s": wall, "k2_launches": launches, "k1_launches": k1.launches,
             "k1_bf16x3_launches": k1_mma.launches, "bf16x3_gate_violation": gate,
+            "k2_exact_launches": k2_exact.launches, "exact_gram_vs_direct_worst_over_tol":
+            gram_worst,
             "bf16x3_max_abs_dlogl": float(np.abs(ll_high - ll_draws).max()),
             "accept": acc, "step_size": res.step_size,
             "rhat_max": float(res.rhat().max()),
@@ -357,7 +471,7 @@ def gradient_free_main_path(model, truth, obs, dev):
             "share_far_below_minus_1000": float(np.mean(ll_draws < -1000.0)),
         }
     print("phase 8: " + json.dumps(out), flush=True)
-    return k1_launches, k1_mma_launches, k2_launches
+    return k1_launches, k1_mma_launches, k2_exact_launches, k2_launches
 
 
 def main() -> int:
@@ -383,6 +497,8 @@ def main() -> int:
     _build.load_library()
     print(f"phase 2: built {os.path.relpath(lib_path, ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with open(_build.ptxas_log_path(lib_path)) as fh:
+        print("phase 2: ptxas " + json.dumps(ptxas_report(fh.read())), flush=True)
 
     dev = torch.device("cuda")
     model = DirectEmulator.from_checkpoint(CHECKPOINT, device=dev)
@@ -400,8 +516,10 @@ def main() -> int:
     }
     report = {}
     main_err = None
+    k3_f32_err = 0.0
     for tiers, fn in wrappers.items():
         ops = fn.operands(model.params)
+        check(fn.tensor_cores == (tiers != ("highest", "highest")), f"K3 route at {tiers}")
         for n in (1, 37, 4096, 65537):
             x = rows(n, rng)
             vk, gk = fn(model.params, x)
@@ -422,6 +540,7 @@ def main() -> int:
             check(gate <= 0.0, f"gradient gate {tiers} n={n}: {gate:.3g}")
             if tiers == ("highest", "highest"):
                 check(q999 <= GRAD_Q999_F32, f"gradient q99.9 {tiers} n={n}: {q999:.3g}")
+                k3_f32_err = max(k3_f32_err, float(dv.max()))
             report[f"{tiers[0]}/{tiers[1]}/{n}"] = {
                 "value_max_abs": float(dv.max()),
                 "value_worst_over_tol": float((dv / tol).max()),
@@ -444,6 +563,7 @@ def main() -> int:
             plain_ms = time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats)
             timings[f"{tiers[0]}/{tiers[1]}/{n}"] = {
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "kernel_stream_ms": stream_ms(lambda: fn(model.params, x), repeats),
             }
     torch.cuda.synchronize()
     print(f"phase 4: median ms per call {json.dumps(timings)}", flush=True)
@@ -477,6 +597,7 @@ def main() -> int:
     check(model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel",
                                    grad_precision=MAIN_TIERS[1]) is valgrad,
           "sample_posterior used the memoized K3 wrapper")
+    check(valgrad.tensor_cores, "HMC's K3 runs fused_gram_mma.cu")
     check(launches >= n_warmup + n_steps,
           f"K3 launches {launches} < {n_warmup + n_steps}")
     check(bool(np.isfinite(res.chain).all() and np.isfinite(res.logp).all()),
@@ -516,21 +637,31 @@ def main() -> int:
     }), flush=True)
 
     # -- phases 6-8: the value kernels and the gradient-free samplers -------
-    k1_err, k1_mma_err, k2_err = value_kernels_vs_plain(model, obs, rng, dev)
+    k1_err, k1_mma_err, k2_err, k2_mma_err = value_kernels_vs_plain(model, obs, rng, dev)
     value_t = time_value_kernels(model, obs, rng, dev)
-    k1_launches, k1_mma_launches, k2_launches = gradient_free_main_path(model, truth, obs, dev)
+    k1_launches, k1_mma_launches, k2_launches, k2_mma_launches = gradient_free_main_path(
+        model, truth, obs, dev)
 
-    main_t = timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"]
-    k1_t = value_t["k1_sumsq/highest/1048576"]  # the tier and scale K1 scores draws at
-    k1_mma_t = value_t["k1_sumsq/high/1048576"]
-    k2_t = value_t["k2/high/8192"]  # what MH runs K2 at
+    # each kernel at the tier and the scale nearest to its main-path use;
+    # the fp32 K3 runs on no sampler's path at its default tiers (HMC runs
+    # K3 on fused_gram_mma.cu), so it shows no launches
+    big = 1_048_576
+    k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
     print(json.dumps({"kernels": [
-        kernel_entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err, k1_t),
+        kernel_entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
+                     value_t[f"k1_sumsq/highest/{big}"], bound("k1", k1_sizes, big, "f32")),
         kernel_entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
-                     k1_mma_t),
-        kernel_entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES, k2_launches, k2_err, k2_t),
-        kernel_entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, launches, main_err,
-                     main_t),
+                     value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3")),
+        kernel_entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES, k2_launches, k2_err,
+                     value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32")),
+        kernel_entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES, k2_mma_launches,
+                     k2_mma_err, value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3")),
+        kernel_entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
+                     k3_f32_err, timings["highest/highest/65536"],
+                     bound("k3", trunk, 65536, "f32", "f32")),
+        kernel_entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES, launches,
+                     main_err, timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
+                     bound("k3", trunk, 4096, "bf16x3", "bf16")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ import torch
 
 from tpu21cmvae_torch.data.synthetic import synthetic_dataset
 from tpu21cmvae_torch.models.direct import DirectEmulator
+from tpu21cmvae_torch.ops.kernels import fused_loglik
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     loglik_grad_gram_reference,
     loglik_gram_reference,
@@ -77,12 +78,33 @@ def test_k3_matches_plain(cuda, hidden, tiers):
     vp, gp = loglik_grad_gram_reference(ops, x)
     torch.cuda.synchronize()
     assert fn.launches == 1
+    # the bf16 tiers run fused_gram_mma.cu, the fp32 tier fused_loglik_grad_gram.cu
+    on_mma = tiers != ("highest", "highest")
+    assert fn.tensor_cores == on_mma and (ops.packed is not None) == on_mma
     vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
     assert vk.shape == (100,) and gk.shape == (100, 7)
     scale = np.abs(vp) + 0.5 * abs(float(ops.c))
     assert (np.abs(vk - vp) <= 1e-4 * scale + 1e-2).all()
     assert grad_gate_violation(gk, gp) <= 0.0
     assert gk[7, 2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [("high", "highest"), ("highest", "default")])
+def test_k3_mixed_tiers_run_the_cuda_cores(cuda, tiers):
+    """A tier pair with one fp32 tier runs ``fused_loglik_grad_gram.cu``,
+    its bf16 tier split per product on the CUDA cores."""
+    m, obs, data = _model((32, 48, 32, 24), cuda)
+    x = _rows(data, 100, cuda)
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], device=cuda)
+    vk, gk = fn(m.params, x)
+    ops = fn.operands(m.params)
+    vp, gp = loglik_grad_gram_reference(ops, x)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and not fn.tensor_cores and ops.packed is None
+    _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), "high")
+    assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
 
 
 @pytest.mark.cuda
@@ -137,7 +159,82 @@ def test_k2_matches_plain(cuda, hidden, tier):
     vp = loglik_gram_reference(ops, x)
     torch.cuda.synchronize()
     assert fn.launches == 1 and vk.shape == (100,)
+    # the bf16 tiers run fused_gram_mma.cu, the fp32 tier fused_loglik_gram.cu
+    on_mma = tier != "highest"
+    assert fn.tensor_cores == on_mma and (ops.packed is not None) == on_mma
     _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), tier)
+
+
+def _gram_kernels(m, obs, dev):
+    """K3 at (high, high) and (high, default) and K2 at high and default:
+    every pair of tiers that runs ``fused_gram_mma.cu``."""
+    k3 = [make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision="high",
+                                      grad_precision=g, device=dev) for g in ("high", "default")]
+    k2 = [make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=t, device=dev)
+          for t in ("high", "default")]
+    assert all(fn.tensor_cores for fn in k3 + k2)
+    return k3, k2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", WIDTHS)
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 32, 33, 100])
+def test_k3_k2_tensor_cores_pad_and_mask(cuda, hidden, n):
+    """The tensor-core K3 and K2 (``fused_gram_mma.cu``) at hidden widths
+    that need padding (24, 40, 48), a trunk of the skinny layer alone and
+    the flagship's, for batches around its 16-row tile, with an fx == 0
+    row: values within the tier's tolerance, gradients under the gate."""
+    m, obs, data = _model(hidden, cuda)
+    x = _rows(data, n, cuda)
+    k3, k2 = _gram_kernels(m, obs, cuda)
+    for fn in k3:
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(fn.operands(m.params), x)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and vk.shape == (n,) and gk.shape == (n, 7)
+        vk, gk = vk.cpu().numpy(), gk.cpu().numpy()
+        assert np.isfinite(vk).all() and np.isfinite(gk).all()
+        _close_values(vk, vp.cpu().numpy(), float(fn.operands(m.params).c), "high")
+        assert grad_gate_violation(gk, gp.cpu().numpy()) <= 0.0
+        assert gk[7 % n, 2] == 0.0
+    for fn, tier in zip(k2, ("high", "default")):
+        vk = fn(m.params, x)
+        vp = loglik_gram_reference(fn.operands(m.params), x)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and vk.shape == (n,)
+        assert np.isfinite(vk.cpu().numpy()).all()
+        _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(fn.operands(m.params).c), tier)
+
+
+@pytest.mark.cuda
+def test_k3_k2_tensor_cores_single_row_equals_batch_row(cuda):
+    """A row's value and gradient do not depend on its place in the tile:
+    one row alone equals the same row inside a batch of 100, bit for
+    bit, at the flagship widths."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    x = _rows(data, 100, cuda)
+    k3, k2 = _gram_kernels(m, obs, cuda)
+    for fn in k3 + k2:
+        batch = fn(m.params, x)
+        for i in (0, 7, 45, 99):
+            one = fn(m.params, x[i])
+            for a, b in zip(one if fn in k3 else (one,), batch if fn in k3 else (batch,)):
+                np.testing.assert_array_equal(a.cpu().numpy()[0], b.cpu().numpy()[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K2"])
+def test_k3_k2_tensor_cores_refused_launch_raises(cuda, monkeypatch, kernel):
+    """A launch the C entry point refuses raises with its CUDA error
+    string; nothing falls back to the CUDA-core kernel or the plain
+    version."""
+    m, obs, data = _model((32, 48, 32, 24), cuda)
+    k3, k2 = _gram_kernels(m, obs, cuda)
+    fn = k3[0] if kernel == "K3" else k2[0]
+    x = _rows(data, 5, cuda)
+    monkeypatch.setitem(fused_loglik.TIER_CODE, "bf16x3", 0)  # fp32 is not a tensor-core tier
+    with pytest.raises(RuntimeError, match=f"{kernel} launch failed: invalid argument"):
+        fn(m.params, x)
 
 
 @pytest.mark.cuda

@@ -3,30 +3,67 @@ against the JAX package's Pallas kernel (interpret mode on the CPU), and
 the wrapper's contract. The kernel itself is held to its plain version in
 ``tests/test_torch_cuda.py``, on a CUDA card.
 
+At the bf16 tiers K3 and K2 run ``csrc/fused_gram_mma.cu`` on the tensor
+cores, from operands :func:`pack_gram_operands` packed into ``mma``
+fragments. Here those fragments are read back by the PTX ISA's m16n8k16
+layout, and a pure-torch emulation that computes through them is held to
+the plain versions and to the Pallas K3 and K2.
+
 Tolerances: test_loglik tolerance (``tests/test_loglik.py:468-472``:
 values rtol 2e-4, atol 2e-3·max|v|; gradients rtol 2e-3, atol
 2e-3·max|g|) between two implementations of one tier; the gradient gate
-(``bench_mcmc.py::_grad_gate_violation`` ≤ 0) where the tiers differ.
+(``bench_mcmc.py::_grad_gate_violation`` ≤ 0) where the tiers differ, and
+between the emulation and the plain version, which differ only in fp32
+summation order (values within 1e-5 of |logL| + c/2, the gram form's
+cancellation scale).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_mma import mma_product, unpack
 
 from tpu21cmvae.models.direct import DirectEmulator as JaxEmulator
 from tpu21cmvae.ops.loglik import make_loglik_and_grad as jax_make_loglik_and_grad
+from tpu21cmvae.ops.pallas.fused_loglik import make_fused_loglik_gram as jax_fused_gram
 from tpu21cmvae.utils.config import DirectEmulatorConfig as JaxConfig
 from tpu21cmvae_torch.models.direct import DirectEmulator
+from tpu21cmvae_torch.ops.fold import (
+    _log_clamp,
+    _log_clamp_grad,
+    _split_hi_lo,
+    bf16_round,
+    gram_fold,
+    noise_scale,
+    obs_tensor,
+)
+from tpu21cmvae_torch.ops.kernels._common import MAX_SHARED_BYTES, TIER_CODE
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
+    _kernel,
+    gram_shared_bytes,
+    loglik_grad_gram_reference,
+    loglik_gram_reference,
     make_fused_loglik_grad_gram,
+    make_fused_loglik_gram,
+    pack_gram_operands,
     shared_bytes,
 )
+from tpu21cmvae_torch.ops.mlp import skinny_dense
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 from tpu21cmvae_torch.utils.metrics import grad_gate_violation
 
 SMALL = (32, 48, 32, 24)
+FLAGSHIP = (7, 288, 352, 288, 224)  # (n_in, trunk widths)
+# hidden widths that need padding to 16, a trunk of the skinny layer
+# alone (the gram head is the only mma layer), and the flagship's shape
+# at a quarter of its width
+GRAM_WIDTHS = [SMALL, (40,), (72, 88, 72, 56)]
+# (value tier, backward tier): K3 at two pairs, K2 (no backward) at two tiers
+GRAM_CASES = [("high", "high"), ("high", "default"), ("high", None), ("default", None)]
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +167,7 @@ def test_wrapper_rejects_bad_inputs(pair):
         make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=SMALL, activation="tanh"),
                                     tm.normalizer, obs, device="cpu")
     with pytest.raises(NotImplementedError, match="shared memory"):
-        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(1024,) * 3),
+        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(1536,) * 3),
                                     tm.normalizer, obs, device="cpu")
 
 
@@ -150,3 +187,267 @@ def test_operands_cached_until_weights_change(pair):
     finally:
         with torch.no_grad():
             w.div_(1.5)
+
+
+@pytest.fixture(scope="module")
+def port_model(splits):
+    """A randomly initialised port emulator and an observation, per hidden
+    widths."""
+    cache = {}
+
+    def get(hidden):
+        if hidden not in cache:
+            m = DirectEmulator(splits, config=DirectEmulatorConfig(hidden_dims=hidden),
+                               seed=sum(hidden), device="cpu")
+            sig = m.predict(splits.par_test[0])
+            obs = (sig + np.random.default_rng(5).normal(0, 5.0, sig.shape)).astype(np.float32)
+            cache[hidden] = (m, obs)
+        return cache[hidden]
+
+    return get
+
+
+def _wrapper(m, obs, case):
+    tier, grad = case
+    if grad is None:
+        return make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=tier,
+                                      device="cpu")
+    return make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tier,
+                                       grad_precision=grad, device="cpu")
+
+
+def _raw(splits, n=37):
+    raw = np.asarray(splits.par_test[:n], np.float32).copy()
+    raw[5, 2] = 0.0  # the fx == 0 clamp
+    return torch.as_tensor(raw)
+
+
+def _emulate_gram(ops, x, grad=True, active=lambda a: a > 0.0):
+    """``csrc/fused_gram_mma.cu``'s arithmetic in plain torch, through the
+    packed, padded operands: the skinny layer exact, each activation split
+    (bf16x3) or rounded (bf16) once into the next product, the quad from
+    the fp32 ``h``, the ReLU masks from the fp32 activations (``active``),
+    layer 0's backward signal in fp32 into the exact skinny backward;
+    padded columns are carried as zeros. ``(logL, dlogL/dx)``, or ``logL``
+    alone without ``grad`` (K2)."""
+    p = ops.packed
+    h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
+    h = torch.nn.functional.pad(h, (0, -h.shape[1] % 16))
+    acts = [h]
+    for w, b in zip(p.w, p.b):
+        h = torch.relu(mma_product(h, w, ops.tier) + b)
+        acts.append(h)
+    hg = mma_product(h, p.g, ops.tier)
+    value = -0.5 * (torch.sum((hg + 2.0 * p.u) * h, dim=-1) + ops.c) + ops.log_norm
+    if not grad:
+        return value
+    e = torch.where(active(h), hg + p.u, 0.0)
+    for i in range(len(acts) - 1, 0, -1):
+        e = torch.where(active(acts[i - 1]), mma_product(e, p.wt[i - 1], ops.grad_tier), 0.0)
+    e = e[:, : ops.w0.shape[1]] @ ops.w0.T
+    return value, -(_log_clamp_grad(x) * e)
+
+
+def _tier_parts(w, tier):
+    return _split_hi_lo(w) if tier == "bf16x3" else (bf16_round(w),)
+
+
+@pytest.mark.parametrize("hidden", GRAM_WIDTHS)
+@pytest.mark.parametrize("case", GRAM_CASES)
+def test_gram_packing_unpacks_to_the_tier_parts(port_model, hidden, case):
+    """Read back by the PTX m16n8k16 B layout, the packed operands hold
+    each trunk layer i ≥ 1 and ``G`` at the value tier, and (K3) each
+    ``W_iᵀ`` at the backward tier, zero-padded to multiples of 16; the
+    biases and ``u`` are zero-padded; K2 packs no backward operands."""
+    m, obs = port_model(hidden)
+    tier_name, grad_name = case
+    fn = _wrapper(m, obs, case)
+    ops = fn.operands(m.params)
+    assert fn.tensor_cores and ops.packed is not None
+    trunk, G, u, _ = gram_fold(m.params, m.normalizer, obs_tensor(obs, 451, device="cpu"),
+                               noise_scale(25.0, 451, device="cpu"))
+    p = ops.packed
+
+    def check(packed, w, tier):
+        k, n = w.shape
+        got = unpack(packed)
+        assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+        assert got.shape[1:] == (-(-k // 16) * 16, -(-n // 16) * 16)
+        for part, want in zip(got, _tier_parts(w, tier), strict=True):
+            assert torch.equal(part[:k, :n], want)
+        assert not got[:, k:].any() and not got[:, :, n:].any()
+
+    assert len(p.w) == len(p.b) == len(hidden) - 1
+    assert len(p.wt) == (0 if grad_name is None else len(hidden) - 1)
+    for i, layer in enumerate(trunk[1:]):
+        check(p.w[i], layer["w"], ops.tier)
+        n = layer["b"].shape[0]
+        assert torch.equal(p.b[i][:n], layer["b"]) and not p.b[i][n:].any()
+        if grad_name is not None:
+            check(p.wt[i], layer["w"].T, ops.grad_tier)
+    check(p.g, G, ops.tier)
+    h = hidden[-1]
+    assert p.u.shape == (-(-h // 16) * 16,)
+    assert torch.equal(p.u[:h], u) and not p.u[h:].any()
+
+
+@pytest.mark.parametrize("hidden", GRAM_WIDTHS)
+@pytest.mark.parametrize("case", GRAM_CASES)
+def test_gram_mma_emulation_matches_plain(port_model, splits, hidden, case):
+    """Through the packed, padded operands, the tensor-core arithmetic
+    equals :func:`loglik_grad_gram_reference` (K3) or
+    :func:`loglik_gram_reference` (K2), which multiply the unpadded
+    operands in one matmul: they differ only in fp32 summation order, so
+    the values agree within 1e-5 of |logL| + c/2 and the gradients pass
+    the gradient gate (37 rows, one with fx == 0)."""
+    m, obs = port_model(hidden)
+    ops = _wrapper(m, obs, case).operands(m.params)
+    x = _raw(splits)
+    scale = lambda v: v.abs() + 0.5 * abs(float(ops.c))  # noqa: E731
+    if case[1] is None:
+        got, want = _emulate_gram(ops, x, grad=False), loglik_gram_reference(ops, x)
+    else:
+        (got, g), (want, gp) = _emulate_gram(ops, x), loglik_grad_gram_reference(ops, x)
+        assert g.shape == (37, 7) and torch.isfinite(g).all()
+        assert grad_gate_violation(g.numpy(), gp.numpy()) <= 0.0
+        assert g[5, 2] == 0.0
+    assert got.shape == (37,) and torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 1e-5 * scale(want)).all())
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K2"])
+def test_gram_mma_emulation_matches_pallas(pair, kernel):
+    """The emulation at bf16x3 against the JAX package's Pallas K3 and K2
+    (interpret mode), at ``test_plain_k3_matches_pallas_k3``'s network
+    and tolerance."""
+    jm, tm, obs, raw = pair
+    x = torch.as_tensor(raw)
+    if kernel == "K3":
+        vj, gj = _pallas(pair, ("high", "high"))
+        fn = make_fused_loglik_grad_gram(tm.config, tm.normalizer, obs, 25.0, precision="high",
+                                         grad_precision="high", device="cpu")
+        vt, gt = (t.numpy() for t in _emulate_gram(fn.operands(tm.params), x))
+        np.testing.assert_allclose(gt, gj, rtol=2e-3, atol=2e-3 * np.abs(gj).max())
+    else:
+        vj = np.asarray(jax_fused_gram(jm.config, jm.normalizer, obs, 25.0, precision="high",
+                                       block_rows=40, interpret=True)(jm.params,
+                                                                      jnp.asarray(raw)))
+        fn = make_fused_loglik_gram(tm.config, tm.normalizer, obs, 25.0, precision="high",
+                                    device="cpu")
+        vt = _emulate_gram(fn.operands(tm.params), x, grad=False).numpy()
+    np.testing.assert_allclose(vt, vj, rtol=2e-4, atol=2e-3 * np.abs(vj).max())
+
+
+def test_gram_masks_follow_the_fp32_activations(port_model, splits):
+    """A tiny positive activation (a subnormal whose ``hi()`` and
+    ``bf16_rn()`` are both 0) is active for the backward: the plain
+    version and the emulation take the ReLU mask from fp32 and pass its
+    gradient, which a mask taken from the split tile would drop."""
+    m, obs = port_model(SMALL)
+    ops = _wrapper(m, obs, ("high", "high")).operands(m.params)
+    j = 3  # layer 0's column j becomes x[:, 6] + 1e-44 (column 6 is not log-clamped)
+    w0 = ops.w0.clone()
+    w0[:, j] = 0.0
+    w0[6, j] = 1.0
+    b0 = ops.b0.clone()
+    b0[j] = 1e-44
+    ops = dataclasses.replace(ops, w0=w0, b0=b0)
+    ops = dataclasses.replace(ops, packed=pack_gram_operands(ops))
+    x = _raw(splits)
+    x[:, 6] = 0.0
+    a0 = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))[:, j]
+    assert (a0 > 0).all() and not _split_hi_lo(a0)[0].any() and not bf16_round(a0).any()
+    _, want = loglik_grad_gram_reference(ops, x)
+    _, got = _emulate_gram(ops, x)
+    _, split = _emulate_gram(ops, x, active=lambda a: _split_hi_lo(a)[0] > 0.0)
+    assert grad_gate_violation(got.numpy(), want.numpy()) <= 0.0
+    # the split mask drops e_j · w0[6, j] = e_j from every row's dx[:, 6]
+    gap = (split - want)[:, 6].abs()
+    assert bool((gap > 1e-2 * want[:, 6].abs()).all())
+    assert bool(((got - want)[:, 6].abs() <= 1e-4 * want[:, 6].abs() + 1e-6).all())
+    assert torch.equal(split[:, :6], got[:, :6])  # only column 6 reads activation j
+
+
+def test_gram_shared_bytes_and_routing(port_model):
+    """``fused_loglik_grad_gram.cu`` and ``fused_loglik_gram.cu`` (any
+    fp32 tier) keep fp32 tiles of 16 rows; ``fused_gram_mma.cu`` (every
+    tier bf16 or bf16x3) bf16 A tiles of 16 rows, hi and lo where either
+    tier is bf16x3, with rows padded to the widest padded trunk width +
+    8, an fp32 tile of h (K3: and of layer 0's backward signal), K3's
+    mask words, the input tile and the quad partials. Each wrapper
+    routes, packs and refuses by the kernel its tiers run."""
+    f32 = 4 * 16 * (sum(FLAGSHIP) + 224)
+    assert shared_bytes(FLAGSHIP) == shared_bytes(FLAGSHIP, "bf16x3", "f32") == f32
+    tail = 4 * 16 * (7 + 8)  # input tile, quad partials
+    k3 = 4 * 16 * (288 + 8) + 4 * (288 + 352 + 288) + tail
+    assert shared_bytes(FLAGSHIP, "bf16x3", "bf16") == 2 * 2 * 2 * 16 * 360 + k3 == 69_696
+    assert shared_bytes(FLAGSHIP, "bf16", "bf16x3") == 69_696
+    assert shared_bytes(FLAGSHIP, "bf16", "bf16") == 2 * 2 * 16 * 360 + k3
+    assert gram_shared_bytes(FLAGSHIP) == 4 * 16 * (7 + 2 * 352)
+    assert gram_shared_bytes(FLAGSHIP, "bf16x3") == 2 * 2 * 2 * 16 * 360 + 4 * 16 * 232 + tail
+    assert gram_shared_bytes(FLAGSHIP, "bf16x3") == 61_888
+    assert gram_shared_bytes(FLAGSHIP, "bf16") == 2 * 2 * 16 * 360 + 4 * 16 * 232 + tail
+    # the skinny layer alone: the gram head's input is the widest, 40 → 48
+    assert shared_bytes((7, 40), "bf16x3", "bf16x3") == 2 * 2 * 2 * 16 * 56 + 4 * 16 * 56 + tail
+
+    m, obs = port_model(SMALL)
+    for case in [("highest", "highest"), ("high", "highest"), ("highest", "high"),
+                 *GRAM_CASES, ("highest", None)]:
+        fn = _wrapper(m, obs, case)
+        on_mma = "highest" not in case
+        assert fn.tensor_cores == on_mma
+        assert (fn.operands(m.params).packed is not None) == on_mma
+    wide = DirectEmulatorConfig(hidden_dims=(1500,))  # fits the fp32 and bf16 tiles only
+    assert shared_bytes((7, 1500), "bf16x3", "bf16x3") > MAX_SHARED_BYTES
+    assert gram_shared_bytes((7, 1500), "bf16x3") > MAX_SHARED_BYTES
+    for precision in ("highest", "default"):
+        make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision=precision, device="cpu")
+        make_fused_loglik_gram(wide, m.normalizer, obs, precision=precision, device="cpu")
+    with pytest.raises(NotImplementedError, match="shared memory per K3 block at the bf16x3"):
+        make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="high", device="cpu")
+    with pytest.raises(NotImplementedError, match="shared memory per K2 block at the bf16x3"):
+        make_fused_loglik_gram(wide, m.normalizer, obs, precision="high", device="cpu")
+
+
+@pytest.mark.parametrize("case", [("highest", None), ("high", None), ("default", None),
+                                  ("highest", "highest"), ("high", "highest"),
+                                  ("highest", "default"), ("high", "high"), ("high", "default")])
+def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
+    """Each tier (pair) reaches one C entry point with the operands in the
+    order its source reads them: ``fused_gram_mma.cu`` the packed
+    fragments (K3: each layer's backward fragments after its bias) and the
+    tier codes; ``fused_loglik_gram.cu``, fp32 alone, the plain fp32
+    operands and no tier code; ``fused_loglik_grad_gram.cu`` every hi/lo
+    part (lo None unless bf16x3) and both tier codes."""
+    m, obs = port_model(SMALL)
+    ops = _wrapper(m, obs, case).operands(m.params)
+    k3 = case[1] is not None
+    entry, tensors, tiers = _kernel(ops, k3)
+    names = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
+    assert tensors[:2] == [ops.w0, ops.b0]
+    if "highest" not in case:
+        p = ops.packed
+        assert entry == ("k3_fused_loglik_grad_gram_mma" if k3 else "k2_fused_loglik_gram_mma")
+        layers = [[w, b, wt] for w, b, wt in zip(p.w, p.b, p.wt)] if k3 else \
+            [[w, b] for w, b in zip(p.w, p.b)]
+        want = [t for layer in layers for t in layer] + [p.g, p.u]
+        assert tiers == [TIER_CODE[t] for t in names]
+    elif not k3:
+        assert entry == "k2_fused_loglik_gram" and tiers == []
+        want = [t for pair in zip(ops.w, ops.b) for t in pair] + [ops.g, ops.u]
+        assert all(t.dtype == torch.float32 for t in tensors)
+    else:
+        assert entry == "k3_fused_loglik_grad_gram"
+        assert tiers == [TIER_CODE[t] for t in names]
+        lo = lambda op, tier: (op[op.shape[0] // 3: 2 * op.shape[0] // 3]  # noqa: E731
+                               if tier == "bf16x3" else None)
+        hi = lambda op, tier: op[: op.shape[0] // 3] if tier == "bf16x3" else op  # noqa: E731
+        want = []
+        for w, b, wt in zip(ops.w, ops.b, ops.wt):
+            want += [hi(w, ops.tier), lo(w, ops.tier), b,
+                     hi(wt, ops.grad_tier), lo(wt, ops.grad_tier)]
+        want += [hi(ops.g, ops.tier), lo(ops.g, ops.tier), ops.u]
+    got = tensors[2:]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)

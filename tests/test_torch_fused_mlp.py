@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_mma import mma_product
+from _torch_mma import unpack as _unpack
 
 from tpu21cmvae.models.direct import DirectEmulator as JaxEmulator
 from tpu21cmvae.ops.mlp import init_mlp
@@ -29,7 +31,7 @@ from tpu21cmvae.ops.pallas import make_fused_emulate as jax_make_fused_emulate
 from tpu21cmvae.ops.pallas import make_fused_mlp as jax_make_fused_mlp
 from tpu21cmvae.utils.config import DirectEmulatorConfig as JaxConfig
 from tpu21cmvae_torch.models.direct import DirectEmulator
-from tpu21cmvae_torch.ops.fold import _log_clamp, _split_hi_lo, bf16_round
+from tpu21cmvae_torch.ops.fold import _log_clamp, _split_hi_lo
 from tpu21cmvae_torch.ops.kernels._common import MAX_SHARED_BYTES
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     fused_mlp_reference,
@@ -218,22 +220,6 @@ def _random_params(sizes, seed):
                  for a, b in zip(sizes[:-1], sizes[1:]))
 
 
-def _unpack(packed: torch.Tensor) -> torch.Tensor:
-    """The (parts, 16·k-steps, 8·n-tiles) weights a packed operand holds,
-    read by the PTX ISA's mma.m16n8k16 B-fragment layout (bf16, ``.col``):
-    lane 4·groupID + tig holds rows 2·tig, 2·tig + 1 (register b0) and
-    2·tig + 8, 2·tig + 9 (b1) of column groupID, the lower row in the
-    lower half of each 32-bit register."""
-    n_tiles, k_steps, lanes, parts, q = packed.shape
-    t, s, lane, p, q = np.meshgrid(*map(np.arange, packed.shape), indexing="ij")
-    rows = 16 * s + 2 * (lane % 4) + np.array([0, 1, 8, 9])[q]
-    cols = 8 * t + lane // 4
-    out = np.full((parts, 16 * k_steps, 8 * n_tiles), np.nan, np.float32)
-    out[p, rows, cols] = packed.float().numpy()
-    assert not np.isnan(out).any()  # every weight slot is in some fragment
-    return torch.as_tensor(out)
-
-
 def _emulate_mma(ops, x):
     """``csrc/fused_mlp_mma.cu``'s arithmetic in plain torch, through the
     packed, padded operands: each activation split (bf16x3) or rounded
@@ -245,13 +231,7 @@ def _emulate_mma(ops, x):
         if i == 0 and ops.skinny:
             h = skinny_dense(h, w, b)
         else:
-            wp = _unpack(w)
-            a = torch.nn.functional.pad(h, (0, wp.shape[1] - h.shape[1]))
-            if ops.tier == "bf16x3":
-                hi, lo = _split_hi_lo(a)
-                h = hi @ wp[0] + hi @ wp[1] + lo @ wp[0] + b
-            else:
-                h = bf16_round(a) @ wp[0] + b
+            h = mma_product(h, w, ops.tier) + b
         if i < last:
             h = torch.relu(h)
     h = h[:, : ops.widths[-1]]

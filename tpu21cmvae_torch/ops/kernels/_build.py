@@ -7,7 +7,8 @@ once, and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The library
 lands in ``build/tpu21cmvae_torch/`` at the root of the checkout, named
 by a hash of the sources, headers and flags, so an edited source
-rebuilds and an unchanged one loads the library already there. Nothing
+rebuilds and an unchanged one loads the library already there; beside
+it, ``ptxas``'s report of every kernel's registers and spills. Nothing
 here runs at import time.
 """
 
@@ -63,18 +64,25 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libt21kernels-{h.hexdigest()[:16]}.so")
 
 
-def _run_all(commands):
-    """Start every command at once; raise with the stderr of the first
-    that fails."""
+def ptxas_log_path(lib: str) -> str:
+    """Where ``ptxas -v``'s report for the library ``lib`` lives."""
+    return lib + ".ptxas.txt"
+
+
+def _run_all(commands) -> str:
+    """Start every command at once; raise with the stderr of the ones
+    that fail, else return their stderr joined."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for cmd in commands]
-    failed = []
+    failed, logs = [], []
     for cmd, proc in zip(commands, procs):
         _, err = proc.communicate()
+        logs.append(err)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{err}")
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return "".join(logs)
 
 
 def build() -> str:
@@ -91,10 +99,12 @@ def build() -> str:
         for src in _files(".cu"):
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             objects.append(obj)
-            compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
-        _run_all(compiles)
+            compiles.append([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, src])
+        report = _run_all(compiles)
         lib = os.path.join(tmp, "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]])
+        with open(ptxas_log_path(out), "w") as fh:
+            fh.write(report)
         os.replace(lib, out)
     return out
 
@@ -109,10 +119,14 @@ def load_library() -> ctypes.CDLL:
     lib.k1_fused_mlp.restype = i
     lib.k1_fused_mlp_mma.argtypes = [p, p, i, i, p, p, i, i, i, p]
     lib.k1_fused_mlp_mma.restype = i
-    lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, i, p]
+    lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, p]
     lib.k2_fused_loglik_gram.restype = i
     lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, i, i, p]
     lib.k3_fused_loglik_grad_gram.restype = i
+    lib.k2_fused_loglik_gram_mma.argtypes = [p, p, i, i, p, p, i, p]
+    lib.k2_fused_loglik_gram_mma.restype = i
+    lib.k3_fused_loglik_grad_gram_mma.argtypes = [p, p, p, i, i, p, p, i, i, p]
+    lib.k3_fused_loglik_grad_gram_mma.restype = i
     lib.t21_error_string.argtypes = [i]
     lib.t21_error_string.restype = ctypes.c_char_p
     return lib

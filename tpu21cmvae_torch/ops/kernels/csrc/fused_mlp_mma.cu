@@ -67,23 +67,22 @@
 // flagship, bf16x3, 32 rows (two CTAs per SM). wgmma, TMA and warp
 // specialisation are left for later work.
 //
+// The tensor-core layer, the split-once stores and the skinny layer are
+// in mma.cuh, which K2 and K3 at their bf16 tiers (fused_gram_mma.cu)
+// share; this file holds K1's epilogues.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
 #include <algorithm>
 #include <cstdint>
 
-#include "trunk.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kMmaWarps = 8;
-constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kTileRows = 32;  // rows per CTA
 constexpr int kMTiles = kTileRows / 16;
-constexpr int kNTiles = 4;      // n8 tiles a warp carries at once
-
-enum MmaEpilogue : int { kHidden = 0, kPredict = 1, kSumsq = 2 };
 
 struct MmaNet {
   int n_layers;
@@ -95,192 +94,6 @@ struct MmaNet {
   const uint32_t* w[kMaxLayers];  // packed B fragments; fp32 (n_in, width[1]) if skinny
   const float* b[kMaxLayers];     // padded to a multiple of 16; exact if skinny
 };
-
-__device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(at));
-}
-
-// d += a · b on the tensor cores: a 16×16 (row), b 16×8 (col), fp32 d.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One lane's B fragment words: (b0, b1) of w_hi, then of w_lo at bf16x3.
-template <int PARTS>
-__device__ __forceinline__ void load_b(uint32_t (&b)[2 * PARTS], const uint32_t* p) {
-  if constexpr (PARTS == 2) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    b[0] = v.x;
-    b[1] = v.y;
-    b[2] = v.z;
-    b[3] = v.w;
-  } else {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    b[0] = v.x;
-    b[1] = v.y;
-  }
-}
-
-// An activation into a layer's input tile(s), split (bf16x3) or rounded
-// (bf16) once: hi at tile[at], lo at tile[at + tile_elems].
-template <int PARTS>
-__device__ __forceinline__ void store_one(__nv_bfloat16* tile, int tile_elems, int at, float v) {
-  if constexpr (PARTS == 2) {
-    const float h = hi_part(v);
-    tile[at] = __float2bfloat16_rn(h);
-    tile[at + tile_elems] = __float2bfloat16_rn(v - h);
-  } else {
-    tile[at] = __float2bfloat16_rn(v);
-  }
-}
-
-// Two neighbouring columns at once (at even).
-template <int PARTS>
-__device__ __forceinline__ void store_pair(__nv_bfloat16* tile, int tile_elems, int at, float v0,
-                                           float v1) {
-  if constexpr (PARTS == 2) {
-    const float h0 = hi_part(v0);
-    const float h1 = hi_part(v1);
-    *reinterpret_cast<__nv_bfloat162*>(tile + at) = __floats2bfloat162_rn(h0, h1);
-    *reinterpret_cast<__nv_bfloat162*>(tile + at + tile_elems) =
-        __floats2bfloat162_rn(v0 - h0, v1 - h1);
-  } else {
-    *reinterpret_cast<__nv_bfloat162*>(tile + at) = __floats2bfloat162_rn(v0, v1);
-  }
-}
-
-// The skinny first layer, exact fp32 FMA in fused_mlp.cu's order, from
-// the fp32 input tile xl (rows × n_in, row-major) into the next tile;
-// columns n_out .. pad16(n_out) are written as 0.
-template <int PARTS>
-__device__ void skinny_layer(const float* xl, int rows, int n_in, const float* __restrict__ w0,
-                             const float* __restrict__ b0, int n_out, __nv_bfloat16* out,
-                             int tile_elems, int stride) {
-  const int np = pad16(n_out);
-  for (int t = threadIdx.x; t < rows * np; t += blockDim.x) {
-    const int r = t / np;
-    const int j = t % np;
-    float v = 0.f;
-    if (j < n_out) {
-      float acc = 0.f;
-      for (int c = 0; c < n_in; ++c) acc = fmaf(xl[r * n_in + c], __ldg(w0 + c * n_out + j), acc);
-      v = relu(acc + __ldg(b0 + j));
-    }
-    store_one<PARTS>(out, tile_elems, r * stride + j, v);
-  }
-}
-
-// One tensor-core layer of this warp's n8 tiles: y = in @ W + b over the
-// in tile's kp columns, then the epilogue. kHidden: relu(y) into the
-// `out` tile; kPredict: y into device memory rows row0 … (width n);
-// kSumsq: Σ y² into ss (this lane's rows g and g + 8 of each m tile).
-template <int PARTS, int EPI>
-__device__ void mma_layer(const __nv_bfloat16* in, int kp, const uint32_t* __restrict__ w,
-                          const float* __restrict__ bias, int n, int stride, int tile_elems,
-                          __nv_bfloat16* out, float* __restrict__ y, int row0, int n_rows,
-                          float (&ss)[kMTiles][2]) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int tiles = pad16(n) / 8;
-  const int ksteps = kp / 16;
-  const int t_begin = warp * tiles / kMmaWarps;
-  const int mine = (warp + 1) * tiles / kMmaWarps - t_begin;
-  const int chunks = (mine + kNTiles - 1) / kNTiles;
-  const size_t tile_words = static_cast<size_t>(ksteps) * 32 * 2 * PARTS;  // one n8 tile
-  constexpr int kstep_words = 32 * 2 * PARTS;
-  // this lane's ldmatrix row: rows 0-15 of an m tile, k columns 0-7 or 8-15
-  const __nv_bfloat16* a_row = in + (lane & 15) * stride + (lane >> 4) * 8;
-
-  for (int c = 0; c < chunks; ++c) {
-    const int t0 = t_begin + c * mine / chunks;
-    const int cnt = t_begin + (c + 1) * mine / chunks - t0;
-    const uint32_t* wt = w + static_cast<size_t>(t0) * tile_words + lane * 2 * PARTS;
-    float acc[kMTiles][kNTiles][4];
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.f;
-
-    uint32_t bc[kNTiles][2 * PARTS];
-    uint32_t bn[kNTiles][2 * PARTS];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-      if (j < cnt) load_b<PARTS>(bc[j], wt + j * tile_words);
-
-    for (int s = 0; s < ksteps; ++s) {
-      if (s + 1 < ksteps) {
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j)
-          if (j < cnt) load_b<PARTS>(bn[j], wt + j * tile_words + (s + 1) * kstep_words);
-      }
-      uint32_t a[kMTiles][PARTS][4];
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int p = 0; p < PARTS; ++p)
-          ldmatrix_x4(a[mt][p], a_row + p * tile_elems + mt * 16 * stride + s * 16);
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        if (j < cnt) {
-#pragma unroll
-          for (int mt = 0; mt < kMTiles; ++mt) {
-            float t[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step's products alone
-            mma_bf16(t, a[mt][0], bc[j][0], bc[j][1]);  // hi·w_hi (bf16: a·w)
-            if constexpr (PARTS == 2) {
-              mma_bf16(t, a[mt][0], bc[j][2], bc[j][3]);  // hi·w_lo
-              mma_bf16(t, a[mt][1], bc[j][0], bc[j][1]);  // lo·w_hi
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[mt][j][q] += t[q];
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-        for (int q = 0; q < 2 * PARTS; ++q) bc[j][q] = bn[j][q];
-    }
-
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      if (j >= cnt) continue;
-      const int col = (t0 + j) * 8 + 2 * tig;
-      const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + col));
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // accumulator rows g and g + 8
-          const float v0 = acc[mt][j][2 * h] + bj.x;
-          const float v1 = acc[mt][j][2 * h + 1] + bj.y;
-          const int r = mt * 16 + h * 8 + g;
-          if constexpr (EPI == kHidden) {
-            store_pair<PARTS>(out, tile_elems, r * stride + col, relu(v0), relu(v1));
-          } else if constexpr (EPI == kSumsq) {
-            ss[mt][h] = fmaf(v1, v1, fmaf(v0, v0, ss[mt][h]));  // padded columns add 0
-          } else if (row0 + r < n_rows) {
-            float* yr = y + static_cast<size_t>(row0 + r) * n + col;
-            if (col < n) yr[0] = v0;
-            if (col + 1 < n) yr[1] = v1;
-          }
-        }
-      }
-    }
-  }
-}
 
 template <int PARTS>
 __global__ void __launch_bounds__(kMmaThreads, 2)
@@ -294,6 +107,7 @@ fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_r
   float* red = xl + kTileRows * n_in;
   const int last = net.n_layers - 1;
   const int row0 = blockIdx.x * kTileRows;
+  const int stride = net.stride;
 
   if (net.first == 1) {  // skinny layer 0 from the fp32 input tile
     for (int t = threadIdx.x; t < kTileRows * n_in; t += blockDim.x) {
@@ -307,8 +121,10 @@ fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_r
       xl[t] = v;
     }
     __syncthreads();
-    skinny_layer<PARTS>(xl, kTileRows, n_in, reinterpret_cast<const float*>(net.w[0]),
-                        net.b[0], net.width[1], buf, tile_elems, net.stride);
+    skinny_layer(xl, kTileRows, n_in, reinterpret_cast<const float*>(net.w[0]), net.b[0],
+                 net.width[1], [&](int r, int j, float v) {
+                   store_one<PARTS>(buf, tile_elems, r * stride + j, v);
+                 });
   } else {  // the input itself is layer 0's A operand, split once
     const int kp = pad16(n_in);
     for (int t = threadIdx.x; t < kTileRows * kp; t += blockDim.x) {
@@ -320,7 +136,7 @@ fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_r
         v = x[static_cast<size_t>(row) * n_in + c];
         if (net.log_clamp) v = log_clamp(v, c);
       }
-      store_one<PARTS>(buf, tile_elems, r * net.stride + c, v);
+      store_one<PARTS>(buf, tile_elems, r * stride + c, v);
     }
   }
   __syncthreads();
@@ -328,22 +144,57 @@ fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_r
   float ss[kMTiles][2] = {};
   int cur = 0;
   for (int i = net.first; i < last; ++i) {  // hidden layers, ReLU
-    mma_layer<PARTS, kHidden>(buf + cur * buf_elems, pad16(net.width[i]), net.w[i], net.b[i],
-                              net.width[i + 1], net.stride, tile_elems,
-                              buf + (cur ^ 1) * buf_elems, nullptr, 0, 0, ss);
+    const float* bias = net.b[i];
+    __nv_bfloat16* out = buf + (cur ^ 1) * buf_elems;
+    mma_layer<PARTS, kMTiles>(buf + cur * buf_elems, pad16(net.width[i]), net.w[i],
+                              net.width[i + 1], stride, tile_elems,
+                              [&](int col, const float (&a)[kMTiles][4]) {
+                                const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+                                for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+                                  for (int h = 0; h < 2; ++h)
+                                    store_pair<PARTS>(out, tile_elems,
+                                                      mma_row(mt, h) * stride + col,
+                                                      relu(a[mt][2 * h] + bj.x),
+                                                      relu(a[mt][2 * h + 1] + bj.y));
+                              });
     __syncthreads();
     cur ^= 1;
   }
   const __nv_bfloat16* in = buf + cur * buf_elems;
   const int kp = pad16(net.width[last]);
   const int n_out = net.width[last + 1];
-  if (!net.sumsq) {
-    mma_layer<PARTS, kPredict>(in, kp, net.w[last], net.b[last], n_out, net.stride, tile_elems,
-                               nullptr, y, row0, n_rows, ss);
+  const float* bias = net.b[last];
+  if (!net.sumsq) {  // predict: store the (row, column) pairs inside the batch and the width
+    mma_layer<PARTS, kMTiles>(in, kp, net.w[last], n_out, stride, tile_elems,
+                              [&](int col, const float (&a)[kMTiles][4]) {
+                                const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+                                for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+                                  for (int h = 0; h < 2; ++h) {
+                                    const int row = row0 + mma_row(mt, h);
+                                    if (row >= n_rows) continue;
+                                    float* yr = y + static_cast<size_t>(row) * n_out + col;
+                                    if (col < n_out) yr[0] = a[mt][2 * h] + bj.x;
+                                    if (col + 1 < n_out) yr[1] = a[mt][2 * h + 1] + bj.y;
+                                  }
+                              });
     return;
   }
-  mma_layer<PARTS, kSumsq>(in, kp, net.w[last], net.b[last], n_out, net.stride, tile_elems,
-                           nullptr, nullptr, 0, 0, ss);
+  mma_layer<PARTS, kMTiles>(in, kp, net.w[last], n_out, stride, tile_elems,
+                            [&](int col, const float (&a)[kMTiles][4]) {
+                              const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+                              for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+                                for (int h = 0; h < 2; ++h) {  // padded columns add 0
+                                  const float v0 = a[mt][2 * h] + bj.x;
+                                  const float v1 = a[mt][2 * h + 1] + bj.y;
+                                  ss[mt][h] = fmaf(v1, v1, fmaf(v0, v0, ss[mt][h]));
+                                }
+                            });
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -353,7 +204,7 @@ fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_r
       float s = ss[mt][h];
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if ((lane & 3) == 0) red[warp * kTileRows + mt * 16 + h * 8 + (lane >> 2)] = s;
+      if ((lane & 3) == 0) red[warp * kTileRows + mma_row(mt, h)] = s;
     }
   }
   __syncthreads();

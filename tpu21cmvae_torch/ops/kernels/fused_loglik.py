@@ -1,12 +1,11 @@
 """The fused likelihood kernels, their plain PyTorch versions, and the
 wrappers that pick between them by the input's device.
 
-* K2 (``csrc/fused_loglik_gram.cu``, plain :func:`loglik_gram_reference`)
-  — the port of ``tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_gram``:
-  the gram-form value, which the gradient-free samplers call once per
+* K2 (plain :func:`loglik_gram_reference`) — the port of
+  ``tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_gram``: the
+  gram-form value, which the gradient-free samplers call once per
   proposal batch.
-* K3 (``csrc/fused_loglik_grad_gram.cu``, plain
-  :func:`loglik_grad_gram_reference`) — the port of
+* K3 (plain :func:`loglik_grad_gram_reference`) — the port of
   ``make_fused_loglik_grad_gram``: the value and its gradient, the HMC
   inner loop.
 * :func:`make_fused_loglik` — the direct-method likelihood, K1 with its
@@ -16,9 +15,14 @@ K2 and K3 read the same :class:`GramOperands`: the network folded with
 ``ops/fold.py::gram_fold`` (normalizer, the observation and the diagonal
 noise all in the weights; the 451-wide output layer collapsed into
 ``G = WWᵀ``, ``u``, ``c``) and split for the value and backward tiers.
-The CUDA kernels keep a row tile's activations on chip; the plain
-versions do the same arithmetic — same folds, same hi/lo split, same
-epilogue — in plain tensor operations.
+Each routes by tier (:func:`gram_on_tensor_cores`): at the bf16 tiers
+both run ``csrc/fused_gram_mma.cu`` on the tensor cores (K2 is its
+forward alone), from operands :func:`pack_gram_operands` packed once per
+model into bf16 ``mma`` fragments; at the fp32 tier K2 runs
+``csrc/fused_loglik_gram.cu`` and K3 ``csrc/fused_loglik_grad_gram.cu``
+on the CUDA cores. The CUDA kernels keep a row tile's activations on
+chip; the plain versions do the same arithmetic — same folds, same hi/lo
+split, same epilogue — in plain tensor operations.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,8 +57,28 @@ from tpu21cmvae_torch.ops.kernels._common import (
     launch,
     pointers,
 )
-from tpu21cmvae_torch.ops.kernels.fused_mlp import FusedMLP
+from tpu21cmvae_torch.ops.kernels.fused_mlp import (
+    MMA_TIERS,
+    WARPS_PER_BLOCK,
+    FusedMLP,
+    _pad16,
+    pack_mma_operands,
+)
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
+
+
+class GramPacked(NamedTuple):
+    """What ``fused_gram_mma.cu`` reads besides the skinny layer's exact
+    ``w0``, ``b0`` (:func:`pack_gram_operands`): per trunk layer i ≥ 1
+    the packed B fragments ``w`` at the value tier and the bias ``b``
+    zero-padded to 16, and (K3) ``wt``, the fragments of ``W_iᵀ`` at the
+    backward tier; ``g``, G's fragments at the value tier; ``u`` padded."""
+
+    w: tuple
+    b: tuple
+    wt: tuple
+    g: torch.Tensor
+    u: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +91,9 @@ class GramOperands:
     (:func:`~tpu21cmvae_torch.ops.fold.prepare_operand`); ``wt``: the same
     weights transposed, prepared at ``grad_tier`` — empty, and
     ``grad_tier`` None, for the value-only K2. ``g``: ``G`` at ``tier``.
-    ``u``, ``c``, ``log_norm``: the rest of the gram form.
+    ``u``, ``c``, ``log_norm``: the rest of the gram form. ``packed``:
+    the same operands as ``fused_gram_mma.cu`` reads them where the
+    tiers run on the tensor cores, else None.
     """
 
     tier: str
@@ -81,6 +107,7 @@ class GramOperands:
     u: torch.Tensor
     c: torch.Tensor
     log_norm: float
+    packed: Optional[GramPacked] = None
 
     @property
     def widths(self) -> tuple:
@@ -113,6 +140,30 @@ def gram_operands(params, norm, obs, scale, log_norm, tier,
         u=u.contiguous(),
         c=c,
         log_norm=log_norm,
+    )
+
+
+def gram_on_tensor_cores(tier: str, grad_tier: Optional[str] = None) -> bool:
+    """Whether K3 at (``tier``, ``grad_tier``), or K2 at ``tier``
+    (``grad_tier`` None), runs ``fused_gram_mma.cu``: every tier it runs
+    is bf16 or bf16x3."""
+    return tier in MMA_TIERS and (grad_tier is None or grad_tier in MMA_TIERS)
+
+
+def pack_gram_operands(ops: GramOperands) -> GramPacked:
+    """``ops``' tier operands as ``fused_gram_mma.cu`` reads them
+    (:func:`~tpu21cmvae_torch.ops.kernels.fused_mlp.pack_mma_operands`):
+    the trunk layers and G at ``ops.tier``, the transposed backward
+    weights at ``ops.grad_tier``, zero-padded to multiples of 16."""
+    layers = [pack_mma_operands(w, b, ops.tier) for w, b in zip(ops.w, ops.b)]
+    h = ops.u.shape[0]
+    return GramPacked(
+        w=tuple(w for w, _ in layers),
+        b=tuple(b for _, b in layers),
+        wt=tuple(pack_mma_operands(op, op.new_zeros(op.shape[1]), ops.grad_tier)[0]
+                 for op in ops.wt),
+        g=pack_mma_operands(ops.g, ops.u.new_zeros(h), ops.tier)[0],
+        u=torch.nn.functional.pad(ops.u, (0, _pad16(h) - h)),
     )
 
 
@@ -151,23 +202,36 @@ def loglik_grad_gram_reference(ops: GramOperands, x: torch.Tensor):
     return _value(ops, quad), -(_log_clamp_grad(x) * e)
 
 
-def _trunk_pointers(ops: GramOperands, with_backward: bool) -> list:
+def _kernel(ops: GramOperands, k3: bool):
+    """The C entry point of the kernel ``ops``' tiers run
+    (:func:`gram_on_tensor_cores`), and its operand pointers and tier
+    codes."""
+    tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
+    if gram_on_tensor_cores(*tiers):
+        p = ops.packed
+        for i, (w, b) in enumerate(zip(p.w, p.b)):
+            tensors += [w, b, p.wt[i]] if k3 else [w, b]
+        entry = "k3_fused_loglik_grad_gram_mma" if k3 else "k2_fused_loglik_gram_mma"
+        return entry, [*tensors, p.g, p.u], [TIER_CODE[t] for t in tiers]
+    if not k3:  # fused_loglik_gram.cu runs the fp32 tier alone
+        tensors += [t for pair in zip(ops.w, ops.b) for t in pair]
+        return "k2_fused_loglik_gram", [*tensors, ops.g, ops.u], []
     for i, (w, b) in enumerate(zip(ops.w, ops.b)):
-        tensors += [*hi_lo(w, ops.tier), b]
-        if with_backward:
-            tensors += [*hi_lo(ops.wt[i], ops.grad_tier)]
-    return tensors + [*hi_lo(ops.g, ops.tier), ops.u]
+        tensors += [*hi_lo(w, ops.tier), b, *hi_lo(ops.wt[i], ops.grad_tier)]
+    tensors += [*hi_lo(ops.g, ops.tier), ops.u]
+    return "k3_fused_loglik_grad_gram", tensors, [TIER_CODE[t] for t in tiers]
 
 
 def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor) -> torch.Tensor:
     """Launch K2 on PyTorch's current stream (no synchronisation)."""
     quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
     if x.shape[0]:
+        entry, tensors, tiers = _kernel(ops, k3=False)
         widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
-        launch("K2", "k2_fused_loglik_gram", x,
+        launch("K2", entry, x,
                x.data_ptr(), quad.data_ptr(), x.shape[0], len(ops.widths) - 1, widths,
-               pointers(_trunk_pointers(ops, False)), TIER_CODE[ops.tier])
+               pointers(tensors), *tiers)
     return _value(ops, quad)
 
 
@@ -176,25 +240,48 @@ def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor):
     quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     if x.shape[0]:
+        entry, tensors, tiers = _kernel(ops, k3=True)
         widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
-        launch("K3", "k3_fused_loglik_grad_gram", x,
+        launch("K3", entry, x,
                x.data_ptr(), quad.data_ptr(), dx.data_ptr(), x.shape[0],
-               len(ops.widths) - 1, widths, pointers(_trunk_pointers(ops, True)),
-               TIER_CODE[ops.tier], TIER_CODE[ops.grad_tier])
+               len(ops.widths) - 1, widths, pointers(tensors), *tiers)
     return _value(ops, quad), -dx
 
 
-def shared_bytes(widths) -> int:
-    """Dynamic shared memory of one K3 block: the input tile, every
-    trunk activation and ``h@G``, ``ROWS_PER_BLOCK`` rows each."""
+def _gram_mma_bytes(widths, tier: str, grad_tier: Optional[str]) -> int:
+    """Dynamic shared memory of one ``fused_gram_mma.cu`` block: two bf16
+    A buffers (hi and lo where either tier is bf16x3) with rows padded to
+    the widest padded trunk width + 8, the fp32 tile of ``h`` (K3: and of
+    layer 0's backward signal), K3's mask words (one per padded column of
+    activations 0 … n−2), the fp32 input tile and the per-warp quad
+    partials."""
+    rows = 16  # kGramRows in csrc/fused_gram_mma.cu
+    parts = 2 if "bf16x3" in (tier, grad_tier) else 1
+    stride = max(_pad16(w) for w in widths[1:]) + 8
+    f32_cols = _pad16(max(widths[-1], widths[1] if grad_tier else 0)) + 8
+    mask_words = sum(_pad16(w) for w in widths[1:-1]) if grad_tier else 0
+    return (2 * 2 * parts * rows * stride + 4 * rows * f32_cols + 4 * mask_words
+            + 4 * rows * (widths[0] + WARPS_PER_BLOCK))
+
+
+def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32") -> int:
+    """Dynamic shared memory of one K3 block at (``tier``,
+    ``grad_tier``). ``fused_loglik_grad_gram.cu`` keeps the input tile,
+    every trunk activation and ``h@G`` in fp32, ``ROWS_PER_BLOCK`` rows
+    each; ``fused_gram_mma.cu`` bf16 tiles (:func:`_gram_mma_bytes`)."""
+    if gram_on_tensor_cores(tier, grad_tier):
+        return _gram_mma_bytes(widths, tier, grad_tier)
     return 4 * ROWS_PER_BLOCK * (sum(widths) + widths[-1])
 
 
-def gram_shared_bytes(widths) -> int:
-    """Dynamic shared memory of one K2 block: the input tile and two
-    activation buffers as wide as the widest trunk layer (they take
-    turns as a layer's input and output; ``h@G`` lands in the one ``h``
-    does not hold)."""
+def gram_shared_bytes(widths, tier: str = "f32") -> int:
+    """Dynamic shared memory of one K2 block at ``tier``.
+    ``fused_loglik_gram.cu`` keeps the input tile and two fp32 activation
+    buffers as wide as the widest trunk layer (they take turns as a
+    layer's input and output; ``h@G`` lands in the one ``h`` does not
+    hold); ``fused_gram_mma.cu`` bf16 tiles (:func:`_gram_mma_bytes`)."""
+    if gram_on_tensor_cores(tier):
+        return _gram_mma_bytes(widths, tier, None)
     return 4 * ROWS_PER_BLOCK * (widths[0] + 2 * max(widths[1:]))
 
 
@@ -205,7 +292,7 @@ class _GramWrapper:
     name: str
 
     def __init__(self, config, norm, obs, noise_var, *, precision, grad_precision,
-                 smem, device):
+                 device):
         if config.activation != "relu":
             raise NotImplementedError(
                 f"{self.name} hard-codes ReLU hidden layers; got "
@@ -222,16 +309,21 @@ class _GramWrapper:
                 f"{self.name} takes at most {SKINNY_DENSE_MAX_IN} input "
                 f"parameters; got {config.n_params}"
             )
-        if smem(widths) > MAX_SHARED_BYTES:
+        self.tier = resolve_tier(precision, "high")
+        self.grad_tier = grad_precision
+        # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu, or
+        # the CUDA-core fused_loglik_grad_gram.cu / fused_loglik_gram.cu
+        self.tensor_cores = gram_on_tensor_cores(self.tier, self.grad_tier)
+        need = (gram_shared_bytes(widths, self.tier) if self.grad_tier is None
+                else shared_bytes(widths, self.tier, self.grad_tier))
+        if need > MAX_SHARED_BYTES:
             raise NotImplementedError(
-                f"hidden widths {config.hidden_dims} need {smem(widths)} bytes "
-                f"of shared memory per {self.name} block; the limit is "
-                f"{MAX_SHARED_BYTES}"
+                f"hidden widths {config.hidden_dims} need {need} bytes of shared "
+                f"memory per {self.name} block at the {self.tier} tier; the limit "
+                f"is {MAX_SHARED_BYTES}"
             )
         self.device = torch.empty(0, device=device).device
         self.n_params = config.n_params
-        self.tier = resolve_tier(precision, "high")
-        self.grad_tier = grad_precision
         self.launches = 0
         obs = obs_tensor(obs, config.n_bins, device=self.device)
         scale = noise_scale(noise_var, config.n_bins, device=self.device)
@@ -247,6 +339,8 @@ class _GramWrapper:
                 raise ValueError(
                     f"params have trunk widths {ops.widths}; this {self.name} takes {widths}"
                 )
+            if self.tensor_cores:
+                return dataclasses.replace(ops, packed=pack_gram_operands(ops))
             return ops
 
         self.operands = OperandCache(build)
@@ -278,7 +372,7 @@ class FusedLoglikGram(_GramWrapper):
 
     def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high", device):
         super().__init__(config, norm, obs, noise_var, precision=precision,
-                         grad_precision=None, smem=gram_shared_bytes, device=device)
+                         grad_precision=None, device=device)
 
     @torch.no_grad()
     def __call__(self, params, raw):
@@ -303,7 +397,7 @@ class FusedLoglikGradGram(_GramWrapper):
         tier = resolve_tier(precision, "high")
         grad_tier = tier if grad_precision is None else resolve_tier(grad_precision)
         super().__init__(config, norm, obs, noise_var, precision=precision,
-                         grad_precision=grad_tier, smem=shared_bytes, device=device)
+                         grad_precision=grad_tier, device=device)
 
     @torch.no_grad()
     def __call__(self, params, raw):

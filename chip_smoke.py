@@ -35,8 +35,11 @@ Phases, one line each:
    ``fused_gram_mma.cu`` at high and default);
 7. time K1 (predict and sumsq) and K2 against their plain versions at
    8192 rows (the MH batch) and 1,048,576 rows (``bench_mcmc.py``'s
-   batch), with the kernels' device time per call over back-to-back
-   calls, and print the achieved TFLOP/s;
+   batch), and K1 sumsq and K2 at the exact tier also at 409,600 rows
+   (each chain's draws, which phase 8 scores), with the kernels' device
+   time per call over back-to-back calls, and print the achieved
+   TFLOP/s; then the register-tiled fp32 kernels (``fused_mlp.cu``,
+   ``fused_loglik_gram.cu``) at 64- and 32-row tiles, forced, in turns;
 8. the gradient-free main path through the public entry points:
    ``sample_posterior(sampler="mh")`` and ``sampler="ensemble"``, whose
    every proposal batch runs K2 at high (``fused_gram_mma.cu``), then
@@ -128,6 +131,8 @@ AMPLITUDE_RTOL = {"highest": 1e-5, "high": 1e-4, "default": 5e-3}
 TIMING_ROWS = ((8192, 20), (1_048_576, 3))  # (rows, repeats)
 MH_WALKERS, MH_WARMUP, MH_STEPS = 8192, 200, 500  # bench_mcmc's MH batch, JAX defaults
 ENS_WALKERS, ENS_WARMUP, ENS_STEPS = 8192, 100, 500  # sample_ensemble's JAX defaults
+DRAWS = MH_WALKERS * (MH_STEPS // 10)  # 409,600: each chain's kept draws (thin 10)
+F32_HEIGHTS = (64, 32)  # the register-tiled fp32 kernels' tile heights timed in phase 7
 GRAD_Q999_F32 = 1e-4  # q99.9 of per-row gradient error at (highest, highest)
 # Published dense peaks of one H100 SXM at its 700 W limit: bf16 on the
 # tensor cores, fp32 on the CUDA cores, HBM3 bytes per second.
@@ -259,14 +264,14 @@ def bound(kernel, widths, n, tier, grad_tier=None):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def kernel_entry(name, source, replaces, launches, err, t, bound_ms) -> dict:
+def kernel_entry(name, source, replaces, launches, err, t, bound_ms, **extra) -> dict:
     """One entry of the kernels line; no single PyTorch call computes a
     whole folded network with its gram head or backward, so library_ms
-    is null."""
+    is null. ``extra``: further keys (another batch's figures)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
-            "library_ms": None}
+            "library_ms": None, **extra}
 
 
 def trunk_flops(widths) -> int:
@@ -274,14 +279,16 @@ def trunk_flops(widths) -> int:
     return 2 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
 
 
-def value_kernels(model, obs, tier, dev):
+def value_kernels(model, obs, tier, dev, tile_rows=None):
     """K1 as predict, K1 as the direct likelihood and K2, each as
-    ``(kernel call, plain call)`` on rows ``x``, at ``tier``."""
-    emulate = make_fused_emulate(model.config, model.normalizer, precision=tier, device=dev)
+    ``(kernel call, plain call)`` on rows ``x``, at ``tier``;
+    ``tile_rows`` forces the fp32 kernels' tile height."""
+    emulate = make_fused_emulate(model.config, model.normalizer, precision=tier,
+                                 tile_rows=tile_rows, device=dev)
     direct = make_fused_loglik(model.config, model.normalizer, obs, NOISE_VAR,
-                               precision=tier, device=dev)
+                               precision=tier, tile_rows=tile_rows, device=dev)
     gram = make_fused_loglik_gram(model.config, model.normalizer, obs, NOISE_VAR,
-                                  precision=tier, device=dev)
+                                  precision=tier, tile_rows=tile_rows, device=dev)
     check(gram.tensor_cores == (tier != "highest"), f"K2 route at {tier}")
     ops_e, ops_d = emulate.operands(model.params), direct.mlp.operands(model.params)
     ops_g = gram.operands(model.params)
@@ -338,36 +345,61 @@ def value_kernels_vs_plain(model, obs, rng, dev):
     return k1_err, k1_mma_err, k2_err, k2_mma_err
 
 
+@torch.no_grad()
+def time_pair(kernel, plain, x, repeats, flops) -> dict:
+    """A kernel and its plain version on rows ``x``: ms per wrapper call
+    (each the mean of two medians, in turns plain, kernel, kernel,
+    plain), the kernel's device ms per call, and the achieved TFLOP/s of
+    ``flops`` per row."""
+    t = [time_ms(fn, repeats, warmup=1)
+         for fn in (lambda: plain(x), lambda: kernel(x), lambda: kernel(x), lambda: plain(x))]
+    kernel_ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    n = x.shape[0]
+    return {"kernel_ms": kernel_ms, "kernel_stream_ms": stream_ms(lambda: kernel(x), repeats),
+            "plain_ms": plain_ms, "kernel_tflops": flops * n / kernel_ms / 1e9,
+            "plain_tflops": flops * n / plain_ms / 1e9}
+
+
 def time_value_kernels(model, obs, rng, dev) -> dict:
     """Phase 7: ms per call of K1 (predict and sumsq) and K2 and their
-    plain versions (each the mean of two medians, timed in turns), with
-    the achieved TFLOP/s of each at fp32-equivalent FLOPs (a bf16x3
-    product counts once)."""
+    plain versions, with the achieved TFLOP/s of each at fp32-equivalent
+    FLOPs (a bf16x3 product counts once); K1 sumsq and K2 at the exact
+    tier also at the main path's batch; then the fp32 kernels' two tile
+    heights."""
     sizes = model.config.mlp().sizes
     flops = {"k1_predict": trunk_flops(sizes), "k1_sumsq": trunk_flops(sizes),
              "k2": trunk_flops(sizes[:-1]) + 2 * sizes[-2] ** 2}
     timings = {}
     for tier in TIERS:
         pairs, _ = value_kernels(model, obs, tier, dev)
-        for n, repeats in TIMING_ROWS:
+        sizes_here = TIMING_ROWS + (((DRAWS, 3),) if tier == "highest" else ())
+        for n, repeats in sizes_here:
             x = rows(n, rng)
             for key, (kernel, plain) in pairs.items():
-                with torch.no_grad():  # in turns: plain, kernel, kernel, plain
-                    t = [time_ms(fn, repeats, warmup=1)
-                         for fn in (lambda: plain(x), lambda: kernel(x),
-                                    lambda: kernel(x), lambda: plain(x))]
-                kernel_ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-                with torch.no_grad():
-                    device_ms = stream_ms(lambda: kernel(x), repeats)
-                timings[f"{key}/{tier}/{n}"] = {
-                    "kernel_ms": kernel_ms, "kernel_stream_ms": device_ms, "plain_ms": plain_ms,
-                    "kernel_tflops": flops[key] * n / kernel_ms / 1e9,
-                    "plain_tflops": flops[key] * n / plain_ms / 1e9,
-                }
+                if n == DRAWS and key == "k1_predict":
+                    continue  # the main path scores draws; it predicts none
+                timings[f"{key}/{tier}/{n}"] = time_pair(kernel, plain, x, repeats, flops[key])
             del x
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
     print(f"phase 7: median ms per call {json.dumps(timings)}", flush=True)
+
+    heights = {}  # device and wrapper ms per call of each height, in turns a, b, b, a
+    kernels = {h: value_kernels(model, obs, "highest", dev, tile_rows=h)[0] for h in F32_HEIGHTS}
+    for n in (DRAWS, 1_048_576):
+        x = rows(n, rng)
+        for key in ("k1_sumsq", "k2"):
+            a, b = (kernels[h][key][0] for h in F32_HEIGHTS)
+            with torch.no_grad():
+                t = [time_ms(lambda: fn(x), 3, warmup=1) for fn in (a, b, b, a)]
+                dev_t = [stream_ms(lambda: fn(x), 3) for fn in (a, b, b, a)]
+            heights[f"{key}/{n}"] = {
+                str(h): {"kernel_ms": (t[i] + t[3 - i]) / 2,
+                         "kernel_stream_ms": (dev_t[i] + dev_t[3 - i]) / 2}
+                for i, h in enumerate(F32_HEIGHTS)}
+        del x
+        torch.cuda.empty_cache()
+    print(f"phase 7: fp32 tile heights {json.dumps(heights)}", flush=True)
     return timings
 
 
@@ -642,18 +674,28 @@ def main() -> int:
     k1_launches, k1_mma_launches, k2_launches, k2_mma_launches = gradient_free_main_path(
         model, truth, obs, dev)
 
-    # each kernel at the tier and the scale nearest to its main-path use;
-    # the fp32 K3 runs on no sampler's path at its default tiers (HMC runs
-    # K3 on fused_gram_mma.cu), so it shows no launches
+    # each kernel at the tier and the scale nearest to its main-path use
+    # (the fp32 K1 and K2 at each chain's draws, with their 1 M-row
+    # figures beside); the fp32 K3 runs on no sampler's path at its
+    # default tiers (HMC runs K3 on fused_gram_mma.cu), so it shows no
+    # launches
     big = 1_048_576
     k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
+
+    def at_big(t, b):
+        return {"ms_1m": t["kernel_ms"], "stream_ms_1m": t["kernel_stream_ms"],
+                "plain_ms_1m": t["plain_ms"], "bound_ms_1m": b[0]}
+
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
-                     value_t[f"k1_sumsq/highest/{big}"], bound("k1", k1_sizes, big, "f32")),
+                     value_t[f"k1_sumsq/highest/{DRAWS}"], bound("k1", k1_sizes, DRAWS, "f32"),
+                     **at_big(value_t[f"k1_sumsq/highest/{big}"],
+                              bound("k1", k1_sizes, big, "f32"))),
         kernel_entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
                      value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3")),
         kernel_entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES, k2_launches, k2_err,
-                     value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32")),
+                     value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
+                     **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         kernel_entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES, k2_mma_launches,
                      k2_mma_err, value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3")),
         kernel_entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,

@@ -1,0 +1,97 @@
+"""What the CPU tests of the port's register-tiled fp32 kernels share
+(``csrc/tile_f32.cuh``: K1 ``fused_mlp.cu``, K2 ``fused_loglik_gram.cu``):
+packed fp32 weight slabs read back by the kernels' layout, and the
+kernels' arithmetic in plain torch, through the packed stream, slab by
+slab, k ascending."""
+
+import torch
+
+from tpu21cmvae_torch.ops.fold import _log_clamp
+from tpu21cmvae_torch.ops.kernels._common import SLAB_N, padk
+from tpu21cmvae_torch.ops.mlp import skinny_dense
+
+
+def chunks(n: int) -> int:
+    return -(-n // SLAB_N)
+
+
+def unpack_slabs(slabs, shapes):
+    """Each (K, N) layer of ``shapes`` as the zero-padded (padk(K),
+    128·chunks) weights and (128·chunks,) bias the stream ``slabs``
+    holds: chunk c, row k, column q at float offset (c·padk(K) + k)·128
+    + q after the earlier layers, so any slab depth that divides padk(K)
+    finds its slabs contiguous."""
+    out, at, bias_at = [], 0, 0
+    for k, n in shapes:
+        kp, cols = padk(k), chunks(n) * SLAB_N
+        blocks = slabs.w[at: at + kp * cols].reshape(chunks(n), kp, SLAB_N)
+        out.append((blocks.transpose(0, 1).reshape(kp, cols),
+                    slabs.b[bias_at: bias_at + cols]))
+        at += kp * cols
+        bias_at += cols
+    assert at == slabs.w.numel() and bias_at == slabs.b.numel()
+    return out
+
+
+def slab_layer(a, slabs, at, k, n):
+    """``a @ W`` for the layer whose slabs start at float offset ``at``
+    of the stream, as ``tile_layer`` sums it: for every chunk one fp32
+    sum per (row, column), through the chunk's k rows in stream order (its
+    slabs in order, k ascending inside each); ``a`` is read as zero past
+    its width. Returns the (B, 128·chunks) sums and the next layer's
+    offset."""
+    kp = padk(k)
+    a = torch.nn.functional.pad(a, (0, kp - a.shape[1]))
+    blocks = slabs.w[at: at + chunks(n) * kp * SLAB_N].reshape(chunks(n), kp, SLAB_N)
+    acc = a.new_zeros((a.shape[0], chunks(n), SLAB_N))
+    for kk in range(kp):
+        acc = acc + a[:, kk, None, None] * blocks[None, :, kk]
+    return acc.reshape(a.shape[0], -1), at + blocks.numel()
+
+
+def _stream(h, slabs, shapes):
+    """The streamed layers' (sums + padded bias) one after another,
+    ReLU between them, each hidden output cut to padk of its width (the
+    next tile's k rows); returns the last layer's padded output."""
+    at = bias_at = 0
+    for i, (k, n) in enumerate(shapes):
+        acc, at = slab_layer(h, slabs, at, k, n)
+        y = acc + slabs.b[bias_at: bias_at + acc.shape[1]]
+        bias_at += acc.shape[1]
+        h = torch.relu(y)[:, : padk(n)] if i < len(shapes) - 1 else y
+    return h
+
+
+def emulate_f32_mlp(ops, x):
+    """``fused_mlp.cu``: the skinny layer exact, then every other layer
+    through the stream; (B, n_out), or (B,) under ``sumsq``."""
+    h = _log_clamp(x) if ops.log_clamp else x
+    widths = ops.widths
+    first = 0
+    if ops.skinny:
+        h = skinny_dense(h, ops.w[0], ops.b[0])
+        first = 1
+        if len(widths) > 2:
+            h = torch.relu(h)
+    if first < len(widths) - 1:
+        h = _stream(h, ops.slabs, list(zip(widths[first:-1], widths[first + 1:])))
+    y = h[:, : widths[-1]]
+    return torch.sum(y * y, dim=-1) if ops.reduce == "sumsq" else y
+
+
+def emulate_f32_gram(ops, x):
+    """``fused_loglik_gram.cu``: logL from the skinny layer, the streamed
+    trunk layers 1 … n−1 and the gram head, whose bias slot holds u:
+    quad = Σ_j (h@G + 2u)_j · h_j."""
+    widths = ops.widths
+    h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
+    hidden = widths[-1]
+    shapes = [*zip(widths[1:-1], widths[2:]), (hidden, hidden)]
+    if len(shapes) > 1:
+        h = torch.relu(_stream(h, ops.slabs, shapes[:-1]))[:, :hidden]
+    trunk = sum(padk(k) * chunks(n) * SLAB_N for k, n in shapes[:-1])
+    bias_at = sum(chunks(n) * SLAB_N for _, n in shapes[:-1])
+    hg, _ = slab_layer(h, ops.slabs, trunk, hidden, hidden)
+    u = ops.slabs.b[bias_at: bias_at + hidden]
+    quad = torch.sum((hg[:, :hidden] + 2.0 * u) * h, dim=-1)
+    return -0.5 * (quad + ops.c) + ops.log_norm

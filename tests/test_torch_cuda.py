@@ -20,9 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from tpu21cmvae_torch.data.synthetic import synthetic_dataset
+from tpu21cmvae_torch.data.synthetic import synthetic_dataset, synthetic_params
 from tpu21cmvae_torch.models.direct import DirectEmulator
 from tpu21cmvae_torch.ops.kernels import fused_loglik
+from tpu21cmvae_torch.ops.kernels._common import F32_TILE_ROWS
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     loglik_grad_gram_reference,
     loglik_gram_reference,
@@ -403,3 +404,108 @@ def test_sample_posterior_runs_k2(cuda, sampler):
     per_step = 1 if sampler == "mh" else 2
     assert k2.launches >= 1 + per_step * (n_warmup + n_steps)
     assert np.isfinite(res.chain).all() and res.chain.shape == (6, 256, 7)
+
+
+def _f32_kernels(m, obs, dev, rows=None):
+    """The register-tiled fp32 kernels at tile height ``rows`` (None: the
+    wrapper's choice): K1 as predict and as the direct likelihood
+    (``fused_mlp.cu``), K2 (``fused_loglik_gram.cu``), each with its
+    plain version."""
+    em = make_fused_emulate(m.config, m.normalizer, precision="highest", tile_rows=rows,
+                            device=dev)
+    ll = make_fused_loglik(m.config, m.normalizer, obs, 25.0, precision="highest",
+                           tile_rows=rows, device=dev)
+    k2 = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                tile_rows=rows, device=dev)
+    assert not k2.tensor_cores and ll.mlp.operands(m.params).packed is None
+    return {
+        "predict": (em, lambda x: fused_mlp_reference(em.operands(m.params), x)),
+        "sumsq": (ll, lambda x: -0.5 * fused_mlp_reference(ll.mlp.operands(m.params), x)),
+        "k2": (k2, lambda x: loglik_gram_reference(k2.operands(m.params), x)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [(288, 352, 288, 224), (32, 48, 32, 24)])
+@pytest.mark.parametrize("rows", F32_TILE_ROWS)
+def test_f32_tiles_pad_and_mask(cuda, hidden, rows):
+    """K1 (predict, sumsq) and K2 on the register-tiled fp32 kernels at
+    every tile height, forced, for batches 1, BM−1, BM, BM+1, 2·BM+1 and
+    100 with an fx == 0 row, at the flagship widths and narrow ones:
+    within the fp32 tolerances of their plain versions."""
+    m, obs, data = _model(hidden, cuda)
+    c = float(make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0,
+                                     device=cuda).operands(m.params).c)
+    kernels = _f32_kernels(m, obs, cuda, rows)
+    for n in sorted({1, rows - 1, rows, rows + 1, 2 * rows + 1, 100}):
+        x = synthetic_params(n, np.random.default_rng(n)).astype(np.float32)
+        x[0, 2] = 0.0  # the fx == 0 clamp
+        x = torch.as_tensor(x, device=cuda)
+        for key, (fn, plain) in kernels.items():
+            fn.launches = 0
+            got, want = fn(m.params, x), plain(x)
+            torch.cuda.synchronize()
+            assert fn.launches == 1
+            assert (fn.mlp if key == "sumsq" else fn).tile_rows == rows
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            assert got.shape == ((n, 451) if key == "predict" else (n,))
+            assert np.isfinite(got).all()
+            if key == "predict":
+                assert np.abs(got - want).max() <= AMPLITUDE_RTOL["highest"] * np.abs(want).max()
+            else:
+                _close_values(got, want, c, "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [(7, 33), (12, 40, 20), (7, 64, 96, 33), (12, 40, 33, 451),
+                                   (12, 300)])
+@pytest.mark.parametrize("rows", F32_TILE_ROWS)
+def test_f32_generic_networks_match_plain(cuda, sizes, rows):
+    """``fused_mlp.cu`` at every tile height on a lone skinny layer, a
+    fan-in-12 first layer that is not skinny (alone and before hidden
+    layers), and two hidden layers; with and without sumsq, on 2·BM+3
+    rows with an fx == 0 row."""
+    params = _random_params(sizes, cuda)
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.rand(2 * rows + 3, sizes[0], generator=gen) + 0.05
+    x[1, 2] = 0.0
+    x = x.to(cuda)
+    for reduce in ("none", "sumsq"):
+        fn = make_fused_mlp(sizes, log_clamp_input=True, precision="highest", reduce=reduce,
+                            tile_rows=rows, device=cuda)
+        yk = fn(params, x)
+        yp = fused_mlp_reference(fn.operands(params), x)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and fn.tile_rows == rows
+        yk, yp = yk.cpu().numpy(), yp.cpu().numpy()
+        assert yk.shape == yp.shape and np.isfinite(yk).all()
+        rtol = AMPLITUDE_RTOL["highest"] * (2 if reduce == "sumsq" else 1)
+        assert np.abs(yk - yp).max() <= rtol * np.abs(yp).max() + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", F32_TILE_ROWS)
+def test_f32_single_row_equals_batch_row(cuda, rows):
+    """A row's result does not depend on the other rows of its tile:
+    one row alone equals the same row inside a batch of 100, bit for
+    bit, for K1 (predict, sumsq) and K2 at the flagship widths."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    x = _rows(data, 100, cuda)
+    for fn, _ in _f32_kernels(m, obs, cuda, rows).values():
+        batch = fn(m.params, x).cpu().numpy()
+        for i in (0, 7, 45, 99):
+            np.testing.assert_array_equal(fn(m.params, x[i]).cpu().numpy()[0], batch[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["predict", "sumsq", "k2"])
+def test_f32_refused_launch_raises(cuda, key):
+    """A tile height the C entry point was not built for is refused
+    there and raises with its CUDA error string; nothing falls back to
+    the plain version."""
+    m, obs, data = _model((32, 48, 32, 24), cuda)
+    fn, _ = _f32_kernels(m, obs, cuda)[key]
+    (fn.mlp if key == "sumsq" else fn).tile_rows = 48
+    name = "K2" if key == "k2" else "K1"
+    with pytest.raises(RuntimeError, match=f"{name} launch failed: invalid argument"):
+        fn(m.params, _rows(data, 5, cuda))

@@ -7,7 +7,11 @@ At the bf16 tiers K3 and K2 run ``csrc/fused_gram_mma.cu`` on the tensor
 cores, from operands :func:`pack_gram_operands` packed into ``mma``
 fragments. Here those fragments are read back by the PTX ISA's m16n8k16
 layout, and a pure-torch emulation that computes through them is held to
-the plain versions and to the Pallas K3 and K2.
+the plain versions and to the Pallas K3 and K2. At the fp32 tier K2 runs
+``csrc/fused_loglik_gram.cu``, register-tiled, from the fp32 slabs of
+:func:`pack_gram_slabs`: they are read back by ``csrc/tile_f32.cuh``'s
+layout, and an emulation through them (``tests/_torch_f32.py``) is held
+to :func:`loglik_gram_reference` and to the Pallas K2.
 
 Tolerances: test_loglik tolerance (``tests/test_loglik.py:468-472``:
 values rtol 2e-4, atol 2e-3·max|v|; gradients rtol 2e-3, atol
@@ -25,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_f32 import emulate_f32_gram, unpack_slabs
 from _torch_mma import mma_product, unpack
 
 from tpu21cmvae.models.direct import DirectEmulator as JaxEmulator
@@ -41,9 +46,15 @@ from tpu21cmvae_torch.ops.fold import (
     noise_scale,
     obs_tensor,
 )
-from tpu21cmvae_torch.ops.kernels._common import MAX_SHARED_BYTES, TIER_CODE
+from tpu21cmvae_torch.ops.kernels._common import (
+    F32_PREFERRED_ROWS,
+    F32_TILE_ROWS,
+    MAX_SHARED_BYTES,
+    TIER_CODE,
+)
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     _kernel,
+    gram_f32_rows,
     gram_shared_bytes,
     loglik_grad_gram_reference,
     loglik_gram_reference,
@@ -369,8 +380,10 @@ def test_gram_masks_follow_the_fp32_activations(port_model, splits):
 
 
 def test_gram_shared_bytes_and_routing(port_model):
-    """``fused_loglik_grad_gram.cu`` and ``fused_loglik_gram.cu`` (any
-    fp32 tier) keep fp32 tiles of 16 rows; ``fused_gram_mma.cu`` (every
+    """``fused_loglik_grad_gram.cu`` (any fp32 tier) keeps fp32 tiles of
+    16 rows, ``fused_loglik_gram.cu`` (fp32) k-major fp32 tiles of its
+    tile height (64 rows here) with k rows padded to 32, its height's
+    slab ring and 1 KB of row partials; ``fused_gram_mma.cu`` (every
     tier bf16 or bf16x3) bf16 A tiles of 16 rows, hi and lo where either
     tier is bf16x3, with rows padded to the widest padded trunk width +
     8, an fp32 tile of h (K3: and of layer 0's backward signal), K3's
@@ -383,7 +396,7 @@ def test_gram_shared_bytes_and_routing(port_model):
     assert shared_bytes(FLAGSHIP, "bf16x3", "bf16") == 2 * 2 * 2 * 16 * 360 + k3 == 69_696
     assert shared_bytes(FLAGSHIP, "bf16", "bf16x3") == 69_696
     assert shared_bytes(FLAGSHIP, "bf16", "bf16") == 2 * 2 * 16 * 360 + k3
-    assert gram_shared_bytes(FLAGSHIP) == 4 * 16 * (7 + 2 * 352)
+    assert gram_shared_bytes(FLAGSHIP) == 4 * 64 * (7 + 2 * 352) + 49152 + 1024 == 232_192
     assert gram_shared_bytes(FLAGSHIP, "bf16x3") == 2 * 2 * 2 * 16 * 360 + 4 * 16 * 232 + tail
     assert gram_shared_bytes(FLAGSHIP, "bf16x3") == 61_888
     assert gram_shared_bytes(FLAGSHIP, "bf16") == 2 * 2 * 16 * 360 + 4 * 16 * 232 + tail
@@ -433,8 +446,9 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
         want = [t for layer in layers for t in layer] + [p.g, p.u]
         assert tiers == [TIER_CODE[t] for t in names]
     elif not k3:
-        assert entry == "k2_fused_loglik_gram" and tiers == []
-        want = [t for pair in zip(ops.w, ops.b) for t in pair] + [ops.g, ops.u]
+        assert entry == "k2_fused_loglik_gram" and tiers == [None]  # the wrapper passes its height
+        assert _kernel(ops, k3, rows=32)[2] == [32]
+        want = [ops.slabs.w, ops.slabs.b]
         assert all(t.dtype == torch.float32 for t in tensors)
     else:
         assert entry == "k3_fused_loglik_grad_gram"
@@ -451,3 +465,78 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert (g is None and w is None) or torch.equal(g, w)
+
+
+def _f32_gram(m, obs, **kw):
+    fn = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                device="cpu", **kw)
+    assert not fn.tensor_cores
+    return fn
+
+
+F32_GRAM_WIDTHS = [*GRAM_WIDTHS, FLAGSHIP[1:]]
+
+
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+def test_gram_f32_slabs_unpack_to_the_fold(port_model, hidden):
+    """``pack_gram_slabs`` read back by ``csrc/tile_f32.cuh``'s layout
+    holds trunk layers 1 … n−1 and then ``G`` exactly, zero-padded to
+    (padk(K), 128·chunks); the biases are zero-padded, and ``G``'s bias
+    slot holds ``u``; nothing is packed for the tensor cores."""
+    m, obs = port_model(hidden)
+    ops = _f32_gram(m, obs).operands(m.params)
+    assert ops.packed is None and ops.slabs is not None
+    trunk, G, u, _ = gram_fold(m.params, m.normalizer, obs_tensor(obs, 451, device="cpu"),
+                               noise_scale(25.0, 451, device="cpu"))
+    layers = [(layer["w"], layer["b"]) for layer in trunk[1:]] + [(G, u)]
+    shapes = [tuple(w.shape) for w, _ in layers]
+    for (w, b), (want_w, want_b) in zip(unpack_slabs(ops.slabs, shapes), layers, strict=True):
+        k, n = want_w.shape
+        assert torch.equal(w[:k, :n], want_w) and torch.equal(b[:n], want_b)
+        assert not w[k:].any() and not w[:, n:].any() and not b[n:].any()
+
+
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+def test_gram_f32_emulation_matches_plain(port_model, splits, hidden):
+    """Through the packed slabs, slab by slab and k ascending, the
+    register-tiled K2 equals :func:`loglik_gram_reference`: they differ
+    only in fp32 summation order, so within 1e-5 of |logL| + c/2 (37
+    rows, one with fx == 0), at narrow widths and the flagship's."""
+    m, obs = port_model(hidden)
+    ops = _f32_gram(m, obs).operands(m.params)
+    x = _raw(splits)
+    got, want = emulate_f32_gram(ops, x), loglik_gram_reference(ops, x)
+    assert got.shape == (37,) and torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= 1e-5 * (want.abs() + 0.5 * abs(float(ops.c)))).all())
+
+
+def test_gram_f32_emulation_matches_pallas(pair):
+    """The emulation against the JAX package's Pallas K2 at ``highest``
+    (interpret mode), within the same fp32 tolerance."""
+    jm, tm, obs, raw = pair
+    want = np.asarray(jax_fused_gram(jm.config, jm.normalizer, obs, 25.0, precision="highest",
+                                     block_rows=8, interpret=True)(jm.params, jnp.asarray(raw)))
+    ops = _f32_gram(tm, obs).operands(tm.params)
+    got = emulate_f32_gram(ops, torch.as_tensor(raw)).numpy()
+    assert (np.abs(got - want) <= 1e-5 * (np.abs(want) + 0.5 * abs(float(ops.c)))).all()
+
+
+def test_gram_f32_tile_height_follows_shared_memory(port_model):
+    """K2 at fp32 runs the tallest tile up to the preferred height whose
+    shared memory fits: the flagship at the preferred height, the widest
+    trunk the 16-row fp32 design took (4·16·(7 + 2·1812) ≤ 232,448 bytes) at
+    8 rows; every trunk within that limit fits; a forced height reaches
+    the wrapper, an unknown one is refused."""
+    assert gram_f32_rows(FLAGSHIP) == F32_PREFERRED_ROWS
+    for trunk in [(7, 1812), (7, 1812, 1812), (8, 30, 1812, 1812), (1, 1815)]:
+        assert 4 * 16 * (trunk[0] + 2 * max(trunk[1:])) <= MAX_SHARED_BYTES
+        assert gram_f32_rows(trunk) == 8
+        assert gram_shared_bytes(trunk) <= MAX_SHARED_BYTES
+    for width in range(1, 1816, 37):
+        assert gram_shared_bytes((7, width, max(1, width // 3))) <= MAX_SHARED_BYTES
+    m, obs = port_model(SMALL)
+    assert _f32_gram(m, obs).tile_rows == F32_PREFERRED_ROWS
+    for rows in F32_TILE_ROWS:
+        assert _f32_gram(m, obs, tile_rows=rows).tile_rows == rows
+    with pytest.raises(ValueError, match="tile_rows"):
+        _f32_gram(m, obs, tile_rows=12)

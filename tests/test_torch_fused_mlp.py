@@ -14,7 +14,11 @@ The bf16 tiers' tensor-core kernel (``csrc/fused_mlp_mma.cu``) reads
 weights that :func:`pack_mma_operands` packed into ``mma`` fragments.
 Here those fragments are read back by the PTX ISA's m16n8k16 layout, and
 a pure-torch emulation that computes through them is held to
-:func:`fused_mlp_reference` and to the Pallas K1.
+:func:`fused_mlp_reference` and to the Pallas K1. The fp32 tier's
+register-tiled kernel (``csrc/fused_mlp.cu``) streams fp32 weight slabs
+that ``pack_slabs`` packed: they are read back by ``csrc/tile_f32.cuh``'s
+layout, and an emulation through them (``tests/_torch_f32.py``) is held
+to the same two.
 """
 
 import jax
@@ -22,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_f32 import emulate_f32_mlp, unpack_slabs
 from _torch_mma import mma_product
 from _torch_mma import unpack as _unpack
 
@@ -32,8 +37,15 @@ from tpu21cmvae.ops.pallas import make_fused_mlp as jax_make_fused_mlp
 from tpu21cmvae.utils.config import DirectEmulatorConfig as JaxConfig
 from tpu21cmvae_torch.models.direct import DirectEmulator
 from tpu21cmvae_torch.ops.fold import _log_clamp, _split_hi_lo
-from tpu21cmvae_torch.ops.kernels._common import MAX_SHARED_BYTES
+from tpu21cmvae_torch.ops.kernels._common import (
+    F32_PREFERRED_ROWS,
+    F32_TILE_ROWS,
+    MAX_SHARED_BYTES,
+    f32_tile_bytes,
+)
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
+    f32_geometry,
+    f32_rows,
     fused_mlp_reference,
     make_fused_emulate,
     make_fused_mlp,
@@ -202,7 +214,8 @@ def test_wrapper_rejects_bad_inputs_and_caches(small_model, splits):
     assert fn(m.params, x[:0]).shape == (0, 451)
     ops = fn.operands(m.params)
     assert fn.operands(m.params) is ops
-    assert shared_bytes(ops.widths) == 4 * 16 * (7 + 2 * max(SMALL) + 8)
+    # 64-row tile: input tile, two buffers of 48 → 64 k rows, the 48 KB ring, 1 KB partials
+    assert shared_bytes(ops.widths) == 4 * 64 * (7 + 2 * 64) + 49152 + 1024
     w = m.params[2]["w"]
     with torch.no_grad():
         w.mul_(2.0)
@@ -306,13 +319,20 @@ def test_mma_emulation_matches_pallas_k1():
 
 def test_shared_bytes_per_kernel():
     """``fused_mlp.cu`` (fp32, and a lone skinny layer at every tier)
-    keeps fp32 tiles of 16 rows; ``fused_mlp_mma.cu`` bf16 tiles of 32
-    rows, hi and lo at bf16x3, with rows padded to the widest padded
-    layer input + 8; the wrapper refuses by the kernel its tier runs."""
-    assert shared_bytes(FLAGSHIP) == shared_bytes(FLAGSHIP, "f32") == 4 * 16 * (7 + 2 * 352 + 8)
+    keeps k-major fp32 tiles of its tile height (64 rows here) with k
+    rows padded to 32, its height's slab ring (32 × 128 floats in three
+    slots at 64 rows, 16 × 128 in two at 32, 8 × 128 in three below) and
+    1 KB of row partials; ``fused_mlp_mma.cu`` bf16
+    tiles of 32 rows, hi and lo at bf16x3, with rows padded to the widest
+    padded layer input + 8; the wrapper refuses by the kernel its tier
+    runs."""
+    f32 = 4 * 64 * (7 + 2 * 352) + 4 * 3 * 32 * 128 + 1024
+    assert shared_bytes(FLAGSHIP) == shared_bytes(FLAGSHIP, "f32") == f32 == 232_192
+    assert shared_bytes(FLAGSHIP, "f32", 32) == 4 * 32 * (7 + 2 * 352) + 4 * 2 * 16 * 128 + 1024
+    assert shared_bytes(FLAGSHIP, "f32", 16) == 4 * 18 * (7 + 2 * 352) + 4 * 3 * 8 * 128 + 1024
     assert shared_bytes(FLAGSHIP, "bf16x3") == 2 * 2 * 2 * 32 * 360 + 4 * 32 * (7 + 8)
     assert shared_bytes(FLAGSHIP, "bf16") == 2 * 2 * 32 * 360 + 4 * 32 * (7 + 8)
-    assert shared_bytes((7, 33), "bf16x3") == 4 * 16 * (7 + 8)
+    assert shared_bytes((7, 33), "bf16x3") == 4 * 64 * 7 + 4 * 3 * 32 * 128 + 1024
     # fan-in 12 is a tensor-core layer: its padded input joins the width
     assert shared_bytes((12, 40, 20), "bf16") == 2 * 2 * 32 * 56 + 4 * 32 * (12 + 8)
     assert shared_bytes((40, 20), "bf16x3") == 2 * 2 * 2 * 32 * 56 + 4 * 32 * (40 + 8)
@@ -322,3 +342,99 @@ def test_shared_bytes_per_kernel():
         make_fused_mlp(wide, precision=precision, device="cpu")
     with pytest.raises(NotImplementedError, match="bf16x3"):
         make_fused_mlp(wide, precision="high", device="cpu")
+
+
+def _f32_ops(sizes, reduce="none", seed=None):
+    fn = make_fused_mlp(sizes, log_clamp_input=True, reduce=reduce, device="cpu")
+    return fn.operands(_random_params(sizes, 5 * sum(sizes) if seed is None else seed))
+
+
+@pytest.mark.parametrize("sizes", MMA_SIZES)
+def test_f32_slabs_unpack_to_the_weights(sizes):
+    """``pack_slabs`` read back by ``csrc/tile_f32.cuh``'s layout holds
+    every layer after a skinny first one (every layer without one)
+    exactly, zero-padded to (padk(K), 128·chunks), and each bias
+    zero-padded to 128·chunks; a lone skinny layer streams nothing."""
+    ops = _f32_ops(sizes)
+    assert ops.packed is None and ops.slabs.w.dtype == torch.float32
+    first = int(ops.skinny)
+    shapes = list(zip(sizes[first:-1], sizes[first + 1:]))
+    for (w, b), raw_w, raw_b, (k, n) in zip(unpack_slabs(ops.slabs, shapes), ops.w[first:],
+                                             ops.b[first:], shapes, strict=True):
+        assert w.shape == (-(-k // 32) * 32, -(-n // 128) * 128) and b.shape == (w.shape[1],)
+        assert torch.equal(w[:k, :n], raw_w) and torch.equal(b[:n], raw_b)
+        assert not w[k:].any() and not w[:, n:].any() and not b[n:].any()
+    if sizes == (7, 33):
+        assert ops.slabs.w.numel() == ops.slabs.b.numel() == 0
+
+
+@pytest.mark.parametrize("sizes", MMA_SIZES)
+@pytest.mark.parametrize("reduce", ["none", "sumsq"])
+def test_f32_emulation_matches_plain(sizes, reduce):
+    """Through the packed slabs, slab by slab and k ascending, the
+    register-tiled arithmetic equals :func:`fused_mlp_reference` (one
+    fp32 matmul per layer): they differ only in fp32 summation order, so
+    within 1e-5 of the amplitude, at narrow widths and the flagship (37
+    rows, one with fx == 0)."""
+    x = torch.as_tensor(np.abs(_inputs(37, sizes[0], 6)) + 0.05)
+    x[4, 2] = 0.0
+    ops = _f32_ops(sizes, reduce)
+    got, want = emulate_f32_mlp(ops, x), fused_mlp_reference(ops, x)
+    assert got.shape == want.shape == ((37,) if reduce == "sumsq" else (37, sizes[-1]))
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("sizes", [(7, 64, 96, 33), (12, 40, 20)])
+@pytest.mark.parametrize("reduce", ["none", "sumsq"])
+def test_f32_emulation_matches_pallas_k1(sizes, reduce):
+    """The emulation against the JAX package's Pallas K1 at ``highest``
+    (interpret mode, small ``block_rows``), with the log-clamp, on a
+    skinny and a fan-in-12 first layer, at
+    ``test_plain_k1_matches_pallas_k1``'s tolerance."""
+    jp = _jax_params(sizes, 2)
+    x = np.abs(_inputs(37, sizes[0], 12)) + 0.1
+    x[3, 2] = 0.0
+    want = np.asarray(jax_make_fused_mlp(sizes, block_rows=8, interpret=True,
+                                         log_clamp_input=True, precision="highest",
+                                         reduce=reduce)(jp, jnp.asarray(x)))
+    ops = make_fused_mlp(sizes, log_clamp_input=True, reduce=reduce,
+                         device="cpu").operands(_torch_params(jp))
+    got = emulate_f32_mlp(ops, torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_f32_tile_height_follows_shared_memory():
+    """The wrapper runs the tallest tile up to its preferred height
+    whose shared memory fits: the flagship at the preferred height, the
+    widest networks the 16-row fp32 design took at 8 rows; a forced height
+    reaches the launch, an unknown one is refused."""
+    assert f32_rows(FLAGSHIP) == F32_PREFERRED_ROWS
+    assert make_fused_mlp(FLAGSHIP, device="cpu").tile_rows == F32_PREFERRED_ROWS
+    for widest in [(7, 1808, 1808, 3), (3616, 3), (8, 1808, 1808, 451)]:
+        assert f32_rows(widest) == 8
+        assert shared_bytes(widest) <= MAX_SHARED_BYTES
+    assert f32_rows((7, 1000, 3)) == 16
+    for rows in F32_TILE_ROWS:
+        assert make_fused_mlp(SMALL + (451,), tile_rows=rows, device="cpu").tile_rows == rows
+    with pytest.raises(ValueError, match="tile_rows"):
+        make_fused_mlp(FLAGSHIP, tile_rows=48, device="cpu")
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        make_fused_mlp((7, 1000, 3), tile_rows=64, device="cpu")
+
+
+@pytest.mark.parametrize("n_in", [1, 7, 8, 9, 12, 40, 700])
+def test_f32_takes_every_network_the_16_row_design_took(n_in):
+    """Every network within the 16-row fp32 design's limit (4·16·(n_in +
+    2·widest hidden + 8) ≤ 232,448 bytes) still fits a tile height: at
+    its boundary and below it, with one hidden layer, two, or none."""
+    for hidden in sorted({1, 7, 33, 352, (3624 - n_in) // 2 - 7, (3624 - n_in) // 2}):
+        for sizes in [(n_in, hidden, 451), (n_in, hidden, hidden // 2 + 1, 3),
+                      (n_in, 3 * hidden)]:
+            widest = max(sizes[1:-1], default=0)
+            if 4 * 16 * (n_in + 2 * widest + 8) > MAX_SHARED_BYTES:
+                continue
+            rows = f32_rows(sizes)
+            assert shared_bytes(sizes) == f32_tile_bytes(rows, *f32_geometry(sizes))
+            assert shared_bytes(sizes) <= MAX_SHARED_BYTES, sizes
+            make_fused_mlp(sizes, device="cpu")

@@ -115,11 +115,11 @@ def load_library() -> ctypes.CDLL:
     signatures."""
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k1_fused_mlp.argtypes = [p, p, i, i, p, p, i, i, p]
+    lib.k1_fused_mlp.argtypes = [p, p, i, i, p, p, i, i, i, p]
     lib.k1_fused_mlp.restype = i
     lib.k1_fused_mlp_mma.argtypes = [p, p, i, i, p, p, i, i, i, p]
     lib.k1_fused_mlp_mma.restype = i
-    lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, p]
+    lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, i, p]
     lib.k2_fused_loglik_gram.restype = i
     lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, i, i, p]
     lib.k3_fused_loglik_grad_gram.restype = i

@@ -1,6 +1,7 @@
 """What the kernel wrappers share: the launch geometry and limits the
-CUDA sources hard-code (``csrc/trunk.cuh``), the check of the input
-rows, the operand cache, and the launch itself.
+CUDA sources hard-code (``csrc/trunk.cuh``, ``csrc/tile_f32.cuh``), the
+fp32 weight slabs and tile height of the register-tiled kernels, the
+check of the input rows, the operand cache, and the launch itself.
 
 A wrapper runs its kernel's plain PyTorch version for a CPU tensor and
 launches the kernel for a CUDA tensor; any other device, and any tensor
@@ -10,6 +11,7 @@ the kernel does not take, raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +19,82 @@ ROWS_PER_BLOCK = 16  # kRows in csrc/trunk.cuh
 MAX_LAYERS = 8  # kMaxLayers in csrc/trunk.cuh
 MAX_SHARED_BYTES = 232448  # an H100 block's dynamic shared-memory limit
 TIER_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
+# csrc/tile_f32.cuh: the tile heights its kernels are built for, the
+# chunk width (kSlabN), the fan-in padding (kPadK), the floats of per-row
+# partials (kRedFloats), and each height's slab ring (Ring: k rows per
+# slab, slots)
+F32_TILE_ROWS = (64, 32, 16, 8)
+SLAB_N, PAD_K, RED_FLOATS = 128, 32, 256
+RING = {64: (32, 3), 32: (16, 2), 16: (8, 3), 8: (8, 3)}
+# the tallest tile the fp32 wrappers pick when it fits (PERF.md)
+F32_PREFERRED_ROWS = 64
+
+
+def padk(n: int) -> int:
+    """``padk`` in ``csrc/tile_f32.cuh``: a fan-in padded to a multiple
+    of every slab depth."""
+    return -(-n // PAD_K) * PAD_K
+
+
+def tile_stride(rows: int) -> int:
+    """``tile_stride`` in ``csrc/tile_f32.cuh``: the k-major tile's row
+    stride, padded at 16 and 8 rows against bank conflicts."""
+    return {16: 18, 8: 9}.get(rows, rows)
+
+
+def f32_tile_bytes(rows: int, in_rows: int, buf_cols: int) -> int:
+    """Dynamic shared memory of one register-tiled fp32 CTA of ``rows``
+    rows (``tile_smem_bytes`` in ``csrc/tile_f32.cuh``): the input tile
+    (``in_rows`` k rows), two activation buffers of ``buf_cols`` k rows,
+    the slab ring and the per-row partials."""
+    depth, slots = RING[rows]
+    return 4 * (tile_stride(rows) * (in_rows + 2 * buf_cols) + slots * depth * SLAB_N
+                + RED_FLOATS)
+
+
+def f32_tile_rows(in_rows: int, buf_cols: int, forced: int | None = None) -> int:
+    """The tile height the fp32 wrappers pass: ``forced`` if given (one
+    of :data:`F32_TILE_ROWS`), else the tallest of them up to
+    :data:`F32_PREFERRED_ROWS` whose shared memory fits, else the
+    shortest (whose bytes then refuse the network)."""
+    if forced is not None:
+        if forced not in F32_TILE_ROWS:
+            raise ValueError(f"tile_rows must be one of {F32_TILE_ROWS}; got {forced!r}")
+        return forced
+    fits = [r for r in F32_TILE_ROWS if r <= F32_PREFERRED_ROWS
+            and f32_tile_bytes(r, in_rows, buf_cols) <= MAX_SHARED_BYTES]
+    return fits[0] if fits else F32_TILE_ROWS[-1]
+
+
+class Slabs(NamedTuple):
+    """fp32 layers as ``csrc/tile_f32.cuh`` streams them
+    (:func:`pack_slabs`): ``w`` every layer's slabs back to back, ``b``
+    every layer's bias zero-padded to ``SLAB_N``·chunks."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+
+
+def pack_slabs(layers) -> Slabs:
+    """Pack fp32 ``(w (K, N), b (N,))`` layers for the register-tiled
+    kernels, once per model: ``w`` zero-padded to (padk(K), 128·chunks),
+    chunks = ⌈N/128⌉, and laid out chunk by chunk, each chunk's
+    (padk(K), 128) block k-major, so that a slab (d consecutive k rows of
+    a chunk, d = 8, 16 or 32: a divisor of padk(K)) is contiguous memory
+    and the whole stream's slab g sits at float offset 128·d·g."""
+    ws, bs = [], []
+    for w, b in layers:
+        k, n = w.shape
+        nc = -(-n // SLAB_N)
+        padded = w.new_zeros((padk(k), nc * SLAB_N))
+        padded[:k, :n] = w
+        ws.append(padded.reshape(padk(k), nc, SLAB_N).transpose(0, 1).reshape(-1))
+        bias = b.new_zeros(nc * SLAB_N)
+        bias[:n] = b
+        bs.append(bias)
+    empty = torch.zeros(0, dtype=torch.float32)
+    return Slabs(w=torch.cat(ws).contiguous() if ws else empty,
+                 b=torch.cat(bs).contiguous() if bs else empty)
 
 
 def check_rows(raw, device: torch.device, n_in: int) -> torch.Tensor:

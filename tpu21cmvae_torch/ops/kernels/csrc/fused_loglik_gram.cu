@@ -12,89 +12,138 @@
 //
 // What bounds it on an H100: fp32 FMA throughput on the CUDA cores. At the
 // flagship widths (7→288→352→288→224, gram head 224×224) a row needs
-// ≈0.64 MFLOP. Each row reads 28 bytes and writes 4, so device memory is
-// not the limit; the weights (≈1.0 MB of fp32 at the flagship) are read
-// once per row tile, from L2, where all of them fit.
+// 0.64 MFLOP: 10.0 ms at 1 M rows at the 67 TFLOP/s peak. Each row reads
+// 28 bytes and writes 4, so device memory is not the limit. The first
+// design (K3's forward, one output column of a 16-row tile per thread)
+// spent five loads on every 16 FMAs, streamed the weights (1.0 MB) from L2
+// once per 16 rows, and reached 21 % of the peak.
 //
-// What the design does about it: it is K3's forward (trunk.cuh) without
-// the backward. One CTA of 256 threads per tile of kRows = 16 rows; each
-// thread owns one output column at a time, keeps kRows sums in registers,
-// reads W[k, j] coalesced across the warp and the activations as
-// broadcast float4 loads. With no backward to feed, only two activation
-// buffers exist: they take turns as a layer's input and output, and h@G
-// lands in the one that h does not hold. Shared memory per CTA is
-// 4·kRows·(n_in + 2·max width) bytes, 45,504 at the flagship (K3 keeps
-// every activation: 88.5 KB), so shared memory admits five CTAs per SM
-// where it admits two of K3's. The register file admits four at up to 64
-// registers a thread, and the launch bounds ask for four: ptxas then uses
-// 64 registers where it picks 54 unasked, and at 1 M rows on an H100 the
-// 54-register build ran slower (PERF.md). The skinny first layer (fan-in ≤ 8) is exact
-// fp32 FMA. Register tiling, TMA and persistent CTAs are left for
-// later work.
+// What the design does about it: K1's register-tiled layers
+// (tile_f32.cuh; see fused_mlp.cu): BM rows per CTA of 256 threads, BM/8
+// × 4 accumulators per thread per 128-column chunk, the weights packed
+// once per model into fp32 slabs (ops/kernels/_common.py::pack_slabs:
+// trunk layers 1 … n−1, then G, whose bias slot holds u) and streamed
+// through a cp.async ring, one barrier per slab. The
+// skinny first layer is a (row, column) loop of exact fp32 FMA. The gram
+// head is one more register-tiled layer with G; its epilogue forms
+// (hg + 2u)·h from the registers and the fp32 h still in shared memory at
+// the same (row, column), so no hg tile exists, and the per-row quad is
+// reduced across the 8 lanes and 4 column quarters that share a row in a
+// fixed order. Shared memory per CTA: 4·S·(n_in + 2·widest trunk width,
+// padded to 32) bytes of tiles plus the ring and 1 KB of partials: 232,192
+// bytes at the flagship with BM = 64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
-#include "trunk.cuh"
+#include "tile_f32.cuh"
 
 namespace {
 
 struct GramNet {
-  int n_layers;
+  int n_layers;               // trunk layers, the skinny one included
   int width[kMaxLayers + 1];  // width[0] = n_in; trunk layer i maps width[i] → width[i+1]
-  int max_width;              // widest trunk layer
-  const float* w0;            // (n_in, width[1])
+  int buf_cols;               // k rows of each activation buffer: widest trunk width, padded to 32
+  int total;                  // slabs in the stream at BM: trunk layers 1 … n−1, then G
+  const float* w0;            // (n_in, width[1]), exact fp32
   const float* b0;            // (width[1],)
-  const float* w[kMaxLayers];  // layer i ≥ 1: (width[i], width[i+1])
-  const float* b[kMaxLayers];  // (width[i+1],)
-  const float* g;              // (H, H), H = width[n_layers]
-  const float* u;              // (H,)
+  const float* slabs;
+  const float* bias;          // each streamed layer's bias padded to 128·chunks; G's slot holds u
 };
 
-__global__ void __launch_bounds__(kThreads, 4)
+// Launch bounds: at 64 rows the flagship's shared memory holds one CTA per
+// SM, and asking for two caps registers at 128, where K2 ran 2.6 % faster
+// than with ptxas's own 164; a cap of 80 spilled and ran slower (PERF.md).
+template <int BM>
+__global__ void __launch_bounds__(kThreads, BM >= 32 ? 2 : BM == 16 ? 3 : 4)
 fused_loglik_gram_kernel(const float* __restrict__ x, float* __restrict__ quad, int n_rows,
                          GramNet net) {
+  constexpr int TM = BM / 8;
+  constexpr int S = tile_stride(BM);
   extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const red = ring + Ring<BM>::kSlots * Ring<BM>::kFloats;
+  float* const buf[2] = {red + kRedFloats, red + kRedFloats + S * net.buf_cols};
+  float* const xl = buf[1] + S * net.buf_cols;
   const int n_in = net.width[0];
   const int n_layers = net.n_layers;
-  const int hidden = net.width[n_layers];
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * BM;
 
-  // shared-memory tiles: log-clamped input, then two activation buffers
-  float* xl = reinterpret_cast<float*>(smem4);
-  float* buf[2] = {xl + n_in * kRows, xl + (n_in + net.max_width) * kRows};
-
-  load_input_tile(x, n_rows, row0, n_in, true, xl);
+  start_ring<BM>(ring, net.slabs, net.total);
+  load_input<BM>(x, n_rows, row0, n_in, n_in, true, xl);
   __syncthreads();
+  skinny_hidden<BM>(xl, n_in, net.w0, net.b0, net.width[1], buf[0]);
 
-  skinny_relu_layer(xl, n_in, net.w0, net.b0, buf[0], net.width[1]);
-  __syncthreads();
-
+  int g = 0;
   int cur = 0;
+  const float* bias = net.bias;
   for (int i = 1; i < n_layers; ++i) {
-    dense<kF32, kBiasRelu>(buf[cur], net.width[i], net.w[i], nullptr, net.b[i], buf[cur ^ 1],
-                           net.width[i + 1]);
-    __syncthreads();
+    float* out = buf[cur ^ 1];
+    const int n = net.width[i + 1];
+    tile_layer<BM>(buf[cur], net.width[i], n, net.slabs, net.total, ring, g,
+                   [&](int c0, const float (&acc)[TM][4]) { relu_store<BM>(out, bias, n, c0, acc); });
+    bias += chunks(n) * kSlabN;
     cur ^= 1;
   }
 
-  // gram head: hg = h @ G into the free buffer, then the per-row quad
+  // gram head: hg = h @ G in registers; quad += (hg + 2u)·h per (row, column)
   const float* h = buf[cur];
-  float* hg = buf[cur ^ 1];
-  dense<kF32, kStore>(h, hidden, net.g, nullptr, nullptr, hg, hidden);
-  __syncthreads();
-  gram_quad(h, hg, net.u, hidden, row0, n_rows, quad, false);
+  const int hidden = net.width[n_layers];
+  const TileThread<BM> t;
+  float q[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) q[i] = 0.f;
+  tile_layer<BM>(h, hidden, hidden, net.slabs, net.total, ring, g,
+                 [&](int c0, const float (&acc)[TM][4]) {
+                   if (c0 >= padk(hidden)) return;  // h holds no columns past padk(hidden)
+                   const float4 u4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
+                   const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+                   for (int c = 0; c < 4; ++c) {
+                     float hv[TM];
+                     load_rows<TM>(hv, h + (c0 + c) * S + t.row);
+#pragma unroll
+                     for (int i = 0; i < TM; ++i) q[i] = fmaf(acc[i][c] + 2.f * u[c], hv[i], q[i]);
+                   }
+                 });
+  reduce_rows<BM>(q, red, quad, row0, n_rows);
+}
+
+template <int BM>
+cudaError_t launch_gram(const float* x, float* quad, int n_rows, GramNet net, cudaStream_t s) {
+  const size_t smem = tile_smem_bytes<BM>(net.width[0], net.buf_cols);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  // trunk layers 1 … n−1 (width[i] → width[i+1]), then G (H → H)
+  int k[kMaxLayers], n[kMaxLayers];
+  for (int i = 1; i < net.n_layers; ++i) {
+    k[i - 1] = net.width[i];
+    n[i - 1] = net.width[i + 1];
+  }
+  k[net.n_layers - 1] = n[net.n_layers - 1] = net.width[net.n_layers];
+  net.total = stream_slabs<BM>(k, n, net.n_layers);
+  auto* kernel = fused_loglik_gram_kernel<BM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<(n_rows + BM - 1) / BM, kThreads, smem, s>>>(x, quad, n_rows, net);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// ptrs, in order, all fp32: w0, b0; then for each trunk layer i = 1 …
-// n_layers-1: w, b; then G, u. Launches on `stream`, allocates nothing and
-// does not synchronise; returns the cudaError_t of the launch.
+// ptrs, in order, all fp32: w0, b0 (the skinny first layer), then the
+// packed slabs and padded biases of trunk layers 1 … n_layers-1 and G,
+// whose bias slot holds u (ops/kernels/_common.py::pack_slabs). tile_rows:
+// the CTA's rows, 64, 32, 16 or 8. Launches on `stream`, allocates nothing
+// and does not synchronise; returns the cudaError_t of the launch.
 int k2_fused_loglik_gram(const float* x, float* quad, int n_rows, int n_layers,
-                         const int* widths, const void* const* ptrs, void* stream) {
+                         const int* widths, const void* const* ptrs, int tile_rows,
+                         void* stream) {
   if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || widths[0] < 1 ||
       widths[0] > kMaxIn) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -104,31 +153,23 @@ int k2_fused_loglik_gram(const float* x, float* quad, int n_rows, int n_layers,
   for (int i = 0; i <= n_layers; ++i) {
     if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     net.width[i] = widths[i];
-    if (i > 0 && widths[i] > net.max_width) net.max_width = widths[i];
+    if (i > 0 && padk(widths[i]) > net.buf_cols) net.buf_cols = padk(widths[i]);
   }
-  const size_t smem =
-      static_cast<size_t>(widths[0] + 2 * net.max_width) * kRows * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  net.w0 = static_cast<const float*>(ptrs[0]);
+  net.b0 = static_cast<const float*>(ptrs[1]);
+  net.slabs = static_cast<const float*>(ptrs[2]);
+  net.bias = static_cast<const float*>(ptrs[3]);
 
-  int k = 0;
-  auto next = [&]() { return static_cast<const float*>(ptrs[k++]); };
-  net.w0 = next();
-  net.b0 = next();
-  for (int i = 1; i < n_layers; ++i) {
-    net.w[i] = next();
-    net.b[i] = next();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (tile_rows) {
+    case 64: err = launch_gram<64>(x, quad, n_rows, net, s); break;
+    case 32: err = launch_gram<32>(x, quad, n_rows, net, s); break;
+    case 16: err = launch_gram<16>(x, quad, n_rows, net, s); break;
+    case 8: err = launch_gram<8>(x, quad, n_rows, net, s); break;
+    default: err = cudaErrorInvalidValue;
   }
-  net.g = next();
-  net.u = next();
-
-  cudaError_t err = cudaFuncSetAttribute(fused_loglik_gram_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (n_rows + kRows - 1) / kRows;
-  fused_loglik_gram_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, quad, n_rows, net);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

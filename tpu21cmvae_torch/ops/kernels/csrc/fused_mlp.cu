@@ -7,135 +7,215 @@
 // Replaces: tpu21cmvae/ops/pallas/fused_mlp.py::make_fused_mlp (kernel
 // body _mlp_kernel, products _dot_refs), at its exact tier. Same
 // contract: optional log10/clamp of input columns 0–2, a skinny first
-// layer (fan-in ≤ 8) as exact fp32 FMA, (matmul + bias, ReLU) for every
-// hidden layer, a linear last layer; with reduce = sumsq it writes
+// layer (fan-in ≤ 8) as exact fp32 FMA, (matmul + bias, ReLU that keeps
+// NaN) for every hidden layer, a linear last layer; with sumsq it writes
 // Σ_j y_j² per row instead of y. The callers fold the normalizer
 // (predict) or the normalizer, observation and noise (the direct
 // likelihood) into the first and last layers.
 //
-// What bounds it on an H100: fp32 FMA throughput on the CUDA cores. At the
-// flagship widths (7→288→352→288→224→451) a row needs ≈0.74 MFLOP, 27 %
-// of it in the 451-wide output layer. Each row reads 28 bytes; predict
-// writes 1804 bytes per row (at 1 M rows, 1.8 GB, about half a
-// millisecond of device-memory time), sumsq 4 bytes.
-// The weights (≈1.5 MB of fp32 at the flagship) are read once per row
-// tile, from L2.
+// What bounds it on an H100: fp32 FMA throughput on the CUDA cores (IEEE
+// fp32 has no tensor-core form). At the flagship widths (7→288→352→288→
+// 224→451) a row needs 0.74 MFLOP, 27 % of it in the 451-wide output
+// layer: 11.6 ms at 1 M rows at the 67 TFLOP/s peak. Each row reads 28
+// bytes; predict writes 1804 bytes per row (1.8 GB at 1 M rows, about
+// half a millisecond of device-memory time), sumsq 4 bytes. The first
+// design (one output column of a 16-row tile per thread) spent five loads
+// on every 16 FMAs, streamed the weights from L2 once per 16 rows, and
+// reached 18 % of the peak.
 //
-// What the design does about it: one CTA of 256 threads per tile of
-// kRows = 16 rows, the dense layers of K2 and K3 (trunk.cuh): each thread
-// owns one output column at a time, keeps kRows sums in registers, reads
-// W[k, j] coalesced across the warp and the activations as broadcast
-// float4 loads. Two activation buffers as wide as the widest hidden layer
-// take turns as a layer's input and output. The last layer never goes to
-// shared memory: each thread adds the bias to its registers and either
-// stores its column (a warp writes 32 neighbouring floats of a row) or
-// squares and sums it; under sumsq the per-row partial sums are reduced
-// across each warp by shuffles and across the 8 warps through shared
-// memory, in a fixed order, so the (B, 451) signal never reaches device
-// memory. Rows past the batch are zero in the input tile and never
-// stored. Shared memory per CTA: 4·kRows·(n_in + 2·max hidden width +
-// kWarps) bytes, 46,016 at the flagship. The tensor cores have no IEEE
-// fp32 product; register tiling (several rows and columns per thread),
-// TMA and persistent CTAs are left for later work.
+// What the design does about it (device code in tile_f32.cuh):
+// - Register tiles: a CTA of 256 threads owns BM rows; each thread holds
+//   BM/8 × 4 accumulators of a 128-column chunk and per k reads its rows
+//   and its 4 weights as float4s from shared memory: 3 loads per 32 FMAs
+//   at BM = 64, 2 per 16 at BM = 32.
+// - Weight slabs: the wrapper packs the weights once per model
+//   (ops/kernels/_common.py::pack_slabs), zero-padded, all layers back to
+//   back; a cp.async ring streams them through shared memory as slabs of
+//   32 × 128 fp32 values in three slots at BM = 64 (16 × 128 in two at
+//   32), one warp-pair barrier per slab, so one L2 read of a weight
+//   serves BM rows. The fixed cost of a slab, not the loads, set the
+//   first cut's pace: 8-deep slabs ran 1.34× slower than 32-deep ones at
+//   BM = 64 (PERF.md).
+// - Tile height: the wrapper passes BM, the tallest height up to its
+//   preferred one (64) whose shared memory fits (ops/kernels/fused_mlp.py::
+//   f32_rows); wide networks take 32, 16 or 8 rows, the same code.
+// - Epilogues from registers: hidden layers add the bias, apply ReLU and
+//   write the next layer's k-major tile (two ping-pong buffers as wide as
+//   the widest hidden layer, padded to 32); the last layer adds the bias
+//   and stores its (row, column) pairs inside the batch and the width, or,
+//   under sumsq, squares and sums them per thread, then per row across
+//   the 8 lanes and the 4 column quarters that share it in a fixed order,
+//   so the (B, 451) signal never reaches device memory.
+// - The skinny layer stays a (row, column) loop of exact fp32 FMA, c
+//   ascending; a network of that layer alone writes straight from it.
+// Shared memory per CTA: 4·S·(in rows + 2·buffer columns) bytes of tiles
+// plus the ring (48 KB at BM = 64, 16 KB at 32, 12 KB below) and 1 KB of
+// partials, S = BM (64, 32), 18 (16), 9 (8): 232,192 bytes at the
+// flagship with BM = 64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
-#include "trunk.cuh"
+#include "tile_f32.cuh"
 
 namespace {
 
 struct MlpNet {
   int n_layers;
   int width[kMaxLayers + 1];  // width[0] = n_in; layer i maps width[i] → width[i+1]
-  int max_hidden;             // widest hidden layer (0 with a single layer)
   int skinny;                 // layer 0 is exact fp32 FMA (n_in ≤ kMaxIn)
+  int in_rows;                // k rows of the input tile: n_in if skinny, else padk(n_in)
+  int buf_cols;               // k rows of each activation buffer: widest hidden, padded to 32
   int log_clamp;              // log10/clamp input columns 0..2
-  int sumsq;                  // write Σ y² per row instead of y
-  const float* w[kMaxLayers];  // (width[i], width[i+1])
-  const float* b[kMaxLayers];  // (width[i+1],)
+  int total;                  // slabs in the stream (the layers after a skinny one) at BM
+  const float* w0;            // skinny layer: (n_in, width[1]), exact fp32
+  const float* b0;            // (width[1],)
+  const float* slabs;         // the streamed layers' packed slabs
+  const float* bias;          // their biases, each padded to 128·chunks
 };
 
-// The linear last layer from registers: y[r, j] = Σ_k in[k, r]·W[k, j] +
-// b[j], stored row-major into out (n_rows, n_out), or, under sumsq,
-// reduced to out[row] = Σ_j y[r, j]² through `red` (kWarps·kRows floats).
-template <bool SKINNY>
-__device__ void output_layer(const float* in, int n_in, const float* __restrict__ w,
-                             const float* __restrict__ bias, int n_out, int row0, int n_rows,
-                             bool sumsq, float* __restrict__ out, float* red) {
-  float ss[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) ss[r] = 0.f;
-  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
-    float acc[kRows];
-    if constexpr (SKINNY) {
-      skinny_column(in, n_in, w, n_out, j, acc);
-    } else {
-      dot_column<kF32>(in, n_in, w, nullptr, n_out, j, acc);
+// The lone skinny layer is the output layer: y = skinny_value, stored, or
+// squared and summed per row (phase p of P = kThreads/BM takes columns p,
+// p + P, …; the phases are summed in order).
+template <int BM, bool SUMSQ>
+__device__ void skinny_output(const float* xl, const MlpNet& net, int row0, int n_rows,
+                              float* __restrict__ y, float* red) {
+  const int n_in = net.width[0];
+  const int n_out = net.width[1];
+  if constexpr (!SUMSQ) {
+    for (int t = threadIdx.x; t < BM * n_out; t += blockDim.x) {
+      const int r = t / n_out;
+      const int j = t % n_out;
+      if (row0 + r < n_rows)
+        y[static_cast<size_t>(row0 + r) * n_out + j] =
+            skinny_value<BM>(xl, n_in, net.w0, net.b0, n_out, r, j);
     }
-    const float bj = __ldg(bias + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float y = acc[r] + bj;
-      if (sumsq) {
-        ss[r] = fmaf(y, y, ss[r]);
-      } else if (row0 + r < n_rows) {
-        out[static_cast<size_t>(row0 + r) * n_out + j] = y;
-      }
-    }
-  }
-  if (!sumsq) return;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float s = ss[r];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) red[warp * kRows + r] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kRows && row0 + threadIdx.x < n_rows) {
+  } else {
+    constexpr int P = kThreads / BM;
+    const int r = threadIdx.x % BM;
+    const int p = threadIdx.x / BM;
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * kRows + threadIdx.x];
-    out[row0 + threadIdx.x] = s;
+    for (int j = p; j < n_out; j += P) {
+      const float v = skinny_value<BM>(xl, n_in, net.w0, net.b0, n_out, r, j);
+      s = fmaf(v, v, s);
+    }
+    red[p * BM + r] = s;
+    __syncthreads();
+    if (threadIdx.x < BM && row0 + static_cast<int>(threadIdx.x) < n_rows) {
+      float sum = 0.f;
+      for (int q = 0; q < P; ++q) sum += red[q * BM + threadIdx.x];
+      y[row0 + threadIdx.x] = sum;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n_rows, MlpNet net) {
+// Launch bounds: at 64 rows the flagship's shared memory holds one CTA per
+// SM, and asking for two caps registers at 128, under which K1 keeps
+// ptxas's own 96 (sumsq) and 114 (predict); a cap of 80 ran slower
+// (PERF.md).
+template <int BM, bool SUMSQ>
+__global__ void __launch_bounds__(kThreads, BM >= 32 ? 2 : BM == 16 ? 3 : 4)
+fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ y, int n_rows, MlpNet net) {
+  constexpr int TM = BM / 8;
+  constexpr int S = tile_stride(BM);
   extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  float* const red = ring + Ring<BM>::kSlots * Ring<BM>::kFloats;
+  float* const buf[2] = {red + kRedFloats, red + kRedFloats + S * net.buf_cols};
+  float* const xl = buf[1] + S * net.buf_cols;
   const int n_in = net.width[0];
   const int last = net.n_layers - 1;
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * BM;
 
-  // shared-memory tiles: the input, two activation buffers, the sumsq partials
-  float* xl = reinterpret_cast<float*>(smem4);
-  float* buf[2] = {xl + n_in * kRows, xl + (n_in + net.max_hidden) * kRows};
-  float* red = xl + (n_in + 2 * net.max_hidden) * kRows;
-
-  load_input_tile(x, n_rows, row0, n_in, net.log_clamp != 0, xl);
+  start_ring<BM>(ring, net.slabs, net.total);
+  load_input<BM>(x, n_rows, row0, n_in, net.in_rows, net.log_clamp != 0, xl);
   __syncthreads();
+  if (net.skinny && last == 0) {
+    skinny_output<BM, SUMSQ>(xl, net, row0, n_rows, y, red);
+    return;
+  }
 
   const float* in = xl;
-  int cur = 0;
-  for (int i = 0; i < last; ++i) {  // hidden layers, ReLU
-    if (i == 0 && net.skinny) {
-      skinny_relu_layer(in, n_in, net.w[0], net.b[0], buf[cur], net.width[1]);
-    } else {
-      dense<kF32, kBiasRelu>(in, net.width[i], net.w[i], nullptr, net.b[i], buf[cur],
-                             net.width[i + 1]);
-    }
-    __syncthreads();
-    in = buf[cur];
-    cur ^= 1;
+  int first = 0;
+  if (net.skinny) {
+    skinny_hidden<BM>(xl, n_in, net.w0, net.b0, net.width[1], buf[0]);
+    in = buf[0];
+    first = 1;
   }
+  int g = 0;
+  const float* bias = net.bias;
+  for (int i = first; i < last; ++i) {  // hidden layers, ReLU
+    float* out = in == buf[0] ? buf[1] : buf[0];
+    const int n = net.width[i + 1];
+    tile_layer<BM>(in, net.width[i], n, net.slabs, net.total, ring, g,
+                   [&](int c0, const float (&acc)[TM][4]) { relu_store<BM>(out, bias, n, c0, acc); });
+    bias += chunks(n) * kSlabN;
+    in = out;
+  }
+
   const int n_out = net.width[last + 1];
-  if (last == 0 && net.skinny) {
-    output_layer<true>(in, n_in, net.w[0], net.b[0], n_out, row0, n_rows, net.sumsq, out, red);
-  } else {
-    output_layer<false>(in, net.width[last], net.w[last], net.b[last], n_out, row0, n_rows,
-                        net.sumsq, out, red);
+  const TileThread<BM> t;
+  if constexpr (!SUMSQ) {  // predict: the (row, column) pairs inside the batch and the width
+    tile_layer<BM>(in, net.width[last], n_out, net.slabs, net.total, ring, g,
+                   [&](int c0, const float (&acc)[TM][4]) {
+                     const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
+                     const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+                     for (int i = 0; i < TM; ++i) {
+                       const int row = row0 + t.row + i;
+                       if (row >= n_rows) break;
+                       float* yr = y + static_cast<size_t>(row) * n_out;
+#pragma unroll
+                       for (int q = 0; q < 4; ++q)
+                         if (c0 + q < n_out) yr[c0 + q] = acc[i][q] + b[q];
+                     }
+                   });
+  } else {  // sumsq: padded columns are exactly 0 and add nothing
+    float ss[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) ss[i] = 0.f;
+    tile_layer<BM>(in, net.width[last], n_out, net.slabs, net.total, ring, g,
+                   [&](int c0, const float (&acc)[TM][4]) {
+                     const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
+                     const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+                     for (int i = 0; i < TM; ++i)
+#pragma unroll
+                       for (int q = 0; q < 4; ++q) {
+                         const float v = acc[i][q] + b[q];
+                         ss[i] = fmaf(v, v, ss[i]);
+                       }
+                   });
+    reduce_rows<BM>(ss, red, y, row0, n_rows);
+  }
+}
+
+template <int BM, bool SUMSQ>
+cudaError_t launch_mlp(const float* x, float* y, int n_rows, MlpNet net, cudaStream_t s) {
+  const size_t smem = tile_smem_bytes<BM>(net.in_rows, net.buf_cols);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const int first = net.skinny ? 1 : 0;
+  net.total = stream_slabs<BM>(net.width + first, net.width + first + 1, net.n_layers - first);
+  auto* kernel = fused_mlp_kernel<BM, SUMSQ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<(n_rows + BM - 1) / BM, kThreads, smem, s>>>(x, y, n_rows, net);
+  return cudaGetLastError();
+}
+
+template <bool SUMSQ>
+cudaError_t launch_height(int rows, const float* x, float* y, int n_rows, const MlpNet& net,
+                          cudaStream_t s) {
+  switch (rows) {
+    case 64: return launch_mlp<64, SUMSQ>(x, y, n_rows, net, s);
+    case 32: return launch_mlp<32, SUMSQ>(x, y, n_rows, net, s);
+    case 16: return launch_mlp<16, SUMSQ>(x, y, n_rows, net, s);
+    case 8: return launch_mlp<8, SUMSQ>(x, y, n_rows, net, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -143,12 +223,15 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int n_row
 
 extern "C" {
 
-// ptrs, in order, for each layer i = 0 … n_layers-1: w, b, in fp32. out
-// is (n_rows, widths[n_layers]), or (n_rows,) with sumsq. Launches on
-// `stream`, allocates nothing and does not synchronise; returns the
-// cudaError_t of the launch.
+// ptrs, in order: w0, b0 (the skinny first layer's exact fp32 weights and
+// bias; null when layer 0 is not skinny), then the packed slabs and the
+// padded biases of every other layer (ops/kernels/_common.py::pack_slabs).
+// out is (n_rows, widths[n_layers]), or (n_rows,) with sumsq. tile_rows:
+// the CTA's rows, 64, 32, 16 or 8. Launches on `stream`, allocates nothing
+// and does not synchronise; returns the cudaError_t of the launch.
 int k1_fused_mlp(const float* x, float* out, int n_rows, int n_layers, const int* widths,
-                 const void* const* ptrs, int log_clamp, int sumsq, void* stream) {
+                 const void* const* ptrs, int log_clamp, int sumsq, int tile_rows,
+                 void* stream) {
   if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -156,29 +239,19 @@ int k1_fused_mlp(const float* x, float* out, int n_rows, int n_layers, const int
   net.n_layers = n_layers;
   net.skinny = widths[0] <= kMaxIn;
   net.log_clamp = log_clamp;
-  net.sumsq = sumsq;
+  net.in_rows = net.skinny ? widths[0] : padk(widths[0]);
   for (int i = 0; i <= n_layers; ++i) {
     if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     net.width[i] = widths[i];
-    if (i > 0 && i < n_layers && widths[i] > net.max_hidden) net.max_hidden = widths[i];
+    if (i > 0 && i < n_layers && padk(widths[i]) > net.buf_cols) net.buf_cols = padk(widths[i]);
   }
-  const size_t smem =
-      static_cast<size_t>(widths[0] + 2 * net.max_hidden + kWarps) * kRows * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-
-  for (int i = 0; i < n_layers; ++i) {
-    net.w[i] = static_cast<const float*>(ptrs[2 * i]);
-    net.b[i] = static_cast<const float*>(ptrs[2 * i + 1]);
-  }
-
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (n_rows + kRows - 1) / kRows;
-  fused_mlp_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x, out, n_rows,
-                                                                               net);
-  return static_cast<int>(cudaGetLastError());
+  net.w0 = static_cast<const float*>(ptrs[0]);
+  net.b0 = static_cast<const float*>(ptrs[1]);
+  net.slabs = static_cast<const float*>(ptrs[2]);
+  net.bias = static_cast<const float*>(ptrs[3]);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(sumsq ? launch_height<true>(tile_rows, x, out, n_rows, net, s)
+                                : launch_height<false>(tile_rows, x, out, n_rows, net, s));
 }
 
 }  // extern "C"

@@ -19,10 +19,12 @@ Each routes by tier (:func:`gram_on_tensor_cores`): at the bf16 tiers
 both run ``csrc/fused_gram_mma.cu`` on the tensor cores (K2 is its
 forward alone), from operands :func:`pack_gram_operands` packed once per
 model into bf16 ``mma`` fragments; at the fp32 tier K2 runs
-``csrc/fused_loglik_gram.cu`` and K3 ``csrc/fused_loglik_grad_gram.cu``
-on the CUDA cores. The CUDA kernels keep a row tile's activations on
-chip; the plain versions do the same arithmetic — same folds, same hi/lo
-split, same epilogue — in plain tensor operations.
+``csrc/fused_loglik_gram.cu``, register-tiled on the CUDA cores from the
+fp32 slabs of :func:`pack_gram_slabs` (``csrc/tile_f32.cuh``), and K3
+``csrc/fused_loglik_grad_gram.cu`` on the CUDA cores. The CUDA kernels
+keep a row tile's activations on chip; the plain versions do the same
+arithmetic — same folds, same hi/lo split, same epilogue — in plain
+tensor operations.
 """
 
 from __future__ import annotations
@@ -52,9 +54,14 @@ from tpu21cmvae_torch.ops.kernels._common import (
     ROWS_PER_BLOCK,
     TIER_CODE,
     OperandCache,
+    Slabs,
     check_rows,
+    f32_tile_bytes,
+    f32_tile_rows,
     hi_lo,
     launch,
+    pack_slabs,
+    padk,
     pointers,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
@@ -93,7 +100,9 @@ class GramOperands:
     ``grad_tier`` None, for the value-only K2. ``g``: ``G`` at ``tier``.
     ``u``, ``c``, ``log_norm``: the rest of the gram form. ``packed``:
     the same operands as ``fused_gram_mma.cu`` reads them where the
-    tiers run on the tensor cores, else None.
+    tiers run on the tensor cores, else None. ``slabs``: K2's operands as
+    ``fused_loglik_gram.cu`` streams them (:func:`pack_gram_slabs`) where
+    K2 runs at the fp32 tier, else None.
     """
 
     tier: str
@@ -108,6 +117,7 @@ class GramOperands:
     c: torch.Tensor
     log_norm: float
     packed: Optional[GramPacked] = None
+    slabs: Optional[Slabs] = None
 
     @property
     def widths(self) -> tuple:
@@ -167,6 +177,14 @@ def pack_gram_operands(ops: GramOperands) -> GramPacked:
     )
 
 
+def pack_gram_slabs(ops: GramOperands) -> Slabs:
+    """K2's fp32 operands as ``fused_loglik_gram.cu`` streams them
+    (:func:`~tpu21cmvae_torch.ops.kernels._common.pack_slabs`): trunk
+    layers 1 … n−1, then ``G`` with ``u`` in its bias slot (the gram
+    head adds no bias; its epilogue reads ``u`` there)."""
+    return pack_slabs([*zip(ops.w, ops.b), (ops.g, ops.u)])
+
+
 def _value(ops: GramOperands, quad):
     """``−½·(quad + c) + log_norm``: the value from the kernels' quad."""
     return -0.5 * (quad + ops.c) + ops.log_norm
@@ -202,10 +220,11 @@ def loglik_grad_gram_reference(ops: GramOperands, x: torch.Tensor):
     return _value(ops, quad), -(_log_clamp_grad(x) * e)
 
 
-def _kernel(ops: GramOperands, k3: bool):
+def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     """The C entry point of the kernel ``ops``' tiers run
-    (:func:`gram_on_tensor_cores`), and its operand pointers and tier
-    codes."""
+    (:func:`gram_on_tensor_cores`), its operand pointers, and the int
+    arguments after them: the tier codes, or ``fused_loglik_gram.cu``'s
+    tile height ``rows``."""
     tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
     if gram_on_tensor_cores(*tiers):
@@ -215,19 +234,19 @@ def _kernel(ops: GramOperands, k3: bool):
         entry = "k3_fused_loglik_grad_gram_mma" if k3 else "k2_fused_loglik_gram_mma"
         return entry, [*tensors, p.g, p.u], [TIER_CODE[t] for t in tiers]
     if not k3:  # fused_loglik_gram.cu runs the fp32 tier alone
-        tensors += [t for pair in zip(ops.w, ops.b) for t in pair]
-        return "k2_fused_loglik_gram", [*tensors, ops.g, ops.u], []
+        return "k2_fused_loglik_gram", [*tensors, *ops.slabs], [rows]
     for i, (w, b) in enumerate(zip(ops.w, ops.b)):
         tensors += [*hi_lo(w, ops.tier), b, *hi_lo(ops.wt[i], ops.grad_tier)]
     tensors += [*hi_lo(ops.g, ops.tier), ops.u]
     return "k3_fused_loglik_grad_gram", tensors, [TIER_CODE[t] for t in tiers]
 
 
-def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor) -> torch.Tensor:
-    """Launch K2 on PyTorch's current stream (no synchronisation)."""
+def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Launch K2 on PyTorch's current stream (no synchronisation);
+    ``rows``: ``fused_loglik_gram.cu``'s tile height."""
     quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
     if x.shape[0]:
-        entry, tensors, tiers = _kernel(ops, k3=False)
+        entry, tensors, tiers = _kernel(ops, k3=False, rows=rows)
         widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
         launch("K2", entry, x,
                x.data_ptr(), quad.data_ptr(), x.shape[0], len(ops.widths) - 1, widths,
@@ -274,15 +293,26 @@ def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32") -> int:
     return 4 * ROWS_PER_BLOCK * (sum(widths) + widths[-1])
 
 
-def gram_shared_bytes(widths, tier: str = "f32") -> int:
+def gram_f32_rows(widths, forced: Optional[int] = None) -> int:
+    """The tile height ``fused_loglik_gram.cu`` runs trunk ``widths`` at
+    (:func:`~tpu21cmvae_torch.ops.kernels._common.f32_tile_rows`)."""
+    return f32_tile_rows(widths[0], max(padk(w) for w in widths[1:]), forced)
+
+
+def gram_shared_bytes(widths, tier: str = "f32", rows: Optional[int] = None) -> int:
     """Dynamic shared memory of one K2 block at ``tier``.
-    ``fused_loglik_gram.cu`` keeps the input tile and two fp32 activation
-    buffers as wide as the widest trunk layer (they take turns as a
-    layer's input and output; ``h@G`` lands in the one ``h`` does not
-    hold); ``fused_gram_mma.cu`` bf16 tiles (:func:`_gram_mma_bytes`)."""
+    ``fused_loglik_gram.cu``
+    (:func:`~tpu21cmvae_torch.ops.kernels._common.f32_tile_bytes`) keeps
+    a ``rows``-row input tile, two fp32 activation buffers as wide as the
+    widest trunk layer padded to 32 (they take turns as a layer's input
+    and output; ``h@G`` stays in registers), the weight-slab ring and the
+    per-row partials; ``rows`` defaults to the height
+    :func:`gram_f32_rows` picks. ``fused_gram_mma.cu`` keeps bf16 tiles
+    (:func:`_gram_mma_bytes`)."""
     if gram_on_tensor_cores(tier):
         return _gram_mma_bytes(widths, tier, None)
-    return 4 * ROWS_PER_BLOCK * (widths[0] + 2 * max(widths[1:]))
+    return f32_tile_bytes(rows or gram_f32_rows(widths), widths[0],
+                          max(padk(w) for w in widths[1:]))
 
 
 class _GramWrapper:
@@ -292,7 +322,7 @@ class _GramWrapper:
     name: str
 
     def __init__(self, config, norm, obs, noise_var, *, precision, grad_precision,
-                 device):
+                 device, tile_rows=None):
         if config.activation != "relu":
             raise NotImplementedError(
                 f"{self.name} hard-codes ReLU hidden layers; got "
@@ -314,7 +344,9 @@ class _GramWrapper:
         # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu, or
         # the CUDA-core fused_loglik_grad_gram.cu / fused_loglik_gram.cu
         self.tensor_cores = gram_on_tensor_cores(self.tier, self.grad_tier)
-        need = (gram_shared_bytes(widths, self.tier) if self.grad_tier is None
+        # fused_loglik_gram.cu's tile height (K2 at the fp32 tier)
+        self.tile_rows = gram_f32_rows(widths, tile_rows)
+        need = (gram_shared_bytes(widths, self.tier, self.tile_rows) if self.grad_tier is None
                 else shared_bytes(widths, self.tier, self.grad_tier))
         if need > MAX_SHARED_BYTES:
             raise NotImplementedError(
@@ -341,6 +373,8 @@ class _GramWrapper:
                 )
             if self.tensor_cores:
                 return dataclasses.replace(ops, packed=pack_gram_operands(ops))
+            if self.grad_tier is None:
+                return dataclasses.replace(ops, slabs=pack_gram_slabs(ops))
             return ops
 
         self.operands = OperandCache(build)
@@ -365,18 +399,24 @@ class FusedLoglikGram(_GramWrapper):
     ``device``. On a CUDA device every call with at least one row
     launches K2 and adds one to :attr:`launches`; on the CPU it runs
     :func:`loglik_gram_reference`. Nothing here is differentiable (see
-    ``make_loglik(backend="kernel")`` for the autograd rule).
+    ``make_loglik(backend="kernel")`` for the autograd rule). At the fp32
+    tier ``tile_rows`` (one of
+    :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`) forces
+    ``fused_loglik_gram.cu``'s tile height, else :func:`gram_f32_rows`
+    picks it (:attr:`tile_rows`).
     """
 
     name = "K2"
 
-    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high", device):
+    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
+                 tile_rows=None, device):
         super().__init__(config, norm, obs, noise_var, precision=precision,
-                         grad_precision=None, device=device)
+                         grad_precision=None, device=device, tile_rows=tile_rows)
 
     @torch.no_grad()
     def __call__(self, params, raw):
-        return self._run(params, raw, loglik_gram_reference, _loglik_gram_cuda)
+        return self._run(params, raw, loglik_gram_reference,
+                         functools.partial(_loglik_gram_cuda, rows=self.tile_rows))
 
 
 class FusedLoglikGradGram(_GramWrapper):
@@ -405,10 +445,12 @@ class FusedLoglikGradGram(_GramWrapper):
 
 
 def make_fused_loglik_gram(config, norm, obs, noise_var=1.0, *, precision="high",
-                           device) -> FusedLoglikGram:
+                           tile_rows=None, device) -> FusedLoglikGram:
     """Fused gram-form value (the builder of the JAX package's same
-    name): ``precision`` tiers the trunk and ``G`` products."""
-    return FusedLoglikGram(config, norm, obs, noise_var, precision=precision, device=device)
+    name): ``precision`` tiers the trunk and ``G`` products;
+    ``tile_rows``: see :class:`FusedLoglikGram`."""
+    return FusedLoglikGram(config, norm, obs, noise_var, precision=precision,
+                           tile_rows=tile_rows, device=device)
 
 
 def make_fused_loglik_grad_gram(config, norm, obs, noise_var=1.0, *,
@@ -431,10 +473,11 @@ class FusedLoglik:
     = ``−½·Σ_bins r² + log_norm`` with ``r`` the folded network's output
     (obs and noise folded into its last layer), reduced inside the
     kernel, so the (B, n_bins) signal never reaches device memory.
-    Input and device rules, and :attr:`launches`, are K1's
+    Input and device rules, :attr:`launches` and ``tile_rows`` are K1's
     (:class:`~tpu21cmvae_torch.ops.kernels.fused_mlp.FusedMLP`)."""
 
-    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high", device):
+    def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
+                 tile_rows=None, device):
         if config.activation != "relu":
             raise NotImplementedError(
                 "K1 hard-codes ReLU hidden layers; got "
@@ -447,7 +490,7 @@ class FusedLoglik:
         self.mlp = FusedMLP(
             config.mlp().sizes, log_clamp_input=True,
             precision="high" if precision is None else precision,
-            reduce="sumsq", device=device,
+            reduce="sumsq", tile_rows=tile_rows, device=device,
             fold=functools.partial(fold_loglik_constants, norm=norm, obs=obs, scale=scale),
         )
 
@@ -465,8 +508,10 @@ class FusedLoglik:
 
 
 def make_fused_loglik(config, norm, obs, noise_var=1.0, *, precision="high",
-                      device) -> FusedLoglik:
+                      tile_rows=None, device) -> FusedLoglik:
     """Fused direct-method Gaussian log-likelihood (the builder of the
     JAX package's same name): K1 over the network with the normalizer,
-    the observation and the noise folded in, reduced by ``sumsq``."""
-    return FusedLoglik(config, norm, obs, noise_var, precision=precision, device=device)
+    the observation and the noise folded in, reduced by ``sumsq``;
+    ``tile_rows``: see :class:`~tpu21cmvae_torch.ops.kernels.fused_mlp.FusedMLP`."""
+    return FusedLoglik(config, norm, obs, noise_var, precision=precision,
+                       tile_rows=tile_rows, device=device)

@@ -14,7 +14,10 @@ layers (``ops/fold.py::fold_emulator_constants``) and predicts.
 Two CUDA kernels: ``csrc/fused_mlp_mma.cu`` runs the bf16 tiers on the
 tensor cores, from weights that :func:`pack_mma_operands` packed once
 into bf16 ``mma`` fragments; ``csrc/fused_mlp.cu`` runs the fp32 tier on
-the CUDA cores, and a network whose only layer is skinny at every tier.
+the CUDA cores, register-tiled over ``BM``-row tiles
+(``csrc/tile_f32.cuh``), from fp32 weight slabs that
+:func:`~tpu21cmvae_torch.ops.kernels._common.pack_slabs` packed once, and
+a network whose only layer is skinny at every tier.
 :func:`fused_mlp_reference` does the same arithmetic — same folds, same
 hi/lo split — in plain tensor operations.
 """
@@ -37,17 +40,21 @@ from tpu21cmvae_torch.ops.fold import (
 from tpu21cmvae_torch.ops.kernels._common import (
     MAX_LAYERS,
     MAX_SHARED_BYTES,
-    ROWS_PER_BLOCK,
     TIER_CODE,
     OperandCache,
+    Slabs,
     check_rows,
+    f32_tile_bytes,
+    f32_tile_rows,
     hi_lo,
     launch,
+    pack_slabs,
+    padk,
     pointers,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
 
-WARPS_PER_BLOCK = 8  # kThreads / 32 in csrc/trunk.cuh; kMmaWarps in csrc/fused_mlp_mma.cu
+WARPS_PER_BLOCK = 8  # kMmaWarps in csrc/mma.cuh
 MMA_ROWS_PER_BLOCK = 32  # kTileRows in csrc/fused_mlp_mma.cu
 MMA_TIERS = ("bf16", "bf16x3")
 
@@ -69,6 +76,10 @@ class MLPOperands:
     # first layer's exact fp32 pair as it is), or None where K1 runs
     # fused_mlp.cu
     packed: tuple | None = None
+    # the layers after a skinny first one (all of them without one) as
+    # fused_mlp.cu streams them (pack_slabs), or None where K1 runs
+    # fused_mlp_mma.cu
+    slabs: Slabs | None = None
 
 
 def _pad16(n: int) -> int:
@@ -120,12 +131,14 @@ def mlp_operands(params, tier: str, log_clamp: bool, reduce: str) -> MLPOperands
         for i, layer in enumerate(params)
     )
     b = tuple(layer["b"].to(torch.float32).contiguous() for layer in params)
-    packed = None
+    packed = slabs = None
     if runs_on_tensor_cores(widths, tier):
         packed = tuple((wi, bi) if i == 0 and skinny else pack_mma_operands(wi, bi, tier)
                        for i, (wi, bi) in enumerate(zip(w, b)))
+    else:
+        slabs = pack_slabs(list(zip(w, b))[int(skinny):])
     return MLPOperands(tier=tier, skinny=skinny, log_clamp=log_clamp, reduce=reduce,
-                       widths=widths, w=w, b=b, packed=packed)
+                       widths=widths, w=w, b=b, packed=packed, slabs=slabs)
 
 
 def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
@@ -143,17 +156,33 @@ def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
     return torch.sum(h * h, dim=-1) if ops.reduce == "sumsq" else h
 
 
-def shared_bytes(widths, tier: str = "f32") -> int:
-    """Dynamic shared memory of one K1 block at ``tier``: the fp32 input
-    tile, two activation buffers (they take turns as a layer's input and
-    output; the last layer writes from registers) and the per-warp
-    partial sums of ``sumsq``. ``fused_mlp.cu`` keeps fp32 buffers as
-    wide as the widest hidden layer; ``fused_mlp_mma.cu`` keeps bf16
-    tiles (hi and lo at bf16x3) as wide as the widest tensor-core layer
-    input padded to 16, plus 8 columns of row padding."""
+def f32_geometry(widths) -> tuple:
+    """``fused_mlp.cu``'s (input tile k rows, activation buffer k rows):
+    the fan-in (padded to 32 unless the first layer is skinny) and the
+    widest hidden layer padded to 32 (0 for a single layer)."""
+    n_in = widths[0]
+    in_rows = n_in if n_in <= SKINNY_DENSE_MAX_IN else padk(n_in)
+    return in_rows, max((padk(w) for w in widths[1:-1]), default=0)
+
+
+def f32_rows(widths, forced: int | None = None) -> int:
+    """The tile height ``fused_mlp.cu`` runs ``widths`` at
+    (:func:`~tpu21cmvae_torch.ops.kernels._common.f32_tile_rows`)."""
+    return f32_tile_rows(*f32_geometry(widths), forced)
+
+
+def shared_bytes(widths, tier: str = "f32", rows: int | None = None) -> int:
+    """Dynamic shared memory of one K1 block at ``tier``. ``fused_mlp.cu``
+    (:func:`~tpu21cmvae_torch.ops.kernels._common.f32_tile_bytes`) keeps
+    a ``rows``-row fp32 input tile, two activation buffers as wide as the
+    widest hidden layer (they take turns as a layer's input and output;
+    the last layer writes from registers), the weight-slab ring and the
+    per-row partials of ``sumsq``; ``rows`` defaults to the height
+    :func:`f32_rows` picks. ``fused_mlp_mma.cu`` keeps bf16 tiles (hi and
+    lo at bf16x3) as wide as the widest tensor-core layer input padded to
+    16, plus 8 columns of row padding."""
     if not runs_on_tensor_cores(widths, tier):
-        hidden = max(widths[1:-1], default=0)
-        return 4 * ROWS_PER_BLOCK * (widths[0] + 2 * hidden + WARPS_PER_BLOCK)
+        return f32_tile_bytes(rows or f32_rows(widths), *f32_geometry(widths))
     first = 1 if widths[0] <= SKINNY_DENSE_MAX_IN else 0
     stride = max(_pad16(k) for k in widths[first:-1]) + 8
     parts = 2 if tier == "bf16x3" else 1
@@ -161,8 +190,9 @@ def shared_bytes(widths, tier: str = "f32") -> int:
             + 4 * MMA_ROWS_PER_BLOCK * (widths[0] + WARPS_PER_BLOCK))
 
 
-def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on PyTorch's current stream (no synchronisation)."""
+def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Launch K1 on PyTorch's current stream (no synchronisation);
+    ``rows``: ``fused_mlp.cu``'s tile height."""
     n = x.shape[0]
     shape = (n,) if ops.reduce == "sumsq" else (n, ops.widths[-1])
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
@@ -176,8 +206,8 @@ def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
         launch("K1", "k1_fused_mlp_mma", x, *args, pointers(tensors), TIER_CODE[ops.tier],
                *flags)
     else:  # the fp32 tier, or a lone skinny layer (exact fp32 at every tier)
-        tensors = [t for pair in zip(ops.w, ops.b) for t in pair]
-        launch("K1", "k1_fused_mlp", x, *args, pointers(tensors), *flags)
+        skinny = (ops.w[0], ops.b[0]) if ops.skinny else (None, None)
+        launch("K1", "k1_fused_mlp", x, *args, pointers([*skinny, *ops.slabs]), *flags, rows)
     return out
 
 
@@ -191,11 +221,14 @@ class FusedMLP:
     :func:`fused_mlp_reference`. ``fold`` (optional) maps ``params`` to
     the layers K1 runs (a normalizer or likelihood fold); the folded,
     tier-split operands are cached against the identity and version of
-    the ``params`` tensors.
+    the ``params`` tensors. ``tile_rows`` (one of
+    :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`) forces
+    ``fused_mlp.cu``'s tile height, else :func:`f32_rows` picks it;
+    :attr:`tile_rows` is what the fp32 route launches with.
     """
 
     def __init__(self, sizes, *, log_clamp_input=False, precision="highest",
-                 reduce="none", fold=None, device):
+                 reduce="none", fold=None, tile_rows=None, device):
         self.sizes = tuple(int(s) for s in sizes)
         if reduce not in ("none", "sumsq"):
             raise ValueError(f"reduce must be 'none' or 'sumsq'; got {reduce!r}")
@@ -204,7 +237,8 @@ class FusedMLP:
                 f"K1 takes 1 to {MAX_LAYERS} layers; got {len(self.sizes) - 1}"
             )
         self.tier = resolve_tier(precision, "highest")
-        need = shared_bytes(self.sizes, self.tier)
+        self.tile_rows = f32_rows(self.sizes, tile_rows)
+        need = shared_bytes(self.sizes, self.tier, self.tile_rows)
         if need > MAX_SHARED_BYTES:
             raise NotImplementedError(
                 f"widths {self.sizes} need {need} bytes of shared memory per K1 "
@@ -233,20 +267,22 @@ class FusedMLP:
             raise ValueError(f"K1 runs on CUDA or (plain) on the CPU; got {x.device}")
         if x.shape[0]:  # an empty batch launches nothing
             self.launches += 1
-        return _fused_mlp_cuda(ops, x)
+        return _fused_mlp_cuda(ops, x, self.tile_rows)
 
 
 def make_fused_mlp(sizes, *, log_clamp_input=False, precision="highest",
-                   reduce="none", device) -> FusedMLP:
+                   reduce="none", tile_rows=None, device) -> FusedMLP:
     """The whole MLP as one kernel (the builder of the JAX package's same
     name). ``precision``: ``"highest"``/``"contract"`` exact fp32,
     ``"high"`` bf16x3, ``"default"`` single-pass bf16; a fan-in ≤ 8 first
-    layer is exact fp32 at every tier."""
+    layer is exact fp32 at every tier. ``tile_rows``: see
+    :class:`FusedMLP`."""
     return FusedMLP(sizes, log_clamp_input=log_clamp_input, precision=precision,
-                    reduce=reduce, device=device)
+                    reduce=reduce, tile_rows=tile_rows, device=device)
 
 
-def make_fused_emulate(config, norm, *, precision="highest", device) -> FusedMLP:
+def make_fused_emulate(config, norm, *, precision="highest", tile_rows=None,
+                       device) -> FusedMLP:
     """Fused flagship inference: ``(params, raw) → signals`` in mK on
     unfolded ``params`` (the builder of the JAX package's same name;
     same contract as ``DirectEmulator.predict_fn``)."""
@@ -256,4 +292,5 @@ def make_fused_emulate(config, norm, *, precision="highest", device) -> FusedMLP
             f"activation={config.activation!r}"
         )
     return FusedMLP(config.mlp().sizes, log_clamp_input=True, precision=precision,
-                    device=device, fold=functools.partial(fold_emulator_constants, norm=norm))
+                    tile_rows=tile_rows, device=device,
+                    fold=functools.partial(fold_emulator_constants, norm=norm))

@@ -15,16 +15,25 @@ Phases, one line each:
 3. hold K3 (the fused gram value-and-gradient kernel) against its plain
    PyTorch version on the card, at the flagship widths of
    ``pretrained/direct_synthetic.npz``, for batches 1, 37, 4096 and
-   65,537 and three tier pairs (the bf16 pairs run the tensor-core
-   ``fused_gram_mma.cu``, (highest, highest) ``fused_loglik_grad_gram.cu``);
+   65,537 and four tier pairs (the bf16 pairs run the tensor-core
+   ``fused_gram_mma.cu``; (highest, highest) the register-tiled
+   ``fused_loglik_grad_gram_f32.cu``, at every tile height, forced, and
+   at the height the wrapper picks, its value held bit for bit to the
+   fp32 K2's at the same height; the mixed pair (highest, default)
+   ``fused_loglik_grad_gram.cu``);
 4. time K3 and its plain version at 4096 and 65,536 rows (CUDA events,
    warmup excluded, median of repeats), and the kernel's device time per
-   call over back-to-back calls;
+   call over back-to-back calls; then the fp32 K3 at every tile height,
+   forced, in turns;
 5. the main path through the public entry points: load the checkpoint,
    predict (held to a float64 NumPy forward of the same file), sample a
    posterior with HMC, whose every leapfrog step runs K3 at (high,
    default) on ``fused_gram_mma.cu``, and score the draws and the truth
-   by the plain likelihood at the exact tier;
+   by the plain likelihood at the exact tier; then a short HMC at the
+   exact tier (``loglik_and_grad_fn(precision="contract",
+   backend="kernel")`` into ``sample_hmc``), whose every leapfrog step
+   runs K3 on ``fused_loglik_grad_gram_f32.cu``, the final walkers'
+   carried log-density held to the plain exact-tier likelihood;
 6. hold K1 (the fused MLP) against its plain version, as predict
    (``make_fused_emulate``) and as the direct likelihood's sum of squares
    (``make_fused_loglik``), and K2 (the fused gram value) against its
@@ -70,7 +79,7 @@ import time
 import numpy as np
 import torch
 
-from tpu21cmvae_torch.data.synthetic import synthetic_params
+from tpu21cmvae_torch.data.synthetic import PAR_RANGES, synthetic_params
 from tpu21cmvae_torch.models.direct import DirectEmulator
 from tpu21cmvae_torch.ops.kernels import _build
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
@@ -81,6 +90,7 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     make_fused_loglik_gram,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import fused_mlp_reference, make_fused_emulate
+from tpu21cmvae_torch.sampling.gradient import sample_hmc
 from tpu21cmvae_torch.utils.metrics import (
     grad_gate_violation,
     grad_rel_error,
@@ -94,12 +104,18 @@ K1_SOURCE, K1_REPLACES = KERNELS + "fused_mlp.cu", "tpu21cmvae/ops/pallas/fused_
 K1_MMA_SOURCE = KERNELS + "fused_mlp_mma.cu"  # K1 at the bf16 tiers
 K2_SOURCE = KERNELS + "fused_loglik_gram.cu"
 K2_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:204"
-K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"
+K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"  # K3 at the mixed tier pairs
+K3_F32_SOURCE = KERNELS + "fused_loglik_grad_gram_f32.cu"  # K3 at (fp32, fp32)
 K3_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:401"
 GRAM_MMA_SOURCE = KERNELS + "fused_gram_mma.cu"  # K2 and K3 at the bf16 tiers
 TIERS = ("highest", "high", "default")
-TIER_PAIRS = (("highest", "highest"), ("high", "high"), ("high", "default"))
+TIER_PAIRS = (("highest", "highest"), ("highest", "default"), ("high", "high"),
+              ("high", "default"))
 MAIN_TIERS = ("high", "default")  # what sample_posterior runs K3 at
+EXACT_TIERS = ("highest", "highest")  # K3 on fused_loglik_grad_gram_f32.cu
+MIXED_TIERS = ("highest", "default")  # K3 on fused_loglik_grad_gram.cu
+K3_F32_HEIGHTS = (64, 32, 16, 8)  # its tile heights, forced in phases 3 and 4
+EXACT_HMC = dict(n_walkers=4096, n_warmup=20, n_steps=20)  # phase 5's exact-tier run
 NOISE_VAR = 25.0
 # Value tolerance, kernel vs plain: |Δ logL| ≤ rtol·(|logL| + c/2) + 1e-2
 # nats. Both compute the same products and differ only in summation
@@ -506,6 +522,163 @@ def gradient_free_main_path(model, truth, obs, dev):
     return k1_launches, k1_mma_launches, k2_exact_launches, k2_launches
 
 
+def k3_wrapper(model, obs, tiers, dev, tile_rows=None):
+    return make_fused_loglik_grad_gram(model.config, model.normalizer, obs, NOISE_VAR,
+                                       precision=tiers[0], grad_precision=tiers[1],
+                                       tile_rows=tile_rows, device=dev)
+
+
+def k3_vs_plain(model, obs, rng, dev):
+    """Phase 3: K3 against its plain version at every tier pair; the
+    fp32 pair at every tile height, forced, and at the wrapper's own
+    choice, its value equal to the fp32 K2's at the same height bit for
+    bit. Returns the wrappers by tier pair (the fp32 pair's picks its
+    height) and the largest |Δ logL| by tier pair at 4096 rows (fp32 and
+    mixed pairs: over every batch)."""
+    wrappers = {tiers: k3_wrapper(model, obs, tiers, dev) for tiers in TIER_PAIRS}
+    cases = [(f"{a}/{b}", (a, b), fn) for (a, b), fn in wrappers.items()]
+    cases += [(f"highest/highest@{h}", EXACT_TIERS, k3_wrapper(model, obs, EXACT_TIERS, dev, h))
+              for h in K3_F32_HEIGHTS]
+    k2 = {h: make_fused_loglik_gram(model.config, model.normalizer, obs, NOISE_VAR,
+                                    precision="highest", tile_rows=h, device=dev)
+          for h in K3_F32_HEIGHTS}
+    report = {}
+    err = {tiers: 0.0 for tiers in TIER_PAIRS}
+    for label, tiers, fn in cases:
+        ops = fn.operands(model.params)
+        check(fn.tensor_cores == ("highest" not in tiers), f"K3 route at {tiers}")
+        check(fn.register_tiled == (tiers == EXACT_TIERS), f"K3 fp32 route at {tiers}")
+        for n in (1, 37, 4096, 65537):
+            x = rows(n, rng)
+            vk, gk = fn(model.params, x)
+            vp, gp = loglik_grad_gram_reference(ops, x)
+            if fn.register_tiled:
+                same = torch.equal(vk, k2[fn.rows_for(n)](model.params, x))
+                check(same, f"K3 fp32 value != K2 fp32 value bit for bit, {label} n={n}")
+            torch.cuda.synchronize()
+            vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+            check(vk.shape == (n,) and gk.shape == (n, 7), f"shapes {label} n={n}")
+            check(bool(np.isfinite(vk).all() and np.isfinite(gk).all()),
+                  f"finite {label} n={n}")
+            tol = VALUE_RTOL[tiers[0]] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
+            dv = np.abs(vk - vp)
+            check(bool((dv <= tol).all()),
+                  f"value {label} n={n}: worst |Δ|/tol {float((dv / tol).max()):.3g}")
+            check(gk[0, 2] == 0.0, f"fx == 0 gradient slot {label} n={n}: {gk[0, 2]}")
+            rel = grad_rel_error(gk, gp)
+            q999 = float(np.quantile(rel, 0.999))
+            gate = grad_gate_violation(gk, gp)
+            check(gate <= 0.0, f"gradient gate {label} n={n}: {gate:.3g}")
+            if tiers == EXACT_TIERS:
+                check(q999 <= GRAD_Q999_F32, f"gradient q99.9 {label} n={n}: {q999:.3g}")
+            if "highest" in tiers or n == 4096:
+                err[tiers] = max(err[tiers], float(dv.max()))
+            report[f"{label}/{n}"] = {
+                "value_max_abs": float(dv.max()),
+                "value_worst_over_tol": float((dv / tol).max()),
+                "grad_q999_rel": q999,
+                "grad_max_rel": float(rel.max()),
+            }
+            if fn.register_tiled:
+                report[f"{label}/{n}"]["tile_rows"] = fn.rows_for(n)
+    torch.cuda.synchronize()
+    print(f"phase 3: kernel == plain within tolerance at every batch, tier pair and fp32 "
+          f"tile height; fp32 K3 value == fp32 K2 value bit for bit {json.dumps(report)}",
+          flush=True)
+    return wrappers, err
+
+
+def time_k3(model, obs, wrappers, rng, dev) -> dict:
+    """Phase 4: ms per call of K3 and its plain version by tier pair at
+    4096 and 65,536 rows, then the fp32 K3's tile heights, forced, in
+    turns (64, 32, 16, 8, 8, 16, 32, 64): ms per wrapper call and device
+    ms per call, each the mean of its two turns."""
+    timings = {}
+    for tiers, fn in wrappers.items():
+        ops = fn.operands(model.params)
+        for n, repeats in ((4096, 50), (65536, 20)):
+            x = rows(n, rng)
+            kernel_ms = time_ms(lambda: fn(model.params, x), repeats)
+            plain_ms = time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats)
+            timings[f"{tiers[0]}/{tiers[1]}/{n}"] = {
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "kernel_stream_ms": stream_ms(lambda: fn(model.params, x), repeats),
+            }
+            if fn.register_tiled:
+                timings[f"{tiers[0]}/{tiers[1]}/{n}"]["tile_rows"] = fn.rows_for(n)
+    torch.cuda.synchronize()
+    print(f"phase 4: median ms per call {json.dumps(timings)}", flush=True)
+
+    forced = {h: k3_wrapper(model, obs, EXACT_TIERS, dev, h) for h in K3_F32_HEIGHTS}
+    turns = K3_F32_HEIGHTS + K3_F32_HEIGHTS[::-1]
+    heights = {}
+    for n, repeats in ((4096, 50), (65536, 20)):
+        x = rows(n, rng)
+        t = [time_ms(lambda: forced[h](model.params, x), repeats) for h in turns]
+        dev_t = [stream_ms(lambda: forced[h](model.params, x), repeats) for h in turns]
+        heights[str(n)] = {
+            str(h): {"kernel_ms": (t[i] + t[-1 - i]) / 2,
+                     "kernel_stream_ms": (dev_t[i] + dev_t[-1 - i]) / 2}
+            for i, h in enumerate(K3_F32_HEIGHTS)}
+    torch.cuda.synchronize()
+    print(f"phase 4: fp32 K3 tile heights {json.dumps(heights)}", flush=True)
+    return timings
+
+
+def exact_tier_hmc(model, obs, dev):
+    """Phase 5's second run: a short HMC at the exact tier through
+    ``loglik_and_grad_fn(precision="contract", backend="kernel")`` and
+    ``sample_hmc``, every leapfrog step on ``fused_loglik_grad_gram_f32.cu``.
+    The log-density each final walker carries, less the sigmoid map's
+    log-Jacobian (the prior is flat), is the kernel's logL there: it is
+    held to the plain exact-tier likelihood within the fp32 value
+    tolerance plus the Jacobian's own rounding (the walker's place in the
+    box is known to fp32 only). Returns the kernel's launches."""
+    valgrad = model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", precision="contract")
+    check(not valgrad.tensor_cores and valgrad.register_tiled,
+          "exact-tier HMC runs fused_loglik_grad_gram_f32.cu")
+    valgrad.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sample_hmc(valgrad, model.params, device=dev, **EXACT_HMC)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = valgrad.launches
+    n_walkers, n_steps = EXACT_HMC["n_walkers"], EXACT_HMC["n_steps"]
+    check(launches >= EXACT_HMC["n_warmup"] + n_steps, f"exact-tier K3 launches {launches}")
+    check(res.chain.shape == (n_steps // 5, n_walkers, 7), f"exact chain shape {res.chain.shape}")
+    check(bool(np.isfinite(res.chain).all() and np.isfinite(res.logp).all()),
+          "exact-tier HMC: finite chain and logp")
+    acc = float(np.mean(res.accept_rate))
+    check(0.3 <= acc <= 0.99, f"exact-tier HMC: mean acceptance {acc:.3f}")
+    final = res.final.astype(np.float64)
+    lo, hi = np.asarray(PAR_RANGES, np.float64).T
+    s = (final - lo) / (hi - lo)
+    eps = float(np.finfo(np.float32).eps)
+    ds = eps * (np.abs(lo) + np.abs(final) + (hi - lo)) / (hi - lo)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        jac = np.sum(np.log(s) + np.log1p(-s), axis=1)
+        jac_err = np.sum(ds * (1.0 / s + 1.0 / (1.0 - s)), axis=1)
+    inside = np.isfinite(jac) & np.isfinite(jac_err)  # a walker rounded onto the box's edge
+    exact = model.loglik_fn(obs, NOISE_VAR, precision="contract")
+    ops = valgrad.operands(model.params)
+    with torch.no_grad():
+        ll = exact(model.params, torch.as_tensor(res.final, device=dev)).cpu().numpy()
+    tol = VALUE_RTOL["highest"] * (np.abs(ll) + 0.5 * abs(float(ops.c))) + VALUE_ATOL + jac_err
+    gap = np.abs(res.logp - jac - ll)
+    worst = float((gap[inside] / tol[inside]).max())
+    check(float(inside.mean()) >= 0.5, f"exact-tier HMC: {inside.mean():.3f} of walkers inside")
+    check(worst <= 1.0, f"exact-tier HMC: carried logp vs plain logL, worst |Δ|/tol {worst:.3g}")
+    print("phase 5: exact-tier HMC " + json.dumps({
+        "wall_s": wall, "k3_f32_launches": launches, "tile_rows": valgrad.rows_for(n_walkers),
+        "accept": acc, "step_size": res.step_size, "walkers_checked": float(inside.mean()),
+        "carried_logp_vs_plain_worst_over_tol": worst,
+        "carried_logp_vs_plain_max_abs": float(gap[inside].max()),
+        "loglik_final_max": float(ll.max()),
+    }), flush=True)
+    return launches
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -538,67 +711,9 @@ def main() -> int:
     truth = synthetic_params(1, rng)[0]
     obs = model.predict(truth) + rng.normal(0.0, 5.0, model.config.n_bins)
 
-    # -- phase 3: kernel vs plain at flagship widths ------------------------
-    wrappers = {
-        tiers: make_fused_loglik_grad_gram(
-            model.config, model.normalizer, obs, NOISE_VAR,
-            precision=tiers[0], grad_precision=tiers[1], device=dev,
-        )
-        for tiers in TIER_PAIRS
-    }
-    report = {}
-    main_err = None
-    k3_f32_err = 0.0
-    for tiers, fn in wrappers.items():
-        ops = fn.operands(model.params)
-        check(fn.tensor_cores == (tiers != ("highest", "highest")), f"K3 route at {tiers}")
-        for n in (1, 37, 4096, 65537):
-            x = rows(n, rng)
-            vk, gk = fn(model.params, x)
-            vp, gp = loglik_grad_gram_reference(ops, x)
-            torch.cuda.synchronize()
-            vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
-            check(vk.shape == (n,) and gk.shape == (n, 7), f"shapes {tiers} n={n}")
-            check(bool(np.isfinite(vk).all() and np.isfinite(gk).all()),
-                  f"finite {tiers} n={n}")
-            tol = VALUE_RTOL[tiers[0]] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
-            dv = np.abs(vk - vp)
-            check(bool((dv <= tol).all()),
-                  f"value {tiers} n={n}: worst |Δ|/tol {float((dv / tol).max()):.3g}")
-            check(gk[0, 2] == 0.0, f"fx == 0 gradient slot {tiers} n={n}: {gk[0, 2]}")
-            rel = grad_rel_error(gk, gp)
-            q999 = float(np.quantile(rel, 0.999))
-            gate = grad_gate_violation(gk, gp)
-            check(gate <= 0.0, f"gradient gate {tiers} n={n}: {gate:.3g}")
-            if tiers == ("highest", "highest"):
-                check(q999 <= GRAD_Q999_F32, f"gradient q99.9 {tiers} n={n}: {q999:.3g}")
-                k3_f32_err = max(k3_f32_err, float(dv.max()))
-            report[f"{tiers[0]}/{tiers[1]}/{n}"] = {
-                "value_max_abs": float(dv.max()),
-                "value_worst_over_tol": float((dv / tol).max()),
-                "grad_q999_rel": q999,
-                "grad_max_rel": float(rel.max()),
-            }
-            if tiers == MAIN_TIERS and n == 4096:
-                main_err = float(dv.max())
-    torch.cuda.synchronize()
-    print(f"phase 3: kernel == plain within tolerance at every batch and tier "
-          f"pair {json.dumps(report)}", flush=True)
-
-    # -- phase 4: timing ----------------------------------------------------
-    timings = {}
-    for tiers, fn in wrappers.items():
-        ops = fn.operands(model.params)
-        for n, repeats in ((4096, 50), (65536, 20)):
-            x = rows(n, rng)
-            kernel_ms = time_ms(lambda: fn(model.params, x), repeats)
-            plain_ms = time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats)
-            timings[f"{tiers[0]}/{tiers[1]}/{n}"] = {
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                "kernel_stream_ms": stream_ms(lambda: fn(model.params, x), repeats),
-            }
-    torch.cuda.synchronize()
-    print(f"phase 4: median ms per call {json.dumps(timings)}", flush=True)
+    # -- phases 3-4: K3 vs plain at flagship widths, and its timing ----------
+    wrappers, k3_err = k3_vs_plain(model, obs, rng, dev)
+    timings = time_k3(model, obs, wrappers, rng, dev)
 
     # -- phase 5: the main path ---------------------------------------------
     t0 = time.perf_counter()
@@ -668,6 +783,8 @@ def main() -> int:
         "hmc_wall_s": hmc_s, "phase_wall_s": time.perf_counter() - t0,
     }), flush=True)
 
+    k3_f32_launches = exact_tier_hmc(model, obs, dev)
+
     # -- phases 6-8: the value kernels and the gradient-free samplers -------
     k1_err, k1_mma_err, k2_err, k2_mma_err = value_kernels_vs_plain(model, obs, rng, dev)
     value_t = time_value_kernels(model, obs, rng, dev)
@@ -676,15 +793,19 @@ def main() -> int:
 
     # each kernel at the tier and the scale nearest to its main-path use
     # (the fp32 K1 and K2 at each chain's draws, with their 1 M-row
-    # figures beside); the fp32 K3 runs on no sampler's path at its
-    # default tiers (HMC runs K3 on fused_gram_mma.cu), so it shows no
-    # launches
+    # figures beside; the fp32 K3 at the exact-tier HMC's walkers, with
+    # its 65,536-row figures beside); K3's mixed tier pairs run on no
+    # sampler's path, so fused_loglik_grad_gram.cu shows no launches
     big = 1_048_576
     k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
 
     def at_big(t, b):
         return {"ms_1m": t["kernel_ms"], "stream_ms_1m": t["kernel_stream_ms"],
                 "plain_ms_1m": t["plain_ms"], "bound_ms_1m": b[0]}
+
+    def at_64k(t, b):
+        return {"ms_64k": t["kernel_ms"], "stream_ms_64k": t["kernel_stream_ms"],
+                "plain_ms_64k": t["plain_ms"], "bound_ms_64k": b[0]}
 
     print(json.dumps({"kernels": [
         kernel_entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
@@ -698,11 +819,16 @@ def main() -> int:
                      **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         kernel_entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES, k2_mma_launches,
                      k2_mma_err, value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3")),
+        kernel_entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES, k3_f32_launches,
+                     k3_err[EXACT_TIERS], timings["highest/highest/4096"],
+                     bound("k3", trunk, 4096, "f32", "f32"),
+                     **at_64k(timings["highest/highest/65536"],
+                              bound("k3", trunk, 65536, "f32", "f32"))),
         kernel_entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
-                     k3_f32_err, timings["highest/highest/65536"],
-                     bound("k3", trunk, 65536, "f32", "f32")),
+                     k3_err[MIXED_TIERS], timings["highest/default/65536"],
+                     bound("k3", trunk, 65536, "f32", "bf16")),
         kernel_entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES, launches,
-                     main_err, timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
+                     k3_err[MAIN_TIERS], timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
                      bound("k3", trunk, 4096, "bf16x3", "bf16")),
     ]}), flush=True)
     print(smi, flush=True)

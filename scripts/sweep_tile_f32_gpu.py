@@ -81,11 +81,13 @@ def build(geometry) -> tuple:
         path = os.path.join(d, "tile_f32.cuh")
         with open(path) as fh:
             text = fh.read()
+        # the first definitions are Ring's (K1, K2); K3's GradRing derives from them
         text, n1 = re.subn(r"static constexpr int kDepth = [^;]*;",
-                           f"static constexpr int kDepth = {geometry[0]};", text)
+                           f"static constexpr int kDepth = {geometry[0]};", text, count=1)
         text, n2 = re.subn(r"static constexpr int kSlots = [^;]*;",
-                           f"static constexpr int kSlots = {geometry[1]};", text)
+                           f"static constexpr int kSlots = {geometry[1]};", text, count=1)
         assert n1 == n2 == 1, "tile_f32.cuh no longer defines Ring's kDepth and kSlots"
+        assert text.index("struct Ring {") < text.index("kDepth = ") < text.index("struct GradRing")
         with open(path, "w") as fh:
             fh.write(text)
     lib = os.path.join(d, "lib.so")

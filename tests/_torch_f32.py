@@ -1,12 +1,12 @@
 """What the CPU tests of the port's register-tiled fp32 kernels share
-(``csrc/tile_f32.cuh``: K1 ``fused_mlp.cu``, K2 ``fused_loglik_gram.cu``):
-packed fp32 weight slabs read back by the kernels' layout, and the
-kernels' arithmetic in plain torch, through the packed stream, slab by
-slab, k ascending."""
+(``csrc/tile_f32.cuh``: K1 ``fused_mlp.cu``, K2 ``fused_loglik_gram.cu``,
+K3 ``fused_loglik_grad_gram_f32.cu``): packed fp32 weight slabs read back
+by the kernels' layout, and the kernels' arithmetic in plain torch,
+through the packed stream, slab by slab, k ascending."""
 
 import torch
 
-from tpu21cmvae_torch.ops.fold import _log_clamp
+from tpu21cmvae_torch.ops.fold import _log_clamp, _log_clamp_grad
 from tpu21cmvae_torch.ops.kernels._common import SLAB_N, padk
 from tpu21cmvae_torch.ops.mlp import skinny_dense
 
@@ -79,19 +79,54 @@ def emulate_f32_mlp(ops, x):
     return torch.sum(y * y, dim=-1) if ops.reduce == "sumsq" else y
 
 
+def _gram_forward(ops, x):
+    """``csrc/gram_f32.cuh``'s forward through ``ops.slabs`` (K2's stream,
+    or the head of K3's): the skinny layer exact, trunk layers 1 … n−1
+    and the gram head through the stream. Returns ``h``, ``h@G``, ``u``
+    (read from G's bias slot), each activation's mask as the kernel takes
+    it (fp32 pre-activation > 0, false for NaN), and the stream offset
+    after ``G``."""
+    widths = ops.widths
+    y = skinny_dense(_log_clamp(x), ops.w0, ops.b0)
+    masks, h = [y > 0.0], torch.relu(y)
+    at = bias_at = 0
+    for k, n in zip(widths[1:-1], widths[2:]):
+        acc, at = slab_layer(h, ops.slabs, at, k, n)
+        y = (acc + ops.slabs.b[bias_at: bias_at + acc.shape[1]])[:, :n]
+        bias_at += acc.shape[1]
+        masks.append(y > 0.0)
+        h = torch.relu(y)
+    hidden = widths[-1]
+    hg, at = slab_layer(h, ops.slabs, at, hidden, hidden)
+    return h, hg[:, :hidden], ops.slabs.b[bias_at: bias_at + hidden], masks, at
+
+
+def _gram_value(ops, h, hg, u):
+    return -0.5 * (torch.sum((hg + 2.0 * u) * h, dim=-1) + ops.c) + ops.log_norm
+
+
 def emulate_f32_gram(ops, x):
     """``fused_loglik_gram.cu``: logL from the skinny layer, the streamed
     trunk layers 1 … n−1 and the gram head, whose bias slot holds u:
     quad = Σ_j (h@G + 2u)_j · h_j."""
+    h, hg, u, _, _ = _gram_forward(ops, x)
+    return _gram_value(ops, h, hg, u)
+
+
+def emulate_f32_grad_gram(ops, x):
+    """``fused_loglik_grad_gram_f32.cu``: K2's forward, then the backward
+    through the rest of the stream: the signal e = h > 0 ? h@G + u : 0,
+    then e ← mask_{i−1} ? e @ W_iᵀ : 0 for i = n−1 … 1 from W_iᵀ's slabs,
+    the skinny layer's backward j ascending in exact fp32, times the
+    log-clamp's derivative. ``(logL, dlogL/dx)``."""
     widths = ops.widths
-    h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
-    hidden = widths[-1]
-    shapes = [*zip(widths[1:-1], widths[2:]), (hidden, hidden)]
-    if len(shapes) > 1:
-        h = torch.relu(_stream(h, ops.slabs, shapes[:-1]))[:, :hidden]
-    trunk = sum(padk(k) * chunks(n) * SLAB_N for k, n in shapes[:-1])
-    bias_at = sum(chunks(n) * SLAB_N for _, n in shapes[:-1])
-    hg, _ = slab_layer(h, ops.slabs, trunk, hidden, hidden)
-    u = ops.slabs.b[bias_at: bias_at + hidden]
-    quad = torch.sum((hg[:, :hidden] + 2.0 * u) * h, dim=-1)
-    return -0.5 * (quad + ops.c) + ops.log_norm
+    h, hg, u, masks, at = _gram_forward(ops, x)
+    e = torch.where(h > 0.0, hg + u, 0.0)
+    for i in range(len(widths) - 2, 0, -1):
+        acc, at = slab_layer(e, ops.slabs, at, widths[i + 1], widths[i])
+        e = torch.where(masks[i - 1], acc[:, : widths[i]], 0.0)
+    assert at == ops.slabs.w.numel()
+    dx = x.new_zeros(x.shape)
+    for j in range(widths[1]):
+        dx = dx + e[:, j, None] * ops.w0[None, :, j]
+    return _gram_value(ops, h, hg, u), -(_log_clamp_grad(x) * dx)

@@ -39,7 +39,8 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import (
 )
 from tpu21cmvae_torch.sampling._common import valgrad_from_loglik
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
-from tpu21cmvae_torch.utils.metrics import grad_gate_violation
+from tpu21cmvae_torch.sampling.gradient import sample_hmc
+from tpu21cmvae_torch.utils.metrics import grad_gate_violation, grad_rel_error
 
 TIER_PAIRS = [("highest", "highest"), ("high", "high"), ("high", "default")]
 TIERS = ["highest", "high", "default"]
@@ -79,9 +80,10 @@ def test_k3_matches_plain(cuda, hidden, tiers):
     vp, gp = loglik_grad_gram_reference(ops, x)
     torch.cuda.synchronize()
     assert fn.launches == 1
-    # the bf16 tiers run fused_gram_mma.cu, the fp32 tier fused_loglik_grad_gram.cu
+    # the bf16 pairs run fused_gram_mma.cu, (fp32, fp32) fused_loglik_grad_gram_f32.cu
     on_mma = tiers != ("highest", "highest")
     assert fn.tensor_cores == on_mma and (ops.packed is not None) == on_mma
+    assert fn.register_tiled != on_mma and (ops.slabs is not None) != on_mma
     vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
     assert vk.shape == (100,) and gk.shape == (100, 7)
     scale = np.abs(vp) + 0.5 * abs(float(ops.c))
@@ -104,6 +106,7 @@ def test_k3_mixed_tiers_run_the_cuda_cores(cuda, tiers):
     vp, gp = loglik_grad_gram_reference(ops, x)
     torch.cuda.synchronize()
     assert fn.launches == 1 and not fn.tensor_cores and ops.packed is None
+    assert not fn.register_tiled and ops.slabs is None
     _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), "high")
     assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
 
@@ -509,3 +512,158 @@ def test_f32_refused_launch_raises(cuda, key):
     name = "K2" if key == "k2" else "K1"
     with pytest.raises(RuntimeError, match=f"{name} launch failed: invalid argument"):
         fn(m.params, _rows(data, 5, cuda))
+
+
+# the register-tiled fp32 K3: narrow widths, a lone skinny layer, the
+# flagship's shape at a quarter of its width, and the flagship
+F32_GRAM_WIDTHS = [(32, 48, 32, 24), (40,), (72, 88, 72, 56), (288, 352, 288, 224)]
+
+
+def _k3_f32(m, obs, dev, rows=None):
+    """K3 at (fp32, fp32) on ``fused_loglik_grad_gram_f32.cu`` at tile
+    height ``rows`` (None: picked per batch)."""
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                     grad_precision="highest", tile_rows=rows, device=dev)
+    assert fn.register_tiled and not fn.tensor_cores
+    return fn
+
+
+def _prior_rows(n, dev):
+    x = synthetic_params(n, np.random.default_rng(n)).astype(np.float32)
+    x[0, 2] = 0.0  # the fx == 0 clamp
+    return torch.as_tensor(x, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+@pytest.mark.parametrize("rows", F32_TILE_ROWS)
+def test_k3_f32_matches_plain(cuda, hidden, rows):
+    """The register-tiled K3 at every tile height, forced, for batches 1,
+    37, 4096 and 65,537 with an fx == 0 row: values within the fp32
+    tolerance of the plain version, q99.9 of the per-row gradient error ≤
+    1e-4 and the gradient gate, the fx == 0 slot exactly 0; and its value
+    equals the fp32 K2's at the same height bit for bit."""
+    m, obs, _ = _model(hidden, cuda)
+    fn = _k3_f32(m, obs, cuda, rows)
+    k2 = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                tile_rows=rows, device=cuda)
+    ops = fn.operands(m.params)
+    for n in (1, 37, 4096, 65537):
+        x = _prior_rows(n, cuda)
+        fn.launches = 0
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        v2 = k2(m.params, x)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and fn.rows_for(n) == rows
+        assert torch.equal(vk, v2)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        assert vk.shape == (n,) and gk.shape == (n, 7)
+        assert np.isfinite(vk).all() and np.isfinite(gk).all()
+        _close_values(vk, vp, float(ops.c), "highest")
+        assert np.quantile(grad_rel_error(gk, gp), 0.999) <= 1e-4
+        assert grad_gate_violation(gk, gp) <= 0.0
+        assert gk[0, 2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", F32_TILE_ROWS)
+def test_k3_f32_single_row_equals_batch_row(cuda, rows):
+    """A row's value and gradient do not depend on the other rows of its
+    tile: one row alone equals the same row inside a batch of 100, bit
+    for bit, at the flagship widths."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    x = _rows(data, 100, cuda)
+    fn = _k3_f32(m, obs, cuda, rows)
+    vb, gb = fn(m.params, x)
+    for i in (0, 7, 45, 99):
+        v1, g1 = fn(m.params, x[i])
+        assert torch.equal(v1[0], vb[i]) and torch.equal(g1[0], gb[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+def test_k3_f32_tile_heights_agree(cuda, hidden):
+    """Every tile height gives every other's value and gradient bit for
+    bit (one accumulator per output, k ascending, whatever the slab depth
+    and ring), and so does the height the wrapper picks per batch; a NaN
+    row leaves the other rows of its tile as they were."""
+    m, obs, _ = _model(hidden, cuda)
+    x = _prior_rows(1000, cuda)
+    want = _k3_f32(m, obs, cuda, 64)(m.params, x)
+    for rows in (32, 16, 8, None):
+        got = _k3_f32(m, obs, cuda, rows)(m.params, x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    bad = x.clone()
+    bad[11, 4] = float("nan")
+    keep = torch.arange(1000, device=cuda) != 11
+    for rows in F32_TILE_ROWS:
+        v, g = _k3_f32(m, obs, cuda, rows)(m.params, bad)
+        assert torch.isnan(v[11])
+        assert torch.equal(v[keep], want[0][keep]) and torch.equal(g[keep], want[1][keep])
+
+
+@pytest.mark.cuda
+def test_k3_f32_picks_its_height_by_batch(cuda):
+    """Without a forced height the wrapper runs the shortest tile that
+    still runs the batch as one block per SM of this card, else the
+    tallest."""
+    m, obs, _ = _model((288, 352, 288, 224), cuda)
+    fn = _k3_f32(m, obs, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fn.sm_count == sms and fn.tile_rows is None
+    assert fn.rows_for(64 * sms) == fn.rows_for(64 * sms + 1) == 64
+    assert fn.rows_for(32 * sms) == 32 and fn.rows_for(32 * sms + 1) == 64
+    assert fn.rows_for(16 * sms) == 16 and fn.rows_for(5) == 8
+    for n in (5, 16 * sms, 64 * sms):
+        x = _prior_rows(n, cuda)
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(fn.operands(m.params), x)
+        _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(fn.operands(m.params).c),
+                      "highest")
+        assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+
+
+@pytest.mark.cuda
+def test_k3_f32_refused_launch_raises(cuda):
+    """A tile height the C entry point was not built for is refused
+    there and raises with its CUDA error string; nothing falls back to
+    the 16-row kernel or the plain version."""
+    m, obs, data = _model((32, 48, 32, 24), cuda)
+    fn = _k3_f32(m, obs, cuda)
+    fn.tile_rows = 48
+    with pytest.raises(RuntimeError, match="K3 launch failed: invalid argument"):
+        fn(m.params, _rows(data, 5, cuda))
+
+
+@pytest.mark.cuda
+def test_k3_f32_wide_layer_runs_the_16_row_kernel(cuda):
+    """A network whose widest layer does not fit two full-width 8-row
+    buffers, but whose activations fit ``fused_loglik_grad_gram.cu`` at
+    their own widths, still runs at (fp32, fp32), on that kernel."""
+    m, obs, data = _model((3200, 64, 64), cuda)
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                     grad_precision="highest", device=cuda)
+    assert not fn.register_tiled and not fn.tensor_cores
+    x = _rows(data, 100, cuda)
+    vk, gk = fn(m.params, x)
+    ops = fn.operands(m.params)
+    vp, gp = loglik_grad_gram_reference(ops, x)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and ops.slabs is None
+    _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), "highest")
+    assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+
+
+@pytest.mark.cuda
+def test_hmc_at_the_exact_tier_runs_the_f32_k3(cuda):
+    """``loglik_and_grad_fn(precision="contract", backend="kernel")`` is
+    the register-tiled K3, and ``sample_hmc`` launches it on every
+    leapfrog step."""
+    m, obs, _ = _model((32, 48, 32, 24), cuda)
+    k3 = m.loglik_and_grad_fn(obs, 25.0, backend="kernel", precision="contract")
+    assert k3.register_tiled and not k3.tensor_cores
+    k3.launches = 0
+    res = sample_hmc(k3, m.params, n_walkers=256, n_warmup=20, n_steps=20, seed=1, device=cuda)
+    assert k3.launches >= 40
+    assert np.isfinite(res.chain).all() and res.chain.shape == (4, 256, 7)

@@ -11,7 +11,12 @@ the plain versions and to the Pallas K3 and K2. At the fp32 tier K2 runs
 ``csrc/fused_loglik_gram.cu``, register-tiled, from the fp32 slabs of
 :func:`pack_gram_slabs`: they are read back by ``csrc/tile_f32.cuh``'s
 layout, and an emulation through them (``tests/_torch_f32.py``) is held
-to :func:`loglik_gram_reference` and to the Pallas K2.
+to :func:`loglik_gram_reference` and to the Pallas K2. K3 at (fp32, fp32)
+runs ``csrc/fused_loglik_grad_gram_f32.cu`` from the longer stream of
+:func:`pack_grad_gram_slabs` (the backward's ``W_iᵀ`` after ``G``): the
+same read-back, and an emulation of its forward, masks and backward held
+to :func:`loglik_grad_gram_reference`, to K2's emulation and to the
+Pallas K3.
 
 Tolerances: test_loglik tolerance (``tests/test_loglik.py:468-472``:
 values rtol 2e-4, atol 2e-3·max|v|; gradients rtol 2e-3, atol
@@ -29,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_f32 import emulate_f32_gram, unpack_slabs
+from _torch_f32 import emulate_f32_grad_gram, emulate_f32_gram, unpack_slabs
 from _torch_mma import mma_product, unpack
 
 from tpu21cmvae.models.direct import DirectEmulator as JaxEmulator
@@ -51,9 +56,13 @@ from tpu21cmvae_torch.ops.kernels._common import (
     F32_TILE_ROWS,
     MAX_SHARED_BYTES,
     TIER_CODE,
+    f32_tile_bytes,
 )
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     _kernel,
+    grad_f32_bytes,
+    grad_f32_heights,
+    grad_f32_rows,
     gram_f32_rows,
     gram_shared_bytes,
     loglik_grad_gram_reference,
@@ -65,7 +74,7 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
 )
 from tpu21cmvae_torch.ops.mlp import skinny_dense
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
-from tpu21cmvae_torch.utils.metrics import grad_gate_violation
+from tpu21cmvae_torch.utils.metrics import grad_gate_violation, grad_rel_error
 
 SMALL = (32, 48, 32, 24)
 FLAGSHIP = (7, 288, 352, 288, 224)  # (n_in, trunk widths)
@@ -180,6 +189,10 @@ def test_wrapper_rejects_bad_inputs(pair):
     with pytest.raises(NotImplementedError, match="shared memory"):
         make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(1536,) * 3),
                                     tm.normalizer, obs, device="cpu")
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        # no fp32 layout holds it either: not two 8-row buffers, not every activation
+        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(3200,) * 3),
+                                    tm.normalizer, obs, precision="highest", device="cpu")
 
 
 def test_operands_cached_until_weights_change(pair):
@@ -187,7 +200,10 @@ def test_operands_cached_until_weights_change(pair):
     fn = make_fused_loglik_grad_gram(tm.config, tm.normalizer, obs, 25.0, device="cpu")
     ops = fn.operands(tm.params)
     assert fn.operands(tm.params) is ops
-    assert shared_bytes(ops.widths) == 4 * 16 * (7 + sum(SMALL) + SMALL[-1])
+    mixed = 4 * 16 * (7 + sum(SMALL) + SMALL[-1])  # every activation, 16 rows
+    assert shared_bytes(ops.widths, "bf16x3", "f32") == mixed
+    assert shared_bytes(ops.widths) == grad_f32_bytes(ops.widths, 64) == (
+        4 * 64 * (7 + 2 * 64) + 2 * 32 * 128 * 4 + 1024 + 8 * (32 + 64 + 32))
     v0 = fn(tm.params, torch.as_tensor(raw))[0]
     w = tm.params[1]["w"]
     with torch.no_grad():
@@ -380,17 +396,20 @@ def test_gram_masks_follow_the_fp32_activations(port_model, splits):
 
 
 def test_gram_shared_bytes_and_routing(port_model):
-    """``fused_loglik_grad_gram.cu`` (any fp32 tier) keeps fp32 tiles of
-    16 rows, ``fused_loglik_gram.cu`` (fp32) k-major fp32 tiles of its
+    """``fused_loglik_grad_gram.cu`` (a mixed tier pair) keeps fp32 tiles
+    of 16 rows, ``fused_loglik_gram.cu`` (fp32) k-major fp32 tiles of its
     tile height (64 rows here) with k rows padded to 32, its height's
-    slab ring and 1 KB of row partials; ``fused_gram_mma.cu`` (every
+    slab ring and 1 KB of row partials, ``fused_loglik_grad_gram_f32.cu``
+    (fp32, fp32) the same tiles, a two-slot ring at 64 rows and 8 mask
+    bytes per padded column of activations 0 … n−2; ``fused_gram_mma.cu`` (every
     tier bf16 or bf16x3) bf16 A tiles of 16 rows, hi and lo where either
     tier is bf16x3, with rows padded to the widest padded trunk width +
     8, an fp32 tile of h (K3: and of layer 0's backward signal), K3's
     mask words, the input tile and the quad partials. Each wrapper
     routes, packs and refuses by the kernel its tiers run."""
-    f32 = 4 * 16 * (sum(FLAGSHIP) + 224)
-    assert shared_bytes(FLAGSHIP) == shared_bytes(FLAGSHIP, "bf16x3", "f32") == f32
+    mixed = 4 * 16 * (sum(FLAGSHIP) + 224)
+    assert shared_bytes(FLAGSHIP, "f32", "bf16") == shared_bytes(FLAGSHIP, "bf16x3", "f32") == mixed
+    assert shared_bytes(FLAGSHIP) == 182_016 + 2 * 32 * 128 * 4 + 1024 + 8 * 928 == 223_232
     tail = 4 * 16 * (7 + 8)  # input tile, quad partials
     k3 = 4 * 16 * (288 + 8) + 4 * (288 + 352 + 288) + tail
     assert shared_bytes(FLAGSHIP, "bf16x3", "bf16") == 2 * 2 * 2 * 16 * 360 + k3 == 69_696
@@ -410,6 +429,11 @@ def test_gram_shared_bytes_and_routing(port_model):
         on_mma = "highest" not in case
         assert fn.tensor_cores == on_mma
         assert (fn.operands(m.params).packed is not None) == on_mma
+        # the register-tiled fp32 kernels: K2 at fp32, K3 at (fp32, fp32) alone
+        tiled = case in [("highest", "highest"), ("highest", None)]
+        assert (fn.operands(m.params).slabs is not None) == tiled
+        if case[1] is not None:
+            assert fn.register_tiled == (case == ("highest", "highest"))
     wide = DirectEmulatorConfig(hidden_dims=(1500,))  # fits the fp32 and bf16 tiles only
     assert shared_bytes((7, 1500), "bf16x3", "bf16x3") > MAX_SHARED_BYTES
     assert gram_shared_bytes((7, 1500), "bf16x3") > MAX_SHARED_BYTES
@@ -430,8 +454,10 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
     order its source reads them: ``fused_gram_mma.cu`` the packed
     fragments (K3: each layer's backward fragments after its bias) and the
     tier codes; ``fused_loglik_gram.cu``, fp32 alone, the plain fp32
-    operands and no tier code; ``fused_loglik_grad_gram.cu`` every hi/lo
-    part (lo None unless bf16x3) and both tier codes."""
+    operands and no tier code; ``fused_loglik_grad_gram_f32.cu``, (fp32,
+    fp32) alone, its own longer stream and the tile height;
+    ``fused_loglik_grad_gram.cu`` every hi/lo part (lo None unless bf16x3)
+    and both tier codes."""
     m, obs = port_model(SMALL)
     ops = _wrapper(m, obs, case).operands(m.params)
     k3 = case[1] is not None
@@ -449,6 +475,14 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
         assert entry == "k2_fused_loglik_gram" and tiers == [None]  # the wrapper passes its height
         assert _kernel(ops, k3, rows=32)[2] == [32]
         want = [ops.slabs.w, ops.slabs.b]
+        assert all(t.dtype == torch.float32 for t in tensors)
+    elif case == ("highest", "highest"):
+        assert entry == "k3_fused_loglik_grad_gram_f32" and tiers == [None]
+        assert _kernel(ops, k3, rows=16)[2] == [16]  # the wrapper passes the batch's height
+        want = [ops.slabs.w, ops.slabs.b]
+        k2_stream = _wrapper(m, obs, ("highest", None)).operands(m.params).slabs.w
+        assert torch.equal(ops.slabs.w[: k2_stream.numel()], k2_stream)
+        assert ops.slabs.w.numel() > k2_stream.numel()
         assert all(t.dtype == torch.float32 for t in tensors)
     else:
         assert entry == "k3_fused_loglik_grad_gram"
@@ -540,3 +574,180 @@ def test_gram_f32_tile_height_follows_shared_memory(port_model):
         assert _f32_gram(m, obs, tile_rows=rows).tile_rows == rows
     with pytest.raises(ValueError, match="tile_rows"):
         _f32_gram(m, obs, tile_rows=12)
+
+
+def _f32_grad_gram(m, obs, **kw):
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                     grad_precision="highest", device="cpu", **kw)
+    assert not fn.tensor_cores and fn.register_tiled
+    return fn
+
+
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+def test_grad_gram_f32_slabs_unpack_to_the_fold(port_model, hidden):
+    """``pack_grad_gram_slabs`` read back by ``csrc/tile_f32.cuh``'s layout
+    holds trunk layers 1 … n−1, ``G`` with ``u`` in its bias slot, then
+    ``W_iᵀ`` for i = n−1 … 1 with zero biases, each exact and zero-padded
+    to (padk(K), 128·chunks); nothing is packed for the tensor cores."""
+    m, obs = port_model(hidden)
+    ops = _f32_grad_gram(m, obs).operands(m.params)
+    assert ops.packed is None and ops.slabs is not None
+    trunk, G, u, _ = gram_fold(m.params, m.normalizer, obs_tensor(obs, 451, device="cpu"),
+                               noise_scale(25.0, 451, device="cpu"))
+    layers = [(layer["w"], layer["b"]) for layer in trunk[1:]] + [(G, u)]
+    layers += [(layer["w"].T, torch.zeros(layer["w"].shape[0])) for layer in trunk[:0:-1]]
+    assert len(layers) == 2 * len(hidden) - 1
+    shapes = [tuple(w.shape) for w, _ in layers]
+    for (w, b), (want_w, want_b) in zip(unpack_slabs(ops.slabs, shapes), layers, strict=True):
+        k, n = want_w.shape
+        assert torch.equal(w[:k, :n], want_w) and torch.equal(b[:n], want_b)
+        assert not w[k:].any() and not w[:, n:].any() and not b[n:].any()
+
+
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+def test_grad_gram_f32_emulation_matches_plain(port_model, splits, hidden):
+    """Through the packed stream, forward and backward, slab by slab and k
+    ascending, with the masks taken from the fp32 pre-activations, the
+    register-tiled K3 equals :func:`loglik_grad_gram_reference`: they
+    differ only in fp32 summation order, so values within 1e-5 of |logL|
+    + c/2 and q99.9 of the per-row gradient error ≤ 1e-4 (37 rows, one
+    with fx == 0, whose slot-2 gradient is exactly 0). Its value equals
+    the register-tiled K2's bit for bit: the same forward."""
+    m, obs = port_model(hidden)
+    ops = _f32_grad_gram(m, obs).operands(m.params)
+    x = _raw(splits)
+    (got, g), (want, gp) = emulate_f32_grad_gram(ops, x), loglik_grad_gram_reference(ops, x)
+    assert got.shape == (37,) and g.shape == (37, 7)
+    assert torch.isfinite(got).all() and torch.isfinite(g).all()
+    assert bool(((got - want).abs() <= 1e-5 * (want.abs() + 0.5 * abs(float(ops.c)))).all())
+    assert np.quantile(grad_rel_error(g.numpy(), gp.numpy()), 0.999) <= 1e-4
+    assert grad_gate_violation(g.numpy(), gp.numpy()) <= 0.0
+    assert g[5, 2] == 0.0
+    k2 = _f32_gram(m, obs).operands(m.params)
+    assert torch.equal(got, emulate_f32_gram(k2, x))
+
+
+def test_grad_gram_f32_emulation_matches_pallas(pair):
+    """The emulation against the JAX package's Pallas K3 at ("highest",
+    "highest") (interpret mode; the same checkpoint, 37 NumPy-seeded rows,
+    one with fx == 0): values within the fp32 tolerance, 1e-5 of |logL| +
+    c/2; gradients with q99.9 of the per-row error ≤ 1e-4 and, element by
+    element, within rtol 1e-4 of the largest gradient entry."""
+    _, tm, obs, raw = pair
+    vj, gj = _pallas(pair, ("highest", "highest"))
+    ops = _f32_grad_gram(tm, obs).operands(tm.params)
+    vt, gt = (t.numpy() for t in emulate_f32_grad_gram(ops, torch.as_tensor(raw)))
+    assert (np.abs(vt - vj) <= 1e-5 * (np.abs(vj) + 0.5 * abs(float(ops.c)))).all()
+    assert np.quantile(grad_rel_error(gt, gj), 0.999) <= 1e-4
+    np.testing.assert_allclose(gt, gj, rtol=1e-4, atol=1e-4 * np.abs(gj).max())
+    assert gt[5, 2] == 0.0 and gj[5, 2] == 0.0
+
+
+def test_grad_gram_f32_rows_do_not_mix(port_model, splits):
+    """A row's value and gradient depend on no other row: with a NaN row
+    in the batch every other row comes out bit for bit as without it (the
+    masks are selects, false for NaN, never products), the NaN row's value
+    is NaN, and an fx == 0 row's slot-2 gradient is exactly 0."""
+    m, obs = port_model(SMALL)
+    ops = _f32_grad_gram(m, obs).operands(m.params)
+    x = _raw(splits)
+    v, g = emulate_f32_grad_gram(ops, x)
+    bad = x.clone()
+    bad[11, 4] = float("nan")
+    vb, gb = emulate_f32_grad_gram(ops, bad)
+    keep = torch.arange(37) != 11
+    assert torch.equal(vb[keep], v[keep]) and torch.equal(gb[keep], g[keep])
+    assert torch.isnan(vb[11]) and torch.isfinite(v).all() and torch.isfinite(g).all()
+    assert g[5, 2] == 0.0 and gb[5, 2] == 0.0
+    vp, gp = loglik_grad_gram_reference(ops, bad)
+    assert torch.isnan(vp[11]) and torch.isfinite(vp[keep]).all() and torch.isfinite(gp[keep]).all()
+
+
+def test_grad_gram_f32_shared_bytes(port_model):
+    """``fused_loglik_grad_gram_f32.cu``'s shared memory: K2's tiles and
+    partials, K3's ring (two 32-deep slots at 64 rows, else K2's) and the
+    mask bytes: 8, 4, 2, 2 per padded column of activations 0 … n−2 at
+    64, 32, 16, 8 rows. At the flagship a 64-row block fills an SM and two
+    32-row blocks share one (each with 1 KB reserved, of 233,472)."""
+    assert grad_f32_bytes(FLAGSHIP, 64) == 182_016 + 32_768 + 1_024 + 7_424 == 223_232
+    assert grad_f32_bytes(FLAGSHIP, 32) == 91_008 + 16_384 + 1_024 + 3_712 == 112_128
+    assert 2 * (grad_f32_bytes(FLAGSHIP, 32) + 1024) <= 233_472
+    assert grad_f32_bytes(FLAGSHIP, 16) == 4 * 18 * 711 + 3 * 8 * 128 * 4 + 1_024 + 2 * 928
+    assert grad_f32_bytes(FLAGSHIP, 8) == 4 * 9 * 711 + 3 * 8 * 128 * 4 + 1_024 + 2 * 928
+    # K2's ring (three slots) would not fit beside the masks at 64 rows
+    assert f32_tile_bytes(64, 7, 352) + 7_424 > MAX_SHARED_BYTES
+    # a lone skinny layer keeps no mask: the gram epilogue reads h itself
+    assert grad_f32_bytes((7, 40), 64) == f32_tile_bytes(64, 7, 64, mask_cols=0)
+    assert grad_f32_heights(FLAGSHIP) == F32_TILE_ROWS
+    assert grad_f32_heights((7, 704, 704)) == (32, 16, 8)
+    assert shared_bytes((7, 704, 704)) == grad_f32_bytes((7, 704, 704), 32)
+    assert shared_bytes(FLAGSHIP, rows=16) == grad_f32_bytes(FLAGSHIP, 16)
+
+
+@pytest.mark.parametrize("n_rows, sm_count, want", [
+    (65_536, 132, 64),  # 1024 blocks of 64 rows: several waves at every height
+    (8_449, 132, 64),   # 133 blocks of 64 rows: no height runs it in one wave
+    (8_448, 132, 64),   # exactly one 64-row block per SM; 264 blocks of 32 rows
+    (4_225, 132, 64),
+    (4_224, 132, 32),
+    (4_096, 132, 32),   # the HMC batch: 128 blocks of 32 rows, each alone on an SM
+    (2_113, 132, 32),
+    (2_112, 132, 16),
+    (1_057, 132, 16),
+    (1_056, 132, 8),
+    (37, 132, 8),
+    (1, 132, 8),
+    (4_096, 64, 64),
+    (4_096, None, 64),  # no card: the tallest that fits
+    (None, 132, 64),
+])
+def test_grad_gram_f32_tile_height_follows_the_batch(n_rows, sm_count, want):
+    """K3 at (fp32, fp32) runs the shortest tile that still runs the batch
+    as at most one block per SM, else the tallest that fits."""
+    assert grad_f32_rows(FLAGSHIP, n_rows, sm_count) == want
+    # only the heights that fit are candidates
+    if want == 64:
+        assert grad_f32_rows((7, 704, 704), n_rows, sm_count) == 32
+    assert grad_f32_rows(FLAGSHIP, n_rows, sm_count, forced=16) == 16
+
+
+def test_grad_gram_f32_takes_what_the_16_row_kernel_took(port_model):
+    """No network ``fused_loglik_grad_gram.cu`` holds (every activation
+    and ``h@G`` at 16 rows within the block's shared memory) is refused at
+    (fp32, fp32): the register-tiled kernel takes it at some height down
+    to 8 rows (stride 9), or, where one layer is too wide for two
+    full-width 8-row buffers, the 16-row kernel still does. Heights are
+    forced through the wrapper and per call; an unknown height is
+    refused."""
+    m, obs = port_model(SMALL)
+    every = lambda widths: 4 * 16 * (sum(widths) + widths[-1])  # noqa: E731
+    for trunk in [(7, 1812), (7, 1200, 1200), (7, 896, 896, 896), (8, 30, 1000, 1000),
+                  (7, 288, 352, 288, 224), (7, 2900, 300), (7, 2900, 8, 8)]:
+        assert every(trunk) <= MAX_SHARED_BYTES
+        heights = grad_f32_heights(trunk)
+        assert heights and heights[-1] == 8
+        assert shared_bytes(trunk) == grad_f32_bytes(trunk, heights[0]) <= MAX_SHARED_BYTES
+    for width in range(1, 1816, 37):
+        assert grad_f32_heights((7, width, max(1, width // 3)))
+    # one layer far wider than the rest: two full-width buffers do not fit
+    # at 8 rows, every activation at its own width does at 16
+    for trunk in [(7, 3623, 1), (7, 3200, 64, 64)]:
+        assert every(trunk) <= MAX_SHARED_BYTES and grad_f32_heights(trunk) == ()
+        assert grad_f32_rows(trunk, 4096, 132) is None
+        assert shared_bytes(trunk) == every(trunk)
+        fn = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=trunk[1:]),
+                                         m.normalizer, obs, precision="highest", device="cpu")
+        assert not fn.register_tiled and not fn.tensor_cores and fn.rows_for(4096) is None
+    fn = _f32_grad_gram(m, obs)
+    assert fn.tile_rows is None and fn.heights == F32_TILE_ROWS and fn.sm_count is None
+    assert fn.rows_for(4096) == 64  # on the CPU no SM count: the tallest
+    fn.sm_count = 132
+    assert [fn.rows_for(n) for n in (65_536, 4_096, 2_048, 100)] == [64, 32, 16, 8]
+    for rows in F32_TILE_ROWS:
+        forced = _f32_grad_gram(m, obs, tile_rows=rows)
+        assert forced.tile_rows == rows and forced.rows_for(4096) == rows
+    with pytest.raises(ValueError, match="tile_rows"):
+        _f32_grad_gram(m, obs, tile_rows=12)
+    with pytest.raises(NotImplementedError, match="shared memory per K3 block at the f32"):
+        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(704, 704)), m.normalizer,
+                                    obs, precision="highest", tile_rows=64, device="cpu")

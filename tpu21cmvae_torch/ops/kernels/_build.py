@@ -123,6 +123,8 @@ def load_library() -> ctypes.CDLL:
     lib.k2_fused_loglik_gram.restype = i
     lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, i, i, p]
     lib.k3_fused_loglik_grad_gram.restype = i
+    lib.k3_fused_loglik_grad_gram_f32.argtypes = [p, p, p, i, i, p, p, i, p]
+    lib.k3_fused_loglik_grad_gram_f32.restype = i
     lib.k2_fused_loglik_gram_mma.argtypes = [p, p, i, i, p, p, i, p]
     lib.k2_fused_loglik_gram_mma.restype = i
     lib.k3_fused_loglik_grad_gram_mma.argtypes = [p, p, p, i, i, p, p, i, i, p]

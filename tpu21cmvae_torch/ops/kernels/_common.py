@@ -15,7 +15,10 @@ from typing import NamedTuple
 
 import torch
 
-ROWS_PER_BLOCK = 16  # kRows in csrc/trunk.cuh
+# kRows in csrc/trunk.cuh: the tile height of fused_loglik_grad_gram.cu
+# (K3 at the mixed tier pairs), the only kernel still built on trunk.cuh's
+# 16-row dense layers
+ROWS_PER_BLOCK = 16
 MAX_LAYERS = 8  # kMaxLayers in csrc/trunk.cuh
 MAX_SHARED_BYTES = 232448  # an H100 block's dynamic shared-memory limit
 TIER_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
@@ -26,6 +29,10 @@ TIER_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
 F32_TILE_ROWS = (64, 32, 16, 8)
 SLAB_N, PAD_K, RED_FLOATS = 128, 32, 256
 RING = {64: (32, 3), 32: (16, 2), 16: (8, 3), 8: (8, 3)}
+# K3's fp32 kernel: its ring (GradRing) and the mask bytes it keeps per
+# padded activation column (MaskBits::kColBytes), by tile height
+GRAD_RING = {**RING, 64: (32, 2)}
+MASK_COL_BYTES = {64: 8, 32: 4, 16: 2, 8: 2}
 # the tallest tile the fp32 wrappers pick when it fits (PERF.md)
 F32_PREFERRED_ROWS = 64
 
@@ -42,24 +49,33 @@ def tile_stride(rows: int) -> int:
     return {16: 18, 8: 9}.get(rows, rows)
 
 
-def f32_tile_bytes(rows: int, in_rows: int, buf_cols: int) -> int:
+def f32_tile_bytes(rows: int, in_rows: int, buf_cols: int, mask_cols: int | None = None) -> int:
     """Dynamic shared memory of one register-tiled fp32 CTA of ``rows``
     rows (``tile_smem_bytes`` in ``csrc/tile_f32.cuh``): the input tile
     (``in_rows`` k rows), two activation buffers of ``buf_cols`` k rows,
-    the slab ring and the per-row partials."""
-    depth, slots = RING[rows]
-    return 4 * (tile_stride(rows) * (in_rows + 2 * buf_cols) + slots * depth * SLAB_N
-                + RED_FLOATS)
+    the slab ring and the per-row partials. With ``mask_cols`` (K3: the
+    padded columns of the activations whose ReLU masks it keeps) the ring
+    is K3's and the mask bytes are added (``launch_grad_gram`` in
+    ``csrc/fused_loglik_grad_gram_f32.cu``)."""
+    depth, slots = (RING if mask_cols is None else GRAD_RING)[rows]
+    return (4 * (tile_stride(rows) * (in_rows + 2 * buf_cols) + slots * depth * SLAB_N
+                 + RED_FLOATS) + MASK_COL_BYTES[rows] * (mask_cols or 0))
+
+
+def check_tile_rows(forced: int | None) -> int | None:
+    """``forced`` if it is None or one of :data:`F32_TILE_ROWS`; else
+    raise."""
+    if forced is not None and forced not in F32_TILE_ROWS:
+        raise ValueError(f"tile_rows must be one of {F32_TILE_ROWS}; got {forced!r}")
+    return forced
 
 
 def f32_tile_rows(in_rows: int, buf_cols: int, forced: int | None = None) -> int:
-    """The tile height the fp32 wrappers pass: ``forced`` if given (one
-    of :data:`F32_TILE_ROWS`), else the tallest of them up to
+    """The tile height the fp32 K1 and K2 wrappers pass: ``forced`` if
+    given (one of :data:`F32_TILE_ROWS`), else the tallest of them up to
     :data:`F32_PREFERRED_ROWS` whose shared memory fits, else the
     shortest (whose bytes then refuse the network)."""
-    if forced is not None:
-        if forced not in F32_TILE_ROWS:
-            raise ValueError(f"tile_rows must be one of {F32_TILE_ROWS}; got {forced!r}")
+    if check_tile_rows(forced) is not None:
         return forced
     fits = [r for r in F32_TILE_ROWS if r <= F32_PREFERRED_ROWS
             and f32_tile_bytes(r, in_rows, buf_cols) <= MAX_SHARED_BYTES]

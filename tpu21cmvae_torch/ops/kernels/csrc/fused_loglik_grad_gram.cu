@@ -1,5 +1,11 @@
-// K3 for Hopper: the gram-form Gaussian log-likelihood and its gradient
-// with respect to the raw parameters, for a batch of rows, in one kernel.
+// K3 for Hopper where the tier pair mixes an fp32 tier with a bf16 one
+// (value bf16x3 with an fp32 backward, or fp32 with a bf16 backward): the
+// gram-form Gaussian log-likelihood and its gradient with respect to the
+// raw parameters, for a batch of rows, in one kernel. The bf16 pairs run
+// on the tensor cores (fused_gram_mma.cu) and the fp32 pair on the
+// register-tiled fused_loglik_grad_gram_f32.cu; this kernel also takes the
+// fp32 pair of a network whose widest layer does not fit that kernel's
+// two full-width buffers (it keeps every activation at its own width).
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
 // (kernel body _loglik_grad_gram_kernel). Same contract: per row it writes
@@ -27,11 +33,9 @@
 // across the warp and the activations as broadcast float4 loads. The
 // backward reads pre-transposed weights so its reads coalesce too. The
 // skinny first layer (fan-in ≤ 8) runs as exact fp32 FMA in both
-// directions at every tier. Tensor cores (mma/wgmma), TMA and persistent
-// CTAs are left for later work.
+// directions at every tier.
 //
-// The tiers, the tile layout and the dense layers are in trunk.cuh, which
-// K1 and K2 share.
+// The tiers, the tile layout and the dense layers are in trunk.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).

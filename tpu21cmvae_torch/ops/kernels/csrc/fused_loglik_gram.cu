@@ -19,7 +19,8 @@
 // once per 16 rows, and reached 21 % of the peak.
 //
 // What the design does about it: K1's register-tiled layers
-// (tile_f32.cuh; see fused_mlp.cu): BM rows per CTA of 256 threads, BM/8
+// (tile_f32.cuh; see fused_mlp.cu; the forward itself is in gram_f32.cuh,
+// which K3's fp32 kernel shares): BM rows per CTA of 256 threads, BM/8
 // × 4 accumulators per thread per 128-column chunk, the weights packed
 // once per model into fp32 slabs (ops/kernels/_common.py::pack_slabs:
 // trunk layers 1 … n−1, then G, whose bias slot holds u) and streamed
@@ -36,20 +37,9 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
-#include "tile_f32.cuh"
+#include "gram_f32.cuh"
 
 namespace {
-
-struct GramNet {
-  int n_layers;               // trunk layers, the skinny one included
-  int width[kMaxLayers + 1];  // width[0] = n_in; trunk layer i maps width[i] → width[i+1]
-  int buf_cols;               // k rows of each activation buffer: widest trunk width, padded to 32
-  int total;                  // slabs in the stream at BM: trunk layers 1 … n−1, then G
-  const float* w0;            // (n_in, width[1]), exact fp32
-  const float* b0;            // (width[1],)
-  const float* slabs;
-  const float* bias;          // each streamed layer's bias padded to 128·chunks; G's slot holds u
-};
 
 // Launch bounds: at 64 rows the flagship's shared memory holds one CTA per
 // SM, and asking for two caps registers at 128, where K2 ran 2.6 % faster
@@ -58,69 +48,19 @@ template <int BM>
 __global__ void __launch_bounds__(kThreads, BM >= 32 ? 2 : BM == 16 ? 3 : 4)
 fused_loglik_gram_kernel(const float* __restrict__ x, float* __restrict__ quad, int n_rows,
                          GramNet net) {
-  constexpr int TM = BM / 8;
-  constexpr int S = tile_stride(BM);
   extern __shared__ float4 smem4[];
-  float* const ring = reinterpret_cast<float*>(smem4);
-  float* const red = ring + Ring<BM>::kSlots * Ring<BM>::kFloats;
-  float* const buf[2] = {red + kRedFloats, red + kRedFloats + S * net.buf_cols};
-  float* const xl = buf[1] + S * net.buf_cols;
-  const int n_in = net.width[0];
-  const int n_layers = net.n_layers;
-  const int row0 = blockIdx.x * BM;
-
-  start_ring<BM>(ring, net.slabs, net.total);
-  load_input<BM>(x, n_rows, row0, n_in, n_in, true, xl);
-  __syncthreads();
-  skinny_hidden<BM>(xl, n_in, net.w0, net.b0, net.width[1], buf[0]);
-
+  const GramTile tile = gram_tile<BM, Ring<BM>>(reinterpret_cast<float*>(smem4), net);
   int g = 0;
-  int cur = 0;
-  const float* bias = net.bias;
-  for (int i = 1; i < n_layers; ++i) {
-    float* out = buf[cur ^ 1];
-    const int n = net.width[i + 1];
-    tile_layer<BM>(buf[cur], net.width[i], n, net.slabs, net.total, ring, g,
-                   [&](int c0, const float (&acc)[TM][4]) { relu_store<BM>(out, bias, n, c0, acc); });
-    bias += chunks(n) * kSlabN;
-    cur ^= 1;
-  }
-
-  // gram head: hg = h @ G in registers; quad += (hg + 2u)·h per (row, column)
-  const float* h = buf[cur];
-  const int hidden = net.width[n_layers];
-  const TileThread<BM> t;
-  float q[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) q[i] = 0.f;
-  tile_layer<BM>(h, hidden, hidden, net.slabs, net.total, ring, g,
-                 [&](int c0, const float (&acc)[TM][4]) {
-                   if (c0 >= padk(hidden)) return;  // h holds no columns past padk(hidden)
-                   const float4 u4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
-                   const float u[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-                   for (int c = 0; c < 4; ++c) {
-                     float hv[TM];
-                     load_rows<TM>(hv, h + (c0 + c) * S + t.row);
-#pragma unroll
-                     for (int i = 0; i < TM; ++i) q[i] = fmaf(acc[i][c] + 2.f * u[c], hv[i], q[i]);
-                   }
-                 });
-  reduce_rows<BM>(q, red, quad, row0, n_rows);
+  float *h, *e;
+  uint8_t* mask;
+  gram_forward<BM, Ring<BM>, false>(x, quad, n_rows, net, tile, g, h, e, mask);
 }
 
 template <int BM>
 cudaError_t launch_gram(const float* x, float* quad, int n_rows, GramNet net, cudaStream_t s) {
   const size_t smem = tile_smem_bytes<BM>(net.width[0], net.buf_cols);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  // trunk layers 1 … n−1 (width[i] → width[i+1]), then G (H → H)
-  int k[kMaxLayers], n[kMaxLayers];
-  for (int i = 1; i < net.n_layers; ++i) {
-    k[i - 1] = net.width[i];
-    n[i - 1] = net.width[i + 1];
-  }
-  k[net.n_layers - 1] = n[net.n_layers - 1] = net.width[net.n_layers];
-  net.total = stream_slabs<BM>(k, n, net.n_layers);
+  net.total = gram_stream_slabs<BM, Ring<BM>>(net, false);
   auto* kernel = fused_loglik_gram_kernel<BM>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -144,21 +84,10 @@ extern "C" {
 int k2_fused_loglik_gram(const float* x, float* quad, int n_rows, int n_layers,
                          const int* widths, const void* const* ptrs, int tile_rows,
                          void* stream) {
-  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || widths[0] < 1 ||
-      widths[0] > kMaxIn) {
+  GramNet net;
+  if (!read_gram_net(n_rows, n_layers, widths, ptrs, net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  GramNet net{};
-  net.n_layers = n_layers;
-  for (int i = 0; i <= n_layers; ++i) {
-    if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    net.width[i] = widths[i];
-    if (i > 0 && padk(widths[i]) > net.buf_cols) net.buf_cols = padk(widths[i]);
-  }
-  net.w0 = static_cast<const float*>(ptrs[0]);
-  net.b0 = static_cast<const float*>(ptrs[1]);
-  net.slabs = static_cast<const float*>(ptrs[2]);
-  net.bias = static_cast<const float*>(ptrs[3]);
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -1,8 +1,9 @@
-// Register-tiled fp32 device code shared by the port's CUDA-core value
-// kernels (K1 fused_mlp.cu, K2 fused_loglik_gram.cu): the tile geometry,
-// the cp.async weight-slab ring, the input tile, the skinny first layer,
-// one dense layer with a caller-supplied epilogue, and the fixed-order
-// per-row reduction.
+// Register-tiled fp32 device code shared by the port's CUDA-core kernels
+// (K1 fused_mlp.cu, K2 fused_loglik_gram.cu, K3 at fp32
+// fused_loglik_grad_gram_f32.cu): the tile geometry, the cp.async
+// weight-slab ring, the input tile, the skinny first layer, one dense
+// layer with a caller-supplied epilogue, the fixed-order per-row
+// reduction, and (K3) ReLU masks kept as bits.
 //
 // A CTA of kThreads = 256 threads owns a tile of BM rows (BM in {64, 32,
 // 16, 8}, a template parameter). Activations live in shared memory
@@ -17,8 +18,9 @@
 // its 4 weights as one float4 (eight distinct, 128 contiguous bytes), each
 // one shared-memory wavefront, for TM·4 FMAs.
 //
-// Weights reach shared memory as slabs of Ring<BM>::kDepth × kSlabN fp32
-// values (k-major) through a ring of Ring<BM>::kSlots slabs. A warp reads
+// Weights reach shared memory as slabs of R::kDepth × kSlabN fp32 values
+// (k-major) through a ring of R::kSlots slabs, R a ring geometry by tile
+// height (Ring<BM> for K1 and K2, GradRing<BM> for K3). A warp reads
 // only its column quarter of a slab, which it shares with one other warp:
 // each such pair copies its quarter with 16-byte cp.asyncs and syncs on a
 // named barrier of its own 64 threads, so within a layer no warp waits for
@@ -65,6 +67,16 @@ struct Ring {
   static_assert(kPadK % kDepth == 0, "the padded fan-in holds whole slabs");
 };
 
+// K3's ring: its ReLU masks share the CTA's shared memory, so at 64 rows
+// the flagship keeps two slots of 32-deep slabs (depth costs more than
+// slots: PERF.md); the other heights keep Ring's geometry.
+template <int BM>
+struct GradRing {
+  static constexpr int kDepth = Ring<BM>::kDepth;
+  static constexpr int kSlots = BM == 64 ? 2 : Ring<BM>::kSlots;
+  static constexpr int kFloats = kDepth * kSlabN;
+};
+
 __host__ __device__ constexpr int padk(int n) { return (n + kPadK - 1) / kPadK * kPadK; }
 __host__ __device__ constexpr int chunks(int n) { return (n + kSlabN - 1) / kSlabN; }
 
@@ -78,17 +90,17 @@ __host__ __device__ constexpr int tile_stride(int bm) {
 // Dynamic shared memory of one CTA: the input tile (in_rows k rows), two
 // ping-pong activation buffers of buf_cols k rows, the slab ring and the
 // per-row partials. ops/kernels/_common.py::f32_tile_bytes mirrors it.
-template <int BM>
+template <int BM, class R = Ring<BM>>
 size_t tile_smem_bytes(int in_rows, int buf_cols) {
   return sizeof(float) * (static_cast<size_t>(tile_stride(BM)) * (in_rows + 2 * buf_cols) +
-                          Ring<BM>::kSlots * Ring<BM>::kFloats + kRedFloats);
+                          R::kSlots * R::kFloats + kRedFloats);
 }
 
 // Slabs in the stream of layers (k_i → n_i) at tile height BM.
-template <int BM>
+template <int BM, class R = Ring<BM>>
 int stream_slabs(const int* k, const int* n, int layers) {
   int total = 0;
-  for (int i = 0; i < layers; ++i) total += chunks(n[i]) * (padk(k[i]) / Ring<BM>::kDepth);
+  for (int i = 0; i < layers; ++i) total += chunks(n[i]) * (padk(k[i]) / R::kDepth);
   return total;
 }
 
@@ -154,10 +166,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // of the quarter is 128 contiguous bytes, eight 16-byte copies spread over
 // the pair's 64 threads; one commit group (an empty one past the end keeps
 // every thread's group count in step).
-template <int BM>
+template <int BM, class R = Ring<BM>>
 __device__ __forceinline__ void issue_slab(float* ring, const float* __restrict__ slabs, int g,
                                            int total) {
-  using R = Ring<BM>;
   if (g < total) {
     const int quarter = threadIdx.x >> 6;
     float* dst = ring + (g % R::kSlots) * R::kFloats + quarter * 32;
@@ -179,11 +190,11 @@ __device__ __forceinline__ void pair_sync() {
 
 // The ring's first kSlots − 1 slabs; call before the input tile so the
 // copies overlap it.
-template <int BM>
+template <int BM, class R = Ring<BM>>
 __device__ __forceinline__ void start_ring(float* ring, const float* __restrict__ slabs,
                                            int total) {
 #pragma unroll
-  for (int g = 0; g < Ring<BM>::kSlots - 1; ++g) issue_slab<BM>(ring, slabs, g, total);
+  for (int g = 0; g < R::kSlots - 1; ++g) issue_slab<BM, R>(ring, slabs, g, total);
 }
 
 // The tile's input rows x[row0 .. row0 + BM) (row-major, n_in columns)
@@ -244,11 +255,10 @@ __device__ __forceinline__ void skinny_hidden(const float* xl, int n_in,
 // no warp still reads the tile the epilogue will write. Every thread runs
 // every barrier; a warp whose columns of a chunk all lie at or past n
 // skips the products and the epilogue.
-template <int BM, class Epi>
+template <int BM, class R = Ring<BM>, class Epi>
 __device__ __forceinline__ void tile_layer(const float* in, int k_in, int n,
                                            const float* __restrict__ slabs, int total,
                                            float* ring, int& g, Epi&& epi) {
-  using R = Ring<BM>;
   constexpr int TM = BM / 8;
   constexpr int S = tile_stride(BM);
   const TileThread<BM> t;
@@ -265,7 +275,7 @@ __device__ __forceinline__ void tile_layer(const float* in, int k_in, int n,
     for (int s = 0; s < steps; ++s, ++g) {
       cp_async_wait<R::kSlots - 2>();  // slab g has landed (this thread's copies)
       pair_sync();                     // … the pair's; its part of slot g − 1 is free
-      issue_slab<BM>(ring, slabs, g + R::kSlots - 1, total);
+      issue_slab<BM, R>(ring, slabs, g + R::kSlots - 1, total);
       if (active) {
         const float* w = ring + (g % R::kSlots) * R::kFloats + t.col;
         const float* a = a_base + s * R::kDepth * S;
@@ -304,6 +314,131 @@ __device__ __forceinline__ void relu_store(float* out, const float* __restrict__
     float v[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) v[i] = relu(acc[i][q] + b[q]);
+    store_rows<TM>(out + (c0 + q) * S + t.row, v);
+  }
+}
+
+// ReLU masks as bits (K3): one bit per (row, column) of a hidden
+// activation, set where the fp32 pre-activation is > 0 (false for NaN).
+// A column's bits are kColBytes bytes; each warp half (warp & 1) owns the
+// 4·TM rows its lanes hold, kHalfBytes bytes of them, bit (lane & 3)·TM + i
+// for row t.row + i. From 16 rows up that is bit r for row r of the tile;
+// at 8 rows a half's 4 rows take the low nibble of its byte.
+template <int BM>
+struct MaskBits {
+  static constexpr int TM = BM / 8;
+  static constexpr int kHalfBytes = TM >= 2 ? TM / 2 : 1;
+  static constexpr int kColBytes = 2 * kHalfBytes;     // 8, 4, 2, 2 at 64, 32, 16, 8 rows
+  static constexpr int kRowsPerByte = BM / kColBytes;  // 8, 8, 8, 4
+};
+
+template <int BYTES>
+__device__ __forceinline__ void store_bits(uint8_t* at, unsigned bits) {
+  if constexpr (BYTES == 4) {
+    *reinterpret_cast<uint32_t*>(at) = bits;
+  } else if constexpr (BYTES == 2) {
+    *reinterpret_cast<uint16_t*>(at) = static_cast<uint16_t>(bits);
+  } else {
+    *at = static_cast<uint8_t>(bits);
+  }
+}
+
+template <int BYTES>
+__device__ __forceinline__ unsigned load_bits(const uint8_t* at) {
+  if constexpr (BYTES == 4) {
+    return *reinterpret_cast<const uint32_t*>(at);
+  } else if constexpr (BYTES == 2) {
+    return *reinterpret_cast<const uint16_t*>(at);
+  } else {
+    return *at;
+  }
+}
+
+// skinny_hidden that also writes the activation's mask: one thread per
+// (column, mask byte), the byte's rows in order.
+template <int BM>
+__device__ __forceinline__ void skinny_hidden_masked(const float* xl, int n_in,
+                                                     const float* __restrict__ w0,
+                                                     const float* __restrict__ b0, int n_out,
+                                                     float* out, uint8_t* mask) {
+  using M = MaskBits<BM>;
+  constexpr int S = tile_stride(BM);
+  for (int t = threadIdx.x; t < M::kColBytes * padk(n_out); t += blockDim.x) {
+    const int byte = t % M::kColBytes;
+    const int j = t / M::kColBytes;
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < M::kRowsPerByte; ++i) {
+      const int r = byte * M::kRowsPerByte + i;
+      const float v = j < n_out ? skinny_value<BM>(xl, n_in, w0, b0, n_out, r, j) : 0.f;
+      bits |= (v > 0.f ? 1u : 0u) << i;
+      out[j * S + r] = relu(v);
+    }
+    mask[t] = static_cast<uint8_t>(bits);
+  }
+}
+
+// relu_store that also writes the activation's mask where `mask` is not
+// null: each thread's TM bits of a column are gathered across the four
+// lanes that share the column (lane & 3) by two shuffles, and lane q of
+// them stores column c0 + q's bits of this warp half.
+template <int BM>
+__device__ __forceinline__ void relu_mask_store(float* out, uint8_t* mask,
+                                                const float* __restrict__ bias, int n, int c0,
+                                                const float (&acc)[BM / 8][4]) {
+  using M = MaskBits<BM>;
+  constexpr int TM = BM / 8;
+  constexpr int S = tile_stride(BM);
+  if (c0 >= padk(n)) return;  // the four lanes of a column group leave together
+  const TileThread<BM> t;
+  const int lane = threadIdx.x & 31;
+  const int mine = lane & 3;
+  const unsigned group = 0xFu << (lane & ~3);
+  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + c0));
+  const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+  unsigned word = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float v[TM];
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float s = acc[i][q] + b[q];
+      bits |= (s > 0.f ? 1u : 0u) << i;
+      v[i] = relu(s);
+    }
+    store_rows<TM>(out + (c0 + q) * S + t.row, v);
+    if (mask != nullptr) {  // uniform over the CTA
+      bits <<= mine * TM;
+      bits |= __shfl_xor_sync(group, bits, 1);
+      bits |= __shfl_xor_sync(group, bits, 2);
+      if (q == mine) word = bits;
+    }
+  }
+  if (mask != nullptr)
+    store_bits<M::kHalfBytes>(mask + (c0 + mine) * M::kColBytes +
+                                  ((threadIdx.x >> 5) & 1) * M::kHalfBytes,
+                              word);
+}
+
+// The backward's epilogue: out[c0 + q, row + i] = acc where the mask bit of
+// that (row, column) is set, else 0, for the columns below padk(n).
+template <int BM>
+__device__ __forceinline__ void masked_store(float* out, const uint8_t* mask, int n, int c0,
+                                             const float (&acc)[BM / 8][4]) {
+  using M = MaskBits<BM>;
+  constexpr int TM = BM / 8;
+  constexpr int S = tile_stride(BM);
+  if (c0 >= padk(n)) return;
+  const TileThread<BM> t;
+  const int shift = (threadIdx.x & 3) * TM;
+  const uint8_t* at = mask + c0 * M::kColBytes + ((threadIdx.x >> 5) & 1) * M::kHalfBytes;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const unsigned bits = load_bits<M::kHalfBytes>(at + q * M::kColBytes) >> shift;
+    float v[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) v[i] = (bits >> i) & 1u ? acc[i][q] : 0.f;
     store_rows<TM>(out + (c0 + q) * S + t.row, v);
   }
 }

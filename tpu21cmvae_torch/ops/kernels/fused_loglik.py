@@ -20,11 +20,16 @@ both run ``csrc/fused_gram_mma.cu`` on the tensor cores (K2 is its
 forward alone), from operands :func:`pack_gram_operands` packed once per
 model into bf16 ``mma`` fragments; at the fp32 tier K2 runs
 ``csrc/fused_loglik_gram.cu``, register-tiled on the CUDA cores from the
-fp32 slabs of :func:`pack_gram_slabs` (``csrc/tile_f32.cuh``), and K3
-``csrc/fused_loglik_grad_gram.cu`` on the CUDA cores. The CUDA kernels
-keep a row tile's activations on chip; the plain versions do the same
-arithmetic — same folds, same hi/lo split, same epilogue — in plain
-tensor operations.
+fp32 slabs of :func:`pack_gram_slabs` (``csrc/tile_f32.cuh``), and K3 at
+(fp32, fp32) ``csrc/fused_loglik_grad_gram_f32.cu``, the same forward and
+the backward as more layers of one slab stream
+(:func:`pack_grad_gram_slabs`), at a tile height picked per call
+(:func:`grad_f32_rows`). A K3 pair that mixes an fp32 tier with a bf16
+one runs ``csrc/fused_loglik_grad_gram.cu`` on the CUDA cores, as does
+the fp32 pair of a network too wide for the register-tiled kernel's
+buffers. The CUDA kernels keep a row tile's activations on chip; the
+plain versions do the same arithmetic — same folds, same hi/lo split,
+same epilogue — in plain tensor operations.
 """
 
 from __future__ import annotations
@@ -50,12 +55,14 @@ from tpu21cmvae_torch.ops.fold import (
 )
 from tpu21cmvae_torch.ops.kernels._common import (
     MAX_LAYERS,
+    F32_TILE_ROWS,
     MAX_SHARED_BYTES,
     ROWS_PER_BLOCK,
     TIER_CODE,
     OperandCache,
     Slabs,
     check_rows,
+    check_tile_rows,
     f32_tile_bytes,
     f32_tile_rows,
     hi_lo,
@@ -100,9 +107,11 @@ class GramOperands:
     ``grad_tier`` None, for the value-only K2. ``g``: ``G`` at ``tier``.
     ``u``, ``c``, ``log_norm``: the rest of the gram form. ``packed``:
     the same operands as ``fused_gram_mma.cu`` reads them where the
-    tiers run on the tensor cores, else None. ``slabs``: K2's operands as
-    ``fused_loglik_gram.cu`` streams them (:func:`pack_gram_slabs`) where
-    K2 runs at the fp32 tier, else None.
+    tiers run on the tensor cores, else None. ``slabs``: the operands as
+    the register-tiled fp32 kernel streams them where it runs: K2's
+    (:func:`pack_gram_slabs`, ``fused_loglik_gram.cu``) or K3's
+    (:func:`pack_grad_gram_slabs`, ``fused_loglik_grad_gram_f32.cu``),
+    else None.
     """
 
     tier: str
@@ -185,6 +194,15 @@ def pack_gram_slabs(ops: GramOperands) -> Slabs:
     return pack_slabs([*zip(ops.w, ops.b), (ops.g, ops.u)])
 
 
+def pack_grad_gram_slabs(ops: GramOperands) -> Slabs:
+    """K3's fp32 operands as ``fused_loglik_grad_gram_f32.cu`` streams
+    them: K2's stream (:func:`pack_gram_slabs`), then the backward's
+    ``W_iᵀ`` for i = n−1 … 1, each with a zero bias the kernel never
+    reads."""
+    backward = [(wt, wt.new_zeros(wt.shape[1])) for wt in reversed(ops.wt)]
+    return pack_slabs([*zip(ops.w, ops.b), (ops.g, ops.u), *backward])
+
+
 def _value(ops: GramOperands, quad):
     """``−½·(quad + c) + log_norm``: the value from the kernels' quad."""
     return -0.5 * (quad + ops.c) + ops.log_norm
@@ -223,8 +241,9 @@ def loglik_grad_gram_reference(ops: GramOperands, x: torch.Tensor):
 def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     """The C entry point of the kernel ``ops``' tiers run
     (:func:`gram_on_tensor_cores`), its operand pointers, and the int
-    arguments after them: the tier codes, or ``fused_loglik_gram.cu``'s
-    tile height ``rows``."""
+    arguments after them: the tier codes, or the register-tiled fp32
+    kernels' tile height ``rows`` (K2 at fp32; K3 at (fp32, fp32) where
+    its stream was packed)."""
     tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
     if gram_on_tensor_cores(*tiers):
@@ -235,6 +254,8 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
         return entry, [*tensors, p.g, p.u], [TIER_CODE[t] for t in tiers]
     if not k3:  # fused_loglik_gram.cu runs the fp32 tier alone
         return "k2_fused_loglik_gram", [*tensors, *ops.slabs], [rows]
+    if ops.slabs is not None:  # (fp32, fp32), register-tiled
+        return "k3_fused_loglik_grad_gram_f32", [*tensors, *ops.slabs], [rows]
     for i, (w, b) in enumerate(zip(ops.w, ops.b)):
         tensors += [*hi_lo(w, ops.tier), b, *hi_lo(ops.wt[i], ops.grad_tier)]
     tensors += [*hi_lo(ops.g, ops.tier), ops.u]
@@ -254,12 +275,13 @@ def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Te
     return _value(ops, quad)
 
 
-def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor):
-    """Launch K3 on PyTorch's current stream (no synchronisation)."""
+def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[int] = None):
+    """Launch K3 on PyTorch's current stream (no synchronisation);
+    ``rows``: ``fused_loglik_grad_gram_f32.cu``'s tile height."""
     quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     if x.shape[0]:
-        entry, tensors, tiers = _kernel(ops, k3=True)
+        entry, tensors, tiers = _kernel(ops, k3=True, rows=rows)
         widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
         launch("K3", entry, x,
                x.data_ptr(), quad.data_ptr(), dx.data_ptr(), x.shape[0],
@@ -283,13 +305,64 @@ def _gram_mma_bytes(widths, tier: str, grad_tier: Optional[str]) -> int:
             + 4 * rows * (widths[0] + WARPS_PER_BLOCK))
 
 
-def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32") -> int:
+def grad_f32_bytes(widths, rows: int) -> int:
+    """Dynamic shared memory of one ``fused_loglik_grad_gram_f32.cu``
+    block of ``rows`` rows
+    (:func:`~tpu21cmvae_torch.ops.kernels._common.f32_tile_bytes`): K2's
+    tiles and partials, K3's slab ring, and the mask bits of activations
+    0 … n−2, padded columns included."""
+    return f32_tile_bytes(rows, widths[0], max(padk(w) for w in widths[1:]),
+                          mask_cols=sum(padk(w) for w in widths[1:-1]))
+
+
+def grad_f32_heights(widths) -> tuple:
+    """The tile heights, tallest first, at which trunk ``widths`` fit
+    ``fused_loglik_grad_gram_f32.cu``'s shared memory."""
+    return tuple(r for r in F32_TILE_ROWS if grad_f32_bytes(widths, r) <= MAX_SHARED_BYTES)
+
+
+def pick_grad_rows(heights, n_rows: Optional[int], sm_count: Optional[int]) -> int:
+    """Of ``heights`` (tallest first), the shortest that still runs a
+    batch of ``n_rows`` as at most one block per SM of ``sm_count``: a
+    block alone on its SM finishes sooner the shorter its tile. Where
+    even the tallest needs more blocks than SMs, or either count is
+    unknown, the tallest: it does the most work per weight read
+    (measured on an H100: PERF.md)."""
+    if n_rows is not None and sm_count is not None:
+        for r in reversed(heights):
+            if -(-n_rows // r) <= sm_count:
+                return r
+    return heights[0]
+
+
+def grad_f32_rows(widths, n_rows: Optional[int] = None, sm_count: Optional[int] = None,
+                  forced: Optional[int] = None) -> Optional[int]:
+    """The tile height ``fused_loglik_grad_gram_f32.cu`` runs a batch of
+    ``n_rows`` rows of trunk ``widths`` at on a card of ``sm_count`` SMs:
+    ``forced`` if given, else :func:`pick_grad_rows` over the heights
+    that fit (:func:`grad_f32_heights`); None where none fits."""
+    if check_tile_rows(forced) is not None:
+        return forced
+    heights = grad_f32_heights(widths)
+    return pick_grad_rows(heights, n_rows, sm_count) if heights else None
+
+
+def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
+                 rows: Optional[int] = None) -> int:
     """Dynamic shared memory of one K3 block at (``tier``,
-    ``grad_tier``). ``fused_loglik_grad_gram.cu`` keeps the input tile,
-    every trunk activation and ``h@G`` in fp32, ``ROWS_PER_BLOCK`` rows
-    each; ``fused_gram_mma.cu`` bf16 tiles (:func:`_gram_mma_bytes`)."""
+    ``grad_tier``). ``fused_gram_mma.cu`` keeps bf16 tiles
+    (:func:`_gram_mma_bytes`); ``fused_loglik_grad_gram_f32.cu`` (fp32,
+    fp32) k-major fp32 tiles of ``rows`` rows (:func:`grad_f32_bytes`;
+    default: the tallest height that fits); ``fused_loglik_grad_gram.cu``
+    (the mixed pairs, and the fp32 pair of a network that fits the
+    register-tiled kernel at no height) the input tile, every trunk
+    activation and ``h@G`` in fp32, ``ROWS_PER_BLOCK`` rows each."""
     if gram_on_tensor_cores(tier, grad_tier):
         return _gram_mma_bytes(widths, tier, grad_tier)
+    if tier == grad_tier == "f32":
+        rows = grad_f32_rows(widths, forced=rows)
+        if rows is not None:
+            return grad_f32_bytes(widths, rows)
     return 4 * ROWS_PER_BLOCK * (sum(widths) + widths[-1])
 
 
@@ -342,12 +415,21 @@ class _GramWrapper:
         self.tier = resolve_tier(precision, "high")
         self.grad_tier = grad_precision
         # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu, or
-        # the CUDA-core fused_loglik_grad_gram.cu / fused_loglik_gram.cu
+        # on the CUDA cores K2's fused_loglik_gram.cu, K3's register-tiled
+        # fused_loglik_grad_gram_f32.cu or its fused_loglik_grad_gram.cu
         self.tensor_cores = gram_on_tensor_cores(self.tier, self.grad_tier)
-        # fused_loglik_gram.cu's tile height (K2 at the fp32 tier)
-        self.tile_rows = gram_f32_rows(widths, tile_rows)
-        need = (gram_shared_bytes(widths, self.tier, self.tile_rows) if self.grad_tier is None
-                else shared_bytes(widths, self.tier, self.grad_tier))
+        if self.grad_tier is None:
+            # fused_loglik_gram.cu's tile height (K2 at the fp32 tier)
+            self.tile_rows = gram_f32_rows(widths, tile_rows)
+            need = gram_shared_bytes(widths, self.tier, self.tile_rows)
+        else:
+            # fused_loglik_grad_gram_f32.cu's forced tile height, or None:
+            # picked per call among the heights that fit
+            self.tile_rows = check_tile_rows(tile_rows)
+            self.heights = grad_f32_heights(widths)
+            self.register_tiled = self.tier == self.grad_tier == "f32" and (
+                tile_rows is not None or bool(self.heights))
+            need = shared_bytes(widths, self.tier, self.grad_tier, tile_rows)
         if need > MAX_SHARED_BYTES:
             raise NotImplementedError(
                 f"hidden widths {config.hidden_dims} need {need} bytes of shared "
@@ -355,6 +437,9 @@ class _GramWrapper:
                 f"is {MAX_SHARED_BYTES}"
             )
         self.device = torch.empty(0, device=device).device
+        # K3's height rule counts blocks against the card's SMs, read once
+        self.sm_count = (torch.cuda.get_device_properties(self.device).multi_processor_count
+                         if self.device.type == "cuda" else None)
         self.n_params = config.n_params
         self.launches = 0
         obs = obs_tensor(obs, config.n_bins, device=self.device)
@@ -375,6 +460,8 @@ class _GramWrapper:
                 return dataclasses.replace(ops, packed=pack_gram_operands(ops))
             if self.grad_tier is None:
                 return dataclasses.replace(ops, slabs=pack_gram_slabs(ops))
+            if self.register_tiled:
+                return dataclasses.replace(ops, slabs=pack_grad_gram_slabs(ops))
             return ops
 
         self.operands = OperandCache(build)
@@ -427,21 +514,36 @@ class FusedLoglikGradGram(_GramWrapper):
     (:class:`FusedLoglikGram`); on the CPU it runs
     :func:`loglik_grad_gram_reference`. The folded operands are cached
     against the identity and version of the ``params`` tensors, so an
-    in-place weight update refolds.
+    in-place weight update refolds. At (fp32, fp32) the register-tiled
+    ``fused_loglik_grad_gram_f32.cu`` runs (:attr:`register_tiled`) at
+    the tile height :meth:`rows_for` gives each batch; ``tile_rows`` (one
+    of :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`)
+    forces one height for every batch.
     """
 
     name = "K3"
 
     def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
-                 grad_precision=None, device):
+                 grad_precision=None, tile_rows=None, device):
         tier = resolve_tier(precision, "high")
         grad_tier = tier if grad_precision is None else resolve_tier(grad_precision)
         super().__init__(config, norm, obs, noise_var, precision=precision,
-                         grad_precision=grad_tier, device=device)
+                         grad_precision=grad_tier, device=device, tile_rows=tile_rows)
+
+    def rows_for(self, n_rows: int) -> Optional[int]:
+        """The register-tiled kernel's tile height for a batch of
+        ``n_rows`` rows (:func:`pick_grad_rows`), :attr:`tile_rows` if
+        forced; None on the other routes."""
+        if not self.register_tiled:
+            return None
+        return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count)
 
     @torch.no_grad()
     def __call__(self, params, raw):
-        return self._run(params, raw, loglik_grad_gram_reference, _loglik_grad_gram_cuda)
+        def kernel(ops, x):
+            return _loglik_grad_gram_cuda(ops, x, self.rows_for(x.shape[0]))
+
+        return self._run(params, raw, loglik_grad_gram_reference, kernel)
 
 
 def make_fused_loglik_gram(config, norm, obs, noise_var=1.0, *, precision="high",
@@ -455,16 +557,17 @@ def make_fused_loglik_gram(config, norm, obs, noise_var=1.0, *, precision="high"
 
 def make_fused_loglik_grad_gram(config, norm, obs, noise_var=1.0, *,
                                 precision="high", grad_precision=None,
-                                device) -> FusedLoglikGradGram:
+                                tile_rows=None, device) -> FusedLoglikGradGram:
     """Fused gram value-and-gradient (the builder of the JAX package's
     same name): ``precision`` tiers the value's matmuls,
     ``grad_precision`` (default: the same tier) the backward's. A
     cheaper backward tier only costs HMC acceptance rate: leapfrog with
     any deterministic force field stays reversible and volume-preserving,
-    and the accept step uses the value."""
+    and the accept step uses the value. ``tile_rows``: see
+    :class:`FusedLoglikGradGram`."""
     return FusedLoglikGradGram(
         config, norm, obs, noise_var, precision=precision,
-        grad_precision=grad_precision, device=device,
+        grad_precision=grad_precision, tile_rows=tile_rows, device=device,
     )
 
 

@@ -57,7 +57,35 @@ Phases, one line each:
    ``fused_mlp.cu``) and at bf16x3 (``precision="high"``:
    ``fused_mlp_mma.cu``), the bf16x3 scores held to the exact ones by
    ``bench_mcmc.py``'s likelihood gate, and through the gram form at the
-   exact tier (K2 on ``fused_loglik_gram.cu``), held to the direct form.
+   exact tier (K2 on ``fused_loglik_gram.cu``), held to the direct form;
+9. the same kernels under the operands of a foreground-marginalized
+   noise spec (``model.marginalize_foreground(25.0, n_terms=5)``, flat
+   and proper coefficient prior: a dense 451 × 451 whitening folded into
+   the output layer): K1 (sumsq), K2 and K3 against their plain versions
+   at the batches and tiers of phases 3 and 6, the existing tolerances;
+   the noise-level marginal's wrap (``marginalize_noise_scale``) of K2's
+   value and K3's value and gradient against the same wrap of the plain
+   versions; and injection invariance on the card: the exact-tier K2
+   value must not move when ``F·a`` is added to the observation, while
+   the diagonal-noise value moves by hundreds of nats;
+10. the marginalized posterior path through the public entry points: an
+    observation with a 1.5·10³ mK foreground, the spec
+    ``marginalize_noise_scale(marginalize_foreground(25.0), alpha=3,
+    beta=2)`` and a Gaussian prior on tau, through
+    ``sample_posterior(..., log_prior=prior.log_prior)`` for HMC, MH and
+    the ensemble at the sizes of phases 5 and 8: the launch counts (read
+    through the wrapped likelihood objects) equal the diagonal spec's,
+    the prior narrows tau, each chain's draws are scored by the direct
+    form (K1) and the gram form (K2) at the exact tier under the same
+    spec and held to each other; then the diagonal and the marginalized
+    runs in turns (diagonal, marginalized, marginalized, diagonal), wall
+    seconds of each, and the kernels' device time per call under both
+    operand sets, in turns too;
+11. ``fisher_forecast`` at the truth under 25.0, the foreground-
+    marginalized spec and the proper-prior noise-level marginal over it
+    (each marginalization loses information), and
+    ``posterior_predictive`` over the marginalized HMC chain's draws (the
+    95 % band contains the truth signal in at least 80 % of the bins).
 
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound, the card's name and power limit, and a last
@@ -80,7 +108,9 @@ import numpy as np
 import torch
 
 from tpu21cmvae_torch.data.synthetic import PAR_RANGES, synthetic_params
+from tpu21cmvae_torch.foregrounds import linlog_basis
 from tpu21cmvae_torch.models.direct import DirectEmulator
+from tpu21cmvae_torch.noisescale import marginalize_noise_scale
 from tpu21cmvae_torch.ops.kernels import _build
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     loglik_grad_gram_reference,
@@ -90,6 +120,8 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     make_fused_loglik_gram,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import fused_mlp_reference, make_fused_emulate
+from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad
+from tpu21cmvae_torch.priors import GaussianBoxPrior
 from tpu21cmvae_torch.sampling.gradient import sample_hmc
 from tpu21cmvae_torch.utils.metrics import (
     grad_gate_violation,
@@ -153,6 +185,21 @@ GRAD_Q999_F32 = 1e-4  # q99.9 of per-row gradient error at (highest, highest)
 # Published dense peaks of one H100 SXM at its 700 W limit: bf16 on the
 # tensor cores, fp32 on the CUDA cores, HBM3 bytes per second.
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# The marginalized path (phases 9-11): a 5-term linlog foreground
+# (tests/test_foregrounds.py's coefficients), an InvGamma(3, 2) prior on
+# the noise level and a Planck-style Gaussian prior on tau.
+FG_TERMS, FG_COEFFS = 5, (1500.0, -120.0, 40.0, -8.0, 2.0)
+FG_PRIOR_VAR = 1e6  # the proper coefficient prior of phase 9
+LEVEL_ALPHA, LEVEL_BETA = 3.0, 2.0
+TAU_INDEX, TAU_SIGMA = 3, 0.006
+HMC_SIZES = dict(n_walkers=4096, n_warmup=100, n_steps=200)  # phase 5's run
+SAMPLER_SIZES = {
+    "hmc": HMC_SIZES,
+    "mh": dict(n_walkers=MH_WALKERS, n_warmup=MH_WARMUP, n_steps=MH_STEPS),
+    "ensemble": dict(n_walkers=ENS_WALKERS, n_warmup=ENS_WARMUP, n_steps=ENS_STEPS),
+}
+ACCEPT_RANGE = {"hmc": (0.3, 0.99), "mh": (0.15, 0.5), "ensemble": (0.05, 0.95)}
+BAND_SHARE = 0.8  # bins of the truth inside the 95 % predictive band (the CPU test's share)
 
 
 def check(ok: bool, what: str):
@@ -280,12 +327,17 @@ def bound(kernel, widths, n, tier, grad_tier=None):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def kernel_entry(name, source, replaces, launches, err, t, bound_ms, **extra) -> dict:
+def kernel_entry(name, source, replaces, launches, marginalized, err, t, bound_ms,
+                 **extra) -> dict:
     """One entry of the kernels line; no single PyTorch call computes a
     whole folded network with its gram head or backward, so library_ms
-    is null. ``extra``: further keys (another batch's figures)."""
+    is null. ``launches``: the main paths' launches under diagonal noise
+    (phases 5 and 8); ``marginalized``: those of the marginalized path
+    (phase 10), counted in the total and shown beside it. ``extra``:
+    further keys (another batch's figures)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": t["kernel_ms"],
+            "launches": launches + marginalized, "launches_marginalized": marginalized,
+            "max_abs_err": err, "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms[0], "bound_by": bound_ms[1],
             "library_ms": None, **extra}
 
@@ -425,7 +477,8 @@ def gradient_free_main_path(model, truth, obs, dev):
     the direct likelihood (K1) at the exact tier (``fused_mlp.cu``) and
     at bf16x3 (``fused_mlp_mma.cu``), the bf16x3 scores under the
     likelihood gate against the exact ones. Returns the launch counts of
-    these runs: K1 exact, K1 bf16x3, K2 exact, K2 bf16x3."""
+    these runs: K1 exact, K1 bf16x3, K2 exact, K2 bf16x3, and K2 bf16x3's
+    by sampler."""
     k2 = model.loglik_fn(obs, NOISE_VAR, backend="kernel")
     k1 = model.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract",
                          backend="kernel")
@@ -519,11 +572,12 @@ def gradient_free_main_path(model, truth, obs, dev):
             "share_far_below_minus_1000": float(np.mean(ll_draws < -1000.0)),
         }
     print("phase 8: " + json.dumps(out), flush=True)
-    return k1_launches, k1_mma_launches, k2_exact_launches, k2_launches
+    per_sampler = {name: entry["k2_launches"] for name, entry in out.items()}
+    return k1_launches, k1_mma_launches, k2_exact_launches, k2_launches, per_sampler
 
 
-def k3_wrapper(model, obs, tiers, dev, tile_rows=None):
-    return make_fused_loglik_grad_gram(model.config, model.normalizer, obs, NOISE_VAR,
+def k3_wrapper(model, obs, tiers, dev, tile_rows=None, noise_var=NOISE_VAR):
+    return make_fused_loglik_grad_gram(model.config, model.normalizer, obs, noise_var,
                                        precision=tiers[0], grad_precision=tiers[1],
                                        tile_rows=tile_rows, device=dev)
 
@@ -679,6 +733,347 @@ def exact_tier_hmc(model, obs, dev):
     return launches
 
 
+def foreground_observation(model, truth, rng):
+    """The marginalized path's observation, ``truth signal + F·a + N(0,
+    25)`` with the linlog basis ``F`` on the model's axis, and ``F``."""
+    basis = linlog_basis(model.frequencies, FG_TERMS)
+    obs = model.predict(truth) + basis @ np.asarray(FG_COEFFS) + rng.normal(
+        0.0, 5.0, model.config.n_bins)
+    return obs.astype(np.float32), basis
+
+
+def unwrap_level_marginal(spec, value, n_bins):
+    """From a noise-level-marginalized value ``const − a·log t``: the
+    base likelihood ``log_norm − (t − β)`` and the wrap's slope ``a/t``
+    (d wrapped / d base), by the spec's own constants in float64."""
+    a, const = spec.shape_coef(n_bins), spec.log_norm_const(n_bins)
+    t = np.exp((const - np.asarray(value, np.float64)) / a)
+    return spec.base_log_norm() - (t - (spec.beta or 0.0)), a / t
+
+
+def marginalized_kernels_vs_plain(model, truth, obs, basis, rng, dev):
+    """Phase 9: K1 (sumsq), K2 and K3 against their plain versions under
+    the operands of a foreground-marginalized spec (flat and proper
+    coefficient prior), at the batches and tiers of phases 3 and 6 and
+    their tolerances; the noise-level marginal's wrap over K2 and K3
+    against the same wrap of the plain versions (tolerance: the base
+    value's, times the wrap's slope a/t); injection invariance at the
+    exact tier. Returns the largest |Δ logL| per kernel source at the
+    tiers of the kernels line."""
+    cfg, norm, n_bins = model.config, model.normalizer, model.config.n_bins
+    specs = {"flat": model.marginalize_foreground(NOISE_VAR, n_terms=FG_TERMS),
+             "proper": model.marginalize_foreground(NOISE_VAR, n_terms=FG_TERMS,
+                                                    prior_var=FG_PRIOR_VAR)}
+    batches = (1, 37, 8192, 65537)
+    xs = {n: rows(n, rng) for n in batches}
+    worst, err = {}, {}
+
+    def note(key, share, max_abs=None, source=None):
+        worst[key] = max(worst.get(key, 0.0), share)
+        if source is not None:
+            err[source] = max(err.get(source, 0.0), max_abs)
+
+    for name, mn in specs.items():
+        for tier in TIERS:
+            direct = make_fused_loglik(cfg, norm, obs, mn, precision=tier, device=dev)
+            gram = make_fused_loglik_gram(cfg, norm, obs, mn, precision=tier, device=dev)
+            check(gram.tensor_cores == (tier != "highest"), f"K2 route at {tier} ({name})")
+            ops_d, ops_g = direct.mlp.operands(model.params), gram.operands(model.params)
+            half_c = 0.5 * abs(float(ops_g.c))
+            for n, x in xs.items():
+                with torch.no_grad():
+                    pairs = {
+                        "k1_sumsq": (direct(model.params, x),
+                                     -0.5 * fused_mlp_reference(ops_d, x) + mn.log_norm),
+                        "k2": (gram(model.params, x), loglik_gram_reference(ops_g, x)),
+                    }
+                for key, (got, want) in pairs.items():
+                    got, want = got.cpu().numpy(), want.cpu().numpy()
+                    check(got.shape == (x.shape[0],) and bool(np.isfinite(got).all()),
+                          f"{key} shape and finite, {name} {tier} n={n}")
+                    tol = VALUE_RTOL[tier] * (np.abs(want) + half_c) + VALUE_ATOL
+                    dv = np.abs(got - want)
+                    share = float((dv / tol).max())
+                    check(share <= 1.0, f"{key} value {name} {tier} n={n}: worst |Δ|/tol "
+                                        f"{share:.3g}")
+                    source = {("k1_sumsq", "highest"): "fused_mlp",
+                              ("k1_sumsq", "high"): "fused_mlp_mma",
+                              ("k2", "highest"): "fused_loglik_gram",
+                              ("k2", "high"): "fused_loglik_gram_mma"}.get((key, tier))
+                    note(f"{key}/{name}/{tier}", share, float(dv.max()), source)
+        for tiers in TIER_PAIRS:
+            fn = k3_wrapper(model, obs, tiers, dev, noise_var=mn)
+            ops = fn.operands(model.params)
+            check(fn.tensor_cores == ("highest" not in tiers), f"K3 route at {tiers} ({name})")
+            half_c = 0.5 * abs(float(ops.c))
+            for n, x in xs.items():
+                vk, gk = fn(model.params, x)
+                vp, gp = loglik_grad_gram_reference(ops, x)
+                vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+                check(bool(np.isfinite(vk).all() and np.isfinite(gk).all()),
+                      f"K3 finite {name} {tiers} n={n}")
+                tol = VALUE_RTOL[tiers[0]] * (np.abs(vp) + half_c) + VALUE_ATOL
+                dv = np.abs(vk - vp)
+                share = float((dv / tol).max())
+                check(share <= 1.0, f"K3 value {name} {tiers} n={n}: worst |Δ|/tol {share:.3g}")
+                check(gk[0, 2] == 0.0, f"K3 fx == 0 slot {name} {tiers} n={n}")
+                gate = grad_gate_violation(gk, gp)
+                check(gate <= 0.0, f"K3 gradient gate {name} {tiers} n={n}: {gate:.3g}")
+                if tiers == EXACT_TIERS:
+                    q999 = float(np.quantile(grad_rel_error(gk, gp), 0.999))
+                    check(q999 <= GRAD_Q999_F32, f"K3 gradient q99.9 {name} n={n}: {q999:.3g}")
+                source = {EXACT_TIERS: "fused_loglik_grad_gram_f32",
+                          MIXED_TIERS: "fused_loglik_grad_gram",
+                          MAIN_TIERS: "fused_loglik_grad_gram_mma"}.get(tiers)
+                if "highest" in tiers or n == 8192:
+                    note(f"k3/{name}/{tiers[0]}-{tiers[1]}", share, float(dv.max()), source)
+                else:
+                    note(f"k3/{name}/{tiers[0]}-{tiers[1]}", share)
+
+    # the noise-level marginal's wrap, outside the kernel wrappers
+    wraps = {"proper_over_fg": marginalize_noise_scale(specs["flat"], alpha=LEVEL_ALPHA,
+                                                       beta=LEVEL_BETA),
+             "jeffreys_over_25": marginalize_noise_scale(NOISE_VAR)}
+    for name, sm in wraps.items():
+        for tier in TIERS:
+            k2 = make_loglik(cfg, norm, obs, sm, backend="kernel", method="gram",
+                             precision=tier)
+            fused = k2.base.fused
+            ops = fused.operands(model.params)
+            plain = sm.wrap_value(lambda p, x, ops=ops: loglik_gram_reference(ops, x), n_bins)
+            half_c = 0.5 * abs(float(ops.c))
+            for n in (37, 8192):
+                k2.launches = 0
+                with torch.no_grad():
+                    got = k2(model.params, xs[n]).cpu().numpy()
+                    want = plain(model.params, xs[n]).cpu().numpy()
+                check(k2.launches == fused.launches == 1, f"wrapped K2 launches, {name} {tier}")
+                base, slope = unwrap_level_marginal(sm, want, n_bins)
+                tol = slope * (VALUE_RTOL[tier] * (np.abs(base) + half_c) + VALUE_ATOL) + 1e-3
+                share = float((np.abs(got - want) / tol).max())
+                check(bool(np.isfinite(got).all()) and share <= 1.0,
+                      f"wrapped K2 {name} {tier} n={n}: worst |Δ|/tol {share:.3g}")
+                note(f"k2_wrapped/{name}/{tier}", share)
+        for tiers in (EXACT_TIERS, MAIN_TIERS):
+            k3 = make_loglik_and_grad(cfg, norm, obs, sm, backend="kernel", precision=tiers[0],
+                                      grad_precision=tiers[1])
+            ops = k3.base.operands(model.params)
+            plain = sm.wrap_valgrad(lambda p, x, ops=ops: loglik_grad_gram_reference(ops, x),
+                                    n_bins)
+            half_c = 0.5 * abs(float(ops.c))
+            for n in (37, 8192):
+                k3.launches = 0
+                vk, gk = (t.cpu().numpy() for t in k3(model.params, xs[n]))
+                vp, gp = (t.cpu().numpy() for t in plain(model.params, xs[n]))
+                check(k3.launches == k3.base.launches == 1, f"wrapped K3 launches, {name}")
+                base, slope = unwrap_level_marginal(sm, vp, n_bins)
+                tol = slope * (VALUE_RTOL[tiers[0]] * (np.abs(base) + half_c) + VALUE_ATOL) + 1e-3
+                share = float((np.abs(vk - vp) / tol).max())
+                check(bool(np.isfinite(vk).all() and np.isfinite(gk).all()) and share <= 1.0,
+                      f"wrapped K3 {name} {tiers} n={n}: worst |Δ|/tol {share:.3g}")
+                gate = grad_gate_violation(gk, gp)
+                check(gate <= 0.0, f"wrapped K3 gradient gate {name} {tiers} n={n}: {gate:.3g}")
+                note(f"k3_wrapped/{name}/{tiers[0]}-{tiers[1]}", share)
+
+    # injection invariance at the exact tier: P·F = 0 under the flat prior,
+    # up to the fp32 rounding of (b − obs) @ R (the JAX suite's bound:
+    # 1e-3 of max|logL| over prior draws); also read near the mode
+    moved_obs = (obs + basis @ rng.normal(0.0, 100.0, FG_TERMS)).astype(np.float32)
+    near = np.clip(truth * (1.0 + 0.01 * rng.normal(size=(8192, truth.shape[0]))),
+                   PAR_RANGES[:, 0], PAR_RANGES[:, 1]).astype(np.float32)
+    sets = {"prior_draws": xs[8192], "near_truth": torch.as_tensor(near, device=dev)}
+    drift = {}
+    for label, x in sets.items():
+        with torch.no_grad():
+            vals = {
+                (spec, which): make_fused_loglik_gram(cfg, norm, o, nv, precision="highest",
+                                                      device=dev)(model.params, x).cpu().numpy()
+                for spec, nv in (("marginalized", specs["flat"]), ("diagonal", NOISE_VAR))
+                for which, o in (("obs", obs), ("moved", moved_obs))
+            }
+        scale = float(np.abs(vals["marginalized", "obs"]).max())
+        d = float(np.abs(vals["marginalized", "moved"] - vals["marginalized", "obs"]).max())
+        plain_move = float(np.abs(vals["diagonal", "moved"] - vals["diagonal", "obs"]).min())
+        drift[label] = {"max_abs_drift": d, "max_abs_loglik": scale, "drift_over_max": d / scale,
+                        "diagonal_min_move": plain_move}
+    check(drift["prior_draws"]["drift_over_max"] < 1e-3,
+          f"injection invariance: drift {drift['prior_draws']}")
+    check(drift["prior_draws"]["diagonal_min_move"] > 100.0,
+          f"the diagonal-noise value must move under injection: {drift['prior_draws']}")
+    print("phase 9: K1, K2 and K3 == plain under the marginalized operands at every batch, "
+          "tier and coefficient prior, and under the noise-level wrap; worst |Δ|/tol "
+          + json.dumps(worst) + " injection " + json.dumps(drift), flush=True)
+    return err
+
+
+def time_both_operand_sets(model, obs_diag, obs_fg, mn, rng, dev) -> dict:
+    """Device ms per call (:func:`stream_ms`) of the main path's kernels
+    under the diagonal spec's operands and the marginalized spec's, in
+    turns diagonal, marginalized, marginalized, diagonal."""
+    cfg, norm = model.config, model.normalizer
+    cases = {
+        "k3/high-default/4096": (4096, 50, lambda o, nv: k3_wrapper(model, o, MAIN_TIERS, dev,
+                                                                    noise_var=nv)),
+        "k2/high/8192": (8192, 20, lambda o, nv: make_fused_loglik_gram(
+            cfg, norm, o, nv, precision="high", device=dev)),
+        f"k1_sumsq/highest/{DRAWS}": (DRAWS, 3, lambda o, nv: make_fused_loglik(
+            cfg, norm, o, nv, precision="highest", device=dev)),
+        f"k2/highest/{DRAWS}": (DRAWS, 3, lambda o, nv: make_fused_loglik_gram(
+            cfg, norm, o, nv, precision="highest", device=dev)),
+    }
+    out = {}
+    for key, (n, repeats, build) in cases.items():
+        x = rows(n, rng)
+        diag, marg = build(obs_diag, NOISE_VAR), build(obs_fg, mn)
+        with torch.no_grad():
+            t = [stream_ms(lambda: fn(model.params, x), repeats)
+                 for fn in (diag, marg, marg, diag)]
+        out[key] = {"diagonal_stream_ms": (t[0] + t[3]) / 2,
+                    "marginalized_stream_ms": (t[1] + t[2]) / 2}
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def marginalized_posterior_path(model, truth, obs_diag, obs, rng, dev, diag_launches):
+    """Phase 10: HMC, MH and the ensemble through ``sample_posterior``
+    under the foreground- and noise-level-marginalized spec with a
+    Gaussian prior on tau. ``diag_launches``: each sampler's launch count
+    under the diagonal spec (phases 5 and 8). Returns the launches of the
+    marginalized runs by kernel source, the HMC chain's draws, and the
+    specs."""
+    n_bins = model.config.n_bins
+    mn = model.marginalize_foreground(NOISE_VAR, n_terms=FG_TERMS)
+    spec = marginalize_noise_scale(mn, alpha=LEVEL_ALPHA, beta=LEVEL_BETA)
+    prior = GaussianBoxPrior.for_params({TAU_INDEX: (float(truth[TAU_INDEX]), TAU_SIGMA)})
+    k1 = model.loglik_fn(obs, spec, method="direct", precision="contract", backend="kernel")
+    k2_exact = model.loglik_fn(obs, spec, precision="contract", backend="kernel")
+    half_c = 0.5 * abs(float(k2_exact.base.fused.operands(model.params).c))
+    launches = {"fused_mlp": 0, "fused_loglik_gram": 0, "fused_loglik_gram_mma": 0,
+                "fused_loglik_grad_gram_mma": 0}
+    out, hmc_draws = {}, None
+
+    def sampling_kernel(sampler, o, nv):
+        if sampler == "hmc":
+            return model.loglik_and_grad_fn(o, nv, backend="kernel", grad_precision=MAIN_TIERS[1])
+        return model.loglik_fn(o, nv, backend="kernel")
+
+    def run(sampler, o, nv, **extra):
+        fn = sampling_kernel(sampler, o, nv)
+        fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.sample_posterior(o, nv, sampler=sampler, **SAMPLER_SIZES[sampler], **extra)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, fn.launches
+
+    for sampler, sizes in SAMPLER_SIZES.items():
+        # in turns: diagonal, marginalized, marginalized, diagonal; then the
+        # marginalized spec under the flat box alone, for tau's spread
+        turns = [run(sampler, obs_diag, NOISE_VAR),
+                 run(sampler, obs, spec, log_prior=prior.log_prior),
+                 run(sampler, obs, spec, log_prior=prior.log_prior),
+                 run(sampler, obs_diag, NOISE_VAR)]
+        flat_prior, flat_wall, _ = run(sampler, obs, spec)
+        res, _, n_launch = turns[1]
+        fn = sampling_kernel(sampler, obs, spec)
+        check(fn.base.tensor_cores if sampler == "hmc" else fn.base.fused.tensor_cores,
+              f"{sampler}: the marginalized run's kernel is fused_gram_mma.cu")
+        for _, _, count in turns:
+            check(count == diag_launches[sampler],
+                  f"{sampler}: {count} launches; the diagonal path of phases 5 and 8 made "
+                  f"{diag_launches[sampler]}")
+        source = "fused_loglik_grad_gram_mma" if sampler == "hmc" else "fused_loglik_gram_mma"
+        launches[source] += n_launch
+        thin = 5 if sampler == "hmc" else 10
+        check(res.chain.shape == (sizes["n_steps"] // thin, sizes["n_walkers"], 7),
+              f"{sampler}: chain shape {res.chain.shape}")
+        check(bool(np.isfinite(res.chain).all() and np.isfinite(res.logp).all()),
+              f"{sampler}: finite chains under the marginalized spec")
+        acc = float(np.mean(res.accept_rate))
+        lo_acc, hi_acc = ACCEPT_RANGE[sampler]
+        check(lo_acc <= acc <= hi_acc, f"{sampler}: mean acceptance {acc:.3f}")
+        tau_sd = float(res.flat[:, TAU_INDEX].std())
+        tau_sd_flat = float(flat_prior.flat[:, TAU_INDEX].std())
+        check(tau_sd < tau_sd_flat, f"{sampler}: tau sd {tau_sd:.4g} under the prior, "
+                                    f"{tau_sd_flat:.4g} under the flat box")
+        # the draws scored by the direct form (K1) and the gram form (K2) at
+        # the exact tier under the same spec, held to each other as phase 8
+        # holds them: the base value's tolerance times the wrap's slope
+        k1.launches = k2_exact.launches = 0
+        with torch.no_grad():
+            draws = torch.as_tensor(res.flat, device=dev)
+            ll_draws = k1(model.params, draws).cpu().numpy()
+            ll_truth = float(k1(model.params, torch.as_tensor(truth, dtype=torch.float32,
+                                                              device=dev))[0])
+            ll_gram = k2_exact(model.params, draws).cpu().numpy()
+        check(k1.launches == 2 and k2_exact.launches == 1,
+              f"{sampler}: scoring launches {k1.launches}, {k2_exact.launches}")
+        launches["fused_mlp"] += k1.launches
+        launches["fused_loglik_gram"] += k2_exact.launches
+        base, slope = unwrap_level_marginal(spec, ll_draws, n_bins)
+        tol = slope * (VALUE_RTOL["highest"] * (np.abs(base) + half_c) + VALUE_ATOL) + 1e-3
+        gram_worst = float((np.abs(ll_gram - ll_draws) / tol).max())
+        check(bool(np.isfinite(ll_draws).all()) and gram_worst <= 1.0,
+              f"{sampler}: exact gram vs direct under the spec, worst |Δ|/tol {gram_worst:.3g}")
+        check(float(ll_draws.max()) >= ll_truth - 5.0,
+              f"{sampler}: best draw {float(ll_draws.max()):.2f} < logL(truth) {ll_truth:.2f} − 5")
+        if sampler == "hmc":
+            hmc_draws = res.flat
+        flat = res.flat
+        out[sampler] = {
+            "wall_s_diagonal": [turns[0][1], turns[3][1]],
+            "wall_s_marginalized": [turns[1][1], turns[2][1]],
+            "wall_s_marginalized_flat_prior": flat_wall,
+            "launches": n_launch, "accept": acc, "accept_diagonal": float(np.mean(
+                turns[0][0].accept_rate)),
+            "tau_sd": tau_sd, "tau_sd_flat_prior": tau_sd_flat,
+            "exact_gram_vs_direct_worst_over_tol": gram_worst,
+            "rhat_max": float(res.rhat().max()),
+            "z": (np.abs(flat.mean(0) - truth) / flat.std(0)).tolist(),
+            "loglik_truth": ll_truth, "loglik_draws_max": float(ll_draws.max()),
+            "share_at_least_truth": float(np.mean(ll_draws >= ll_truth)),
+        }
+    out["kernel_stream_ms"] = time_both_operand_sets(model, obs_diag, obs, mn, rng, dev)
+    print("phase 10: " + json.dumps(out), flush=True)
+    return launches, hmc_draws, mn, spec
+
+
+def forecast_and_band(model, truth, hmc_draws, mn, spec):
+    """Phase 11: Fisher forecasts at the truth under the diagonal, the
+    foreground-marginalized and the noise-level-marginalized spec, and
+    the predictive band of the marginalized HMC chain's draws."""
+    f0, sig0 = model.fisher_forecast(truth, NOISE_VAR)
+    fm, sigm = model.fisher_forecast(truth, mn)
+    ft, sigt = model.fisher_forecast(truth, spec)
+    check(bool(np.isfinite(sig0).all() and np.isfinite(sigm).all() and np.isfinite(sigt).all()),
+          "finite forecast errors")
+    check(bool((sigm >= sig0 * (1 - 1e-9)).all()),
+          f"foreground marginalization must not shrink sigma: {sig0} {sigm}")
+    # the noise-level marginal: F_t = (α/β)·(2α + n_eff)/(2α + n_eff + 2)·F; at
+    # the prior-mean precision α/β the t factor < 1 is lost information
+    n_eff = model.config.n_bins - FG_TERMS
+    t_factor = (2 * LEVEL_ALPHA + n_eff) / (2 * LEVEL_ALPHA + n_eff + 2.0)
+    want = LEVEL_ALPHA / LEVEL_BETA * t_factor * fm
+    check(bool(np.allclose(ft, want, rtol=1e-5, atol=1e-7 * np.abs(want).max())),
+          "Student-t Fisher factor")
+    check(bool((sigt * np.sqrt(LEVEL_ALPHA / LEVEL_BETA) >= sigm * (1 - 1e-9)).all()),
+          f"noise-level marginalization must not shrink sigma at equal precision: {sigm} {sigt}")
+    band = model.posterior_predictive(hmc_draws, quantiles=(0.025, 0.5, 0.975))
+    sig = model.predict(truth)
+    inside = float(np.mean((sig >= band.bands[0]) & (sig <= band.bands[2])))
+    check(band.bands.shape == (3, model.config.n_bins) and bool(np.isfinite(band.bands).all()),
+          "predictive band shape and finite")
+    check(inside >= BAND_SHARE, f"truth inside the 95 % band in {inside:.3f} of the bins")
+    print("phase 11: " + json.dumps({
+        "sigma_diagonal": sig0.tolist(), "sigma_fg_marginalized": sigm.tolist(),
+        "sigma_level_marginalized": sigt.tolist(), "t_factor": t_factor,
+        "truth_inside_95_band": inside,
+        "median_max_abs_mk": float(np.abs(band.bands[1] - sig).max()),
+        "band_mean_width_mk": float(np.mean(band.bands[2] - band.bands[0])),
+    }), flush=True)
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -788,8 +1183,16 @@ def main() -> int:
     # -- phases 6-8: the value kernels and the gradient-free samplers -------
     k1_err, k1_mma_err, k2_err, k2_mma_err = value_kernels_vs_plain(model, obs, rng, dev)
     value_t = time_value_kernels(model, obs, rng, dev)
-    k1_launches, k1_mma_launches, k2_launches, k2_mma_launches = gradient_free_main_path(
-        model, truth, obs, dev)
+    k1_launches, k1_mma_launches, k2_launches, k2_mma_launches, sampler_launches = (
+        gradient_free_main_path(model, truth, obs, dev))
+    sampler_launches["hmc"] = launches
+
+    # -- phases 9-11: noise models and priors, the same kernels ---------------
+    obs_fg, basis = foreground_observation(model, truth, rng)
+    fg_err = marginalized_kernels_vs_plain(model, truth, obs_fg, basis, rng, dev)
+    marg, hmc_draws, mn, spec = marginalized_posterior_path(
+        model, truth, obs, obs_fg, rng, dev, sampler_launches)
+    forecast_and_band(model, truth, hmc_draws, mn, spec)
 
     # each kernel at the tier and the scale nearest to its main-path use
     # (the fp32 K1 and K2 at each chain's draws, with their 1 M-row
@@ -807,29 +1210,35 @@ def main() -> int:
         return {"ms_64k": t["kernel_ms"], "stream_ms_64k": t["kernel_stream_ms"],
                 "plain_ms_64k": t["plain_ms"], "bound_ms_64k": b[0]}
 
+    def entry(name, source, replaces, n_launch, err, *args, **extra):
+        """The entry of kernel ``name``: its launches on the diagonal paths
+        and on the marginalized one, its worst error under either."""
+        return kernel_entry(name, source, replaces, n_launch, marg.get(name, 0),
+                            max(err, fg_err.get(name, 0.0)), *args, **extra)
+
     print(json.dumps({"kernels": [
-        kernel_entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
-                     value_t[f"k1_sumsq/highest/{DRAWS}"], bound("k1", k1_sizes, DRAWS, "f32"),
-                     **at_big(value_t[f"k1_sumsq/highest/{big}"],
-                              bound("k1", k1_sizes, big, "f32"))),
-        kernel_entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
-                     value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3")),
-        kernel_entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES, k2_launches, k2_err,
-                     value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
-                     **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
-        kernel_entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES, k2_mma_launches,
-                     k2_mma_err, value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3")),
-        kernel_entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES, k3_f32_launches,
-                     k3_err[EXACT_TIERS], timings["highest/highest/4096"],
-                     bound("k3", trunk, 4096, "f32", "f32"),
-                     **at_64k(timings["highest/highest/65536"],
-                              bound("k3", trunk, 65536, "f32", "f32"))),
-        kernel_entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
-                     k3_err[MIXED_TIERS], timings["highest/default/65536"],
-                     bound("k3", trunk, 65536, "f32", "bf16")),
-        kernel_entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES, launches,
-                     k3_err[MAIN_TIERS], timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
-                     bound("k3", trunk, 4096, "bf16x3", "bf16")),
+        entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
+              value_t[f"k1_sumsq/highest/{DRAWS}"], bound("k1", k1_sizes, DRAWS, "f32"),
+              **at_big(value_t[f"k1_sumsq/highest/{big}"],
+                       bound("k1", k1_sizes, big, "f32"))),
+        entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
+              value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3")),
+        entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES, k2_launches, k2_err,
+              value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
+              **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
+        entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES, k2_mma_launches,
+              k2_mma_err, value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3")),
+        entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES, k3_f32_launches,
+              k3_err[EXACT_TIERS], timings["highest/highest/4096"],
+              bound("k3", trunk, 4096, "f32", "f32"),
+              **at_64k(timings["highest/highest/65536"],
+                       bound("k3", trunk, 65536, "f32", "f32"))),
+        entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
+              k3_err[MIXED_TIERS], timings["highest/default/65536"],
+              bound("k3", trunk, 65536, "f32", "bf16")),
+        entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES, launches,
+              k3_err[MAIN_TIERS], timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
+              bound("k3", trunk, 4096, "bf16x3", "bf16")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from tpu21cmvae_torch.data.synthetic import synthetic_dataset, synthetic_params
+from tpu21cmvae_torch.foregrounds import linlog_basis
 from tpu21cmvae_torch.models.direct import DirectEmulator
+from tpu21cmvae_torch.noisescale import marginalize_noise_scale
 from tpu21cmvae_torch.ops.kernels import fused_loglik
 from tpu21cmvae_torch.ops.kernels._common import F32_TILE_ROWS
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
@@ -37,6 +39,7 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     make_fused_emulate,
     make_fused_mlp,
 )
+from tpu21cmvae_torch.priors import GaussianBoxPrior
 from tpu21cmvae_torch.sampling._common import valgrad_from_loglik
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 from tpu21cmvae_torch.sampling.gradient import sample_hmc
@@ -667,3 +670,163 @@ def test_hmc_at_the_exact_tier_runs_the_f32_k3(cuda):
     res = sample_hmc(k3, m.params, n_walkers=256, n_warmup=20, n_steps=20, seed=1, device=cuda)
     assert k3.launches >= 40
     assert np.isfinite(res.chain).all() and res.chain.shape == (4, 256, 7)
+
+
+# -- noise models and priors: the same kernels under new operands -------------
+
+
+def _fg_model(dev):
+    """The flagship-width model, its linlog basis and an observation
+    carrying a 1.5·10³ mK foreground."""
+    m, _, data = _model((288, 352, 288, 224), dev)
+    F = linlog_basis(m.frequencies, 5)
+    sig = m.predict(data.par_test[0])
+    obs = (sig + F @ np.array([1500.0, -120.0, 40.0, -8.0, 2.0])
+           + np.random.default_rng(5).normal(0, 5.0, 451)).astype(np.float32)
+    return m, F, obs, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prior_var", [None, 1e6])
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("n", [1, 37, 4096])
+def test_kernels_match_plain_under_marginalized_noise(cuda, prior_var, tier, n):
+    """K1 (sumsq), K2 and K3 against their plain versions with a
+    foreground-marginalized spec's dense whitening folded into their
+    operands: the existing tolerances, the same routes as under diagonal
+    noise, one launch each."""
+    m, F, obs, _ = _fg_model(cuda)
+    mn = m.marginalize_foreground(25.0, basis=F, prior_var=prior_var)
+    x = _prior_rows(n, cuda)
+    k1 = make_fused_loglik(m.config, m.normalizer, obs, mn, precision=tier, device=cuda)
+    k2 = make_fused_loglik_gram(m.config, m.normalizer, obs, mn, precision=tier, device=cuda)
+    grad_tier = "highest" if tier == "highest" else "default"
+    k3 = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, mn, precision=tier,
+                                     grad_precision=grad_tier, device=cuda)
+    ops = k2.operands(m.params)
+    ops3 = k3.operands(m.params)
+    c = float(ops.c)
+    with torch.no_grad():
+        d = k1(m.params, x)
+        dp = -0.5 * fused_mlp_reference(k1.mlp.operands(m.params), x) + mn.log_norm
+        v2 = k2(m.params, x)
+        v3, g3 = k3(m.params, x)
+        p3, gp = loglik_grad_gram_reference(ops3, x)
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches, k3.launches) == (1, 1, 1)
+    assert k2.tensor_cores == k3.tensor_cores == (tier != "highest")
+    assert k3.register_tiled == (tier == "highest")
+    _close_values(d.cpu().numpy(), dp.cpu().numpy(), c, tier)
+    _close_values(v2.cpu().numpy(), loglik_gram_reference(ops, x).cpu().numpy(), c, tier)
+    _close_values(v3.cpu().numpy(), p3.cpu().numpy(), c, tier)
+    assert grad_gate_violation(g3.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+    assert np.isfinite(g3.cpu().numpy()).all() and g3[0, 2] == 0.0  # the fx == 0 slot
+    # the direct and the gram form agree under the new operands too
+    _close_values(v2.cpu().numpy(), d.cpu().numpy(), c, tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["proper_over_fg", "jeffreys"])
+def test_scale_marginal_wrap_over_the_kernels(cuda, spec):
+    """The ScaleMarginalNoise wrap of K2's value and of K3's value and
+    gradient equals the same wrap of the plain versions; ``launches``
+    reads and sets the kernel wrapper's count through the wrapped object;
+    the value stays differentiable through K2 (backward by the plain
+    twin)."""
+    m, F, obs, data = _fg_model(cuda)
+    mn = m.marginalize_foreground(25.0, basis=F)
+    sm = (marginalize_noise_scale(mn, alpha=3.0, beta=2.0) if spec == "proper_over_fg"
+          else marginalize_noise_scale(25.0))
+    x = _rows(data, 100, cuda)
+    k2 = m.loglik_fn(obs, sm, backend="kernel", precision="contract")
+    k3 = m.loglik_and_grad_fn(obs, sm, backend="kernel", precision="contract")
+    assert k2.base.fused.name == "K2" and k3.base.name == "K3"
+    k2.launches = k3.launches = 0
+    with torch.no_grad():
+        v2 = k2(m.params, x)
+        p2 = m.loglik_fn(obs, sm, precision="contract")(m.params, x)
+    v3, g3 = k3(m.params, x)
+    p3, gp = m.loglik_and_grad_fn(obs, sm, precision="contract")(m.params, x)
+    torch.cuda.synchronize()
+    assert k2.launches == k2.base.fused.launches == 1 and k3.launches == k3.base.launches == 1
+    np.testing.assert_allclose(v2.cpu().numpy(), p2.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(v3.cpu().numpy(), p3.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(v2.cpu().numpy(), v3.cpu().numpy(), rtol=1e-5, atol=1e-3)
+    assert grad_gate_violation(g3.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+    va, ga = valgrad_from_loglik(k2)(m.params, x)
+    assert k2.launches == 2
+    np.testing.assert_allclose(va.cpu().numpy(), v2.cpu().numpy(), rtol=1e-6)
+    assert grad_gate_violation(ga.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+
+
+@pytest.mark.cuda
+def test_scale_marginal_zero_residual_is_finite_on_the_card(cuda):
+    """Jeffreys over a noiseless observation scored at its own
+    parameters: the floor keeps K2's wrapped value and K3's wrapped value
+    and gradient finite."""
+    m, _, data = _model((32, 48, 32, 24), cuda)
+    obs0 = m.predict(data.par_test[0]).astype(np.float32)
+    sm = marginalize_noise_scale(np.full(451, 25.0, np.float32))
+    x = torch.as_tensor(np.asarray(data.par_test[:7], np.float32), device=cuda)
+    with torch.no_grad():
+        ll = m.loglik_fn(obs0, sm, backend="kernel")(m.params, x).cpu().numpy()
+    v, g = m.loglik_and_grad_fn(obs0, sm, backend="kernel")(m.params, x)
+    assert np.isfinite(ll).all() and ll[0] >= ll[1:].max()
+    assert np.isfinite(v.cpu().numpy()).all() and np.isfinite(g.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_two_noise_specs_give_two_wrappers(cuda):
+    """The memo keys a kernel wrapper by the noise spec's value: two specs
+    fold two operand sets and count their launches apart; a spec on the
+    CPU model's device cannot reach a CUDA wrapper's rows."""
+    m, F, obs, data = _fg_model(cuda)
+    mn = m.marginalize_foreground(25.0, basis=F)
+    mn_p = m.marginalize_foreground(25.0, basis=F, prior_var=1e6)
+    x = _rows(data, 64, cuda)
+    fns = [m.loglik_fn(obs, nv, backend="kernel") for nv in (25.0, mn, mn_p)]
+    assert len({id(fn) for fn in fns}) == 3
+    assert m.loglik_fn(obs, m.marginalize_foreground(25.0, basis=F), backend="kernel") is fns[1]
+    with torch.no_grad():
+        fns[1](m.params, x)
+    assert [fn.launches for fn in fns] == [0, 1, 0]
+    cs = [float(fn.fused.operands(m.params).c) for fn in fns]
+    assert cs[1] < cs[2] < cs[0]  # the projection takes the foreground out of b̃
+    with pytest.raises(ValueError, match="runs on"):
+        fns[1](m.params, x.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["hmc", "mh", "ensemble"])
+def test_samplers_with_prior_and_marginalized_spec_launch_the_kernels(cuda, sampler):
+    """A short chain under the foreground- and noise-level-marginalized
+    spec with a Gaussian prior on tau launches K3 (HMC) or K2 (MH, the
+    ensemble) exactly as often as under the diagonal spec at the same
+    seed, and the prior narrows tau."""
+    m, F, obs, data = _fg_model(cuda)
+    truth = np.asarray(data.par_test[0], np.float64)
+    spec = marginalize_noise_scale(m.marginalize_foreground(25.0, basis=F), alpha=3.0, beta=2.0)
+    prior = GaussianBoxPrior.for_params({3: (float(truth[3]), 0.002)})
+    kw = dict(sampler=sampler, n_walkers=256, n_warmup=20, n_steps=20, seed=1)
+
+    def wrapper(nv):
+        if sampler == "hmc":
+            return m.loglik_and_grad_fn(obs, nv, backend="kernel", grad_precision="default")
+        return m.loglik_fn(obs, nv, backend="kernel")
+
+    counts = {}
+    for name, nv, extra in (("diag", 25.0, {}), ("marg", spec, {}),
+                            ("prior", spec, dict(log_prior=prior.log_prior))):
+        fn = wrapper(nv)
+        fn.launches = 0
+        res = m.sample_posterior(obs, nv, **kw, **extra)
+        counts[name] = fn.launches
+        assert np.isfinite(res.chain).all() and np.isfinite(res.logp).all()
+        if name == "prior":
+            tau_sd = res.final[:, 3].std()
+        if name == "marg":
+            free_sd = res.final[:, 3].std()
+    per_step = {"hmc": 4, "mh": 1, "ensemble": 2}[sampler]  # HMC: at least ⌈8/2⌉ leapfrogs
+    assert counts["diag"] >= 1 + 40 * per_step
+    assert counts["marg"] == counts["prior"] == counts["diag"]
+    assert tau_sd < free_sd

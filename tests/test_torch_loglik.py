@@ -236,13 +236,13 @@ def test_refusals(pair):
     _, tm, obs = pair
     cfg, norm = tm.config, tm.normalizer
 
-    class MarginalizedNoise:  # stands in for the JAX package's noise models
+    class Unknown:  # not a noise spec of the port: refused by type
         pass
 
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        make_loglik(cfg, norm, obs, MarginalizedNoise())
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        make_loglik_and_grad(cfg, norm, obs, MarginalizedNoise(), backend="kernel")
+    with pytest.raises(TypeError, match="noise_var"):
+        make_loglik(cfg, norm, obs, Unknown())
+    with pytest.raises(TypeError, match="noise_var"):
+        make_loglik_and_grad(cfg, norm, obs, Unknown(), backend="kernel")
     with pytest.raises(ValueError):
         make_loglik(cfg, norm, obs, np.ones(450))
     with pytest.raises(ValueError, match="backend"):

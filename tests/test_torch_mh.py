@@ -172,10 +172,11 @@ def test_sampler_refusals():
     with pytest.raises(ValueError, match="adapt_blocks"):
         sample_mh(dummy, None, n_walkers=10, adapt_blocks=3, bounds=box, device="cpu")
     for run in (sample_mh, sample_ensemble):
-        with pytest.raises(NotImplementedError, match="queue 8"):
-            run(dummy, None, n_walkers=16, bounds=box, device="cpu",
-                log_prior=lambda x: x.sum(-1))
-        with pytest.raises(NotImplementedError, match="queue 12"):
+        # a log_prior is taken (it was refused before the priors were ported)
+        res = run(dummy, None, n_walkers=16, n_steps=2, n_warmup=1, thin=0, bounds=box,
+                  device="cpu", log_prior=lambda x: x.sum(-1))
+        assert np.isfinite(res.logp).all()
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             run(dummy, None, n_walkers=16, bounds=box, device="cpu", mesh=object())
         with pytest.raises(TypeError):
             run(dummy, None, n_walkers=16, bounds=box)  # no device
@@ -225,10 +226,10 @@ def test_sample_posterior_end_to_end(small, sampler):
 
 def test_sample_posterior_refusals(small):
     m, obs, _ = small
-    with pytest.raises(NotImplementedError, match="queue 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         m.sample_posterior(obs, 9.0, sampler="mh", target_ess=100)
-    for name in ("pt", "smc", "chees", "nuts"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name, item in (("pt", 6), ("smc", 6), ("chees", 5), ("nuts", 5)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
             m.sample_posterior(obs, 9.0, sampler=name)
     with pytest.raises(ValueError, match="sampler"):
         m.sample_posterior(obs, 9.0, sampler="slice")

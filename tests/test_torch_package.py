@@ -21,7 +21,10 @@ def test_import_pulls_in_no_jax():
         "import tpu21cmvae_torch, tpu21cmvae_torch.ops.kernels.fused_loglik, "
         "tpu21cmvae_torch.ops.kernels.fused_mlp, tpu21cmvae_torch.ops.kernels._build, "
         "tpu21cmvae_torch.sampling.gradient, tpu21cmvae_torch.sampling.mh, "
-        "tpu21cmvae_torch.models._memo, tpu21cmvae_torch.utils.metrics\n"
+        "tpu21cmvae_torch.models._memo, tpu21cmvae_torch.utils.metrics, "
+        "tpu21cmvae_torch.foregrounds, tpu21cmvae_torch.noisescale, tpu21cmvae_torch.priors, "
+        "tpu21cmvae_torch.ops.fisher, tpu21cmvae_torch.ops.loglik, "
+        "tpu21cmvae_torch.sampling.reweight, tpu21cmvae_torch.sampling.predictive\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu21cmvae'))\n"
         "print(bad)\n"

@@ -145,10 +145,13 @@ def test_ensemble_metric_and_thinning_match_jax():
 
 
 def test_sampler_refusals():
-    with pytest.raises(NotImplementedError, match="queue 8"):
-        sample_hmc(_torch_valgrad, None, n_walkers=16, n_warmup=0, n_steps=1,
-                   bounds=np.stack([MU - 1, MU + 1], 1), device="cpu",
-                   log_prior=lambda x: x.sum(-1))
+    # a log_prior is taken (it was refused before the priors were ported)
+    res = sample_hmc(_torch_valgrad, None, n_walkers=16, n_warmup=0, n_steps=1,
+                     bounds=np.stack([MU - 1, MU + 1], 1), device="cpu",
+                     log_prior=lambda x: x.sum(-1))
+    assert np.isfinite(res.logp).all()
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        tgrad._ens_metric_blocks(torch.zeros(8, 3), False, 2)
     with pytest.raises(ValueError, match="adapt_blocks"):
         sample_hmc(_torch_valgrad, None, n_walkers=10, adapt_blocks=3, device="cpu")
     with pytest.raises(TypeError):

@@ -71,7 +71,7 @@ def test_short_hmc_through_sample_posterior(slice_setup):
     assert res.accept_rate.shape == (20,) and res.step_size > 0
     lo, hi = PAR_RANGES.T  # the default prior box
     assert (res.flat >= lo * (1 - 1e-6)).all() and (res.flat <= hi * (1 + 1e-6)).all()
-    with pytest.raises(NotImplementedError, match="queue 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         tm.sample_posterior(obs, 25.0, sampler="nuts")
 
 

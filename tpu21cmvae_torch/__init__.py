@@ -9,11 +9,23 @@ no kernel.
 """
 
 from tpu21cmvae_torch.data.synthetic import synthetic_dataset, synthetic_params  # noqa: F401
+from tpu21cmvae_torch.foregrounds import (  # noqa: F401
+    MarginalizedNoise,
+    foreground_basis,
+    linlog_basis,
+    marginalize_foreground,
+    polynomial_basis,
+    powerlaw_basis,
+)
 from tpu21cmvae_torch.models.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from tpu21cmvae_torch.models.direct import DirectEmulator  # noqa: F401
+from tpu21cmvae_torch.noisescale import ScaleMarginalNoise, marginalize_noise_scale  # noqa: F401
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad  # noqa: F401
 from tpu21cmvae_torch.ops.transforms import Normalizer  # noqa: F401
+from tpu21cmvae_torch.priors import GaussianBoxPrior  # noqa: F401
 from tpu21cmvae_torch.sampling.gradient import sample_hmc  # noqa: F401
 from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh  # noqa: F401
+from tpu21cmvae_torch.sampling.predictive import PredictiveBand, posterior_predictive  # noqa: F401
 from tpu21cmvae_torch.sampling.results import SampleResult  # noqa: F401
+from tpu21cmvae_torch.sampling.reweight import WeightedPosterior, reweight  # noqa: F401
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig, MLPConfig  # noqa: F401

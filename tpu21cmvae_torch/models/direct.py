@@ -5,12 +5,19 @@ layers, linear output).
 
 The model is an :class:`~tpu21cmvae_torch.ops.mlp.MLP` plus a
 :class:`~tpu21cmvae_torch.ops.transforms.Normalizer`, both on the device
-the caller names. Training, the samplers beyond HMC, MH and the stretch
-ensemble, evidence, VI, flows and serving are not ported yet (ROADMAP).
+the caller names. Every likelihood entry point takes the JAX package's
+noise specs (a scalar or per-bin variance, a foreground-marginalized
+:class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise` from
+:meth:`DirectEmulator.marginalize_foreground`, a
+:class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over either) and
+every sampler a ``log_prior``. Training, the samplers beyond HMC, MH and
+the stretch ensemble, the batched samplers, evidence, VI, flows and
+serving are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import numpy as np
@@ -220,7 +227,11 @@ class DirectEmulator:
                   method: str = "gram", precision=None, memo: bool = True):
         """Gaussian log-likelihood ``(params, raw) → (B,)`` against an
         observed signal (see :func:`tpu21cmvae_torch.ops.loglik.make_loglik`);
-        ``precision="contract"`` for absolute log-densities. The function
+        ``noise_var``: a scalar or per-bin σ², a ``MarginalizedNoise``
+        (:meth:`marginalize_foreground`) or a ``ScaleMarginalNoise``
+        (:func:`~tpu21cmvae_torch.noisescale.marginalize_noise_scale`),
+        keyed by value; ``precision="contract"`` for absolute
+        log-densities. The function
         is differentiable by ``torch.autograd`` with respect to ``raw``
         and the weights on both backends (call it under
         ``torch.no_grad()`` when only values are wanted). Value-identical
@@ -245,7 +256,10 @@ class DirectEmulator:
                            method: str = "gram", precision=None,
                            grad_precision=None, memo: bool = True):
         """``(params, raw) → (logL, dlogL/draw)`` — the HMC inner loop
-        (see :func:`tpu21cmvae_torch.ops.loglik.make_loglik_and_grad`).
+        (see :func:`tpu21cmvae_torch.ops.loglik.make_loglik_and_grad`);
+        ``noise_var`` as in :meth:`loglik_fn`. Under a
+        ``ScaleMarginalNoise`` the object is the chain-rule wrap of the
+        base spec's function and passes its ``launches`` through.
         Value-identical calls return the SAME object, so the fused
         kernel's folded weights and launch counter persist across
         sampling calls on one observation."""
@@ -262,6 +276,51 @@ class DirectEmulator:
                 grad_precision=grad_precision,
             ),
             memo=memo,
+        )
+
+    def loglik_multi_fn(self, obs_batch, noise_var=1.0, *, method: str = "gram",
+                        precision=None, memo: bool = True):
+        """Stacked-observation likelihood ``(params, (O·W, 7)) → (O·W,)``:
+        ``O`` observations scored in one call, observation-major rows
+        (see :func:`tpu21cmvae_torch.ops.loglik.make_loglik_multi`; the
+        gram structure is shared across observations). Memoized like
+        :meth:`loglik_fn`."""
+        from tpu21cmvae_torch.models._memo import memo_program, noise_key
+        from tpu21cmvae_torch.ops.loglik import make_loglik_multi
+
+        return memo_program(
+            self,
+            ("multi", _host(obs_batch), noise_key(noise_var), method, str(precision)),
+            lambda: make_loglik_multi(
+                self.config, self.normalizer, obs_batch, noise_var,
+                method=method, precision=precision,
+            ),
+            memo=memo,
+        )
+
+    def marginalize_foreground(self, noise_var=1.0, *, n_terms: int = 5,
+                               basis="linlog", prior_var=None, nu_ref=None):
+        """Foreground-marginalized noise model on this emulator's
+        frequency axis (:mod:`tpu21cmvae_torch.foregrounds`): pass the
+        result anywhere ``noise_var`` is accepted (``loglik_fn``,
+        ``loglik_and_grad_fn``, ``sample_posterior``, ``fisher_forecast``
+        …) to infer the 21-cm parameters with a linear foreground ``F·a``
+        integrated out of the likelihood EXACTLY. The projection folds
+        into the output layer, so the gram form and the kernels keep
+        their widths. ``basis``: ``"linlog"`` (Hills et al. 2018),
+        ``"powerlaw"`` (EDGES-style linearized, Bowman et al. 2018),
+        ``"polynomial"`` (Legendre), or an explicit ``(n_bins, k)``
+        design matrix. ``prior_var``: per-coefficient Gaussian prior
+        variances; None = improper flat (then the likelihood is exactly
+        invariant to any ``F·a`` added to the observation). Use the
+        returned object's ``coeff_posterior(obs − predict(θ))`` to
+        reconstruct the best-fit foreground afterwards."""
+        from tpu21cmvae_torch.foregrounds import foreground_basis, marginalize_foreground
+
+        f = (foreground_basis(self.frequencies, n_terms, basis, nu_ref=nu_ref)
+             if isinstance(basis, str) else basis)
+        return marginalize_foreground(
+            f, noise_var, n_bins=int(self.frequencies.shape[0]), prior_var=prior_var,
         )
 
     def sample_posterior(self, obs, noise_var=1.0, *, sampler: str = "hmc",
@@ -287,16 +346,23 @@ class DirectEmulator:
           measurement says nothing about this port, so the port takes
           the kernel, as it does for HMC (PERF.md).
 
-        ``target_ess=`` (``sample_to_ess``) and the samplers ``"pt"``,
-        ``"smc"``, ``"chees"`` and ``"nuts"`` are not ported yet (ROADMAP
-        queues 6 and 7).
+        ``noise_var`` takes every spec :meth:`loglik_fn` does, and
+        ``log_prior=`` (a log-density over the raw parameters, e.g.
+        :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.log_prior`)
+        passes through the kwargs to all three samplers, on top of the
+        flat box; HMC's force takes its gradient by autograd. Neither
+        changes which kernel runs or how often.
+
+        ``target_ess=`` (``sample_to_ess``) and the samplers ``"chees"``
+        and ``"nuts"`` (ROADMAP queue 1 item 5), ``"pt"`` and ``"smc"``
+        (item 6) are not ported yet.
         """
         backend = "kernel" if self.device.type == "cuda" else "torch"
         if sampler in ("mh", "ensemble"):
             if "target_ess" in kwargs:
                 raise NotImplementedError(
                     "target_ess= (sample_to_ess) is not ported yet (ROADMAP "
-                    "queue 6); pass n_steps"
+                    "queue 1 item 5); pass n_steps"
                 )
             from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
 
@@ -304,9 +370,9 @@ class DirectEmulator:
             return run(self.loglik_fn(obs, noise_var, backend=backend), self.params,
                        bounds=bounds, device=self.device, **kwargs)
         if sampler in ("pt", "smc", "chees", "nuts"):
-            queue = 6 if sampler in ("chees", "nuts") else 7
+            item = 5 if sampler in ("chees", "nuts") else 6
             raise NotImplementedError(
-                f"sampler={sampler!r} is not ported yet (ROADMAP queue {queue}); "
+                f"sampler={sampler!r} is not ported yet (ROADMAP queue 1 item {item}); "
                 "the port samples with 'hmc', 'mh' or 'ensemble'"
             )
         if sampler != "hmc":
@@ -321,6 +387,56 @@ class DirectEmulator:
         )
         return sample_hmc(valgrad, self.params, bounds=bounds,
                           device=self.device, **kwargs)
+
+    def posterior_predictive(self, samples, **kwargs):
+        """Signal-space credible bands implied by posterior parameter
+        samples (``SampleResult.flat``): the reconstructed-signal plot
+        21-cm analyses publish. See
+        :func:`tpu21cmvae_torch.sampling.predictive.posterior_predictive`
+        for the ``quantiles`` / ``noise_var`` options; returns a
+        :class:`~tpu21cmvae_torch.sampling.predictive.PredictiveBand`."""
+        from tpu21cmvae_torch.sampling.predictive import posterior_predictive
+
+        return posterior_predictive(self.predict, samples, **kwargs)
+
+    def fisher_fn(self, noise_var=1.0):
+        """Batched Fisher-matrix function ``(params, thetas (n, 7)) →
+        (n, 7, 7)`` on tensors on the model's device (see
+        :mod:`tpu21cmvae_torch.ops.fisher`), detached."""
+        from tpu21cmvae_torch.ops.fisher import make_fisher
+
+        batched = torch.func.vmap(
+            make_fisher(self.config, self.normalizer, noise_var), in_dims=(None, 0)
+        )
+        return torch.no_grad()(batched)
+
+    def fisher_forecast(self, theta, noise_var=1.0):
+        """Fisher matrix and 1-σ marginalized forecast errors at raw
+        fiducial parameter vector(s) (see :mod:`tpu21cmvae_torch.ops.fisher`;
+        Cramér–Rao bound for a Gaussian-noise global-signal experiment).
+
+        Returns ``(F, sigma)`` as arrays: shapes ``(7, 7), (7,)`` for a
+        single fiducial or ``(n, 7, 7), (n, 7)`` for a batch. The Fisher
+        function is cached per noise spec (bounded LRU, 8 entries), with
+        the spec's whitening already on the device.
+        """
+        from tpu21cmvae_torch.models._memo import noise_key
+        from tpu21cmvae_torch.ops.fisher import forecast_errors
+
+        nk = noise_key(noise_var)
+        key = (nk.shape, nk.tobytes()) if isinstance(nk, np.ndarray) else nk
+        cache = self.__dict__.setdefault("_fisher_cache", collections.OrderedDict())
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = self.fisher_fn(noise_var)
+            if len(cache) > 8:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+        th = torch.atleast_2d(torch.as_tensor(np.asarray(theta, np.float32), device=self.device))
+        F = fn(self.params, th).cpu().numpy()
+        sig = forecast_errors(F)
+        return (F[0], sig[0]) if np.ndim(theta) == 1 else (F, sig)
 
     # -- evaluation --------------------------------------------------------
 

@@ -8,9 +8,13 @@ wrappers — shares, and that imports nothing but torch and numpy.
 
 **Folds.** ``par_transform``'s affine stage folds into the first layer,
 ``unpreproc`` into the (linear) last layer, and a Gaussian likelihood's
-observation and diagonal noise into the last layer again, so the folded
-network's output IS the whitened residual; :func:`gram_fold` then
-collapses that linear last layer into ``‖h@W + b‖² = h·G·hᵀ + 2h·u + c``.
+observation and noise into the last layer again, so the folded network's
+output IS the whitened residual: a diagonal noise scales the output
+columns by ``1/σ``, a foreground-marginalized one
+(:class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise`) multiplies
+them by its dense factor ``R`` (``W @ R``, ``P = R·Rᵀ``).
+:func:`gram_fold` then collapses that linear last layer into
+``‖h@W + b‖² = h·G·hᵀ + 2h·u + c``.
 
 **Tiers.** One resolver (:func:`resolve_tier`) maps the JAX package's
 tier names onto the port's three kinds of matmul arithmetic:
@@ -34,6 +38,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpu21cmvae_torch.foregrounds import MarginalizedNoise
 
 _FX_CLAMP = 1e-6  # reference preprocess.py:76 — avoids log10(0) for fx == 0
 _N_LOG_COLS = 3  # log10 applied to columns 0-2 (fstar, Vc, fx)
@@ -186,24 +192,29 @@ def fold_emulator_constants(params, norm):
     return (first, *mid, last)
 
 
-def _diagonal_noise(noise_var) -> np.ndarray:
-    """A diagonal noise spec as an array; anything else is refused."""
+def noise_scale(noise_var, n_bins: int, *, device) -> torch.Tensor:
+    """Residual-whitening operator of a noise spec, float32 on
+    ``device`` (``fused_loglik.py::noise_scale``): the per-bin ``1/σ``
+    (n_bins,) from a scalar or per-bin variance σ², or the
+    ``(n_bins, n_bins)`` factor ``R`` with ``P = R·Rᵀ`` of a
+    :class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise`. Both fold
+    into the linear output layer (:func:`fold_loglik_constants`), so the
+    gram form, the kernels and the analytic gradient never see which."""
+    if isinstance(noise_var, MarginalizedNoise):
+        w = torch.as_tensor(np.asarray(noise_var.whiten, np.float32), device=device)
+        if w.shape != (n_bins, n_bins):
+            raise ValueError(
+                f"MarginalizedNoise built for {w.shape[0]} bins; the model has {n_bins}"
+            )
+        return w.contiguous()
     nv = np.asarray(noise_var)
     if nv.dtype.kind not in "fiu":
-        raise NotImplementedError(
-            f"noise_var of type {type(noise_var).__name__} is not supported "
-            "by the port yet: only a scalar or per-bin variance "
-            "(MarginalizedNoise / ScaleMarginalNoise folds wait for "
-            "ROADMAP queue 8)"
+        raise TypeError(
+            "noise_var must be a scalar, a per-bin variance or a "
+            f"MarginalizedNoise; got {type(noise_var).__name__} (a "
+            "ScaleMarginalNoise is unwrapped by make_loglik and "
+            "make_loglik_and_grad, not by the folds)"
         )
-    return nv
-
-
-def noise_scale(noise_var, n_bins: int, *, device) -> torch.Tensor:
-    """Per-bin residual whitening ``1/σ`` (n_bins,) from a scalar or
-    per-bin variance σ² (``fused_loglik.py::noise_scale``, diagonal
-    noise only)."""
-    nv = _diagonal_noise(noise_var)
     if nv.ndim > 1 or (nv.ndim == 1 and nv.shape[0] != n_bins):
         raise ValueError(
             f"noise_var must be a scalar or a ({n_bins},) vector; got "
@@ -214,9 +225,12 @@ def noise_scale(noise_var, n_bins: int, *, device) -> torch.Tensor:
 
 
 def noise_log_norm(noise_var) -> float:
-    """θ-independent additive log-likelihood constant of a noise spec:
-    0 for diagonal noise."""
-    _diagonal_noise(noise_var)
+    """θ-independent additive log-likelihood constant of a noise spec: 0
+    for diagonal noise, the marginal density's normalization for a
+    :class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise`. It cancels
+    in posterior sampling and shifts evidences."""
+    if isinstance(noise_var, MarginalizedNoise):
+        return float(noise_var.log_norm)
     return 0.0
 
 
@@ -233,9 +247,13 @@ def obs_tensor(obs, n_bins: int, *, device) -> torch.Tensor:
 
 def fold_loglik_constants(params, norm, obs: torch.Tensor, scale: torch.Tensor):
     """:func:`fold_emulator_constants`, then shift the last bias by
-    ``-obs`` and whiten the last layer by the per-bin ``scale``, so the
-    folded network's output is ``(pred − obs)/σ``."""
+    ``-obs`` and whiten the last layer by :func:`noise_scale`'s operator:
+    the per-bin column scale ``1/σ`` (the output is ``(pred − obs)/σ``),
+    or the dense factor ``R`` as ``W @ R`` and ``(b − obs) @ R`` in fp32.
+    Either way the folded network's output has ``‖out‖² = rᵀ·P·r``."""
     *rest, last = fold_emulator_constants(params, norm)
+    if scale.ndim == 2:
+        return (*rest, {"w": last["w"] @ scale, "b": (last["b"] - obs) @ scale})
     return (*rest, {"w": last["w"] * scale, "b": (last["b"] - obs) * scale})
 
 

@@ -12,9 +12,11 @@ wrappers that pick between them by the input's device.
   ``sumsq`` tail (:mod:`tpu21cmvae_torch.ops.kernels.fused_mlp`).
 
 K2 and K3 read the same :class:`GramOperands`: the network folded with
-``ops/fold.py::gram_fold`` (normalizer, the observation and the diagonal
-noise all in the weights; the 451-wide output layer collapsed into
+``ops/fold.py::gram_fold`` (normalizer, the observation and the noise
+spec's whitening, a per-bin ``1/σ`` or a foreground-marginalized spec's
+dense ``R``, all in the weights; the 451-wide output layer collapsed into
 ``G = WWᵀ``, ``u``, ``c``) and split for the value and backward tiers.
+The kernels see the same widths under either noise spec.
 Each routes by tier (:func:`gram_on_tensor_cores`): at the bf16 tiers
 both run ``csrc/fused_gram_mma.cu`` on the tensor cores (K2 is its
 forward alone), from operands :func:`pack_gram_operands` packed once per

@@ -1,8 +1,9 @@
 """Gaussian log-likelihood of an observed signal under the emulator, and
 its per-row gradient (the port of ``tpu21cmvae/ops/loglik.py``).
 
-``logL(θ) = −½·Σ_bins (emulate(θ) − obs)²/σ²`` per row of raw parameter
-draws. Two backends:
+``logL(θ) = −½·rᵀ·P·r + log_norm`` per row of raw parameter draws, with
+``r = emulate(θ) − obs`` and ``P`` the noise spec's precision. Two
+backends:
 
 * ``"torch"`` (the JAX package's ``"xla"``) — plain tensor operations;
 * ``"kernel"`` (its ``"pallas"``) — one CUDA kernel per call
@@ -13,7 +14,18 @@ draws. Two backends:
 Both backends' value functions are differentiable by ``torch.autograd``
 with respect to the raw rows and the weights, as the JAX package's are.
 
-Noise is diagonal only: a scalar or per-bin variance σ².
+Every factory takes the same noise specs: a scalar or per-bin variance
+σ² (``P = diag(1/σ²)``, ``log_norm = 0``); a foreground-marginalized
+:class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise` (``P = R·Rᵀ``
+projects the foreground modes out; ``R`` folds into the output layer, so
+the gram form and the kernels keep their shapes); or a
+:class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over either,
+which every factory unwraps to its base spec and re-scores by an exact
+scalar post-transform of the value (and a per-row rescale of the
+gradient). The stacked-observation factories (:func:`make_loglik_multi`)
+score ``O`` observations in one call under one shared spec, in plain
+PyTorch on both devices; the ``*_from_predict`` factories take any
+``(weights, raw) → signals`` function.
 """
 
 from __future__ import annotations
@@ -21,8 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu21cmvae_torch.foregrounds import MarginalizedNoise
+from tpu21cmvae_torch.noisescale import ScaleMarginalNoise
 from tpu21cmvae_torch.ops.fold import (
     _log_clamp,
+    fold_loglik_constants,
     gram_fold,
     noise_log_norm,
     noise_scale,
@@ -48,6 +63,85 @@ from tpu21cmvae_torch.ops.transforms import par_transform, unpreproc
 
 def _rows(raw, device) -> torch.Tensor:
     return torch.atleast_2d(torch.as_tensor(raw, dtype=torch.float32, device=device))
+
+
+def _resid_quad(noise_var, n_bins: int, *, device):
+    """``(residual (…, n_bins) → rᵀ·P·r rows, log_norm)`` for a noise
+    spec: diagonal (scalar or per-bin σ²) or foreground-marginalized
+    (``z = r @ R`` in fp32, then the sum of squares). The shared residual
+    reduction of every likelihood path here that does not fold the noise
+    into the weights."""
+    scale = noise_scale(noise_var, n_bins, device=device)
+    log_norm = noise_log_norm(noise_var)
+    if scale.ndim == 2:
+
+        def quad(r):
+            z = r @ scale
+            return torch.sum(z * z, dim=-1)
+
+        return quad, log_norm
+    inv_var = scale * scale
+
+    def quad(r):
+        return torch.sum(r * r * inv_var, dim=-1)
+
+    return quad, log_norm
+
+
+def _obs_bins(obs) -> int:
+    return int(np.shape(obs)[-1])
+
+
+def make_loglik_from_predict(predict_fn, obs, noise_var=1.0, *, device):
+    """Generic Gaussian log-likelihood over ANY ``(weights, raw) →
+    signals`` prediction function on ``device`` (a model family without
+    the single-MLP folds plugs its ``predict_fn`` in here). The direct
+    family should prefer :func:`make_loglik`, whose folded, gram and
+    kernel forms only exist for a single-MLP forward. ``noise_var``: any
+    spec of the module docstring."""
+    if isinstance(noise_var, ScaleMarginalNoise):
+        base = make_loglik_from_predict(predict_fn, obs, noise_var.base, device=device)
+        return noise_var.wrap_value(base, _obs_bins(obs))
+    n_bins = _obs_bins(obs)
+    obs = obs_tensor(obs, n_bins, device=device)
+    quad, log_norm = _resid_quad(noise_var, n_bins, device=device)
+
+    def loglik(weights, raw):
+        pred = predict_fn(weights, _rows(raw, device))
+        return -0.5 * quad(pred - obs) + log_norm
+
+    return loglik
+
+
+def per_row_grad(loglik, *, device=None):
+    """Wrap a batched ``(weights, raw) → (B,)`` likelihood as
+    ``(weights, raw) → ((B,), (B, P))``, both detached, by a
+    ones-cotangent VJP: exact whenever each row's value depends only on
+    its own row (true for every likelihood in this module: observation
+    pairing is a static reshape, never a cross-row reduction). ``raw``
+    goes to ``device`` (default: where it is) before the gradient's leaf
+    is made."""
+
+    def loglik_and_grad(weights, raw):
+        with torch.enable_grad():
+            x = torch.atleast_2d(torch.as_tensor(raw, dtype=torch.float32, device=device))
+            x = x.detach().requires_grad_(True)
+            val = loglik(weights, x)
+            (g,) = torch.autograd.grad(val, x, torch.ones_like(val))
+        return val.detach(), g
+
+    return loglik_and_grad
+
+
+def make_loglik_and_grad_from_predict(predict_fn, obs, noise_var=1.0, *, device):
+    """Value + per-row gradient companion of
+    :func:`make_loglik_from_predict` (:func:`per_row_grad` over it), for
+    a ``predict_fn`` that ``torch.autograd`` can differentiate
+    (``DirectEmulator.predict_fn`` runs under ``no_grad`` and serves the
+    value factory only). The direct family's :func:`make_loglik_and_grad`
+    has analytic and fused variants."""
+    return per_row_grad(make_loglik_from_predict(predict_fn, obs, noise_var, device=device),
+                        device=device)
 
 
 class _KernelValue(torch.autograd.Function):
@@ -120,6 +214,13 @@ def make_loglik(config, norm, obs, noise_var=1.0, *, backend: str = "torch",
     """
     if method not in ("direct", "gram"):
         raise ValueError(f"method must be 'direct' or 'gram'; got {method!r}")
+    if isinstance(noise_var, ScaleMarginalNoise):
+        # an exact scalar post-transform of the σ = 1 base likelihood:
+        # every backend, method and tier below is reused unchanged, and
+        # the kernel backend's plain twin is built from the base spec too
+        base = make_loglik(config, norm, obs, noise_var.base, backend=backend,
+                           method=method, precision=precision)
+        return noise_var.wrap_value(base, config.n_bins)
     if backend == "kernel":
         build = make_fused_loglik if method == "direct" else make_fused_loglik_gram
         return KernelLoglik(
@@ -134,11 +235,11 @@ def make_loglik(config, norm, obs, noise_var=1.0, *, backend: str = "torch",
     tier = resolve_tier(precision, "high")
     device = norm.device
     obs = obs_tensor(obs, config.n_bins, device=device)
-    log_norm = noise_log_norm(noise_var)
     act = resolve_activation(config.activation)
 
     if method == "gram":
         scale = noise_scale(noise_var, config.n_bins, device=device)
+        log_norm = noise_log_norm(noise_var)
 
         def loglik_gram(params, raw):
             trunk, G, u, c = gram_fold(params, norm, obs, scale)
@@ -154,17 +255,150 @@ def make_loglik(config, norm, obs, noise_var=1.0, *, backend: str = "torch",
 
         return loglik_gram
 
-    noise_scale(noise_var, config.n_bins, device=device)  # validates the spec
-    inv_var = 1.0 / torch.as_tensor(
-        np.asarray(noise_var, np.float32), device=device
-    )
+    quad, log_norm = _resid_quad(noise_var, config.n_bins, device=device)
 
     def loglik(params, raw):
         x = par_transform(_rows(raw, device), norm)
         pred = unpreproc(mlp_apply(params, x, config.activation, precision or "high"), norm)
-        return -0.5 * torch.sum((pred - obs) ** 2 * inv_var, dim=-1) + log_norm
+        return -0.5 * quad(pred - obs) + log_norm
 
     return loglik
+
+def _check_multi_noise(noise_var, n_bins: int):
+    """Shared-noise validation for the stacked-observation factories: a
+    scalar, a per-bin (n_bins,) vector, or a MarginalizedNoise of the
+    right bin count (per-OBSERVATION noise would break the shared gram
+    structure: score heterogeneous-noise surveys in groups)."""
+    if isinstance(noise_var, MarginalizedNoise):
+        if noise_var.whiten.shape != (n_bins, n_bins):
+            raise ValueError(
+                f"MarginalizedNoise built for {noise_var.whiten.shape[0]} "
+                f"bins; the observations have {n_bins}"
+            )
+        return
+    nv = np.asarray(noise_var, np.float32)
+    if nv.ndim > 1 or (nv.ndim == 1 and nv.shape[0] != n_bins):
+        raise ValueError(
+            "noise_var must be a scalar, a per-bin vector shared across "
+            f"observations, or a MarginalizedNoise; got shape {nv.shape}"
+        )
+
+
+def _obs_batch_tensor(obs_batch, n_bins: int, *, device) -> torch.Tensor:
+    """Observed signals (O, n_bins) as float32 on ``device``; one
+    (n_bins,) signal is a batch of one."""
+    if isinstance(obs_batch, torch.Tensor):
+        obs_batch = obs_batch.detach().cpu().numpy()
+    obs = np.atleast_2d(np.asarray(obs_batch, np.float32))
+    if obs.ndim != 2 or obs.shape[1] != n_bins:
+        raise ValueError(f"obs_batch must be (O, {n_bins}); got {obs.shape}")
+    return torch.as_tensor(obs, device=device)
+
+
+def _rows_per_obs(raw: torch.Tensor, n_obs: int) -> int:
+    if raw.shape[0] % n_obs:
+        raise ValueError(
+            f"batch of {raw.shape[0]} rows does not divide across {n_obs} "
+            "observations; pass observation-major rows, W per obs"
+        )
+    return raw.shape[0] // n_obs
+
+
+def make_loglik_multi(config, norm, obs_batch, noise_var=1.0, *, method: str = "gram",
+                      precision=None):
+    """Stacked-observation likelihood: ``fn(params, raw (O·W, P)) →
+    (O·W,)`` where row ``o·W + w`` scores against ``obs_batch[o]``:
+    many observed spectra in ONE call. ``W`` is inferred from the batch
+    (rows must be observation-major and divide evenly by ``O``), so the
+    same samplers run ``O`` independent posteriors at once.
+
+    ``obs_batch``: (O, n_bins) observed signals in mK. ``noise_var``: a
+    scalar, a per-bin (n_bins,) variance or a
+    :class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise`, SHARED
+    across observations, or a
+    :class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over one
+    (the level is then marginalized per observation). ``method="gram"``
+    keeps the single-observation structure: ``G = WWᵀ`` and the trunk do
+    not depend on the observation (computed once per call), only the
+    small ``u`` and ``c`` become per-observation rows. Precision as in
+    :func:`make_loglik`. Plain PyTorch on both devices, as the JAX
+    package's stacked forms are plain XLA.
+    """
+    if method not in ("direct", "gram"):
+        raise ValueError(f"method must be 'direct' or 'gram'; got {method!r}")
+    if isinstance(noise_var, ScaleMarginalNoise):
+        base = make_loglik_multi(config, norm, obs_batch, noise_var.base, method=method,
+                                 precision=precision)
+        return noise_var.wrap_value(base, config.n_bins)
+    device = norm.device
+    obs = _obs_batch_tensor(obs_batch, config.n_bins, device=device)
+    n_obs = obs.shape[0]
+    _check_multi_noise(noise_var, config.n_bins)
+    tier = resolve_tier(precision, "high")
+
+    if method == "direct":
+        quad, log_norm = _resid_quad(noise_var, config.n_bins, device=device)
+
+        def loglik_direct(params, raw):
+            raw = _rows(raw, device)
+            w = _rows_per_obs(raw, n_obs)
+            x = par_transform(raw, norm)
+            pred = unpreproc(mlp_apply(params, x, config.activation, precision or "high"), norm)
+            r = pred.reshape(n_obs, w, config.n_bins) - obs[:, None, :]
+            return (-0.5 * quad(r) + log_norm).reshape(-1)
+
+        return loglik_direct
+
+    scale = noise_scale(noise_var, config.n_bins, device=device)
+    log_norm = noise_log_norm(noise_var)
+    act = resolve_activation(config.activation)
+    zero_obs = torch.zeros(config.n_bins, dtype=torch.float32, device=device)
+
+    def constants(params):
+        # one fold at obs = 0 gives the shared trunk and the whitened last
+        # layer (Wₛ, b₀); G = Wₛ Wₛᵀ does not depend on the observation,
+        # and each observation only shifts the folded bias (b_o = b₀ −
+        # whiten(obs_o)), so the gram constants vectorize exactly:
+        # u_o = Wₛ b_o, c_o = b_o·b_o, small (O, hidden) rows
+        *trunk, last = fold_loglik_constants(params, norm, zero_obs, scale)
+        w_s, b0 = last["w"], last["b"]
+        whitened = obs @ scale if scale.ndim == 2 else obs * scale
+        b_all = b0 - whitened  # (O, n_bins)
+        return trunk, w_s @ w_s.T, b_all @ w_s.T, torch.sum(b_all * b_all, dim=-1)
+
+    def loglik_gram(params, raw):
+        raw = _rows(raw, device)
+        w_rows = _rows_per_obs(raw, n_obs)
+        trunk, G, u_all, c_all = constants(params)
+        h = _log_clamp(raw)
+        for i, layer in enumerate(trunk):
+            if i == 0 and layer["w"].shape[0] <= SKINNY_DENSE_MAX_IN:
+                h = skinny_dense(h, layer["w"], layer["b"])
+            else:
+                h = tier_dense(h, layer["w"], tier) + layer["b"]
+            h = act(h)
+        g1 = tier_dense(h, G, tier)  # shared across observations
+        hh = h.reshape(n_obs, w_rows, -1)
+        gg = g1.reshape(n_obs, w_rows, -1)
+        quad = torch.sum((gg + 2.0 * u_all[:, None, :]) * hh, dim=-1) + c_all[:, None]
+        return (-0.5 * quad + log_norm).reshape(-1)
+
+    return loglik_gram
+
+
+def make_loglik_and_grad_multi(config, norm, obs_batch, noise_var=1.0, *,
+                               method: str = "gram", precision=None):
+    """Value + per-row gradient companion of :func:`make_loglik_multi`,
+    the stacked-observation HMC inner loop ``(params, (O·W, P)) →
+    ((O·W,), (O·W, P))``, by :func:`per_row_grad`: every row's logL
+    depends only on its own row (the observation pairing is a static
+    reshape), so the block-diagonal Jacobian collapses to the per-row
+    gradient in one backward pass."""
+    return per_row_grad(
+        make_loglik_multi(config, norm, obs_batch, noise_var, method=method,
+                          precision=precision),
+        device=norm.device,
+    )
 
 
 def make_loglik_and_grad(config, norm, obs, noise_var=1.0, *,
@@ -191,6 +425,14 @@ def make_loglik_and_grad(config, norm, obs, noise_var=1.0, *,
     """
     if variant is None:
         variant = "autodiff" if method == "direct" else "analytic"
+    if isinstance(noise_var, ScaleMarginalNoise):
+        # the exact chain rule through the scalar post-transform: the
+        # analytic and fused gradient backends carry over unchanged
+        base = make_loglik_and_grad(
+            config, norm, obs, noise_var.base, backend=backend, method=method,
+            variant=variant, precision=precision, grad_precision=grad_precision,
+        )
+        return noise_var.wrap_valgrad(base, config.n_bins)
     if backend == "kernel":
         if method != "gram" or variant == "autodiff":
             raise ValueError(
@@ -205,17 +447,9 @@ def make_loglik_and_grad(config, norm, obs, noise_var=1.0, *,
     if backend != "torch":
         raise ValueError(f"backend must be 'torch' or 'kernel'; got {backend!r}")
     if variant == "autodiff":
-        base = make_loglik(config, norm, obs, noise_var, backend=backend,
-                           method=method, precision=precision)
-
-        def loglik_grad_ad(params, raw):
-            with torch.enable_grad():
-                x = _rows(raw, norm.device).detach().requires_grad_(True)
-                val = base(params, x)
-                (g,) = torch.autograd.grad(val.sum(), x)
-            return val.detach(), g
-
-        return loglik_grad_ad
+        return per_row_grad(make_loglik(config, norm, obs, noise_var, backend=backend,
+                                        method=method, precision=precision),
+                            device=norm.device)
     if variant != "analytic":
         raise ValueError(f"variant must be 'autodiff' or 'analytic'; got {variant!r}")
     if method != "gram":

@@ -46,14 +46,32 @@ def _thin_write(buf: torch.Tensor, t: int, x: torch.Tensor, thin: int):
 
 
 def _resolve_log_prior(log_prior):
-    """None → the flat box prior, ``(B, P) → (B,)`` zeros. Smooth priors
-    over the raw parameters wait for ROADMAP queue 8."""
-    if log_prior is not None:
-        raise NotImplementedError(
-            "the port samples under the flat box prior only; log_prior "
-            "support waits for ROADMAP queue 8"
-        )
-    return lambda x: torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    """None → the flat box prior, ``(B, P) → (B,)`` zeros.
+
+    A supplied ``log_prior`` must be a row-wise-independent log-density
+    over RAW parameters, ``(B, P) tensor → (B,) tensor`` on the input's
+    device, finite inside the prior box and, for HMC, differentiable by
+    ``torch.autograd``; normalization optional (see
+    :class:`tpu21cmvae_torch.priors.GaussianBoxPrior`). The samplers keep
+    the box as a hard indicator on top of it.
+    """
+    if log_prior is None:
+        return lambda x: torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    return log_prior
+
+
+def _log_prior_val_grad(log_prior, x: torch.Tensor):
+    """``(log π(x), ∇log π(x))`` row-wise, both detached: the gradient of
+    the summed value on a detached leaf, valid because ``log_prior`` is
+    required to be row-independent (the sum's gradient separates). A
+    prior that does not depend on ``x`` has a zero gradient."""
+    with torch.enable_grad():
+        leaf = x.detach().requires_grad_(True)
+        lpr = log_prior(leaf)
+        g = None
+        if lpr.requires_grad:
+            (g,) = torch.autograd.grad(lpr.sum(), leaf, allow_unused=True)
+    return lpr.detach(), torch.zeros_like(x) if g is None else g
 
 
 def _dual_averaging_consts(init: float):
@@ -64,17 +82,12 @@ def _dual_averaging_consts(init: float):
 
 def valgrad_from_loglik(loglik):
     """``(params, raw) → (logL, ∇logL)`` over a pure VALUE likelihood by
-    autodiff: a row-wise VJP with a ones cotangent, exact because the
-    likelihood is row-independent. The gradient is with respect to
-    ``raw``; both outputs are detached. (The JAX package caches the
-    adapter on the likelihood for its compiled-program caches; eager
-    PyTorch has none to keep, so each call builds a new one.)"""
+    autodiff (:func:`tpu21cmvae_torch.ops.loglik.per_row_grad`: a
+    row-wise VJP with a ones cotangent, exact because the likelihood is
+    row-independent). The gradient is with respect to ``raw``; both
+    outputs are detached. (The JAX package caches the adapter on the
+    likelihood for its compiled-program caches; eager PyTorch has none to
+    keep, so each call builds a new one.)"""
+    from tpu21cmvae_torch.ops.loglik import per_row_grad
 
-    def valgrad(params, raw):
-        with torch.enable_grad():
-            x = torch.as_tensor(raw).detach().requires_grad_(True)
-            ll = loglik(params, x)
-            (g,) = torch.autograd.grad(ll, x, torch.ones_like(ll))
-        return ll.detach(), g
-
-    return valgrad
+    return per_row_grad(loglik)

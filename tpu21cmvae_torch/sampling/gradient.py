@@ -25,8 +25,8 @@ import torch.nn.functional as F
 from tpu21cmvae_torch.sampling._common import (
     _dual_averaging_consts,
     _init_walkers,
+    _log_prior_val_grad,
     _resolve_bounds,
-    _resolve_log_prior,
     _thin_state,
     _thin_write,
 )
@@ -45,8 +45,9 @@ def _whiten_init(x, lo, span):
 def _whitened_target(valgrad, log_prior, lo, span):
     """``(to_params, logp_and_grad)`` over the whitened ``y``: ``lp`` is
     the log-posterior including the log-Jacobian of the sigmoid map,
-    ``glp`` its gradient by the chain rule."""
-    log_prior = _resolve_log_prior(log_prior)
+    ``glp`` its gradient by the chain rule: the one place where the
+    raw-space ``valgrad`` and an optional smooth ``log_prior`` (value and
+    gradient, :func:`_log_prior_val_grad`) meet the whitening."""
 
     def to_params(y):
         return lo + span * torch.sigmoid(y)
@@ -54,8 +55,12 @@ def _whitened_target(valgrad, log_prior, lo, span):
     def logp_and_grad(params, y):
         xr = to_params(y)
         ll, g_raw = valgrad(params, xr)
+        if log_prior is not None:
+            lpr, g_pr = _log_prior_val_grad(log_prior, xr)
+            ll = ll + lpr
+            g_raw = g_raw + g_pr
         s = torch.sigmoid(y)
-        lp = ll + log_prior(xr) + torch.sum(F.logsigmoid(y) + F.logsigmoid(-y), dim=-1)
+        lp = ll + torch.sum(F.logsigmoid(y) + F.logsigmoid(-y), dim=-1)
         glp = g_raw * (span * s * (1.0 - s)) + (1.0 - 2.0 * s)
         return lp, glp
 
@@ -101,9 +106,12 @@ def _met_pull(met, g):
 def _ens_metric_blocks(y, dense: bool, n_blk: int):
     """The ensemble metric over one block of walkers; a dense metric is
     lifted to (1, D, D) so rank tells it from a per-walker diagonal.
-    Per-observation blocks (``n_blk > 1``) wait for the batched samplers."""
+    Per-observation blocks (``n_blk > 1``) wait for the batched samplers
+    (ROADMAP queue 1 item 4)."""
     if n_blk != 1:
-        raise NotImplementedError("per-block ensemble metrics are not ported yet")
+        raise NotImplementedError(
+            "per-block ensemble metrics are not ported yet (ROADMAP queue 1 item 4)"
+        )
     met = _ens_metric(y, dense)
     return met[None] if dense else met
 
@@ -194,7 +202,10 @@ def sample_hmc(
     ``adapt_blocks=G`` keeps G independent dual-averaged steps over
     contiguous walker blocks. ``precondition``/``metric``: the
     ensemble-statistics metric (diagonal under ``"auto"``); ``jitter``:
-    draw each iteration's leapfrog count from ⌈L/2⌉…L. Returns a
+    draw each iteration's leapfrog count from ⌈L/2⌉…L. ``log_prior``: a
+    smooth log-density over the raw parameters on top of the flat box
+    (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`); its gradient,
+    by ``torch.autograd``, joins the leapfrog force. Returns a
     :class:`SampleResult` with the chain thinned by ``thin``.
     """
     device = torch.empty(0, device=device).device

@@ -64,7 +64,7 @@ def _refuse_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (walkers sharded over several devices) waits for ROADMAP "
-            "queue 12; the port samples on one device"
+            "queue 1 item 11; the port samples on one device"
         )
 
 
@@ -114,8 +114,10 @@ def sample_mh(
     toward ``target_accept``; ``adapt=False`` pins ``step_frac``.
     ``adapt_blocks=G`` keeps G independent multipliers, one per
     contiguous walker block. ``thin > 0`` keeps every ``thin``-th
-    post-warmup step. ``log_prior`` and ``mesh`` are refused (ROADMAP
-    queues 8 and 12). Returns a :class:`SampleResult` whose
+    post-warmup step. ``log_prior``: a log-density over the raw
+    parameters on top of the flat box
+    (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`). ``mesh`` is
+    refused (ROADMAP queue 1 item 11). Returns a :class:`SampleResult` whose
     ``step_size`` is the mean multiplier times the mean base scale.
     """
     _refuse_mesh(mesh)
@@ -213,8 +215,9 @@ def sample_ensemble(
     probability ``min(1, z^(d−1) · L'/L)``; then half B moves against
     the UPDATED half A. Warmup moves are ordinary moves whose samples are
     discarded; nothing adapts. ``n_walkers`` must be even and at least
-    ``2 · n_params + 2``. ``log_prior`` and ``mesh`` are refused (ROADMAP
-    queues 8 and 12). Returns a :class:`SampleResult` whose
+    ``2 · n_params + 2``. ``log_prior``: a log-density over the raw
+    parameters on top of the flat box; ``mesh`` is refused (ROADMAP queue
+    1 item 11). Returns a :class:`SampleResult` whose
     ``step_size`` reports the stretch scale ``a``.
     """
     _refuse_mesh(mesh)

@@ -830,3 +830,54 @@ def test_samplers_with_prior_and_marginalized_spec_launch_the_kernels(cuda, samp
     assert counts["diag"] >= 1 + 40 * per_step
     assert counts["marg"] == counts["prior"] == counts["diag"]
     assert tau_sd < free_sd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["chees", "nuts"])
+def test_adaptive_samplers_launch_the_memoized_k3(cuda, sampler):
+    """ChEES and NUTS through ``sample_posterior`` on a CUDA model run the
+    memoized K3 wrapper HMC uses (tensor cores at (high, default)): at
+    least one launch per iteration and the initial one, at most the cap
+    of leapfrogs per iteration, finite walkers."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    k3 = m.loglik_and_grad_fn(obs, 25.0, backend="kernel", grad_precision="default")
+    cap = {"chees": dict(max_leapfrog=16), "nuts": dict(max_depth=4)}[sampler]
+    per_iter = 16 if sampler == "chees" else 2**4 - 1
+    k3.launches = 0
+    res = m.sample_posterior(obs, 25.0, sampler=sampler, n_walkers=512, n_warmup=30,
+                             n_steps=20, thin=5, seed=2, **cap)
+    assert m.loglik_and_grad_fn(obs, 25.0, backend="kernel", grad_precision="default") is k3
+    assert k3.tensor_cores
+    assert 1 + 50 <= k3.launches <= 1 + 50 * per_iter
+    assert np.isfinite(res.chain).all() and np.isfinite(res.logp).all()
+
+
+@pytest.mark.cuda
+def test_fits_launch_k3_once_per_step(cuda):
+    """``fit_params`` and ``profile_likelihood`` make ``n_steps + 1`` K3
+    launches through the memoized wrapper, whatever the number of starts,
+    and return finite results."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    k3 = m.loglik_and_grad_fn(obs, 25.0, backend="kernel", grad_precision="default")
+    k3.launches = 0
+    fit = m.fit_params(obs, 25.0, n_starts=256, n_steps=40, seed=1)
+    assert k3.launches == 41 and np.isfinite(fit.best_logp)
+    k3.launches = 0
+    prof = m.profile_likelihood(obs, 25.0, 3, np.linspace(0.045, 0.085, 4), n_starts=32,
+                                n_steps=40)
+    assert k3.launches == 41 and np.isfinite(prof.logl).all()
+
+
+@pytest.mark.cuda
+def test_target_ess_launches_k2_per_chunk(cuda):
+    """``sample_posterior(sampler="mh", target_ess=…)`` runs MH chunks
+    through the memoized K2 wrapper: 1 + warmup + steps launches for the
+    first chunk and 1 + steps for each continuation."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    k2 = m.loglik_fn(obs, 25.0, backend="kernel")
+    k2.launches = 0
+    res = m.sample_posterior(obs, 25.0, sampler="mh", target_ess=1e9, n_walkers=256,
+                             n_warmup=20, n_steps=40, thin=10, max_chunks=3, seed=0)
+    assert m.loglik_fn(obs, 25.0, backend="kernel") is k2 and k2.fused.tensor_cores
+    assert res.chain.shape == (12, 256, 7) and np.isfinite(res.chain).all()
+    assert k2.launches == (1 + 20 + 40) + 2 * (1 + 40)

@@ -225,10 +225,16 @@ def test_sample_posterior_end_to_end(small, sampler):
 
 
 def test_sample_posterior_refusals(small):
-    m, obs, _ = small
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        m.sample_posterior(obs, 9.0, sampler="mh", target_ess=100)
-    for name, item in (("pt", 6), ("smc", 6), ("chees", 5), ("nuts", 5)):
+    m, obs, bounds = small
+    # target_ess= (sample_to_ess), ChEES and NUTS are ported: they run
+    res = m.sample_posterior(obs, 9.0, sampler="mh", target_ess=1e9, bounds=bounds,
+                             n_walkers=16, n_steps=40, n_warmup=10, thin=10, max_chunks=2)
+    assert res.chain.shape == (8, 16, 7)
+    for name, cap in (("chees", dict(max_leapfrog=2)), ("nuts", dict(max_depth=2))):
+        res = m.sample_posterior(obs, 9.0, sampler=name, bounds=bounds, n_walkers=16,
+                                 n_steps=2, n_warmup=0, thin=1, **cap)
+        assert np.isfinite(res.logp).all()
+    for name, item in (("pt", 6), ("smc", 6)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
             m.sample_posterior(obs, 9.0, sampler=name)
     with pytest.raises(ValueError, match="sampler"):

@@ -24,7 +24,9 @@ def test_import_pulls_in_no_jax():
         "tpu21cmvae_torch.models._memo, tpu21cmvae_torch.utils.metrics, "
         "tpu21cmvae_torch.foregrounds, tpu21cmvae_torch.noisescale, tpu21cmvae_torch.priors, "
         "tpu21cmvae_torch.ops.fisher, tpu21cmvae_torch.ops.loglik, "
-        "tpu21cmvae_torch.sampling.reweight, tpu21cmvae_torch.sampling.predictive\n"
+        "tpu21cmvae_torch.sampling.reweight, tpu21cmvae_torch.sampling.predictive, "
+        "tpu21cmvae_torch.sampling.fit, tpu21cmvae_torch.sampling.driver, "
+        "tpu21cmvae_torch.calibration\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu21cmvae'))\n"
         "print(bad)\n"

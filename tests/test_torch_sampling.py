@@ -150,8 +150,14 @@ def test_sampler_refusals():
                      bounds=np.stack([MU - 1, MU + 1], 1), device="cpu",
                      log_prior=lambda x: x.sum(-1))
     assert np.isfinite(res.logp).all()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tgrad._ens_metric_blocks(torch.zeros(8, 3), False, 2)
+    # the per-block metric is ported: two blocks' own metrics, as JAX's
+    y = (np.random.default_rng(2).normal(size=(64, 3)) * [1.0, 3.0, 0.2]).astype(np.float32)
+    for dense in (False, True):
+        np.testing.assert_allclose(
+            tgrad._ens_metric_blocks(torch.as_tensor(y), dense, 2).numpy(),
+            np.asarray(jgrad._ens_metric_blocks(jnp.asarray(y), dense, 2)),
+            rtol=1e-4, atol=1e-5,
+        )
     with pytest.raises(ValueError, match="adapt_blocks"):
         sample_hmc(_torch_valgrad, None, n_walkers=10, adapt_blocks=3, device="cpu")
     with pytest.raises(TypeError):

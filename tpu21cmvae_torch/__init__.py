@@ -8,6 +8,14 @@ neither ``jax`` nor ``tpu21cmvae``; importing it does no I/O and builds
 no kernel.
 """
 
+from tpu21cmvae_torch.calibration import (  # noqa: F401
+    BatchGOFResult,
+    GOFResult,
+    SBCResult,
+    goodness_of_fit,
+    goodness_of_fit_batch,
+    sbc,
+)
 from tpu21cmvae_torch.data.synthetic import synthetic_dataset, synthetic_params  # noqa: F401
 from tpu21cmvae_torch.foregrounds import (  # noqa: F401
     MarginalizedNoise,
@@ -23,9 +31,22 @@ from tpu21cmvae_torch.noisescale import ScaleMarginalNoise, marginalize_noise_sc
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad  # noqa: F401
 from tpu21cmvae_torch.ops.transforms import Normalizer  # noqa: F401
 from tpu21cmvae_torch.priors import GaussianBoxPrior  # noqa: F401
-from tpu21cmvae_torch.sampling.gradient import sample_hmc  # noqa: F401
+from tpu21cmvae_torch.sampling.driver import run_batched_chain, sample_to_ess  # noqa: F401
+from tpu21cmvae_torch.sampling.fit import (  # noqa: F401
+    FitResult,
+    ProfileResult,
+    fit_map,
+    profile_likelihood,
+)
+from tpu21cmvae_torch.sampling.gradient import (  # noqa: F401
+    ChEESSampleResult,
+    NUTSSampleResult,
+    sample_chees,
+    sample_hmc,
+    sample_nuts,
+)
 from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh  # noqa: F401
 from tpu21cmvae_torch.sampling.predictive import PredictiveBand, posterior_predictive  # noqa: F401
-from tpu21cmvae_torch.sampling.results import SampleResult  # noqa: F401
+from tpu21cmvae_torch.sampling.results import BatchSampleResult, SampleResult  # noqa: F401
 from tpu21cmvae_torch.sampling.reweight import WeightedPosterior, reweight  # noqa: F401
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig, MLPConfig  # noqa: F401

@@ -10,9 +10,9 @@ noise specs (a scalar or per-bin variance, a foreground-marginalized
 :class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise` from
 :meth:`DirectEmulator.marginalize_foreground`, a
 :class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over either) and
-every sampler a ``log_prior``. Training, the samplers beyond HMC, MH and
-the stretch ensemble, the batched samplers, evidence, VI, flows and
-serving are not ported yet (ROADMAP).
+every sampler and fit a ``log_prior``. Training, the tempered and
+sequential samplers, evidence, VI, flows and serving are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -323,6 +323,17 @@ class DirectEmulator:
             f, noise_var, n_bins=int(self.frequencies.shape[0]), prior_var=prior_var,
         )
 
+    def _backend(self) -> str:
+        """The likelihood backend of the samplers and fits: the kernels on
+        a CUDA model, their plain versions on the CPU."""
+        return "kernel" if self.device.type == "cuda" else "torch"
+
+    def _hmc_valgrad(self, obs, noise_var):
+        """The memoized value+gradient function of the gradient samplers
+        and the fits: K3 at (high, default) on a CUDA model."""
+        return self.loglik_and_grad_fn(obs, noise_var, backend=self._backend(),
+                                       grad_precision="default")
+
     def sample_posterior(self, obs, noise_var=1.0, *, sampler: str = "hmc",
                          bounds=None, **kwargs):
         """Sample the posterior over the 7 parameters given an observed
@@ -330,10 +341,14 @@ class DirectEmulator:
         :class:`~tpu21cmvae_torch.sampling.results.SampleResult`.
 
         * ``sampler="hmc"`` (default,
-          :func:`~tpu21cmvae_torch.sampling.gradient.sample_hmc`): every
-          leapfrog step runs the fused value+gradient kernel K3 on a CUDA
-          model, its plain version on the CPU; the backward runs at the
-          single-pass bf16 tier, which only costs acceptance rate.
+          :func:`~tpu21cmvae_torch.sampling.gradient.sample_hmc`),
+          ``"chees"`` (the trajectory length adapted too,
+          :func:`~tpu21cmvae_torch.sampling.gradient.sample_chees`) and
+          ``"nuts"`` (:func:`~tpu21cmvae_torch.sampling.gradient.sample_nuts`):
+          every leapfrog step runs the fused value+gradient kernel K3 on a
+          CUDA model, its plain version on the CPU, all three through the
+          same memoized wrapper; the backward runs at the single-pass bf16
+          tier, which only costs acceptance rate.
         * ``sampler="mh"`` (random-walk Metropolis,
           :func:`~tpu21cmvae_torch.sampling.mh.sample_mh`) and
           ``"ensemble"`` (the stretch move,
@@ -344,49 +359,111 @@ class DirectEmulator:
           plain version. The JAX package defaults these samplers to its
           XLA path because that measured fastest on a TPU v5e; that
           measurement says nothing about this port, so the port takes
-          the kernel, as it does for HMC (PERF.md).
+          the kernel, as it does for HMC (PERF.md). ``sampler="mh"`` with
+          ``target_ess=N`` runs
+          :func:`~tpu21cmvae_torch.sampling.driver.sample_to_ess`: MH
+          chunks until the smallest bulk and tail ESS reach ``N``.
 
         ``noise_var`` takes every spec :meth:`loglik_fn` does, and
         ``log_prior=`` (a log-density over the raw parameters, e.g.
         :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.log_prior`)
-        passes through the kwargs to all three samplers, on top of the
-        flat box; HMC's force takes its gradient by autograd. Neither
-        changes which kernel runs or how often.
-
-        ``target_ess=`` (``sample_to_ess``) and the samplers ``"chees"``
-        and ``"nuts"`` (ROADMAP queue 1 item 5), ``"pt"`` and ``"smc"``
-        (item 6) are not ported yet.
+        passes through the kwargs to every sampler, on top of the flat
+        box; the gradient samplers' force takes its gradient by autograd.
+        Neither changes which kernel runs or how often. ``"pt"`` and
+        ``"smc"`` (ROADMAP queue 1 item 6) and ``mesh=`` (item 11) are
+        refused.
         """
-        backend = "kernel" if self.device.type == "cuda" else "torch"
         if sampler in ("mh", "ensemble"):
-            if "target_ess" in kwargs:
-                raise NotImplementedError(
-                    "target_ess= (sample_to_ess) is not ported yet (ROADMAP "
-                    "queue 1 item 5); pass n_steps"
-                )
+            from tpu21cmvae_torch.sampling.driver import sample_to_ess
             from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
 
-            run = sample_mh if sampler == "mh" else sample_ensemble
-            return run(self.loglik_fn(obs, noise_var, backend=backend), self.params,
+            if sampler == "mh" and "target_ess" in kwargs:
+                run = sample_to_ess
+            else:
+                run = sample_mh if sampler == "mh" else sample_ensemble
+            return run(self.loglik_fn(obs, noise_var, backend=self._backend()), self.params,
                        bounds=bounds, device=self.device, **kwargs)
-        if sampler in ("pt", "smc", "chees", "nuts"):
-            item = 5 if sampler in ("chees", "nuts") else 6
+        if sampler in ("pt", "smc"):
             raise NotImplementedError(
-                f"sampler={sampler!r} is not ported yet (ROADMAP queue 1 item {item}); "
-                "the port samples with 'hmc', 'mh' or 'ensemble'"
+                f"sampler={sampler!r} is not ported yet (ROADMAP queue 1 item 6); "
+                "the port samples with 'hmc', 'chees', 'nuts', 'mh' or 'ensemble'"
             )
-        if sampler != "hmc":
+        if sampler not in ("hmc", "chees", "nuts"):
             raise ValueError(
                 "sampler must be 'mh', 'ensemble', 'hmc', 'chees', 'nuts', "
                 f"'pt' or 'smc'; got {sampler!r}"
             )
-        from tpu21cmvae_torch.sampling.gradient import sample_hmc
+        from tpu21cmvae_torch.sampling import gradient
 
-        valgrad = self.loglik_and_grad_fn(
-            obs, noise_var, backend=backend, grad_precision="default"
+        run = {"hmc": gradient.sample_hmc, "chees": gradient.sample_chees,
+               "nuts": gradient.sample_nuts}[sampler]
+        return run(self._hmc_valgrad(obs, noise_var), self.params, bounds=bounds,
+                   device=self.device, **kwargs)
+
+    def sample_posterior_batch(self, obs_batch, noise_var=1.0, *, sampler: str = "mh",
+                               n_walkers: int = 256, bounds=None, method: str = "gram",
+                               precision=None, **kwargs):
+        """Posteriors for ``O`` observed spectra in one chain: the walkers
+        of every observation stack observation-major into one ``(O ·
+        n_walkers)`` batch (``n_walkers`` is per observation), scored by
+        the stacked-observation likelihood (:meth:`loglik_multi_fn`; HMC
+        and NUTS by its autograd value+gradient), in plain PyTorch on
+        both devices as the JAX package's stacked forms are plain XLA.
+        ``sampler``: ``"mh"``, ``"hmc"`` or ``"nuts"``; each observation's
+        slab adapts its own step (``adapt_blocks=n_obs``), and under NUTS
+        its own ensemble metric. Returns a
+        :class:`~tpu21cmvae_torch.sampling.results.BatchSampleResult`."""
+        from tpu21cmvae_torch.ops.loglik import make_loglik_and_grad_multi
+        from tpu21cmvae_torch.sampling.driver import run_batched_chain
+
+        obs_batch = np.atleast_2d(np.asarray(obs_batch, np.float32))
+        return run_batched_chain(
+            sampler, self.params, obs_batch.shape[0], n_walkers,
+            loglik_builder=lambda: self.loglik_multi_fn(
+                obs_batch, noise_var, method=method, precision=precision),
+            valgrad_builder=lambda: make_loglik_and_grad_multi(
+                self.config, self.normalizer, obs_batch, noise_var, method=method,
+                precision=precision),
+            bounds=bounds, device=self.device, **kwargs,
         )
-        return sample_hmc(valgrad, self.params, bounds=bounds,
-                          device=self.device, **kwargs)
+
+    def fit_params(self, obs, noise_var=1.0, *, bounds=None, **kwargs):
+        """Maximum-likelihood fit of the 7 parameters to an observed
+        spectrum: multi-start Adam ascent
+        (:func:`~tpu21cmvae_torch.sampling.fit.fit_map`) through the same
+        memoized value+gradient function as HMC (K3 on a CUDA model).
+        Returns a :class:`~tpu21cmvae_torch.sampling.fit.FitResult`; seed a
+        sampler with ``sample_posterior(..., x0=result.params)``."""
+        from tpu21cmvae_torch.sampling.fit import fit_map
+
+        return fit_map(self._hmc_valgrad(obs, noise_var), self.params, bounds=bounds,
+                       device=self.device, **kwargs)
+
+    def profile_likelihood(self, obs, noise_var, index, grid, *, bounds=None, **kwargs):
+        """Profile likelihood of parameter ``index`` over ``grid`` from
+        batched constrained refits
+        (:func:`~tpu21cmvae_torch.sampling.fit.profile_likelihood`), through
+        the same value+gradient function as HMC. Returns a
+        :class:`~tpu21cmvae_torch.sampling.fit.ProfileResult`;
+        ``result.interval(0.68)`` and ``.interval(0.95)``."""
+        from tpu21cmvae_torch.sampling.fit import profile_likelihood
+
+        return profile_likelihood(self._hmc_valgrad(obs, noise_var), self.params, index, grid,
+                                  bounds=bounds, device=self.device, **kwargs)
+
+    def goodness_of_fit(self, obs, noise_var=25.0, draws=None, **kwargs):
+        """Posterior predictive model check of ``obs`` over posterior
+        ``draws`` (see :func:`tpu21cmvae_torch.calibration.goodness_of_fit`)."""
+        from tpu21cmvae_torch.calibration import goodness_of_fit
+
+        return goodness_of_fit(self, obs, noise_var, draws, **kwargs)
+
+    def goodness_of_fit_batch(self, obs_batch, noise_var=25.0, draws=None, **kwargs):
+        """Posterior predictive checks of ``O`` observations in one batched
+        predict (see :func:`tpu21cmvae_torch.calibration.goodness_of_fit_batch`)."""
+        from tpu21cmvae_torch.calibration import goodness_of_fit_batch
+
+        return goodness_of_fit_batch(self, obs_batch, noise_var, draws, **kwargs)
 
     def posterior_predictive(self, samples, **kwargs):
         """Signal-space credible bands implied by posterior parameter

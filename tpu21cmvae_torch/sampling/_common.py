@@ -1,5 +1,6 @@
-"""Shared sampler helpers: prior box, walker init, thinning, prior
-resolution, dual-averaging constants and the autodiff gradient adapter
+"""Shared sampler helpers: prior box, walker init, thinning, the mesh
+refusal, prior resolution, dual-averaging constants and the autodiff
+gradient adapter
 (the parts of ``tpu21cmvae/sampling/_common.py`` that the ported
 samplers need)."""
 
@@ -43,6 +44,16 @@ def _thin_write(buf: torch.Tensor, t: int, x: torch.Tensor, thin: int):
     kept iff ``(t + 1) % thin == 0``, into row ``(t + 1) // thin − 1``."""
     if thin and (t + 1) % thin == 0:
         buf[(t + 1) // thin - 1] = x
+
+
+def _refuse_mesh(mesh):
+    """The samplers and fits take the JAX package's ``mesh=`` and refuse
+    any mesh: the port runs on one device."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (walkers sharded over several devices) waits for ROADMAP "
+            "queue 1 item 11; the port samples on one device"
+        )
 
 
 def _resolve_log_prior(log_prior):

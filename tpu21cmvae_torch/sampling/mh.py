@@ -29,6 +29,7 @@ import torch
 from tpu21cmvae_torch.sampling._common import (
     _dual_averaging_consts,
     _init_walkers,
+    _refuse_mesh,
     _resolve_bounds,
     _resolve_log_prior,
     _thin_state,
@@ -58,14 +59,6 @@ def _start(x0, generator, n_walkers, lo, hi):
         return _init_walkers(generator, n_walkers, lo, hi)
     x = torch.as_tensor(np.asarray(x0, np.float32), device=lo.device)
     return torch.minimum(torch.maximum(x, lo), hi)
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (walkers sharded over several devices) waits for ROADMAP "
-            "queue 1 item 11; the port samples on one device"
-        )
 
 
 def mh_step(score, params, x, lp, mult, base_scale, noise, log_u):

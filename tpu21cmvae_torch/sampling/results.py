@@ -1,6 +1,6 @@
-"""Sampler result container and convergence diagnostics
-(:class:`SampleResult`) — a NumPy/SciPy copy of
-``tpu21cmvae/sampling/results.py``.
+"""Sampler result containers and convergence diagnostics
+(:class:`SampleResult`, :class:`BatchSampleResult`) — a NumPy/SciPy copy
+of ``tpu21cmvae/sampling/results.py``.
 
 Diagnostics implement Vehtari, Gelman, Simpson, Carpenter & Bürkner
 2021 ("Rank-normalization, folding, and localization: an improved R̂")
@@ -202,4 +202,55 @@ class SampleResult:
         return (
             f"accept rate {float(np.mean(self.accept_rate)):.2f}, "
             f"step {self.step_size:.3g}\n" + "\n".join(lines)
+        )
+
+
+@dataclasses.dataclass
+class BatchSampleResult:
+    """``O`` independent posteriors sampled by one chain over a
+    stacked-observation likelihood
+    (:func:`tpu21cmvae_torch.ops.loglik.make_loglik_multi`;
+    :meth:`DirectEmulator.sample_posterior_batch`).
+
+    ``result`` is the underlying :class:`SampleResult` with the walker
+    axis stacked observation-major (``O · walkers_per_obs`` rows); the
+    views below unstack it. Each observation's slab adapted its own
+    proposal scale or leapfrog step (``adapt_blocks=n_obs`` in
+    :func:`~tpu21cmvae_torch.sampling.driver.run_batched_chain`);
+    ``result.step_size`` reports the mean over blocks."""
+
+    n_obs: int
+    result: SampleResult
+
+    @property
+    def walkers_per_obs(self) -> int:
+        return self.result.final.shape[0] // self.n_obs
+
+    @property
+    def chain(self) -> np.ndarray:
+        """(n_kept, O, walkers_per_obs, n_params)."""
+        k, _, p = self.result.chain.shape
+        return self.result.chain.reshape(k, self.n_obs, -1, p)
+
+    def flat(self, i: int) -> np.ndarray:
+        """Observation ``i``'s samples, ``(n_kept · W, n_params)``."""
+        return self.chain[:, i].reshape(-1, self.result.chain.shape[-1])
+
+    def per_obs(self, i: int) -> SampleResult:
+        """Observation ``i``'s chain as a standalone
+        :class:`SampleResult` (R̂, ESS and summary per observation)."""
+        w = self.walkers_per_obs
+        sl = slice(i * w, (i + 1) * w)
+        bss = self.result.block_step_sizes
+        own_step = (
+            float(bss[i])
+            if bss is not None and bss.shape[0] == self.n_obs
+            else self.result.step_size
+        )
+        return SampleResult(
+            chain=self.result.chain[:, sl],
+            final=self.result.final[sl],
+            logp=self.result.logp[sl],
+            accept_rate=self.result.accept_rate,
+            step_size=own_step,
         )

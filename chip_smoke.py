@@ -89,7 +89,7 @@ Phases, one line each:
 12. an importance-sampling witness of the flat-box posterior that
     shares no code with the samplers (uniform draws over the box, then
     Student-t rounds, every draw scored by the plain exact-tier
-    likelihood); then the adaptive gradient samplers through
+    likelihood), with its own log Z under the flat box prior; then the adaptive gradient samplers through
     ``sample_posterior``: ``sampler="chees"`` and ``"nuts"`` (4096
     walkers, NUTS to depth 6), every leapfrog step K3 at (high, default)
     through the memoized wrapper HMC uses; launches between one per
@@ -112,7 +112,20 @@ Phases, one line each:
     typical in likelihood and HMC's modes reached for every observation;
     ``goodness_of_fit`` of phase 5's
     HMC draws, ``goodness_of_fit_batch`` of the MH batch and a small
-    ``sbc``, their p-values printed, not gated.
+    ``sbc``, their p-values printed, not gated;
+15. the evidence through ``log_evidence`` at the JAX package's defaults,
+    on phase 5's observation: nested sampling, SMC and the stepping-stone
+    ladder (warm-started by a 1024-start fit on K3 at (high, default)),
+    every batch on K2 at bf16x3 (``fused_gram_mma.cu``), and Laplace
+    with importance sampling at the exact tier (its ascent on the fp32
+    K3, its IS rounds on the fp32 K2); nested's, SMC's and Laplace's
+    log Z within max(1, 4σ) nats of phase 12's witness, the launches of
+    each method counted per wrapper, and each kernel held to its plain
+    version on rows the paths scored, in calls of the paths' batches;
+16. parallel tempering and SMC as samplers through ``sample_posterior``
+    (16 rungs × 256 walkers; 4096 particles), K2 at bf16x3: finite
+    draws, every ladder edge exchanging, and each one's share of draws
+    in the low-fx mode beside the witness's.
 
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound, the card's name and power limit, and a last
@@ -251,6 +264,15 @@ BATCH_SIZES = {
     "nuts": dict(n_warmup=50, n_steps=30, thin=5, max_depth=5, adapt_blocks=BATCH_OBS),
 }
 SBC_SIMS, SBC_WALKERS = 16, 256
+# Phases 15-16 run the evidence estimators at the JAX package's defaults;
+# the launch counts they are held to follow from these.
+NESTED_LIVE, NESTED_BATCH, NESTED_MH = 1024, 128, 24
+SMC_PARTICLES, SMC_MH = 4096, 8
+LAPLACE_STEPS, LAPLACE_ROUNDS, LAPLACE_IS = 2000, 3, 16384
+LADDER_RUNGS, LADDER_WALKERS, LADDER_STEPS, LADDER_WARMUP = 32, 256, 400, 200
+LADDER_FIT_STEPS = 500  # the warm start's fit: max(1024, n_walkers) starts
+EVIDENCE_GATE_NATS, EVIDENCE_GATE_SIGMAS = 1.0, 4.0
+PT_SIZES = dict(n_rungs=16, n_walkers=256, n_steps=400, n_warmup=200, thin=10)
 
 
 def check(ok: bool, what: str):
@@ -1192,7 +1214,11 @@ def importance_witness(model, obs, truth, dev) -> dict:
     marginal's median, its interquartile range over 1.349 (the robust
     scale), the truth's rank, the effective sample size and each
     stratum's share of the mass, under the flat box prior the samplers
-    use and under the log-uniform prior the truth was drawn from."""
+    use and under the log-uniform prior the truth was drawn from. The
+    mean of a stratum's last-round weights estimates ∫ L dx over it, so
+    their sum over the strata, over the box's volume, is the evidence
+    under the flat box prior (``logz_flat``), its standard error
+    (``logz_flat_err``) from the weights' variance."""
     gen = torch.Generator(device=dev).manual_seed(0)
     d = PAR_RANGES.shape[0]
     logs = torch.zeros(d, dtype=torch.bool, device=dev)
@@ -1252,6 +1278,14 @@ def importance_witness(model, obs, truth, dev) -> dict:
     x = torch.cat([s[0] for s in strata])
     truth_t = torch.as_tensor(truth, dtype=torch.float64, device=dev)
     out = {"fx_split": WITNESS_FX_SPLIT, "ess_by_stage": [s[3] for s in strata]}
+    log_mean, log_var = [], []  # each stratum's log ∫ L dx and log Var of its estimate
+    for _, log_w, _, _ in strata:
+        w = torch.exp(log_w - log_w.max())
+        log_mean.append(float(log_w.max() + torch.log(w.mean())))
+        log_var.append(float(2.0 * log_w.max() + torch.log(w.var() / w.numel())))
+    log_integral = float(np.logaddexp.reduce(log_mean))
+    out["logz_flat"] = log_integral - float(np.log(PAR_RANGES[:, 1] - PAR_RANGES[:, 0]).sum())
+    out["logz_flat_err"] = math.exp(0.5 * float(np.logaddexp.reduce(log_var)) - log_integral)
     for prior, lw in (("flat", torch.cat([s[1] for s in strata])),
                       ("log_uniform", torch.cat([s[1] + s[2] for s in strata]))):
         w, n_eff = normalized(lw)
@@ -1274,7 +1308,7 @@ def adaptive_main_path(model, truth, obs, dev):
     printed, not gated: the truth was drawn log-uniform in fstar, Vc and
     fx, the posterior has a flat prior there, and the witness puts it in
     those marginals' far tails too. Returns the launches by sampler and
-    the pooled draws."""
+    the pooled draws and the witness."""
     k3 = main_k3(model, obs)
     check(k3.tensor_cores, "the adaptive samplers' K3 runs fused_gram_mma.cu")
     witness, witness_s = timed(lambda: importance_witness(model, obs, truth, dev))
@@ -1326,7 +1360,7 @@ def adaptive_main_path(model, truth, obs, dev):
               f"{sampler}: medians apart from the witness's by {apart} of its robust scale")
         check(bool((np.abs(rank - r_w) <= rank_tol).all()),
               f"{sampler}: truth ranks {rank} against the witness's {r_w} (tolerance {rank_tol})")
-    return launches, np.concatenate(pooled)
+    return launches, np.concatenate(pooled), witness
 
 
 def fit_box(draws, truth):
@@ -1498,6 +1532,184 @@ def batched_and_calibration(model, hmc_result, obs, rng, dev):
     }), flush=True)
 
 
+def evidence_wrappers(model, obs) -> dict:
+    """The memoized kernel wrappers the evidence paths run, by name: K2
+    at bf16x3 (nested, SMC, PT, the ladder), K2 and K3 at fp32 (Laplace's
+    IS rounds and ascent), K3 at (high, default) (the ladder's warm
+    start)."""
+    return {
+        "k2": model.loglik_fn(obs, NOISE_VAR, backend="kernel"),
+        "k2_f32": model.loglik_fn(obs, NOISE_VAR, backend="kernel", precision="contract"),
+        "k3_f32": model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel",
+                                           precision="contract"),
+        "k3": main_k3(model, obs),
+    }
+
+
+def value_worst(got, want, tier, half_c):
+    """``(worst |Δ|/tol, max |Δ|)`` of values against their plain ones."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    tol = VALUE_RTOL[tier] * (np.abs(want) + half_c) + VALUE_ATOL
+    dv = np.abs(got - want)
+    return float((dv / tol).max()), float(dv.max())
+
+
+@torch.no_grad()
+def hold_at_path_batches(model, obs, live, population, cloud, dev) -> dict:
+    """Each kernel of the evidence paths against its plain version on rows
+    a path scored, in calls of the path's own batch (fresh wrappers: these
+    launches count for no path): K2 at bf16x3 on nested's final live set
+    in calls of ``NESTED_BATCH`` rows and on SMC's final population in
+    calls of its half-moves' and its independence moves' rows, K2 at fp32
+    on Laplace's IS cloud in calls of ``LAPLACE_IS`` rows, the fp32 K3 on
+    the cloud's first 4096 rows (the ascent's batch), value and gradient.
+    Returns the worst |Δ|/tol and the largest |Δ logL| by case."""
+    report = {}
+    for label, tier, rows, batch in (
+        ("k2_bf16x3_nested", "high", live, NESTED_BATCH),
+        ("k2_bf16x3_smc_half", "high", population, SMC_PARTICLES // 2),
+        ("k2_bf16x3_smc", "high", population, SMC_PARTICLES),
+        ("k2_f32_laplace_is", "highest", cloud, LAPLACE_IS),
+    ):
+        pairs, half_c = value_kernels(model, obs, tier, dev)
+        kernel, plain = pairs["k2"]
+        worst = max_abs = 0.0
+        for x in torch.as_tensor(rows, dtype=torch.float32, device=dev).split(batch):
+            w, m = value_worst(kernel(x).cpu().numpy(), plain(x).cpu().numpy(), tier, half_c)
+            worst, max_abs = max(worst, w), max(max_abs, m)
+        check(worst <= 1.0, f"{label}: K2 vs plain, worst |Δ|/tol {worst:.3g}")
+        report[label] = {"rows": int(rows.shape[0]), "batch": batch, "worst_over_tol": worst,
+                         "max_abs": max_abs}
+    k3 = k3_wrapper(model, obs, EXACT_TIERS, dev)
+    x = torch.as_tensor(cloud[:4096], dtype=torch.float32, device=dev)
+    vk, gk = k3(model.params, x)
+    vp, gp = loglik_grad_gram_reference(k3.operands(model.params), x)
+    vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+    worst, max_abs = value_worst(vk, vp, "highest", 0.5 * abs(float(k3.operands(model.params).c)))
+    q999 = float(np.quantile(grad_rel_error(gk, gp), 0.999))
+    check(worst <= 1.0 and grad_gate_violation(gk, gp) <= 0.0 and q999 <= GRAD_Q999_F32,
+          f"k3_f32_laplace: worst |Δ|/tol {worst:.3g}, gradient q99.9 {q999:.3g}")
+    report["k3_f32_laplace_ascent"] = {"rows": 4096, "worst_over_tol": worst, "max_abs": max_abs,
+                                       "grad_q999_rel": q999}
+    return report
+
+
+def evidence_path(model, obs, witness, dev):
+    """Phase 15: ``log_evidence`` by nested sampling, SMC, Laplace and the
+    ladder at the JAX defaults, each run with every evidence wrapper's
+    count set to 0 just before it and read just after (the launches each
+    method must make follow from its sizes). Nested's, SMC's and
+    Laplace's log Z must lie within max(1, 4σ) nats of the witness's
+    (σ: the two standard errors combined); nested must finish before
+    ``max_iters``, Laplace's Hessian be negative-definite. The ladder is
+    printed, not gated: the JAX package documents its bias at the default
+    budget (``tpu21cmvae/sampling/evidence.py:238-241``). Returns the
+    launches by method and wrapper."""
+    wrappers = evidence_wrappers(model, obs)
+    check(wrappers["k2"].fused.tensor_cores and not wrappers["k2_f32"].fused.tensor_cores,
+          "evidence: K2 at bf16x3 on fused_gram_mma.cu, at fp32 on fused_loglik_gram.cu")
+    check(wrappers["k3_f32"].register_tiled and wrappers["k3"].tensor_cores,
+          "evidence: K3 at fp32 on fused_loglik_grad_gram_f32.cu, (high, default) on "
+          "fused_gram_mma.cu")
+    w_logz, w_err = witness["logz_flat"], witness["logz_flat_err"]
+    out, launches, results = {"witness": {"logz": w_logz, "logz_err": w_err}}, {}, {}
+    for method in ("nested", "smc", "laplace", "ladder"):
+        for w in wrappers.values():
+            w.launches = 0
+        res, wall = timed(lambda: model.log_evidence(obs, NOISE_VAR, method=method, seed=0))
+        n = launches[method] = {name: w.launches for name, w in wrappers.items()}
+        check(all(evidence_wrappers(model, obs)[k] is w for k, w in wrappers.items()),
+              f"{method}: log_evidence used the memoized wrappers")
+        results[method] = res
+        gap = res.logz - w_logz
+        out[method] = {"wall_s": wall, "logz": res.logz, "logz_err": res.logz_err,
+                       "minus_witness": gap, "launches": n}
+        want = {name: 0 for name in wrappers}
+        if method == "nested":
+            want["k2"] = 1 + NESTED_MH * (res.n_iters // NESTED_BATCH)
+            out[method].update(n_iters=res.n_iters, n_like=res.n_like, h=res.h, ess=res.ess,
+                               truncated=res.truncated, accept=res.accept_rate)
+        elif method == "smc":
+            want["k2"] = n["k2"]
+            check(1 + 3 * SMC_MH * res.n_stages <= n["k2"] <= 1 + 12 * SMC_MH * res.n_stages,
+                  f"smc: K2 launches {n['k2']} for {res.n_stages} stages")
+            out[method].update(n_stages=res.n_stages,
+                               accept=float(np.mean(res.accept_rate)),
+                               share_fx_below_split=float(np.mean(res.final[:, 2]
+                                                                  < WITNESS_FX_SPLIT)))
+        elif method == "laplace":
+            want.update(k3_f32=LAPLACE_STEPS + 1, k2_f32=LAPLACE_ROUNDS)
+            out[method].update(logz_laplace=res.logz_laplace, khat=res.khat, is_ess=res.is_ess,
+                               pd=res.pd, map_logp=res.map_logp, map=res.map_params.tolist())
+        else:
+            want.update(k3=LADDER_FIT_STEPS + 1, k2=1 + 2 * (LADDER_WARMUP + LADDER_STEPS))
+            out[method].update(ladder_drift=res.ladder_drift,
+                               swap_rate_min=float(res.swap_rate.min()),
+                               accept_min=float(res.accept_rate.min()))
+        check(n == want, f"{method}: launches {n} != {want}")
+        if method != "ladder":
+            sigma = math.hypot(res.logz_err, w_err)
+            tol = max(EVIDENCE_GATE_NATS, EVIDENCE_GATE_SIGMAS * sigma)
+            out[method]["gate_nats"] = tol
+            check(bool(np.isfinite(res.logz)) and abs(gap) <= tol,
+                  f"{method}: log Z {res.logz:.3f} is {gap:+.3f} from the witness's "
+                  f"{w_logz:.3f} (tolerance {tol:.3f})")
+    check(not results["nested"].truncated, "nested: truncated at max_iters")
+    check(results["laplace"].pd, "laplace: Hessian not negative-definite at the mode")
+    # the bf16x3 tier's bias on nested's final live set: its logL (K2 at
+    # bf16x3) against the plain exact tier on the same points
+    nested = results["nested"]
+    live = nested.samples[-NESTED_LIVE:]
+    exact = scores(exact_loglik(model, obs), model, live, dev).astype(np.float64)
+    out["nested"]["live_max_abs_dlogl_bf16x3_vs_exact"] = float(
+        np.abs(nested.logl[-NESTED_LIVE:] - exact).max())
+    out["held_at_path_batches"] = hold_at_path_batches(
+        model, obs, live, results["smc"].final, results["laplace"]._is_x, dev)
+    print("phase 15: " + json.dumps(out), flush=True)
+    return launches
+
+
+def tempered_samplers(model, obs, witness, dev):
+    """Phase 16: ``sample_posterior(sampler="pt")`` (``PT_SIZES``) and
+    ``sampler="smc"`` (the defaults, another seed than phase 15's), each
+    on the memoized K2 wrapper with its count set to 0 just before: PT
+    makes one launch for the start and two per step; finite draws, every
+    ladder edge exchanging. Each one's share of draws with fx below
+    ``WITNESS_FX_SPLIT`` is printed beside the witness's mass there.
+    Returns the launches by sampler."""
+    k2 = model.loglik_fn(obs, NOISE_VAR, backend="kernel")
+    out = {"witness_mass_fx_below_split": witness["flat"]["mass_fx_below_split"]}
+    launches = {}
+    for sampler, kw in (("pt", PT_SIZES), ("smc", dict(seed=1))):
+        k2.launches = 0
+        res, wall = timed(lambda: model.sample_posterior(obs, NOISE_VAR, sampler=sampler, **kw))
+        n = launches[sampler] = k2.launches
+        check(model.loglik_fn(obs, NOISE_VAR, backend="kernel") is k2,
+              f"{sampler}: sample_posterior used the memoized K2 wrapper")
+        flat = res.flat
+        check(bool(np.isfinite(flat).all() and np.isfinite(res.logp).all()),
+              f"{sampler}: finite draws")
+        entry = {"wall_s": wall, "k2_launches": n, "draws": int(flat.shape[0]),
+                 "share_fx_below_split": float(np.mean(flat[:, 2] < WITNESS_FX_SPLIT)),
+                 "median": np.median(flat, axis=0).tolist()}
+        if sampler == "pt":
+            steps = kw["n_warmup"] + kw["n_steps"]
+            check(n == 1 + 2 * steps, f"pt: K2 launches {n} != {1 + 2 * steps}")
+            check(res.chain.shape == (kw["n_steps"] // kw["thin"], kw["n_walkers"], 7),
+                  f"pt: chain shape {res.chain.shape}")
+            check(bool((res.swap_rate > 0).all()), f"pt: an edge never swapped {res.swap_rate}")
+            entry.update(swap_rate=res.swap_rate.tolist(), accept=float(np.mean(res.accept_rate)),
+                         rhat_max=float(res.rhat().max()))
+        else:
+            check(res.final.shape == (SMC_PARTICLES, 7), f"smc: population {res.final.shape}")
+            check(1 + 3 * SMC_MH * res.n_stages <= n <= 1 + 12 * SMC_MH * res.n_stages,
+                  f"smc: K2 launches {n} for {res.n_stages} stages")
+            entry.update(logz=res.logz, logz_err=res.logz_err, n_stages=res.n_stages)
+        out[sampler] = entry
+    print("phase 16: " + json.dumps(out), flush=True)
+    return launches
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -1610,18 +1822,27 @@ def main() -> int:
     forecast_and_band(model, truth, hmc_draws, mn, spec)
 
     # -- phases 12-14: adaptive samplers, fits, batched posteriors --------------
-    adaptive, adaptive_draws = adaptive_main_path(model, truth, obs, dev)
+    adaptive, adaptive_draws, witness = adaptive_main_path(model, truth, obs, dev)
     fits = fits_and_target_ess(model, truth, obs, adaptive_draws, dev)
     batched_and_calibration(model, res, obs, rng, dev)
+
+    # -- phases 15-16: the evidence path, PT and SMC as samplers ----------------
+    evidence = evidence_path(model, obs, witness, dev)
+    tempered = tempered_samplers(model, obs, witness, dev)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
-              "launches_fit": fits["fit"], "launches_profile": fits["profile"]}
+              "launches_fit": fits["fit"], "launches_profile": fits["profile"],
+              "launches_ladder_warm_start": evidence["ladder"]["k3"]}
+    new_k2 = {"launches_target_ess": fits["target_ess"],
+              **{f"launches_{m}": evidence[m]["k2"] for m in ("nested", "smc", "ladder")},
+              "launches_pt": tempered["pt"], "launches_smc_sampler": tempered["smc"]}
 
     # each kernel at the tier and the scale nearest to its main-path use
     # (the fp32 K1 and K2 at each chain's draws, with their 1 M-row
     # figures beside; the fp32 K3 at the exact-tier HMC's walkers, with
     # its 65,536-row figures beside); K3's mixed tier pairs run on no
     # sampler's path, so fused_loglik_grad_gram.cu shows no launches; the
-    # launches of phases 12-13 count in the totals, by path beside them
+    # launches of phases 12-13 and 15-16 count in the totals, by path
+    # beside them
     big = 1_048_576
     k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
 
@@ -1646,15 +1867,20 @@ def main() -> int:
                        bound("k1", k1_sizes, big, "f32"))),
         entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
               value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3")),
-        entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES, k2_launches, k2_err,
+        entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES,
+              k2_launches + evidence["laplace"]["k2_f32"], k2_err,
               value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
+              launches_laplace_is=evidence["laplace"]["k2_f32"],
               **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES,
-              k2_mma_launches + fits["target_ess"], k2_mma_err, value_t["k2/high/8192"],
-              bound("k2", trunk, 8192, "bf16x3"), launches_target_ess=fits["target_ess"]),
-        entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES, k3_f32_launches,
+              k2_mma_launches + sum(new_k2.values()), k2_mma_err, value_t["k2/high/8192"],
+              bound("k2", trunk, 8192, "bf16x3"), **new_k2),
+        entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES,
+              k3_f32_launches + evidence["laplace"]["k3_f32"],
               k3_err[EXACT_TIERS], timings["highest/highest/4096"],
               bound("k3", trunk, 4096, "f32", "f32"),
+              launches_exact_hmc=k3_f32_launches,
+              launches_laplace_ascent=evidence["laplace"]["k3_f32"],
               **at_64k(timings["highest/highest/65536"],
                        bound("k3", trunk, 65536, "f32", "f32"))),
         entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,

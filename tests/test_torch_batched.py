@@ -236,20 +236,20 @@ def test_sample_posterior_adaptive_samplers(pair, splits, bounds, sampler):
 
 
 def test_sample_posterior_refusals(pair, splits, bounds):
-    """The port refuses only the tempered and sequential samplers and a
-    mesh; a mesh under HMC raises the same error as under MH."""
+    """The port refuses a mesh under every sampler, the tempered and
+    sequential ones included, and the fits, and the flow evidence (it
+    waits for ``flows.py``)."""
     _, tm = pair
     obs = tm.predict(splits.par_test[0])
-    for sampler in ("pt", "smc"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            tm.sample_posterior(obs, 25.0, sampler=sampler)
     with pytest.raises(ValueError, match="sampler must be"):
         tm.sample_posterior(obs, 25.0, sampler="gibbs")
-    for sampler in ("hmc", "chees", "nuts", "mh", "ensemble"):
+    for sampler in ("hmc", "chees", "nuts", "mh", "ensemble", "pt", "smc"):
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             tm.sample_posterior(obs, 25.0, sampler=sampler, bounds=bounds, mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tm.fit_params(obs, 25.0, bounds=bounds, mesh=object())
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        tm.log_evidence(obs, 25.0, bounds=bounds, method="flow")
 
 
 _SIGNATURES = {

@@ -881,3 +881,87 @@ def test_target_ess_launches_k2_per_chunk(cuda):
     assert m.loglik_fn(obs, 25.0, backend="kernel") is k2 and k2.fused.tensor_cores
     assert res.chain.shape == (12, 256, 7) and np.isfinite(res.chain).all()
     assert k2.launches == (1 + 20 + 40) + 2 * (1 + 40)
+
+
+def _evidence_model(dev):
+    """A small CUDA model (the tiers' routes as at the flagship widths)
+    and an observation with its kernel wrappers' launch counts zeroed:
+    K2 at bf16x3 (nested, SMC, PT, the ladder), K2 and K3 at fp32
+    (Laplace's IS rounds and ascent), K3 at (high, default) (the ladder's
+    warm-start fit)."""
+    m, obs, data = _model((32, 48, 32, 24), dev)
+    wrappers = {
+        "k2": m.loglik_fn(obs, 25.0, backend="kernel"),
+        "k2_f32": m.loglik_fn(obs, 25.0, backend="kernel", precision="contract"),
+        "k3_f32": m.loglik_and_grad_fn(obs, 25.0, backend="kernel", precision="contract"),
+        "k3": m.loglik_and_grad_fn(obs, 25.0, backend="kernel", grad_precision="default"),
+    }
+    assert wrappers["k2"].fused.tensor_cores and not wrappers["k2_f32"].fused.tensor_cores
+    assert wrappers["k3_f32"].register_tiled and wrappers["k3"].tensor_cores
+    for w in wrappers.values():
+        w.launches = 0
+    return m, obs, data, wrappers
+
+
+@pytest.mark.cuda
+def test_nested_launches_k2_and_holds_to_plain(cuda):
+    """``log_evidence(method="nested")`` runs K2 at bf16x3 once for the
+    live set and once per constrained step, and nothing else; the final
+    live points' logL (the kernel's) hold to the plain bf16x3 likelihood."""
+    m, obs, data, w = _evidence_model(cuda)
+    res = m.log_evidence(obs, 25.0, n_live=256, n_mh=8, seed=0)
+    n_iters = res.n_iters // (256 // 8)
+    assert w["k2"].launches == 1 + 8 * n_iters
+    assert w["k2_f32"].launches == w["k3_f32"].launches == w["k3"].launches == 0
+    assert np.isfinite(res.logz) and not res.truncated
+    live = torch.as_tensor(res.samples[-256:], device=cuda)
+    with torch.no_grad():
+        want = m.loglik_fn(obs, 25.0)(m.params, live).cpu().numpy()
+    _close_values(res.logl[-256:], want, float(w["k2"].fused.operands(m.params).c), "high")
+
+
+@pytest.mark.cuda
+def test_laplace_launches_the_fp32_kernels(cuda):
+    """``log_evidence(method="laplace")``: ``n_steps + 1`` launches of the
+    fp32 K3 (the ascent), one fp32 K2 launch per IS round, no bf16 kernel;
+    both kernels' values at the mode hold to the plain exact tier."""
+    m, obs, data, w = _evidence_model(cuda)
+    res = m.log_evidence(obs, 25.0, method="laplace", n_starts=512, n_steps=150, n_is=2048,
+                         n_rounds=3, seed=0)
+    assert w["k3_f32"].launches == 151 and w["k2_f32"].launches == 3
+    assert w["k2"].launches == w["k3"].launches == 0
+    assert res.pd and np.isfinite(res.logz) and np.isfinite(res.logz_err)
+    x = torch.as_tensor(res.map_params[None], device=cuda)
+    with torch.no_grad():
+        want = m.loglik_fn(obs, 25.0, precision="contract")(m.params, x).cpu().numpy()
+        k2 = w["k2_f32"](m.params, x).cpu().numpy()
+    k3, _ = w["k3_f32"](m.params, x)
+    c = float(w["k2_f32"].fused.operands(m.params).c)
+    _close_values(k2, want, c, "highest")
+    _close_values(k3.cpu().numpy(), want, c, "highest")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["smc", "ladder", "pt"])
+def test_tempered_paths_launch_k2(cuda, path):
+    """SMC and the ladder through ``log_evidence``, PT through
+    ``sample_posterior``, score every batch on the memoized K2 wrapper
+    (the ladder and PT one launch for the start and two per step; the
+    ladder's warm start 501 K3 launches at (high, default))."""
+    m, obs, data, w = _evidence_model(cuda)
+    if path == "smc":
+        res = m.log_evidence(obs, 25.0, method="smc", n_particles=512, seed=0)
+        assert w["k2"].launches >= 1 + 3 * 8 * res.n_stages
+        assert np.isfinite(res.logz) and np.isfinite(res.final).all()
+    elif path == "ladder":
+        res = m.log_evidence(obs, 25.0, method="ladder", n_rungs=8, n_walkers=64,
+                             n_steps=30, n_warmup=20, seed=0)
+        assert w["k3"].launches == 501
+        assert w["k2"].launches == 1 + 2 * 50
+        assert np.isfinite(res.logz) and np.isfinite(res.posterior).all()
+    else:
+        res = m.sample_posterior(obs, 25.0, sampler="pt", n_rungs=8, n_walkers=64,
+                                 n_steps=30, n_warmup=20, thin=10, seed=0)
+        assert w["k2"].launches == 1 + 2 * 50
+        assert np.isfinite(res.chain).all() and np.isfinite(res.swap_rate).all()
+    assert w["k2_f32"].launches == w["k3_f32"].launches == 0

@@ -234,8 +234,14 @@ def test_sample_posterior_refusals(small):
         res = m.sample_posterior(obs, 9.0, sampler=name, bounds=bounds, n_walkers=16,
                                  n_steps=2, n_warmup=0, thin=1, **cap)
         assert np.isfinite(res.logp).all()
-    for name, item in (("pt", 6), ("smc", 6)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-            m.sample_posterior(obs, 9.0, sampler=name)
+    # the tempered and sequential samplers are ported too: they run
+    res = m.sample_posterior(obs, 9.0, sampler="pt", bounds=bounds, n_rungs=3, n_walkers=16,
+                             n_steps=4, n_warmup=0, thin=2)
+    assert res.chain.shape == (2, 16, 7) and np.isfinite(res.logp).all()
+    res = m.sample_posterior(obs, 9.0, sampler="smc", bounds=bounds, n_particles=64,
+                             n_mh=1, target_ess_frac=0.2)
+    assert res.final.shape == (64, 7) and np.isfinite(res.logz)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
+        m.sample_posterior(obs, 9.0, sampler="pt", mesh=object())
     with pytest.raises(ValueError, match="sampler"):
         m.sample_posterior(obs, 9.0, sampler="slice")

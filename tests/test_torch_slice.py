@@ -72,12 +72,13 @@ def test_short_hmc_through_sample_posterior(slice_setup):
     lo, hi = PAR_RANGES.T  # the default prior box
     assert (res.flat >= lo * (1 - 1e-6)).all() and (res.flat <= hi * (1 + 1e-6)).all()
     # NUTS is ported: a short run through the same memoized K3 wrapper
-    # (its plain version here); the tempered sampler is still refused
+    # (its plain version here); so is the tempered sampler, on K2's
     nuts = tm.sample_posterior(obs, 25.0, sampler="nuts", n_walkers=16, n_warmup=0,
                                n_steps=2, max_depth=2, thin=1, seed=3)
     assert np.isfinite(nuts.logp).all() and 1.0 <= nuts.mean_leapfrog <= 3.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tm.sample_posterior(obs, 25.0, sampler="pt")
+    pt = tm.sample_posterior(obs, 25.0, sampler="pt", n_rungs=3, n_walkers=16, n_warmup=0,
+                             n_steps=4, thin=2, seed=3)
+    assert pt.chain.shape == (2, 16, 7) and np.isfinite(pt.logp).all()
 
 
 @pytest.mark.parametrize("method", ["gram", "direct"])

@@ -27,11 +27,20 @@ from tpu21cmvae_torch.foregrounds import (  # noqa: F401
 )
 from tpu21cmvae_torch.models.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from tpu21cmvae_torch.models.direct import DirectEmulator  # noqa: F401
+from tpu21cmvae_torch.nested import NestedResult, nested_sampling, nested_sampling_batch  # noqa: F401
 from tpu21cmvae_torch.noisescale import ScaleMarginalNoise, marginalize_noise_scale  # noqa: F401
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad  # noqa: F401
 from tpu21cmvae_torch.ops.transforms import Normalizer  # noqa: F401
 from tpu21cmvae_torch.priors import GaussianBoxPrior  # noqa: F401
 from tpu21cmvae_torch.sampling.driver import run_batched_chain, sample_to_ess  # noqa: F401
+from tpu21cmvae_torch.sampling.evidence import (  # noqa: F401
+    EvidenceComparison,
+    EvidenceResult,
+    LaplaceResult,
+    compare_evidence,
+    laplace_evidence,
+    log_evidence,
+)
 from tpu21cmvae_torch.sampling.fit import (  # noqa: F401
     FitResult,
     ProfileResult,
@@ -47,6 +56,12 @@ from tpu21cmvae_torch.sampling.gradient import (  # noqa: F401
 )
 from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh  # noqa: F401
 from tpu21cmvae_torch.sampling.predictive import PredictiveBand, posterior_predictive  # noqa: F401
-from tpu21cmvae_torch.sampling.results import BatchSampleResult, SampleResult  # noqa: F401
+from tpu21cmvae_torch.sampling.pt import sample_pt  # noqa: F401
+from tpu21cmvae_torch.sampling.results import (  # noqa: F401
+    BatchSampleResult,
+    PTSampleResult,
+    SampleResult,
+)
 from tpu21cmvae_torch.sampling.reweight import WeightedPosterior, reweight  # noqa: F401
+from tpu21cmvae_torch.sampling.smc import SMCResult, sample_smc  # noqa: F401
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig, MLPConfig  # noqa: F401

@@ -10,9 +10,8 @@ noise specs (a scalar or per-bin variance, a foreground-marginalized
 :class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise` from
 :meth:`DirectEmulator.marginalize_foreground`, a
 :class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over either) and
-every sampler and fit a ``log_prior``. Training, the tempered and
-sequential samplers, evidence, VI, flows and serving are not ported yet
-(ROADMAP).
+every sampler and fit a ``log_prior``. Training, VI, flows and serving
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -363,31 +362,36 @@ class DirectEmulator:
           ``target_ess=N`` runs
           :func:`~tpu21cmvae_torch.sampling.driver.sample_to_ess`: MH
           chunks until the smallest bulk and tail ESS reach ``N``.
+        * ``sampler="pt"`` (parallel tempering,
+          :func:`~tpu21cmvae_torch.sampling.pt.sample_pt`: replica
+          exchange carries states between modes, so the β=1 rung gets the
+          mode weights right) and ``"smc"`` (the adaptive tempered anneal,
+          :func:`~tpu21cmvae_torch.sampling.smc.sample_smc`: mode weights
+          kept by resampling, the evidence in ``result.logz``) score
+          through the same K2 wrapper as MH, for multimodal posteriors
+          where the single-temperature samplers go metastable.
 
         ``noise_var`` takes every spec :meth:`loglik_fn` does, and
         ``log_prior=`` (a log-density over the raw parameters, e.g.
         :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.log_prior`)
         passes through the kwargs to every sampler, on top of the flat
         box; the gradient samplers' force takes its gradient by autograd.
-        Neither changes which kernel runs or how often. ``"pt"`` and
-        ``"smc"`` (ROADMAP queue 1 item 6) and ``mesh=`` (item 11) are
-        refused.
+        Neither changes which kernel runs or how often. ``mesh=`` is
+        refused (ROADMAP queue 1 item 11).
         """
-        if sampler in ("mh", "ensemble"):
+        if sampler in ("mh", "ensemble", "pt", "smc"):
             from tpu21cmvae_torch.sampling.driver import sample_to_ess
             from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
+            from tpu21cmvae_torch.sampling.pt import sample_pt
+            from tpu21cmvae_torch.sampling.smc import sample_smc
 
             if sampler == "mh" and "target_ess" in kwargs:
                 run = sample_to_ess
             else:
-                run = sample_mh if sampler == "mh" else sample_ensemble
+                run = {"mh": sample_mh, "ensemble": sample_ensemble, "pt": sample_pt,
+                       "smc": sample_smc}[sampler]
             return run(self.loglik_fn(obs, noise_var, backend=self._backend()), self.params,
                        bounds=bounds, device=self.device, **kwargs)
-        if sampler in ("pt", "smc"):
-            raise NotImplementedError(
-                f"sampler={sampler!r} is not ported yet (ROADMAP queue 1 item 6); "
-                "the port samples with 'hmc', 'chees', 'nuts', 'mh' or 'ensemble'"
-            )
         if sampler not in ("hmc", "chees", "nuts"):
             raise ValueError(
                 "sampler must be 'mh', 'ensemble', 'hmc', 'chees', 'nuts', "
@@ -450,6 +454,85 @@ class DirectEmulator:
 
         return profile_likelihood(self._hmc_valgrad(obs, noise_var), self.params, index, grid,
                                   bounds=bounds, device=self.device, **kwargs)
+
+    def log_evidence(self, obs, noise_var=1.0, *, bounds=None, method="nested",
+                     warm_start=True, **kwargs):
+        """Bayesian evidence ``log Z`` of this model given an observed
+        spectrum, under the flat box prior (or a ``log_prior``/
+        ``prior_transform`` in the kwargs): compare models by their
+        ``logz`` on the same ``obs`` and ``bounds``. kwargs forward to the
+        estimator.
+
+        * ``method="nested"`` (default,
+          :func:`~tpu21cmvae_torch.nested.nested_sampling`; a
+          :class:`~tpu21cmvae_torch.nested.NestedResult`), ``"smc"``
+          (:func:`~tpu21cmvae_torch.sampling.smc.sample_smc`) and
+          ``"ladder"`` (the stepping-stone ladder,
+          :func:`~tpu21cmvae_torch.sampling.evidence.log_evidence`; check
+          its ``logz_err`` and ``ladder_drift``) score through the same
+          K2 wrapper as MH (``loglik_fn(obs, noise_var, backend=…)``, the
+          bf16x3 tier). ``warm_start`` (ladder only) seeds every rung
+          from the best of a ``max(1024, n_walkers)``-start
+          :meth:`fit_params` of 500 steps (K3 at (high, default)).
+        * ``method="laplace"``
+          (:func:`~tpu21cmvae_torch.sampling.evidence.laplace_evidence`)
+          runs at the exact tier, as a fast-tier value error near the
+          mode would bias ``logz`` by as much: its ascent on the fp32 K3
+          (the likelihood it is handed carries the memoized contract-tier
+          K3 wrapper as its ``valgrad`` route), its Hessian by double
+          autograd through the plain likelihood, its importance-sampling
+          rounds on the fp32 K2. Blind to multimodality.
+        * ``method="flow"`` waits for ``flows.py`` (ROADMAP queue 1 item
+          7).
+
+        On a CUDA model every route is a kernel wrapper, on the CPU its
+        plain version."""
+        from tpu21cmvae_torch.sampling._common import RoutedLoglik, _refuse_mesh
+
+        _refuse_mesh(kwargs.get("mesh"))  # before the ladder's warm-start fit
+        backend = self._backend()
+        if method == "nested":
+            from tpu21cmvae_torch.nested import nested_sampling
+
+            return nested_sampling(self.loglik_fn(obs, noise_var, backend=backend),
+                                   self.params, bounds=bounds, device=self.device, **kwargs)
+        if method == "smc":
+            from tpu21cmvae_torch.sampling.smc import sample_smc
+
+            return sample_smc(self.loglik_fn(obs, noise_var, backend=backend), self.params,
+                              bounds=bounds, device=self.device, **kwargs)
+        if method == "laplace":
+            from tpu21cmvae_torch.sampling.evidence import laplace_evidence
+
+            loglik = RoutedLoglik(
+                self.loglik_fn(obs, noise_var, backend=backend, precision="contract"),
+                valgrad=self.loglik_and_grad_fn(obs, noise_var, backend=backend,
+                                                precision="contract"),
+                plain=self.loglik_fn(obs, noise_var, precision="contract"),
+            )
+            return laplace_evidence(loglik, self.params, bounds=bounds, device=self.device,
+                                    **kwargs)
+        if method == "flow":
+            raise NotImplementedError(
+                "method='flow' needs flows.py, which waits for ROADMAP queue 1 item 7"
+            )
+        if method != "ladder":
+            raise ValueError(
+                f"method must be 'nested', 'smc', 'laplace', 'flow' or 'ladder'; got {method!r}"
+            )
+        from tpu21cmvae_torch.sampling.evidence import log_evidence
+
+        if warm_start and "x0" not in kwargs:
+            fit = self.fit_params(
+                obs, noise_var, bounds=bounds,
+                n_starts=max(1024, kwargs.get("n_walkers", 256)),
+                n_steps=500, seed=kwargs.get("seed", 0) + 101,
+                log_prior=kwargs.get("log_prior"),
+            )
+            kwargs.setdefault("n_walkers", 256)
+            kwargs["x0"] = fit.top(kwargs["n_walkers"])[0]
+        return log_evidence(self.loglik_fn(obs, noise_var, backend=backend), self.params,
+                            bounds=bounds, device=self.device, **kwargs)
 
     def goodness_of_fit(self, obs, noise_var=25.0, draws=None, **kwargs):
         """Posterior predictive model check of ``obs`` over posterior

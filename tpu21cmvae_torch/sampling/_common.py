@@ -1,6 +1,6 @@
 """Shared sampler helpers: prior box, walker init, thinning, the mesh
-refusal, prior resolution, dual-averaging constants and the autodiff
-gradient adapter
+refusal, prior resolution, dual-averaging constants, the gradient
+adapter and the routed likelihood that feeds it
 (the parts of ``tpu21cmvae/sampling/_common.py`` that the ported
 samplers need)."""
 
@@ -91,14 +91,33 @@ def _dual_averaging_consts(init: float):
     return math.log(10.0 * init), 0.05, 10.0, 0.75
 
 
+class RoutedLoglik:
+    """A value likelihood ``(params, raw) → (B,)`` that also carries the
+    routes of the same likelihood its consumers need besides the value:
+    ``valgrad``, a value-and-gradient function (a K3 wrapper, which
+    :func:`valgrad_from_loglik` takes in place of autograd), and
+    ``plain``, a twice-differentiable plain version (a kernel's value
+    has no second derivative; Laplace's Hessian needs one). Either may
+    be None. ``DirectEmulator.log_evidence(method="laplace")`` builds
+    one; a bare function behaves as one with neither."""
+
+    def __init__(self, value, *, valgrad=None, plain=None):
+        self.value, self.valgrad, self.plain = value, valgrad, plain
+
+    def __call__(self, params, raw):
+        return self.value(params, raw)
+
+
 def valgrad_from_loglik(loglik):
-    """``(params, raw) → (logL, ∇logL)`` over a pure VALUE likelihood by
+    """``(params, raw) → (logL, ∇logL)`` over a VALUE likelihood: its
+    ``valgrad`` route where it carries one (:class:`RoutedLoglik`), else
     autodiff (:func:`tpu21cmvae_torch.ops.loglik.per_row_grad`: a
     row-wise VJP with a ones cotangent, exact because the likelihood is
-    row-independent). The gradient is with respect to ``raw``; both
-    outputs are detached. (The JAX package caches the adapter on the
-    likelihood for its compiled-program caches; eager PyTorch has none to
-    keep, so each call builds a new one.)"""
+    row-independent, as in the JAX package). The gradient is with
+    respect to ``raw``; both outputs are detached. (The JAX package
+    caches the adapter on the likelihood for its compiled-program
+    caches; eager PyTorch has none to keep.)"""
     from tpu21cmvae_torch.ops.loglik import per_row_grad
 
-    return per_row_grad(loglik)
+    routed = getattr(loglik, "valgrad", None)
+    return per_row_grad(loglik) if routed is None else routed

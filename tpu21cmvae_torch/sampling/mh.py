@@ -166,18 +166,28 @@ def sample_mh(
     )
 
 
+def stretch_proposal(xa, xb, a: float, u, j):
+    """The stretch move's proposal for the walkers ``xa`` (…, n, P)
+    against partners ``xb[…, j]`` (``j``: indices into ``xb``'s
+    walker axis, shaped like ``u``): ``x_j + z (x_a − x_j)`` with ``z ~
+    g(z) ∝ 1/√z`` on [1/a, a] by inverse CDF of the uniforms ``u``, and
+    the move's log-Jacobian ``(P − 1)·log z``. Leading axes batch
+    independent ensembles (the rungs of a tempered ladder, the
+    sub-populations of SMC)."""
+    z = ((a - 1.0) * u + 1.0) ** 2 / a
+    xj = torch.gather(xb, -2, j[..., None].expand(*j.shape, xb.shape[-1]))
+    prop = xj + z[..., None] * (xa - xj)
+    return prop, (xa.shape[-1] - 1.0) * torch.log(z)
+
+
 def stretch_half_move(score, params, xa, lpa, xb, a: float, u, j, log_u):
     """Half A's stretch move against half B (``tpu21cmvae/sampling/mh.py:263-278``)
-    given the uniforms ``u`` (for ``z ~ g(z) ∝ 1/√z`` on [1/a, a] by
-    inverse CDF), the partner indices ``j`` into ``xb`` and the
-    log-uniforms ``log_u``, each (len(xa),). Returns ``(xa, lpa,
-    acceptance share)``."""
-    n_params = xa.shape[1]
-    z = ((a - 1.0) * u + 1.0) ** 2 / a
-    xj = xb[j]
-    prop = xj + z[:, None] * (xa - xj)
+    given the uniforms ``u`` (for ``z``, :func:`stretch_proposal`), the
+    partner indices ``j`` into ``xb`` and the log-uniforms ``log_u``,
+    each (len(xa),). Returns ``(xa, lpa, acceptance share)``."""
+    prop, log_z = stretch_proposal(xa, xb, a, u, j)
     lp_prop = score(params, prop)
-    log_ratio = (n_params - 1.0) * torch.log(z) + lp_prop - lpa
+    log_ratio = log_z + lp_prop - lpa
     acc = log_u < log_ratio
     acc = acc | (~torch.isfinite(lpa) & torch.isfinite(lp_prop))
     xa = torch.where(acc[:, None], prop, xa)

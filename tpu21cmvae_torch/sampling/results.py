@@ -1,6 +1,7 @@
 """Sampler result containers and convergence diagnostics
-(:class:`SampleResult`, :class:`BatchSampleResult`) — a NumPy/SciPy copy
-of ``tpu21cmvae/sampling/results.py``.
+(:class:`SampleResult`, :class:`PTSampleResult`, :class:`BatchSampleResult`)
+— a NumPy/SciPy copy of ``tpu21cmvae/sampling/results.py`` and
+``pt.py::PTSampleResult``.
 
 Diagnostics implement Vehtari, Gelman, Simpson, Carpenter & Bürkner
 2021 ("Rank-normalization, folding, and localization: an improved R̂")
@@ -203,6 +204,19 @@ class SampleResult:
             f"accept rate {float(np.mean(self.accept_rate)):.2f}, "
             f"step {self.step_size:.3g}\n" + "\n".join(lines)
         )
+
+
+@dataclasses.dataclass
+class PTSampleResult(SampleResult):
+    """:class:`SampleResult` for the cold (β=1) rung of a parallel-
+    tempering run (:func:`tpu21cmvae_torch.sampling.pt.sample_pt`), plus
+    ladder diagnostics: ``swap_rate``, the per-edge replica-exchange
+    acceptance (values ≪ 0.1 mean the ladder is too coarse to transport
+    modes: add rungs or raise ``n_warmup``); ``betas``, the ladder after
+    warmup adaptation (``betas[0] = 0`` prior rung, ``betas[-1] = 1``)."""
+
+    swap_rate: np.ndarray = None
+    betas: np.ndarray = None
 
 
 @dataclasses.dataclass

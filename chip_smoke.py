@@ -125,7 +125,21 @@ Phases, one line each:
 16. parallel tempering and SMC as samplers through ``sample_posterior``
     (16 rungs × 256 walkers; 4096 particles), K2 at bf16x3: finite
     draws, every ladder edge exchanging, and each one's share of draws
-    in the low-fx mode beside the witness's.
+    in the low-fx mode beside the witness's;
+17. the variational fits and the flow evidence at the JAX defaults, on
+    phase 5's observation: ``fit_advi`` (600 steps × 512 draws, one K3
+    launch at (high, default) per step), ``fit_flow`` (a 400-step ADVI
+    warm start, then 1500 steps × 256 draws of a 6-layer, 64-wide RealNVP
+    flow, one K3 launch per step) and ``log_evidence(method="flow")``
+    (the same fit, then one fp32 K2 launch on 16,384 importance draws),
+    every wrapper's count set to 0 before each and held to those counts;
+    the flow's log Z within max(1, 4σ) nats of phase 12's witness; K3 at
+    256 and 512 rows and the fp32 K2 at 16,384 held to their plain
+    versions on rows of the fits' distributions and on the sweep's own
+    rows, and timed; then ``log_evidence_batch(final="nested")`` on four
+    of phase 14's observations, every row through the batched Laplace
+    sweep, the batched flow escalation and ``nested_sampling_batch`` (the
+    stacked likelihoods in plain PyTorch), each row finite.
 
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound, the card's name and power limit, and a last
@@ -273,6 +287,12 @@ LADDER_RUNGS, LADDER_WALKERS, LADDER_STEPS, LADDER_WARMUP = 32, 256, 400, 200
 LADDER_FIT_STEPS = 500  # the warm start's fit: max(1024, n_walkers) starts
 EVIDENCE_GATE_NATS, EVIDENCE_GATE_SIGMAS = 1.0, 4.0
 PT_SIZES = dict(n_rungs=16, n_walkers=256, n_steps=400, n_warmup=200, thin=10)
+# Phase 17: the variational fits at the JAX package's defaults, and the
+# batched evidence on four of phase 14's observations at a cut ascent.
+ADVI_STEPS, ADVI_MC = 600, 512
+FLOW_WARM, FLOW_STEPS, FLOW_MC, FLOW_IS = 400, 1500, 256, 16384
+EVIDENCE_BATCH_OBS = 4
+EVIDENCE_BATCH_CUTS = dict(n_starts=1024, n_steps=500)  # the JAX defaults: 4096 × 2000
 
 
 def check(ok: bool, what: str):
@@ -450,6 +470,12 @@ def kernel_entry(name, source, replaces, launches, marginalized, err, t, bound_m
 def trunk_flops(widths) -> int:
     """fp32 FLOPs per row of a dense network of ``widths``."""
     return 2 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+
+
+def gram_flops(trunk, backward: bool) -> int:
+    """FLOPs per row of K2 (the trunk and the gram head H×H) or, with
+    ``backward``, of K3 (the trunk's backward too)."""
+    return trunk_flops(trunk) * (2 if backward else 1) + 2 * trunk[-1] ** 2
 
 
 def value_kernels(model, obs, tier, dev, tile_rows=None):
@@ -1530,6 +1556,7 @@ def batched_and_calibration(model, hmc_result, obs, rng, dev):
         "sbc": {"wall_s": sbc_s, "pvalues": study.pvalues.tolist(), "n_sims": SBC_SIMS,
                 "n_walkers": SBC_WALKERS},
     }), flush=True)
+    return obs_b
 
 
 def evidence_wrappers(model, obs) -> dict:
@@ -1710,6 +1737,178 @@ def tempered_samplers(model, obs, witness, dev):
     return launches
 
 
+@torch.no_grad()
+def hold_variational_batches(model, obs, advi_rows, flow_rows, is_rows, dev) -> dict:
+    """Phase 17's kernels against their plain versions, fresh wrappers
+    (these launches count for no path): K3 at (high, default) on draws of
+    the fitted ADVI Gaussian in a call of its 512 rows and on draws of the
+    fitted flow in calls of its 256 (the distributions the fits' last
+    steps scored), value and gradient; the fp32 K2 on the importance
+    sweep's own rows in one call of 16,384. Each pair is then timed at
+    that batch (``time_pair``). Returns worst |Δ|/tol, largest |Δ logL|,
+    gradient q99.9 and the times, by case."""
+    report = {}
+    trunk = model.config.mlp().sizes[:-1]
+    k3 = k3_wrapper(model, obs, MAIN_TIERS, dev)
+    ops = k3.operands(model.params)
+    half_c = 0.5 * abs(float(ops.c))
+    for label, rows in (("k3_high_default_advi", advi_rows), ("k3_high_default_flow", flow_rows)):
+        x = torch.as_tensor(rows, dtype=torch.float32, device=dev)
+        vk, gk = k3(model.params, x)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        worst, max_abs = value_worst(vk, vp, MAIN_TIERS[0], half_c)
+        q999 = float(np.quantile(grad_rel_error(gk, gp), 0.999))
+        check(worst <= 1.0 and grad_gate_violation(gk, gp) <= 0.0,
+              f"{label}: worst |Δ|/tol {worst:.3g}, gradient gate "
+              f"{grad_gate_violation(gk, gp):.3g}")
+        report[label] = {"rows": int(x.shape[0]), "worst_over_tol": worst, "max_abs": max_abs,
+                         "grad_q999_rel": q999,
+                         **time_pair(lambda q: k3(model.params, q),
+                                     lambda q: loglik_grad_gram_reference(ops, q), x, 50,
+                                     gram_flops(trunk, True)),
+                         "bound_ms": bound("k3", trunk, int(x.shape[0]), "bf16x3", "bf16")[0]}
+    pairs, half_c = value_kernels(model, obs, "highest", dev)
+    kernel, plain = pairs["k2"]
+    x = torch.as_tensor(is_rows, dtype=torch.float32, device=dev)
+    worst, max_abs = value_worst(kernel(x).cpu().numpy(), plain(x).cpu().numpy(), "highest",
+                                 half_c)
+    check(worst <= 1.0, f"k2_f32_flow_is: K2 vs plain, worst |Δ|/tol {worst:.3g}")
+    report["k2_f32_flow_is"] = {"rows": int(x.shape[0]), "worst_over_tol": worst,
+                                "max_abs": max_abs,
+                                **time_pair(kernel, plain, x, 50, gram_flops(trunk, False)),
+                                "bound_ms": bound("k2", trunk, int(x.shape[0]), "f32")[0]}
+    return report
+
+
+def staged(stages: dict):
+    """Wrap the batched evidence's stage functions where
+    ``laplace_evidence_multi_auto`` looks them up, adding each call's wall
+    seconds (device synchronized) to ``stages``; returns the undo."""
+    import tpu21cmvae_torch.flows as flows_mod
+    import tpu21cmvae_torch.nested as nested_mod
+    import tpu21cmvae_torch.sampling.evidence as evidence_mod
+
+    saved = []
+    for mod, name, stage in ((evidence_mod, "laplace_evidence_multi", "laplace"),
+                             (flows_mod, "evidence_with_flow_batch", "flow"),
+                             (nested_mod, "nested_sampling_batch", "nested")):
+        fn = getattr(mod, name)
+
+        def wrapped(*args, _fn=fn, _stage=stage, **kwargs):
+            out, wall = timed(lambda: _fn(*args, **kwargs))
+            stages[_stage] = stages.get(_stage, 0.0) + wall
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return undo
+
+
+def variational_path(model, obs, witness, obs_batch, dev):
+    """Phase 17: ``fit_advi``, ``fit_flow`` and ``log_evidence(method="flow")``
+    at the JAX defaults, every evidence wrapper's count set to 0 just
+    before each and read just after (ADVI: one K3 launch at (high,
+    default) per step; the flow: one per warm-start and fit step; its
+    evidence one fp32 K2 launch more); the flow's log Z within max(1, 4σ)
+    nats of the witness's; the kernels held to plain at the paths'
+    batches; then ``log_evidence_batch(method="auto", final="nested")``
+    on ``obs_batch`` with the ascent cut to ``EVIDENCE_BATCH_CUTS`` and
+    ``khat_threshold=-inf``, so that every row runs every stage (at 0.7
+    which rows escalate would depend on the draws): every row finite,
+    each stage's wall printed. Returns the launches by path and
+    wrapper."""
+    wrappers = evidence_wrappers(model, obs)
+    w_logz, w_err = witness["logz_flat"], witness["logz_flat_err"]
+    flow_kw = dict(n_steps=FLOW_STEPS, warm_steps=FLOW_WARM, n_mc=FLOW_MC)
+    runs = {
+        "advi": lambda: model.fit_advi(obs, NOISE_VAR, n_steps=ADVI_STEPS, n_mc=ADVI_MC, seed=0),
+        "flow_fit": lambda: model.fit_flow(obs, NOISE_VAR, seed=0, **flow_kw),
+        "flow_evidence": lambda: model.log_evidence(obs, NOISE_VAR, method="flow", seed=0,
+                                                    n_is=FLOW_IS, **flow_kw),
+    }
+    wants = {"advi": dict(k3=ADVI_STEPS), "flow_fit": dict(k3=FLOW_WARM + FLOW_STEPS),
+             "flow_evidence": dict(k3=FLOW_WARM + FLOW_STEPS, k2_f32=1)}
+    # the observation's fingerprint, for a CPU rerun that replays its draws
+    # (scripts/compare_flow_evidence_cpu.py)
+    out, launches, results = {"witness": {"logz": w_logz, "logz_err": w_err},
+                              "obs_sum": float(np.sum(obs)), "obs_0": float(obs[0])}, {}, {}
+    for path, run in runs.items():
+        for w in wrappers.values():
+            w.launches = 0
+        res, wall = timed(run)
+        n = launches[path] = {name: w.launches for name, w in wrappers.items()}
+        check(all(evidence_wrappers(model, obs)[k] is w for k, w in wrappers.items()),
+              f"{path}: the memoized wrappers")
+        want = {name: 0 for name in wrappers}
+        want.update(wants[path])
+        check(n == want, f"{path}: launches {n} != {want}")
+        results[path] = res
+        elbo = res.elbo if path != "flow_evidence" else res.flow.elbo
+        check(bool(np.isfinite(elbo).all()), f"{path}: finite ELBO")
+        out[path] = {"wall_s": wall, "launches": n,
+                     "elbo_tail_mean": float(elbo[-100:].mean()),
+                     "elbo_tail_sd": float(elbo[-100:].std()),
+                     "elbo_head_mean": float(elbo[:100].mean())}
+    advi, flow, ev = results["advi"], results["flow_fit"], results["flow_evidence"]
+    box = PAR_RANGES.astype(np.float32)
+    for path, res in (("advi", advi), ("flow_fit", flow)):
+        draws = res.sample(4096, seed=1)
+        check(bool(np.isfinite(draws).all() and (draws >= box[:, 0]).all()
+                   and (draws <= box[:, 1]).all()), f"{path}: finite draws in the box")
+        out[path].update(median=np.median(draws, axis=0).tolist(),
+                         share_fx_below_split=float(np.mean(draws[:, 2] < WITNESS_FX_SPLIT)))
+    gap = ev.logz - w_logz
+    sigma = math.hypot(ev.logz_err, w_err)
+    tol = max(EVIDENCE_GATE_NATS, EVIDENCE_GATE_SIGMAS * sigma)
+    out["flow_evidence"].update(
+        logz=ev.logz, logz_err=ev.logz_err, minus_witness=gap, gate_nats=tol, khat=ev.khat,
+        is_ess=ev.is_ess, n_draws=ev.n_draws,
+        same_flow_as_fit_flow_max_abs=max(
+            float(np.abs(a - b).max()) for a, b in zip(
+                [ev.flow.theta["mu"], ev.flow.theta["a"]] +
+                [layer["w2"] for layer in ev.flow.theta["layers"]],
+                [flow.theta["mu"], flow.theta["a"]] +
+                [layer["w2"] for layer in flow.theta["layers"]])))
+    check(bool(np.isfinite(ev.logz)) and abs(gap) <= tol,
+          f"flow: log Z {ev.logz:.3f} is {gap:+.3f} from the witness's {w_logz:.3f} "
+          f"(tolerance {tol:.3f})")
+    out["held_at_path_batches"] = hold_variational_batches(
+        model, obs, advi.sample(ADVI_MC, seed=2), flow.sample(FLOW_MC, seed=2), ev._x, dev)
+    print("phase 17: " + json.dumps(out), flush=True)
+
+    stages = {}
+    undo = staged(stages)
+    try:
+        batch, wall = timed(lambda: model.log_evidence_batch(
+            obs_batch, NOISE_VAR, method="auto", khat_threshold=-math.inf, final="nested",
+            seed=0, **EVIDENCE_BATCH_CUTS))
+    finally:
+        undo()
+    rows = []
+    for r in batch:
+        fr, fe = r.final_result, r.escalation
+        check(fr is not None and fe is not None, "evidence batch: every row ran every stage")
+        check(bool(np.isfinite(r.logz) and np.isfinite(fe.logz) and np.isfinite(fr.logz)),
+              f"evidence batch: finite log Z {r.logz}, flow {fe.logz}, nested {fr.logz}")
+        rows.append({"method_used": r.method_used, "logz": r.logz, "logz_err": r.logz_err,
+                     "logz_laplace": r.logz_laplace, "pd": r.pd, "flow_logz": fe.logz,
+                     "flow_logz_err": fe.logz_err, "flow_khat": fe.khat,
+                     "flow_is_ess": fe.is_ess, "nested_logz": fr.logz,
+                     "nested_logz_err": fr.logz_err, "nested_iters": fr.n_iters,
+                     "nested_truncated": fr.truncated})
+    print("phase 17: evidence batch " + json.dumps({
+        "n_obs": len(batch), "wall_s": wall, "stage_wall_s": stages,
+        "cuts": {**EVIDENCE_BATCH_CUTS, "khat_threshold": "-inf"},
+        "rows": rows}), flush=True)
+    return launches
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -1824,14 +2023,19 @@ def main() -> int:
     # -- phases 12-14: adaptive samplers, fits, batched posteriors --------------
     adaptive, adaptive_draws, witness = adaptive_main_path(model, truth, obs, dev)
     fits = fits_and_target_ess(model, truth, obs, adaptive_draws, dev)
-    batched_and_calibration(model, res, obs, rng, dev)
+    obs_batch = batched_and_calibration(model, res, obs, rng, dev)
 
     # -- phases 15-16: the evidence path, PT and SMC as samplers ----------------
     evidence = evidence_path(model, obs, witness, dev)
     tempered = tempered_samplers(model, obs, witness, dev)
+
+    # -- phase 17: the variational fits, the flow evidence, the batch ---------
+    variational = variational_path(model, obs, witness, obs_batch[:EVIDENCE_BATCH_OBS], dev)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
               "launches_fit": fits["fit"], "launches_profile": fits["profile"],
-              "launches_ladder_warm_start": evidence["ladder"]["k3"]}
+              "launches_ladder_warm_start": evidence["ladder"]["k3"],
+              **{f"launches_{m}": variational[m]["k3"]
+                 for m in ("advi", "flow_fit", "flow_evidence")}}
     new_k2 = {"launches_target_ess": fits["target_ess"],
               **{f"launches_{m}": evidence[m]["k2"] for m in ("nested", "smc", "ladder")},
               "launches_pt": tempered["pt"], "launches_smc_sampler": tempered["smc"]}
@@ -1868,9 +2072,11 @@ def main() -> int:
         entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
               value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3")),
         entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES,
-              k2_launches + evidence["laplace"]["k2_f32"], k2_err,
+              k2_launches + evidence["laplace"]["k2_f32"]
+              + variational["flow_evidence"]["k2_f32"], k2_err,
               value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
               launches_laplace_is=evidence["laplace"]["k2_f32"],
+              launches_flow_is=variational["flow_evidence"]["k2_f32"],
               **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES,
               k2_mma_launches + sum(new_k2.values()), k2_mma_err, value_t["k2/high/8192"],

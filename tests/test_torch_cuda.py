@@ -965,3 +965,92 @@ def test_tempered_paths_launch_k2(cuda, path):
         assert w["k2"].launches == 1 + 2 * 50
         assert np.isfinite(res.chain).all() and np.isfinite(res.swap_rate).all()
     assert w["k2_f32"].launches == w["k3_f32"].launches == 0
+
+
+@pytest.mark.cuda
+def test_flow_step_on_k3_matches_plain(cuda):
+    """One ``fit_flow`` step at the flagship widths on the same flow and
+    draws through K3 at (high, default) and through the plain route at
+    the same tiers: the draws' y-gradients pass the gradient gate, the
+    ELBO agrees within the bf16x3 value tolerance (per draw, summed), and
+    so do the ELBO's parameter gradients (Adam's first moments, one
+    row) under the gate; K3 launches once."""
+    from tpu21cmvae_torch.flows import RealNVP, flow_step, init_flow
+    from tpu21cmvae_torch.sampling._common import _resolve_bounds
+    from tpu21cmvae_torch.sampling.fit import Adam
+    from tpu21cmvae_torch.sampling.gradient import _whitened_vi_target
+
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    k3 = m.loglik_and_grad_fn(obs, 25.0, backend="kernel", grad_precision="default")
+    plain = m.loglik_and_grad_fn(obs, 25.0, grad_precision="default")
+    assert k3.tensor_cores
+    lo, hi = _resolve_bounds(None, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    theta = init_flow(gen, 7)
+    z = torch.randn((256, 7), generator=gen, device=cuda)
+    out = {}
+    for name, fn in (("kernel", k3), ("plain", plain)):
+        flow = RealNVP(theta, device=cuda)
+        integrand = _whitened_vi_target(fn, lo, hi - lo, None, span_jac=False)
+        with torch.no_grad():
+            y, _ = flow(z)
+            f, g = integrand(m.params, y)
+        adam = Adam(flow.parameters())
+        k3.launches = 0
+        elbo = flow_step(flow, integrand, m.params, adam, 1, z, n_steps=1500,
+                         learning_rate=3e-3)
+        out[name] = (f.cpu().numpy(), g.cpu().numpy(), float(elbo), adam.m.cpu().numpy(),
+                     k3.launches)
+    fk, gk, ek, mk, nk = out["kernel"]
+    fp, gp, ep, mp, npl = out["plain"]
+    assert nk == 1 and npl == 0
+    assert grad_gate_violation(gk, gp) <= 0.0
+    c = float(k3.operands(m.params).c)
+    _close_values(fk, fp, c, "high")
+    assert abs(ek - ep) <= VALUE_RTOL["high"] * (np.abs(fp).mean() + 0.5 * abs(c)) + 1e-2
+    assert grad_gate_violation(mk[None], mp[None]) <= 0.0
+
+
+@pytest.mark.cuda
+def test_variational_fits_launch_k3_once_per_step(cuda):
+    """``fit_advi`` makes ``n_steps`` launches of the memoized K3 at (high,
+    default), ``fit_flow`` ``warm_steps + n_steps``, and
+    ``log_evidence(method="flow")`` those and one fp32 K2 launch (the
+    importance sweep), nothing else; results finite and in the box."""
+    m, obs, data, w = _evidence_model(cuda)
+    advi = m.fit_advi(obs, 25.0, n_steps=60, n_mc=128, seed=0)
+    assert w["k3"].launches == 60
+    assert np.isfinite(advi.mu).all() and np.isfinite(advi.elbo).all()
+    w["k3"].launches = 0
+    flow = m.fit_flow(obs, 25.0, n_steps=40, warm_steps=30, n_mc=64, seed=0)
+    assert w["k3"].launches == 70 and np.isfinite(flow.elbo).all()
+    w["k3"].launches = 0
+    ev = m.log_evidence(obs, 25.0, method="flow", n_steps=40, warm_steps=30, n_mc=64,
+                        n_is=2048, seed=0)
+    assert w["k3"].launches == 70 and w["k2_f32"].launches == 1
+    assert w["k2"].launches == w["k3_f32"].launches == 0
+    assert np.isfinite(ev.logz) and np.isfinite(ev.khat) and ev._x.shape == (2048, 7)
+    from tpu21cmvae_torch.data.synthetic import PAR_RANGES
+
+    box = np.asarray(PAR_RANGES, np.float32)
+    assert (ev._x >= box[:, 0]).all() and (ev._x <= box[:, 1]).all()
+
+
+@pytest.mark.cuda
+def test_log_evidence_batch_runs_every_stage_on_the_card(cuda):
+    """``log_evidence_batch`` on two observations with every row forced
+    through the flow and the nested final: the stacked paths stay plain
+    PyTorch on the card (no wrapper of the model's launches), and every
+    row ends finite with its estimator named."""
+    m, obs, data, w = _evidence_model(cuda)
+    obs2 = np.stack([obs, m.predict(data.par_test[1])])
+    res = m.log_evidence_batch(obs2, 25.0, method="flow", khat_threshold=-np.inf,
+                               final="nested", n_starts=64, n_steps=50, n_is=1024,
+                               flow_kwargs=dict(n_steps=30, warm_steps=20, n_mc=64,
+                                                n_is=1024),
+                               final_kwargs=dict(n_live=128, n_mh=8))
+    assert len(res) == 2
+    for r in res:
+        assert r.escalation is not None and r.final_result is not None
+        assert r.method_used == "nested" and np.isfinite(r.logz)
+    assert all(x.launches == 0 for x in w.values())

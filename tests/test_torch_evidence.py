@@ -157,7 +157,7 @@ def test_log_evidence_matches_analytic_gaussian():
     assert "log Z" in res.summary()
     with pytest.raises(ValueError, match="n_rungs"):
         log_evidence(_gauss(MU, SIG), None, n_rungs=1, bounds=BOUNDS, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="parallel/"):
         log_evidence(_gauss(MU, SIG), None, bounds=BOUNDS, mesh=object(), device="cpu")
 
 
@@ -369,8 +369,8 @@ def test_log_evidence_matches_jax_on_the_small_model(setup, method, kw):
 def test_compare_evidence_and_refusals(setup):
     """``compare_evidence`` ranks the generating model over a copy whose
     signal is scaled 25 % (the JAX suite's broken variant), reports Bayes
-    factors against the winner; ``method="flow"`` and an unknown method
-    are refused, the mesh before any work."""
+    factors against the winner; an unknown method is refused, and a mesh
+    before any work."""
     from tpu21cmvae_torch.nested import nested_sampling
     from tpu21cmvae_torch.sampling.evidence import EvidenceComparison, compare_evidence
 
@@ -398,7 +398,7 @@ def test_compare_evidence_and_refusals(setup):
         compare_evidence({"only": tm}, obs, 25.0)
     with pytest.raises(ValueError, match="method must be"):
         tm.log_evidence(obs, 25.0, bounds=bounds, method="bogus")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="parallel/"):
         tm.log_evidence(obs, 25.0, bounds=bounds, method="ladder", mesh=object())
 
 
@@ -411,14 +411,28 @@ _SIGNATURES = {
     "sampling.evidence.compare_evidence": ("sampling.evidence", "compare_evidence"),
     "sampling.pt.sample_pt": ("sampling.pt", "sample_pt"),
     "sampling.smc.sample_smc": ("sampling.smc", "sample_smc"),
+    "sampling.evidence.laplace_evidence_multi": ("sampling.evidence", "laplace_evidence_multi"),
+    "sampling.evidence.laplace_evidence_multi_auto": ("sampling.evidence",
+                                                      "laplace_evidence_multi_auto"),
+    "DirectEmulator.log_evidence_batch": ("models.direct", "DirectEmulator.log_evidence_batch"),
+    "DirectEmulator.fit_advi": ("models.direct", "DirectEmulator.fit_advi"),
+    "DirectEmulator.fit_flow": ("models.direct", "DirectEmulator.fit_flow"),
+    "vi.fit_advi": ("vi", "fit_advi"),
+    "vi.fit_advi_batch": ("vi", "fit_advi_batch"),
+    "flows.fit_flow": ("flows", "fit_flow"),
+    "flows.fit_flow_batch": ("flows", "fit_flow_batch"),
+    "flows.flow_evidence": ("flows", "flow_evidence"),
+    "flows.flow_evidence_batch": ("flows", "flow_evidence_batch"),
+    "flows.evidence_with_flow": ("flows", "evidence_with_flow"),
+    "flows.evidence_with_flow_batch": ("flows", "evidence_with_flow_batch"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_SIGNATURES))
 def test_entry_point_signatures_match_jax(name):
-    """Each evidence entry point takes the JAX package's parameters, with
-    their defaults, in the same order; the functions that build tensors
-    add only the required keyword ``device``."""
+    """Each evidence and variational entry point takes the JAX package's
+    parameters, with their defaults, in the same order; the functions
+    that build tensors add only the required keyword ``device``."""
     import importlib
     import inspect
 

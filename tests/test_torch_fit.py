@@ -234,13 +234,14 @@ _MESH_REFUSERS = {
 @pytest.mark.parametrize("name", sorted(_MESH_REFUSERS))
 def test_mesh_is_refused(name):
     """Every gradient sampler and fit takes ``mesh=`` and refuses a mesh
-    with the item 11 error before it calls the likelihood."""
+    with the mesh error (it waits for the port of ``parallel/``)
+    before it calls the likelihood."""
     calls = []
 
     def valgrad(params, x):
         calls.append(1)
         return _torch_valgrad(params, x)
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="parallel/"):
         _MESH_REFUSERS[name](valgrad, np.stack([MU - 1, MU + 1], axis=1))
     assert not calls

@@ -28,7 +28,7 @@ def test_import_pulls_in_no_jax():
         "tpu21cmvae_torch.sampling.fit, tpu21cmvae_torch.sampling.driver, "
         "tpu21cmvae_torch.calibration, tpu21cmvae_torch.nested, "
         "tpu21cmvae_torch.sampling.pt, tpu21cmvae_torch.sampling.smc, "
-        "tpu21cmvae_torch.sampling.evidence\n"
+        "tpu21cmvae_torch.sampling.evidence, tpu21cmvae_torch.vi, tpu21cmvae_torch.flows\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu21cmvae'))\n"
         "print(bad)\n"

@@ -17,6 +17,16 @@ from tpu21cmvae_torch.calibration import (  # noqa: F401
     sbc,
 )
 from tpu21cmvae_torch.data.synthetic import synthetic_dataset, synthetic_params  # noqa: F401
+from tpu21cmvae_torch.flows import (  # noqa: F401
+    FlowEvidenceResult,
+    FlowResult,
+    evidence_with_flow,
+    evidence_with_flow_batch,
+    fit_flow,
+    fit_flow_batch,
+    flow_evidence,
+    flow_evidence_batch,
+)
 from tpu21cmvae_torch.foregrounds import (  # noqa: F401
     MarginalizedNoise,
     foreground_basis,
@@ -39,6 +49,7 @@ from tpu21cmvae_torch.sampling.evidence import (  # noqa: F401
     LaplaceResult,
     compare_evidence,
     laplace_evidence,
+    laplace_evidence_multi,
     log_evidence,
 )
 from tpu21cmvae_torch.sampling.fit import (  # noqa: F401
@@ -65,3 +76,4 @@ from tpu21cmvae_torch.sampling.results import (  # noqa: F401
 from tpu21cmvae_torch.sampling.reweight import WeightedPosterior, reweight  # noqa: F401
 from tpu21cmvae_torch.sampling.smc import SMCResult, sample_smc  # noqa: F401
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig, MLPConfig  # noqa: F401
+from tpu21cmvae_torch.vi import ADVIResult, fit_advi, fit_advi_batch  # noqa: F401

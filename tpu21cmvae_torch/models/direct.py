@@ -10,8 +10,8 @@ noise specs (a scalar or per-bin variance, a foreground-marginalized
 :class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise` from
 :meth:`DirectEmulator.marginalize_foreground`, a
 :class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over either) and
-every sampler and fit a ``log_prior``. Training, VI, flows and serving
-are not ported yet (ROADMAP).
+every sampler, fit and variational fit a ``log_prior``. Training and
+serving are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -377,7 +377,7 @@ class DirectEmulator:
         passes through the kwargs to every sampler, on top of the flat
         box; the gradient samplers' force takes its gradient by autograd.
         Neither changes which kernel runs or how often. ``mesh=`` is
-        refused (ROADMAP queue 1 item 11).
+        refused (it waits for the port of ``parallel/``).
         """
         if sampler in ("mh", "ensemble", "pt", "smc"):
             from tpu21cmvae_torch.sampling.driver import sample_to_ess
@@ -482,8 +482,16 @@ class DirectEmulator:
           K3 wrapper as its ``valgrad`` route), its Hessian by double
           autograd through the plain likelihood, its importance-sampling
           rounds on the fp32 K2. Blind to multimodality.
-        * ``method="flow"`` waits for ``flows.py`` (ROADMAP queue 1 item
-          7).
+        * ``method="flow"``
+          (:func:`~tpu21cmvae_torch.flows.evidence_with_flow`; a
+          :class:`~tpu21cmvae_torch.flows.FlowEvidenceResult`) fits a
+          RealNVP flow through the same value+gradient function as HMC
+          (K3 at (high, default): the fit's tier shapes only the
+          proposal), warm-started by ADVI, then importance-samples the
+          evidence through it on the contract-tier value (the fp32 K2).
+          For curved or skewed posteriors, where Laplace's khat fails;
+          check ``khat < 0.7`` all the same. ``flow=`` reuses a
+          :meth:`fit_flow` result.
 
         On a CUDA model every route is a kernel wrapper, on the CPU its
         plain version."""
@@ -513,9 +521,12 @@ class DirectEmulator:
             return laplace_evidence(loglik, self.params, bounds=bounds, device=self.device,
                                     **kwargs)
         if method == "flow":
-            raise NotImplementedError(
-                "method='flow' needs flows.py, which waits for ROADMAP queue 1 item 7"
-            )
+            from tpu21cmvae_torch.flows import evidence_with_flow
+
+            return evidence_with_flow(
+                self.loglik_fn(obs, noise_var, backend=backend, precision="contract"),
+                self._hmc_valgrad(obs, noise_var), self.params, bounds=bounds,
+                device=self.device, **kwargs)
         if method != "ladder":
             raise ValueError(
                 f"method must be 'nested', 'smc', 'laplace', 'flow' or 'ladder'; got {method!r}"
@@ -533,6 +544,85 @@ class DirectEmulator:
             kwargs["x0"] = fit.top(kwargs["n_walkers"])[0]
         return log_evidence(self.loglik_fn(obs, noise_var, backend=backend), self.params,
                             bounds=bounds, device=self.device, **kwargs)
+
+    def log_evidence_batch(self, obs_batch, noise_var=1.0, *, bounds=None, method="auto",
+                           khat_threshold=0.7, flow_kwargs=None, final=None,
+                           final_kwargs=None, **kwargs):
+        """Evidences of a batch of observed spectra: Laplace + adaptive IS
+        with every stage batched over the observations
+        (:func:`~tpu21cmvae_torch.sampling.evidence.laplace_evidence_multi`
+        over the stacked gram likelihood at the contract tier, in plain
+        PyTorch), then the khat escalation
+        (:func:`~tpu21cmvae_torch.sampling.evidence.laplace_evidence_multi_auto`):
+        under ``method="auto"`` every row whose khat is not below
+        ``khat_threshold`` is re-estimated through a flow proposal
+        (``"laplace"`` skips it, ``"flow"`` escalates every row;
+        ``flow_kwargs`` go to the flow fit and sweep). Several flagged rows
+        fit together on the stacked value+gradient function
+        (:meth:`_rows_valgrad`, plain PyTorch); a lone one through the
+        model's own wrappers, as :meth:`log_evidence` (``method="flow"``)
+        runs. ``final="nested"``/``"smc"`` settles the rows that still fail
+        (several nested rows as one
+        :func:`~tpu21cmvae_torch.nested.nested_sampling_batch` on the
+        stacked likelihood). Returns one
+        :class:`~tpu21cmvae_torch.sampling.evidence.LaplaceResult` per row,
+        ``method_used`` naming its estimator."""
+        from tpu21cmvae_torch.sampling.evidence import laplace_evidence_multi_auto
+
+        obs_batch = np.atleast_2d(np.asarray(obs_batch, np.float32))
+        backend = self._backend()
+        return laplace_evidence_multi_auto(
+            self.loglik_multi_fn(obs_batch, noise_var, precision="contract"),
+            self.params, obs_batch.shape[0], bounds=bounds, method=method,
+            khat_threshold=khat_threshold, flow_kwargs=flow_kwargs, final=final,
+            final_kwargs=final_kwargs,
+            row_loglik=lambda i: self.loglik_fn(obs_batch[i], noise_var, backend=backend,
+                                                precision="contract"),
+            row_valgrad=lambda i: self._hmc_valgrad(obs_batch[i], noise_var),
+            rows_loglik=lambda idx: self.loglik_multi_fn(obs_batch[np.asarray(idx)], noise_var,
+                                                         precision="contract"),
+            rows_valgrad=self._rows_valgrad(obs_batch, noise_var),
+            device=self.device, **kwargs,
+        )
+
+    def _rows_valgrad(self, obs_batch, noise_var):
+        """A function of observation indices ``idx`` that returns the
+        stacked value+gradient function over those observations: the
+        batched flow escalation's fit (its sweep scores through the
+        contract-tier stacked value)."""
+        from tpu21cmvae_torch.ops.loglik import make_loglik_and_grad_multi
+
+        def build(idx):
+            return make_loglik_and_grad_multi(self.config, self.normalizer,
+                                              obs_batch[np.asarray(idx)], noise_var)
+
+        return build
+
+    def fit_advi(self, obs, noise_var=1.0, *, bounds=None, **kwargs):
+        """Full-rank Gaussian ADVI of the posterior
+        (:func:`~tpu21cmvae_torch.vi.fit_advi`) through the same
+        value+gradient function as HMC (K3 at (high, default) on a CUDA
+        model, one launch per step). Returns an
+        :class:`~tpu21cmvae_torch.vi.ADVIResult` (``.sample(n)``,
+        ``.mean()``, ``.std()``); prefer :meth:`fit_flow` or a chain when
+        the posterior may be non-Gaussian."""
+        from tpu21cmvae_torch.vi import fit_advi
+
+        return fit_advi(self._hmc_valgrad(obs, noise_var), self.params, bounds=bounds,
+                        device=self.device, **kwargs)
+
+    def fit_flow(self, obs, noise_var=1.0, *, bounds=None, **kwargs):
+        """Normalizing-flow posterior fit
+        (:func:`~tpu21cmvae_torch.flows.fit_flow`): a RealNVP coupling
+        stack trained by reparameterized ELBO ascent through the same
+        value+gradient function as HMC (K3 at (high, default) on a CUDA
+        model: ``warm_steps + n_steps`` launches). Returns a
+        :class:`~tpu21cmvae_torch.flows.FlowResult` (``.sample(n)``, exact
+        ``.log_q``); pass it to ``log_evidence(method="flow", flow=...)``."""
+        from tpu21cmvae_torch.flows import fit_flow
+
+        return fit_flow(self._hmc_valgrad(obs, noise_var), self.params, bounds=bounds,
+                        device=self.device, **kwargs)
 
     def goodness_of_fit(self, obs, noise_var=25.0, draws=None, **kwargs):
         """Posterior predictive model check of ``obs`` over posterior

@@ -205,7 +205,7 @@ def nested_sampling_batch(
     :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.prior_transform`):
     the sampler then explores ``u`` and ``bounds`` only fixes the
     dimension; ``samples`` are raw θ either way. ``mesh`` is refused
-    (ROADMAP queue 1 item 11). Returns ``n_obs`` :class:`NestedResult`.
+    (it waits for the port of ``parallel/``). Returns ``n_obs`` :class:`NestedResult`.
     """
     _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device

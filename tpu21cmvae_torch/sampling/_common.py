@@ -51,8 +51,8 @@ def _refuse_mesh(mesh):
     any mesh: the port runs on one device."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (walkers sharded over several devices) waits for ROADMAP "
-            "queue 1 item 11; the port samples on one device"
+            "mesh= (walkers sharded over several devices) waits for the port of "
+            "parallel/; the port samples on one device"
         )
 
 

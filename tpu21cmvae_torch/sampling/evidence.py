@@ -14,8 +14,11 @@ autograd through the ``plain`` route, and its importance-sampling rounds
 through the value (K2 at fp32). The NumPy stages (the generalized-Pareto
 fit, PSIS, the AMIS refits, the weights' reduction) are copies of the
 JAX package's, float64 throughout. The batched forms
-(``laplace_evidence_multi(_auto)``) escalate through a normalizing flow
-and wait for ``flows.py`` (ROADMAP queue 1 item 7).
+(:func:`laplace_evidence_multi` over a stacked-observation likelihood, in
+plain PyTorch on both devices as the JAX package's stacked forms are
+plain XLA) and :func:`laplace_evidence_multi_auto` escalate the rows
+whose khat fails through a normalizing flow (:mod:`tpu21cmvae_torch.flows`)
+and then, optionally, nested sampling or SMC.
 """
 
 from __future__ import annotations
@@ -160,8 +163,8 @@ def log_evidence(
     at K=32, 400 steps): check ``logz_err`` and ``ladder_drift``.
     ``x0`` (W, P) seeds every rung (``fit_map(...).params``);
     ``log_prior`` makes the ladder ``L^β·π`` and ``logz`` the evidence
-    under the box-normalized prior; ``mesh`` is refused (ROADMAP queue 1
-    item 11).
+    under the box-normalized prior; ``mesh`` is refused (it waits for
+    the port of ``parallel/``).
     """
     _refuse_mesh(mesh)
     log_prior = _resolve_log_prior(log_prior)
@@ -237,9 +240,12 @@ class LaplaceResult:
     by the delta method; ``pd`` is False when the Hessian was not
     negative-definite at the mode. ``posterior(n)`` draws inside the box,
     importance-resampled when IS ran, from the Gaussian otherwise.
-    (The JAX result's escalation fields belong to
-    ``laplace_evidence_multi_auto``, which waits for ROADMAP queue 1
-    item 7.)"""
+    ``method_used``: the estimator behind ``logz`` — ``"laplace"``, or,
+    after :func:`laplace_evidence_multi_auto` escalated the row,
+    ``"flow"`` (``escalation`` then holds the
+    :class:`~tpu21cmvae_torch.flows.FlowEvidenceResult`; it holds every
+    attempt, adopted or not), ``"nested"`` or ``"smc"`` (the definitive
+    result in ``final_result``)."""
 
     logz: float
     map_params: np.ndarray
@@ -250,6 +256,9 @@ class LaplaceResult:
     logz_laplace: float = float("nan")
     is_ess: float = float("nan")
     khat: float = float("nan")
+    method_used: str = "laplace"
+    escalation: object = dataclasses.field(default=None, repr=False)
+    final_result: object = dataclasses.field(default=None, repr=False)
     _y_map: np.ndarray = dataclasses.field(default=None, repr=False)
     _y_chol: np.ndarray = dataclasses.field(default=None, repr=False)
     _lo: np.ndarray = dataclasses.field(default=None, repr=False)
@@ -276,7 +285,19 @@ class LaplaceResult:
     def summary(self, labels=None) -> str:
         sd = np.sqrt(np.maximum(np.diag(self.cov), 0.0))
         labels = labels or [f"p{i}" for i in range(sd.shape[0])]
-        if np.isfinite(self.logz_err):
+        if self.method_used != "laplace":
+            # an escalation stage replaced the headline fields: name it
+            est = {"flow": "flow-IS escalation",
+                   "nested": "nested sampling (definitive)",
+                   "smc": "tempered SMC (definitive)"}.get(self.method_used, self.method_used)
+            khat_s = f", khat {self.khat:.2f}" if np.isfinite(self.khat) else ""
+            head = (
+                f"log Z = {self.logz:.4f} ± {self.logz_err:.4f}  "
+                f"({est}{khat_s}; Laplace saddle point "
+                f"{self.logz_laplace:.4f}, negative-definite Hessian: "
+                f"{self.pd})"
+            )
+        elif np.isfinite(self.logz_err):
             head = (
                 f"log Z = {self.logz:.4f} ± {self.logz_err:.4f}  "
                 f"(Laplace+IS; saddle point {self.logz_laplace:.4f}, "
@@ -293,7 +314,7 @@ class LaplaceResult:
             f"  {l:>8}: {m:12.5g} ± {s:10.4g}"
             for l, m, s in zip(labels, self.map_params, sd)
         ]
-        if self._is_logw is not None and (
+        if self.method_used not in ("nested", "smc") and self._is_logw is not None and (
             (np.isfinite(self.khat) and self.khat > 0.7)
             or self.is_ess < 0.02 * self._is_logw.shape[0]
         ):
@@ -504,15 +525,25 @@ def student_t_rows(gen, n: int, p: int, df: float = _IS_DF):
 
 
 def laplace_hessian(loglik, log_prior, lo, hi, params, y_map):
-    """The 7×7 Hessian of the whitened log-density at ``y_map`` (float32,
-    on ``lo``'s device) by double autograd through the plain likelihood
+    """The 7×7 Hessians of the whitened log-density at ``y_map`` (float32,
+    on ``lo``'s device): one row (P,), or one row per observation (O, P)
+    of a stacked likelihood. Double autograd through the plain likelihood
     (``loglik.plain`` where the likelihood carries one; a kernel's value
-    has no second derivative). Returns float64 NumPy."""
+    has no second derivative): the gradient field of the summed density,
+    then P backward passes of its k-th column summed over the rows. The
+    cross-observation blocks are zero, so pass k reads every
+    observation's own k-th row at once, as the JAX package's P JVP
+    columns do. Returns float64 NumPy, (P, P) or (O, P, P)."""
     plain = getattr(loglik, "plain", None)
     g = _whitened_density(loglik if plain is None else plain, log_prior, lo, hi - lo)
+    p = y_map.shape[-1]
     with torch.enable_grad():
-        h = torch.autograd.functional.hessian(lambda y: g(params, y[None])[0], y_map)
-    return h.detach().cpu().numpy().astype(np.float64)
+        y = y_map.detach().reshape(-1, p).clone().requires_grad_(True)
+        (grad,) = torch.autograd.grad(g(params, y).sum(), y, create_graph=True)
+        rows = [torch.autograd.grad(grad[:, k].sum(), y, retain_graph=True)[0]
+                for k in range(p)]
+    h = torch.stack(rows, dim=1).detach().cpu().numpy().astype(np.float64)
+    return h.reshape(*y_map.shape, p)
 
 
 def _logit_in_box(x, lo, hi):
@@ -583,47 +614,253 @@ def laplace_evidence(
     from ``DirectEmulator.log_evidence``), autograd otherwise; the Hessian
     its ``plain`` route by double autograd; the IS rounds its value.
     Unimodal by construction: on a multimodal posterior it reports the
-    dominant mode's evidence. ``mesh`` is refused (ROADMAP queue 1 item
-    11).
+    dominant mode's evidence. ``mesh`` is refused (it waits for the port
+    of ``parallel/``). It is :func:`laplace_evidence_multi` over one
+    observation, with the single-observation defaults.
     """
+    return laplace_evidence_multi(
+        loglik, params, 1, bounds=bounds, n_starts=n_starts, n_steps=n_steps, n_is=n_is,
+        n_rounds=n_rounds, learning_rate=learning_rate, seed=seed, log_prior=log_prior,
+        mesh=mesh, device=device)[0]
+
+
+@torch.no_grad()
+def laplace_evidence_multi(
+    loglik_multi,
+    params,
+    n_obs: int,
+    *,
+    bounds=None,
+    n_starts: int = 4096,
+    n_steps: int = 2000,
+    n_is: int = 4096,
+    n_rounds: int = 3,
+    learning_rate: float = 0.05,
+    seed: int = 0,
+    log_prior=None,
+    mesh=None,
+    device,
+) -> list:
+    """Laplace + adaptive importance sampling evidence for ``O``
+    observations at once, every stage batched over them:
+    ``loglik_multi(params, (O·W, P)) → (O·W,)`` is a stacked-observation
+    likelihood (observation-major rows,
+    :func:`tpu21cmvae_torch.ops.loglik.make_loglik_multi`).
+
+    1. One whitened MAP ascent over ``O·n_starts`` rows
+       (:func:`~tpu21cmvae_torch.sampling.fit._whitened_adam_ascent` over
+       ``valgrad_from_loglik(loglik_multi)``), each row against its own
+       observation;
+    2. every observation's Hessian (:func:`laplace_hessian`, P
+       double-autograd passes whatever O);
+    3. ``n_rounds`` Student-t rounds of ``O·n_is`` rows, one stacked call
+       each, with per-observation adaptive proposals (:func:`_amis_sharpen`):
+       Student-t, not Gaussian, because the whitened target's tails are
+       exponential; ``n_is=0`` stops at the saddle points.
+
+    The defaults are per-observation budgets (the JAX package's measured
+    reliability floor). ``mesh`` is refused (it waits for the port of
+    ``parallel/``). Returns ``O`` :class:`LaplaceResult`."""
     _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     span = hi - lo
+    p = int(lo.shape[0])
     prior_lbm = _prior_log_box_mean(log_prior, lo, hi)
-    x0 = _init_walkers(torch.Generator(device=device).manual_seed(seed), n_starts, lo, hi)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x0 = _init_walkers(gen, n_obs * n_starts, lo, hi)
     x_fin, g_fin = _whitened_adam_ascent(
-        valgrad_from_loglik(loglik), params, lo, hi, x0,
+        valgrad_from_loglik(loglik_multi), params, lo, hi, x0,
         n_steps=n_steps, learning_rate=learning_rate, log_prior=log_prior, jacobian=True,
     )
-    g_np = g_fin.cpu().numpy()
-    best = int(np.nanargmax(g_np))
-    x_map = x_fin[best].cpu().numpy()
+    x_np = x_fin.cpu().numpy().reshape(n_obs, n_starts, p)
+    g_np = g_fin.cpu().numpy().reshape(n_obs, n_starts)
+    best = np.nanargmax(g_np, axis=1)
+    obs_rows = np.arange(n_obs)
+    x_map, g_best = x_np[obs_rows, best], g_np[obs_rows, best]
     lo_np, hi_np = lo.cpu().numpy(), hi.cpu().numpy()
     y_map = _logit_in_box(x_map, lo_np, hi_np)
-    h = laplace_hessian(loglik, log_prior, lo, hi, params, torch.as_tensor(y_map, device=device))
-    res = laplace_saddle(x_map, y_map, g_np[best], h, lo_np, hi_np, prior_lbm)
+    h = laplace_hessian(loglik_multi, log_prior, lo, hi, params,
+                        torch.as_tensor(y_map, device=device))
+    out = [laplace_saddle(x_map[o], y_map[o], g_best[o], h[o], lo_np, hi_np, prior_lbm)
+           for o in range(n_obs)]
     if n_is <= 0:
-        return res
-
-    # importance sampling from Student-t proposals (polynomial tails
-    # dominate the whitened target's exponential ones), weighted against
-    # the whitened density; adaptive rounds (_amis_sharpen) lift the
-    # weight ESS where the Hessian is sharper than the posterior bulk
-    g = _whitened_density(loglik, log_prior, lo, span)
+        return out
+    g = _whitened_density(loglik_multi, log_prior, lo, span)
 
     def run_is(mu, chol, rnd_seed):
         gen = torch.Generator(device=device).manual_seed(rnd_seed)
-        t = student_t_rows(gen, n_is, mu.shape[1])
-        y = (torch.as_tensor(mu[0], device=device)
-             + t @ torch.as_tensor(chol[0], device=device).T)
-        return g(params, y).cpu().numpy()[None], y.cpu().numpy()[None]
+        t = student_t_rows(gen, n_obs * n_is, p).reshape(n_obs, n_is, p)
+        y = (torch.as_tensor(mu, device=device)[:, None, :]
+             + t @ torch.as_tensor(chol, device=device).transpose(-1, -2))
+        return g(params, y.reshape(-1, p)).reshape(n_obs, n_is).cpu().numpy(), y.cpu().numpy()
 
-    logw, y_all = _amis_sharpen(run_is, res._y_map[None], res._y_chol[None],
+    logw, y_all = _amis_sharpen(run_is, np.stack([r._y_map for r in out]),
+                                np.stack([r._y_chol for r in out]),
                                 n_is=n_is, n_rounds=n_rounds, seed=seed)
-    res = _finish_laplace(res, logw[0], y_all[0], lo_np, hi_np)
-    res.logz -= prior_lbm
-    return res
+    for o, res in enumerate(out):
+        _finish_laplace(res, logw[o], y_all[o], lo_np, hi_np)
+        res.logz -= prior_lbm
+    return out
+
+
+def laplace_evidence_multi_auto(
+    loglik_multi,
+    params,
+    n_obs: int,
+    *,
+    row_loglik,
+    row_valgrad,
+    rows_loglik=None,
+    rows_valgrad=None,
+    method: str = "auto",
+    khat_threshold: float = 0.7,
+    flow_kwargs=None,
+    final=None,
+    final_kwargs=None,
+    bounds=None,
+    seed: int = 0,
+    log_prior=None,
+    device,
+    **kwargs,
+):
+    """:func:`laplace_evidence_multi` with the khat escalation closed: after
+    the batched Laplace + AMIS sweep, every row whose PSIS ``khat`` is not
+    below ``khat_threshold`` (NaN counts as not below) is re-estimated
+    through a normalizing-flow proposal
+    (:func:`tpu21cmvae_torch.flows.evidence_with_flow`, warm-started at the
+    row's MAP unless ``flow_kwargs`` give a ``flow`` or an ``x0``).
+
+    ``method``: ``"laplace"`` (no escalation), ``"auto"`` (the flagged
+    rows) or ``"flow"`` (every row). ``row_loglik(i)`` /
+    ``row_valgrad(i)``: row ``i``'s value and value+gradient functions.
+    ``rows_loglik(indices)`` / ``rows_valgrad(indices)``: optional
+    functions that return the stacked likelihood over an observation
+    subset; with both (and more than one
+    flagged row, and no ``flow``/``x0`` in ``flow_kwargs``) the flagged
+    rows' flows fit and sweep together
+    (:func:`~tpu21cmvae_torch.flows.evidence_with_flow_batch`), and with
+    ``rows_loglik`` the ``final="nested"`` rows run as one
+    :func:`~tpu21cmvae_torch.nested.nested_sampling_batch`. A flow
+    estimate is adopted only when its khat is strictly better than the
+    row's, or finite where the row's is not; every attempt lands in
+    ``escalation``.
+
+    ``final``: ``"nested"`` or ``"smc"`` settles the rows still failing
+    the bound by an estimator without importance weights (khat → NaN,
+    the stage's draws behind ``posterior()``, the result in
+    ``final_result``); a truncated nested run is recorded, never adopted.
+    ``final_kwargs`` go to that stage. Returns ``n_obs``
+    :class:`LaplaceResult`, each naming its estimator in
+    ``method_used``."""
+    if method not in ("laplace", "auto", "flow"):
+        raise ValueError(f"method must be 'laplace', 'auto' or 'flow'; got {method!r}")
+    if final not in (None, "nested", "smc"):
+        raise ValueError(f"final must be None, 'nested' or 'smc'; got {final!r}")
+    results = laplace_evidence_multi(loglik_multi, params, n_obs, bounds=bounds, seed=seed,
+                                     log_prior=log_prior, device=device, **kwargs)
+    if method != "laplace":
+        flagged = list(range(n_obs) if method == "flow"
+                       else [i for i, r in enumerate(results) if not (r.khat < khat_threshold)])
+
+        def consider(i, fe):
+            r = results[i]
+            r.escalation = fe  # the attempt is on the record either way
+            # adopt only a strictly better tail: a diverged flow fit must
+            # never overwrite a finite Laplace estimate
+            if fe.khat < r.khat or (np.isfinite(fe.khat) and not np.isfinite(r.khat)):
+                r.method_used = "flow"
+                r.logz, r.logz_err = fe.logz, fe.logz_err
+                r.khat, r.is_ess = fe.khat, fe.is_ess
+                r._is_x, r._is_logw = fe._x, fe._logw
+
+        fk0 = dict(flow_kwargs or {})
+        if (rows_valgrad is not None and rows_loglik is not None and len(flagged) > 1
+                and "flow" not in fk0 and "x0" not in fk0):
+            from tpu21cmvae_torch.flows import evidence_with_flow_batch
+
+            fk0["x0"] = np.stack([results[i].map_params for i in flagged])
+            fes = evidence_with_flow_batch(
+                rows_loglik(flagged), rows_valgrad(flagged), params, len(flagged),
+                bounds=bounds, seed=seed + 104_729, log_prior=log_prior, device=device, **fk0)
+            for i, fe in zip(flagged, fes):
+                consider(i, fe)
+            flagged = []
+        if flagged:
+            from tpu21cmvae_torch.flows import evidence_with_flow
+
+        for i in flagged:
+            fk = dict(flow_kwargs or {})
+            # sharp posteriors need a warm start at the mode, which the
+            # Laplace stage has found
+            if "flow" not in fk:
+                fk.setdefault("x0", results[i].map_params)
+            consider(i, evidence_with_flow(
+                row_loglik(i), row_valgrad(i), params, bounds=bounds,
+                seed=seed + 104_729 * (i + 1), log_prior=log_prior, device=device, **fk))
+    if final is not None:
+        _settle(results, final, final_kwargs, khat_threshold, row_loglik, rows_loglik,
+                params, bounds, seed, log_prior, device)
+    return results
+
+
+def _settle(results, final, final_kwargs, khat_threshold, row_loglik, rows_loglik, params,
+            bounds, seed, log_prior, device):
+    """The definitive last stage of :func:`laplace_evidence_multi_auto` on
+    the rows still failing the khat bound, in place."""
+    still = [i for i, r in enumerate(results) if not (r.khat < khat_threshold)]
+
+    def adopt(i, fr, draws):
+        r = results[i]
+        r.final_result = fr
+        r.method_used = final
+        r.logz, r.logz_err = fr.logz, fr.logz_err
+        # no importance weights behind the definitive estimate: khat does
+        # not apply; equal-weight draws back posterior()
+        r.khat = float("nan")
+        r.is_ess = float(getattr(fr, "ess", draws.shape[0]))
+        r._is_x = np.asarray(draws)
+        r._is_logw = np.zeros(r._is_x.shape[0])
+
+    if final == "nested" and log_prior is not None and \
+            "prior_transform" not in dict(final_kwargs or {}):
+        raise ValueError(
+            "final='nested' under a log_prior needs the matching prior_transform in "
+            "final_kwargs (nested sampling does exact volume bookkeeping through the "
+            "transform, not a density — see tpu21cmvae_torch.priors)")
+    if final == "nested" and rows_loglik is not None and len(still) > 1:
+        from tpu21cmvae_torch.nested import nested_sampling_batch
+
+        fkw = dict(final_kwargs or {})
+        base_seed = fkw.pop("seed", seed + 15_485_863)
+        frs = nested_sampling_batch(rows_loglik(list(still)), params, len(still),
+                                    bounds=bounds, seed=base_seed, device=device, **fkw)
+        for i, fr in zip(still, frs):
+            if fr.truncated:
+                # a truncated run's logz is only a lower bound: record it,
+                # never adopt it
+                results[i].final_result = fr
+                continue
+            adopt(i, fr, fr.posterior(4096, seed=base_seed + 31 * (i + 1)))
+        return
+    for i in still:
+        fkw = dict(final_kwargs or {})
+        fkw.setdefault("seed", seed + 15_485_863 * (i + 1))
+        if final == "nested":
+            from tpu21cmvae_torch.nested import nested_sampling
+
+            fr = nested_sampling(row_loglik(i), params, bounds=bounds, device=device, **fkw)
+            if fr.truncated:
+                results[i].final_result = fr
+                continue
+            draws = fr.posterior(4096, seed=fkw["seed"] + 1)
+        else:
+            from tpu21cmvae_torch.sampling.smc import sample_smc
+
+            fr = sample_smc(row_loglik(i), params, bounds=bounds, log_prior=log_prior,
+                            device=device, **fkw)
+            draws = fr.final
+        adopt(i, fr, draws)
 
 
 # -- model comparison -----------------------------------------------------------

@@ -27,6 +27,39 @@ from tpu21cmvae_torch.sampling._common import (
 )
 
 
+_B1, _B2, _EPS_ADAM = 0.9, 0.999, 1e-8
+
+
+def cosine_rate(learning_rate: float, t: int, n_steps: int) -> float:
+    """The fits' learning rate at 1-based step ``t``: cosine decay from
+    ``learning_rate`` to 5 % of it."""
+    return learning_rate * (0.05 + 0.95 * 0.5 * (1.0 + math.cos(math.pi * (t - 1.0) / n_steps)))
+
+
+class Adam:
+    """Adam ascent written out (β 0.9, 0.999; ε 1e-8 outside the square
+    root; bias correction by the 1-based step ``t``), as in the JAX
+    package's fits, over a list of tensors updated in place: the ascent
+    here, ADVI and the flows. The moments are kept flat, so a step is a
+    dozen tensor operations whatever the number of tensors (a flow has
+    27)."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.sizes = [p.numel() for p in self.params]
+        n = sum(self.sizes)
+        self.m = self.params[0].new_zeros(n)
+        self.v = self.params[0].new_zeros(n)
+
+    def step(self, grads, t: int, lr: float):
+        g = torch.cat([x.reshape(-1) for x in grads])
+        self.m.mul_(_B1).add_((1 - _B1) * g)
+        self.v.mul_(_B2).add_((1 - _B2) * g * g)
+        upd = lr * (self.m / (1 - _B1**t)) / (torch.sqrt(self.v / (1 - _B2**t)) + _EPS_ADAM)
+        torch._foreach_add_(self.params, [u.view_as(p) for u, p in
+                                          zip(upd.split(self.sizes), self.params)])
+
+
 def _whitened_adam_ascent(
     valgrad, params, lo, hi, x,
     *, n_steps, learning_rate, log_prior, free=None, jacobian=False,
@@ -66,18 +99,13 @@ def _whitened_adam_ascent(
             g_y = g_y * free
         return ll, g_y
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    m = torch.zeros_like(y)
-    v = torch.zeros_like(y)
+    adam = Adam([y])
     for t in range(1, n_steps + 1):
         _, g = ll_and_grad_y(y)
-        g = torch.where(torch.isfinite(g), g, 0.0)
-        m = b1 * m + (1.0 - b1) * g
-        v = b2 * v + (1.0 - b2) * g * g
         # large early steps to cross the rugged landscape, small late ones
         # to polish the optimum below Adam's jitter
-        lr = learning_rate * (0.05 + 0.95 * 0.5 * (1.0 + math.cos(math.pi * (t - 1.0) / n_steps)))
-        y = y + lr * (m / (1.0 - b1**t)) / (torch.sqrt(v / (1.0 - b2**t)) + eps)
+        adam.step([torch.where(torch.isfinite(g), g, 0.0)], t,
+                  cosine_rate(learning_rate, t, n_steps))
     ll, _ = ll_and_grad_y(y)
     return lo + span * torch.sigmoid(y), ll
 
@@ -130,7 +158,7 @@ def fit_map(
     optimum of the raw-space likelihood is wanted. ``learning_rate`` is in
     whitened units. ``log_prior``: a smooth log-density over the raw
     parameters; the ascent then maximizes ``logL + log π``. ``mesh`` is
-    refused (ROADMAP queue 1 item 11). Seed a sampler with
+    refused (it waits for the port of ``parallel/``). Seed a sampler with
     ``x0=result.params``.
     """
     _refuse_mesh(mesh)

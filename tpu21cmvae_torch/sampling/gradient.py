@@ -75,6 +75,51 @@ def _whitened_target(valgrad, log_prior, lo, span):
     return to_params, logp_and_grad
 
 
+def _whitened_center(x0, lo, hi, device):
+    """Raw-space center → whitened ``mu0`` (float32, on ``device``): the
+    ``x0=`` of :func:`tpu21cmvae_torch.vi.fit_advi` and
+    :func:`tpu21cmvae_torch.flows.fit_flow`. The logit runs on the host in
+    float64 (a float32 logit loses digits near the box edge), clipped 1e-4
+    of the span inside the box. Raises unless ``x0`` is one ``(P,)``
+    center."""
+    lo = np.asarray(lo, np.float64)
+    span = np.asarray(hi, np.float64) - lo
+    frac = np.clip((np.asarray(x0, np.float64) - lo) / span, 1e-4, 1.0 - 1e-4)
+    mu0 = np.log(frac / (1.0 - frac)).astype(np.float32)
+    if mu0.shape != lo.shape:
+        raise ValueError(f"x0 must be a single ({lo.shape[0]},) center; got {np.shape(x0)}")
+    return torch.as_tensor(mu0, device=device)
+
+
+def _whitened_vi_target(valgrad, lo, span, log_prior, *, span_jac: bool):
+    """The variational fits' ELBO integrand ``(params, y) → (target value,
+    y-gradient)`` over the sigmoid-whitened space, from the first-order
+    ``valgrad`` alone (reparameterization). The sigmoid is clamped to
+    [1e-7, 1 − 1e-7]: float32 saturates it to 0 or 1 at |y| ≳ 17, which
+    would put log(0) in the Jacobian. ``span_jac=True``: the log-Jacobian
+    ``Σ log(span·s·(1−s))`` (ADVI's convention); False: ``Σ [log σ(y) +
+    log σ(−y)]``, the samplers' convention, which the flow shares so that
+    its ELBO and its importance weights cancel the box volume exactly.
+    The two differ by the constant ``Σ log span``."""
+
+    def val_grad(params, y):
+        s = torch.clamp(torch.sigmoid(y), 1e-7, 1.0 - 1e-7)
+        xr = lo + span * s
+        ll, g_raw = valgrad(params, xr)
+        if log_prior is not None:
+            lpr, g_pr = _log_prior_val_grad(log_prior, xr)
+            ll = ll + lpr
+            g_raw = g_raw + g_pr
+        if span_jac:
+            jac = torch.sum(torch.log(span * s * (1.0 - s)), dim=-1)
+        else:
+            jac = torch.sum(F.logsigmoid(y) + F.logsigmoid(-y), dim=-1)
+        g_y = g_raw * (span * s * (1.0 - s)) + (1.0 - 2.0 * s)
+        return ll + jac, g_y
+
+    return val_grad
+
+
 def _ens_metric(y, dense: bool):
     """Ensemble metric from the cross-walker spread of ``y``: per-dimension
     std normalized to unit geometric mean and clipped to [0.1, 10]
@@ -250,7 +295,7 @@ def sample_hmc(
     by ``torch.autograd``, joins the leapfrog force. The metric stays
     pooled over the blocks: it is normalized to unit geometric mean, and
     the per-block step absorbs each block's scale. ``mesh`` is refused
-    (ROADMAP queue 1 item 11). Returns a :class:`SampleResult` with the
+    (it waits for the port of ``parallel/``). Returns a :class:`SampleResult` with the
     chain thinned by ``thin``.
     """
     _refuse_mesh(mesh)

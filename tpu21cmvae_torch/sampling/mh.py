@@ -110,7 +110,7 @@ def sample_mh(
     post-warmup step. ``log_prior``: a log-density over the raw
     parameters on top of the flat box
     (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`). ``mesh`` is
-    refused (ROADMAP queue 1 item 11). Returns a :class:`SampleResult` whose
+    refused (it waits for the port of ``parallel/``). Returns a :class:`SampleResult` whose
     ``step_size`` is the mean multiplier times the mean base scale.
     """
     _refuse_mesh(mesh)
@@ -219,8 +219,8 @@ def sample_ensemble(
     the UPDATED half A. Warmup moves are ordinary moves whose samples are
     discarded; nothing adapts. ``n_walkers`` must be even and at least
     ``2 · n_params + 2``. ``log_prior``: a log-density over the raw
-    parameters on top of the flat box; ``mesh`` is refused (ROADMAP queue
-    1 item 11). Returns a :class:`SampleResult` whose
+    parameters on top of the flat box; ``mesh`` is refused (it waits
+    for the port of ``parallel/``). Returns a :class:`SampleResult` whose
     ``step_size`` reports the stretch scale ``a``.
     """
     _refuse_mesh(mesh)

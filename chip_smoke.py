@@ -139,10 +139,30 @@ Phases, one line each:
     rows, and timed; then ``log_evidence_batch(final="nested")`` on four
     of phase 14's observations, every row through the batched Laplace
     sweep, the batched flow escalation and ``nested_sampling_batch`` (the
-    stacked likelihoods in plain PyTorch), each row finite.
+    stacked likelihoods in plain PyTorch), each row finite;
+18. training: the flagship at full width from random weights (seed 0) on
+    the reference's data scale (``synthetic_dataset(26888, 1704, 1704)``,
+    106 batches of 256 per epoch) through ``DirectEmulator.train``. K1
+    (contract direct likelihood), K2 (bf16x3) and K3 (high, default) are
+    memoized on one observation before training; two epochs of the
+    published recipe on the card and on the CPU from the same weights
+    and shuffles, the first 20 steps' losses within the CPU parity
+    tests' bound and the epochs' within 0.5 (past step ≈ 25 the
+    trajectories separate as far as a CPU run with one weight moved by
+    one ulp, rerun beside them), the card's epochs traced by
+    ``torch.profiler`` for the device's busy time; 16 epochs of the
+    recipe reach the verify skill's gate (mean test error < 3 %); the
+    device loop (``device_loop=True``) and a run checkpointed at 8
+    epochs and resumed equal the host loop, and the resumed model saves
+    and reloads to the same predictions; the wrappers built before
+    training, called again, equal fresh ones bit for bit and hold to
+    their plain versions on the trained weights at phases 6's and 3's
+    batches; then three epochs of the tier-native (bf16) fine-tune,
+    printed, not gated.
 
 Then one JSON line listing every kernel with its time, its plain
-version's and its bound, the card's name and power limit, and a last
+version's and its bound (phase 18's launches under
+``launches_trained``), the card's name and power limit, and a last
 line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line; it also exits non-zero, with
@@ -151,19 +171,21 @@ no result, where no CUDA device is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu21cmvae_torch.data.synthetic import PAR_RANGES, synthetic_params
+from tpu21cmvae_torch.data.synthetic import PAR_RANGES, synthetic_dataset, synthetic_params
 from tpu21cmvae_torch.foregrounds import linlog_basis
 from tpu21cmvae_torch.models.direct import DirectEmulator
 from tpu21cmvae_torch.noisescale import marginalize_noise_scale
@@ -179,8 +201,10 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import fused_mlp_reference, make_fus
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad
 from tpu21cmvae_torch.priors import GaussianBoxPrior
 from tpu21cmvae_torch.sampling.gradient import sample_hmc
+from tpu21cmvae_torch.utils.config import DIRECT_TRAIN_DEFAULT
 from tpu21cmvae_torch.utils.metrics import (
     grad_gate_violation,
+    error,
     grad_rel_error,
     loglik_gate_violation,
 )
@@ -293,6 +317,24 @@ ADVI_STEPS, ADVI_MC = 600, 512
 FLOW_WARM, FLOW_STEPS, FLOW_MC, FLOW_IS = 400, 1500, 256, 16384
 EVIDENCE_BATCH_OBS = 4
 EVIDENCE_BATCH_CUTS = dict(n_starts=1024, n_steps=500)  # the JAX defaults: 4096 × 2000
+# Phase 18: training the flagship at the reference's data scale (bench.py's
+# golden split: 26,888 training rows, 106 batches of 256 per epoch).
+TRAIN_SPLIT = dict(n_train=26888, n_val=1704, n_test=1704, seed=0)
+TRAIN_EPOCHS = 16  # the recipe, the device loop and the resumed run (≈ 0.75 s each on the card's host)
+PARITY_EPOCHS = 2  # the card against the CPU
+FINETUNE_EPOCHS = 3  # the tier-native fine-tune
+# Card against CPU, from the same weights and shuffles. Each of the first
+# 20 steps' losses: the bound the CPU parity tests hold the port's
+# training to against JAX's (tests/test_torch_train.py). Past step ≈ 25,
+# Adam at lr 0.01 amplifies rounding differences into separate
+# trajectories: the CPU run with one weight moved by one ulp separates
+# as far (0.13 relative at epoch 2's losses, against the card's 0.27, on
+# an H100 80GB HBM3 at 700 W), and is rerun here beside it; the
+# per-epoch losses are held to 0.5.
+PARITY_TIGHT_STEPS, TRAIN_LOSS_RTOL, PARITY_EPOCH_RTOL = 20, 2e-6, 0.5
+TEST_ERROR_GATE = 3.0  # mean relative test error, %: the verify skill's gate
+TRAINED_BATCHES = {"k1": (1, 37, 8192, 65537), "k2": (1, 37, 8192, 65537),  # phase 6's
+                   "k3": (1, 37, 4096, 65537)}  # phase 3's; held_batches adds 1024
 
 
 def check(ok: bool, what: str):
@@ -1909,6 +1951,252 @@ def variational_path(model, obs, witness, obs_batch, dev):
     return launches
 
 
+def trained_wrappers(model, obs, memo: bool = True) -> dict:
+    """Phase 18's likelihood wrappers on ``obs`` at σ² = 25, memoized on
+    the model unless ``memo=False``: K1 as the contract-tier direct
+    likelihood (``fused_mlp.cu``), K2 at bf16x3 and K3 at (high, default)
+    (``fused_gram_mma.cu``)."""
+    return {
+        "k1": model.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract",
+                              backend="kernel", memo=memo),
+        "k2": model.loglik_fn(obs, NOISE_VAR, backend="kernel", memo=memo),
+        "k3": model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel",
+                                       grad_precision=MAIN_TIERS[1], memo=memo),
+    }
+
+
+def outputs(fn, model, x) -> tuple:
+    """A wrapper's outputs on rows ``x`` as a tuple of tensors, no graph."""
+    with torch.no_grad():
+        out = fn(model.params, x)
+    return out if isinstance(out, tuple) else (out,)
+
+
+@torch.no_grad()
+def trained_kernels_vs_plain(model, memo, obs, rng) -> dict:
+    """Phase 18 step 7: the wrappers memoized before training, called
+    again without a rebuild, against fresh ``memo=False`` wrappers (bit
+    for bit: a stale packed operand would differ) and against the plain
+    versions on operands folded from the trained weights (values within
+    ``VALUE_RTOL``, K3's gradient under ``bench_mcmc.py``'s gate), at the
+    batches of phases 6 and 3. Returns the report by kernel."""
+    fresh = trained_wrappers(model, obs, memo=False)
+    params = model.params
+    half_c = 0.5 * abs(float(fresh["k2"].fused.operands(params).c))
+    plain = {
+        "k1": lambda x: (-0.5 * fused_mlp_reference(fresh["k1"].fused.mlp.operands(params), x),),
+        "k2": lambda x: (loglik_gram_reference(fresh["k2"].fused.operands(params), x),),
+        "k3": lambda x: loglik_grad_gram_reference(fresh["k3"].operands(params), x),
+    }
+    tiers = {"k1": "highest", "k2": MAIN_TIERS[0], "k3": MAIN_TIERS[0]}
+    report = {}
+    for key, sizes in TRAINED_BATCHES.items():
+        entry = {"worst_over_tol": 0.0, "max_abs": 0.0}
+        for n, x in held_batches(sizes, rng):
+            got, same, want = outputs(memo[key], model, x), outputs(fresh[key], model, x), plain[key](x)
+            check(all(torch.equal(a, b) for a, b in zip(got, same)),
+                  f"{key} memoized before training != a fresh wrapper, n={n}")
+            got, want = [t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want]
+            check(bool(all(np.isfinite(a).all() for a in got)), f"{key} finite, n={n}")
+            worst, max_abs = value_worst(got[0], want[0], tiers[key], half_c)
+            check(worst <= 1.0, f"{key} on the trained weights vs plain, n={n}: "
+                                f"worst |Δ|/tol {worst:.3g}")
+            entry["worst_over_tol"] = max(entry["worst_over_tol"], worst)
+            entry["max_abs"] = max(entry["max_abs"], max_abs)
+            if key == "k3":
+                gate = grad_gate_violation(got[1], want[1])
+                check(gate <= 0.0, f"k3 gradient gate on the trained weights, n={n}: {gate:.3g}")
+                entry["grad_q999_rel"] = max(entry.get("grad_q999_rel", 0.0),
+                                             float(np.quantile(grad_rel_error(got[1], want[1]),
+                                                               0.999)))
+        report[key] = entry
+    return report
+
+
+def record_steps(model) -> list:
+    """Route ``model.train``'s loss through a wrapper that keeps each
+    training batch's mean loss (a device tensor, no host read) in the
+    returned list; the validation passes run without grad and are not
+    kept."""
+    steps, base = [], model.loss_fn
+
+    def loss_fn(precision=None):
+        inner = base(precision)
+
+        def loss(params, x, y):
+            per_sample = inner(params, x, y)
+            if torch.is_grad_enabled():
+                steps.append(per_sample.detach().mean())
+            return per_sample
+
+        return loss
+
+    model.loss_fn = loss_fn
+    return steps
+
+
+def device_busy_ms(prof):
+    """Summed device time of the kernels a ``torch.profiler`` run traced,
+    in ms; None when it traced none."""
+    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 if total > 0 else None
+
+
+def same_history(a, b) -> bool:
+    """Two histories of the same run: losses bit for bit, the epochs and
+    the stop decisions equal."""
+    return (a.loss == b.loss and a.val_loss == b.val_loss and a.lr == b.lr
+            and (a.stopped_epoch, a.best_epoch) == (b.stopped_epoch, b.best_epoch))
+
+
+def forward_rel_amp(model, raw) -> float:
+    """Largest |bf16 forward − contract forward| over each row's amplitude
+    (``bench.py``'s forward gate metric) on raw parameter rows."""
+    x = torch.as_tensor(raw, dtype=torch.float32, device=model.device)
+    ref = model.predict_fn()(model.params, x).cpu().numpy()
+    got = model.predict_fn("default")(model.params, x).cpu().numpy()
+    return float((np.abs(got - ref) / np.abs(ref).max(axis=1, keepdims=True)).max())
+
+
+def training_phase(dev, smi) -> dict:
+    """Phase 18: train the flagship (full width, random weights from seed
+    0) at the reference's data scale through ``DirectEmulator.train``.
+    Kernel wrappers are memoized on one observation before training; the
+    card's first epochs are held to the CPU's; the recipe trains to the
+    verify skill's test-error gate; the device loop and a resumed run
+    equal the host loop; the wrappers built before training then hold to
+    plain on the trained weights; a short tier-native fine-tune is
+    printed. Returns each kernel's launches in this phase."""
+    t_phase = time.perf_counter()
+    data = synthetic_dataset(**TRAIN_SPLIT)
+    model = DirectEmulator(data, device=dev, seed=0)
+    rng = np.random.default_rng(18)
+    obs = data.signal_test[0] + rng.normal(0.0, 5.0, model.config.n_bins)
+    memo = trained_wrappers(model, obs)
+    x0 = rows(FIT_STARTS, rng)
+    before = {k: outputs(fn, model, x0)[0].cpu().numpy() for k, fn in memo.items()}
+    check(all(fn.launches == 1 for fn in memo.values()), "one launch per wrapper before training")
+    n_steps = -(-TRAIN_SPLIT["n_train"] // DIRECT_TRAIN_DEFAULT.batch_size)
+
+    # the card against the CPU, from the same weights and shuffles, and
+    # the CPU once more with one weight moved by one ulp
+    parity = dataclasses.replace(DIRECT_TRAIN_DEFAULT, epochs=PARITY_EPOCHS)
+    runs = {}
+    for name, where in (("cpu", "cpu"), ("cpu_one_ulp", "cpu"), ("card", dev)):
+        m = DirectEmulator(data, device=where, seed=0)
+        if name == "cpu_one_ulp":
+            with torch.no_grad():
+                w = m.params[2]["w"].view(-1)
+                w[0] = float(np.nextafter(np.float32(w[0].item()), np.float32(1.0)))
+        steps = record_steps(m)
+        if where == "cpu":
+            m.train(train_config=parity)
+        else:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                m.train(train_config=parity)
+                torch.cuda.synchronize()
+            busy = device_busy_ms(prof)
+        runs[name] = (torch.stack(steps).cpu().numpy(),
+                      np.array(m.history.loss + m.history.val_loss))
+    step_gap = {k: np.abs(runs[k][0] - runs["cpu"][0]) / runs["cpu"][0]
+                for k in ("card", "cpu_one_ulp")}
+    epoch_gap = {k: float(np.max(np.abs(runs[k][1] - runs["cpu"][1]) / runs["cpu"][1]))
+                 for k in ("card", "cpu_one_ulp")}
+    tight = float(step_gap["card"][:PARITY_TIGHT_STEPS].max())
+    check(runs["card"][0].shape == (PARITY_EPOCHS * n_steps,), "one loss per training step")
+    check(tight <= TRAIN_LOSS_RTOL,
+          f"card vs CPU, first {PARITY_TIGHT_STEPS} steps' losses: {tight:.3g} > {TRAIN_LOSS_RTOL}")
+    check(epoch_gap["card"] <= PARITY_EPOCH_RTOL,
+          f"card vs CPU per-epoch losses: {epoch_gap['card']:.3g} > {PARITY_EPOCH_RTOL}")
+
+    # the recipe
+    cfg = dataclasses.replace(DIRECT_TRAIN_DEFAULT, epochs=TRAIN_EPOCHS)
+    _, train_s = timed(lambda: model.train(train_config=cfg))
+    h = model.history
+    check(bool(np.isfinite(h.loss + h.val_loss).all()), "finite training losses")
+    check(h.val_loss[-1] < h.val_loss[0], f"val loss {h.val_loss[0]:.4g} → {h.val_loss[-1]:.4g}")
+    test_err = model.test_error()
+    check(float(test_err.mean()) < TEST_ERROR_GATE,
+          f"mean test error {float(test_err.mean()):.3f} % ≥ {TEST_ERROR_GATE} %")
+    epoch_s = float(np.median(h.epoch_time_s))
+
+    # the device loop: the scan's float32 rate equals the host's float64
+    # one rounded until a fifth plateau step; past it, JAX's own
+    # fit-against-scan bound (1e-6)
+    loop = DirectEmulator(data, device=dev, seed=0)
+    _, loop_s = timed(lambda: loop.train(train_config=cfg, device_loop=True))
+    hd = loop.history
+    same_lr = [float(np.float32(a)) for a in h.lr] == hd.lr
+    loop_gap = float(np.max(np.abs(np.array(hd.loss + hd.val_loss) - np.array(h.loss + h.val_loss))
+                            / np.array(h.loss + h.val_loss)))
+    check((hd.stopped_epoch, hd.best_epoch) == (h.stopped_epoch, h.best_epoch)
+          and loop_gap <= (0.0 if same_lr else 1e-6),
+          f"device loop vs host loop: {loop_gap:.3g} (rates equal: {same_lr})")
+
+    # resume: half the epochs, a restart from the checkpoint, the rest
+    with tempfile.TemporaryDirectory() as ckpt:
+        first = DirectEmulator(data, device=dev, seed=0)
+        first.train(epochs=TRAIN_EPOCHS // 2, train_config=cfg, checkpoint_dir=ckpt)
+        resumed = DirectEmulator(data, device=dev, seed=0)
+        resumed.train(train_config=cfg, checkpoint_dir=ckpt, resume=True)
+        check(same_history(resumed.history, h), "resumed run != uninterrupted run")
+        reloaded = DirectEmulator.from_checkpoint(resumed.save(os.path.join(ckpt, "m.npz")),
+                                                  device=dev)
+    pred = model.predict(data.par_test)
+    check(np.array_equal(reloaded.predict(data.par_test), pred)
+          and np.array_equal(resumed.predict(data.par_test), pred),
+          "reloaded and resumed predictions != the uninterrupted model's")
+
+    # the kernels on the trained weights, through the wrappers built before
+    check(all(trained_wrappers(model, obs)[k] is fn for k, fn in memo.items()),
+          "the memoized wrappers survive training")
+    moved = {k: float(np.abs(outputs(fn, model, x0)[0].cpu().numpy() - before[k]).max())
+             for k, fn in memo.items()}
+    check(all(v > 0.0 for v in moved.values()), f"training moved every wrapper's value: {moved}")
+    held = trained_kernels_vs_plain(model, memo, obs, rng)
+    launches = {k: fn.launches for k, fn in memo.items()}
+    check(all(launches[k] == 3 + len(sizes) for k, sizes in TRAINED_BATCHES.items()),
+          f"launches of the memoized wrappers {launches}")
+
+    # a short tier-native fine-tune of the resumed copy (printed, not gated)
+    bf16_before = forward_rel_amp(resumed, data.par_test)
+    tune = dataclasses.replace(DIRECT_TRAIN_DEFAULT, epochs=FINETUNE_EPOCHS)
+    resumed.train(train_config=tune, loss_precision="default")
+    x_test = torch.as_tensor(data.par_test, dtype=torch.float32, device=dev)
+    native = resumed.predict_fn("default")(resumed.params, x_test).cpu().numpy()
+
+    out = {
+        "card": smi, "rows": TRAIN_SPLIT, "steps_per_epoch": n_steps,
+        "parity": {"first_steps_rel_gap": tight,
+                   "step_rel_gap": {k: {i: float(v[i]) for i in (0, 10, 20, 30, 50, 105, 211)
+                                        if i < v.shape[0]} for k, v in step_gap.items()},
+                   "epoch_rel_gap": epoch_gap,
+                   "losses": {k: v[1].tolist() for k, v in runs.items()}},
+        "loss": h.loss, "val_loss": h.val_loss, "lr": h.lr,
+        "stopped_epoch": h.stopped_epoch, "best_epoch": h.best_epoch,
+        "test_error_mean_pct": float(test_err.mean()),
+        "test_error_median_pct": float(np.median(test_err)),
+        "train_wall_s": train_s, "s_per_epoch": epoch_s, "steps_per_s": n_steps / epoch_s,
+        "device_busy_ms_per_epoch": None if busy is None else busy / PARITY_EPOCHS,
+        "host_share": None if busy is None else 1.0 - busy / PARITY_EPOCHS / (1e3 * epoch_s),
+        "device_loop_wall_s": loop_s, "device_loop_rel_gap": loop_gap,
+        "device_loop_rates_equal": same_lr,
+        "wrapper_value_moved": moved, "trained_vs_plain": held, "launches_trained": launches,
+        "finetune_default": {"loss": resumed.history.loss, "val_loss": resumed.history.val_loss,
+                             "bf16_rel_amp_trained": bf16_before,
+                             "bf16_rel_amp_tuned": forward_rel_amp(resumed, data.par_test),
+                             "test_error_mean_pct_at_bf16": float(
+                                 error(data.signal_test, native).mean())},
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    print("phase 18: " + json.dumps(out), flush=True)
+    return launches
+
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -2031,6 +2319,9 @@ def main() -> int:
 
     # -- phase 17: the variational fits, the flow evidence, the batch ---------
     variational = variational_path(model, obs, witness, obs_batch[:EVIDENCE_BATCH_OBS], dev)
+
+    # -- phase 18: training the flagship; the kernels on the trained weights --
+    trained = training_phase(dev, smi)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
               "launches_fit": fits["fit"], "launches_profile": fits["profile"],
               "launches_ladder_warm_start": evidence["ladder"]["k3"],
@@ -2067,35 +2358,38 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
               value_t[f"k1_sumsq/highest/{DRAWS}"], bound("k1", k1_sizes, DRAWS, "f32"),
+              launches_trained=trained["k1"],
               **at_big(value_t[f"k1_sumsq/highest/{big}"],
                        bound("k1", k1_sizes, big, "f32"))),
         entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
-              value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3")),
+              value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3"),
+              launches_trained=0),
         entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES,
               k2_launches + evidence["laplace"]["k2_f32"]
               + variational["flow_evidence"]["k2_f32"], k2_err,
               value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
               launches_laplace_is=evidence["laplace"]["k2_f32"],
-              launches_flow_is=variational["flow_evidence"]["k2_f32"],
+              launches_flow_is=variational["flow_evidence"]["k2_f32"], launches_trained=0,
               **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES,
               k2_mma_launches + sum(new_k2.values()), k2_mma_err, value_t["k2/high/8192"],
-              bound("k2", trunk, 8192, "bf16x3"), **new_k2),
+              bound("k2", trunk, 8192, "bf16x3"), launches_trained=trained["k2"], **new_k2),
         entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES,
               k3_f32_launches + evidence["laplace"]["k3_f32"],
               k3_err[EXACT_TIERS], timings["highest/highest/4096"],
               bound("k3", trunk, 4096, "f32", "f32"),
               launches_exact_hmc=k3_f32_launches,
-              launches_laplace_ascent=evidence["laplace"]["k3_f32"],
+              launches_laplace_ascent=evidence["laplace"]["k3_f32"], launches_trained=0,
               **at_64k(timings["highest/highest/65536"],
                        bound("k3", trunk, 65536, "f32", "f32"))),
         entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
               k3_err[MIXED_TIERS], timings["highest/default/65536"],
-              bound("k3", trunk, 65536, "f32", "bf16")),
+              bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
               launches + sum(new_k3.values()), k3_err[MAIN_TIERS],
               timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
-              bound("k3", trunk, 4096, "bf16x3", "bf16"), launches_hmc=launches, **new_k3),
+              bound("k3", trunk, 4096, "bf16x3", "bf16"), launches_hmc=launches,
+              launches_trained=trained["k3"], **new_k3),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

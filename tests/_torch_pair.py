@@ -1,7 +1,8 @@
 """The same small emulator in both packages, for the port's parity tests:
 the JAX model is built from the shared synthetic splits, and the port's
 model carries its weights and normalizer through
-``DirectEmulator.from_numpy``."""
+``DirectEmulator.from_numpy``. Also the training shuffles JAX draws, fed
+to the port through its one training draw seam."""
 
 import contextlib
 
@@ -58,3 +59,36 @@ def train_box(par_train) -> np.ndarray:
     lo, hi = lo - pad, hi + pad
     lo[:3] = np.maximum(lo[:3], 1e-6)
     return np.stack([lo, hi], axis=1).astype(np.float32)
+
+
+def jax_shuffles(seed: int, n_epochs: int, n: int) -> list:
+    """The permutations JAX's ``fit`` and ``fit_scan`` draw in epochs
+    ``0 … n_epochs-1`` for ``seed`` over ``n`` real rows: the root key
+    split once per epoch, the epoch key split into (shuffle, loss) keys
+    (``tpu21cmvae/train/loop.py:146``, ``:372``)."""
+    key = jax.random.key(seed)
+    out = []
+    for _ in range(n_epochs):
+        key, sub = jax.random.split(key)
+        shuffle_key, _ = jax.random.split(sub)
+        out.append(np.asarray(jax.random.permutation(shuffle_key, n)))
+    return out
+
+
+@contextlib.contextmanager
+def jax_seam():
+    """Route the port's training shuffle seam (``train.loop._permutation``)
+    to the permutations JAX draws for the same ``(seed, epoch, n)``."""
+    from tpu21cmvae_torch.train import loop
+
+    drawn = {}
+
+    def permutation(seed, epoch, n, device):
+        have = drawn.get((seed, n), [])
+        if len(have) <= epoch:
+            have = drawn[(seed, n)] = jax_shuffles(seed, max(epoch + 1, 2 * len(have)), n)
+        return torch.tensor(have[epoch], device=device)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "_permutation", permutation)
+        yield

@@ -28,7 +28,9 @@ def test_import_pulls_in_no_jax():
         "tpu21cmvae_torch.sampling.fit, tpu21cmvae_torch.sampling.driver, "
         "tpu21cmvae_torch.calibration, tpu21cmvae_torch.nested, "
         "tpu21cmvae_torch.sampling.pt, tpu21cmvae_torch.sampling.smc, "
-        "tpu21cmvae_torch.sampling.evidence, tpu21cmvae_torch.vi, tpu21cmvae_torch.flows\n"
+        "tpu21cmvae_torch.sampling.evidence, tpu21cmvae_torch.vi, tpu21cmvae_torch.flows, "
+        "tpu21cmvae_torch.train, tpu21cmvae_torch.train.scan, tpu21cmvae_torch.ops.losses, "
+        "tpu21cmvae_torch.utils.logging, tpu21cmvae_torch.data.dataset\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tpu21cmvae'))\n"
         "print(bad)\n"

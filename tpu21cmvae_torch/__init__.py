@@ -75,5 +75,11 @@ from tpu21cmvae_torch.sampling.results import (  # noqa: F401
 )
 from tpu21cmvae_torch.sampling.reweight import WeightedPosterior, reweight  # noqa: F401
 from tpu21cmvae_torch.sampling.smc import SMCResult, sample_smc  # noqa: F401
-from tpu21cmvae_torch.utils.config import DirectEmulatorConfig, MLPConfig  # noqa: F401
+from tpu21cmvae_torch.utils.config import (  # noqa: F401
+    DIRECT_TRAIN_DEFAULT,
+    DIRECT_TRAIN_STRONG,
+    DirectEmulatorConfig,
+    MLPConfig,
+    TrainConfig,
+)
 from tpu21cmvae_torch.vi import ADVIResult, fit_advi, fit_advi_batch  # noqa: F401

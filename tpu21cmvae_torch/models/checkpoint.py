@@ -51,9 +51,19 @@ def _header(data, path: str) -> dict:
     return header
 
 
-def load_checkpoint(path: str) -> Tuple[List[np.ndarray], dict]:
-    """``(leaves, metadata)``: the arrays in stored (flatten) order."""
+def load_checkpoint(path: str, treedef: Optional[str] = None
+                    ) -> Tuple[List[np.ndarray], dict]:
+    """``(leaves, metadata)``: the arrays in stored (flatten) order.
+    With ``treedef``, a file whose stored structure string differs is
+    refused (the JAX loader's check against its template: the same leaf
+    count does not mean the same structure)."""
     with np.load(path) as data:
         header = _header(data, path)
+        stored = header.get("treedef")
+        if treedef is not None and stored is not None and stored != treedef:
+            raise ValueError(
+                f"Checkpoint {path!r} structure does not match the "
+                f"template:\n  stored:   {stored}\n  template: {treedef}"
+            )
         leaves = [data[f"leaf_{i}"] for i in range(header["n_leaves"])]
     return leaves, header["metadata"]

@@ -10,23 +10,38 @@ noise specs (a scalar or per-bin variance, a foreground-marginalized
 :class:`~tpu21cmvae_torch.foregrounds.MarginalizedNoise` from
 :meth:`DirectEmulator.marginalize_foreground`, a
 :class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over either) and
-every sampler, fit and variational fit a ``log_prior``. Training and
-serving are not ported yet (ROADMAP).
+every sampler, fit and variational fit a ``log_prior``. :meth:`train`
+runs the reference recipe on the model's device (:mod:`tpu21cmvae_torch.train`);
+serving is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpu21cmvae_torch.data.dataset import DataSplits
 from tpu21cmvae_torch.models.checkpoint import load_checkpoint, save_checkpoint
+from tpu21cmvae_torch.ops.losses import relative_mse
 from tpu21cmvae_torch.ops.mlp import MLP, mlp_apply
-from tpu21cmvae_torch.ops.transforms import FIELDS, Normalizer, par_transform, unpreproc
-from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
+from tpu21cmvae_torch.ops.transforms import (
+    FIELDS,
+    Normalizer,
+    par_transform,
+    preproc,
+    unpreproc,
+)
+from tpu21cmvae_torch.train.loop import fit
+from tpu21cmvae_torch.train.scan import fit_scan
+from tpu21cmvae_torch.utils.config import (
+    DIRECT_TRAIN_DEFAULT,
+    DirectEmulatorConfig,
+    TrainConfig,
+)
 from tpu21cmvae_torch.utils.frequency import (
     default_redshifts,
     freq2redshift,
@@ -107,6 +122,7 @@ class DirectEmulator:
         self.redshifts, self.frequencies = _resolve_axes(redshifts, frequencies)
         self.net = MLP(config.mlp().sizes, config.activation, device=self.device,
                        params=params, seed=seed)
+        self.history = None
         # advisory inference tier this checkpoint was trained FOR (e.g.
         # "default" after bf16-native fine-tuning); None = the contract
         # path. Carried through save/from_checkpoint.
@@ -687,6 +703,85 @@ class DirectEmulator:
         F = fn(self.params, th).cpu().numpy()
         sig = forecast_errors(F)
         return (F[0], sig[0]) if np.ndim(theta) == 1 else (F, sig)
+
+    # -- training ----------------------------------------------------------
+
+    def loss_fn(self, precision=None):
+        """Per-sample relative-MSE loss ``(params, x, y) → (B,)`` over the
+        forward pass, on standardized signals, with the amplitude
+        constant folded once.
+
+        ``precision``: matmul tier of the training forward, default the
+        exact-fp32 contract path. ``"default"`` trains through the
+        single-pass bf16 forward, its gradients at the same tier
+        (quantization-aware fine-tuning: the weights converge to a point
+        whose bf16 forward minimizes the loss, what a tier-native
+        checkpoint needs)."""
+        activation = self.config.activation
+        scaled_mean = self.normalizer.scaled_mean
+        tier = "highest" if precision is None else precision
+
+        def loss(params, x, y):
+            return relative_mse(y, mlp_apply(params, x, activation, tier), scaled_mean)
+
+        return loss
+
+    def train(
+        self,
+        epochs: Optional[int] = None,
+        train_config: Optional[TrainConfig] = None,
+        verbose: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 10,
+        resume: bool = False,
+        epoch_callback=None,
+        device_loop: bool = False,
+        loss_precision=None,
+    ) -> Tuple[list, list]:
+        """Train on the attached dataset, on the model's device, with the
+        reference recipe (Adam lr=0.01, batch 256, EarlyStopping +
+        ReduceLROnPlateau — ``Training.ipynb`` cells 4-5). Returns
+        ``(loss, val_loss)`` per epoch (reference ``emulator.py:379-381``);
+        the full record lands in ``self.history``. The weights train in
+        place, so every likelihood wrapper built before refolds on its
+        next call.
+
+        ``checkpoint_dir``/``resume``: preemption-safe training (see
+        :func:`tpu21cmvae_torch.train.loop.fit`). ``device_loop=True``
+        trains with the JAX whole-run program's semantics
+        (:func:`tpu21cmvae_torch.train.scan.fit_scan`); it takes no
+        checkpoint directory or epoch callback. ``loss_precision``: the
+        training forward's tier (see :meth:`loss_fn`)."""
+        if self.data is None:
+            raise ValueError("No dataset attached; construct with `data=`.")
+        cfg = train_config or DIRECT_TRAIN_DEFAULT
+        if epochs is not None:
+            cfg = dataclasses.replace(cfg, epochs=epochs)
+        norm = self.normalizer
+
+        def rows(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+        data = self.data
+        x_train, x_val = (par_transform(rows(p), norm) for p in (data.par_train, data.par_val))
+        y_train, y_val = (preproc(rows(s), norm) for s in (data.signal_train, data.signal_val))
+        loss = self.loss_fn(precision=loss_precision)
+        if device_loop:
+            if checkpoint_dir is not None or epoch_callback is not None:
+                raise ValueError(
+                    "device_loop=True runs without host hooks; drop "
+                    "checkpoint_dir/epoch_callback or use the host loop."
+                )
+            _, _, self.history = fit_scan(self.params, loss, x_train, y_train, x_val,
+                                          y_val, cfg)
+        else:
+            _, _, self.history = fit(
+                self.params, loss, x_train, y_train, x_val, y_val, cfg,
+                verbose=verbose, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                epoch_callback=epoch_callback,
+            )
+        return self.history.loss, self.history.val_loss
 
     # -- evaluation --------------------------------------------------------
 

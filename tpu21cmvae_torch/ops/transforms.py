@@ -74,6 +74,12 @@ class Normalizer:
     def device(self) -> torch.device:
         return self.signal_mean.device
 
+    @property
+    def scaled_mean(self) -> torch.Tensor:
+        """signal_mean / signal_std — the constant the relative-MSE loss
+        adds back to standardized signals (reference ``emulator.py:70-72``)."""
+        return self.signal_mean / self.signal_std
+
     def to_numpy(self) -> dict:
         return {name: getattr(self, name).detach().cpu().numpy() for name in FIELDS}
 

@@ -1,10 +1,11 @@
-"""Frozen architecture dataclasses (a copy of the two the inference slice
-needs from ``tpu21cmvae/utils/config.py``)."""
+"""Frozen configuration dataclasses (a copy of the parts of
+``tpu21cmvae/utils/config.py`` the port runs: the direct emulator's
+architecture and its training recipe)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +41,40 @@ class DirectEmulatorConfig:
 
     def mlp(self) -> MLPConfig:
         return MLPConfig(self.n_params, self.hidden_dims, self.n_bins, self.activation)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One training run. Canonical values are the reference's recipe
+    (``notebooks/Training.ipynb`` cells 4-5; batch size at
+    reference ``emulator.py:372``)."""
+
+    epochs: int = 350
+    batch_size: int = 256
+    learning_rate: float = 0.01
+    # Adam moments — Keras defaults (epsilon=1e-7, not optax's 1e-8).
+    beta_1: float = 0.9
+    beta_2: float = 0.999
+    epsilon: float = 1e-7
+    # EarlyStopping(monitor=val_loss, ...) semantics.
+    early_stop_patience: Optional[int] = 15
+    early_stop_min_delta: float = 1e-10
+    restore_best_weights: bool = True
+    # ReduceLROnPlateau semantics.
+    plateau_patience: Optional[int] = 5
+    plateau_factor: float = 0.95
+    plateau_min_delta: float = 5e-9
+    plateau_min_lr: float = 1e-4
+    seed: int = 0
+
+
+DIRECT_TRAIN_DEFAULT = TrainConfig()
+"""Direct-emulator recipe: Adam lr=0.01, 350 epochs, plateau factor 0.95
+(``Training.ipynb`` cells 4-5)."""
+
+DIRECT_TRAIN_STRONG = TrainConfig(early_stop_patience=30)
+"""The reference recipe with doubled early-stopping patience: the
+published patience of 15 with min_delta=1e-10 often fires while the LR
+schedule is still working; patience 30 trains longer and reached a lower
+mean error on the synthetic set in the JAX package's runs
+(``tpu21cmvae/utils/config.py``)."""

@@ -159,10 +159,26 @@ Phases, one line each:
     their plain versions on the trained weights at phases 6's and 3's
     batches; then three epochs of the tier-native (bf16) fine-tune,
     printed, not gated.
+19. the other families on phase 18's golden split: the shipped
+    autoencoder and VAE emulators and three-member deep ensemble through
+    ``load_model``; their predictions against a float64 NumPy forward of
+    each file; the golden errors of ``tests/test_pretrained.py``; the
+    ensemble's mixtures of K1 (contract, direct form), K2 (bf16x3 and
+    fp32) and K3 (high, default), one wrapper per member, against the
+    same mixtures of the plain versions at 4096 and 8192 rows; its HMC
+    (4096, 100 + 100) and MH (8192, 200 + 500) through
+    ``sample_posterior``, launching exactly 3 × member 0's alone, every
+    member's operands folded once, the draws scored at the contract tier
+    by K1 and the fp32 K2, held to each other, the truth typical; the
+    AE's and VAE's HMC (1024, 100 + 100) and MH through autograd; both
+    families trained three epochs per stage from seed 0 (host loop,
+    device loop and a resumed run bit for bit) and the VAE's first 20
+    steps on the card held to the CPU's on the same seam normals.
 
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound (phase 18's launches under
-``launches_trained``), the card's name and power limit, and a last
+``launches_trained``, phase 19's under ``launches_ensemble`` and in the
+total), the card's name and power limit, and a last
 line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line; it also exits non-zero, with
@@ -171,11 +187,13 @@ no result, where no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -187,7 +205,11 @@ import torch.nn.functional as F
 
 from tpu21cmvae_torch.data.synthetic import PAR_RANGES, synthetic_dataset, synthetic_params
 from tpu21cmvae_torch.foregrounds import linlog_basis
+from tpu21cmvae_torch.models import load_model
+from tpu21cmvae_torch.models.autoencoder import AutoEncoderEmulator
 from tpu21cmvae_torch.models.direct import DirectEmulator
+from tpu21cmvae_torch.models.ensemble import DeepEnsemble
+from tpu21cmvae_torch.models.vae import VAEEmulator
 from tpu21cmvae_torch.noisescale import marginalize_noise_scale
 from tpu21cmvae_torch.ops.kernels import _build
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
@@ -201,7 +223,12 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import fused_mlp_reference, make_fus
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad
 from tpu21cmvae_torch.priors import GaussianBoxPrior
 from tpu21cmvae_torch.sampling.gradient import sample_hmc
-from tpu21cmvae_torch.utils.config import DIRECT_TRAIN_DEFAULT
+from tpu21cmvae_torch.ops.transforms import preproc
+from tpu21cmvae_torch.utils.config import (
+    AE_EMULATOR_TRAIN_DEFAULT,
+    AE_TRAIN_DEFAULT,
+    DIRECT_TRAIN_DEFAULT,
+)
 from tpu21cmvae_torch.utils.metrics import (
     grad_gate_violation,
     error,
@@ -335,6 +362,19 @@ PARITY_TIGHT_STEPS, TRAIN_LOSS_RTOL, PARITY_EPOCH_RTOL = 20, 2e-6, 0.5
 TEST_ERROR_GATE = 3.0  # mean relative test error, %: the verify skill's gate
 TRAINED_BATCHES = {"k1": (1, 37, 8192, 65537), "k2": (1, 37, 8192, 65537),  # phase 6's
                    "k3": (1, 37, 4096, 65537)}  # phase 3's; held_batches adds 1024
+# Phase 19: the other families from their shipped checkpoints, on phase 18's
+# golden split; the golden errors are tests/test_pretrained.py's bounds.
+FAMILY_PATHS = {"ae": os.path.join(ROOT, "pretrained", "ae_synthetic.npz"),
+                "vae": os.path.join(ROOT, "pretrained", "vae_synthetic.npz"),
+                "ensemble": os.path.join(ROOT, "pretrained", "ensemble_direct")}
+MIXTURE_ROWS = (4096, 8192)
+# MH at phase 8's sizes: at 100 + 200 steps the ensemble's best draw stayed
+# 6.5 nats below the truth (an H100 80GB HBM3 at 700 W), short of phase 8's
+# gate; random-walk MH needs phase 8's length to reach the mode
+MH_SIZES = dict(n_walkers=MH_WALKERS, n_warmup=MH_WARMUP, n_steps=MH_STEPS)
+ENS_SAMPLERS = {"hmc": dict(n_walkers=4096, n_warmup=100, n_steps=100), "mh": MH_SIZES}
+FAMILY_SAMPLERS = {"hmc": dict(n_walkers=1024, n_warmup=100, n_steps=100), "mh": MH_SIZES}
+FAMILY_EPOCHS = 3  # of each training stage
 
 
 def check(ok: bool, what: str):
@@ -342,23 +382,67 @@ def check(ok: bool, what: str):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def numpy_forward(path: str, raw: np.ndarray) -> np.ndarray:
-    """The checkpoint's signals in float64 NumPy: its own reading of the
-    file (leaf order: Normalizer fields, then each layer's b, w)."""
+def read_leaves(path: str):
+    """A checkpoint's leaves in float64 and its metadata, read with NumPy."""
     with np.load(path) as data:
         header = json.loads(bytes(data["__header__"]).decode())
         leaves = [data[f"leaf_{i}"].astype(np.float64) for i in range(header["n_leaves"])]
-    mean, std, pmin, pmax = leaves[:4]
-    layers = [(leaves[i + 1], leaves[i]) for i in range(4, len(leaves), 2)]
-    x = np.asarray(raw, np.float64).copy()
-    x[:, 2] = np.where(x[:, 2] == 0.0, 1e-6, x[:, 2])
-    x[:, :3] = np.log10(x[:, :3])
-    h = 2.0 * (x - pmin) / (pmax - pmin) - 1.0
+    return leaves, header["metadata"]
+
+
+def numpy_mlp(layers, h):
+    """A ReLU MLP of ``(w, b)`` layers with a linear head, in NumPy."""
     for i, (w, b) in enumerate(layers):
         h = h @ w + b
         if i < len(layers) - 1:
             h = np.maximum(h, 0.0)
-    return h * std + mean
+    return h
+
+
+def numpy_inputs(raw, pmin, pmax):
+    """The network's inputs of raw parameter rows: log10 of columns 0-2
+    (fx == 0 clamped to 1e-6), then the affine map onto [-1, 1]."""
+    x = np.asarray(raw, np.float64).copy()
+    x[:, 2] = np.where(x[:, 2] == 0.0, 1e-6, x[:, 2])
+    x[:, :3] = np.log10(x[:, :3])
+    return 2.0 * (x - pmin) / (pmax - pmin) - 1.0
+
+
+def numpy_forward(path: str, raw: np.ndarray) -> np.ndarray:
+    """The checkpoint's signals in float64 NumPy: its own reading of the
+    file (leaf order: Normalizer fields, then each layer's b, w)."""
+    leaves, _ = read_leaves(path)
+    mean, std, pmin, pmax = leaves[:4]
+    layers = [(leaves[i + 1], leaves[i]) for i in range(4, len(leaves), 2)]
+    return numpy_mlp(layers, numpy_inputs(raw, pmin, pmax)) * std + mean
+
+
+def numpy_family_forward(path: str, raw: np.ndarray) -> np.ndarray:
+    """A two-stage family's signals in float64 NumPy (params → latent MLP,
+    then the decoder): its own reading of the file, whose leaves follow
+    the sorted keys of the checkpoint's tree — the autoencoder's ``dec``,
+    ``em``, ``enc``, ``normalizer``; the VAE's ``em``, ``normalizer``,
+    ``vae`` (its ``dec`` first) — each layer's b before its w."""
+    leaves, meta = read_leaves(path)
+    it = iter(leaves)
+
+    def take(hidden):
+        layers = []
+        for _ in range(len(hidden) + 1):
+            b = next(it)
+            layers.append((next(it), b))
+        return layers
+
+    if meta["kind"] == "AutoEncoderEmulator":
+        dec, em = take(meta["dec_hidden_dims"]), take(meta["em_hidden_dims"])
+        take(meta["enc_hidden_dims"])
+        mean, std, pmin, pmax = (next(it) for _ in range(4))
+    else:
+        em = take(meta["em_hidden_dims"])
+        mean, std, pmin, pmax = (next(it) for _ in range(4))
+        dec = take(meta["dec_hidden_dims"])
+    z = numpy_mlp(em, numpy_inputs(raw, pmin, pmax))
+    return numpy_mlp(dec, z) * std + mean
 
 
 def rows(n: int, rng) -> torch.Tensor:
@@ -2193,7 +2277,303 @@ def training_phase(dev, smi) -> dict:
         "phase_wall_s": time.perf_counter() - t_phase,
     }
     print("phase 18: " + json.dumps(out), flush=True)
-    return launches
+    return launches, data
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Keep each training batch's mean loss (a device tensor, no host
+    read) in the yielded list while the block runs, by wrapping the
+    training loop's step."""
+    from tpu21cmvae_torch.train import loop
+
+    steps, base = [], loop._train_step
+
+    def step(*args, **kwargs):
+        loss, state = base(*args, **kwargs)
+        steps.append(loss)
+        return loss, state
+
+    loop._train_step = step
+    try:
+        yield steps
+    finally:
+        loop._train_step = base
+
+
+def ensemble_wrappers(ens, obs) -> dict:
+    """The ensemble's memoized mixtures on ``obs`` at σ² = 25 that its
+    entry points run on a CUDA ensemble: K1 per member as the
+    contract-tier direct likelihood, K2 per member at bf16x3 (MH), K3
+    per member at (high, default) (HMC), and the fp32 K2 per member (the
+    gram form at the contract tier)."""
+    return {
+        "k1": ens.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract",
+                            backend="kernel"),
+        "k2": ens.loglik_fn(obs, NOISE_VAR, backend="kernel"),
+        "k3": ens.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel",
+                                     grad_precision=MAIN_TIERS[1]),
+        "k2_f32": ens.loglik_fn(obs, NOISE_VAR, precision="contract", backend="kernel"),
+    }
+
+
+def ensemble_half_c(ens, wrappers) -> float:
+    """The largest member's gram cancellation scale c/2 (phase 6's), read
+    from the fp32 K2 wrappers' folded operands."""
+    return max(0.5 * abs(float(f.fused.operands(p).c))
+               for f, p in zip(wrappers["k2_f32"].members, ens.member_params(ens.params)))
+
+
+@torch.no_grad()
+def mixture_vs_plain(ens, obs, wrappers, rng) -> dict:
+    """The ensemble's kernel mixtures against the same mixtures over the
+    plain versions at ``MIXTURE_ROWS``: values within the member bound
+    (logsumexp is 1-Lipschitz in the max norm), K3's gradient under
+    ``bench_mcmc.py``'s gate. Returns the report by kernel."""
+    plain = {"k1": ens.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract"),
+             "k2": ens.loglik_fn(obs, NOISE_VAR),
+             "k3": ens.loglik_and_grad_fn(obs, NOISE_VAR, grad_precision=MAIN_TIERS[1]),
+             "k2_f32": ens.loglik_fn(obs, NOISE_VAR, precision="contract")}
+    tiers = {"k1": "highest", "k2": MAIN_TIERS[0], "k3": MAIN_TIERS[0], "k2_f32": "highest"}
+    half_c = ensemble_half_c(ens, wrappers)
+    report = {}
+    for key, fn in wrappers.items():
+        entry = {"worst_over_tol": 0.0, "max_abs": 0.0}
+        for n in MIXTURE_ROWS:
+            x = rows(n, rng)
+            got, want = outputs(fn, ens, x), outputs(plain[key], ens, x)
+            got, want = [t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want]
+            check(bool(all(np.isfinite(a).all() for a in got)), f"ensemble {key} finite, n={n}")
+            worst, max_abs = value_worst(got[0], want[0], tiers[key], half_c)
+            check(worst <= 1.0, f"ensemble {key} vs plain, n={n}: worst |Δ|/tol {worst:.3g}")
+            entry["worst_over_tol"] = max(entry["worst_over_tol"], worst)
+            entry["max_abs"] = max(entry["max_abs"], max_abs)
+            if key == "k3":
+                gate = grad_gate_violation(got[1], want[1])
+                check(gate <= 0.0, f"ensemble k3 gradient gate, n={n}: {gate:.3g}")
+                entry["grad_gate_violation"] = max(entry.get("grad_gate_violation", -np.inf),
+                                                   gate)
+        report[key] = entry
+    return report, half_c
+
+
+def family_sampler_checks(name, res, sizes, ll_draws, ll_truth, sampler) -> dict:
+    """The checks every phase-19 chain passes: its shape, finite draws,
+    and the truth typical — under HMC its likelihood rank among the draws
+    inside [0.001, 0.999] (phase 5's gate), under MH the best draw at
+    least as likely as the truth less 5 nats (phase 8's: random-walk MH
+    leaves a share of the walkers far from the mode at these lengths)."""
+    thin = 5 if sampler == "hmc" else 10
+    shape = (sizes["n_steps"] // thin, sizes["n_walkers"], 7)
+    check(res.chain.shape == shape, f"{name} {sampler}: chain shape {res.chain.shape}")
+    check(bool(np.isfinite(res.chain).all() and np.isfinite(res.logp).all()
+               and np.isfinite(ll_draws).all()), f"{name} {sampler}: finite draws")
+    share = float(np.mean(ll_draws >= ll_truth))
+    if sampler == "hmc":
+        check(0.001 <= share <= 0.999, f"{name} hmc: likelihood rank of the truth {share:.4f}")
+    else:
+        check(float(ll_draws.max()) >= ll_truth - 5.0,
+              f"{name} mh: best draw {float(ll_draws.max()):.2f} < logL(truth) {ll_truth:.2f} − 5")
+    return {"share_at_least_truth": share, "loglik_truth": ll_truth,
+            "loglik_draws_max": float(ll_draws.max()), "accept": float(np.mean(res.accept_rate)),
+            "step_size": res.step_size, "rhat_max": float(res.rhat().max())}
+
+
+def ensemble_main_path(ens, truth, obs, dev) -> dict:
+    """The ensemble's HMC and MH through ``sample_posterior``: the launches
+    exactly 3 × those of member 0 alone at the same sizes and seed, every
+    member's operands folded once across the phase; the draws scored by
+    the mixture at the contract tier through K1 (the direct form) and
+    through the fp32 K2 (the gram form), held to each other. Returns the
+    launches by kernel and the report."""
+    single = ens.members[0]
+    wrappers = ensemble_wrappers(ens, obs)
+    single_fn = {"hmc": main_k3(single, obs),
+                 "mh": single.loglik_fn(obs, NOISE_VAR, backend="kernel")}
+    key_of = {"hmc": "k3", "mh": "k2"}
+    out, launches = {}, {"k1": 0, "k2": 0, "k3": 0, "k2_f32": 0}
+    half_c = ensemble_half_c(ens, wrappers)
+    for sampler, sizes in ENS_SAMPLERS.items():
+        single_fn[sampler].launches = 0
+        _, single_s = timed(lambda: single.sample_posterior(obs, NOISE_VAR, sampler=sampler,
+                                                            **sizes))
+        want = 3 * single_fn[sampler].launches
+        mix = wrappers[key_of[sampler]]
+        mix.launches = 0
+        res, wall = timed(lambda: ens.sample_posterior(obs, NOISE_VAR, sampler=sampler, **sizes))
+        got = mix.launches
+        check(got == want, f"ensemble {sampler}: {got} launches != 3 × member 0's ({want // 3})")
+        check(all(m.launches == want // 3 for m in mix.members),
+              f"ensemble {sampler}: per-member launches {[m.launches for m in mix.members]}")
+        launches[key_of[sampler]] += got
+        flat = res.flat
+        wrappers["k1"].launches = wrappers["k2_f32"].launches = 0
+        ll_draws = scores(wrappers["k1"], ens, flat, dev)
+        ll_gram = scores(wrappers["k2_f32"], ens, flat, dev)
+        ll_truth = float(scores(wrappers["k1"], ens, truth, dev)[0])
+        check(wrappers["k1"].launches == 6 and wrappers["k2_f32"].launches == 3,
+              f"ensemble {sampler}: scoring launches {wrappers['k1'].launches}, "
+              f"{wrappers['k2_f32'].launches}")
+        launches["k1"] += wrappers["k1"].launches
+        launches["k2_f32"] += wrappers["k2_f32"].launches
+        gram_worst, _ = value_worst(ll_gram, ll_draws, "highest", half_c)
+        check(gram_worst <= 1.0, f"ensemble {sampler}: exact gram vs direct {gram_worst:.3g}")
+        out[sampler] = {"wall_s": wall, "member0_wall_s": single_s, "launches": got,
+                        "exact_gram_vs_direct_worst_over_tol": gram_worst,
+                        **family_sampler_checks("ensemble", res, sizes, ll_draws, ll_truth,
+                                                sampler)}
+    folds = {k: fn.folds for k, fn in wrappers.items()}
+    check(all(f == [1, 1, 1] for f in folds.values()), f"ensemble operand folds {folds}")
+    out["folds"] = folds
+    return launches, out
+
+
+def family_samplers(name, model, truth, obs, dev) -> dict:
+    """HMC and MH through an autoencoder-family model's ``sample_posterior``
+    (plain PyTorch with autograd on the card), the draws and the truth
+    scored by its likelihood."""
+    loglik, out = model.loglik_fn(obs, NOISE_VAR), {}
+    for sampler, sizes in FAMILY_SAMPLERS.items():
+        res, wall = timed(lambda: model.sample_posterior(obs, NOISE_VAR, sampler=sampler,
+                                                         **sizes))
+        ll_draws = scores(loglik, model, res.flat, dev)
+        ll_truth = float(scores(loglik, model, truth, dev)[0])
+        out[sampler] = {"wall_s": wall, **family_sampler_checks(name, res, sizes, ll_draws,
+                                                                ll_truth, sampler)}
+    return out
+
+
+def family_training(name, cls, config, data, dev) -> dict:
+    """Three epochs of each stage from seed 0 at the shipped widths: the
+    host loop (checkpointing every epoch), the device loop, and a run
+    resumed from the host run's checkpoints as a run preempted inside
+    stage A after its next-to-last epoch left them, equal bit for bit;
+    the losses printed."""
+    stage_a = {"ae": "ae_train_config", "vae": "vae_train_config"}[name]
+    cfgs = {stage_a: dataclasses.replace(AE_TRAIN_DEFAULT, epochs=FAMILY_EPOCHS),
+            "em_train_config": dataclasses.replace(AE_EMULATOR_TRAIN_DEFAULT,
+                                                   epochs=FAMILY_EPOCHS)}
+    runs, walls = {}, {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for run in ("host", "device"):
+            m = cls(data, config=config, seed=0, device=dev)
+            kw = dict(device_loop=True) if run == "device" else dict(checkpoint_dir=ckpt,
+                                                                      checkpoint_every=1)
+            runs[run], walls[run] = timed(lambda: (m, m.train(**cfgs, **kw)))
+        os.remove(os.path.join(ckpt, f"stage_{name}", f"ckpt_{FAMILY_EPOCHS - 1:06d}.npz"))
+        shutil.rmtree(os.path.join(ckpt, "stage_em"))
+        m = cls(data, config=config, seed=0, device=dev)
+        runs["resumed"], walls["resumed"] = timed(
+            lambda: (m, m.train(**cfgs, checkpoint_dir=ckpt, resume=True)))
+    host, losses = runs["host"]
+    check(all(np.isfinite(v).all() for v in losses), f"{name}: finite training losses")
+    for run in ("device", "resumed"):
+        m, got = runs[run]
+        same = got == losses and all(
+            torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(m.params),
+                                              torch.utils._pytree.tree_leaves(host.params)))
+        check(same, f"{name}: the {run} run != the host loop")
+    return {"losses": [list(v) for v in losses], "wall_s": walls,
+            "test_error_mean_pct": float(host.test_error().mean())}
+
+
+def vae_card_vs_cpu(config, data, dev) -> dict:
+    """One epoch of the VAE's stage A from seed 0 on the card and on the
+    CPU, on the same shuffles and seam normals: the first
+    ``PARITY_TIGHT_STEPS`` steps' losses within ``TRAIN_LOSS_RTOL`` (phase
+    18's bound and reason)."""
+    cfg = dataclasses.replace(AE_TRAIN_DEFAULT, epochs=1)
+    steps = {}
+    for where in ("cpu", dev):
+        m = VAEEmulator(data, config=config, seed=0, device=where)
+        with recorded_steps() as rec:
+            m.train(vae_train_config=cfg,
+                    em_train_config=dataclasses.replace(AE_EMULATOR_TRAIN_DEFAULT, epochs=0))
+        steps[str(where)] = torch.stack(rec).cpu().numpy()
+    cpu, card = steps["cpu"], steps[str(dev)]
+    gap = np.abs(card - cpu) / np.abs(cpu)
+    tight = float(gap[:PARITY_TIGHT_STEPS].max())
+    check(tight <= TRAIN_LOSS_RTOL, f"vae card vs CPU, first {PARITY_TIGHT_STEPS} steps: "
+                                    f"{tight:.3g} > {TRAIN_LOSS_RTOL}")
+    return {"first_steps_rel_gap": tight, "epoch_rel_gap_max": float(gap.max())}
+
+
+def families_phase(truth, obs, data, dev, smi) -> dict:
+    """Phase 19: the autoencoder and VAE emulators and the three-member
+    deep ensemble from their shipped checkpoints through ``load_model`` on
+    the card: predictions against a float64 NumPy forward of each file,
+    the golden errors, the ensemble's kernel mixtures against plain, its
+    HMC and MH on phase 5's observation (the main path: K3 and K2 once
+    per member per step), the AE's and VAE's samplers through autograd,
+    and both families' training. Returns the ensemble's launches by
+    kernel and its kernel report."""
+    t_phase = time.perf_counter()
+    models, walls = {}, {}
+    for name, path in FAMILY_PATHS.items():
+        models[name], walls[f"load_{name}"] = timed(lambda: load_model(path, data, device=dev))
+    ae, vae, ens = models["ae"], models["vae"], models["ensemble"]
+    check((type(ae), type(vae), type(ens)) == (AutoEncoderEmulator, VAEEmulator, DeepEnsemble)
+          and len(ens.members) == 3, "load_model dispatch")
+
+    # predictions against a float64 NumPy forward of each file
+    batch = synthetic_params(4096, np.random.default_rng(19))
+    batch[0, 2] = 0.0
+    pred_err = {}
+    for name in ("ae", "vae"):
+        ref = numpy_family_forward(FAMILY_PATHS[name], batch)
+        pred_err[name] = float(np.abs(models[name].predict(batch) - ref).max() / np.abs(ref).max())
+    member_paths = sorted(os.path.join(FAMILY_PATHS["ensemble"], f)
+                          for f in os.listdir(FAMILY_PATHS["ensemble"]))
+    ref = np.mean([numpy_forward(p, batch) for p in member_paths], axis=0)
+    pred_err["ensemble"] = float(np.abs(ens.predict(batch) - ref).max() / np.abs(ref).max())
+    check(all(v <= 1e-5 for v in pred_err.values()), f"predict vs float64 forward {pred_err}")
+
+    # the golden errors (tests/test_pretrained.py's bounds)
+    err_ae, rec_ae = ae.test_error(), ae.test_error(use_autoencoder=True)
+    err_vae, err_ens = vae.test_error(), ens.test_error()
+    y_val = preproc(torch.as_tensor(np.asarray(data.signal_val, np.float32), device=dev),
+                    vae.normalizer)
+    with torch.no_grad():
+        mu = vae.vae.encode(vae.vae.params, y_val)[0].cpu().numpy()
+    active = int((mu.var(axis=0) > 0.01).sum())
+    curves = vae.latent_traversal(dim=0, values=np.linspace(-2, 2, 5))
+    _, std = ens.predict_with_uncertainty(data.par_test[:8])
+    golden = {"ae_mean_pct": float(err_ae.mean()), "ae_reconstruction_pct": float(rec_ae.mean()),
+              "vae_mean_pct": float(err_vae.mean()), "vae_median_pct": float(np.median(err_vae)),
+              "vae_active_latents": active, "ensemble_mean_pct": float(err_ens.mean()),
+              "ensemble_std_max": float(std.max())}
+    check(err_ae.mean() < 0.25 and rec_ae.mean() < 0.20, f"AE golden errors {golden}")
+    check(err_vae.mean() < 0.35 and np.median(err_vae) < 0.35
+          and 2 * active >= vae.config.latent_dim
+          and curves.shape == (5, 451) and bool(np.isfinite(curves).all()),
+          f"VAE golden errors {golden}")
+    check(err_ens.mean() < 0.25 and bool(np.isfinite(std).all()) and std.max() > 0,
+          f"ensemble golden errors {golden}")
+
+    # the ensemble: its kernel mixtures against plain, then the main path
+    wrappers = ensemble_wrappers(ens, obs)
+    (held, _), walls["mixture_vs_plain"] = timed(
+        lambda: mixture_vs_plain(ens, obs, wrappers, np.random.default_rng(191)))
+    launches, ens_paths = ensemble_main_path(ens, truth, obs, dev)
+
+    # the autoencoder families: samplers through autograd, then training
+    samplers = {}
+    for name in ("ae", "vae"):
+        samplers[name], walls[f"samplers_{name}"] = timed(
+            lambda: family_samplers(name, models[name], truth, obs, dev))
+    training = {}
+    for name, cls, config in (("ae", AutoEncoderEmulator, ae.config),
+                              ("vae", VAEEmulator, vae.config)):
+        training[name], walls[f"training_{name}"] = timed(
+            lambda: family_training(name, cls, config, data, dev))
+    parity, walls["vae_card_vs_cpu"] = timed(lambda: vae_card_vs_cpu(vae.config, data, dev))
+
+    out = {"card": smi, "predict_rel_err": pred_err, "golden": golden,
+           "mixture_vs_plain": held, "ensemble": ens_paths, "ensemble_launches": launches,
+           "samplers": samplers, "training": training, "vae_card_vs_cpu": parity,
+           "wall_s": walls, "phase_wall_s": time.perf_counter() - t_phase}
+    print("phase 19: " + json.dumps(out), flush=True)
+    return launches, held
 
 
 
@@ -2321,7 +2701,10 @@ def main() -> int:
     variational = variational_path(model, obs, witness, obs_batch[:EVIDENCE_BATCH_OBS], dev)
 
     # -- phase 18: training the flagship; the kernels on the trained weights --
-    trained = training_phase(dev, smi)
+    trained, golden_split = training_phase(dev, smi)
+
+    # -- phase 19: the other families; the ensemble's kernels per member ------
+    ens_launches, ens_held = families_phase(truth, obs, golden_split, dev, smi)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
               "launches_fit": fits["fit"], "launches_profile": fits["profile"],
               "launches_ladder_warm_start": evidence["ladder"]["k3"],
@@ -2355,10 +2738,17 @@ def main() -> int:
         return kernel_entry(name, source, replaces, n_launch, marg.get(name, 0),
                             max(err, fg_err.get(name, 0.0)), *args, **extra)
 
+    def ensemble(key):
+        """Phase 19's launches of the ensemble's ``key`` kernel (counted in
+        the entry's total) and its worst error against plain there."""
+        return {"launches_ensemble": ens_launches[key],
+                "max_abs_err_ensemble": ens_held[key]["max_abs"],
+                "ensemble_worst_over_tol": ens_held[key]["worst_over_tol"]}
+
     print(json.dumps({"kernels": [
-        entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches, k1_err,
+        entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches + ens_launches["k1"], k1_err,
               value_t[f"k1_sumsq/highest/{DRAWS}"], bound("k1", k1_sizes, DRAWS, "f32"),
-              launches_trained=trained["k1"],
+              launches_trained=trained["k1"], **ensemble("k1"),
               **at_big(value_t[f"k1_sumsq/highest/{big}"],
                        bound("k1", k1_sizes, big, "f32"))),
         entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
@@ -2366,14 +2756,16 @@ def main() -> int:
               launches_trained=0),
         entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES,
               k2_launches + evidence["laplace"]["k2_f32"]
-              + variational["flow_evidence"]["k2_f32"], k2_err,
+              + variational["flow_evidence"]["k2_f32"] + ens_launches["k2_f32"], k2_err,
               value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
               launches_laplace_is=evidence["laplace"]["k2_f32"],
               launches_flow_is=variational["flow_evidence"]["k2_f32"], launches_trained=0,
+              **ensemble("k2_f32"),
               **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES,
-              k2_mma_launches + sum(new_k2.values()), k2_mma_err, value_t["k2/high/8192"],
-              bound("k2", trunk, 8192, "bf16x3"), launches_trained=trained["k2"], **new_k2),
+              k2_mma_launches + sum(new_k2.values()) + ens_launches["k2"], k2_mma_err,
+              value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3"),
+              launches_trained=trained["k2"], **new_k2, **ensemble("k2")),
         entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES,
               k3_f32_launches + evidence["laplace"]["k3_f32"],
               k3_err[EXACT_TIERS], timings["highest/highest/4096"],
@@ -2386,10 +2778,10 @@ def main() -> int:
               k3_err[MIXED_TIERS], timings["highest/default/65536"],
               bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
-              launches + sum(new_k3.values()), k3_err[MAIN_TIERS],
+              launches + sum(new_k3.values()) + ens_launches["k3"], k3_err[MAIN_TIERS],
               timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
               bound("k3", trunk, 4096, "bf16x3", "bf16"), launches_hmc=launches,
-              launches_trained=trained["k3"], **new_k3),
+              launches_trained=trained["k3"], **new_k3, **ensemble("k3")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

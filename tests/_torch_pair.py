@@ -92,3 +92,43 @@ def jax_seam():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(loop, "_permutation", permutation)
         yield
+
+
+def jax_loss_keys(seed: int, n_epochs: int) -> list:
+    """The loss keys JAX's ``fit`` and ``fit_scan`` derive in epochs ``0 …
+    n_epochs-1`` for ``seed``: the second half of each epoch key's split
+    (``tpu21cmvae/train/loop.py:146``)."""
+    key = jax.random.key(seed)
+    out = []
+    for _ in range(n_epochs):
+        key, sub = jax.random.split(key)
+        out.append(jax.random.split(sub)[1])
+    return out
+
+
+@contextlib.contextmanager
+def jax_normal_seam(batch_size: int):
+    """Route the port's stochastic-loss seam (``train.loop._normal``) to
+    the normals JAX draws for the same batch: ``normal(fold_in(loss_key,
+    step), (batch_size, k))`` in training (JAX pads a short last batch to
+    ``batch_size`` rows; its real rows take the first rows of the draw),
+    ``normal(key(seed ^ 0x5EED), shape)`` for validation (the port passes
+    that seed with ``EVAL_EPOCH``)."""
+    from tpu21cmvae_torch.train import loop
+
+    keys = {}
+
+    def normal(seed, epoch, step, shape, device):
+        if epoch == loop.EVAL_EPOCH:
+            draw = jax.random.normal(jax.random.key(seed), tuple(shape))
+            return torch.tensor(np.asarray(draw), device=device)
+        have = keys.get(seed, [])
+        if len(have) <= epoch:
+            have = keys[seed] = jax_loss_keys(seed, max(epoch + 1, 2 * len(have)))
+        draw = jax.random.normal(jax.random.fold_in(have[epoch], step),
+                                 (batch_size, *tuple(shape)[1:]))
+        return torch.tensor(np.asarray(draw)[: shape[0]], device=device)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "_normal", normal)
+        yield

@@ -1075,3 +1075,87 @@ def test_one_training_epoch_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_allclose(card_losses, cpu_losses, rtol=2e-6)
     for a, b in zip(card_w, cpu_w):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+# -- the deep ensemble's mixture: one kernel wrapper per member -------------
+
+
+def _shipped_ensemble(dev):
+    import os
+
+    from tpu21cmvae_torch.models.ensemble import DeepEnsemble
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ens = DeepEnsemble.load(os.path.join(root, "pretrained", "ensemble_direct"), device=dev)
+    obs = ens.predict(synthetic_params(1, np.random.default_rng(9))[0])
+    return ens, obs + np.random.default_rng(10).normal(0, 5.0, 451)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3"])
+def test_ensemble_mixture_kernels_match_plain(cuda, kernel):
+    """The shipped three-member ensemble's mixture with ``backend="kernel"``
+    (K1 at the contract tier, K2 at bf16x3, K3 at (high, default), one
+    wrapper per member) against the same mixture over the plain versions,
+    at 4096 and 8192 rows: values within the member bound (the mixture's
+    logsumexp is 1-Lipschitz in the max norm), K3's gradient under the
+    gate. Ten calls launch 3 × 10 kernels and fold each member's operands
+    once."""
+    from tpu21cmvae_torch.ops.fold import gram_fold, noise_scale, obs_tensor
+
+    ens, obs = _shipped_ensemble(cuda)
+    kw = {"k1": dict(method="direct", precision="contract"), "k2": {},
+          "k3": dict(grad_precision="default")}[kernel]
+    build = ens.loglik_and_grad_fn if kernel == "k3" else ens.loglik_fn
+    fn, plain = build(obs, 25.0, backend="kernel", **kw), build(obs, 25.0, **kw)
+    tier = "highest" if kernel == "k1" else "high"
+    scale = noise_scale(25.0, 451, device=cuda)
+    half_c = max(0.5 * abs(float(gram_fold(p, ens.normalizer, obs_tensor(obs, 451, device=cuda),
+                                           scale)[3]))
+                 for p in ens.member_params(ens.params))
+    fn.launches = 0
+    for n in (4096, 8192):
+        x = _rows_prior(n, cuda)
+        for _ in range(5):
+            with torch.no_grad():
+                got = fn(ens.params, x)
+        with torch.no_grad():
+            want = plain(ens.params, x)
+        got, want = ((t,) if kernel != "k3" else t for t in (got, want))
+        g, w = got[0].cpu().numpy(), want[0].cpu().numpy()
+        assert np.isfinite(g).all()
+        assert (np.abs(g - w) <= VALUE_RTOL[tier] * (np.abs(w) + half_c) + 1e-2).all()
+        if kernel == "k3":
+            assert grad_gate_violation(got[1].cpu().numpy(), want[1].cpu().numpy()) <= 0.0
+    assert fn.launches == 3 * 10 and fn.folds == [1, 1, 1]
+
+
+def _rows_prior(n, dev):
+    x = synthetic_params(n, np.random.default_rng(n)).astype(np.float32)
+    x[0, 2] = 0.0
+    return torch.as_tensor(x, device=dev)
+
+
+@pytest.mark.cuda
+def test_vae_stage_a_on_the_card_equals_the_cpu(cuda):
+    """One epoch of the VAE's stochastic stage A (8 batches of 64) from the
+    same weights, shuffles and seam normals on the card and on the CPU:
+    the losses within 2e-6 relative, the weights within 1e-5 relative
+    (1e-6 absolute), the bounds of the direct net's check above."""
+    from tpu21cmvae_torch.models.vae import VAEEmulator
+    from tpu21cmvae_torch.utils.config import VAEConfig
+
+    splits = synthetic_dataset(512, 128, 128, seed=7)
+    cfg = VAEConfig(latent_dim=4, enc_hidden_dims=(24,), dec_hidden_dims=(16, 24),
+                    em_hidden_dims=(16,), beta=1e-3, kl_anneal_epochs=2)
+    tc = TrainConfig(epochs=1, batch_size=64)
+    runs = []
+    for dev in ("cpu", cuda):
+        m = VAEEmulator(splits, config=cfg, seed=0, device=dev)
+        losses = m.train(vae_train_config=tc, em_train_config=tc)
+        runs.append((sum(losses, []), [t.detach().cpu().numpy() for t in
+                                       torch.utils._pytree.tree_leaves(m.params)]))
+    (cpu_losses, cpu_w), (card_losses, card_w) = runs
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=2e-6)
+    for a, b in zip(card_w, cpu_w):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)

@@ -30,9 +30,12 @@ def test_import_pulls_in_no_jax():
         "tpu21cmvae_torch.sampling.pt, tpu21cmvae_torch.sampling.smc, "
         "tpu21cmvae_torch.sampling.evidence, tpu21cmvae_torch.vi, tpu21cmvae_torch.flows, "
         "tpu21cmvae_torch.train, tpu21cmvae_torch.train.scan, tpu21cmvae_torch.ops.losses, "
-        "tpu21cmvae_torch.utils.logging, tpu21cmvae_torch.data.dataset\n"
+        "tpu21cmvae_torch.utils.logging, tpu21cmvae_torch.data.dataset, "
+        "tpu21cmvae_torch.models, tpu21cmvae_torch.models.autoencoder, "
+        "tpu21cmvae_torch.models.vae, tpu21cmvae_torch.models.ensemble, "
+        "tpu21cmvae_torch.models.io_keras\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'tpu21cmvae'))\n"
+        "('jax', 'jaxlib', 'tpu21cmvae', 'h5py'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -40,6 +43,24 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_top_level_names_cover_the_jax_packages_families():
+    """The model families, their configs and recipes sit at the top level
+    of the port as they do in the JAX package (``tpu21cmvae/__init__.py``),
+    and ``load_model`` beside them (the JAX package's is in ``models``)."""
+    import tpu21cmvae
+    import tpu21cmvae_torch
+
+    names = ["DirectEmulator", "AutoEncoder", "AutoEncoderEmulator", "VAE", "VAEEmulator",
+             "DeepEnsemble", "AE_EMULATOR_TRAIN_DEFAULT", "AE_EMULATOR_TRAIN_STRONG",
+             "AE_TRAIN_DEFAULT", "AE_TRAIN_STRONG", "DIRECT_TRAIN_DEFAULT", "DIRECT_TRAIN_STRONG",
+             "AutoEncoderConfig", "DirectEmulatorConfig", "TrainConfig", "VAEConfig"]
+    for name in names:
+        assert hasattr(tpu21cmvae, name) and hasattr(tpu21cmvae_torch, name), name
+    from tpu21cmvae_torch.models import load_model
+
+    assert tpu21cmvae_torch.load_model is load_model
 
 
 def test_synthetic_data_and_axes_byte_identical(splits):

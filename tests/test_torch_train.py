@@ -325,7 +325,31 @@ def test_fit_masks_pad_rows_like_jax(setup):
 
 
 def test_fit_refuses_stochastic_losses(setup):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """The refusal is lifted (the VAE family is ported): a stochastic loss
+    gets a source of normals before the epoch, fresh for each batch
+    through the seam ``loop._normal(seed, epoch, step, …)``, and one fixed
+    draw per run for validation (the seed ``seed ^ 0x5EED`` at
+    ``EVAL_EPOCH``); a loss without the noise argument is refused by its
+    own signature."""
+    seen = []
+
+    def loss(p, x, y, noise, epoch):
+        eps = noise((x.shape[0], 2))
+        seen.append((torch.is_grad_enabled(), epoch, eps))
+        return setup.port_loss(p, x, y) + 0.0 * eps.sum(-1)
+
+    cfg = port_cfg(**dict(BASE, epochs=2, seed=5))
+    fit(setup.port_params(), loss, *setup.data(), cfg, stochastic=True, pass_epoch=True)
+    train = [(e, eps) for grad, e, eps in seen if grad]
+    val = [(e, eps) for grad, e, eps in seen if not grad]
+    per_epoch = -(-200 // BASE["batch_size"])
+    assert [e for e, _ in train] == [0] * per_epoch + [1] * per_epoch
+    for i, (e, eps) in enumerate(train):
+        assert torch.equal(eps, loop._normal(5, e, i % per_epoch, tuple(eps.shape), "cpu"))
+    assert len(val) == 2 and all(e == 1 for e, _ in val)
+    assert torch.equal(val[0][1], val[1][1])
+    assert torch.equal(val[0][1], loop._normal(5 ^ 0x5EED, loop.EVAL_EPOCH, 0, (64, 2), "cpu"))
+    with pytest.raises(TypeError):
         fit(setup.port_params(), setup.port_loss, *setup.data(), port_cfg(**BASE),
             stochastic=True)
 

@@ -35,8 +35,12 @@ from tpu21cmvae_torch.foregrounds import (  # noqa: F401
     polynomial_basis,
     powerlaw_basis,
 )
+from tpu21cmvae_torch.models import load_model  # noqa: F401
+from tpu21cmvae_torch.models.autoencoder import AutoEncoder, AutoEncoderEmulator  # noqa: F401
 from tpu21cmvae_torch.models.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from tpu21cmvae_torch.models.direct import DirectEmulator  # noqa: F401
+from tpu21cmvae_torch.models.ensemble import DeepEnsemble  # noqa: F401
+from tpu21cmvae_torch.models.vae import VAE, VAEEmulator  # noqa: F401
 from tpu21cmvae_torch.nested import NestedResult, nested_sampling, nested_sampling_batch  # noqa: F401
 from tpu21cmvae_torch.noisescale import ScaleMarginalNoise, marginalize_noise_scale  # noqa: F401
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad  # noqa: F401
@@ -76,10 +80,16 @@ from tpu21cmvae_torch.sampling.results import (  # noqa: F401
 from tpu21cmvae_torch.sampling.reweight import WeightedPosterior, reweight  # noqa: F401
 from tpu21cmvae_torch.sampling.smc import SMCResult, sample_smc  # noqa: F401
 from tpu21cmvae_torch.utils.config import (  # noqa: F401
+    AE_EMULATOR_TRAIN_DEFAULT,
+    AE_EMULATOR_TRAIN_STRONG,
+    AE_TRAIN_DEFAULT,
+    AE_TRAIN_STRONG,
     DIRECT_TRAIN_DEFAULT,
     DIRECT_TRAIN_STRONG,
+    AutoEncoderConfig,
     DirectEmulatorConfig,
     MLPConfig,
     TrainConfig,
+    VAEConfig,
 )
 from tpu21cmvae_torch.vi import ADVIResult, fit_advi, fit_advi_batch  # noqa: F401

@@ -5,8 +5,10 @@ A checkpoint is one ``.npz`` holding ``leaf_0 … leaf_{n-1}`` (the leaves
 of a JAX pytree in its flatten order) and a ``__header__`` JSON blob with
 ``format_version`` 1, the pytree's ``treedef`` string, ``n_leaves`` and
 the user metadata, written atomically (temp file + ``os.replace``). The
-port has no pytrees: callers bind leaves by position, and write the
-``treedef`` string JAX would write, so files pass between the packages.
+port has no pytrees: callers bind leaves by position
+(:func:`unflatten_like` over :mod:`tpu21cmvae_torch.utils.tree`'s flatten
+order), and write the ``treedef`` string JAX would write, so files pass
+between the packages.
 """
 
 from __future__ import annotations
@@ -67,3 +69,25 @@ def load_checkpoint(path: str, treedef: Optional[str] = None
             )
         leaves = [data[f"leaf_{i}"] for i in range(header["n_leaves"])]
     return leaves, header["metadata"]
+
+
+def read_checkpoint_meta(path: str) -> dict:
+    """Only the metadata header (the leaf arrays stay unread)."""
+    with np.load(path) as data:
+        return _header(data, path)["metadata"]
+
+
+def unflatten_like(template, leaves, source: str = "checkpoint"):
+    """``template``'s structure (a tree of :mod:`tpu21cmvae_torch.utils.tree`)
+    filled with ``leaves`` in JAX's flatten order; a leaf count or a leaf
+    shape that differs from the template's is refused."""
+    from tpu21cmvae_torch.utils.tree import tree_leaves, tree_unflatten
+
+    slots = tree_leaves(template)
+    if len(slots) != len(leaves):
+        raise ValueError(f"{source} has {len(leaves)} leaves; the template has {len(slots)}")
+    for i, (leaf, slot) in enumerate(zip(leaves, slots)):
+        if tuple(np.shape(leaf)) != tuple(slot.shape):
+            raise ValueError(f"{source}: leaf_{i} has shape {np.shape(leaf)}; "
+                             f"expected {tuple(slot.shape)}")
+    return tree_unflatten(template, leaves)

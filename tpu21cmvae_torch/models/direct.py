@@ -27,12 +27,14 @@ import torch
 from tpu21cmvae_torch.data.dataset import DataSplits
 from tpu21cmvae_torch.models.checkpoint import load_checkpoint, save_checkpoint
 from tpu21cmvae_torch.ops.losses import relative_mse
-from tpu21cmvae_torch.ops.mlp import MLP, mlp_apply
+from tpu21cmvae_torch.models.io_keras import load_keras_mlp
+from tpu21cmvae_torch.ops.mlp import MLP, mlp_apply, mlp_sizes
 from tpu21cmvae_torch.ops.transforms import (
     FIELDS,
     Normalizer,
     par_transform,
     preproc,
+    resolve_normalizer,
     unpreproc,
 )
 from tpu21cmvae_torch.train.loop import fit
@@ -107,15 +109,7 @@ class DirectEmulator:
         device,
     ):
         self.device = torch.empty(0, device=device).device
-        if normalizer is None:
-            if data is None:
-                raise ValueError(
-                    "Provide `data` (to compute normalization constants) or "
-                    "an explicit `normalizer`."
-                )
-            normalizer = Normalizer.from_data(
-                data.par_train, data.signal_train, device=self.device
-            )
+        normalizer = resolve_normalizer(data, normalizer, device=self.device)
         self.data = data
         self.config = config
         self.normalizer = normalizer
@@ -151,6 +145,21 @@ class DirectEmulator:
             device=device,
             **kwargs,
         )
+
+    @classmethod
+    def from_keras_h5(cls, path: str, data: Optional[DataSplits] = None,
+                      normalizer: Optional[Normalizer] = None, *, device,
+                      **kwargs) -> "DirectEmulator":
+        """Import the reference's pretrained ``models/emulator.h5``
+        (reference ``emulator.py:319-337``; needs ``h5py``). The
+        normalization constants are NOT in the h5: supply the dataset or a
+        Normalizer."""
+        params = load_keras_mlp(path)
+        sizes = mlp_sizes(params)
+        cfg = DirectEmulatorConfig(n_params=sizes[0], n_bins=sizes[-1],
+                                   hidden_dims=tuple(sizes[1:-1]))
+        return cls(data, config=cfg, normalizer=normalizer, params=params, device=device,
+                   **kwargs)
 
     @classmethod
     def from_checkpoint(cls, path: str, data: Optional[DataSplits] = None, *,

@@ -142,11 +142,13 @@ def hi_lo(op: torch.Tensor, tier: str):
 class OperandCache:
     """Folded, tier-split operands cached against the identity and the
     version counter of the weight tensors, so an in-place weight update
-    refolds and an unchanged model never does."""
+    refolds and an unchanged model never does. :attr:`folds` counts the
+    folds."""
 
     def __init__(self, build):
         self._build = build
         self._hit = None
+        self.folds = 0
 
     def __call__(self, params):
         tensors = tuple(t for layer in params for t in (layer["w"], layer["b"]))
@@ -162,6 +164,7 @@ class OperandCache:
         with torch.no_grad():
             ops = self._build(tuple({k: v.detach() for k, v in layer.items()}
                                     for layer in params))
+        self.folds += 1
         self._hit = (tensors, versions, ops)
         return ops
 

@@ -113,6 +113,34 @@ def make_loglik_from_predict(predict_fn, obs, noise_var=1.0, *, device):
     return loglik
 
 
+def make_loglik_multi_from_predict(predict_fn, obs_batch, noise_var=1.0, *, device):
+    """Stacked-observation companion of :func:`make_loglik_from_predict`
+    for any ``(weights, raw) → signals`` function (the two-stage families'
+    batched-survey path): row ``o·W + w`` of the observation-major batch
+    scores against ``obs_batch[o]``, ``W`` inferred per call (see
+    :func:`make_loglik_multi`). ``noise_var``: a scalar, a per-bin vector
+    or a ``MarginalizedNoise`` shared across observations, or a
+    ``ScaleMarginalNoise`` over one (the level marginalized per
+    observation)."""
+    if isinstance(noise_var, ScaleMarginalNoise):
+        base = make_loglik_multi_from_predict(predict_fn, obs_batch, noise_var.base,
+                                              device=device)
+        return noise_var.wrap_value(base, _obs_bins(obs_batch))
+    n_bins = _obs_bins(obs_batch)
+    obs = _obs_batch_tensor(obs_batch, n_bins, device=device)
+    n_obs = obs.shape[0]
+    _check_multi_noise(noise_var, n_bins)
+    quad, log_norm = _resid_quad(noise_var, n_bins, device=device)
+
+    def loglik(weights, raw):
+        raw = _rows(raw, device)
+        w = _rows_per_obs(raw, n_obs)
+        r = predict_fn(weights, raw).reshape(n_obs, w, n_bins) - obs[:, None, :]
+        return (-0.5 * quad(r) + log_norm).reshape(-1)
+
+    return loglik
+
+
 def per_row_grad(loglik, *, device=None):
     """Wrap a batched ``(weights, raw) → (B,)`` likelihood as
     ``(weights, raw) → ((B,), (B, P))``, both detached, by a

@@ -105,6 +105,26 @@ def mlp_apply(params: MLPParams, x: torch.Tensor, activation="relu",
     return x
 
 
+def mlp_sizes(params: MLPParams) -> Tuple[int, ...]:
+    """The layer widths ``(in, *hidden, out)`` of layer dicts."""
+    return (int(params[0]["w"].shape[0]), *(int(layer["w"].shape[1]) for layer in params))
+
+
+def mlp_template(sizes: Sequence[int]) -> MLPParams:
+    """Shape-only layer dicts (uninitialized NumPy) for widths ``sizes``,
+    for binding checkpoint leaves by position."""
+    return tuple({"w": np.empty((a, b), np.float32), "b": np.empty((b,), np.float32)}
+                 for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def count_params(params) -> int:
+    """Total number of scalars in a tree of arrays or tensors."""
+    from tpu21cmvae_torch.utils.tree import tree_leaves
+
+    return int(sum(np.size(t) if not isinstance(t, torch.Tensor) else t.numel()
+                   for t in tree_leaves(params)))
+
+
 def _tensor(a, device) -> torch.Tensor:
     """A float32 copy of an array or tensor on ``device``."""
     if isinstance(a, torch.Tensor):

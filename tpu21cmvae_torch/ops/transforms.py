@@ -70,6 +70,13 @@ class Normalizer:
             dtype=dtype,
         )
 
+    @classmethod
+    def template(cls, n_bins: int, n_params: int) -> "Normalizer":
+        """Shape-only stand-in (uninitialized NumPy fields) for binding
+        checkpoint leaves by position."""
+        return cls(np.empty((n_bins,), np.float32), np.empty((), np.float32),
+                   np.empty((n_params,), np.float32), np.empty((n_params,), np.float32))
+
     @property
     def device(self) -> torch.device:
         return self.signal_mean.device
@@ -82,6 +89,20 @@ class Normalizer:
 
     def to_numpy(self) -> dict:
         return {name: getattr(self, name).detach().cpu().numpy() for name in FIELDS}
+
+
+def resolve_normalizer(data, normalizer, *, device) -> Normalizer:
+    """The constructor rule every model family shares: an explicit
+    Normalizer wins; otherwise one is computed from ``data``'s training
+    split on ``device``; with neither, fail loudly."""
+    if normalizer is not None:
+        return normalizer
+    if data is None:
+        raise ValueError(
+            "Provide `data` (to compute normalization constants) or an "
+            "explicit `normalizer`."
+        )
+    return Normalizer.from_data(data.par_train, data.signal_train, device=device)
 
 
 def _log_transform_np(params: np.ndarray) -> np.ndarray:

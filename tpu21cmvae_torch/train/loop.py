@@ -14,8 +14,10 @@ reference's Keras ``Model.fit``, reference ``emulator.py:369-378``).
   together) and runs EarlyStopping and ReduceLROnPlateau on those values
   with Keras-exact semantics (:mod:`.callbacks`).
 * The shuffle comes from one seam, :func:`_permutation`, a function of
-  ``(seed, epoch)``: the same permutations on every device, and a
-  resumed run re-derives them without replaying a key schedule.
+  ``(seed, epoch)``, and a stochastic loss's normals from another,
+  :func:`_normal`, a function of ``(seed, epoch, step)``: the same draws
+  on every device, and a resumed run re-derives them without replaying
+  a key schedule.
 * With ``checkpoint_dir`` the loop saves the whole training state
   atomically every N epochs, in the JAX package's ``ckpt_NNNNNN.npz``
   layout (the same leaves, structure string and metadata), so either
@@ -69,6 +71,29 @@ def _permutation(seed: int, epoch: int, n: int, device) -> torch.Tensor:
     return torch.randperm(n, generator=g).to(device)
 
 
+EVAL_EPOCH = -1
+"""The ``epoch`` under which :func:`_normal` gives a run's validation
+draw (one per run, as the JAX package's ``eval_key``)."""
+
+
+def _normal(seed: int, epoch: int, step: int, shape, device) -> torch.Tensor:
+    """Standard normals of ``shape`` for batch ``step`` of epoch ``epoch``
+    (``epoch=EVAL_EPOCH``: the validation draw): ``torch.randn`` on a CPU
+    generator seeded from ``(seed, epoch, step)``, moved to ``device``.
+    Training's second draw seam, the port's counterpart of the JAX
+    package's ``normal(fold_in(loss_key, step), shape)``."""
+    words = np.random.SeedSequence([seed & 0xFFFFFFFF, epoch + 1, step]).generate_state(2)
+    g = torch.Generator().manual_seed((int(words[0]) << 32) | int(words[1]))
+    return torch.randn(tuple(shape), generator=g).to(device)
+
+
+def _noise(seed: int, epoch: int, step: int, device):
+    """A stochastic loss's source of normals for one batch: ``shape →
+    (shape) normals`` through :func:`_normal` (looked up at call time, so
+    the seam can be replaced)."""
+    return lambda shape: _normal(seed, epoch, step, shape, device)
+
+
 def _trainable(params) -> list:
     """The leaves of ``params``, float32 leaf tensors on one device, each
     made to require grad (they are trained in place)."""
@@ -118,15 +143,18 @@ def _train_step(params, leaves, loss_fn: LossFn, bx, by, state: AdamState, lr,
 
 
 def _run_epoch(params, loss_fn: LossFn, x, y, state: AdamState, lr, cfg: TrainConfig,
-               perm: torch.Tensor, extra=()):
+               perm: torch.Tensor, extra=(), noise=None):
     """One epoch over the rows ``perm`` in batches of ``cfg.batch_size``.
-    Returns ``(state, mean loss)``, the loss on the device."""
+    ``noise``: None, or ``step → source of normals`` for a stochastic
+    loss, passed before ``extra``. Returns ``(state, mean loss)``, the
+    loss on the device."""
     leaves = tree_leaves(params)
     xs, ys = x[perm], y[perm]
     total = x.new_zeros(())
-    for start in range(0, perm.shape[0], cfg.batch_size):
+    for step, start in enumerate(range(0, perm.shape[0], cfg.batch_size)):
         bx, by = xs[start: start + cfg.batch_size], ys[start: start + cfg.batch_size]
-        loss, state = _train_step(params, leaves, loss_fn, bx, by, state, lr, cfg, extra)
+        args = extra if noise is None else (noise(step), *extra)
+        loss, state = _train_step(params, leaves, loss_fn, bx, by, state, lr, cfg, args)
         total = total + loss * bx.shape[0]
     return state, total / perm.shape[0]
 
@@ -140,12 +168,21 @@ def _evaluate(params, loss_fn: LossFn, x, y, n_real: int, extra=()) -> torch.Ten
     return per_sample[:n_real].sum() / n_real
 
 
-def _refuse_stochastic(stochastic: bool) -> None:
+def _epoch_args(cfg: TrainConfig, stochastic: bool, pass_epoch: bool, device):
+    """``(epoch → (extra, noise))`` for :func:`_run_epoch` and the
+    validation pass's arguments after ``(params, x, y)``: the epoch index
+    with ``pass_epoch`` (validation gets the last epoch's), and with
+    ``stochastic`` each batch's normals and the run's one validation
+    draw."""
+    val = (cfg.epochs - 1,) if pass_epoch else ()
     if stochastic:
-        raise NotImplementedError(
-            "stochastic=True (the VAE's per-batch randoms) waits for the port of the "
-            "VAE family (ROADMAP queue 1 item 5)"
-        )
+        val = (_noise(cfg.seed ^ 0x5EED, EVAL_EPOCH, 0, device), *val)
+
+    def for_epoch(epoch):
+        noise = (lambda step: _noise(cfg.seed, epoch, step, device)) if stochastic else None
+        return ((epoch,) if pass_epoch else ()), noise
+
+    return for_epoch, val
 
 
 def _prepare(params, x_train, y_train, x_val, y_val, n_train_real, n_val_real):
@@ -187,7 +224,12 @@ def fit(
     y) -> (batch,)``; with ``pass_epoch=True`` the epoch index is
     appended as a last argument (the validation monitor gets the final
     epoch's, so schedule-dependent losses keep a stationary monitor).
-    ``stochastic=True`` (a per-batch random key) is not ported yet.
+    With ``stochastic=True`` the signature is ``loss_fn(params, x, y,
+    noise[, epoch])``: ``noise(shape)`` gives standard normals, fresh for
+    every batch (:func:`_normal` at ``(cfg.seed, epoch, batch)``) and one
+    fixed draw per run for the validation pass (at ``(cfg.seed ^ 0x5EED,
+    EVAL_EPOCH, 0)``, as the JAX package's ``eval_key``), so the monitor
+    the callbacks watch stays deterministic.
 
     With ``checkpoint_dir`` the full training state is saved atomically
     every ``checkpoint_every`` epochs (and at the end or on an early
@@ -198,7 +240,6 @@ def fit(
     ``n_train_real``/``n_val_real``: true sample counts when the arrays
     carry trailing pad rows; pad rows never enter a loss or a gradient.
     """
-    _refuse_stochastic(stochastic)
     device, x_train, y_train, x_val, y_val, n_real, nv_real = _prepare(
         params, x_train, y_train, x_val, y_val, n_train_real, n_val_real)
     if opt_state is None:
@@ -250,13 +291,13 @@ def fit(
                 return params, opt_state, history
 
     progress = _progress_bar(cfg.epochs) if verbose else None
-    extra_val = (cfg.epochs - 1,) if pass_epoch else ()
+    for_epoch, extra_val = _epoch_args(cfg, stochastic, pass_epoch, device)
 
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         perm = _permutation(cfg.seed, epoch, n_real, device)
         opt_state, train_loss = _run_epoch(params, loss_fn, x_train, y_train, opt_state,
-                                           lr, cfg, perm, (epoch,) if pass_epoch else ())
+                                           lr, cfg, perm, *for_epoch(epoch))
         val_loss = _evaluate(params, loss_fn, x_val, y_val, nv_real, extra_val)
         # the epoch's one read from the device
         train_loss, val_loss = torch.stack([train_loss, val_loss]).tolist()

@@ -29,8 +29,8 @@ from tpu21cmvae_torch.train.loop import (
     LossFn,
     _assign,
     _evaluate,
+    _epoch_args,
     _prepare,
-    _refuse_stochastic,
     _run_epoch,
 )
 from tpu21cmvae_torch.utils.config import TrainConfig
@@ -59,9 +59,9 @@ def fit_scan(
     host hooks (progress bar, epoch callback, checkpoints). The learning
     rate and both monitors are float32, as in the JAX scan's carry: a
     plateau multiplies the float32 rate, and an improvement is
-    ``val < best − min_delta`` in float32.
+    ``val < best − min_delta`` in float32. ``stochastic=True`` draws
+    through the host loop's seam, as there.
     """
-    _refuse_stochastic(stochastic)
     device, x_train, y_train, x_val, y_val, n_real, nv_real = _prepare(
         params, x_train, y_train, x_val, y_val, n_train_real, n_val_real)
     if opt_state is None:
@@ -77,11 +77,11 @@ def fit_scan(
     pl_best, pl_wait = f32(np.inf), 0
     stopped_at = -1
     losses, val_losses, lrs = [], [], []
-    extra_val = (cfg.epochs - 1,) if pass_epoch else ()
+    for_epoch, extra_val = _epoch_args(cfg, stochastic, pass_epoch, device)
     for epoch in range(cfg.epochs):
         perm = loop._permutation(cfg.seed, epoch, n_real, device)  # the draw seam
         opt_state, train_loss = _run_epoch(params, loss_fn, x_train, y_train, opt_state,
-                                           lr, cfg, perm, (epoch,) if pass_epoch else ())
+                                           lr, cfg, perm, *for_epoch(epoch))
         val_loss = _evaluate(params, loss_fn, x_val, y_val, nv_real, extra_val)
         train_loss, val_loss = (f32(v) for v in torch.stack([train_loss, val_loss]).tolist())
         losses.append(train_loss)

@@ -1,6 +1,6 @@
 """Frozen configuration dataclasses (a copy of the parts of
-``tpu21cmvae/utils/config.py`` the port runs: the direct emulator's
-architecture and its training recipe)."""
+``tpu21cmvae/utils/config.py`` the port runs: the direct, autoencoder and
+VAE emulators' architectures and their training recipes)."""
 
 from __future__ import annotations
 
@@ -44,6 +44,43 @@ class DirectEmulatorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AutoEncoderConfig:
+    """Autoencoder-based emulator architecture (reference
+    ``emulator.py:521-525``; the shipped h5 weights' widths)."""
+
+    n_params: int = 7
+    n_bins: int = 451
+    latent_dim: int = 9
+    enc_hidden_dims: Tuple[int, ...] = (352,)
+    dec_hidden_dims: Tuple[int, ...] = (32, 352)
+    em_hidden_dims: Tuple[int, ...] = (352, 352, 352, 224)
+    activation: str = "relu"
+
+    def encoder(self) -> MLPConfig:
+        return MLPConfig(self.n_bins, self.enc_hidden_dims, self.latent_dim, self.activation)
+
+    def decoder(self) -> MLPConfig:
+        return MLPConfig(self.latent_dim, self.dec_hidden_dims, self.n_bins, self.activation)
+
+    def emulator(self) -> MLPConfig:
+        return MLPConfig(self.n_params, self.em_hidden_dims, self.latent_dim, self.activation)
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig(AutoEncoderConfig):
+    """Variational variant: the encoder emits (mu, logvar) and the loss
+    adds ``beta`` times the KL term, warmed up linearly over
+    ``kl_anneal_epochs`` epochs (0: no warm-up). The reconstruction term
+    is the per-bin relative MSE (O(1e-4) once trained), so a KL term of
+    weight 1 collapses the posterior; the JAX package's sweep on the
+    synthetic set found β = 1e-4 with a 50-epoch warm-up keeps every
+    latent active (``tpu21cmvae/utils/config.py``)."""
+
+    beta: float = 1e-4
+    kl_anneal_epochs: int = 50
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """One training run. Canonical values are the reference's recipe
     (``notebooks/Training.ipynb`` cells 4-5; batch size at
@@ -78,3 +115,27 @@ published patience of 15 with min_delta=1e-10 often fires while the LR
 schedule is still working; patience 30 trains longer and reached a lower
 mean error on the synthetic set in the JAX package's runs
 (``tpu21cmvae/utils/config.py``)."""
+
+AE_TRAIN_DEFAULT = TrainConfig(
+    epochs=250,
+    learning_rate=1e-3,
+    early_stop_min_delta=5e-10,
+    plateau_factor=0.9,
+)
+"""Autoencoder stage recipe: Adam lr=1e-3, 250 epochs, plateau factor 0.9
+(``Training.ipynb`` cells 10-11)."""
+
+AE_EMULATOR_TRAIN_DEFAULT = TrainConfig(
+    epochs=250,
+    learning_rate=1e-2,
+    early_stop_min_delta=5e-5,
+    plateau_factor=0.9,
+    plateau_min_delta=5e-3,
+)
+"""Params→latent stage recipe: Adam lr=1e-2, 250 epochs, looser deltas
+(``Training.ipynb`` cells 10-11)."""
+
+AE_TRAIN_STRONG = dataclasses.replace(AE_TRAIN_DEFAULT, early_stop_patience=30)
+AE_EMULATOR_TRAIN_STRONG = dataclasses.replace(AE_EMULATOR_TRAIN_DEFAULT, early_stop_patience=30)
+"""Patience-30 variants of the two stage recipes (see
+:data:`DIRECT_TRAIN_STRONG`)."""

@@ -174,11 +174,35 @@ Phases, one line each:
     families trained three epochs per stage from seed 0 (host loop,
     device loop and a resumed run bit for bit) and the VAE's first 20
     steps on the card held to the CPU's on the same seam normals.
+20. the serving surface on the shipped checkpoint and phase 5's
+    observation: ``make_server(model, port=0)`` in a daemon thread,
+    ``warmup(up_to=4096)``, then over HTTP to 127.0.0.1 ``/health``;
+    ``/predict`` at 1, 37 and 4096 rows (one fp32 K1 launch each, held
+    to the float64 NumPy forward within 1e-5 and to the plain fp32
+    predict); ``/loglik`` at 4096 rows (K2 at bf16x3, held to the plain
+    likelihood there); ``/sample`` MH at phase 8's sizes (exactly 701 K2
+    launches, phase 8's best-draw gate); ``/fit`` 1024 × 300 inside phase
+    13's box (exactly 301 K3 launches at (bf16x3, bf16x3), the best within
+    1 nat of the truth; then the served K3 held to plain, value and
+    gradient, on 1024 prior draws); ``/evidence``
+    Laplace at the JAX defaults (2001 K3 + 3 K2 launches, log Z within 1
+    nat of phase 15's exact-tier one); ``/gof`` on the ``/sample`` draws;
+    an async ``/sample`` polled through ``/result/<id>`` while
+    ``/health`` answers; two concurrent ``/predict`` clients; the
+    host-clock medians of 20 requests (``/predict`` at 1 and 256 rows,
+    ``/loglik`` at 4096); every wrapper folded once. Then the CLI in
+    subprocesses on the card: ``predict`` (held to the float64 forward),
+    ``sample --sampler hmc`` (its K3 launches read from its output),
+    ``export-artifact`` (replayed here on the card within 5e-5 of
+    ``predict``) and ``verify`` on the synthetic split (ok, the golden
+    checks SKIP).
 
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound (phase 18's launches under
-``launches_trained``, phase 19's under ``launches_ensemble`` and in the
-total), the card's name and power limit, and a last
+``launches_trained``, beside the total; phase 19's under
+``launches_ensemble`` and phase 20's under ``launches_serve`` and
+``launches_cli``, in it; the served wrappers' largest |Δ| from plain
+under ``max_abs_err_serve``), the card's name and power limit, and a last
 line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line; it also exits non-zero, with
@@ -1757,7 +1781,7 @@ def evidence_path(model, obs, witness, dev):
     ``max_iters``, Laplace's Hessian be negative-definite. The ladder is
     printed, not gated: the JAX package documents its bias at the default
     budget (``tpu21cmvae/sampling/evidence.py:238-241``). Returns the
-    launches by method and wrapper."""
+    launches by method and wrapper, and each method's log Z."""
     wrappers = evidence_wrappers(model, obs)
     check(wrappers["k2"].fused.tensor_cores and not wrappers["k2_f32"].fused.tensor_cores,
           "evidence: K2 at bf16x3 on fused_gram_mma.cu, at fp32 on fused_loglik_gram.cu")
@@ -1819,7 +1843,7 @@ def evidence_path(model, obs, witness, dev):
     out["held_at_path_batches"] = hold_at_path_batches(
         model, obs, live, results["smc"].final, results["laplace"]._is_x, dev)
     print("phase 15: " + json.dumps(out), flush=True)
-    return launches
+    return launches, {method: float(res.logz) for method, res in results.items()}
 
 
 def tempered_samplers(model, obs, witness, dev):
@@ -2576,6 +2600,326 @@ def families_phase(truth, obs, data, dev, smi) -> dict:
     return launches, held
 
 
+# -- phase 20: the HTTP service, the CLI and the artifact on the card -------
+
+
+def http(server, path, payload=None, timeout=600):
+    """One request to ``server`` on 127.0.0.1 (GET without ``payload``);
+    the decoded JSON reply and the host-clock seconds it took."""
+    import urllib.request
+
+    host, port = server.server_address[:2]
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://{host}:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = json.loads(r.read())
+    return body, time.perf_counter() - t0
+
+
+def served_rows(n: int, seed: int) -> np.ndarray:
+    """n prior draws with an fx == 0 row first, as float32 NumPy."""
+    x = synthetic_params(n, np.random.default_rng(seed)).astype(np.float32)
+    x[0, 2] = 0.0
+    return x
+
+
+def predict_rel_err(got, raw) -> float:
+    ref = numpy_forward(CHECKPOINT, raw)
+    return float(np.abs(np.asarray(got, np.float64) - ref).max() / np.abs(ref).max())
+
+
+def cli(args, timeout=600) -> str:
+    """``python3 -m tpu21cmvae_torch ARGS`` from the checkout's root on
+    the card (the default ``--device cuda``); its standard output, the
+    command's failure raising."""
+    proc = subprocess.run([sys.executable, "-m", "tpu21cmvae_torch", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0,
+          f"CLI {args[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def serving_phase(truth, obs, box, laplace_logz, dev, smi) -> dict:
+    """Phase 20: the service, the CLI and the deployment artifact on the
+    card, on ``pretrained/direct_synthetic.npz`` and phase 5's
+    observation (σ² = 25). ``make_server(model, port=0)`` serves from a
+    daemon thread after ``warmup(up_to=4096)``; every request goes over
+    HTTP to 127.0.0.1. ``/predict`` runs the fp32 K1, ``/loglik`` and
+    ``/sample`` K2 at bf16x3, ``/fit`` and Laplace's ascent K3 at
+    (bf16x3, bf16x3) through the service's routed likelihood; each
+    wrapper's count is set to 0 just before its request and read just
+    after. ``box``: phase 13's fit box (``/fit`` reaches the mode inside
+    it); ``laplace_logz``: phase 15's in-process Laplace log Z at the
+    exact tier. Each served wrapper is then held to its plain version on
+    its request's rows (K1 on ``/predict``'s, K2 on ``/loglik``'s, K3 on
+    1024 prior draws, ``/fit``'s batch: value and gradient), after its
+    count was read. Then the host-clock medians of 20 requests, and the
+    CLI in subprocesses. Returns the served launches by kernel, the CLI's
+    HMC launches and each served kernel's largest |Δ| from plain."""
+    import threading
+
+    from tpu21cmvae_torch import deploy
+    from tpu21cmvae_torch.ops.kernels.fused_mlp import FusedMLP
+    from tpu21cmvae_torch.serve import make_server
+
+    t_phase = time.perf_counter()
+    model = load_model(CHECKPOINT, device=dev)
+    server = make_server(model, port=0)
+    service = server.service
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out, walls, held = {"card": smi}, {}, {}
+    try:
+        _, walls["warmup_4096"] = timed(lambda: service.warmup(up_to=4096))
+        (k1,) = service._sharded.fns
+        check(isinstance(k1, FusedMLP) and k1.tier == "f32",
+              "serve: /predict runs the fp32 K1 (fused_mlp.cu)")
+        health, _ = http(server, "/health")
+        check(health["status"] == "ok" and health["devices"] == [str(model.device)],
+              f"serve: /health {health}")
+
+        # /predict at 1, 37 and 4096 rows: one fp32 K1 launch each
+        pred = {}
+        for n in (1, 37, 4096):
+            raw = served_rows(n, 200 + n)
+            k1.launches = 0
+            body, wall = http(server, "/predict", {"params": raw.tolist()})
+            got = np.asarray(body["signals"], np.float64)
+            err = predict_rel_err(got, raw)
+            check(got.shape == (n, 451) and err <= 1e-5 and k1.launches == 1,
+                  f"serve: /predict {n} rows: shape {got.shape}, rel err {err:.3g}, "
+                  f"K1 launches {k1.launches}")
+            plain = model.predict_fn()(model.params, torch.as_tensor(raw, device=dev))
+            d = float(np.abs(got - plain.cpu().numpy()).max())
+            amp_d = d / float(np.abs(got).max())
+            check(amp_d <= AMPLITUDE_RTOL["highest"],
+                  f"serve: /predict {n} rows vs plain fp32: {amp_d:.3g} of the amplitude")
+            held["k1"] = max(held.get("k1", 0.0), d)
+            pred[n] = {"rel_err": err, "k1_launches": k1.launches, "wall_s": wall,
+                       "max_abs_vs_plain": d}
+        out["predict"] = pred
+        launches = {"k1": sum(p["k1_launches"] for p in pred.values())}
+
+        # /loglik at 4096 rows: K2 at bf16x3, held to the plain likelihood there
+        raw = served_rows(4096, 204)
+        body, wall = http(server, "/loglik", {"params": raw.tolist(), "obs": obs.tolist(),
+                                              "noise_var": NOISE_VAR})
+        ((sharded, routed),) = service._loglik.values()
+        k2, k3 = routed.value.fused, routed.valgrad
+        check(k2.tensor_cores and k2.tier == "bf16x3" and k2.launches == 1,
+              f"serve: /loglik ran K2 at bf16x3 on fused_gram_mma.cu ({k2.launches} launches)")
+        check(k3.tensor_cores and (k3.tier, k3.grad_tier) == ("bf16x3", "bf16x3"),
+              "serve: the routed K3 runs (bf16x3, bf16x3) on fused_gram_mma.cu")
+        got = np.asarray(body["loglik"], np.float64)
+        want = scores(model.loglik_fn(obs, NOISE_VAR), model, raw, dev).astype(np.float64)
+        half_c = 0.5 * abs(float(k2.operands(model.params).c))
+        worst, held["k2"] = value_worst(got, want, "high", half_c)
+        check(worst <= 1.0, f"serve: /loglik vs plain bf16x3, worst |Δ|/tol {worst:.3g}")
+        out["loglik"] = {"rows": 4096, "worst_over_tol": worst, "max_abs": held["k2"],
+                         "wall_s": wall, "k2_launches": k2.launches}
+        launches["k2"], launches["k3"] = k2.launches, 0
+
+        # /sample: MH at phase 8's sizes, 1 + 200 + 500 K2 launches
+        exact = exact_loglik(model, obs)
+        ll_truth = float(scores(exact, model, truth, dev)[0])
+        k2.launches = 0
+        sample, wall = http(server, "/sample", {
+            "obs": obs.tolist(), "noise_var": NOISE_VAR, "sampler": "mh",
+            "n_walkers": MH_WALKERS, "n_warmup": MH_WARMUP, "n_steps": MH_STEPS, "thin": 10,
+            "seed": 0, "max_samples": 4096})
+        want_k2 = 1 + MH_WARMUP + MH_STEPS
+        check(k2.launches == want_k2, f"serve: /sample K2 launches {k2.launches} != {want_k2}")
+        draws = np.asarray(sample["samples"], np.float32)
+        ll_draws = scores(exact, model, draws, dev)
+        check(draws.shape == (4096, 7) and bool(np.isfinite(ll_draws).all())
+              and 0.15 <= sample["accept_rate"] <= 0.5, "serve: /sample draws and acceptance")
+        # phase 8's gate: the best draw at least as likely as the truth less 5
+        # nats; the typical-truth measures printed (phase 8's note: MH leaves
+        # a share of its walkers far from the mode at these sizes)
+        check(float(ll_draws.max()) >= ll_truth - 5.0,
+              f"serve: /sample best draw {float(ll_draws.max()):.2f} < logL(truth) "
+              f"{ll_truth:.2f} − 5")
+        out["sample"] = {"wall_s": wall, "k2_launches": k2.launches,
+                         "accept": sample["accept_rate"], "n_samples": sample["n_samples"],
+                         "loglik_truth_exact": ll_truth,
+                         "loglik_draws_max": float(ll_draws.max()),
+                         "share_at_least_truth": float(np.mean(ll_draws >= ll_truth)),
+                         "truth_inside_central_999": inside_central_999(draws, truth),
+                         "rhat_max": max(sample["rhat"])}
+        launches["k2"] += k2.launches
+
+        # /fit: 1024 × 300 inside phase 13's box, exactly 301 K3 launches
+        k3.launches = 0
+        fit, wall = http(server, "/fit", {"obs": obs.tolist(), "noise_var": NOISE_VAR,
+                                          "n_starts": FIT_STARTS, "n_steps": FIT_STEPS,
+                                          "bounds": box.tolist(), "seed": 0})
+        check(k3.launches == FIT_STEPS + 1,
+              f"serve: /fit K3 launches {k3.launches} != {FIT_STEPS + 1}")
+        ll_best = float(scores(exact, model, np.asarray(fit["best"], np.float32), dev)[0])
+        check(ll_best >= ll_truth - 1.0,
+              f"serve: /fit best {ll_best:.3f} < logL(truth) {ll_truth:.3f} − 1 (exact tier)")
+        out["fit"] = {"wall_s": wall, "k3_launches": k3.launches, "best_logp_served":
+                      fit["best_logp"], "best_logp_exact": ll_best,
+                      "best_minus_truth_exact": ll_best - ll_truth}
+        launches["k3"] += k3.launches
+        # the served K3 against its plain version at /fit's batch, its count read
+        x = torch.as_tensor(served_rows(FIT_STARTS, 206), device=dev)
+        with torch.no_grad():
+            vk, gk = k3(model.params, x)
+            vp, gp = loglik_grad_gram_reference(k3.operands(model.params), x)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        worst, held["k3"] = value_worst(vk, vp, "high",
+                                        0.5 * abs(float(k3.operands(model.params).c)))
+        gate = grad_gate_violation(gk, gp)
+        check(worst <= 1.0 and gate <= 0.0,
+              f"serve: routed K3 vs plain at (bf16x3, bf16x3): worst |Δ|/tol {worst:.3g}, "
+              f"gradient gate {gate:.3g}")
+        out["fit"]["k3_vs_plain"] = {"rows": FIT_STARTS, "worst_over_tol": worst,
+                                     "max_abs": held["k3"], "grad_gate_violation": gate}
+
+        # /evidence Laplace at the JAX defaults: 2001 K3 launches (the ascent)
+        # and 3 K2 launches (the IS rounds), at the served tier
+        k2.launches = k3.launches = 0
+        lap, wall = http(server, "/evidence", {"obs": obs.tolist(), "noise_var": NOISE_VAR,
+                                               "method": "laplace", "seed": 0})
+        n_lap = {"k2": k2.launches, "k3": k3.launches}
+        check(n_lap == {"k2": LAPLACE_ROUNDS, "k3": LAPLACE_STEPS + 1},
+              f"serve: /evidence Laplace launches {n_lap}")
+        gap = lap["logz"] - laplace_logz
+        check(lap["pd"] and abs(gap) <= 1.0,
+              f"serve: /evidence Laplace log Z {lap['logz']:.3f} is {gap:+.3f} from phase 15's "
+              f"{laplace_logz:.3f}")
+        out["evidence_laplace"] = {"wall_s": wall, "launches": n_lap, "logz": lap["logz"],
+                                   "minus_phase15": gap, "map_logp": lap["map_logp"]}
+        launches["k2"] += n_lap["k2"]
+        launches["k3"] += n_lap["k3"]
+
+        # /gof on the /sample draws
+        gof, wall = http(server, "/gof", {"obs": obs.tolist(), "noise_var": NOISE_VAR,
+                                          "draws": sample["samples"]})
+        check(gof["dof"] == 451 and np.isfinite(gof["p_value"]) and gof["n_draws"] == 512,
+              f"serve: /gof {gof}")
+        out["gof"] = {"wall_s": wall, "p_value": gof["p_value"], "q_over_dof": gof["q_over_dof"],
+                      "max_bin_z": gof["max_bin_z"]}
+
+        # an async /sample polled through /result/<id>, /health answering meanwhile
+        k2.launches = 0
+        sub, _ = http(server, "/sample", {"obs": obs.tolist(), "noise_var": NOISE_VAR,
+                                          "async": True, "n_walkers": MH_WALKERS,
+                                          "n_warmup": 100, "n_steps": 300, "seed": 1})
+        health_s, polls, status = [], 0, {"status": "queued"}
+        while status["status"] not in ("done", "error"):
+            _, hs = http(server, "/health")
+            health_s.append(hs)
+            status, _ = http(server, sub["result_path"])
+            polls += 1
+            time.sleep(0.02)
+        check(status["status"] == "done" and set(status) == set(sample) | {"status"},
+              f"serve: async /sample ended {status.get('status')}: {status.get('error')}")
+        check(k2.launches == 1 + 100 + 300, f"serve: async /sample K2 launches {k2.launches}")
+        check(max(health_s) < 1.0, f"serve: /health took {max(health_s):.3f} s during a job")
+        out["async_sample"] = {"polls": polls, "health_s_max": max(health_s),
+                               "k2_launches": k2.launches}
+        launches["k2"] += k2.launches
+
+        # two concurrent /predict clients, both answered correctly
+        k1.launches = 0
+        raws = [served_rows(256, 300 + i) for i in range(2)]
+        replies = [None, None]
+
+        def client(i):
+            replies[i] = http(server, "/predict", {"params": raws[i].tolist()})[0]
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        errs = [predict_rel_err(replies[i]["signals"], raws[i]) for i in range(2)]
+        check(max(errs) <= 1e-5 and k1.launches == 2,
+              f"serve: concurrent /predict rel errs {errs}, K1 launches {k1.launches}")
+        out["concurrent_predict"] = {"rel_err": errs}
+        launches["k1"] += k1.launches
+
+        # request times: host-clock medians of 20 requests
+        medians = {}
+        for name, path, payload in (
+                ("predict_1", "/predict", {"params": served_rows(1, 401).tolist()}),
+                ("predict_256", "/predict", {"params": served_rows(256, 402).tolist()}),
+                ("loglik_4096", "/loglik", {"params": served_rows(4096, 403).tolist(),
+                                            "obs": obs.tolist(), "noise_var": NOISE_VAR})):
+            k1.launches = k2.launches = 0
+            walls_s = [http(server, path, payload)[1] for _ in range(20)]
+            medians[name] = {"median_ms": 1e3 * float(np.median(walls_s)),
+                             "min_ms": 1e3 * min(walls_s), "max_ms": 1e3 * max(walls_s),
+                             "launches": k1.launches + k2.launches}
+            check(k1.launches + k2.launches == 20, f"serve: {name} launches")
+            launches["k1" if path == "/predict" else "k2"] += 20
+        out["request_medians"] = medians
+        check(k2.operands.folds == 1 and k3.operands.folds == 1 and k1.operands.folds == 1,
+              "serve: every wrapper folded its operands once")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+    # the CLI in subprocesses, on the card
+    cli_out = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        raw = served_rows(64, 500)
+        np.save(os.path.join(tmp, "p.npy"), raw)
+        t0 = time.perf_counter()
+        cli(["predict", CHECKPOINT, os.path.join(tmp, "p.npy"), "--out",
+             os.path.join(tmp, "s.npy")])
+        err = predict_rel_err(np.load(os.path.join(tmp, "s.npy")), raw)
+        check(err <= 1e-5, f"CLI predict vs float64 forward: {err:.3g}")
+        cli_out["predict"] = {"rel_err": err, "wall_s": time.perf_counter() - t0}
+
+        with open(os.path.join(tmp, "obs.json"), "w") as fh:
+            json.dump({"obs": obs.tolist(), "noise_var": NOISE_VAR}, fh)
+        t0 = time.perf_counter()
+        text = cli(["sample", CHECKPOINT, "--obs", os.path.join(tmp, "obs.json"), "--sampler",
+                    "hmc", "--walkers", "1024", "--warmup", "50", "--steps", "50", "--out",
+                    os.path.join(tmp, "chain.npz")])
+        n_hmc = int(re.search(r"kernel launches: (\d+)", text).group(1))
+        chain = np.load(os.path.join(tmp, "chain.npz"))
+        check(n_hmc >= 100 and bool(np.isfinite(chain["chain"]).all())
+              and chain["chain"].shape == (10, 1024, 7),
+              f"CLI sample --sampler hmc: {n_hmc} K3 launches, chain {chain['chain'].shape}")
+        cli_out["sample_hmc"] = {"k3_launches": n_hmc, "wall_s": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        art = os.path.join(tmp, "em.pt2")
+        cli(["export-artifact", CHECKPOINT, "--out", art])
+        fn = deploy.load_artifact(art, device=dev)
+        raw = served_rows(1000, 501)
+        replay_err = float(np.abs(fn(raw) - model.predict(raw)).max())
+        check("cuda" in fn.platforms and fn.device.type == "cuda" and replay_err <= 5e-5
+              and fn(raw[0]).shape == (451,),
+              f"CLI export-artifact: platforms {fn.platforms}, replay |Δ| {replay_err:.3g}")
+        cli_out["export_artifact"] = {"platforms": list(fn.platforms), "max_abs_err": replay_err,
+                                      "bytes": os.path.getsize(art),
+                                      "wall_s": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        cli(["verify", "--out", os.path.join(tmp, "report.json")], timeout=900)
+        with open(os.path.join(tmp, "report.json")) as fh:
+            report = json.load(fh)
+        status = {c["name"]: c["status"] for c in report["checks"]}
+        check(report["ok"] and status["direct_golden"] == status["ae_golden"] == "SKIP"
+              and report["pass"] == 4, f"CLI verify: {status}")
+        cli_out["verify"] = {"status": status, "wall_s": time.perf_counter() - t0,
+                             "deploy": next(c["detail"] for c in report["checks"]
+                                            if c["name"] == "deploy_artifact")}
+    out.update(cli=cli_out, served_launches=launches, served_max_abs_vs_plain=held,
+               wall_s=walls, phase_wall_s=time.perf_counter() - t_phase)
+    print("phase 20: " + json.dumps(out), flush=True)
+    return launches, n_hmc, held
+
+
 
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
@@ -2694,7 +3038,7 @@ def main() -> int:
     obs_batch = batched_and_calibration(model, res, obs, rng, dev)
 
     # -- phases 15-16: the evidence path, PT and SMC as samplers ----------------
-    evidence = evidence_path(model, obs, witness, dev)
+    evidence, evidence_logz = evidence_path(model, obs, witness, dev)
     tempered = tempered_samplers(model, obs, witness, dev)
 
     # -- phase 17: the variational fits, the flow evidence, the batch ---------
@@ -2705,6 +3049,10 @@ def main() -> int:
 
     # -- phase 19: the other families; the ensemble's kernels per member ------
     ens_launches, ens_held = families_phase(truth, obs, golden_split, dev, smi)
+
+    # -- phase 20: the HTTP service, the CLI and the artifact on the card ------
+    serve, cli_hmc, serve_err = serving_phase(truth, obs, fit_box(adaptive_draws, truth),
+                                   evidence_logz["laplace"], dev, smi)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
               "launches_fit": fits["fit"], "launches_profile": fits["profile"],
               "launches_ladder_warm_start": evidence["ladder"]["k3"],
@@ -2746,42 +3094,49 @@ def main() -> int:
                 "ensemble_worst_over_tol": ens_held[key]["worst_over_tol"]}
 
     print(json.dumps({"kernels": [
-        entry("fused_mlp", K1_SOURCE, K1_REPLACES, k1_launches + ens_launches["k1"], k1_err,
+        entry("fused_mlp", K1_SOURCE, K1_REPLACES,
+              k1_launches + ens_launches["k1"] + serve["k1"], k1_err,
               value_t[f"k1_sumsq/highest/{DRAWS}"], bound("k1", k1_sizes, DRAWS, "f32"),
-              launches_trained=trained["k1"], **ensemble("k1"),
+              launches_trained=trained["k1"], launches_serve=serve["k1"],
+              max_abs_err_serve=serve_err["k1"], **ensemble("k1"),
               **at_big(value_t[f"k1_sumsq/highest/{big}"],
                        bound("k1", k1_sizes, big, "f32"))),
         entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
               value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3"),
-              launches_trained=0),
+              launches_trained=0, launches_serve=0),
         entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES,
               k2_launches + evidence["laplace"]["k2_f32"]
               + variational["flow_evidence"]["k2_f32"] + ens_launches["k2_f32"], k2_err,
               value_t[f"k2/highest/{DRAWS}"], bound("k2", trunk, DRAWS, "f32"),
               launches_laplace_is=evidence["laplace"]["k2_f32"],
               launches_flow_is=variational["flow_evidence"]["k2_f32"], launches_trained=0,
-              **ensemble("k2_f32"),
+              launches_serve=0, **ensemble("k2_f32"),
               **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES,
-              k2_mma_launches + sum(new_k2.values()) + ens_launches["k2"], k2_mma_err,
-              value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3"),
-              launches_trained=trained["k2"], **new_k2, **ensemble("k2")),
+              k2_mma_launches + sum(new_k2.values()) + ens_launches["k2"] + serve["k2"],
+              k2_mma_err, value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3"),
+              launches_trained=trained["k2"], launches_serve=serve["k2"],
+              max_abs_err_serve=serve_err["k2"], **new_k2,
+              **ensemble("k2")),
         entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES,
               k3_f32_launches + evidence["laplace"]["k3_f32"],
               k3_err[EXACT_TIERS], timings["highest/highest/4096"],
               bound("k3", trunk, 4096, "f32", "f32"),
               launches_exact_hmc=k3_f32_launches,
               launches_laplace_ascent=evidence["laplace"]["k3_f32"], launches_trained=0,
+              launches_serve=0,
               **at_64k(timings["highest/highest/65536"],
                        bound("k3", trunk, 65536, "f32", "f32"))),
         entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
               k3_err[MIXED_TIERS], timings["highest/default/65536"],
-              bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0),
+              bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0, launches_serve=0),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
-              launches + sum(new_k3.values()) + ens_launches["k3"], k3_err[MAIN_TIERS],
-              timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
+              launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc,
+              k3_err[MAIN_TIERS], timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
               bound("k3", trunk, 4096, "bf16x3", "bf16"), launches_hmc=launches,
-              launches_trained=trained["k3"], **new_k3, **ensemble("k3")),
+              launches_trained=trained["k3"], launches_serve=serve["k3"],
+              max_abs_err_serve=serve_err["k3"], launches_cli=cli_hmc, **new_k3,
+              **ensemble("k3")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1159,3 +1159,84 @@ def test_vae_stage_a_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_allclose(card_losses, cpu_losses, rtol=2e-6)
     for a, b in zip(card_w, cpu_w):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+# -- the HTTP service on the card: the kernels behind every endpoint --------
+
+
+def _flagship_service(dev):
+    from tpu21cmvae_torch.serve import EmulatorService
+
+    data = synthetic_dataset(512, 64, 128, seed=7)
+    m = DirectEmulator(data, config=DirectEmulatorConfig(hidden_dims=WIDTHS[1]), seed=4,
+                       device=dev)
+    obs = m.predict(data.par_test[0]) + np.random.default_rng(5).normal(0, 5.0, 451)
+    return EmulatorService(m), m, obs, data
+
+
+@pytest.mark.cuda
+def test_service_predict_runs_the_fp32_k1(cuda):
+    """``/predict`` on a CUDA model launches the fp32 K1 once per request
+    (one bucket, one device), held to plain within 1e-5 of amplitude."""
+    svc, m, _, data = _flagship_service(cuda)
+    (k1,) = svc._sharded.fns
+    assert k1.tier == "f32" and svc.backend == "kernel"
+    rows = np.tile(np.asarray(data.par_test, np.float32), (8, 1))
+    for n in (1, 37, 1000):
+        k1.launches = 0
+        got = svc.predict(rows[:n])
+        assert k1.launches == 1
+        with torch.no_grad():
+            want = m.predict_fn()(m.params, torch.as_tensor(rows[:n], device=cuda)).cpu().numpy()
+        assert np.abs(got - want).max() <= AMPLITUDE_RTOL["highest"] * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_service_loglik_and_fit_run_k2_and_k3(cuda):
+    """``/loglik`` launches K2 at bf16x3 and ``/fit`` K3 at the same value
+    tier (its ``valgrad`` route), each held to plain; a repeated request
+    on the same observation reuses the wrapper, whose launches keep
+    counting and whose operands fold once."""
+    svc, m, obs, data = _flagship_service(cuda)
+    rows = np.asarray(data.par_test[:100], np.float32)
+    got = svc.loglik(rows, obs, 25.0)
+    (sharded, fn), = svc._loglik.values()
+    k2, k3 = fn.value.fused, fn.valgrad
+    assert k2.launches == 1 and k2.tensor_cores and k2.tier == "bf16x3"
+    assert k3.tensor_cores and (k3.tier, k3.grad_tier) == ("bf16x3", "bf16x3")
+    with torch.no_grad():
+        want = m.loglik_fn(obs, 25.0)(m.params, torch.as_tensor(rows, device=cuda)).cpu().numpy()
+    half_c = 0.5 * float(k2.operands(m.params).c)
+    assert (np.abs(got - want) <= VALUE_RTOL["high"] * (np.abs(want) + half_c) + 1e-2).all()
+    svc.loglik(rows, obs, 25.0)
+    assert k2.launches == 2 and k2.operands.folds == 1
+    fit = svc.fit(obs, 25.0, n_starts=256, n_steps=50, seed=0)
+    assert k3.launches == 51 and k3.operands.folds == 1
+    assert np.isfinite(fit["best_logp"])
+    best = torch.as_tensor(np.asarray([fit["best"]], np.float32), device=cuda)
+    with torch.no_grad():
+        v, _ = k3(m.params, best)
+        ref = m.loglik_fn(obs, 25.0)(m.params, best)
+    assert abs(float(v) - float(ref)) <= VALUE_RTOL["high"] * (abs(float(ref)) + half_c) + 1e-2
+    svc.sample(obs, 25.0, n_walkers=256, n_steps=10, n_warmup=10, thin=5)
+    assert k2.launches == 2 + 21 and k2.operands.folds == 1
+
+
+@pytest.mark.cuda
+def test_service_buckets_leave_the_real_rows_unchanged(cuda):
+    """A ragged request pads to its bucket, which can change the batch
+    (and tile) height the kernel sees; its real rows come out as the
+    same rows sent to the wrapper unpadded."""
+    svc, m, obs, data = _flagship_service(cuda)
+    rows = np.tile(np.asarray(data.par_test, np.float32), (8, 1))
+    svc.loglik(rows[:1], obs, 25.0)
+    ((_, fn),) = svc._loglik.values()
+    (k1,) = svc._sharded.fns
+    for n in (1, 37, 1000):
+        x = torch.as_tensor(rows[:n], device=cuda)
+        with torch.no_grad():
+            want_ll = fn(m.params, x).cpu().numpy()
+            want_sig = k1(m.params, x).cpu().numpy()
+        np.testing.assert_allclose(svc.loglik(rows[:n], obs, 25.0), want_ll, rtol=1e-6,
+                                   atol=1e-3)
+        np.testing.assert_allclose(svc.predict(rows[:n]), want_sig, rtol=1e-6, atol=1e-5)

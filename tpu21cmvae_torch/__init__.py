@@ -8,6 +8,8 @@ neither ``jax`` nor ``tpu21cmvae``; importing it does no I/O and builds
 no kernel.
 """
 
+__version__ = "0.1.0"
+
 from tpu21cmvae_torch.calibration import (  # noqa: F401
     BatchGOFResult,
     GOFResult,
@@ -17,6 +19,17 @@ from tpu21cmvae_torch.calibration import (  # noqa: F401
     sbc,
 )
 from tpu21cmvae_torch.data.synthetic import synthetic_dataset, synthetic_params  # noqa: F401
+from tpu21cmvae_torch.deploy import (  # noqa: F401
+    ExportedFn,
+    export_loglik,
+    export_predict,
+    export_valgrad,
+    load_artifact,
+    save_artifact,
+    save_loglik_artifact,
+    save_predict_artifact,
+    save_valgrad_artifact,
+)
 from tpu21cmvae_torch.flows import (  # noqa: F401
     FlowEvidenceResult,
     FlowResult,
@@ -44,8 +57,14 @@ from tpu21cmvae_torch.models.vae import VAE, VAEEmulator  # noqa: F401
 from tpu21cmvae_torch.nested import NestedResult, nested_sampling, nested_sampling_batch  # noqa: F401
 from tpu21cmvae_torch.noisescale import ScaleMarginalNoise, marginalize_noise_scale  # noqa: F401
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad  # noqa: F401
-from tpu21cmvae_torch.ops.transforms import Normalizer  # noqa: F401
+from tpu21cmvae_torch.ops.transforms import (  # noqa: F401
+    Normalizer,
+    par_transform,
+    preproc,
+    unpreproc,
+)
 from tpu21cmvae_torch.priors import GaussianBoxPrior  # noqa: F401
+from tpu21cmvae_torch.sampling._common import make_emcee_log_prob  # noqa: F401
 from tpu21cmvae_torch.sampling.driver import run_batched_chain, sample_to_ess  # noqa: F401
 from tpu21cmvae_torch.sampling.evidence import (  # noqa: F401
     EvidenceComparison,
@@ -92,4 +111,16 @@ from tpu21cmvae_torch.utils.config import (  # noqa: F401
     TrainConfig,
     VAEConfig,
 )
+from tpu21cmvae_torch.utils.frequency import (  # noqa: F401
+    NU_0,
+    default_frequencies,
+    default_redshifts,
+    freq2redshift,
+    redshift2freq,
+)
+from tpu21cmvae_torch.utils.metrics import band_mask, error  # noqa: F401
 from tpu21cmvae_torch.vi import ADVIResult, fit_advi, fit_advi_batch  # noqa: F401
+
+PAR_LABELS = ["fstar", "Vc", "fx", "tau", "alpha", "nu_min", "Rmfp"]
+"""Names of the 7 astrophysical parameters, in input-column order
+(reference ``emulator.py:293-301``)."""

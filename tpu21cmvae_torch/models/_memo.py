@@ -10,14 +10,19 @@ calls on the same observation reuse one wrapper, its folded weights and
 its launch counter.
 
 Bounded at ``_CAP`` entries per model with LRU eviction; callers that
-manage likelihood lifetimes themselves pass ``memo=False``.
+manage likelihood lifetimes themselves pass ``memo=False``. A model's
+replica on another device (:func:`replica_on`) starts with no memo.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 
 import numpy as np
+import torch
+
+from tpu21cmvae_torch.utils.tree import tree_map
 
 _CAP = 8
 
@@ -59,3 +64,19 @@ def memo_program(model, key_parts, build, *, memo: bool = True):
     else:
         cache.move_to_end(key)
     return fn
+
+
+def replica_on(model, device):
+    """``model`` itself when ``device`` is its own, else a shallow copy,
+    with no memo, whose ``device`` and normalizer are ``device``'s: what
+    the functions its ``predict_fn()`` and ``loglik_fn()`` build close
+    over. The weights are passed to every call, so they stay shared."""
+    device = torch.empty(0, device=device).device
+    if device == model.device:
+        return model
+    rep = copy.copy(model)
+    rep.__dict__.pop("_t21_loglik_memo", None)
+    rep.device = device
+    rep.normalizer = tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t,
+                              model.normalizer)
+    return rep

@@ -110,6 +110,15 @@ class PredictFamily:
 
     par_labels = PAR_LABELS
 
+    def replica(self, device):
+        """This model on ``device``, for a mesh that serves it there:
+        itself on its own device, else a shallow copy, with no memo,
+        whose normalizer sits on ``device`` (the weights are passed to
+        every call and are not copied)."""
+        from tpu21cmvae_torch.models._memo import replica_on
+
+        return replica_on(self, device)
+
     def predict(self, params) -> np.ndarray:
         """Emulated signal(s) in mK: one 7-vector gives (n_bins,), an
         (n, 7) batch (n, n_bins)."""

@@ -12,7 +12,7 @@ noise specs (a scalar or per-bin variance, a foreground-marginalized
 :class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` over either) and
 every sampler, fit and variational fit a ``log_prior``. :meth:`train`
 runs the reference recipe on the model's device (:mod:`tpu21cmvae_torch.train`);
-serving is not ported yet (ROADMAP).
+:mod:`tpu21cmvae_torch.serve` puts it behind HTTP.
 """
 
 from __future__ import annotations
@@ -237,6 +237,15 @@ class DirectEmulator:
 
         return predict
 
+    def replica(self, device) -> "DirectEmulator":
+        """This model on ``device``, for a mesh that serves it there:
+        itself on its own device, else a shallow copy, with no memo,
+        whose normalizer sits on ``device`` (the weights are passed to
+        every call and are not copied)."""
+        from tpu21cmvae_torch.models._memo import replica_on
+
+        return replica_on(self, device)
+
     def predict(self, params) -> np.ndarray:
         """Emulate global signal(s) from raw astrophysical parameters: a
         single 7-vector gives shape (451,), an (n, 7) batch (n, 451)
@@ -401,8 +410,8 @@ class DirectEmulator:
         :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.log_prior`)
         passes through the kwargs to every sampler, on top of the flat
         box; the gradient samplers' force takes its gradient by autograd.
-        Neither changes which kernel runs or how often. ``mesh=`` is
-        refused (it waits for the port of ``parallel/``).
+        Neither changes which kernel runs or how often. ``mesh=`` takes one
+        device (more wait for the port of ``parallel/``).
         """
         if sampler in ("mh", "ensemble", "pt", "smc"):
             from tpu21cmvae_torch.sampling.driver import sample_to_ess

@@ -144,6 +144,19 @@ class DeepEnsemble:
         function the ensemble builds."""
         return self.stacked_params
 
+    def replica(self, device) -> "DeepEnsemble":
+        """The ensemble on ``device``, for a mesh that serves it there:
+        itself on its own device, else a shallow copy, with no memo and no
+        member views, whose normalizer and members sit on ``device`` (the
+        stacked weights are passed to every call and are not copied)."""
+        from tpu21cmvae_torch.models._memo import replica_on
+
+        rep = replica_on(self, device)
+        if rep is not self:
+            rep.members = [m.replica(device) for m in self.members]
+            rep._views = None
+        return rep
+
     def member_params(self, stacked) -> list:
         """Member ``m``'s layer dicts as views of ``stacked``, one list per
         member. The views are built once per stacked tree (keyed on its

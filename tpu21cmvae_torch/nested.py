@@ -204,8 +204,8 @@ def nested_sampling_batch(
     that uniform ``u`` is prior-distributed (e.g.
     :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.prior_transform`):
     the sampler then explores ``u`` and ``bounds`` only fixes the
-    dimension; ``samples`` are raw θ either way. ``mesh`` is refused
-    (it waits for the port of ``parallel/``). Returns ``n_obs`` :class:`NestedResult`.
+    dimension; ``samples`` are raw θ either way. ``mesh`` takes one device
+    (more wait for the port of ``parallel/``). Returns ``n_obs`` :class:`NestedResult`.
     """
     _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device

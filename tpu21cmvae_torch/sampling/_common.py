@@ -1,5 +1,5 @@
 """Shared sampler helpers: prior box, walker init, thinning, the mesh
-refusal, prior resolution, dual-averaging constants, the gradient
+check, prior resolution, dual-averaging constants, the gradient
 adapter and the routed likelihood that feeds it
 (the parts of ``tpu21cmvae/sampling/_common.py`` that the ported
 samplers need)."""
@@ -47,13 +47,21 @@ def _thin_write(buf: torch.Tensor, t: int, x: torch.Tensor, thin: int):
 
 
 def _refuse_mesh(mesh):
-    """The samplers and fits take the JAX package's ``mesh=`` and refuse
-    any mesh: the port runs on one device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (walkers sharded over several devices) waits for the port of "
-            "parallel/; the port samples on one device"
-        )
+    """The samplers and fits take the JAX package's ``mesh=``: None or a
+    one-device :class:`~tpu21cmvae_torch.parallel.mesh.Mesh` is the
+    single-device no-op (as JAX's ``_shard_walkers`` is on one device);
+    a larger mesh, or anything that is not a ``Mesh``, is refused."""
+    if mesh is None:
+        return
+    from tpu21cmvae_torch.parallel.mesh import Mesh
+
+    if isinstance(mesh, Mesh) and mesh.devices.size == 1:
+        return
+    raise NotImplementedError(
+        "mesh= (walkers sharded over several devices) waits for the port of "
+        "parallel/'s distributed half (torch.distributed); the port samples on one "
+        "device: pass a one-device Mesh or none"
+    )
 
 
 def _resolve_log_prior(log_prior):
@@ -121,3 +129,36 @@ def valgrad_from_loglik(loglik):
 
     routed = getattr(loglik, "valgrad", None)
     return per_row_grad(loglik) if routed is None else routed
+
+
+def make_emcee_log_prob(loglik, params, bounds=None, *, device):
+    """Adapter for external ensemble samplers (emcee et al.): a batched
+    likelihood as a NumPy-in, NumPy-out log-probability with a flat box
+    prior::
+
+        sampler = emcee.EnsembleSampler(
+            nwalkers, 7,
+            make_emcee_log_prob(em.loglik_fn(obs, noise_var), em.params,
+                                device=em.device),
+            vectorize=True,   # one device call per ensemble move
+        )
+
+    Rows outside the box score ``-inf`` without touching the device (the
+    emulator's log-transform is undefined for negative values there); the
+    rows inside go to ``device`` as one float32 batch, scored under
+    ``torch.no_grad()``. A 1-D ``coords`` returns a float. For chains
+    that stay on the device prefer the port's own samplers."""
+    lo, hi = _resolve_bounds(bounds, "cpu")
+    lo_np, hi_np = lo.numpy(), hi.numpy()
+
+    def log_prob(coords):
+        arr = np.atleast_2d(np.asarray(coords, np.float32))
+        inside = ((arr >= lo_np) & (arr <= hi_np)).all(axis=1)
+        lp = np.full(arr.shape[0], -np.inf, np.float32)
+        if inside.any():
+            with torch.no_grad():
+                x = torch.as_tensor(np.ascontiguousarray(arr[inside]), device=device)
+                lp[inside] = loglik(params, x).cpu().numpy()
+        return float(lp[0]) if np.ndim(coords) == 1 else lp
+
+    return log_prob

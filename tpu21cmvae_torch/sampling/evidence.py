@@ -163,7 +163,7 @@ def log_evidence(
     at K=32, 400 steps): check ``logz_err`` and ``ladder_drift``.
     ``x0`` (W, P) seeds every rung (``fit_map(...).params``);
     ``log_prior`` makes the ladder ``L^β·π`` and ``logz`` the evidence
-    under the box-normalized prior; ``mesh`` is refused (it waits for
+    under the box-normalized prior; ``mesh`` takes one device (more wait for
     the port of ``parallel/``).
     """
     _refuse_mesh(mesh)
@@ -614,7 +614,7 @@ def laplace_evidence(
     from ``DirectEmulator.log_evidence``), autograd otherwise; the Hessian
     its ``plain`` route by double autograd; the IS rounds its value.
     Unimodal by construction: on a multimodal posterior it reports the
-    dominant mode's evidence. ``mesh`` is refused (it waits for the port
+    dominant mode's evidence. ``mesh`` takes one device (more wait for the port
     of ``parallel/``). It is :func:`laplace_evidence_multi` over one
     observation, with the single-observation defaults.
     """
@@ -659,7 +659,7 @@ def laplace_evidence_multi(
        exponential; ``n_is=0`` stops at the saddle points.
 
     The defaults are per-observation budgets (the JAX package's measured
-    reliability floor). ``mesh`` is refused (it waits for the port of
+    reliability floor). ``mesh`` takes one device (more wait for the port of
     ``parallel/``). Returns ``O`` :class:`LaplaceResult`."""
     _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device

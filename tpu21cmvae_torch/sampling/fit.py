@@ -157,8 +157,8 @@ def fit_map(
     (iterates never leave the box) WITHOUT the prior's Jacobian: the
     optimum of the raw-space likelihood is wanted. ``learning_rate`` is in
     whitened units. ``log_prior``: a smooth log-density over the raw
-    parameters; the ascent then maximizes ``logL + log π``. ``mesh`` is
-    refused (it waits for the port of ``parallel/``). Seed a sampler with
+    parameters; the ascent then maximizes ``logL + log π``. ``mesh`` takes one
+    device (more wait for the port of ``parallel/``). Seed a sampler with
     ``x0=result.params``.
     """
     _refuse_mesh(mesh)

@@ -294,8 +294,8 @@ def sample_hmc(
     (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`); its gradient,
     by ``torch.autograd``, joins the leapfrog force. The metric stays
     pooled over the blocks: it is normalized to unit geometric mean, and
-    the per-block step absorbs each block's scale. ``mesh`` is refused
-    (it waits for the port of ``parallel/``). Returns a :class:`SampleResult` with the
+    the per-block step absorbs each block's scale. ``mesh`` takes one device
+    (more wait for the port of ``parallel/``). Returns a :class:`SampleResult` with the
     chain thinned by ``thin``.
     """
     _refuse_mesh(mesh)

@@ -109,8 +109,8 @@ def sample_mh(
     contiguous walker block. ``thin > 0`` keeps every ``thin``-th
     post-warmup step. ``log_prior``: a log-density over the raw
     parameters on top of the flat box
-    (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`). ``mesh`` is
-    refused (it waits for the port of ``parallel/``). Returns a :class:`SampleResult` whose
+    (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`). ``mesh`` takes one
+    device (more wait for the port of ``parallel/``). Returns a :class:`SampleResult` whose
     ``step_size`` is the mean multiplier times the mean base scale.
     """
     _refuse_mesh(mesh)
@@ -219,7 +219,7 @@ def sample_ensemble(
     the UPDATED half A. Warmup moves are ordinary moves whose samples are
     discarded; nothing adapts. ``n_walkers`` must be even and at least
     ``2 · n_params + 2``. ``log_prior``: a log-density over the raw
-    parameters on top of the flat box; ``mesh`` is refused (it waits
+    parameters on top of the flat box; ``mesh`` takes one device (more wait
     for the port of ``parallel/``). Returns a :class:`SampleResult` whose
     ``step_size`` reports the stretch scale ``a``.
     """

@@ -13,7 +13,7 @@ arguments, so a test can feed both packages the same draws; the
 samplers draw them from a ``torch.Generator`` on the device seeded with
 ``seed``. The JAX package runs the ladder as ``lax.scan`` programs; here
 the loops are Python loops whose tensors stay on the device, under
-``torch.no_grad()``. ``mesh`` is refused (it waits for the
+``torch.no_grad()``. ``mesh`` takes one device (more wait for the
 port of ``parallel/``).
 """
 
@@ -241,7 +241,7 @@ def sample_pt(
     warmup, gain decaying like ``t0/(t+t0)``). Returns a
     :class:`PTSampleResult` for the β=1 rung; ``x0`` (W, P) seeds every
     rung; ``log_prior`` is a log-density over raw parameters on top of
-    the flat box; ``mesh`` is refused (it waits for the port of
+    the flat box; ``mesh`` takes one device (more wait for the port of
     ``parallel/``).
     """
     _refuse_mesh(mesh)

@@ -242,7 +242,7 @@ def sample_smc(
     converted to the prior (one uncredited reweight, resample and mutate
     at β=0). ``n_particles`` must be divisible by 4 with each quarter ≥
     ``n_params + 1``; an anneal that does not reach β=1 in
-    ``max_stages`` raises. ``mesh`` is refused (it waits for the port of
+    ``max_stages`` raises. ``mesh`` takes one device (more wait for the port of
     ``parallel/``).
     """
     _refuse_mesh(mesh)

@@ -197,12 +197,27 @@ Phases, one line each:
     ``predict``) and ``verify`` on the synthetic split (ok, the golden
     checks SKIP).
 
+21. the distributed half: in one process on ``Mesh([cuda:0, cuda:0])``,
+    HMC at phase 5's sizes and MH at phase 8's through ``sample_posterior``
+    without and with ``mesh=``, the sharded chains bit for bit the
+    unsharded ones at exactly 2 × 1823 K3 and 2 × 701 K2 launches (two
+    chunks of half the rows per call); the fp32 K3 at 4096 rows against
+    its two 2048-row halves (tile heights and bitwise equality printed);
+    two processes on the card in one gloo group (this script with
+    ``--rank``), each rank's MH the unsharded chain at 701 launches of
+    its half of the rows, and ``dp_fit`` of the flagship on phase 18's
+    split over both, its first 20 steps within 2e-6 of the one-process
+    ``fit``; ``tune_direct_halving`` (4 candidates, 2 rungs of 2 epochs)
+    on that split and the CLI's ``tune --trials 2 --halving``.
+
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound (phase 18's launches under
 ``launches_trained``, beside the total; phase 19's under
 ``launches_ensemble`` and phase 20's under ``launches_serve`` and
-``launches_cli``, in it; the served wrappers' largest |Δ| from plain
-under ``max_abs_err_serve``), the card's name and power limit, and a last
+``launches_cli``, in it; phase 21's sharded runs under
+``launches_mesh`` and each rank's under ``launches_mesh_ranks``, beside;
+the served wrappers' largest |Δ| from plain under
+``max_abs_err_serve``), the card's name and power limit, and a last
 line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line; it also exits non-zero, with
@@ -2921,6 +2936,411 @@ def serving_phase(truth, obs, box, laplace_logz, dev, smi) -> dict:
 
 
 
+# -- phase 21: the distributed half and the tuner -------------------------------
+
+# HMC and MH at phases 5's and 8's sizes launch exactly these counts
+# unsharded (one per likelihood call: the start, then every leapfrog
+# step of the jittered counts, or every MH step); a mesh of two entries
+# launches each call twice, on half the rows.
+HMC_LAUNCHES, MH_LAUNCHES = 1823, 1 + MH_WARMUP + MH_STEPS
+MESH_TUNE = dict(n_initial=4, rungs=2, rung_epochs=2)  # tune_direct_halving on the golden split
+RANK_TIMEOUT_S = 600  # each two-process worker's communicate()
+
+
+def same_result(a, b) -> bool:
+    """Every array and number of two sampler results equal, bit for bit."""
+    for k, v in vars(a).items():
+        w = getattr(b, k)
+        if isinstance(v, np.ndarray) and not np.array_equal(v, w, equal_nan=True):
+            return False
+        if isinstance(v, float) and not (v == w or (np.isnan(v) and np.isnan(w))):
+            return False
+    return True
+
+
+def record_dp_steps() -> list:
+    """Keep each data-parallel training step's mean loss (a device
+    tensor) in the returned list: ``_DataParallel.train_step`` wrapped,
+    for the process that calls this."""
+    from tpu21cmvae_torch.parallel import train_dp
+
+    steps, base = [], train_dp._DataParallel.train_step
+
+    def train_step(self, *args, **kwargs):
+        loss, state = base(self, *args, **kwargs)
+        steps.append(loss.detach())
+        return loss, state
+
+    train_dp._DataParallel.train_step = train_step
+    return steps
+
+
+def golden_arrays(model, data):
+    """The golden split's four arrays as ``DirectEmulator.train`` makes
+    them, on the model's device."""
+    from tpu21cmvae_torch.ops.transforms import par_transform
+
+    def rows_of(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=model.device)
+
+    norm = model.normalizer
+    return (par_transform(rows_of(data.par_train), norm), preproc(rows_of(data.signal_train), norm),
+            par_transform(rows_of(data.par_val), norm), preproc(rows_of(data.signal_val), norm))
+
+
+def mesh_fit(dev, mesh=None):
+    """Two epochs of the flagship's recipe from seed 0 on the golden split
+    (phase 18's parity run) through ``fit``, or ``dp_fit`` over ``mesh``:
+    ``(per-step losses, per-epoch losses, wall s)``."""
+    from tpu21cmvae_torch.parallel import dp_fit
+    from tpu21cmvae_torch.train.loop import fit
+
+    data = synthetic_dataset(**TRAIN_SPLIT)
+    model = DirectEmulator(data, device=dev, seed=0)
+    cfg = dataclasses.replace(DIRECT_TRAIN_DEFAULT, epochs=PARITY_EPOCHS)
+    arrays = golden_arrays(model, data)
+    if mesh is None:
+        steps = []
+        inner = model.loss_fn()
+
+        def loss(params, x, y):
+            per_sample = inner(params, x, y)
+            if torch.is_grad_enabled():
+                steps.append(per_sample.detach().mean())
+            return per_sample
+
+        (_, _, hist), wall = timed(lambda: fit(model.params, loss, *arrays, cfg))
+    else:
+        steps = record_dp_steps()
+        (_, _, hist), wall = timed(lambda: dp_fit(model.params, model.loss_fn(), *arrays, cfg,
+                                                  mesh))
+    return (torch.stack(steps).cpu().numpy().tolist(), hist.loss + hist.val_loss, wall)
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Which gloo collectives take CUDA tensors here: each tried once on a
+    small tensor, the error kept where one refuses (a probe of the
+    library, not a check: the port moves CUDA tensors through the host
+    on gloo whatever it shows)."""
+    import torch.distributed as tdist
+
+    out = {}
+    t = torch.ones(4, device=dev)
+    for name, call in (
+        ("all_reduce", lambda: tdist.all_reduce(t.clone())),
+        ("broadcast", lambda: tdist.broadcast(t.clone(), src=0)),
+        ("all_gather", lambda: tdist.all_gather([torch.empty_like(t) for _ in range(2)], t)),
+    ):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as exc:  # noqa: BLE001 - the probe's answer is the refusal
+            out[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    return out
+
+
+def rank_main(rank: int, port: int, tmp: str) -> int:
+    """One of phase 21's two processes on the card: join the gloo group,
+    run MH at phase 8's sizes over the global mesh (this process scores
+    its half of every proposal batch), then ``dp_fit`` over it; write
+    what it saw to ``tmp/rank<rank>.json``."""
+    from tpu21cmvae_torch.parallel import make_mesh, multihost_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    _build.load_library()  # the parent built it
+    multihost_init(coordinator_address=f"127.0.0.1:{port}", num_processes=2, process_id=rank,
+                   initialization_timeout=120)
+    mesh = make_mesh()
+    from tpu21cmvae_torch.parallel import mesh as mesh_mod
+
+    check(mesh.size == 2 and mesh.processes == (0, 1) and mesh.process_index == rank
+          and mesh_mod._GROUP["nccl"] is None,
+          f"rank {rank}: global mesh {mesh}, NCCL group {mesh_mod._GROUP['nccl']}")
+    probe = gloo_cuda_probe(dev)
+    ref = np.load(os.path.join(tmp, "ref.npz"))
+    model = DirectEmulator.from_checkpoint(CHECKPOINT, device=dev)
+    obs = ref["obs"]
+    k2 = model.loglik_fn(obs, NOISE_VAR, backend="kernel")
+    k2.launches = 0
+    res, mh_wall = timed(lambda: model.sample_posterior(obs, NOISE_VAR, sampler="mh",
+                                                        mesh=mesh, **MH_SIZES))
+    launches = k2.launches
+    same = all(np.array_equal(getattr(res, k), ref[f"mh_{k}"])
+               for k in ("chain", "final", "logp", "accept_rate"))
+    steps, epochs, fit_wall = mesh_fit(dev, mesh)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump({"k2_launches": launches, "mh_equal": same, "mh_wall_s": mh_wall,
+                   "steps": steps, "epochs": epochs, "fit_wall_s": fit_wall,
+                   "gloo_cuda": probe}, fh)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_processes(obs, mh_plain, dev) -> dict:
+    """Phase 21 (b): this script twice more, as ranks 0 and 1 of a gloo
+    group on 127.0.0.1, both on this card (NCCL refuses two processes on
+    one card). Each rank's MH must equal ``mh_plain`` bit for bit with
+    701 launches of its half of the rows; its ``dp_fit`` is returned for
+    the caller to hold to the one-process ``fit``. A rank that fails or
+    hangs fails the phase."""
+    tmp = tempfile.mkdtemp(prefix="t21_ranks_")
+    try:
+        np.savez(os.path.join(tmp, "ref.npz"), obs=obs,
+                 **{f"mh_{k}": getattr(mh_plain, k)
+                    for k in ("chain", "final", "logp", "accept_rate")})
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                                   str(port), tmp], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=RANK_TIMEOUT_S) + (p.returncode,))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.communicate()
+            check(False, f"phase 21: the two ranks did not finish in {RANK_TIMEOUT_S} s")
+        for r, (out, err, rc) in enumerate(outs):
+            check(rc == 0, f"phase 21: rank {r} exited {rc}:\n{out[-2000:]}\n{err[-4000:]}")
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r, got in enumerate(ranks):
+        check(got["mh_equal"], f"phase 21: rank {r}'s MH differs from the unsharded chain")
+        check(got["k2_launches"] == MH_LAUNCHES,
+              f"phase 21: rank {r} launched K2 {got['k2_launches']} times, not {MH_LAUNCHES}")
+    check(ranks[0]["steps"] == ranks[1]["steps"] and ranks[0]["epochs"] == ranks[1]["epochs"],
+          "phase 21: the two ranks' dp_fit runs differ")
+    return ranks
+
+
+MIXED_ROWS = 512  # rows of each likelihood held row-wise on Mesh([cuda:0, cpu])
+MIXED_RTOL = 1e-4  # fp32 on the card vs fp32 on the host, relative to the largest |value|
+
+
+def rel_gap(got, want) -> float:
+    """The largest ``|got − want|`` over every output, each relative to
+    its own largest ``|want|``."""
+    pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+    return max(float((g.detach().to(w.device) - w.detach()).abs().max()
+                     / w.detach().abs().max().clamp_min(1e-30))
+               for g, w in pairs)
+
+
+def mixed_mesh(model, obs, dev) -> dict:
+    """Phase 21 (d): ``Mesh([cuda:0, cpu])``, a mesh of two distinct
+    devices in one process, where every likelihood's replica on the host
+    is made anew there (phase 21 (a)'s mesh repeats one device, where a
+    replica is the likelihood itself). Each likelihood a sampler on a
+    mesh replicates, of the flagship and of a full-width autoencoder with
+    random weights (the stacked and per-row-gradient ones, K2 and K3 whose
+    host replica runs the plain version, and the autodiff gradient that
+    ``MeshSplit.valgrad`` derives per device), scores ``MIXED_ROWS`` rows
+    split over the mesh, held row-wise to the same call on the card within
+    ``MIXED_RTOL`` at the exact fp32 tier. Then the entry points the
+    stacked and wrapped likelihoods serve run end to end on that mesh
+    beside their runs without it: finite results of the unsharded shapes
+    (the host's rounding differs from the card's, so the chains need not
+    match; the gaps are printed)."""
+    from tpu21cmvae_torch.ops.loglik import make_loglik_and_grad_multi, make_loglik_multi
+    from tpu21cmvae_torch.parallel import Mesh
+    from tpu21cmvae_torch.sampling._common import MeshSplit
+
+    t0 = time.perf_counter()
+    mesh = Mesh([dev, torch.device("cpu")])
+    rng = np.random.default_rng(23)
+    obs_batch = np.stack([obs, model.predict(synthetic_params(1, rng)[0])]).astype(np.float32)
+    ae = AutoEncoderEmulator(synthetic_dataset(n_train=512, n_val=64, n_test=64, seed=1),
+                             seed=5, device=dev)
+    obs_ae = (ae.predict(synthetic_params(1, rng)[0])
+              + rng.normal(0.0, 5.0, ae.config.n_bins)).astype(np.float32)
+    x = rows(MIXED_ROWS, rng)
+    k2 = model.loglik_fn(obs, NOISE_VAR, backend="kernel", precision="contract")
+    cases = {
+        "direct_gram": (model, model.loglik_fn(obs, NOISE_VAR, precision="contract"), 1),
+        "direct_k2": (model, k2, 1),
+        "direct_k3": (model, model.loglik_and_grad_fn(
+            obs, NOISE_VAR, backend="kernel", precision="contract",
+            grad_precision="contract"), 1),
+        "direct_k2_autodiff_valgrad": (model, MeshSplit(k2, mesh).valgrad, 1),
+        "multi_gram": (model, make_loglik_multi(model.config, model.normalizer, obs_batch,
+                                                NOISE_VAR, precision="contract"), 2),
+        "multi_valgrad": (model, make_loglik_and_grad_multi(
+            model.config, model.normalizer, obs_batch, NOISE_VAR, precision="contract"), 2),
+        "ae_loglik": (ae, ae.loglik_fn(obs_ae, NOISE_VAR), 1),
+        "ae_valgrad": (ae, ae.loglik_and_grad_fn(obs_ae, NOISE_VAR), 1),
+    }
+    out = {"devices": [str(d) for d in mesh.device_list], "rows": MIXED_ROWS, "rel_gap": {}}
+    for name, (m, fn, groups) in cases.items():
+        if isinstance(fn, MeshSplit):  # the per-device autodiff gradient itself
+            split, whole = fn, MeshSplit(k2, Mesh([dev])).valgrad
+        else:
+            split, whole = MeshSplit(fn, mesh, groups), fn
+        want = whole(m.params, x)
+        got = split(m.params, x)
+        gap = rel_gap(got, want)
+        out["rel_gap"][name] = gap
+        check(all(bool(torch.isfinite(t).all()) for t in (got if isinstance(got, tuple)
+                                                           else (got,)))
+              and gap <= MIXED_RTOL,
+              f"phase 21 (d): {name} split over {out['devices']} vs the card alone: "
+              f"{gap:.3g} > {MIXED_RTOL}")
+
+    def both(name, run, values, gap):
+        """``run`` without the mesh and on it: the same shapes, finite."""
+        a, b = (values(run(kw)) for kw in ({}, {"mesh": mesh}))
+        check(a.shape == b.shape and bool(np.isfinite(b).all()),
+              f"phase 21 (d): {name} on {out['devices']}: shape {b.shape} (unsharded "
+              f"{a.shape}), finite {bool(np.isfinite(b).all())}")
+        out[f"{name}_gap"] = gap(a, b)
+
+    def chain(r):
+        return np.asarray(r.chain).reshape(-1, 7)
+
+    def mean_gap(a, b):  # |Δ posterior mean| over the unsharded std, worst parameter
+        return float((np.abs(a.mean(0) - b.mean(0)) / a.std(0)).max())
+
+    both("batch_mh", lambda kw: model.sample_posterior_batch(
+        obs_batch, NOISE_VAR, sampler="mh", n_walkers=256, n_warmup=100, n_steps=200, thin=10,
+        seed=0, **kw), chain, mean_gap)
+    both("batch_hmc", lambda kw: model.sample_posterior_batch(
+        obs_batch, NOISE_VAR, sampler="hmc", n_walkers=128, n_warmup=50, n_steps=50, thin=5,
+        seed=0, **kw), chain, mean_gap)
+    both("ae_hmc", lambda kw: ae.sample_posterior(
+        obs_ae, NOISE_VAR, sampler="hmc", n_walkers=128, n_warmup=50, n_steps=50, thin=5,
+        seed=0, **kw), chain, mean_gap)
+    both("laplace_multi", lambda kw: model.log_evidence_batch(
+        obs_batch, NOISE_VAR, method="laplace", n_starts=64, n_steps=2000, **kw),
+        lambda rs: np.array([r.logz for r in rs]),
+        lambda a, b: float(np.abs(a - b).max()))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase(model, obs, dev, smi) -> dict:
+    """Phase 21: the distributed half and the tuner on the card.
+
+    (a) One process, ``Mesh([cuda:0, cuda:0])``: HMC at phase 5's sizes
+    (K3 at (high, default)) and MH at phase 8's (K2 at bf16x3) through
+    ``sample_posterior``, each without the mesh and then with it; the
+    sharded chain must equal the unsharded one bit for bit and launch
+    exactly twice as often (two chunks of half the rows per call, both on
+    the memoized wrapper: its replica on its own device is itself). The
+    fp32 K3's tile height, picked per batch, is read at 4096 rows and at
+    each 2048-row half, and the halves held bit for bit to the whole
+    (printed: a finding, not a gate).
+    (b) Two processes on this card in one gloo group
+    (:func:`two_processes`): MH per rank, and ``dp_fit`` of the flagship
+    on phase 18's split, its first 20 steps held to the one-process
+    ``fit`` within phase 18's 2e-6, its epochs printed beside.
+    (c) ``tune_direct_halving`` on phase 18's split, and the CLI's
+    ``tune`` in a subprocess.
+    (d) ``Mesh([cuda:0, cpu])`` (:func:`mixed_mesh`): the likelihoods'
+    replicas on a second device, row-wise, and the stacked and wrapped
+    likelihoods' entry points end to end. Returns the in-process
+    launches by path."""
+    from tpu21cmvae_torch.parallel import Mesh
+    from tpu21cmvae_torch.sampling._common import MeshSplit
+    from tpu21cmvae_torch.tuner import tune_direct_halving
+
+    t_phase = time.perf_counter()
+    mesh = Mesh([dev, dev])
+    out, launches = {"card": smi}, {}
+    k3 = model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", grad_precision=MAIN_TIERS[1])
+    k2 = model.loglik_fn(obs, NOISE_VAR, backend="kernel")
+    runs = {}
+    for sampler, fn, sizes, n in (("hmc", k3, HMC_SIZES, HMC_LAUNCHES),
+                                  ("mh", k2, MH_SIZES, MH_LAUNCHES)):
+        for name, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+            fn.launches = 0
+            res, wall = timed(lambda: model.sample_posterior(obs, NOISE_VAR, sampler=sampler,
+                                                             **sizes, **kw))
+            launches[f"{sampler}_{name}"] = fn.launches
+            runs[sampler, name] = res
+            out[f"{sampler}_{name}_wall_s"] = wall
+        check(launches[f"{sampler}_plain"] == n and launches[f"{sampler}_mesh"] == 2 * n,
+              f"phase 21: {sampler} launches {launches[f'{sampler}_plain']} unsharded and "
+              f"{launches[f'{sampler}_mesh']} on the mesh, not {n} and {2 * n}")
+        equal = same_result(runs[sampler, "plain"], runs[sampler, "mesh"])
+        out[f"{sampler}_bitwise"] = equal
+        check(equal, f"phase 21: the sharded {sampler} chain differs from the unsharded one")
+    check(bool(np.isfinite(runs["hmc", "mesh"].logp).all()), "phase 21: finite HMC logp")
+
+    k3_f32 = make_fused_loglik_grad_gram(model.config, model.normalizer, obs, NOISE_VAR,
+                                         precision=EXACT_TIERS[0], grad_precision=EXACT_TIERS[1],
+                                         device=dev)
+    x = rows(HMC_SIZES["n_walkers"], np.random.default_rng(21))
+    whole = k3_f32(model.params, x)
+    halves = MeshSplit(k3_f32, mesh)(model.params, x)
+    check(all(bool(torch.isfinite(t).all()) for t in (*whole, *halves)), "phase 21: finite K3")
+    out["k3_f32_split"] = {
+        "heights": [k3_f32.rows_for(x.shape[0]), k3_f32.rows_for(x.shape[0] // 2)],
+        "value_bitwise": bool(torch.equal(whole[0], halves[0])),
+        "grad_bitwise": bool(torch.equal(whole[1], halves[1])),
+        "grad_max_abs": float((whole[1] - halves[1]).abs().max()),
+    }
+
+    ranks = two_processes(obs, runs["mh", "plain"], dev)
+    steps, epochs, fit_wall = mesh_fit(dev)
+    dp_steps = np.array(ranks[0]["steps"])
+    gap = np.abs(dp_steps - np.array(steps)) / np.array(steps)
+    tight = float(gap[:PARITY_TIGHT_STEPS].max())
+    check(tight <= TRAIN_LOSS_RTOL,
+          f"phase 21: dp_fit vs fit, first {PARITY_TIGHT_STEPS} steps: {tight:.3g} > "
+          f"{TRAIN_LOSS_RTOL}")
+    out["two_processes"] = {
+        "k2_launches_per_rank": [r["k2_launches"] for r in ranks],
+        "mh_wall_s_per_rank": [r["mh_wall_s"] for r in ranks],
+        "gloo_cuda_collectives": ranks[0]["gloo_cuda"],
+        "dp_fit_first_steps_rel_gap": tight, "dp_fit_max_step_rel_gap": float(gap.max()),
+        "dp_fit_epochs_loss_then_val": ranks[0]["epochs"], "fit_epochs_loss_then_val": epochs,
+        "dp_fit_wall_s": ranks[0]["fit_wall_s"], "fit_wall_s": fit_wall,
+        "nccl": "unverified: NCCL needs a card per process; this machine has one",
+    }
+
+    data = synthetic_dataset(**TRAIN_SPLIT)
+    result, tune_wall = timed(lambda: tune_direct_halving(data, seed=0, device=dev, **MESH_TUNE))
+    errs = [t.val_error for t in result.trials]
+    n_final = max(1, MESH_TUNE["n_initial"] // 2)
+    check(len(result.trials) == n_final and errs == sorted(errs)
+          and all(np.isfinite(errs))
+          and all(t.epochs_ran == MESH_TUNE["rungs"] * MESH_TUNE["rung_epochs"]
+                  for t in result.trials),
+          f"phase 21: tune_direct_halving trials {result.leaderboard()}")
+    eff = result.best_efficient()
+    out["tune"] = {"wall_s": tune_wall, "val_error": errs,
+                   "hidden_dims": [list(t.config.hidden_dims) for t in result.trials],
+                   "best_efficient": list(eff.config.hidden_dims),
+                   "padded_flops_per_row": [t.padded_flops_per_row for t in result.trials]}
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "tpu21cmvae_torch", "tune", "--trials", "2",
+                          "--halving"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(cli.returncode == 0 and cli.stdout.count("val_err=") >= 1,
+          f"phase 21: CLI tune exited {cli.returncode}:\n{cli.stdout[-1500:]}\n"
+          f"{cli.stderr[-1500:]}")
+    out["cli_tune"] = {"wall_s": time.perf_counter() - t0,
+                       "leaderboard": cli.stdout.strip().splitlines()[-1]}
+    out["mixed_mesh"] = mixed_mesh(model, obs, dev)
+    out.update(launches=launches, phase_wall_s=time.perf_counter() - t_phase)
+    print("phase 21: " + json.dumps(out), flush=True)
+    return launches, [r["k2_launches"] for r in ranks]
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -3053,6 +3473,9 @@ def main() -> int:
     # -- phase 20: the HTTP service, the CLI and the artifact on the card ------
     serve, cli_hmc, serve_err = serving_phase(truth, obs, fit_box(adaptive_draws, truth),
                                    evidence_logz["laplace"], dev, smi)
+    # -- phase 21: mesh= on the card, two processes, data-parallel training,
+    # the tuner ------------------------------------------------------------------
+    mesh_launches, rank_launches = mesh_phase(model, obs, dev, smi)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
               "launches_fit": fits["fit"], "launches_profile": fits["profile"],
               "launches_ladder_warm_start": evidence["ladder"]["k3"],
@@ -3113,10 +3536,12 @@ def main() -> int:
               launches_serve=0, **ensemble("k2_f32"),
               **at_big(value_t[f"k2/highest/{big}"], bound("k2", trunk, big, "f32"))),
         entry("fused_loglik_gram_mma", GRAM_MMA_SOURCE, K2_REPLACES,
-              k2_mma_launches + sum(new_k2.values()) + ens_launches["k2"] + serve["k2"],
+              k2_mma_launches + sum(new_k2.values()) + ens_launches["k2"] + serve["k2"]
+              + mesh_launches["mh_plain"] + mesh_launches["mh_mesh"],
               k2_mma_err, value_t["k2/high/8192"], bound("k2", trunk, 8192, "bf16x3"),
               launches_trained=trained["k2"], launches_serve=serve["k2"],
               max_abs_err_serve=serve_err["k2"], **new_k2,
+              launches_mesh=mesh_launches["mh_mesh"], launches_mesh_ranks=rank_launches,
               **ensemble("k2")),
         entry("fused_loglik_grad_gram_f32", K3_F32_SOURCE, K3_REPLACES,
               k3_f32_launches + evidence["laplace"]["k3_f32"],
@@ -3131,12 +3556,13 @@ def main() -> int:
               k3_err[MIXED_TIERS], timings["highest/default/65536"],
               bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0, launches_serve=0),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
-              launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc,
+              launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc
+              + mesh_launches["hmc_plain"] + mesh_launches["hmc_mesh"],
               k3_err[MAIN_TIERS], timings[f"{MAIN_TIERS[0]}/{MAIN_TIERS[1]}/4096"],
               bound("k3", trunk, 4096, "bf16x3", "bf16"), launches_hmc=launches,
               launches_trained=trained["k3"], launches_serve=serve["k3"],
               max_abs_err_serve=serve_err["k3"], launches_cli=cli_hmc, **new_k3,
-              **ensemble("k3")),
+              launches_mesh=mesh_launches["hmc_mesh"], **ensemble("k3")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3148,4 +3574,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # one of phase 21's two processes
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -233,15 +233,15 @@ _MESH_REFUSERS = {
 
 @pytest.mark.parametrize("name", sorted(_MESH_REFUSERS))
 def test_mesh_is_refused(name):
-    """Every gradient sampler and fit takes ``mesh=`` and refuses a mesh
-    with the mesh error (it waits for the port of ``parallel/``)
-    before it calls the likelihood."""
+    """Every gradient sampler and fit takes ``mesh=`` and refuses an
+    object that is not a ``Mesh`` before it calls the likelihood (a Mesh
+    of several devices runs: ``test_torch_parallel_sampling.py``)."""
     calls = []
 
     def valgrad(params, x):
         calls.append(1)
         return _torch_valgrad(params, x)
 
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="Mesh"):
         _MESH_REFUSERS[name](valgrad, np.stack([MU - 1, MU + 1], axis=1))
     assert not calls

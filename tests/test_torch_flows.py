@@ -409,8 +409,9 @@ def test_model_level_flow_fit_and_evidence(tiny):
     small model carried across: in-box draws, ``log_evidence(method="flow")``
     with a prefitted ``flow=`` (reused) within the cross-method budget of
     the nested reference and of JAX's flow evidence of the same
-    observation; fit kwargs beside ``flow=`` refused; ``mesh=`` still
-    refused without a ROADMAP item number."""
+    observation; fit kwargs beside ``flow=`` refused; ``mesh=`` refused
+    (the flow evidence takes none, as JAX's) without a ROADMAP item
+    number."""
     jm, tm, obs, bounds = tiny
     flow = tm.fit_flow(obs, 25.0, bounds=bounds, n_steps=400, n_mc=128, seed=0)
     draws = flow.sample(4096, seed=1)
@@ -428,7 +429,7 @@ def test_model_level_flow_fit_and_evidence(tiny):
         tm.log_evidence(obs, 25.0, bounds=bounds, method="flow", flow=flow, n_steps=100)
     with pytest.raises(ValueError, match="'flow'"):
         tm.log_evidence(obs, 25.0, method="typo")
-    with pytest.raises(NotImplementedError, match="parallel/") as err:
+    with pytest.raises(TypeError, match="mesh") as err:  # the flow takes none, as JAX's
         tm.log_evidence(obs, 25.0, method="flow", mesh=object())
     assert "queue" not in str(err.value) and "item" not in str(err.value)
 

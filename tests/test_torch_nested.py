@@ -191,7 +191,7 @@ def test_truncation_flag_and_guards():
                         device="cpu")
     with pytest.raises(ValueError, match="n_obs"):
         nested_sampling_batch(_gauss(MU, SIG), None, 0, bounds=BOUNDS, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="Mesh"):
         nested_sampling(_gauss(MU, SIG), None, bounds=BOUNDS, mesh=object(), device="cpu")
 
 

@@ -35,6 +35,7 @@ def test_import_pulls_in_no_jax():
         "tpu21cmvae_torch.models.vae, tpu21cmvae_torch.models.ensemble, "
         "tpu21cmvae_torch.models.io_keras, tpu21cmvae_torch.parallel, "
         "tpu21cmvae_torch.parallel.mesh, tpu21cmvae_torch.parallel.inference, "
+        "tpu21cmvae_torch.parallel.train_dp, tpu21cmvae_torch.tuner, "
         "tpu21cmvae_torch.serve, tpu21cmvae_torch.deploy, tpu21cmvae_torch.verify, "
         "tpu21cmvae_torch.__main__, tpu21cmvae_torch.utils.profiling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

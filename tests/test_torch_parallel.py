@@ -4,7 +4,8 @@
 The multi-device split runs on a mesh of eight CPU entries (every chunk
 on the CPU, each against its own replica of the weights): it holds the
 padding, the split and the order of the outputs. No test here runs the
-split on several GPUs.
+split on several GPUs. Training and the samplers on a mesh are
+``test_torch_train_dp.py`` and ``test_torch_parallel_sampling.py``.
 """
 
 import jax
@@ -207,18 +208,26 @@ def test_for_model_kernel_backend_is_the_direct_family_only(pair, splits):
 
 
 def test_refuse_mesh_passes_one_device_only():
-    """A one-device mesh is the single-device no-op; two devices and an
-    object that is not a Mesh are refused, naming ``parallel/``."""
+    """The refusal of a larger mesh is gone: ``_shard_rows`` passes a
+    likelihood through unchanged without a mesh, splits its rows over a
+    mesh of one device or of eight (the same values), and refuses a
+    walker axis that does not divide with JAX's ``ValueError``;
+    ``multihost_init`` wants its three addresses."""
     from tpu21cmvae_torch.parallel.mesh import multihost_init
-    from tpu21cmvae_torch.sampling._common import _refuse_mesh
+    from tpu21cmvae_torch.sampling._common import MeshSplit, _shard_rows
 
-    _refuse_mesh(None)
-    _refuse_mesh(CPU1)
-    for bad in (Mesh(["cpu", "cpu"]), object(), CPU8):
-        with pytest.raises(NotImplementedError, match="parallel/") as err:
-            _refuse_mesh(bad)
-        assert "item" not in str(err.value)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    def loglik(params, x):
+        return -0.5 * (x * x).sum(-1)
+
+    assert _shard_rows(loglik, None, 7) is loglik
+    x = torch.arange(7 * 16, dtype=torch.float32).reshape(16, 7) / 50.0
+    for mesh in (CPU1, Mesh(["cpu", "cpu"]), CPU8):
+        split = _shard_rows(loglik, mesh, 16)
+        assert isinstance(split, MeshSplit)
+        assert torch.equal(split(None, x), loglik(None, x))
+    with pytest.raises(ValueError, match="must divide evenly across the 8-device mesh"):
+        _shard_rows(loglik, CPU8, 12)
+    with pytest.raises(ValueError, match="coordinator_address"):
         multihost_init()
 
 

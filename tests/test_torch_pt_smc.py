@@ -215,7 +215,7 @@ def test_pt_ladder_adaptation_and_warm_start():
     with pytest.raises(ValueError, match="x0 must have shape"):
         tpt.sample_pt(_torch_ll, None, n_rungs=4, n_walkers=16, bounds=BOUNDS, x0=x0[:8],
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpt.sample_pt(_torch_ll, None, bounds=BOUNDS, mesh=object(), device="cpu")
 
 
@@ -387,7 +387,7 @@ def test_smc_prior_conversion_and_validation():
     with pytest.raises(RuntimeError, match="truncated"):
         tsmc.sample_smc(_torch_ll, None, n_particles=512, bounds=BOUNDS, max_stages=2,
                         target_ess_frac=0.99, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="Mesh"):
         tsmc.sample_smc(_torch_ll, None, bounds=BOUNDS, mesh=object(), device="cpu")
 
 

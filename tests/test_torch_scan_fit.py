@@ -129,7 +129,7 @@ def test_scan_stack_takes_a_stacked_state_and_refuses_a_mesh(setup, stack_run):
     _, state2, hist = fit_scan_stack(tstack, setup.port_loss, *setup.data(), cfg, seeds=seeds,
                                      opt_state_stack=state)
     assert list(state2.step) == [8, 8, 8] and len(hist) == 3
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="Mesh"):
         fit_scan_stack(tstack, setup.port_loss, *setup.data(), cfg, seeds=seeds, mesh=object())
     with pytest.raises(ValueError, match="leading axes"):
         fit_scan_stack(tstack, setup.port_loss, *setup.data(), cfg, seeds=seeds[:2])

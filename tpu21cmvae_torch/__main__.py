@@ -19,7 +19,7 @@ outputs).
     sbc        simulation-based calibration (rank uniformity)
     gof        posterior predictive goodness of fit of a sampled chain
     download   (refused: the port fetches nothing)
-    tune       (refused: waits for the port of the architecture search)
+    tune       architecture search (random or successive halving)
 
 Every command that loads or trains a model takes ``--device`` (default
 ``cuda``): on a CUDA device the kernels run, and without one the command
@@ -75,9 +75,21 @@ def cmd_download(args):
 
 
 def cmd_tune(args):
-    print("tune: the architecture search waits for the port of tpu21cmvae/tuner.py; "
-          "run `python -m tpu21cmvae tune` for it", file=sys.stderr)
-    return 2
+    from tpu21cmvae_torch import tuner
+
+    if args.download:
+        return cmd_download(argparse.Namespace(out=None))
+    dev = _device(args)
+    data = _get_data(args)
+    if args.halving:
+        fns = {"direct": tuner.tune_direct_halving, "ae": tuner.tune_autoencoder_halving,
+               "vae": tuner.tune_vae_halving}
+        result = fns[args.family](data, n_initial=args.trials, verbose=True, device=dev)
+    else:
+        fns = {"direct": tuner.tune_direct, "ae": tuner.tune_autoencoder,
+               "vae": tuner.tune_vae}
+        result = fns[args.family](data, n_trials=args.trials, verbose=True, device=dev)
+    print(result.leaderboard())
 
 
 def cmd_train(args):
@@ -854,12 +866,16 @@ def main(argv=None):
     _add_device_arg(p)
     p.set_defaults(fn=cmd_verify)
 
-    p = sub.add_parser("tune", help="refused: waits for the port of the architecture search")
+    p = sub.add_parser("tune", help="architecture search")
     p.add_argument("--family", choices=["direct", "ae", "vae"], default="direct")
-    p.add_argument("--trials", type=int, default=10)
-    p.add_argument("--halving", action="store_true")
+    p.add_argument("--trials", type=int, default=10,
+                   help="random-search trials, or initial SHA candidates with --halving")
+    p.add_argument("--halving", action="store_true",
+                   help="successive-halving search instead of random")
     p.add_argument("--dataset")
-    p.add_argument("--download", action="store_true")
+    p.add_argument("--download", action="store_true",
+                   help="refused: the port fetches nothing (pass --dataset)")
+    _add_device_arg(p)
     p.set_defaults(fn=cmd_tune)
 
     args = ap.parse_args(argv)

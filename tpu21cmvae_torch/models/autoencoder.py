@@ -119,6 +119,14 @@ class PredictFamily:
 
         return replica_on(self, device)
 
+    def _on_each_device(self, make):
+        """``make(self)``, a likelihood over this model's functions, with a
+        ``replica(device)`` that is ``make`` of the model's replica there
+        (:func:`~tpu21cmvae_torch.parallel.mesh.replicable`), for a mesh."""
+        from tpu21cmvae_torch.parallel.mesh import replicable
+
+        return replicable(lambda d: make(self.replica(d)), self.device)
+
     def predict(self, params) -> np.ndarray:
         """Emulated signal(s) in mK: one 7-vector gives (n_bins,), an
         (n, 7) batch (n, n_bins)."""
@@ -139,8 +147,8 @@ class PredictFamily:
 
         return memo_program(
             self, ("loglik", _host(obs), noise_key(noise_var)),
-            lambda: make_loglik_from_predict(self.predict_fn(), obs, noise_var,
-                                             device=self.device),
+            lambda: self._on_each_device(lambda m: make_loglik_from_predict(
+                m.predict_fn(), obs, noise_var, device=m.device)),
             memo=memo,
         )
 
@@ -153,8 +161,8 @@ class PredictFamily:
 
         return memo_program(
             self, ("valgrad", _host(obs), noise_key(noise_var)),
-            lambda: make_loglik_and_grad_from_predict(self.predict_fn(), obs, noise_var,
-                                                      device=self.device),
+            lambda: self._on_each_device(lambda m: make_loglik_and_grad_from_predict(
+                m.predict_fn(), obs, noise_var, device=m.device)),
             memo=memo,
         )
 
@@ -166,8 +174,8 @@ class PredictFamily:
 
         return memo_program(
             self, ("multi", _host(obs_batch), noise_key(noise_var)),
-            lambda: make_loglik_multi_from_predict(self.predict_fn(), obs_batch, noise_var,
-                                                   device=self.device),
+            lambda: self._on_each_device(lambda m: make_loglik_multi_from_predict(
+                m.predict_fn(), obs_batch, noise_var, device=m.device)),
             memo=memo,
         )
 
@@ -222,8 +230,8 @@ class PredictFamily:
         from tpu21cmvae_torch.sampling.driver import run_batched_chain
 
         obs_batch = np.atleast_2d(np.asarray(obs_batch, np.float32))
-        base = make_loglik_multi_from_predict(self.predict_fn(), obs_batch, noise_var,
-                                              device=self.device)
+        base = self._on_each_device(lambda m: make_loglik_multi_from_predict(
+            m.predict_fn(), obs_batch, noise_var, device=m.device))
         return run_batched_chain(
             sampler, self.params, obs_batch.shape[0], n_walkers,
             loglik_builder=lambda: base,
@@ -268,9 +276,6 @@ class PredictFamily:
         ``"smc"``, ``"laplace"`` (its Hessian by double autograd), ``"flow"``
         or ``"ladder"`` (``warm_start``: every rung seeded from a
         ``max(1024, n_walkers)``-start :meth:`fit_params` of 500 steps)."""
-        from tpu21cmvae_torch.sampling._common import _refuse_mesh
-
-        _refuse_mesh(kwargs.get("mesh"))
         loglik = self.loglik_fn(obs, noise_var)
         if method == "nested":
             from tpu21cmvae_torch.nested import nested_sampling

@@ -410,8 +410,9 @@ class DirectEmulator:
         :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.log_prior`)
         passes through the kwargs to every sampler, on top of the flat
         box; the gradient samplers' force takes its gradient by autograd.
-        Neither changes which kernel runs or how often. ``mesh=`` takes one
-        device (more wait for the port of ``parallel/``).
+        Neither changes which kernel runs or how often. ``mesh=`` passes
+        through to the sampler, which splits its likelihood's rows over the
+        mesh's devices (one replica of the wrapper per device).
         """
         if sampler in ("mh", "ensemble", "pt", "smc"):
             from tpu21cmvae_torch.sampling.driver import sample_to_ess
@@ -529,9 +530,8 @@ class DirectEmulator:
 
         On a CUDA model every route is a kernel wrapper, on the CPU its
         plain version."""
-        from tpu21cmvae_torch.sampling._common import RoutedLoglik, _refuse_mesh
+        from tpu21cmvae_torch.sampling._common import RoutedLoglik
 
-        _refuse_mesh(kwargs.get("mesh"))  # before the ladder's warm-start fit
         backend = self._backend()
         if method == "nested":
             from tpu21cmvae_torch.nested import nested_sampling

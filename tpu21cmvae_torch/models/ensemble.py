@@ -50,6 +50,27 @@ def _operand_cache(fn):
     return getattr(fn, "operands", None)
 
 
+class _MemberViews:
+    """Member ``m``'s layer dicts as views of a stacked tree, one list per
+    member, built once per stacked tree (keyed on its tensors' identity),
+    so a kernel wrapper that caches its folded operands against its
+    weights' identity folds once."""
+
+    def __init__(self):
+        self._hit = None
+
+    def __call__(self, stacked) -> list:
+        leaves = [t for layer in stacked for t in (layer["w"], layer["b"])]
+        hit = self._hit
+        if hit is None or len(hit[0]) != len(leaves) or any(
+                a is not b for a, b in zip(hit[0], leaves)):
+            n = int(leaves[0].shape[0])
+            views = [tuple({"w": layer["w"][i], "b": layer["b"][i]} for layer in stacked)
+                     for i in range(n)]
+            hit = self._hit = (leaves, views)
+        return hit[1]
+
+
 class MixtureLoglik:
     """``(stacked, raw) → (B,)``: ``logsumexp_m l_m(raw) − log M``, member
     ``m`` scored by ``members[m]`` on its views of ``stacked``
@@ -76,6 +97,16 @@ class MixtureLoglik:
         """Each member's operand folds (None for a plain member)."""
         caches = [_operand_cache(f) for f in self.members]
         return [None if c is None else c.folds for c in caches]
+
+    def replica(self, device):
+        """The mixture of the members' replicas on ``device`` (itself where
+        every member's replica is the member), with views of its own."""
+        from tpu21cmvae_torch.parallel.mesh import replica_of
+
+        members = [replica_of(f, device) for f in self.members]
+        if all(a is b for a, b in zip(members, self.members)):
+            return self
+        return type(self)(members, _MemberViews())
 
     def _outputs(self, stacked, raw):
         return [f(p, raw) for f, p in zip(self.members, self._views(stacked))]
@@ -136,7 +167,7 @@ class DeepEnsemble:
                 {k: torch.stack([m.params[i][k].detach() for m in members]) for k in ("w", "b")}
                 for i in range(len(members[0].params))
             )
-        self._views = None
+        self._views = _MemberViews()
 
     @property
     def params(self):
@@ -154,23 +185,15 @@ class DeepEnsemble:
         rep = replica_on(self, device)
         if rep is not self:
             rep.members = [m.replica(device) for m in self.members]
-            rep._views = None
+            rep._views = _MemberViews()
         return rep
 
     def member_params(self, stacked) -> list:
         """Member ``m``'s layer dicts as views of ``stacked``, one list per
-        member. The views are built once per stacked tree (keyed on its
-        tensors' identity), so a kernel wrapper that caches its folded
-        operands against its weights' identity folds once."""
-        leaves = [t for layer in stacked for t in (layer["w"], layer["b"])]
-        hit = self._views
-        if hit is None or len(hit[0]) != len(leaves) or any(
-                a is not b for a, b in zip(hit[0], leaves)):
-            n = int(leaves[0].shape[0])
-            views = [tuple({"w": layer["w"][i], "b": layer["b"][i]} for layer in stacked)
-                     for i in range(n)]
-            hit = self._views = (leaves, views)
-        return hit[1]
+        member (:class:`_MemberViews`: built once per stacked tree, so a
+        kernel wrapper that caches its folded operands against its
+        weights' identity folds once)."""
+        return self._views(stacked)
 
     # -- construction ------------------------------------------------------
 
@@ -193,15 +216,16 @@ class DeepEnsemble:
         seeds (the same data and recipe) on ``device``. ``parallel=True``
         trains the stacked weights through
         :func:`~tpu21cmvae_torch.train.scan.fit_scan_stack` (one member
-        after another in the port, each exactly as it trains alone);
-        ``mesh`` is refused (the port trains on one device)."""
+        after another in the port, each exactly as it trains alone), and
+        ``mesh=`` shards that member axis over the mesh's devices in
+        contiguous blocks (``n_members`` must divide over it, as in JAX);
+        each member's weights come back to ``device``."""
         seeds = list(seeds) if seeds is not None else list(range(n_members))
         cfg = train_config or DIRECT_TRAIN_DEFAULT
         members = [DirectEmulator(data, config=config, seed=s, device=device) for s in seeds]
         if not parallel:
-            from tpu21cmvae_torch.sampling._common import _refuse_mesh
-
-            _refuse_mesh(mesh)
+            if mesh is not None:
+                raise ValueError("mesh= shards the member axis of parallel=True training")
             for s, m in zip(seeds, members):
                 # the member seed drives the shuffles too, as in fit_scan_stack
                 m.train(train_config=dataclasses.replace(cfg, seed=s),
@@ -220,7 +244,14 @@ class DeepEnsemble:
         x, xv = (par_transform(rows(p), norm) for p in (data.par_train, data.par_val))
         y, yv = (preproc(rows(s), norm) for s in (data.signal_train, data.signal_val))
         ens = cls(members)
-        _, _, hists = fit_scan_stack(ens.params, members[0].loss_fn(), x, y, xv, yv, cfg,
+        losses = {}
+
+        def loss_fn(p, bx, by):  # member 0's loss, its constants on the rows' device
+            if bx.device not in losses:
+                losses[bx.device] = members[0].replica(bx.device).loss_fn()
+            return losses[bx.device](p, bx, by)
+
+        _, _, hists = fit_scan_stack(ens.params, loss_fn, x, y, xv, yv, cfg,
                                      seeds=seeds, mesh=mesh)  # trains the stack in place
         with torch.no_grad():
             for m, views, history in zip(members, ens.member_params(ens.params), hists):
@@ -442,9 +473,8 @@ class DeepEnsemble:
         """Bayesian evidence under the mixture; methods and routes as
         :meth:`DirectEmulator.log_evidence` (``"laplace"`` and ``"flow"``
         read absolute log-densities at the contract tier)."""
-        from tpu21cmvae_torch.sampling._common import RoutedLoglik, _refuse_mesh
+        from tpu21cmvae_torch.sampling._common import RoutedLoglik
 
-        _refuse_mesh(kwargs.get("mesh"))
         backend = self._backend()
         if method == "nested":
             from tpu21cmvae_torch.nested import nested_sampling

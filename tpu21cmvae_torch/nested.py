@@ -28,7 +28,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu21cmvae_torch.sampling._common import _init_walkers, _refuse_mesh, _resolve_bounds
+from tpu21cmvae_torch.sampling._common import (
+    _as_mesh,
+    _init_walkers,
+    _resolve_bounds,
+    _shard_rows,
+)
 
 __all__ = ["NestedResult", "nested_sampling", "nested_sampling_batch"]
 
@@ -204,10 +209,12 @@ def nested_sampling_batch(
     that uniform ``u`` is prior-distributed (e.g.
     :meth:`tpu21cmvae_torch.priors.GaussianBoxPrior.prior_transform`):
     the sampler then explores ``u`` and ``bounds`` only fixes the
-    dimension; ``samples`` are raw θ either way. ``mesh`` takes one device
-    (more wait for the port of ``parallel/``). Returns ``n_obs`` :class:`NestedResult`.
+    dimension; ``samples`` are raw θ either way. ``mesh`` shards the live
+    axis as JAX's does (``n_live`` and ``n_batch`` divide over it): each
+    observation's rows of every likelihood call split over its devices
+    (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`). Returns
+    ``n_obs`` :class:`NestedResult`.
     """
-    _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     n_params = int(lo.shape[0])
@@ -223,6 +230,12 @@ def nested_sampling_batch(
         raise ValueError(f"n_batch must be in [1, n_live); got {n_batch} vs {n_live}")
     if n_obs < 1:
         raise ValueError(f"n_obs must be >= 1; got {n_obs}")
+    if _as_mesh(mesh) is not None and (n_live % mesh.size or n_batch % mesh.size):
+        raise ValueError(
+            f"n_live ({n_live}) and n_batch ({n_batch}) must divide "
+            f"evenly across the {mesh.size}-device mesh"
+        )
+    loglik_multi = _shard_rows(loglik_multi, mesh, n_live, groups=n_obs)
     gen = torch.Generator(device=device).manual_seed(seed)
     safe_ll = box_loglik(loglik_multi, to_theta, lo, hi)
     x = _init_walkers(gen, n_obs * n_live, lo, hi).reshape(n_obs, n_live, n_params)

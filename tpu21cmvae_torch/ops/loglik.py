@@ -25,10 +25,14 @@ scalar post-transform of the value (and a per-row rescale of the
 gradient). The stacked-observation factories (:func:`make_loglik_multi`)
 score ``O`` observations in one call under one shared spec, in plain
 PyTorch on both devices; the ``*_from_predict`` factories take any
-``(weights, raw) → signals`` function.
+``(weights, raw) → signals`` function. The factories that take the
+normalizer give a likelihood with a ``replica(device)``, the same
+likelihood made on another device, for a mesh.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -59,6 +63,22 @@ from tpu21cmvae_torch.ops.mlp import (
     skinny_dense,
 )
 from tpu21cmvae_torch.ops.transforms import par_transform, unpreproc
+from tpu21cmvae_torch.parallel.mesh import replica_of, replicable, tree_to
+
+
+def _on_each_device(factory):
+    """``factory(config, norm, …)`` whose likelihood carries a
+    ``replica(device)``: the same call with ``norm`` on that device
+    (:func:`~tpu21cmvae_torch.parallel.mesh.replicable`), for a mesh.
+    Everything else the likelihood closes over is made from ``norm``'s
+    device."""
+
+    @functools.wraps(factory)
+    def make(config, norm, *args, **kwargs):
+        return replicable(lambda d: factory(config, tree_to(norm, d), *args, **kwargs),
+                          norm.device)
+
+    return make
 
 
 def _rows(raw, device) -> torch.Tensor:
@@ -148,8 +168,14 @@ def per_row_grad(loglik, *, device=None):
     its own row (true for every likelihood in this module: observation
     pairing is a static reshape, never a cross-row reduction). ``raw``
     goes to ``device`` (default: where it is) before the gradient's leaf
-    is made."""
+    is made. Given a ``device`` and a likelihood with a ``replica``, the
+    result has one too: the same wrap of the likelihood's replica."""
+    if device is not None and hasattr(loglik, "replica"):
+        return replicable(lambda d: _per_row_grad(replica_of(loglik, d), d), device)
+    return _per_row_grad(loglik, device)
 
+
+def _per_row_grad(loglik, device):
     def loglik_and_grad(weights, raw):
         with torch.enable_grad():
             x = torch.atleast_2d(torch.as_tensor(raw, dtype=torch.float32, device=device))
@@ -225,6 +251,7 @@ class KernelLoglik:
         return _KernelValue.apply(self.fused, self.twin, raw, *weights)
 
 
+@_on_each_device
 def make_loglik(config, norm, obs, noise_var=1.0, *, backend: str = "torch",
                 method: str = "direct", precision=None):
     """Build ``fn(params, raw) → (B,)`` Gaussian log-likelihoods; a 1-D
@@ -332,6 +359,7 @@ def _rows_per_obs(raw: torch.Tensor, n_obs: int) -> int:
     return raw.shape[0] // n_obs
 
 
+@_on_each_device
 def make_loglik_multi(config, norm, obs_batch, noise_var=1.0, *, method: str = "gram",
                       precision=None):
     """Stacked-observation likelihood: ``fn(params, raw (O·W, P)) →
@@ -414,6 +442,7 @@ def make_loglik_multi(config, norm, obs_batch, noise_var=1.0, *, method: str = "
     return loglik_gram
 
 
+@_on_each_device
 def make_loglik_and_grad_multi(config, norm, obs_batch, noise_var=1.0, *,
                                method: str = "gram", precision=None):
     """Value + per-row gradient companion of :func:`make_loglik_multi`,
@@ -429,6 +458,7 @@ def make_loglik_and_grad_multi(config, norm, obs_batch, noise_var=1.0, *,
     )
 
 
+@_on_each_device
 def make_loglik_and_grad(config, norm, obs, noise_var=1.0, *,
                          backend: str = "torch", method: str = "gram",
                          variant=None, precision=None, grad_precision=None):

@@ -1,7 +1,8 @@
-"""The device mesh and mesh-split batched inference (the inference half
-of ``tpu21cmvae/parallel``). Data-parallel training and walkers sharded
-over several devices (``train_dp.py``, the samplers' ``mesh=``) wait for
-the port of its distributed half (``torch.distributed``)."""
+"""The device mesh, mesh-split batched inference and data-parallel
+training (the port of ``tpu21cmvae/parallel``). The samplers' and fits'
+``mesh=`` split their likelihood's rows over a mesh
+(``sampling/_common.py::_shard_rows``); several processes join one mesh
+through :func:`multihost_init` (``torch.distributed``)."""
 
 from tpu21cmvae_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
@@ -12,3 +13,8 @@ from tpu21cmvae_torch.parallel.mesh import (  # noqa: F401
     shard_batch,
 )
 from tpu21cmvae_torch.parallel.inference import ShardedEmulator  # noqa: F401
+from tpu21cmvae_torch.parallel.train_dp import (  # noqa: F401
+    dp_fit,
+    dp_fit_scan,
+    make_dp_train_step,
+)

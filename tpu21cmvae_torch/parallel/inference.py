@@ -22,7 +22,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from tpu21cmvae_torch.parallel.mesh import Mesh, make_mesh, replicate
+from tpu21cmvae_torch.parallel.mesh import Mesh, make_mesh, merge_rows, replicate, split_rows
 
 
 def _bucket_size(n: int, quantum: int) -> int:
@@ -41,7 +41,10 @@ class ShardedEmulator:
     per device in mesh order (a function bound to one device's operands,
     such as a kernel wrapper, serves that device only). ``params`` are
     replicated to every device. Typically built from a model with
-    :meth:`for_model`.
+    :meth:`for_model`. On a mesh of several processes
+    (:func:`~tpu21cmvae_torch.parallel.mesh.multihost_init`) each process
+    runs its own entries' chunks and every process gets the whole output
+    (``all_gather``); every process must make the same calls.
     """
 
     def __init__(
@@ -79,7 +82,8 @@ class ShardedEmulator:
         ``backend="torch"`` (JAX's ``"xla"``) calls the model's
         ``predict_fn``."""
         mesh = mesh if mesh is not None else make_mesh()
-        reps = [model.replica(d) for d in mesh.device_list]
+        reps = [model.replica(d) if mesh.is_local(i) else None
+                for i, d in enumerate(mesh.device_list)]
         if backend == "kernel":
             from tpu21cmvae_torch.models.direct import DirectEmulator
             from tpu21cmvae_torch.ops.kernels.fused_mlp import make_fused_emulate
@@ -88,22 +92,24 @@ class ShardedEmulator:
                 raise ValueError(
                     f"backend='kernel' serves the direct family only; got {type(model).__name__}"
                 )
-            fns = [make_fused_emulate(m.config, m.normalizer,
-                                      precision="highest" if precision is None else precision,
-                                      device=m.device) for m in reps]
+            fns = [None if m is None else make_fused_emulate(
+                m.config, m.normalizer, precision="highest" if precision is None else precision,
+                device=m.device) for m in reps]
             return cls(fns, model.params, mesh=mesh, **kwargs)
         if backend != "torch":
             raise ValueError(f"backend must be 'torch' or 'kernel'; got {backend!r}")
         # only the direct family's (and the ensemble's) predict_fn takes a tier
-        fns = [m.predict_fn() if precision is None else m.predict_fn(precision=precision)
-               for m in reps]
+        fns = [None if m is None else m.predict_fn() if precision is None
+               else m.predict_fn(precision=precision) for m in reps]
         return cls(fns, model.params, mesh=mesh, **kwargs)
 
     def _run(self, chunks) -> list:
-        """Each device's function on its chunk, all launched before any
-        output is read back."""
+        """Each of this process's devices' function on its chunk (mesh
+        order; the other processes' entries are skipped), all launched
+        before any output is read back."""
         with torch.no_grad():
-            return [fn(p, c) for fn, p, c in zip(self.fns, self.params, chunks)]
+            return [fn(p, c) for i, (fn, p, c) in enumerate(zip(self.fns, self.params, chunks))
+                    if self.mesh.is_local(i)]
 
     def __call__(self, raw_params) -> np.ndarray:
         """Emulate a batch of parameter draws; returns a host ndarray.
@@ -116,11 +122,10 @@ class ShardedEmulator:
         b = _bucket_size(n, self.quantum)
         if b != n:
             raw = np.concatenate([raw, np.broadcast_to(raw[:1], (b - n, raw.shape[1]))], axis=0)
-        # contiguous rows per device: NumPy may lay a padded batch out
-        # column-major, and the kernels take row-major rows only
-        chunks = [torch.as_tensor(np.ascontiguousarray(c), device=d)
-                  for c, d in zip(np.split(raw, len(self.devices)), self.devices)]
-        out = np.concatenate([o.cpu().numpy() for o in self._run(chunks)], axis=0)[:n]
+        # split_rows makes each chunk contiguous: NumPy may lay a padded
+        # batch out column-major, and the kernels take row-major rows only
+        chunks, sizes = split_rows(torch.as_tensor(raw), self.mesh)
+        out = merge_rows(self._run(chunks), self.mesh, sizes, "cpu").numpy()[:n]
         return out[0] if n == 1 else out
 
     def warmup(self, batch_sizes, n_params: int = 7) -> None:
@@ -130,8 +135,7 @@ class ShardedEmulator:
         request pays none of it."""
         buckets = sorted({_bucket_size(max(int(n), 1), self.quantum) for n in batch_sizes})
         for b in buckets:
-            chunks = [torch.ones((b // len(self.devices), n_params), dtype=torch.float32,
-                                 device=d) for d in self.devices]
+            chunks, _ = split_rows(torch.ones((b, n_params), dtype=torch.float32), self.mesh)
             for o in self._run(chunks):
                 o.cpu()
 
@@ -141,7 +145,7 @@ class ShardedEmulator:
         is split over the mesh and the output comes back as one tensor on
         the input's device; a list of per-device shards
         (:func:`~tpu21cmvae_torch.parallel.mesh.shard_batch`) gives one
-        output per device."""
+        output per device of this process."""
         if isinstance(raw_params_device, (list, tuple)):
             return self._run(raw_params_device)
         x = raw_params_device
@@ -150,6 +154,5 @@ class ShardedEmulator:
                 f"the batch ({x.shape[0]}) must divide evenly across the "
                 f"{len(self.devices)}-device mesh"
             )
-        chunks = [c.to(d) for c, d in zip(torch.tensor_split(x, len(self.devices)),
-                                          self.devices)]
-        return torch.cat([o.to(x.device) for o in self._run(chunks)], dim=0)
+        chunks, sizes = split_rows(x, self.mesh)
+        return merge_rows(self._run(chunks), self.mesh, sizes, x.device)

@@ -1,5 +1,5 @@
 """Shared sampler helpers: prior box, walker init, thinning, the mesh
-check, prior resolution, dual-averaging constants, the gradient
+split of the likelihood's rows, prior resolution, dual-averaging constants, the gradient
 adapter and the routed likelihood that feeds it
 (the parts of ``tpu21cmvae/sampling/_common.py`` that the ported
 samplers need)."""
@@ -46,22 +46,120 @@ def _thin_write(buf: torch.Tensor, t: int, x: torch.Tensor, thin: int):
         buf[(t + 1) // thin - 1] = x
 
 
-def _refuse_mesh(mesh):
-    """The samplers and fits take the JAX package's ``mesh=``: None or a
-    one-device :class:`~tpu21cmvae_torch.parallel.mesh.Mesh` is the
-    single-device no-op (as JAX's ``_shard_walkers`` is on one device);
-    a larger mesh, or anything that is not a ``Mesh``, is refused."""
-    if mesh is None:
-        return
+def _as_mesh(mesh):
+    """``mesh`` itself if it is None or a
+    :class:`~tpu21cmvae_torch.parallel.mesh.Mesh`; anything else raises."""
     from tpu21cmvae_torch.parallel.mesh import Mesh
 
-    if isinstance(mesh, Mesh) and mesh.devices.size == 1:
-        return
-    raise NotImplementedError(
-        "mesh= (walkers sharded over several devices) waits for the port of "
-        "parallel/'s distributed half (torch.distributed); the port samples on one "
-        "device: pass a one-device Mesh or none"
-    )
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh= takes a tpu21cmvae_torch.parallel.Mesh or None; got "
+                        f"{type(mesh).__name__}")
+    return mesh
+
+
+def _shard_rows(fn, mesh, n_rows: int, *, groups: int = 1, message=None):
+    """``fn`` with its rows split over ``mesh`` (:class:`MeshSplit`): the
+    port's counterpart of the JAX package's ``_shard_walkers``. JAX
+    shards the whole chain program; the port's samplers are eager loops
+    whose state (walkers, momenta, step sizes, thinning buffers) stays
+    whole on its device and whose randoms are drawn as without a mesh, so
+    only the likelihood's rows are split, and sharding cannot change the
+    chain. ``n_rows`` is the size of the axis JAX shards (walkers, rungs,
+    starts, live points, particles), which must divide over the mesh as
+    there (``message``: the refusal's text, a format of ``n_dev``, where
+    JAX words it otherwise). ``groups``: the likelihood's rows are that many observations'
+    blocks, each split alike (the stacked-observation likelihoods). None
+    is the single-device no-op."""
+    if _as_mesh(mesh) is None:
+        return fn
+    n_dev = int(mesh.devices.size)
+    if n_rows % n_dev:
+        raise ValueError(
+            message.format(n_dev=n_dev) if message else
+            f"the leading walker dimension ({n_rows}) must divide "
+            f"evenly across the {n_dev}-device mesh"
+        )
+    return MeshSplit(fn, mesh, groups)
+
+
+class MeshSplit:
+    """A likelihood ``(params, raw) → (B,)`` or ``→ ((B,), (B, P))`` whose
+    rows run split over a mesh: each call cuts its rows into
+    ``mesh.size`` contiguous chunks (per observation block when
+    ``groups`` > 1; :func:`~tpu21cmvae_torch.parallel.mesh.split_rows`),
+    runs chunk ``i`` on mesh device ``i``'s replica of ``fn``
+    (:func:`~tpu21cmvae_torch.parallel.mesh.replica_of`) with ``params``
+    copied there (:class:`~tpu21cmvae_torch.parallel.mesh.DeviceCopies`),
+    launches every chunk before any result is read, and puts the results
+    back together on the rows' device
+    (:func:`~tpu21cmvae_torch.parallel.mesh.merge_rows`), as
+    ``ShardedEmulator`` does. Across processes each process runs only its
+    own entries' chunks and every process returns the whole result.
+    A callable without ``replica`` (a plain closure) runs as it is on
+    each chunk: it must accept rows on every mesh device.
+    :attr:`launches` sums the kernel launches of the distinct replicas.
+
+    Nothing differentiates through the split (a collective has no
+    gradient): a value likelihood's :attr:`valgrad` is the split of
+    :func:`valgrad_from_loglik` of each device's replica (a
+    :class:`RoutedLoglik`'s own ``valgrad`` route, or autodiff of the
+    replica), and :attr:`plain`, the route of Laplace's double-autograd
+    Hessian, is the unsplit likelihood (or its own ``plain``), run
+    whole. ``derive``: what runs on each device is ``derive(replica)``."""
+
+    def __init__(self, fn, mesh, groups: int = 1, derive=None):
+        from tpu21cmvae_torch.parallel.mesh import DeviceCopies
+
+        self.fn, self.mesh, self.groups, self._derive = fn, mesh, int(groups), derive
+        self._params_on = DeviceCopies()  # params on each mesh device
+        self._on = {}  # device → what runs there
+        self._valgrad = None
+
+    def _fn_on(self, device):
+        from tpu21cmvae_torch.parallel.mesh import replica_of
+
+        if device not in self._on:
+            rep = replica_of(self.fn, device)
+            self._on[device] = rep if self._derive is None else self._derive(rep)
+        return self._on[device]
+
+    @property
+    def valgrad(self) -> "MeshSplit":
+        if self._valgrad is None:
+            self._valgrad = MeshSplit(self.fn, self.mesh, self.groups,
+                                      derive=valgrad_from_loglik)
+        return self._valgrad
+
+    @property
+    def plain(self):
+        return getattr(self.fn, "plain", None) or self.fn
+
+    def _replicas(self) -> list:
+        seen = {}
+        for i, d in enumerate(self.mesh.device_list):
+            if self.mesh.is_local(i):
+                f = self._fn_on(d)
+                seen[id(f)] = f
+        return list(seen.values())
+
+    @property
+    def launches(self) -> int:
+        return sum(getattr(f, "launches", 0) for f in self._replicas())
+
+    @launches.setter
+    def launches(self, n: int):
+        for f in self._replicas():
+            if hasattr(f, "launches"):
+                f.launches = n
+
+    def __call__(self, params, raw):
+        from tpu21cmvae_torch.parallel.mesh import merge_rows, split_rows
+
+        mesh = self.mesh
+        chunks, sizes = split_rows(raw, mesh, self.groups)
+        outs = [self._fn_on(d)(self._params_on(params, d), chunks[i])  # all launched first
+                for i, d in enumerate(mesh.device_list) if mesh.is_local(i)]
+        return merge_rows(outs, mesh, sizes, raw.device, self.groups)
 
 
 def _resolve_log_prior(log_prior):
@@ -114,6 +212,17 @@ class RoutedLoglik:
 
     def __call__(self, params, raw):
         return self.value(params, raw)
+
+    def replica(self, device) -> "RoutedLoglik":
+        """The same routes on ``device`` (each route's replica; itself
+        where every route's replica is the route)."""
+        from tpu21cmvae_torch.parallel.mesh import replica_of
+
+        routes = [None if f is None else replica_of(f, device)
+                  for f in (self.value, self.valgrad, self.plain)]
+        if all(a is b for a, b in zip(routes, (self.value, self.valgrad, self.plain))):
+            return self
+        return RoutedLoglik(routes[0], valgrad=routes[1], plain=routes[2])
 
 
 def valgrad_from_loglik(loglik):

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpu21cmvae_torch.sampling._common import _resolve_bounds
+from tpu21cmvae_torch.sampling._common import _resolve_bounds, _shard_rows
 from tpu21cmvae_torch.sampling.gradient import sample_hmc, sample_nuts
 from tpu21cmvae_torch.sampling.mh import sample_mh
 from tpu21cmvae_torch.sampling.results import BatchSampleResult, SampleResult
@@ -33,16 +33,26 @@ def run_batched_chain(
     or leapfrog step, and under NUTS its own ensemble metric. The stretch
     move is refused (its pairing would propose across observations), and
     so is ChEES (one trajectory length for the whole ensemble). kwargs
-    forward to the sampler (``device=`` among them)."""
+    forward to the sampler (``device=`` among them), but for ``mesh=``:
+    the stacked walker axis (``n_obs · n_walkers``) divides over it, as in
+    JAX, and each observation's rows of every likelihood call split over
+    its devices (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`
+    with ``groups=n_obs``: a stacked likelihood reads its rows
+    observation-major)."""
     total = n_obs * n_walkers
     kwargs.setdefault("adapt_blocks", n_obs)
+    mesh = kwargs.pop("mesh", None)
+
+    def split(fn):
+        return _shard_rows(fn, mesh, total, groups=n_obs)
+
     if sampler == "mh":
         return BatchSampleResult(n_obs=n_obs, result=sample_mh(
-            loglik_builder(), params, n_walkers=total, bounds=bounds, **kwargs))
+            split(loglik_builder()), params, n_walkers=total, bounds=bounds, **kwargs))
     if sampler in ("hmc", "nuts"):
         run = sample_hmc if sampler == "hmc" else sample_nuts
         return BatchSampleResult(n_obs=n_obs, result=run(
-            valgrad_builder(), params, n_walkers=total, bounds=bounds, **kwargs))
+            split(valgrad_builder()), params, n_walkers=total, bounds=bounds, **kwargs))
     raise ValueError(
         "sampler must be 'mh', 'hmc' or 'nuts' for batched "
         "observations (the stretch move pairs across observations; "

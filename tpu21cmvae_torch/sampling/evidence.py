@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from tpu21cmvae_torch.sampling._common import (
     _init_walkers,
-    _refuse_mesh,
+    _shard_rows,
     _resolve_bounds,
     _resolve_log_prior,
     valgrad_from_loglik,
@@ -163,10 +163,10 @@ def log_evidence(
     at K=32, 400 steps): check ``logz_err`` and ``ladder_drift``.
     ``x0`` (W, P) seeds every rung (``fit_map(...).params``);
     ``log_prior`` makes the ladder ``L^β·π`` and ``logz`` the evidence
-    under the box-normalized prior; ``mesh`` takes one device (more wait for
-    the port of ``parallel/``).
+    under the box-normalized prior; ``mesh`` shards the rung axis as
+    JAX's does (``n_rungs`` divides over it) by splitting the likelihood's
+    rows over its devices (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`).
     """
-    _refuse_mesh(mesh)
     log_prior = _resolve_log_prior(log_prior)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
@@ -183,7 +183,7 @@ def log_evidence(
     coarse_dbeta = torch.diff(betas[torch.as_tensor(coarse_idx, device=device)])
     gen = torch.Generator(device=device).manual_seed(seed)
     x = ladder_walkers(x0, gen, n_rungs, n_walkers, lo, hi)
-    eval_ll = box_eval(loglik, log_prior, lo, hi)
+    eval_ll = box_eval(_shard_rows(loglik, mesh, n_rungs), log_prior, lo, hi)
 
     def step(x, ll, lpr, i):
         x, ll, lpr, acc = pt_sweep(eval_ll, params, x, ll, lpr, betas, a, lo, hi,
@@ -614,8 +614,8 @@ def laplace_evidence(
     from ``DirectEmulator.log_evidence``), autograd otherwise; the Hessian
     its ``plain`` route by double autograd; the IS rounds its value.
     Unimodal by construction: on a multimodal posterior it reports the
-    dominant mode's evidence. ``mesh`` takes one device (more wait for the port
-    of ``parallel/``). It is :func:`laplace_evidence_multi` over one
+    dominant mode's evidence. ``mesh`` as in :func:`laplace_evidence_multi`.
+    It is :func:`laplace_evidence_multi` over one
     observation, with the single-observation defaults.
     """
     return laplace_evidence_multi(
@@ -659,14 +659,17 @@ def laplace_evidence_multi(
        exponential; ``n_is=0`` stops at the saddle points.
 
     The defaults are per-observation budgets (the JAX package's measured
-    reliability floor). ``mesh`` takes one device (more wait for the port of
-    ``parallel/``). Returns ``O`` :class:`LaplaceResult`."""
-    _refuse_mesh(mesh)
+    reliability floor). ``mesh``: the ``O·n_starts`` starts divide over it,
+    as in JAX, and every stacked call splits each observation's rows over
+    its devices (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`;
+    the Hessians run whole on ``device``). Returns ``O``
+    :class:`LaplaceResult`."""
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     span = hi - lo
     p = int(lo.shape[0])
     prior_lbm = _prior_log_box_mean(log_prior, lo, hi)
+    loglik_multi = _shard_rows(loglik_multi, mesh, n_obs * n_starts, groups=n_obs)
     gen = torch.Generator(device=device).manual_seed(seed)
     x0 = _init_walkers(gen, n_obs * n_starts, lo, hi)
     x_fin, g_fin = _whitened_adam_ascent(

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from tpu21cmvae_torch.sampling._common import (
     _init_walkers,
     _log_prior_val_grad,
-    _refuse_mesh,
+    _shard_rows,
     _resolve_bounds,
 )
 
@@ -157,17 +157,17 @@ def fit_map(
     (iterates never leave the box) WITHOUT the prior's Jacobian: the
     optimum of the raw-space likelihood is wanted. ``learning_rate`` is in
     whitened units. ``log_prior``: a smooth log-density over the raw
-    parameters; the ascent then maximizes ``logL + log π``. ``mesh`` takes one
-    device (more wait for the port of ``parallel/``). Seed a sampler with
-    ``x0=result.params``.
+    parameters; the ascent then maximizes ``logL + log π``. ``mesh``: the
+    starts divide over it, as in JAX, and the gradient's rows split over
+    its devices (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`).
+    Seed a sampler with ``x0=result.params``.
     """
-    _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     x = (_init_walkers(torch.Generator(device=device).manual_seed(seed), n_starts, lo, hi)
          if x0 is None else torch.as_tensor(np.asarray(x0, np.float32), device=device))
     x_fin, ll = _whitened_adam_ascent(
-        valgrad, params, lo, hi, x,
+        _shard_rows(valgrad, mesh, x.shape[0]), params, lo, hi, x,
         n_steps=n_steps, learning_rate=learning_rate, log_prior=log_prior,
     )
     x_np, ll_np = x_fin.cpu().numpy(), ll.cpu().numpy()
@@ -228,10 +228,10 @@ def profile_likelihood(
     ``len(grid) · n_starts`` constrained ascents run as one batch (the
     profiled coordinate pinned by masking its whitened gradient), so the
     scan makes ``n_steps + 1`` likelihood calls. ``log_prior`` profiles
-    ``logL + log π``; ``mesh`` is refused. A start whose final value is
+    ``logL + log π``; ``mesh`` as in :func:`fit_map` (over the
+    ``len(grid) · n_starts`` ascents). A start whose final value is
     not finite counts as ``-inf``, and the pinned value is restored
     exactly in ``params``."""
-    _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     n_params = int(lo.shape[0])
@@ -249,7 +249,8 @@ def profile_likelihood(
     free = torch.ones((n_params,), dtype=torch.float32, device=device)
     free[index] = 0.0
     xr, ll = _whitened_adam_ascent(
-        valgrad, params, lo, hi, x.reshape(-1, n_params),
+        _shard_rows(valgrad, mesh, g_count * n_starts), params, lo, hi,
+        x.reshape(-1, n_params),
         n_steps=n_steps, learning_rate=learning_rate, log_prior=log_prior, free=free,
     )
     xr = xr.cpu().numpy().reshape(g_count, n_starts, n_params)

@@ -33,7 +33,7 @@ from tpu21cmvae_torch.sampling._common import (
     _dual_averaging_consts,
     _init_walkers,
     _log_prior_val_grad,
-    _refuse_mesh,
+    _shard_rows,
     _resolve_bounds,
     _thin_state,
     _thin_write,
@@ -294,11 +294,12 @@ def sample_hmc(
     (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`); its gradient,
     by ``torch.autograd``, joins the leapfrog force. The metric stays
     pooled over the blocks: it is normalized to unit geometric mean, and
-    the per-block step absorbs each block's scale. ``mesh`` takes one device
-    (more wait for the port of ``parallel/``). Returns a :class:`SampleResult` with the
+    the per-block step absorbs each block's scale. ``mesh``: a
+    :class:`~tpu21cmvae_torch.parallel.mesh.Mesh` whose devices split the
+    gradient's walker rows (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`;
+    the chain is the unsharded one). Returns a :class:`SampleResult` with the
     chain thinned by ``thin``.
     """
-    _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     span = hi - lo
@@ -314,7 +315,8 @@ def sample_hmc(
         metric, precondition, n_warmup, y.shape[0], auto_dense=False
     )
     n_warm1 = n_warmup // 2 if use_metric else n_warmup
-    to_params, logp_and_grad = _whitened_target(valgrad, log_prior, lo, span)
+    to_params, logp_and_grad = _whitened_target(_shard_rows(valgrad, mesh, y.shape[0]),
+                                                 log_prior, lo, span)
     l_min = max(1, (n_leapfrog + 1) // 2)
 
     def step(y, lp, glp, met, eps):
@@ -474,10 +476,9 @@ def sample_chees(
     estimated once, halfway through warmup, and not refreshed after it).
     Each iteration reads its leapfrog count from the device once.
     ``valgrad``, ``bounds``, ``log_prior``, ``thin``, ``x0`` and the
-    randoms as in :func:`sample_hmc`; ``mesh`` is refused. Returns a
+    randoms and ``mesh`` as in :func:`sample_hmc`. Returns a
     :class:`ChEESSampleResult`.
     """
-    _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -486,7 +487,8 @@ def sample_chees(
     use_metric, dense = _resolve_metric(metric, precondition, n_warmup, y.shape[0],
                                         auto_dense=False)
     n_warm1 = n_warmup // 2 if use_metric else n_warmup
-    to_params, logp_and_grad = _whitened_target(valgrad, log_prior, lo, hi - lo)
+    to_params, logp_and_grad = _whitened_target(_shard_rows(valgrad, mesh, y.shape[0]),
+                                                 log_prior, lo, hi - lo)
     log_cap = math.log(max_leapfrog)
 
     def step(y, lp, glp, met, eps, h, i, want_grad):
@@ -662,10 +664,9 @@ def sample_nuts(
     metrics, one per contiguous walker block: the batched-observation
     path, where a pooled metric would measure the spread between the
     observations' posteriors. ``valgrad``, ``bounds``, ``log_prior``,
-    ``thin``, ``x0`` and the randoms as in :func:`sample_hmc`; ``mesh``
-    is refused. Returns a :class:`NUTSSampleResult`.
+    ``thin``, ``x0``, the randoms and ``mesh`` as in :func:`sample_hmc`.
+    Returns a :class:`NUTSSampleResult`.
     """
-    _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     if n_walkers % adapt_blocks:
@@ -683,7 +684,8 @@ def sample_nuts(
     n_warm1 = n_warmup // 2 if use_metric else n_warmup
     n_rest = n_warmup - n_warm1
     n_warm3 = n_rest // 2 if (use_metric and dense and _dense_readapt) else 0
-    to_params, logp_and_grad = _whitened_target(valgrad, log_prior, lo, hi - lo)
+    to_params, logp_and_grad = _whitened_target(_shard_rows(valgrad, mesh, y.shape[0]),
+                                                 log_prior, lo, hi - lo)
 
     def draw(d):
         right = torch.rand((n_walk,), generator=gen, device=device) < 0.5

@@ -29,7 +29,7 @@ import torch
 from tpu21cmvae_torch.sampling._common import (
     _dual_averaging_consts,
     _init_walkers,
-    _refuse_mesh,
+    _shard_rows,
     _resolve_bounds,
     _resolve_log_prior,
     _thin_state,
@@ -109,11 +109,12 @@ def sample_mh(
     contiguous walker block. ``thin > 0`` keeps every ``thin``-th
     post-warmup step. ``log_prior``: a log-density over the raw
     parameters on top of the flat box
-    (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`). ``mesh`` takes one
-    device (more wait for the port of ``parallel/``). Returns a :class:`SampleResult` whose
+    (:class:`~tpu21cmvae_torch.priors.GaussianBoxPrior`). ``mesh``: a
+    :class:`~tpu21cmvae_torch.parallel.mesh.Mesh` whose devices split the
+    likelihood's walker rows (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`;
+    the chain is the unsharded one). Returns a :class:`SampleResult` whose
     ``step_size`` is the mean multiplier times the mean base scale.
     """
-    _refuse_mesh(mesh)
     log_prior = _resolve_log_prior(log_prior)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
@@ -125,6 +126,7 @@ def sample_mh(
         )
     gen = torch.Generator(device=device).manual_seed(seed)
     x = _start(x0, gen, n_walkers, lo, hi)
+    loglik = _shard_rows(loglik, mesh, x.shape[0])
     score = _box_score(loglik, log_prior, lo, hi)
 
     def step(x, lp, mult):
@@ -219,11 +221,10 @@ def sample_ensemble(
     the UPDATED half A. Warmup moves are ordinary moves whose samples are
     discarded; nothing adapts. ``n_walkers`` must be even and at least
     ``2 · n_params + 2``. ``log_prior``: a log-density over the raw
-    parameters on top of the flat box; ``mesh`` takes one device (more wait
-    for the port of ``parallel/``). Returns a :class:`SampleResult` whose
+    parameters on top of the flat box; ``mesh`` splits the walker rows
+    as in :func:`sample_mh` (both halves' proposals). Returns a :class:`SampleResult` whose
     ``step_size`` reports the stretch scale ``a``.
     """
-    _refuse_mesh(mesh)
     log_prior = _resolve_log_prior(log_prior)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
@@ -239,7 +240,7 @@ def sample_ensemble(
         raise ValueError(f"stretch scale a must be > 1; got {a}")
     gen = torch.Generator(device=device).manual_seed(seed)
     x = _start(x0, gen, n_walkers, lo, hi)
-    score = _box_score(loglik, log_prior, lo, hi)
+    score = _box_score(_shard_rows(loglik, mesh, x.shape[0]), log_prior, lo, hi)
     half = n_walkers // 2
 
     def half_move(xa, lpa, xb):

@@ -13,8 +13,8 @@ arguments, so a test can feed both packages the same draws; the
 samplers draw them from a ``torch.Generator`` on the device seeded with
 ``seed``. The JAX package runs the ladder as ``lax.scan`` programs; here
 the loops are Python loops whose tensors stay on the device, under
-``torch.no_grad()``. ``mesh`` takes one device (more wait for the
-port of ``parallel/``).
+``torch.no_grad()``. ``mesh`` splits the likelihood's rows over its
+devices; the state and the swaps stay on one device.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 
 from tpu21cmvae_torch.sampling._common import (
     _init_walkers,
-    _refuse_mesh,
+    _shard_rows,
     _resolve_bounds,
     _resolve_log_prior,
     _thin_state,
@@ -241,10 +241,11 @@ def sample_pt(
     warmup, gain decaying like ``t0/(t+t0)``). Returns a
     :class:`PTSampleResult` for the β=1 rung; ``x0`` (W, P) seeds every
     rung; ``log_prior`` is a log-density over raw parameters on top of
-    the flat box; ``mesh`` takes one device (more wait for the port of
-    ``parallel/``).
+    the flat box; ``mesh`` shards the rung axis as JAX's does: ``n_rungs``
+    divides over it, and the likelihood's rows split over its devices
+    (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`; the swaps
+    read the whole state, which stays on ``device``).
     """
-    _refuse_mesh(mesh)
     log_prior = _resolve_log_prior(log_prior)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
@@ -254,7 +255,7 @@ def sample_pt(
     n_sw = _pt_swap_sweeps(swap_sweeps, n_rungs)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = ladder_walkers(x0, gen, n_rungs, n_walkers, lo, hi)
-    eval_ll = box_eval(loglik, log_prior, lo, hi)
+    eval_ll = box_eval(_shard_rows(loglik, mesh, n_rungs), log_prior, lo, hi)
     log_gaps = torch.log(torch.as_tensor(np.diff(betas0), dtype=torch.float32, device=device))
     # the gain decays like t0/(t+t0) so the ladder freezes well before
     # the kept phase; adaptation waits for the rungs to anneal from the

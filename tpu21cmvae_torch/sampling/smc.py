@@ -27,7 +27,7 @@ import torch
 
 from tpu21cmvae_torch.sampling._common import (
     _init_walkers,
-    _refuse_mesh,
+    _shard_rows,
     _resolve_bounds,
     _resolve_log_prior,
 )
@@ -242,10 +242,11 @@ def sample_smc(
     converted to the prior (one uncredited reweight, resample and mutate
     at β=0). ``n_particles`` must be divisible by 4 with each quarter ≥
     ``n_params + 1``; an anneal that does not reach β=1 in
-    ``max_stages`` raises. ``mesh`` takes one device (more wait for the port of
-    ``parallel/``).
+    ``max_stages`` raises. ``mesh`` shards each sub-population's particle
+    axis as JAX's does (``n_particles/2`` divides over it) by splitting
+    the likelihood's rows over its devices
+    (:func:`~tpu21cmvae_torch.sampling._common._shard_rows`).
     """
-    _refuse_mesh(mesh)
     device = torch.empty(0, device=device).device
     lo, hi = _resolve_bounds(bounds, device)
     n_params = int(lo.shape[0])
@@ -265,6 +266,8 @@ def sample_smc(
         raise ValueError(f"max_stages must be >= 2; got {max_stages}")
     gen = torch.Generator(device=device).manual_seed(seed)
     draws = _mutation_draws(gen, m, n_params)
+    loglik = _shard_rows(loglik, mesh, m, message=(
+        f"n_particles/2 = {m} must divide evenly across the {{n_dev}}-device mesh"))
     eval_ll = smc_eval(loglik, _resolve_log_prior(log_prior), lo, hi)
     x = _init_walkers(gen, 2 * m, lo, hi).reshape(2, m, n_params)
     ll, lpr, _ = (v.reshape(2, m) for v in eval_ll(params, x.reshape(-1, n_params)))

@@ -65,9 +65,11 @@ Device work runs under ``torch.no_grad()`` in the thread that does it
 on that thread's current CUDA stream, serialized by one lock; the server
 itself is threading, so ``GET /health`` answers during a long call.
 The default mesh is the model's own device; a larger mesh splits
-``/predict`` and ``/loglik`` batches over its devices, and the samplers
-refuse it (walkers over several devices wait for the port of
-``parallel/``'s distributed half).
+``/predict`` and ``/loglik`` batches over its devices, and ``/sample``,
+``/fit`` and ``/evidence`` pass it to their samplers, fits and
+estimators, which split each likelihood call's rows over it (one
+replica of the routed wrapper per device), as JAX's service shards its
+walkers.
 """
 
 from __future__ import annotations

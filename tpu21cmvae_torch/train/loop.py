@@ -143,25 +143,31 @@ def _train_step(params, leaves, loss_fn: LossFn, bx, by, state: AdamState, lr,
 
 
 def _run_epoch(params, loss_fn: LossFn, x, y, state: AdamState, lr, cfg: TrainConfig,
-               perm: torch.Tensor, extra=(), noise=None):
+               perm: torch.Tensor, extra=(), noise=None, dp=None):
     """One epoch over the rows ``perm`` in batches of ``cfg.batch_size``.
     ``noise``: None, or ``step → source of normals`` for a stochastic
-    loss, passed before ``extra``. Returns ``(state, mean loss)``, the
-    loss on the device."""
+    loss, passed before ``extra``. ``dp``: None, or the data-parallel
+    step of :mod:`tpu21cmvae_torch.parallel.train_dp` that takes each
+    batch's place. Returns ``(state, mean loss)``, the loss on the
+    device."""
     leaves = tree_leaves(params)
     xs, ys = x[perm], y[perm]
     total = x.new_zeros(())
+    train_step = _train_step if dp is None else dp.train_step
     for step, start in enumerate(range(0, perm.shape[0], cfg.batch_size)):
         bx, by = xs[start: start + cfg.batch_size], ys[start: start + cfg.batch_size]
         args = extra if noise is None else (noise(step), *extra)
-        loss, state = _train_step(params, leaves, loss_fn, bx, by, state, lr, cfg, args)
+        loss, state = train_step(params, leaves, loss_fn, bx, by, state, lr, cfg, args)
         total = total + loss * bx.shape[0]
     return state, total / perm.shape[0]
 
 
 @torch.no_grad()
-def _evaluate(params, loss_fn: LossFn, x, y, n_real: int, extra=()) -> torch.Tensor:
-    """Mean per-sample loss over the first ``n_real`` rows, on the device."""
+def _evaluate(params, loss_fn: LossFn, x, y, n_real: int, extra=(), dp=None) -> torch.Tensor:
+    """Mean per-sample loss over the first ``n_real`` rows, on the device
+    (``dp``: split over a mesh as :func:`_run_epoch`'s batches)."""
+    if dp is not None:
+        return dp.evaluate(params, loss_fn, x, y, n_real, extra)
     per_sample = loss_fn(params, x, y, *extra)
     if n_real == x.shape[0]:
         return per_sample.mean()
@@ -215,6 +221,7 @@ def fit(
     resume: bool = False,
     n_train_real: Optional[int] = None,
     n_val_real: Optional[int] = None,
+    _dp=None,
 ):
     """Train ``params`` in place to minimize the mean of ``loss_fn``'s
     per-sample losses; returns ``(params, opt_state, History)``.
@@ -239,6 +246,8 @@ def fit(
 
     ``n_train_real``/``n_val_real``: true sample counts when the arrays
     carry trailing pad rows; pad rows never enter a loss or a gradient.
+    ``_dp`` is :func:`~tpu21cmvae_torch.parallel.train_dp.dp_fit`'s: every
+    batch and the validation pass split over its mesh.
     """
     device, x_train, y_train, x_val, y_val, n_real, nv_real = _prepare(
         params, x_train, y_train, x_val, y_val, n_train_real, n_val_real)
@@ -297,8 +306,8 @@ def fit(
         t0 = time.perf_counter()
         perm = _permutation(cfg.seed, epoch, n_real, device)
         opt_state, train_loss = _run_epoch(params, loss_fn, x_train, y_train, opt_state,
-                                           lr, cfg, perm, *for_epoch(epoch))
-        val_loss = _evaluate(params, loss_fn, x_val, y_val, nv_real, extra_val)
+                                           lr, cfg, perm, *for_epoch(epoch), dp=_dp)
+        val_loss = _evaluate(params, loss_fn, x_val, y_val, nv_real, extra_val, dp=_dp)
         # the epoch's one read from the device
         train_loss, val_loss = torch.stack([train_loss, val_loss]).tolist()
         history.loss.append(train_loss)

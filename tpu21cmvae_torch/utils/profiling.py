@@ -182,6 +182,29 @@ def matmul_flops_per_row(sizes, skip_first: bool = True) -> int:
     return 2 * sum(a * b for a, b in pairs)
 
 
+def padded_flops_per_row(sizes, tier: str = "highest") -> int:
+    """Matmul FLOPs per batch row that K1 multiplies for a dense chain of
+    ``sizes``, padding included, at ``tier``: at the fp32 tiers
+    (``csrc/fused_mlp.cu``, what ``predict`` and the served ``/predict``
+    run) each fan-in is padded to 32 and each fan-out to 128-column slabs
+    (``ops/kernels/_common.py``: ``PAD_K``, ``SLAB_N``); at the bf16
+    tiers (``csrc/fused_mlp_mma.cu``) both to multiples of 16, the
+    ``mma.m16n8k16`` fragments. A skinny first layer (fan-in ≤ 8) runs
+    apart, unpadded, on the CUDA cores, and is left out, as in
+    :func:`matmul_flops_per_row`. The cost the tuner ranks trials by."""
+    from tpu21cmvae_torch.ops.fold import resolve_tier
+    from tpu21cmvae_torch.ops.kernels._common import PAD_K, SLAB_N
+
+    def up(n, m):
+        return -(-n // m) * m
+
+    k_pad, n_pad = (PAD_K, SLAB_N) if resolve_tier(tier, "highest") == "f32" else (16, 16)
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    if pairs and sizes[0] <= 8:
+        pairs = pairs[1:]
+    return 2 * sum(up(a, k_pad) * up(b, n_pad) for a, b in pairs)
+
+
 def mfu_line(label: str, rows_per_s: float, flops_per_row: float, tier: str,
              peak: Optional[float] = None) -> str:
     """One-line roofline statement: the logical FLOP rate, and the share

@@ -163,13 +163,21 @@ Phases, one line each:
     autoencoder and VAE emulators and three-member deep ensemble through
     ``load_model``; their predictions against a float64 NumPy forward of
     each file; the golden errors of ``tests/test_pretrained.py``; the
-    ensemble's mixtures of K1 (contract, direct form), K2 (bf16x3 and
-    fp32) and K3 (high, default), one wrapper per member, against the
-    same mixtures of the plain versions at 4096 and 8192 rows; its HMC
+    ensemble's mixtures on every route (K1 at contract and bf16x3, direct
+    form; K2 at bf16x3 and fp32; K3 at (high, default), (fp32, fp32) and
+    the mixed pair), each one member-batched wrapper over the stacked
+    weights, against the same mixtures of the plain versions at 4096 and
+    8192 rows; each route's member-batched launch (M = 3) equal to the
+    three members' single launches bit for bit at 37, 256 and 4096 rows,
+    within tolerance of its member-batched plain version, and timed
+    beside the three single launches at 256 and 4096 rows; its HMC
     (4096, 100 + 100) and MH (8192, 200 + 500) through
-    ``sample_posterior``, launching exactly 3 × member 0's alone, every
-    member's operands folded once, the draws scored at the contract tier
-    by K1 and the fp32 K2, held to each other, the truth typical; the
+    ``sample_posterior``, launching exactly member 0's count alone (one
+    launch per step), the chains bit for bit those of the per-member
+    mixture (three single launches per step) on the same seed, every
+    route's stacked operands folded once, the draws scored at the
+    contract tier by K1 and the fp32 K2, held to each other, the truth
+    typical; the
     AE's and VAE's HMC (1024, 100 + 100) and MH through autograd; both
     families trained three epochs per stage from seed 0 (host loop,
     device loop and a resumed run bit for bit) and the VAE's first 20
@@ -252,16 +260,23 @@ from tpu21cmvae_torch.models.vae import VAEEmulator
 from tpu21cmvae_torch.noisescale import marginalize_noise_scale
 from tpu21cmvae_torch.ops.kernels import _build
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
+    loglik_grad_gram_members_reference,
     loglik_grad_gram_reference,
+    loglik_gram_members_reference,
     loglik_gram_reference,
     make_fused_loglik,
     make_fused_loglik_grad_gram,
     make_fused_loglik_gram,
 )
-from tpu21cmvae_torch.ops.kernels.fused_mlp import fused_mlp_reference, make_fused_emulate
+from tpu21cmvae_torch.ops.kernels.fused_mlp import (
+    fused_mlp_members_reference,
+    fused_mlp_reference,
+    make_fused_emulate,
+)
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad
 from tpu21cmvae_torch.priors import GaussianBoxPrior
 from tpu21cmvae_torch.sampling.gradient import sample_hmc
+from tpu21cmvae_torch.sampling.mh import sample_mh
 from tpu21cmvae_torch.ops.transforms import preproc
 from tpu21cmvae_torch.utils.config import (
     AE_EMULATOR_TRAIN_DEFAULT,
@@ -407,6 +422,21 @@ FAMILY_PATHS = {"ae": os.path.join(ROOT, "pretrained", "ae_synthetic.npz"),
                 "vae": os.path.join(ROOT, "pretrained", "vae_synthetic.npz"),
                 "ensemble": os.path.join(ROOT, "pretrained", "ensemble_direct")}
 MIXTURE_ROWS = (4096, 8192)
+# the ensemble's member-batched routes: its mixture's builder keywords,
+# the kernel source that runs it, and its (value, backward) tiers
+ENS_ROUTES = {
+    "k1": (dict(method="direct", precision="contract"), K1_SOURCE, ("highest", None)),
+    "k1_mma": (dict(method="direct", precision="high"), K1_MMA_SOURCE, ("high", None)),
+    "k2": (dict(), GRAM_MMA_SOURCE, ("high", None)),
+    "k2_f32": (dict(precision="contract"), K2_SOURCE, ("highest", None)),
+    "k3": (dict(grad_precision=MAIN_TIERS[1]), GRAM_MMA_SOURCE, MAIN_TIERS),
+    "k3_f32": (dict(precision="contract"), K3_F32_SOURCE, EXACT_TIERS),
+    "k3_mixed": (dict(precision=MIXED_TIERS[0], grad_precision=MIXED_TIERS[1]), K3_SOURCE,
+                 MIXED_TIERS),
+}
+MEMBER_ROWS = (37, 256, 4096)  # member-batched against three single launches, bit for bit
+MEMBER_TIMING_ROWS = (256, 4096)
+BOUND_TIER = {"highest": "f32", "high": "bf16x3", "default": "bf16"}
 # MH at phase 8's sizes: at 100 + 200 steps the ensemble's best draw stayed
 # 6.5 nats below the truth (an H100 80GB HBM3 at 700 W), short of phase 8's
 # gate; random-walk MH needs phase 8's length to reach the mode
@@ -2341,26 +2371,27 @@ def recorded_steps():
 
 
 def ensemble_wrappers(ens, obs) -> dict:
-    """The ensemble's memoized mixtures on ``obs`` at σ² = 25 that its
-    entry points run on a CUDA ensemble: K1 per member as the
-    contract-tier direct likelihood, K2 per member at bf16x3 (MH), K3
-    per member at (high, default) (HMC), and the fp32 K2 per member (the
-    gram form at the contract tier)."""
-    return {
-        "k1": ens.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract",
-                            backend="kernel"),
-        "k2": ens.loglik_fn(obs, NOISE_VAR, backend="kernel"),
-        "k3": ens.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel",
-                                     grad_precision=MAIN_TIERS[1]),
-        "k2_f32": ens.loglik_fn(obs, NOISE_VAR, precision="contract", backend="kernel"),
-    }
+    """The ensemble's memoized kernel mixtures on ``obs`` at σ² = 25, one
+    per route of :data:`ENS_ROUTES`: each one member-batched wrapper, one
+    launch per call. Its entry points run K1 as the contract-tier direct
+    likelihood, K2 at bf16x3 (MH), K3 at (high, default) (HMC) and the
+    fp32 K2 (the gram form at the contract tier); K1 at bf16x3, the fp32
+    K3 and the mixed K3 pair are built the same way."""
+    return {key: (ens.loglik_and_grad_fn if key.startswith("k3") else ens.loglik_fn)(
+        obs, NOISE_VAR, backend="kernel", **kw) for key, (kw, _, _) in ENS_ROUTES.items()}
+
+
+def batched_wrapper(mix):
+    """The member-batched kernel wrapper under a kernel mixture: K3's
+    wrapper, or K1's and K2's under their autograd shell."""
+    return getattr(mix.members, "fused", mix.members)
 
 
 def ensemble_half_c(ens, wrappers) -> float:
     """The largest member's gram cancellation scale c/2 (phase 6's), read
-    from the fp32 K2 wrappers' folded operands."""
-    return max(0.5 * abs(float(f.fused.operands(p).c))
-               for f, p in zip(wrappers["k2_f32"].members, ens.member_params(ens.params)))
+    from the fp32 K2 mixture's stacked operands (``c`` is (M, 1))."""
+    ops = batched_wrapper(wrappers["k2_f32"]).operands(ens.params)
+    return 0.5 * float(ops.c.abs().max())
 
 
 @torch.no_grad()
@@ -2368,32 +2399,160 @@ def mixture_vs_plain(ens, obs, wrappers, rng) -> dict:
     """The ensemble's kernel mixtures against the same mixtures over the
     plain versions at ``MIXTURE_ROWS``: values within the member bound
     (logsumexp is 1-Lipschitz in the max norm), K3's gradient under
-    ``bench_mcmc.py``'s gate. Returns the report by kernel."""
-    plain = {"k1": ens.loglik_fn(obs, NOISE_VAR, method="direct", precision="contract"),
-             "k2": ens.loglik_fn(obs, NOISE_VAR),
-             "k3": ens.loglik_and_grad_fn(obs, NOISE_VAR, grad_precision=MAIN_TIERS[1]),
-             "k2_f32": ens.loglik_fn(obs, NOISE_VAR, precision="contract")}
-    tiers = {"k1": "highest", "k2": MAIN_TIERS[0], "k3": MAIN_TIERS[0], "k2_f32": "highest"}
+    ``bench_mcmc.py``'s gate (the fp32 pair also under its q99.9 bound).
+    Returns the report by route and c/2."""
     half_c = ensemble_half_c(ens, wrappers)
     report = {}
     for key, fn in wrappers.items():
+        kw, _, tiers = ENS_ROUTES[key]
+        plain = (ens.loglik_and_grad_fn if key.startswith("k3") else ens.loglik_fn)(
+            obs, NOISE_VAR, **kw)
         entry = {"worst_over_tol": 0.0, "max_abs": 0.0}
         for n in MIXTURE_ROWS:
             x = rows(n, rng)
-            got, want = outputs(fn, ens, x), outputs(plain[key], ens, x)
+            got, want = outputs(fn, ens, x), outputs(plain, ens, x)
             got, want = [t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want]
             check(bool(all(np.isfinite(a).all() for a in got)), f"ensemble {key} finite, n={n}")
-            worst, max_abs = value_worst(got[0], want[0], tiers[key], half_c)
+            worst, max_abs = value_worst(got[0], want[0], tiers[0], half_c)
             check(worst <= 1.0, f"ensemble {key} vs plain, n={n}: worst |Δ|/tol {worst:.3g}")
             entry["worst_over_tol"] = max(entry["worst_over_tol"], worst)
             entry["max_abs"] = max(entry["max_abs"], max_abs)
-            if key == "k3":
+            if key.startswith("k3"):
                 gate = grad_gate_violation(got[1], want[1])
-                check(gate <= 0.0, f"ensemble k3 gradient gate, n={n}: {gate:.3g}")
+                check(gate <= 0.0, f"ensemble {key} gradient gate, n={n}: {gate:.3g}")
+                if tiers == EXACT_TIERS:
+                    q999 = float(np.quantile(grad_rel_error(got[1], want[1]), 0.999))
+                    check(q999 <= GRAD_Q999_F32, f"ensemble {key} gradient q99.9 {q999:.3g}")
                 entry["grad_gate_violation"] = max(entry.get("grad_gate_violation", -np.inf),
                                                    gate)
         report[key] = entry
     return report, half_c
+
+
+def single_wrappers(ens, obs, key, dev) -> list:
+    """One single-model kernel wrapper per member at route ``key``'s
+    tiers (the launches the member-batched one replaces)."""
+    kw, _, (tier, grad_tier) = ENS_ROUTES[key]
+    cfg, norm = ens.config, ens.normalizer
+    if key.startswith("k1"):
+        return [make_fused_loglik(cfg, norm, obs, NOISE_VAR, precision=tier, device=dev)
+                for _ in ens.members]
+    if key.startswith("k2"):
+        return [make_fused_loglik_gram(cfg, norm, obs, NOISE_VAR, precision=tier, device=dev)
+                for _ in ens.members]
+    return [make_fused_loglik_grad_gram(cfg, norm, obs, NOISE_VAR, precision=tier,
+                                        grad_precision=grad_tier, device=dev)
+            for _ in ens.members]
+
+
+def members_plain(key, batched, ops, x):
+    """The member-batched plain version of route ``key`` on stacked
+    ``ops``: ``(values (M, B),)`` or ``(values, gradients (M, B, 7))``."""
+    if key.startswith("k1"):
+        return (-0.5 * fused_mlp_members_reference(ops, x) + batched.log_norm,)
+    if key.startswith("k2"):
+        return (loglik_gram_members_reference(ops, x),)
+    return loglik_grad_gram_members_reference(ops, x)
+
+
+@torch.no_grad()
+def member_batched_vs_single(ens, obs, wrappers, half_c, rng, dev) -> dict:
+    """Phase 19 (a), (b), (d): every route's member-batched launch (M =
+    3) against the three members' single-model launches, bit for bit
+    (``torch.equal``), at ``MEMBER_ROWS``; against its member-batched
+    plain version within the route's tolerance there; and timed, one
+    member-batched launch beside three single ones, at
+    ``MEMBER_TIMING_ROWS``, with the bound of three members' work.
+    Returns the report by route."""
+    views = ens.member_params(ens.params)
+    sizes = ens.config.mlp().sizes
+    report = {}
+    for key, mix in wrappers.items():
+        _, source, (tier, grad_tier) = ENS_ROUTES[key]
+        batched = batched_wrapper(mix)
+        check(batched.members == 3, f"ensemble {key}: {batched.members} members")
+        singles = single_wrappers(ens, obs, key, dev)
+        ops = (batched.mlp if key.startswith("k1") else batched).operands(ens.params)
+        entry = {"source": source, "worst_over_tol": 0.0, "max_abs": 0.0}
+        for n in MEMBER_ROWS:
+            x = rows(n, rng)
+            got = outputs(batched, ens, x)
+            want = [f(p, x) for f, p in zip(singles, views)]
+            want = [w if isinstance(w, tuple) else (w,) for w in want]
+            for part, g in enumerate(got):
+                check(g.shape[0] == 3, f"ensemble {key}: shape {tuple(g.shape)}")
+                for m in range(3):
+                    check(torch.equal(g[m], want[m][part]),
+                          f"ensemble {key}, n={n}, member {m}, output {part}: "
+                          "member-batched != single launch")
+            plain = [t.cpu().numpy() for t in members_plain(key, batched, ops, x)]
+            got = [t.cpu().numpy() for t in got]
+            worst, max_abs = value_worst(got[0], plain[0], tier, half_c)
+            check(worst <= 1.0, f"ensemble {key} member-batched vs plain, n={n}: {worst:.3g}")
+            if len(got) > 1:
+                for m in range(3):
+                    gate = grad_gate_violation(got[1][m], plain[1][m])
+                    check(gate <= 0.0, f"ensemble {key} member {m} gradient gate, n={n}")
+            entry["worst_over_tol"] = max(entry["worst_over_tol"], worst)
+            entry["max_abs"] = max(entry["max_abs"], max_abs)
+        kernel = key[:2]
+        widths = sizes if kernel == "k1" else sizes[:-1]
+        timing = {}
+        for n in MEMBER_TIMING_ROWS:
+            x = rows(n, rng)
+
+            def one():
+                return batched(ens.params, x)
+
+            def three():
+                return [f(p, x) for f, p in zip(singles, views)]
+
+            b = bound(kernel, widths, n, BOUND_TIER[tier], BOUND_TIER.get(grad_tier))
+            timing[str(n)] = {
+                "kernel_ms": time_ms(one, 20), "kernel_stream_ms": stream_ms(one, 20),
+                "single3_ms": time_ms(three, 20), "single3_stream_ms": stream_ms(three, 20),
+                "plain_ms": time_ms(lambda: members_plain(key, batched, ops, x), 5),
+                "bound_ms": 3 * b[0], "bound_by": b[1],
+            }
+        entry["timing"] = timing
+        check(mix.folds == 1, f"ensemble {key}: {mix.folds} folds of the stacked operands")
+        report[key] = entry
+    return report
+
+
+class PerMemberMixture:
+    """The ensemble's mixture as it ran before the member axis, kept here
+    as a reference and nowhere else: one single-model kernel likelihood
+    per member, each on its views of the stacked weights, M launches per
+    call, the logsumexp (and the softmax-weighted gradient) as the
+    library's mixture forms them."""
+
+    def __init__(self, fns, views, grad: bool):
+        self.fns, self.views, self.grad = fns, views, grad
+        self._log_m = math.log(len(fns))
+
+    def __call__(self, stacked, raw):
+        out = [f(p, raw) for f, p in zip(self.fns, self.views(stacked))]
+        if not self.grad:
+            return torch.logsumexp(torch.stack(out), dim=0) - self._log_m
+        lm = torch.stack([o[0] for o in out])
+        gm = torch.stack([o[1] for o in out])
+        w = torch.softmax(lm, dim=0)
+        return torch.logsumexp(lm, dim=0) - self._log_m, torch.sum(w[..., None] * gm, dim=0)
+
+
+def per_member_mixture(ens, obs, sampler) -> PerMemberMixture:
+    """The reference mixture of ``sampler``'s likelihood: K3 at (high,
+    default) per member for HMC, K2 at bf16x3 per member for MH."""
+    if sampler == "hmc":
+        fns = [make_loglik_and_grad(ens.config, ens.normalizer, obs, NOISE_VAR,
+                                    backend="kernel", grad_precision=MAIN_TIERS[1])
+               for _ in ens.members]
+    else:
+        fns = [make_loglik(ens.config, ens.normalizer, obs, NOISE_VAR, backend="kernel",
+                           method="gram")
+               for _ in ens.members]
+    return PerMemberMixture(fns, ens.member_params, grad=sampler == "hmc")
 
 
 def family_sampler_checks(name, res, sizes, ll_draws, ll_truth, sampler) -> dict:
@@ -2420,37 +2579,46 @@ def family_sampler_checks(name, res, sizes, ll_draws, ll_truth, sampler) -> dict
 
 def ensemble_main_path(ens, truth, obs, dev) -> dict:
     """The ensemble's HMC and MH through ``sample_posterior``: the launches
-    exactly 3 × those of member 0 alone at the same sizes and seed, every
-    member's operands folded once across the phase; the draws scored by
-    the mixture at the contract tier through K1 (the direct form) and
-    through the fp32 K2 (the gram form), held to each other. Returns the
-    launches by kernel and the report."""
+    exactly those of member 0 alone at the same sizes and seed (one
+    member-batched launch per call), the chains bit for bit those of the
+    per-member mixture (:class:`PerMemberMixture`, M launches per call) on
+    the same seeds, every route's stacked operands folded once across the
+    phase; the draws scored by the mixture at the contract tier through
+    K1 (the direct form) and through the fp32 K2 (the gram form), held to
+    each other. Returns the launches by kernel and the report."""
     single = ens.members[0]
     wrappers = ensemble_wrappers(ens, obs)
     single_fn = {"hmc": main_k3(single, obs),
                  "mh": single.loglik_fn(obs, NOISE_VAR, backend="kernel")}
     key_of = {"hmc": "k3", "mh": "k2"}
+    run_of = {"hmc": sample_hmc, "mh": sample_mh}
     out, launches = {}, {"k1": 0, "k2": 0, "k3": 0, "k2_f32": 0}
     half_c = ensemble_half_c(ens, wrappers)
     for sampler, sizes in ENS_SAMPLERS.items():
         single_fn[sampler].launches = 0
         _, single_s = timed(lambda: single.sample_posterior(obs, NOISE_VAR, sampler=sampler,
                                                             **sizes))
-        want = 3 * single_fn[sampler].launches
+        want = single_fn[sampler].launches
         mix = wrappers[key_of[sampler]]
         mix.launches = 0
         res, wall = timed(lambda: ens.sample_posterior(obs, NOISE_VAR, sampler=sampler, **sizes))
         got = mix.launches
-        check(got == want, f"ensemble {sampler}: {got} launches != 3 × member 0's ({want // 3})")
-        check(all(m.launches == want // 3 for m in mix.members),
-              f"ensemble {sampler}: per-member launches {[m.launches for m in mix.members]}")
+        check(got == want, f"ensemble {sampler}: {got} launches != member 0's ({want})")
         launches[key_of[sampler]] += got
+        ref = per_member_mixture(ens, obs, sampler)
+        ref_res, ref_wall = timed(lambda: run_of[sampler](ref, ens.params, bounds=None,
+                                                          device=dev, **sizes))
+        same = (np.array_equal(res.chain, ref_res.chain) and np.array_equal(res.logp, ref_res.logp))
+        check(same, f"ensemble {sampler}: chain != the per-member mixture's on the same seed")
+        ref_launches = sum(f.launches for f in ref.fns)
+        check(ref_launches == 3 * want,
+              f"ensemble {sampler}: per-member mixture {ref_launches} launches != 3 × {want}")
         flat = res.flat
         wrappers["k1"].launches = wrappers["k2_f32"].launches = 0
         ll_draws = scores(wrappers["k1"], ens, flat, dev)
         ll_gram = scores(wrappers["k2_f32"], ens, flat, dev)
         ll_truth = float(scores(wrappers["k1"], ens, truth, dev)[0])
-        check(wrappers["k1"].launches == 6 and wrappers["k2_f32"].launches == 3,
+        check(wrappers["k1"].launches == 2 and wrappers["k2_f32"].launches == 1,
               f"ensemble {sampler}: scoring launches {wrappers['k1'].launches}, "
               f"{wrappers['k2_f32'].launches}")
         launches["k1"] += wrappers["k1"].launches
@@ -2458,11 +2626,13 @@ def ensemble_main_path(ens, truth, obs, dev) -> dict:
         gram_worst, _ = value_worst(ll_gram, ll_draws, "highest", half_c)
         check(gram_worst <= 1.0, f"ensemble {sampler}: exact gram vs direct {gram_worst:.3g}")
         out[sampler] = {"wall_s": wall, "member0_wall_s": single_s, "launches": got,
+                        "per_member_mixture_wall_s": ref_wall,
+                        "per_member_mixture_launches": ref_launches, "same_chain": same,
                         "exact_gram_vs_direct_worst_over_tol": gram_worst,
                         **family_sampler_checks("ensemble", res, sizes, ll_draws, ll_truth,
                                                 sampler)}
-    folds = {k: fn.folds for k, fn in wrappers.items()}
-    check(all(f == [1, 1, 1] for f in folds.values()), f"ensemble operand folds {folds}")
+    folds = {k: wrappers[k].folds for k in launches}
+    check(all(f == 1 for f in folds.values()), f"ensemble operand folds {folds}")
     out["folds"] = folds
     return launches, out
 
@@ -2541,11 +2711,12 @@ def families_phase(truth, obs, data, dev, smi) -> dict:
     """Phase 19: the autoencoder and VAE emulators and the three-member
     deep ensemble from their shipped checkpoints through ``load_model`` on
     the card: predictions against a float64 NumPy forward of each file,
-    the golden errors, the ensemble's kernel mixtures against plain, its
-    HMC and MH on phase 5's observation (the main path: K3 and K2 once
-    per member per step), the AE's and VAE's samplers through autograd,
-    and both families' training. Returns the ensemble's launches by
-    kernel and its kernel report."""
+    the golden errors, the ensemble's kernel mixtures against plain, each
+    route's member-batched launch against the members' single launches,
+    its HMC and MH on phase 5's observation (the main path: one
+    member-batched K3 or K2 launch per step), the AE's and VAE's samplers
+    through autograd, and both families' training. Returns the
+    ensemble's launches by kernel and its kernel report."""
     t_phase = time.perf_counter()
     models, walls = {}, {}
     for name, path in FAMILY_PATHS.items():
@@ -2589,10 +2760,15 @@ def families_phase(truth, obs, data, dev, smi) -> dict:
     check(err_ens.mean() < 0.25 and bool(np.isfinite(std).all()) and std.max() > 0,
           f"ensemble golden errors {golden}")
 
-    # the ensemble: its kernel mixtures against plain, then the main path
+    # the ensemble: its kernel mixtures against plain, each member-batched
+    # launch against the members' single launches, then the main path
     wrappers = ensemble_wrappers(ens, obs)
-    (held, _), walls["mixture_vs_plain"] = timed(
+    (held, half_c), walls["mixture_vs_plain"] = timed(
         lambda: mixture_vs_plain(ens, obs, wrappers, np.random.default_rng(191)))
+    batched, walls["member_batched"] = timed(lambda: member_batched_vs_single(
+        ens, obs, wrappers, half_c, np.random.default_rng(192), dev))
+    for key, entry in batched.items():
+        held[key]["member_batched"] = entry
     launches, ens_paths = ensemble_main_path(ens, truth, obs, dev)
 
     # the autoencoder families: samplers through autograd, then training
@@ -3467,7 +3643,7 @@ def main() -> int:
     # -- phase 18: training the flagship; the kernels on the trained weights --
     trained, golden_split = training_phase(dev, smi)
 
-    # -- phase 19: the other families; the ensemble's kernels per member ------
+    # -- phase 19: the other families; the ensemble's member-batched kernels -
     ens_launches, ens_held = families_phase(truth, obs, golden_split, dev, smi)
 
     # -- phase 20: the HTTP service, the CLI and the artifact on the card ------
@@ -3510,11 +3686,19 @@ def main() -> int:
                             max(err, fg_err.get(name, 0.0)), *args, **extra)
 
     def ensemble(key):
-        """Phase 19's launches of the ensemble's ``key`` kernel (counted in
-        the entry's total) and its worst error against plain there."""
-        return {"launches_ensemble": ens_launches[key],
+        """Phase 19's launches of the ensemble's ``key`` route (counted in
+        the entry's total), its mixture's worst error against plain there,
+        and its member-batched launch (M = 3) against three single ones:
+        the worst error against its plain version and the times by rows
+        (``kernel_ms``/``kernel_stream_ms`` of one member-batched launch,
+        ``single3_*`` of three single launches, ``bound_ms`` of three
+        members' work)."""
+        mb = ens_held[key]["member_batched"]
+        return {"launches_ensemble": ens_launches.get(key, 0),
                 "max_abs_err_ensemble": ens_held[key]["max_abs"],
-                "ensemble_worst_over_tol": ens_held[key]["worst_over_tol"]}
+                "ensemble_worst_over_tol": ens_held[key]["worst_over_tol"],
+                "max_abs_err_members": mb["max_abs"], "members_worst_over_tol":
+                mb["worst_over_tol"], "member_batched_m3": mb["timing"]}
 
     print(json.dumps({"kernels": [
         entry("fused_mlp", K1_SOURCE, K1_REPLACES,
@@ -3526,7 +3710,7 @@ def main() -> int:
                        bound("k1", k1_sizes, big, "f32"))),
         entry("fused_mlp_mma", K1_MMA_SOURCE, K1_REPLACES, k1_mma_launches, k1_mma_err,
               value_t[f"k1_sumsq/high/{big}"], bound("k1", k1_sizes, big, "bf16x3"),
-              launches_trained=0, launches_serve=0),
+              launches_trained=0, launches_serve=0, **ensemble("k1_mma")),
         entry("fused_loglik_gram", K2_SOURCE, K2_REPLACES,
               k2_launches + evidence["laplace"]["k2_f32"]
               + variational["flow_evidence"]["k2_f32"] + ens_launches["k2_f32"], k2_err,
@@ -3549,12 +3733,13 @@ def main() -> int:
               bound("k3", trunk, 4096, "f32", "f32"),
               launches_exact_hmc=k3_f32_launches,
               launches_laplace_ascent=evidence["laplace"]["k3_f32"], launches_trained=0,
-              launches_serve=0,
+              launches_serve=0, **ensemble("k3_f32"),
               **at_64k(timings["highest/highest/65536"],
                        bound("k3", trunk, 65536, "f32", "f32"))),
         entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
               k3_err[MIXED_TIERS], timings["highest/default/65536"],
-              bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0, launches_serve=0),
+              bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0, launches_serve=0,
+              **ensemble("k3_mixed")),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
               launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc
               + mesh_launches["hmc_plain"] + mesh_launches["hmc_mesh"],

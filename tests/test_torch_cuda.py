@@ -1096,11 +1096,11 @@ def _shipped_ensemble(dev):
 def test_ensemble_mixture_kernels_match_plain(cuda, kernel):
     """The shipped three-member ensemble's mixture with ``backend="kernel"``
     (K1 at the contract tier, K2 at bf16x3, K3 at (high, default), one
-    wrapper per member) against the same mixture over the plain versions,
-    at 4096 and 8192 rows: values within the member bound (the mixture's
-    logsumexp is 1-Lipschitz in the max norm), K3's gradient under the
-    gate. Ten calls launch 3 × 10 kernels and fold each member's operands
-    once."""
+    member-batched wrapper over the stacked weights) against the same
+    mixture over the plain versions, at 4096 and 8192 rows: values within
+    the member bound (the mixture's logsumexp is 1-Lipschitz in the max
+    norm), K3's gradient under the gate. Ten calls launch 10 kernels (one
+    per call) and fold the stacked operands once."""
     from tpu21cmvae_torch.ops.fold import gram_fold, noise_scale, obs_tensor
 
     ens, obs = _shipped_ensemble(cuda)
@@ -1127,7 +1127,7 @@ def test_ensemble_mixture_kernels_match_plain(cuda, kernel):
         assert (np.abs(g - w) <= VALUE_RTOL[tier] * (np.abs(w) + half_c) + 1e-2).all()
         if kernel == "k3":
             assert grad_gate_violation(got[1].cpu().numpy(), want[1].cpu().numpy()) <= 0.0
-    assert fn.launches == 3 * 10 and fn.folds == [1, 1, 1]
+    assert fn.launches == 10 and fn.folds == 1
 
 
 def _rows_prior(n, dev):
@@ -1240,3 +1240,132 @@ def test_service_buckets_leave_the_real_rows_unchanged(cuda):
         np.testing.assert_allclose(svc.loglik(rows[:n], obs, 25.0), want_ll, rtol=1e-6,
                                    atol=1e-3)
         np.testing.assert_allclose(svc.predict(rows[:n]), want_sig, rtol=1e-6, atol=1e-5)
+
+
+# every route of K1, K2 and K3: (kernel, value tier, backward tier)
+MEMBER_ROUTES = [("k1", "highest", None), ("k1", "high", None), ("k1", "default", None),
+                 ("k1_predict", "highest", None), ("k1_predict", "high", None),
+                 ("k2", "highest", None), ("k2", "high", None), ("k2", "default", None),
+                 ("k3", "highest", "highest"), ("k3", "high", "default"), ("k3", "high", "high"),
+                 ("k3", "highest", "default")]
+MEMBER_IDS = [f"{k}-{t}-{g}" for k, t, g in MEMBER_ROUTES]
+
+
+def _members(hidden, dev, n=3):
+    """An ensemble of ``n`` randomly initialised members on ``dev`` and an
+    observation."""
+    from tpu21cmvae_torch.models.ensemble import DeepEnsemble
+
+    data = synthetic_dataset(512, 64, 128, seed=7)
+    ens = DeepEnsemble([DirectEmulator(data, config=DirectEmulatorConfig(hidden_dims=hidden),
+                                       seed=20 + i, device=dev) for i in range(n)])
+    obs = ens.members[0].predict(data.par_test[0]) + np.random.default_rng(5).normal(0, 5.0, 451)
+    return ens, obs
+
+
+def _route_wrapper(ens, obs, route, dev, members=None):
+    import functools
+
+    from tpu21cmvae_torch.ops.fold import fold_emulator_constants
+
+    kernel, tier, grad = route
+    cfg, norm = ens.config, ens.normalizer
+    if kernel == "k1":
+        return make_fused_loglik(cfg, norm, obs, 25.0, precision=tier, members=members,
+                                 device=dev)
+    if kernel == "k1_predict":
+        return fused_mlp.FusedMLP(cfg.mlp().sizes, log_clamp_input=True, precision=tier,
+                                  members=members, device=dev,
+                                  fold=functools.partial(fold_emulator_constants, norm=norm))
+    if kernel == "k2":
+        return make_fused_loglik_gram(cfg, norm, obs, 25.0, precision=tier, members=members,
+                                      device=dev)
+    return make_fused_loglik_grad_gram(cfg, norm, obs, 25.0, precision=tier,
+                                       grad_precision=grad, members=members, device=dev)
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [(32, 48, 32, 24), (288, 352, 288, 224)])
+@pytest.mark.parametrize("route", MEMBER_ROUTES, ids=MEMBER_IDS)
+def test_member_batched_launch_equals_single_launches(cuda, route, hidden):
+    """One member-batched launch (M = 3, the members on grid y) equals the
+    three members' single-model launches bit for bit, at 1, 37 and 1000
+    rows: a member's CTAs run the same arithmetic in the same order. One
+    launch per call."""
+    ens, obs = _members(hidden, cuda)
+    batched = _route_wrapper(ens, obs, route, cuda, members=3)
+    singles = [_route_wrapper(ens, obs, route, cuda) for _ in range(3)]
+    views = ens.member_params(ens.params)
+    for n in (1, 37, 1000):
+        x = _rows_prior(n, cuda)
+        with torch.no_grad():
+            got = _tuple(batched(ens.params, x))
+            want = [_tuple(f(p, x)) for f, p in zip(singles, views)]
+        for part, g in enumerate(got):
+            assert g.shape[0] == 3
+            for m in range(3):
+                assert torch.equal(g[m], want[m][part]), (n, m, part)
+    assert batched.launches == 3 and all(f.launches == 3 for f in singles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", MEMBER_ROUTES, ids=MEMBER_IDS)
+def test_one_member_launch_equals_the_single_launch(cuda, route):
+    """M = 1: the member-batched wrapper over a one-member stack equals
+    today's single-model launch bit for bit."""
+    ens, obs = _members((32, 48, 32, 24), cuda, n=1)
+    x = _rows_prior(37, cuda)
+    with torch.no_grad():
+        got = _tuple(_route_wrapper(ens, obs, route, cuda, members=1)(ens.params, x))
+        want = _tuple(_route_wrapper(ens, obs, route, cuda)(ens.members[0].params, x))
+    for g, w in zip(got, want):
+        assert g.shape == (1, *w.shape) and torch.equal(g[0], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", MEMBER_ROUTES, ids=MEMBER_IDS)
+def test_member_count_beyond_the_grid_is_refused(cuda, route, monkeypatch):
+    """A wrapper of more members than a grid's y axis holds (65,535) is
+    refused when it is built, and every C entry refuses such a launch: a
+    single model's operands launched as 65,536 members with zero strides
+    fail, as 65,535 they run, every member equal to the single launch."""
+    from tpu21cmvae_torch.ops.kernels import _common
+
+    ens, obs = _members((32, 48, 32, 24), cuda, n=1)
+    with pytest.raises(ValueError, match="members"):
+        _route_wrapper(ens, obs, route, cuda, members=_common.MAX_MEMBERS + 1)
+    fn = _route_wrapper(ens, obs, route, cuda)
+    params = ens.members[0].params
+    x = _rows_prior(1, cuda)
+    # every member reads the one model's operands: zero strides
+    for module in (fused_mlp, fused_loglik):
+        monkeypatch.setattr(module, "member_strides",
+                            lambda tensors, members: _common.member_strides(tensors, None))
+    kernel = route[0]
+    ops = (fn.mlp if kernel == "k1" else fn).operands(params)
+
+    def run(n_members):
+        """The kernel's raw outputs for ``n_members`` copies of the model
+        (None: the single-model launch)."""
+        import dataclasses
+
+        wide = dataclasses.replace(ops, members=n_members)
+        with torch.no_grad():
+            if kernel.startswith("k1"):
+                rows = (fn.mlp if kernel == "k1" else fn).tile_rows
+                return _tuple(fused_mlp._fused_mlp_cuda(wide, x, rows))
+            if kernel == "k2":
+                return _tuple(fused_loglik._loglik_gram_cuda(wide, x, fn.tile_rows))
+            return fused_loglik._loglik_grad_gram_cuda(wide, x, fn.rows_for(1) or 8)
+
+    want = run(None)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        run(_common.MAX_MEMBERS + 1)
+    got = run(_common.MAX_MEMBERS)
+    for g, w in zip(got, want):
+        assert g.shape == (_common.MAX_MEMBERS, *w.shape)
+        assert torch.equal(g, w.expand_as(g))

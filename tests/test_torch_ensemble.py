@@ -1,6 +1,7 @@
 """The port's deep ensemble (``tpu21cmvae_torch/models/ensemble.py``): the
 targets of the JAX suite's ``tests/test_ensemble.py``, and the kernel
-backend's per-member mixture against JAX's ``backend="xla"`` and
+backend's member-batched mixture (one wrapper over the stacked weights,
+JAX's vmap over ``pallas_call``) against JAX's ``backend="xla"`` and
 ``"pallas"`` mixtures (the Pallas kernels in interpret mode).
 
 The members are the JAX suite's ensemble (three 7→32→48→451 replicas, 8
@@ -247,36 +248,56 @@ def test_kernel_mixture_matches_jax(jens, ens, splits, obs, tier, backend):
         assert grad_gate_violation(tg.numpy(), jg) <= 0.0
 
 
+def test_kernel_mixture_direct_matches_jax(jens, ens, splits, obs):
+    """The port's direct-form kernel mixture at the contract tier (the
+    member-batched K1 sumsq; its plain version on the CPU) against JAX's
+    vmap of ``make_loglik(method="direct", backend="pallas")``, its K1
+    in interpret mode, on 37 rows."""
+    raw = rows(splits, 37)
+    member = jax.vmap(jax_make_loglik(jens.config, jens.normalizer, obs, NOISE_VAR,
+                                      backend="pallas", method="direct", precision="highest",
+                                      block_rows=40, interpret=True), in_axes=(0, None))
+    want = np.asarray(jax.scipy.special.logsumexp(member(jens.stacked_params, jnp.asarray(raw)),
+                                                  axis=0) - np.log(len(jens.members)))
+    with torch.no_grad():
+        got = ens.loglik_fn(obs, NOISE_VAR, backend="kernel", method="direct",
+                            precision="contract")(ens.params, torch.as_tensor(raw)).numpy()
+    tol = VALUE_RTOL["contract"] * (np.abs(want) + half_c(ens, obs)) + 1e-2
+    assert (np.abs(got - want) <= tol).all()
+
+
+def kernel_wrapper(fn):
+    """The kernel wrapper under a likelihood: through K1's and K2's
+    autograd shells (``fused``) and K1's likelihood (``mlp``)."""
+    for name in ("fused", "mlp"):
+        if hasattr(fn, name):
+            return kernel_wrapper(getattr(fn, name))
+    return fn
+
+
 def test_kernel_mixture_folds_once_per_member(ens, splits, obs):
-    """One kernel wrapper per member (K1 for the direct form, K2, K3), each
-    handed the same views of the stacked weights on every call: its
-    operands fold once across ten calls; ``launches`` is the members' sum
-    and its setter reaches every member (0 on the CPU, where no kernel
-    launches). An in-place weight update refolds every member."""
+    """The kernel backend's mixtures (K1 for the direct form, K2, K3) hold
+    one member-batched wrapper over the stacked weights: across ten calls
+    it folds once (every member in that one fold), an in-place update of
+    the stacked weights refolds it, and on the CPU it launches nothing.
+    The plain backend's mixture has no fold."""
+    copy = DeepEnsemble(ens.members)
     x = torch.as_tensor(rows(splits, 16))
-    fns = [ens.loglik_fn(obs, NOISE_VAR, backend="kernel", method="direct",
-                         precision="contract"),
-           ens.loglik_fn(obs, NOISE_VAR, backend="kernel"),
-           ens.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", grad_precision="default")]
+    fns = [copy.loglik_fn(obs, NOISE_VAR, backend="kernel", method="direct",
+                          precision="contract"),
+           copy.loglik_fn(obs, NOISE_VAR, backend="kernel"),
+           copy.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", grad_precision="default")]
     for fn in fns:
-        assert len({id(f) for f in fn.members}) == 3
+        assert kernel_wrapper(fn.members).members == 3
         with torch.no_grad():
             for _ in range(10):
-                fn(ens.params, x)
-        assert fn.folds == [1, 1, 1]
-        assert fn.launches == 0
-        fn.launches = 4
-        assert fn.launches == 12 and all(f.launches == 4 for f in fn.members)
-        fn.launches = 0
-    plain = ens.loglik_fn(obs, NOISE_VAR)
-    assert plain.folds == [None] * 3 and len({id(f) for f in plain.members}) == 1
-    copy = DeepEnsemble(ens.members)
-    with torch.no_grad():
-        fn = copy.loglik_fn(obs, NOISE_VAR, backend="kernel")
-        fn(copy.params, x)
-        copy.params[0]["b"].add_(0.0)  # bumps the version counter
-        fn(copy.params, x)
-    assert fn.folds == [2, 2, 2]
+                fn(copy.params, x)
+        assert fn.folds == 1 and fn.launches == 0
+        with torch.no_grad():
+            copy.params[0]["b"].add_(0.0)  # bumps the version counter
+            fn(copy.params, x)
+        assert fn.folds == 2 and fn.launches == 0
+    assert ens.loglik_fn(obs, NOISE_VAR).folds is None
 
 
 def test_ensemble_sampling_fit_and_evidence(ens, obs):

@@ -10,15 +10,16 @@ as a single model does.
 
 The likelihood is the equal-weight member mixture ``log p(obs | θ) =
 logsumexp_m l_m(θ) − log M`` (:class:`MixtureLoglik`), its gradient
-``Σ_m softmax(l)_m ∇l_m`` (:class:`MixtureValGrad`). With
-``backend="kernel"`` every member has its own kernel wrapper (K1, K2 or
-K3), built once from that member's likelihood factory, so a mixture call
-launches M kernels; each wrapper is handed the same per-member views of
-the stacked weights on every call (:meth:`DeepEnsemble.member_params`),
-so its folded operands are built once, not once per call. The JAX package
-instead vmaps one ``pallas_call`` over the members, which puts the member
-axis on the kernel's grid: one launch. A member-batched launch is not
-ported yet (ROADMAP queue 2).
+``Σ_m softmax(l)_m ∇l_m`` (:class:`MixtureValGrad`), both over the
+``(M, B)`` member values of one member-batched likelihood. With
+``backend="kernel"`` that is one K1, K2 or K3 wrapper over the stacked
+weights (:func:`~tpu21cmvae_torch.ops.loglik.make_member_loglik`), which
+folds every member once and runs all M in one launch per call, as the
+JAX package's vmap over ``pallas_call`` puts the member axis on the
+kernel's grid; the logsumexp, the ``− log M`` and the softmax-weighted
+gradient stay in PyTorch after it, as they stay outside the vmap in
+JAX. With ``backend="torch"`` one plain likelihood runs on each member's
+views of the stacked weights (:meth:`DeepEnsemble.member_params`).
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ def _operand_cache(fn):
 class _MemberViews:
     """Member ``m``'s layer dicts as views of a stacked tree, one list per
     member, built once per stacked tree (keyed on its tensors' identity),
-    so a kernel wrapper that caches its folded operands against its
-    weights' identity folds once."""
+    so a callable that caches against its weights' identity (a
+    single-model kernel wrapper run per member) is handed the same views
+    on every call."""
 
     def __init__(self):
         self._hit = None
@@ -71,48 +73,70 @@ class _MemberViews:
         return hit[1]
 
 
-class MixtureLoglik:
-    """``(stacked, raw) → (B,)``: ``logsumexp_m l_m(raw) − log M``, member
-    ``m`` scored by ``members[m]`` on its views of ``stacked``
-    (``views(stacked)``). :attr:`launches` is the sum of the members'
-    kernel launches, :attr:`folds` each member's operand folds."""
+class PlainMembers:
+    """``(stacked, raw) → (M, B)`` (or ``→ ((M, B), (M, B, P))``): one
+    plain likelihood ``fn`` run on each member's views of ``stacked``
+    (``views(stacked)``), the outputs stacked: the member-batched
+    likelihood of ``backend="torch"`` and of the stacked-observation
+    forms."""
 
-    def __init__(self, members, views):
-        self.members = list(members)
+    def __init__(self, fn, views):
+        self.fn = fn
         self._views = views
-        self._log_m = math.log(len(self.members))
+
+    def replica(self, device):
+        """The same over ``fn``'s replica on ``device`` (itself where that
+        is ``fn``), with views of its own."""
+        from tpu21cmvae_torch.parallel.mesh import replica_of
+
+        fn = replica_of(self.fn, device)
+        return self if fn is self.fn else type(self)(fn, _MemberViews())
+
+    def __call__(self, stacked, raw):
+        out = [self.fn(p, raw) for p in self._views(stacked)]
+        if isinstance(out[0], tuple):
+            return tuple(torch.stack(col) for col in zip(*out))
+        return torch.stack(out)
+
+
+class MixtureLoglik:
+    """``(stacked, raw) → (B,)``: ``logsumexp_m l_m(raw) − log M`` over the
+    ``(M, B)`` member values of the member-batched likelihood ``members``
+    (a member-batched kernel wrapper, or :class:`PlainMembers`).
+    :attr:`launches` is its kernel launches (one per call on a CUDA
+    ensemble), :attr:`folds` its operand folds (None for plain
+    members)."""
+
+    def __init__(self, members, n_members: int):
+        self.members = members
+        self.n_members = n_members
+        self._log_m = math.log(n_members)
 
     @property
     def launches(self) -> int:
-        return sum(getattr(f, "launches", 0) for f in self.members)
+        return getattr(self.members, "launches", 0)
 
     @launches.setter
     def launches(self, n: int):
-        for f in self.members:
-            if hasattr(f, "launches"):
-                f.launches = n
+        if hasattr(self.members, "launches"):
+            self.members.launches = n
 
     @property
-    def folds(self) -> list:
-        """Each member's operand folds (None for a plain member)."""
-        caches = [_operand_cache(f) for f in self.members]
-        return [None if c is None else c.folds for c in caches]
+    def folds(self) -> Optional[int]:
+        """The stacked operands' folds (None for plain members)."""
+        cache = _operand_cache(self.members)
+        return None if cache is None else cache.folds
 
     def replica(self, device):
-        """The mixture of the members' replicas on ``device`` (itself where
-        every member's replica is the member), with views of its own."""
+        """The mixture over the member-batched likelihood's replica on
+        ``device`` (itself where that is the likelihood itself)."""
         from tpu21cmvae_torch.parallel.mesh import replica_of
 
-        members = [replica_of(f, device) for f in self.members]
-        if all(a is b for a, b in zip(members, self.members)):
-            return self
-        return type(self)(members, _MemberViews())
-
-    def _outputs(self, stacked, raw):
-        return [f(p, raw) for f, p in zip(self.members, self._views(stacked))]
+        members = replica_of(self.members, device)
+        return self if members is self.members else type(self)(members, self.n_members)
 
     def __call__(self, stacked, raw):
-        return torch.logsumexp(torch.stack(self._outputs(stacked, raw)), dim=0) - self._log_m
+        return torch.logsumexp(self.members(stacked, raw), dim=0) - self._log_m
 
 
 class MixtureValGrad(MixtureLoglik):
@@ -122,9 +146,7 @@ class MixtureValGrad(MixtureLoglik):
     ∇ logsumexp = Σ softmax·∇l)."""
 
     def __call__(self, stacked, raw):
-        out = self._outputs(stacked, raw)
-        lm = torch.stack([o[0] for o in out])
-        gm = torch.stack([o[1] for o in out])
+        lm, gm = self.members(stacked, raw)
         w = torch.softmax(lm, dim=0)
         return torch.logsumexp(lm, dim=0) - self._log_m, torch.sum(w[..., None] * gm, dim=0)
 
@@ -191,8 +213,7 @@ class DeepEnsemble:
     def member_params(self, stacked) -> list:
         """Member ``m``'s layer dicts as views of ``stacked``, one list per
         member (:class:`_MemberViews`: built once per stacked tree, so a
-        kernel wrapper that caches its folded operands against its
-        weights' identity folds once)."""
+        single-model kernel wrapper run per member folds once)."""
         return self._views(stacked)
 
     # -- construction ------------------------------------------------------
@@ -287,14 +308,6 @@ class DeepEnsemble:
         a CUDA ensemble, their plain versions on the CPU."""
         return "kernel" if self.device.type == "cuda" else "torch"
 
-    def _members_of(self, build, backend: str):
-        """One likelihood function per member: one plain function shared by
-        every member, or with ``backend="kernel"`` a wrapper of its own
-        each (its own operand cache and launch count)."""
-        if backend == "kernel":
-            return [build() for _ in self.members]
-        return [build()] * len(self.members)
-
     def predict_fn(self, precision=None):
         """``(stacked, raw) → (B, n_bins)``: the members' mean prediction
         (``precision`` as :meth:`DirectEmulator.predict_fn`)."""
@@ -308,21 +321,30 @@ class DeepEnsemble:
     def loglik_fn(self, obs, noise_var=1.0, *, backend: str = "torch", method: str = "gram",
                   precision=None, memo: bool = True):
         """The mixture log-likelihood ``(stacked, raw) → (B,)``
-        (:class:`MixtureLoglik`) over the members' ``make_loglik``
+        (:class:`MixtureLoglik`) over the members' likelihoods
         (``backend``, ``method``, ``precision`` and the noise specs as
-        :meth:`DirectEmulator.loglik_fn`): where members disagree the
-        mixture is flatter than any member's likelihood, so the posterior
-        widens by the emulation error. ``logsumexp`` is 1-Lipschitz in the
-        max norm, so the members' tier bounds carry to the mixture.
-        Memoized like :meth:`DirectEmulator.loglik_fn`."""
+        :meth:`DirectEmulator.loglik_fn`): with ``backend="kernel"`` one
+        member-batched K1 or K2 wrapper
+        (:func:`~tpu21cmvae_torch.ops.loglik.make_member_loglik`), one
+        launch per call; else ``make_loglik`` on each member's views.
+        Where members disagree the mixture is flatter than any member's
+        likelihood, so the posterior widens by the emulation error.
+        ``logsumexp`` is 1-Lipschitz in the max norm, so the members' tier
+        bounds carry to the mixture. Memoized like
+        :meth:`DirectEmulator.loglik_fn`."""
         from tpu21cmvae_torch.models._memo import memo_program, noise_key
-        from tpu21cmvae_torch.ops.loglik import make_loglik
+        from tpu21cmvae_torch.ops.loglik import make_loglik, make_member_loglik
 
         def build():
-            return MixtureLoglik(self._members_of(
-                lambda: make_loglik(self.config, self.normalizer, obs, noise_var,
-                                    backend=backend, method=method, precision=precision),
-                backend), self.member_params)
+            if backend == "kernel":
+                members = make_member_loglik(
+                    self.config, self.normalizer, obs, noise_var, members=len(self.members),
+                    method=method, precision=precision)
+            else:
+                members = PlainMembers(
+                    make_loglik(self.config, self.normalizer, obs, noise_var, backend=backend,
+                                method=method, precision=precision), self.member_params)
+            return MixtureLoglik(members, len(self.members))
 
         return memo_program(
             self, ("loglik", _host(obs), noise_key(noise_var), backend, method, str(precision)),
@@ -333,18 +355,25 @@ class DeepEnsemble:
                            method: str = "gram", precision=None, grad_precision=None,
                            memo: bool = True):
         """The mixture's ``(stacked, raw) → (logL, dlogL/draw)``
-        (:class:`MixtureValGrad`) over the members'
-        ``make_loglik_and_grad``: with ``backend="kernel"`` one K3 wrapper
-        per member. Memoized like :meth:`loglik_fn`."""
+        (:class:`MixtureValGrad`) over the members' value and gradient:
+        with ``backend="kernel"`` one member-batched K3 wrapper
+        (:func:`~tpu21cmvae_torch.ops.loglik.make_member_loglik_and_grad`),
+        one launch per call; else ``make_loglik_and_grad`` on each member's
+        views. Memoized like :meth:`loglik_fn`."""
         from tpu21cmvae_torch.models._memo import memo_program, noise_key
-        from tpu21cmvae_torch.ops.loglik import make_loglik_and_grad
+        from tpu21cmvae_torch.ops.loglik import make_loglik_and_grad, make_member_loglik_and_grad
 
         def build():
-            return MixtureValGrad(self._members_of(
-                lambda: make_loglik_and_grad(
+            if backend == "kernel":
+                members = make_member_loglik_and_grad(
+                    self.config, self.normalizer, obs, noise_var, members=len(self.members),
+                    method=method, precision=precision, grad_precision=grad_precision)
+            else:
+                members = PlainMembers(make_loglik_and_grad(
                     self.config, self.normalizer, obs, noise_var, backend=backend,
                     method=method, precision=precision, grad_precision=grad_precision),
-                backend), self.member_params)
+                    self.member_params)
+            return MixtureValGrad(members, len(self.members))
 
         return memo_program(
             self, ("valgrad", _host(obs), noise_key(noise_var), backend, method,
@@ -370,12 +399,12 @@ class DeepEnsemble:
         build = make_loglik_and_grad_multi if grad else make_loglik_multi
         fn = build(self.config, self.normalizer, obs_batch, noise_var, method=method,
                    precision=precision)
-        return (MixtureValGrad if grad else MixtureLoglik)([fn] * len(self.members),
-                                                           self.member_params)
+        return (MixtureValGrad if grad else MixtureLoglik)(
+            PlainMembers(fn, self.member_params), len(self.members))
 
     def _hmc_valgrad(self, obs, noise_var):
-        """The gradient samplers' and the fits' mixture: per member K3 at
-        (high, default) on a CUDA ensemble."""
+        """The gradient samplers' and the fits' mixture: the member-batched
+        K3 at (high, default) on a CUDA ensemble."""
         return self.loglik_and_grad_fn(obs, noise_var, backend=self._backend(),
                                        grad_precision="default")
 
@@ -392,9 +421,9 @@ class DeepEnsemble:
         mixture likelihood, so its credible regions include the emulation
         error the member spread measures. Samplers and kwargs as
         :meth:`DirectEmulator.sample_posterior`; on a CUDA ensemble MH, the
-        stretch ensemble, PT and SMC run K2 at bf16x3 once per member per
-        proposal batch, HMC, ChEES and NUTS K3 at (high, default) once per
-        member per leapfrog step."""
+        stretch ensemble, PT and SMC launch the member-batched K2 at bf16x3
+        once per proposal batch, HMC, ChEES and NUTS the member-batched K3
+        at (high, default) once per leapfrog step."""
         if sampler in ("mh", "ensemble", "pt", "smc"):
             from tpu21cmvae_torch.sampling.driver import sample_to_ess
             from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh

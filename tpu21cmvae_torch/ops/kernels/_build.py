@@ -115,20 +115,19 @@ def load_library() -> ctypes.CDLL:
     signatures."""
     lib = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k1_fused_mlp.argtypes = [p, p, i, i, p, p, i, i, i, p]
-    lib.k1_fused_mlp.restype = i
-    lib.k1_fused_mlp_mma.argtypes = [p, p, i, i, p, p, i, i, i, p]
-    lib.k1_fused_mlp_mma.restype = i
-    lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, i, p]
-    lib.k2_fused_loglik_gram.restype = i
-    lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, i, i, p]
-    lib.k3_fused_loglik_grad_gram.restype = i
-    lib.k3_fused_loglik_grad_gram_f32.argtypes = [p, p, p, i, i, p, p, i, p]
-    lib.k3_fused_loglik_grad_gram_f32.restype = i
-    lib.k2_fused_loglik_gram_mma.argtypes = [p, p, i, i, p, p, i, p]
-    lib.k2_fused_loglik_gram_mma.restype = i
-    lib.k3_fused_loglik_grad_gram_mma.argtypes = [p, p, p, i, i, p, p, i, i, p]
-    lib.k3_fused_loglik_grad_gram_mma.restype = i
+    # every entry: x, outputs, n_rows, n_layers, widths, ptrs, member
+    # strides, n_members, then its own ints and the stream
+    lib.k1_fused_mlp.argtypes = [p, p, i, i, p, p, p, i, i, i, i, p]
+    lib.k1_fused_mlp_mma.argtypes = [p, p, i, i, p, p, p, i, i, i, i, p]
+    lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, p, i, i, p]
+    lib.k2_fused_loglik_gram_mma.argtypes = [p, p, i, i, p, p, p, i, i, p]
+    lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
+    lib.k3_fused_loglik_grad_gram_f32.argtypes = [p, p, p, i, i, p, p, p, i, i, p]
+    lib.k3_fused_loglik_grad_gram_mma.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
+    for entry in ("k1_fused_mlp", "k1_fused_mlp_mma", "k2_fused_loglik_gram",
+                  "k2_fused_loglik_gram_mma", "k3_fused_loglik_grad_gram",
+                  "k3_fused_loglik_grad_gram_f32", "k3_fused_loglik_grad_gram_mma"):
+        getattr(lib, entry).restype = i
     lib.t21_error_string.argtypes = [i]
     lib.t21_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,16 +1,28 @@
 """What the kernel wrappers share: the launch geometry and limits the
 CUDA sources hard-code (``csrc/trunk.cuh``, ``csrc/tile_f32.cuh``), the
 fp32 weight slabs and tile height of the register-tiled kernels, the
-check of the input rows, the operand cache, and the launch itself.
+check of the input rows, the operand cache, the member axis, and the
+launch itself.
 
 A wrapper runs its kernel's plain PyTorch version for a CPU tensor and
 launches the kernel for a CUDA tensor; any other device, and any tensor
 the kernel does not take, raises.
+
+The member axis (the port of JAX's ``vmap`` over ``pallas_call``): a
+wrapper built with ``members=M`` takes an ensemble's stacked weights
+(layer dicts of ``(M, in, out)`` / ``(M, out)``), folds and packs each
+member as a single model's wrapper does, and stacks the operands member
+after member (:func:`stack_members`). Every kernel runs the M members on
+its grid's y axis in one launch, member m reading each operand at m
+times that operand's byte stride (:func:`member_strides`); a single
+model is M = 1 with zero strides. The plain versions read member m back
+out of the same stacked buffers at the same strides (:func:`member_of`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -21,6 +33,7 @@ import torch
 ROWS_PER_BLOCK = 16
 MAX_LAYERS = 8  # kMaxLayers in csrc/trunk.cuh
 MAX_SHARED_BYTES = 232448  # an H100 block's dynamic shared-memory limit
+MAX_MEMBERS = 65535  # kMaxMembers in csrc/trunk.cuh: a grid's y limit
 TIER_CODE = {"f32": 0, "bf16": 1, "bf16x3": 2}
 # csrc/tile_f32.cuh: the tile heights its kernels are built for, the
 # chunk width (kSlabN), the fan-in padding (kPadK), the floats of per-row
@@ -132,11 +145,96 @@ def check_rows(raw, device: torch.device, n_in: int) -> torch.Tensor:
 
 def hi_lo(op: torch.Tensor, tier: str):
     """A kernel's (hi, lo) views of a prepared operand (lo: None unless
-    bf16x3, whose operand stacks [hi; lo; hi])."""
+    bf16x3, whose operand stacks [hi; lo; hi] along its rows; a stacked
+    operand's leading member axis is kept)."""
     if tier != "bf16x3":
         return op, None
-    k = op.shape[0] // 3
-    return op[:k], op[k: 2 * k]
+    k = op.shape[-2] // 3
+    return op[..., :k, :], op[..., k: 2 * k, :]
+
+
+def check_members(members: int | None) -> int | None:
+    """``members`` if it is None (one model) or 1 … :data:`MAX_MEMBERS`;
+    else raise."""
+    if members is not None and not (isinstance(members, int) and 1 <= members <= MAX_MEMBERS):
+        raise ValueError(f"members must be None or 1 … {MAX_MEMBERS} (a grid's y limit); "
+                         f"got {members!r}")
+    return members
+
+
+def member_layers(params, members: int) -> list:
+    """Member m's layer dicts, as views of a stacked tree, for each m;
+    raise unless every leaf has the leading member axis ``members``."""
+    for i, layer in enumerate(params):
+        w, b = layer["w"], layer["b"]
+        if w.ndim != 3 or b.ndim != 2 or w.shape[0] != members or b.shape[0] != members:
+            raise ValueError(
+                f"a wrapper of {members} members takes stacked layers of (M, in, out) and "
+                f"(M, out) with M = {members}; layer {i} has {tuple(w.shape)} and "
+                f"{tuple(b.shape)}"
+            )
+    return [tuple({"w": layer["w"][m], "b": layer["b"][m]} for layer in params)
+            for m in range(members)]
+
+
+def stack_members(items):
+    """One operand record from one per member (tensors, None, tuples,
+    NamedTuples, dataclasses, and values every member shares): each
+    tensor stacked on a new leading member axis."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: stack_members([getattr(i, f.name) for i in items])
+            for f in dataclasses.fields(first)})
+    if isinstance(first, tuple):
+        parts = [stack_members(list(col)) for col in zip(*items)]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+    if any(i != first for i in items):
+        raise ValueError(f"members differ in a shared operand: {items!r}")
+    return first
+
+
+def member_of(ops, m: int):
+    """Member ``m``'s operand record out of stacked ones: each tensor read
+    from its own buffer at ``m`` times its member stride, as the kernel
+    reads it."""
+    if isinstance(ops, torch.Tensor):
+        return ops.as_strided(ops.shape[1:], ops.stride()[1:],
+                              ops.storage_offset() + m * ops.stride(0))
+    if dataclasses.is_dataclass(ops):  # a record of one member: its ``members`` None
+        return dataclasses.replace(ops, **{
+            f.name: None if f.name == "members" else member_of(getattr(ops, f.name), m)
+            for f in dataclasses.fields(ops)})
+    if isinstance(ops, tuple):
+        parts = [member_of(t, m) for t in ops]
+        return type(ops)(*parts) if hasattr(ops, "_fields") else tuple(parts)
+    return ops
+
+
+def per_member(plain, ops, x):
+    """A plain version's output for each member of stacked ``ops``
+    (:func:`member_of`), stacked: ``(M, …)``, or a tuple of such."""
+    outs = [plain(member_of(ops, m), x) for m in range(ops.members)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(col) for col in zip(*outs))
+    return torch.stack(outs)
+
+
+def member_strides(tensors, members: int | None) -> ctypes.Array:
+    """A C array of each operand's member stride in bytes, parallel to
+    :func:`pointers` (0 for None and for a single model's operands).
+    Each member's block of an operand must be contiguous."""
+    strides = []
+    for t in tensors:
+        if t is None or members is None:
+            strides.append(0)
+            continue
+        if not t[0].is_contiguous():
+            raise ValueError("a member's operand block must be contiguous")
+        strides.append(t.stride(0) * t.element_size())
+    return (ctypes.c_longlong * len(strides))(*strides)
 
 
 class OperandCache:
@@ -151,6 +249,7 @@ class OperandCache:
         self.folds = 0
 
     def __call__(self, params):
+        # a stacked tree's leaves are its (M, …) tensors
         tensors = tuple(t for layer in params for t in (layer["w"], layer["b"]))
         versions = tuple(t._version for t in tensors)
         hit = self._hit
@@ -167,6 +266,19 @@ class OperandCache:
         self.folds += 1
         self._hit = (tensors, versions, ops)
         return ops
+
+
+def cached_args(ops, key, make):
+    """``make()``, once per operand record ``ops`` (a folded, packed
+    dataclass) and ``key``: the ctypes arguments a launch passes for the
+    operands (widths, pointers, member strides), built once per fold
+    rather than once per call. They live on ``ops`` and go with it;
+    ``dataclasses.replace`` copies fields only, so a new record builds
+    its own."""
+    memo = vars(ops).setdefault("_launch_args", {})
+    if key not in memo:
+        memo[key] = make()
+    return memo[key]
 
 
 def pointers(tensors) -> ctypes.Array:

@@ -61,6 +61,11 @@
 //   and 65,536 rows at both K3 tier pairs and for K2 at bf16x3; only K2 at
 //   single-pass bf16, where two 32-row CTAs fit an SM, ran faster on them
 //   (PERF.md).
+// - Members: an ensemble's M members run in one launch on grid y (the
+//   vmap over pallas_call of JAX's mixture), each CTA on one member's
+//   stacked operands (trunk.cuh, member_at); the shared memory and the
+//   arithmetic do not change with M, so a member's rows come out bit for
+//   bit as from a launch of that member alone.
 // Shared memory per CTA (16 rows, flagship, K3 at high/default), in order:
 //   two ping-pong A buffers, hi and lo, stride 352 + 8:  2·2·16·360·2 = 46,080
 //   fp32 h, then e of layer 0, stride 288 + 8:             16·296·4 = 18,944
@@ -98,14 +103,41 @@ struct GramMmaNet {
   const uint32_t* wt[kMaxLayers];  // layer i ≥ 1: W_iᵀ packed at the grad tier (K3)
   const uint32_t* g;               // G packed at the value tier
   const float* u;                  // padded to a multiple of 16
+  // each operand's member stride in bytes (0: one model)
+  long long s_w0, s_b0, s_w[kMaxLayers], s_b[kMaxLayers], s_wt[kMaxLayers], s_g, s_u;
 };
+
+// The net of member m: every operand moved by m times its stride.
+__device__ __forceinline__ void to_member(GramMmaNet& net, int m) {
+  net.w0 = member_at(net.w0, net.s_w0, m);
+  net.b0 = member_at(net.b0, net.s_b0, m);
+#pragma unroll
+  for (int i = 1; i < kMaxLayers; ++i) {
+    net.w[i] = member_at(net.w[i], net.s_w[i], m);
+    net.b[i] = member_at(net.b[i], net.s_b[i], m);
+    net.wt[i] = member_at(net.wt[i], net.s_wt[i], m);
+  }
+  net.g = member_at(net.g, net.s_g, m);
+  net.u = member_at(net.u, net.s_u, m);
+}
 
 // PF: parts of the value tier (2 bf16x3, 1 bf16); PB: of the grad tier,
 // 0 for K2 (no backward).
 template <int PF, int PB>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
-                      float* __restrict__ dx, int n_rows, GramMmaNet net) {
+                      float* __restrict__ dx, int n_rows, const GramMmaNet net_in) {
+  // member blockIdx.y: its operands, moved there once per CTA into a
+  // shared copy (a copy per thread, in local memory, ran these kernels
+  // 30-50 % slower on an H100), its rows of quad and dx; x is shared
+  __shared__ GramMmaNet net;
+  if (threadIdx.x == 0) {
+    net = net_in;
+    to_member(net, blockIdx.y);
+  }
+  __syncthreads();
+  quad += static_cast<size_t>(blockIdx.y) * n_rows;
+  if constexpr (PB > 0) dx += static_cast<size_t>(blockIdx.y) * n_rows * net.width[0];
   constexpr int MT = kGramMTiles;
   constexpr int kParts = PF > PB ? PF : PB;
   extern __shared__ uint4 smem_gram[];
@@ -287,14 +319,14 @@ fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
 }
 
 template <int PF, int PB>
-cudaError_t launch_gram(const float* x, float* quad, float* dx, int n_rows,
+cudaError_t launch_gram(const float* x, float* quad, float* dx, int n_rows, int n_members,
                         const GramMmaNet& net, size_t smem, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(fused_gram_mma_kernel<PF, PB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fused_gram_mma_kernel<PF, PB><<<(n_rows + kGramRows - 1) / kGramRows, kMmaThreads, smem,
-                                  stream>>>(x, quad, dx, n_rows, net);
+  const dim3 grid((n_rows + kGramRows - 1) / kGramRows, n_members);
+  fused_gram_mma_kernel<PF, PB><<<grid, kMmaThreads, smem, stream>>>(x, quad, dx, n_rows, net);
   return cudaGetLastError();
 }
 
@@ -303,11 +335,11 @@ int parts_of(int tier) { return tier == kBF16x3 ? 2 : 1; }
 // Checks the shapes and tiers, fills the net from ptrs and launches.
 // grad_tier < 0: K2 (no backward operands in ptrs, dx unused).
 int launch_gram_mma(const float* x, float* quad, float* dx, int n_rows, int n_layers,
-                    const int* widths, const void* const* ptrs, int tier, int grad_tier,
-                    void* stream) {
+                    const int* widths, const void* const* ptrs, const long long* strides,
+                    int n_members, int tier, int grad_tier, void* stream) {
   const bool k3 = grad_tier >= 0;
-  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || widths[0] < 1 ||
-      widths[0] > kMaxIn || (tier != kBF16 && tier != kBF16x3) ||
+  if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers ||
+      widths[0] < 1 || widths[0] > kMaxIn || (tier != kBF16 && tier != kBF16x3) ||
       (k3 && grad_tier != kBF16 && grad_tier != kBF16x3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -335,14 +367,23 @@ int launch_gram_mma(const float* x, float* quad, float* dx, int n_rows, int n_la
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
 
   int k = 0;
+  net.s_w0 = strides[k];
   net.w0 = static_cast<const float*>(ptrs[k++]);
+  net.s_b0 = strides[k];
   net.b0 = static_cast<const float*>(ptrs[k++]);
   for (int i = 1; i < n_layers; ++i) {
+    net.s_w[i] = strides[k];
     net.w[i] = static_cast<const uint32_t*>(ptrs[k++]);
+    net.s_b[i] = strides[k];
     net.b[i] = static_cast<const float*>(ptrs[k++]);
-    if (k3) net.wt[i] = static_cast<const uint32_t*>(ptrs[k++]);
+    if (k3) {
+      net.s_wt[i] = strides[k];
+      net.wt[i] = static_cast<const uint32_t*>(ptrs[k++]);
+    }
   }
+  net.s_g = strides[k];
   net.g = static_cast<const uint32_t*>(ptrs[k++]);
+  net.s_u = strides[k];
   net.u = static_cast<const float*>(ptrs[k++]);
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -350,13 +391,13 @@ int launch_gram_mma(const float* x, float* quad, float* dx, int n_rows, int n_la
   const int pb = k3 ? parts_of(grad_tier) : 0;
   cudaError_t err;
   if (pf == 2) {
-    err = pb == 2   ? launch_gram<2, 2>(x, quad, dx, n_rows, net, smem, s)
-          : pb == 1 ? launch_gram<2, 1>(x, quad, dx, n_rows, net, smem, s)
-                    : launch_gram<2, 0>(x, quad, dx, n_rows, net, smem, s);
+    err = pb == 2   ? launch_gram<2, 2>(x, quad, dx, n_rows, n_members, net, smem, s)
+          : pb == 1 ? launch_gram<2, 1>(x, quad, dx, n_rows, n_members, net, smem, s)
+                    : launch_gram<2, 0>(x, quad, dx, n_rows, n_members, net, smem, s);
   } else {
-    err = pb == 2   ? launch_gram<1, 2>(x, quad, dx, n_rows, net, smem, s)
-          : pb == 1 ? launch_gram<1, 1>(x, quad, dx, n_rows, net, smem, s)
-                    : launch_gram<1, 0>(x, quad, dx, n_rows, net, smem, s);
+    err = pb == 2   ? launch_gram<1, 2>(x, quad, dx, n_rows, n_members, net, smem, s)
+          : pb == 1 ? launch_gram<1, 1>(x, quad, dx, n_rows, n_members, net, smem, s)
+                    : launch_gram<1, 0>(x, quad, dx, n_rows, n_members, net, smem, s);
   }
   return static_cast<int>(err);
 }
@@ -370,21 +411,28 @@ extern "C" {
 // tier (ops/kernels/fused_mlp.py::pack_mma_operands), b its bias
 // zero-padded to a multiple of 16, and wt the fragments of W_iᵀ at
 // tier_bwd; then G's fragments at tier and u zero-padded to a multiple of
-// 16. tier, tier_bwd: 1 bf16, 2 bf16x3. Launches on `stream`, allocates
-// nothing and does not synchronise; returns the cudaError_t of the
-// launch.
+// 16. strides: each operand's member stride in bytes, parallel to ptrs;
+// n_members (1 … 65,535) networks run on the same x, member m writing
+// quad[m·n_rows …] and dx[m·n_rows·n_in …] (a single model: 1 member,
+// zero strides). tier, tier_bwd: 1 bf16, 2 bf16x3. Launches on `stream`,
+// allocates nothing and does not synchronise; returns the cudaError_t of
+// the launch.
 int k3_fused_loglik_grad_gram_mma(const float* x, float* quad, float* dx, int n_rows,
                                   int n_layers, const int* widths, const void* const* ptrs,
-                                  int tier, int tier_bwd, void* stream) {
+                                  const long long* strides, int n_members, int tier,
+                                  int tier_bwd, void* stream) {
   if (tier_bwd < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gram_mma(x, quad, dx, n_rows, n_layers, widths, ptrs, tier, tier_bwd, stream);
+  return launch_gram_mma(x, quad, dx, n_rows, n_layers, widths, ptrs, strides, n_members, tier,
+                         tier_bwd, stream);
 }
 
-// K3's forward alone: ptrs as K3's without the wt entries; writes quad.
+// K3's forward alone: ptrs and strides as K3's without the wt entries;
+// writes quad.
 int k2_fused_loglik_gram_mma(const float* x, float* quad, int n_rows, int n_layers,
-                             const int* widths, const void* const* ptrs, int tier,
-                             void* stream) {
-  return launch_gram_mma(x, quad, nullptr, n_rows, n_layers, widths, ptrs, tier, -1, stream);
+                             const int* widths, const void* const* ptrs,
+                             const long long* strides, int n_members, int tier, void* stream) {
+  return launch_gram_mma(x, quad, nullptr, n_rows, n_layers, widths, ptrs, strides, n_members,
+                         tier, -1, stream);
 }
 
 }  // extern "C"

@@ -37,6 +37,11 @@
 //
 // The tiers, the tile layout and the dense layers are in trunk.cuh.
 //
+// Members: grid y runs an ensemble's M members in one launch, each CTA on
+// one member's stacked operands (trunk.cuh, member_at). Nothing else
+// changes with M, so a member's rows come out bit for bit as from a
+// launch of that member alone.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
@@ -59,11 +64,42 @@ struct Net {
   const float* g_hi;               // (H, H) at tier_fwd, H = width[n_layers]
   const float* g_lo;               // bf16x3 only
   const float* u;                  // (H,)
+  // each operand's member stride in bytes (0: one model)
+  long long s_w0, s_b0, s_w_hi[kMaxLayers], s_w_lo[kMaxLayers], s_b[kMaxLayers],
+      s_wt_hi[kMaxLayers], s_wt_lo[kMaxLayers], s_g_hi, s_g_lo, s_u;
 };
+
+// The net of member m: every operand moved by m times its stride.
+__device__ __forceinline__ void to_member(Net& net, int m) {
+  net.w0 = member_at(net.w0, net.s_w0, m);
+  net.b0 = member_at(net.b0, net.s_b0, m);
+#pragma unroll
+  for (int i = 1; i < kMaxLayers; ++i) {
+    net.w_hi[i] = member_at(net.w_hi[i], net.s_w_hi[i], m);
+    net.w_lo[i] = member_at(net.w_lo[i], net.s_w_lo[i], m);
+    net.b[i] = member_at(net.b[i], net.s_b[i], m);
+    net.wt_hi[i] = member_at(net.wt_hi[i], net.s_wt_hi[i], m);
+    net.wt_lo[i] = member_at(net.wt_lo[i], net.s_wt_lo[i], m);
+  }
+  net.g_hi = member_at(net.g_hi, net.s_g_hi, m);
+  net.g_lo = member_at(net.g_lo, net.s_g_lo, m);
+  net.u = member_at(net.u, net.s_u, m);
+}
 
 __global__ void __launch_bounds__(kThreads)
 fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ quad,
-                              float* __restrict__ dx, int n_rows, Net net) {
+                              float* __restrict__ dx, int n_rows, const Net net_in) {
+  // member blockIdx.y: its operands, moved there once per CTA into a
+  // shared copy (a copy per thread, in local memory, ran these kernels
+  // 30-50 % slower on an H100), its rows of quad and dx; x is shared
+  __shared__ Net net;
+  if (threadIdx.x == 0) {
+    net = net_in;
+    to_member(net, blockIdx.y);
+  }
+  __syncthreads();
+  quad += static_cast<size_t>(blockIdx.y) * n_rows;
+  dx += static_cast<size_t>(blockIdx.y) * n_rows * net.width[0];
   extern __shared__ float4 smem4[];
   const int n_in = net.width[0];
   const int n_layers = net.n_layers;
@@ -143,14 +179,18 @@ const char* t21_error_string(int code) {
 
 // ptrs, in order: w0, b0; then for each trunk layer i = 1 … n_layers-1:
 // w_hi, w_lo, b, wt_hi, wt_lo; then g_hi, g_lo, u. A *_lo pointer may be
-// null unless its tier is bf16x3. Launches on `stream`, allocates nothing
-// and does not synchronise; returns the cudaError_t of the launch.
+// null unless its tier is bf16x3. strides: each operand's member stride in
+// bytes, parallel to ptrs; n_members (1 … 65,535) networks run on the
+// same x, member m writing quad[m·n_rows …] and dx[m·n_rows·n_in …] (a
+// single model: 1 member, zero strides). Launches on `stream`, allocates
+// nothing and does not synchronise; returns the cudaError_t of the launch.
 int k3_fused_loglik_grad_gram(const float* x, float* quad, float* dx, int n_rows,
                               int n_layers, const int* widths, const void* const* ptrs,
-                              int tier_fwd, int tier_bwd, void* stream) {
-  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || widths[0] < 1 ||
-      widths[0] > kMaxIn || tier_fwd < kF32 || tier_fwd > kBF16x3 || tier_bwd < kF32 ||
-      tier_bwd > kBF16x3) {
+                              const long long* strides, int n_members, int tier_fwd,
+                              int tier_bwd, void* stream) {
+  if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers ||
+      widths[0] < 1 || widths[0] > kMaxIn || tier_fwd < kF32 || tier_fwd > kBF16x3 ||
+      tier_bwd < kF32 || tier_bwd > kBF16x3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Net net{};
@@ -166,25 +206,28 @@ int k3_fused_loglik_grad_gram(const float* x, float* quad, float* dx, int n_rows
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
 
   int k = 0;
-  auto next = [&]() { return static_cast<const float*>(ptrs[k++]); };
-  net.w0 = next();
-  net.b0 = next();
+  auto next = [&](long long& stride) {
+    stride = strides[k];
+    return static_cast<const float*>(ptrs[k++]);
+  };
+  net.w0 = next(net.s_w0);
+  net.b0 = next(net.s_b0);
   for (int i = 1; i < n_layers; ++i) {
-    net.w_hi[i] = next();
-    net.w_lo[i] = next();
-    net.b[i] = next();
-    net.wt_hi[i] = next();
-    net.wt_lo[i] = next();
+    net.w_hi[i] = next(net.s_w_hi[i]);
+    net.w_lo[i] = next(net.s_w_lo[i]);
+    net.b[i] = next(net.s_b[i]);
+    net.wt_hi[i] = next(net.s_wt_hi[i]);
+    net.wt_lo[i] = next(net.s_wt_lo[i]);
   }
-  net.g_hi = next();
-  net.g_lo = next();
-  net.u = next();
+  net.g_hi = next(net.s_g_hi);
+  net.g_lo = next(net.s_g_lo);
+  net.u = next(net.s_u);
 
   cudaError_t err = cudaFuncSetAttribute(fused_loglik_grad_gram_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (n_rows + kRows - 1) / kRows;
+  const dim3 grid((n_rows + kRows - 1) / kRows, n_members);
   fused_loglik_grad_gram_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, quad, dx, n_rows, net);
   return static_cast<int>(cudaGetLastError());

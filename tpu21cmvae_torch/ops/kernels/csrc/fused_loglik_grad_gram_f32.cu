@@ -51,6 +51,11 @@
 //   SM). The wrapper picks the tile height by batch as well as by shared
 //   memory: a small batch takes shorter tiles to fill the card's SMs.
 //
+// Members: grid y runs an ensemble's M members in one launch, each CTA on
+// one member's stacked operands (trunk.cuh, member_at). Nothing else
+// changes with M, so a member's rows come out bit for bit as from a
+// launch of that member alone.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
@@ -62,6 +67,10 @@ template <int BM>
 __global__ void __launch_bounds__(kThreads, BM >= 32 ? 2 : BM == 16 ? 3 : 4)
 fused_loglik_grad_gram_f32_kernel(const float* __restrict__ x, float* __restrict__ quad,
                                   float* __restrict__ dx, int n_rows, GramNet net) {
+  // member blockIdx.y: its operands, its rows of quad and dx; x is shared
+  to_member(net, blockIdx.y);
+  quad += static_cast<size_t>(blockIdx.y) * n_rows;
+  dx += static_cast<size_t>(blockIdx.y) * n_rows * net.width[0];
   using R = GradRing<BM>;
   using M = MaskBits<BM>;
   constexpr int TM = BM / 8;
@@ -109,8 +118,8 @@ fused_loglik_grad_gram_f32_kernel(const float* __restrict__ x, float* __restrict
 }
 
 template <int BM>
-cudaError_t launch_grad_gram(const float* x, float* quad, float* dx, int n_rows, GramNet net,
-                             cudaStream_t s) {
+cudaError_t launch_grad_gram(const float* x, float* quad, float* dx, int n_rows, int n_members,
+                             GramNet net, cudaStream_t s) {
   using R = GradRing<BM>;
   const size_t smem =
       tile_smem_bytes<BM, R>(net.width[0], net.buf_cols) + gram_mask_bytes<BM>(net);
@@ -123,7 +132,8 @@ cudaError_t launch_grad_gram(const float* x, float* quad, float* dx, int n_rows,
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<(n_rows + BM - 1) / BM, kThreads, smem, s>>>(x, quad, dx, n_rows, net);
+  kernel<<<dim3((n_rows + BM - 1) / BM, n_members), kThreads, smem, s>>>(x, quad, dx, n_rows,
+                                                                       net);
   return cudaGetLastError();
 }
 
@@ -135,23 +145,27 @@ extern "C" {
 // packed slabs and padded biases of trunk layers 1 … n_layers-1, of G,
 // whose bias slot holds u, and of W_iᵀ for i = n_layers-1 … 1, whose
 // biases are zero and unread (ops/kernels/fused_loglik.py::
-// pack_grad_gram_slabs). tile_rows: the CTA's rows, 64, 32, 16 or 8.
-// Launches on `stream`, allocates nothing and does not synchronise;
+// pack_grad_gram_slabs). strides: each operand's member stride in bytes,
+// parallel to ptrs; n_members (1 … 65,535) networks run on the same x,
+// member m writing quad[m·n_rows …] and dx[m·n_rows·n_in …] (a single
+// model: 1 member, zero strides). tile_rows: the CTA's rows, 64, 32, 16
+// or 8. Launches on `stream`, allocates nothing and does not synchronise;
 // returns the cudaError_t of the launch.
 int k3_fused_loglik_grad_gram_f32(const float* x, float* quad, float* dx, int n_rows,
                                   int n_layers, const int* widths, const void* const* ptrs,
-                                  int tile_rows, void* stream) {
+                                  const long long* strides, int n_members, int tile_rows,
+                                  void* stream) {
   GramNet net;
-  if (!read_gram_net(n_rows, n_layers, widths, ptrs, net)) {
+  if (!read_gram_net(n_rows, n_layers, widths, ptrs, strides, n_members, net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (tile_rows) {
-    case 64: err = launch_grad_gram<64>(x, quad, dx, n_rows, net, s); break;
-    case 32: err = launch_grad_gram<32>(x, quad, dx, n_rows, net, s); break;
-    case 16: err = launch_grad_gram<16>(x, quad, dx, n_rows, net, s); break;
-    case 8: err = launch_grad_gram<8>(x, quad, dx, n_rows, net, s); break;
+    case 64: err = launch_grad_gram<64>(x, quad, dx, n_rows, n_members, net, s); break;
+    case 32: err = launch_grad_gram<32>(x, quad, dx, n_rows, n_members, net, s); break;
+    case 16: err = launch_grad_gram<16>(x, quad, dx, n_rows, n_members, net, s); break;
+    case 8: err = launch_grad_gram<8>(x, quad, dx, n_rows, n_members, net, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

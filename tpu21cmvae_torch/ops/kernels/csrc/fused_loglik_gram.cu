@@ -34,6 +34,11 @@
 // padded to 32) bytes of tiles plus the ring and 1 KB of partials: 232,192
 // bytes at the flagship with BM = 64.
 //
+// Members: grid y runs an ensemble's M members in one launch, each CTA on
+// one member's stacked operands (trunk.cuh, member_at). Nothing else
+// changes with M, so a member's rows come out bit for bit as from a
+// launch of that member alone.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
@@ -48,6 +53,9 @@ template <int BM>
 __global__ void __launch_bounds__(kThreads, BM >= 32 ? 2 : BM == 16 ? 3 : 4)
 fused_loglik_gram_kernel(const float* __restrict__ x, float* __restrict__ quad, int n_rows,
                          GramNet net) {
+  // member blockIdx.y: its operands and its rows of quad; x is shared
+  to_member(net, blockIdx.y);
+  quad += static_cast<size_t>(blockIdx.y) * n_rows;
   extern __shared__ float4 smem4[];
   const GramTile tile = gram_tile<BM, Ring<BM>>(reinterpret_cast<float*>(smem4), net);
   int g = 0;
@@ -57,7 +65,8 @@ fused_loglik_gram_kernel(const float* __restrict__ x, float* __restrict__ quad, 
 }
 
 template <int BM>
-cudaError_t launch_gram(const float* x, float* quad, int n_rows, GramNet net, cudaStream_t s) {
+cudaError_t launch_gram(const float* x, float* quad, int n_rows, int n_members, GramNet net,
+                        cudaStream_t s) {
   const size_t smem = tile_smem_bytes<BM>(net.width[0], net.buf_cols);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   net.total = gram_stream_slabs<BM, Ring<BM>>(net, false);
@@ -68,7 +77,7 @@ cudaError_t launch_gram(const float* x, float* quad, int n_rows, GramNet net, cu
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<(n_rows + BM - 1) / BM, kThreads, smem, s>>>(x, quad, n_rows, net);
+  kernel<<<dim3((n_rows + BM - 1) / BM, n_members), kThreads, smem, s>>>(x, quad, n_rows, net);
   return cudaGetLastError();
 }
 
@@ -78,24 +87,27 @@ extern "C" {
 
 // ptrs, in order, all fp32: w0, b0 (the skinny first layer), then the
 // packed slabs and padded biases of trunk layers 1 … n_layers-1 and G,
-// whose bias slot holds u (ops/kernels/_common.py::pack_slabs). tile_rows:
+// whose bias slot holds u (ops/kernels/_common.py::pack_slabs). strides:
+// each operand's member stride in bytes, parallel to ptrs; n_members
+// (1 … 65,535) networks run on the same x, member m writing
+// quad[m·n_rows …] (a single model: 1 member, zero strides). tile_rows:
 // the CTA's rows, 64, 32, 16 or 8. Launches on `stream`, allocates nothing
 // and does not synchronise; returns the cudaError_t of the launch.
 int k2_fused_loglik_gram(const float* x, float* quad, int n_rows, int n_layers,
-                         const int* widths, const void* const* ptrs, int tile_rows,
-                         void* stream) {
+                         const int* widths, const void* const* ptrs, const long long* strides,
+                         int n_members, int tile_rows, void* stream) {
   GramNet net;
-  if (!read_gram_net(n_rows, n_layers, widths, ptrs, net)) {
+  if (!read_gram_net(n_rows, n_layers, widths, ptrs, strides, n_members, net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (tile_rows) {
-    case 64: err = launch_gram<64>(x, quad, n_rows, net, s); break;
-    case 32: err = launch_gram<32>(x, quad, n_rows, net, s); break;
-    case 16: err = launch_gram<16>(x, quad, n_rows, net, s); break;
-    case 8: err = launch_gram<8>(x, quad, n_rows, net, s); break;
+    case 64: err = launch_gram<64>(x, quad, n_rows, n_members, net, s); break;
+    case 32: err = launch_gram<32>(x, quad, n_rows, n_members, net, s); break;
+    case 16: err = launch_gram<16>(x, quad, n_rows, n_members, net, s); break;
+    case 8: err = launch_gram<8>(x, quad, n_rows, n_members, net, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -53,6 +53,11 @@
 // partials, S = BM (64, 32), 18 (16), 9 (8): 232,192 bytes at the
 // flagship with BM = 64.
 //
+// Members: grid y runs an ensemble's M members in one launch, each CTA on
+// one member's stacked operands (trunk.cuh, member_at). Nothing else
+// changes with M, so a member's rows come out bit for bit as from a
+// launch of that member alone.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
@@ -72,7 +77,16 @@ struct MlpNet {
   const float* b0;            // (width[1],)
   const float* slabs;         // the streamed layers' packed slabs
   const float* bias;          // their biases, each padded to 128·chunks
+  long long s_w0, s_b0, s_slabs, s_bias;  // member strides in bytes (0: one model)
 };
+
+// The net of member m: every operand moved by m times its stride.
+__device__ __forceinline__ void to_member(MlpNet& net, int m) {
+  net.w0 = member_at(net.w0, net.s_w0, m);
+  net.b0 = member_at(net.b0, net.s_b0, m);
+  net.slabs = member_at(net.slabs, net.s_slabs, m);
+  net.bias = member_at(net.bias, net.s_bias, m);
+}
 
 // The lone skinny layer is the output layer: y = skinny_value, stored, or
 // squared and summed per row (phase p of P = kThreads/BM takes columns p,
@@ -116,6 +130,9 @@ __device__ void skinny_output(const float* xl, const MlpNet& net, int row0, int 
 template <int BM, bool SUMSQ>
 __global__ void __launch_bounds__(kThreads, BM >= 32 ? 2 : BM == 16 ? 3 : 4)
 fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ y, int n_rows, MlpNet net) {
+  // member blockIdx.y: its operands and its rows of y; x is shared
+  to_member(net, blockIdx.y);
+  y += static_cast<size_t>(blockIdx.y) * n_rows * (SUMSQ ? 1 : net.width[net.n_layers]);
   constexpr int TM = BM / 8;
   constexpr int S = tile_stride(BM);
   extern __shared__ float4 smem4[];
@@ -191,7 +208,8 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ y, int n_rows,
 }
 
 template <int BM, bool SUMSQ>
-cudaError_t launch_mlp(const float* x, float* y, int n_rows, MlpNet net, cudaStream_t s) {
+cudaError_t launch_mlp(const float* x, float* y, int n_rows, int n_members, MlpNet net,
+                       cudaStream_t s) {
   const size_t smem = tile_smem_bytes<BM>(net.in_rows, net.buf_cols);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const int first = net.skinny ? 1 : 0;
@@ -203,18 +221,18 @@ cudaError_t launch_mlp(const float* x, float* y, int n_rows, MlpNet net, cudaStr
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<(n_rows + BM - 1) / BM, kThreads, smem, s>>>(x, y, n_rows, net);
+  kernel<<<dim3((n_rows + BM - 1) / BM, n_members), kThreads, smem, s>>>(x, y, n_rows, net);
   return cudaGetLastError();
 }
 
 template <bool SUMSQ>
-cudaError_t launch_height(int rows, const float* x, float* y, int n_rows, const MlpNet& net,
-                          cudaStream_t s) {
+cudaError_t launch_height(int rows, const float* x, float* y, int n_rows, int n_members,
+                          const MlpNet& net, cudaStream_t s) {
   switch (rows) {
-    case 64: return launch_mlp<64, SUMSQ>(x, y, n_rows, net, s);
-    case 32: return launch_mlp<32, SUMSQ>(x, y, n_rows, net, s);
-    case 16: return launch_mlp<16, SUMSQ>(x, y, n_rows, net, s);
-    case 8: return launch_mlp<8, SUMSQ>(x, y, n_rows, net, s);
+    case 64: return launch_mlp<64, SUMSQ>(x, y, n_rows, n_members, net, s);
+    case 32: return launch_mlp<32, SUMSQ>(x, y, n_rows, n_members, net, s);
+    case 16: return launch_mlp<16, SUMSQ>(x, y, n_rows, n_members, net, s);
+    case 8: return launch_mlp<8, SUMSQ>(x, y, n_rows, n_members, net, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -226,13 +244,16 @@ extern "C" {
 // ptrs, in order: w0, b0 (the skinny first layer's exact fp32 weights and
 // bias; null when layer 0 is not skinny), then the packed slabs and the
 // padded biases of every other layer (ops/kernels/_common.py::pack_slabs).
-// out is (n_rows, widths[n_layers]), or (n_rows,) with sumsq. tile_rows:
-// the CTA's rows, 64, 32, 16 or 8. Launches on `stream`, allocates nothing
-// and does not synchronise; returns the cudaError_t of the launch.
+// strides: each operand's member stride in bytes, parallel to ptrs;
+// n_members (1 … 65,535) networks run on the same x. out is (n_members,
+// n_rows, widths[n_layers]), or (n_members, n_rows) with sumsq (a single
+// model: 1 member, zero strides). tile_rows: the CTA's rows, 64, 32, 16
+// or 8. Launches on `stream`, allocates nothing and does not synchronise;
+// returns the cudaError_t of the launch.
 int k1_fused_mlp(const float* x, float* out, int n_rows, int n_layers, const int* widths,
-                 const void* const* ptrs, int log_clamp, int sumsq, int tile_rows,
-                 void* stream) {
-  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers) {
+                 const void* const* ptrs, const long long* strides, int n_members,
+                 int log_clamp, int sumsq, int tile_rows, void* stream) {
+  if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MlpNet net{};
@@ -249,9 +270,14 @@ int k1_fused_mlp(const float* x, float* out, int n_rows, int n_layers, const int
   net.b0 = static_cast<const float*>(ptrs[1]);
   net.slabs = static_cast<const float*>(ptrs[2]);
   net.bias = static_cast<const float*>(ptrs[3]);
+  net.s_w0 = strides[0];
+  net.s_b0 = strides[1];
+  net.s_slabs = strides[2];
+  net.s_bias = strides[3];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(sumsq ? launch_height<true>(tile_rows, x, out, n_rows, net, s)
-                                : launch_height<false>(tile_rows, x, out, n_rows, net, s));
+  return static_cast<int>(
+      sumsq ? launch_height<true>(tile_rows, x, out, n_rows, n_members, net, s)
+            : launch_height<false>(tile_rows, x, out, n_rows, n_members, net, s));
 }
 
 }  // extern "C"

@@ -71,6 +71,11 @@
 // in mma.cuh, which K2 and K3 at their bf16 tiers (fused_gram_mma.cu)
 // share; this file holds K1's epilogues.
 //
+// Members: grid y runs an ensemble's M members in one launch, each CTA on
+// one member's stacked operands (trunk.cuh, member_at). Nothing else
+// changes with M, so a member's rows come out bit for bit as from a
+// launch of that member alone.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
@@ -93,11 +98,32 @@ struct MmaNet {
   int sumsq;
   const uint32_t* w[kMaxLayers];  // packed B fragments; fp32 (n_in, width[1]) if skinny
   const float* b[kMaxLayers];     // padded to a multiple of 16; exact if skinny
+  long long s_w[kMaxLayers], s_b[kMaxLayers];  // member strides in bytes (0: one model)
 };
+
+// The net of member m: every operand moved by m times its stride.
+__device__ __forceinline__ void to_member(MmaNet& net, int m) {
+#pragma unroll
+  for (int i = 0; i < kMaxLayers; ++i) {
+    net.w[i] = member_at(net.w[i], net.s_w[i], m);
+    net.b[i] = member_at(net.b[i], net.s_b[i], m);
+  }
+}
 
 template <int PARTS>
 __global__ void __launch_bounds__(kMmaThreads, 2)
-fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_rows, MmaNet net) {
+fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_rows,
+                     const MmaNet net_in) {
+  // member blockIdx.y: its operands, moved there once per CTA into a
+  // shared copy (a copy per thread, in local memory, ran these kernels
+  // 30-50 % slower on an H100), its rows of y; x is shared
+  __shared__ MmaNet net;
+  if (threadIdx.x == 0) {
+    net = net_in;
+    to_member(net, blockIdx.y);
+  }
+  __syncthreads();
+  y += static_cast<size_t>(blockIdx.y) * n_rows * (net.sumsq ? 1 : net.width[net.n_layers]);
   extern __shared__ uint4 smem_mma[];
   const int tile_elems = kTileRows * net.stride;
   const int buf_elems = PARTS * tile_elems;  // buffer b at buf + b * buf_elems
@@ -216,14 +242,14 @@ fused_mlp_mma_kernel(const float* __restrict__ x, float* __restrict__ y, int n_r
 }
 
 template <int PARTS>
-cudaError_t launch_mma(const float* x, float* y, int n_rows, const MmaNet& net, size_t smem,
-                       cudaStream_t stream) {
+cudaError_t launch_mma(const float* x, float* y, int n_rows, int n_members, const MmaNet& net,
+                       size_t smem, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(fused_mlp_mma_kernel<PARTS>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fused_mlp_mma_kernel<PARTS><<<(n_rows + kTileRows - 1) / kTileRows, kMmaThreads, smem, stream>>>(
-      x, y, n_rows, net);
+  const dim3 grid((n_rows + kTileRows - 1) / kTileRows, n_members);
+  fused_mlp_mma_kernel<PARTS><<<grid, kMmaThreads, smem, stream>>>(x, y, n_rows, net);
   return cudaGetLastError();
 }
 
@@ -235,13 +261,17 @@ extern "C" {
 // packed bf16 B fragments of ops/kernels/fused_mlp.py::pack_mma_operands
 // and b its bias zero-padded to a multiple of 16, except for a skinny
 // first layer (n_in ≤ 8), whose w (n_in, width[1]) and b are exact fp32.
-// tier: 1 bf16, 2 bf16x3. out is (n_rows, widths[n_layers]), or
-// (n_rows,) with sumsq. Launches on `stream`,
-// allocates nothing and does not synchronise; returns the cudaError_t of
-// the launch.
+// strides: each operand's member stride in bytes, parallel to ptrs;
+// n_members (1 … 65,535) networks run on the same x. tier: 1 bf16, 2
+// bf16x3. out is (n_members, n_rows, widths[n_layers]), or (n_members,
+// n_rows) with sumsq (a single model: 1 member, zero strides). Launches
+// on `stream`, allocates nothing and does not synchronise; returns the
+// cudaError_t of the launch.
 int k1_fused_mlp_mma(const float* x, float* out, int n_rows, int n_layers, const int* widths,
-                     const void* const* ptrs, int tier, int log_clamp, int sumsq, void* stream) {
-  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || (tier != kBF16 && tier != kBF16x3)) {
+                     const void* const* ptrs, const long long* strides, int n_members,
+                     int tier, int log_clamp, int sumsq, void* stream) {
+  if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers ||
+      (tier != kBF16 && tier != kBF16x3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MmaNet net{};
@@ -265,11 +295,13 @@ int k1_fused_mlp_mma(const float* x, float* out, int n_rows, int n_layers, const
   for (int i = 0; i < n_layers; ++i) {
     net.w[i] = static_cast<const uint32_t*>(ptrs[2 * i]);
     net.b[i] = static_cast<const float*>(ptrs[2 * i + 1]);
+    net.s_w[i] = strides[2 * i];
+    net.s_b[i] = strides[2 * i + 1];
   }
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(parts == 2 ? launch_mma<2>(x, out, n_rows, net, smem, s)
-                                     : launch_mma<1>(x, out, n_rows, net, smem, s));
+  return static_cast<int>(parts == 2 ? launch_mma<2>(x, out, n_rows, n_members, net, smem, s)
+                                     : launch_mma<1>(x, out, n_rows, n_members, net, smem, s));
 }
 
 }  // extern "C"

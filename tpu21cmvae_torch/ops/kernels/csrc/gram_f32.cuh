@@ -26,7 +26,16 @@ struct GramNet {
   const float* b0;            // (width[1],)
   const float* slabs;
   const float* bias;          // each streamed layer's bias padded to 128·chunks; G's slot holds u
+  long long s_w0, s_b0, s_slabs, s_bias;  // member strides in bytes (0: one model)
 };
+
+// The net of member m: every operand moved by m times its stride.
+__device__ __forceinline__ void to_member(GramNet& net, int m) {
+  net.w0 = member_at(net.w0, net.s_w0, m);
+  net.b0 = member_at(net.b0, net.s_b0, m);
+  net.slabs = member_at(net.slabs, net.s_slabs, m);
+  net.bias = member_at(net.bias, net.s_bias, m);
+}
 
 // A CTA's dynamic shared memory: the slab ring, the per-row partials, two
 // ping-pong activation buffers, the input tile and (K3) the mask bytes.
@@ -83,11 +92,11 @@ int gram_stream_slabs(const GramNet& net, bool backward) {
 
 // The C entries' argument reading: false if a count or a width is out of
 // range. ptrs, in order, all fp32: w0, b0, the packed slabs, the padded
-// biases.
+// biases; strides: their member strides in bytes.
 inline bool read_gram_net(int n_rows, int n_layers, const int* widths, const void* const* ptrs,
-                          GramNet& net) {
-  if (n_rows <= 0 || n_layers < 1 || n_layers > kMaxLayers || widths[0] < 1 ||
-      widths[0] > kMaxIn) {
+                          const long long* strides, int n_members, GramNet& net) {
+  if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers ||
+      widths[0] < 1 || widths[0] > kMaxIn) {
     return false;
   }
   net = GramNet{};
@@ -101,6 +110,10 @@ inline bool read_gram_net(int n_rows, int n_layers, const int* widths, const voi
   net.b0 = static_cast<const float*>(ptrs[1]);
   net.slabs = static_cast<const float*>(ptrs[2]);
   net.bias = static_cast<const float*>(ptrs[3]);
+  net.s_w0 = strides[0];
+  net.s_b0 = strides[1];
+  net.s_slabs = strides[2];
+  net.s_bias = strides[3];
   return true;
 }
 

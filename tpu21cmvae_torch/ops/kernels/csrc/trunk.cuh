@@ -22,6 +22,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -32,6 +33,21 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;       // rows per CTA
 constexpr int kLogCols = 3;     // log10 on input columns 0..2
 constexpr int kMaxSmem = 232448;
+
+// The member axis of a launch: grid y runs n_members networks of one
+// shape (an ensemble's members, JAX's vmap over pallas_call) on the same
+// input rows. Member m reads each operand at m times that operand's byte
+// stride and writes its outputs m batches on; a single model is
+// n_members = 1 with zero strides. Nothing else in a kernel sees m.
+constexpr int kMaxMembers = 65535;  // gridDim.y's limit
+
+inline bool members_ok(int n_members) { return n_members >= 1 && n_members <= kMaxMembers; }
+
+template <class T>
+__device__ __forceinline__ T* member_at(T* p, long long stride, int m) {
+  return reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) +
+                              static_cast<uintptr_t>(stride) * static_cast<uintptr_t>(m));
+}
 
 enum Tier : int { kF32 = 0, kBF16 = 1, kBF16x3 = 2 };
 enum Epilogue : int { kBiasRelu = 0, kStore = 1, kMask = 2 };

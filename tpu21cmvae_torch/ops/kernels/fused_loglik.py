@@ -32,6 +32,13 @@ the fp32 pair of a network too wide for the register-tiled kernel's
 buffers. The CUDA kernels keep a row tile's activations on chip; the
 plain versions do the same arithmetic — same folds, same hi/lo split,
 same epilogue — in plain tensor operations.
+
+Every wrapper here takes ``members=M`` (``_common.py``'s member axis): an
+ensemble's stacked weights, each member folded and packed as one model's
+are, all M run by one launch per call (JAX's vmap over ``pallas_call``),
+``(M, B)`` values and ``(M, B, n_params)`` gradients; each member's ``c``
+enters the epilogue as an ``(M, 1)`` tensor. The ``*_members_reference``
+functions are their plain versions.
 """
 
 from __future__ import annotations
@@ -63,15 +70,21 @@ from tpu21cmvae_torch.ops.kernels._common import (
     TIER_CODE,
     OperandCache,
     Slabs,
+    cached_args,
+    check_members,
     check_rows,
     check_tile_rows,
     f32_tile_bytes,
     f32_tile_rows,
     hi_lo,
     launch,
+    member_layers,
+    member_strides,
     pack_slabs,
     padk,
+    per_member,
     pointers,
+    stack_members,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     MMA_TIERS,
@@ -113,7 +126,8 @@ class GramOperands:
     the register-tiled fp32 kernel streams them where it runs: K2's
     (:func:`pack_gram_slabs`, ``fused_loglik_gram.cu``) or K3's
     (:func:`pack_grad_gram_slabs`, ``fused_loglik_grad_gram_f32.cu``),
-    else None.
+    else None. ``members``: M where every tensor is M members' stacked on
+    a leading axis (``c`` as ``(M, 1)``), else None.
     """
 
     tier: str
@@ -129,11 +143,12 @@ class GramOperands:
     log_norm: float
     packed: Optional[GramPacked] = None
     slabs: Optional[Slabs] = None
+    members: Optional[int] = None
 
     @property
     def widths(self) -> tuple:
         """``(n_in, *trunk widths)``."""
-        return (*self.w0.shape, *(b.shape[0] for b in self.b))
+        return (*self.w0.shape[-2:], *(b.shape[-1] for b in self.b))
 
 
 def gram_operands(params, norm, obs, scale, log_norm, tier,
@@ -240,6 +255,21 @@ def loglik_grad_gram_reference(ops: GramOperands, x: torch.Tensor):
     return _value(ops, quad), -(_log_clamp_grad(x) * e)
 
 
+def loglik_gram_members_reference(ops: GramOperands, x: torch.Tensor) -> torch.Tensor:
+    """The member-batched K2 in plain PyTorch: :func:`loglik_gram_reference`
+    of each member of stacked ``ops``, read out of the stacked buffers at
+    its member stride: ``logL (M, B)``."""
+    return per_member(loglik_gram_reference, ops, x)
+
+
+def loglik_grad_gram_members_reference(ops: GramOperands, x: torch.Tensor):
+    """The member-batched K3 in plain PyTorch
+    (:func:`loglik_grad_gram_reference` per member, as
+    :func:`loglik_gram_members_reference`): ``(logL (M, B), dlogL/dx (M,
+    B, n_in))``."""
+    return per_member(loglik_grad_gram_reference, ops, x)
+
+
 def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     """The C entry point of the kernel ``ops``' tiers run
     (:func:`gram_on_tensor_cores`), its operand pointers, and the int
@@ -264,30 +294,46 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     return "k3_fused_loglik_grad_gram", tensors, [TIER_CODE[t] for t in tiers]
 
 
-def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
-    """Launch K2 on PyTorch's current stream (no synchronisation);
-    ``rows``: ``fused_loglik_gram.cu``'s tile height."""
-    quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
-    if x.shape[0]:
-        entry, tensors, tiers = _kernel(ops, k3=False, rows=rows)
+def _launch_args(ops: GramOperands, k3: bool, rows: Optional[int]) -> tuple:
+    """The C entry of ``ops``' route (:func:`_kernel`) and its arguments
+    after the row count: the trunk's layer count and widths, the operand
+    pointers, their member strides, the member count and the entry's
+    ints; built once per fold (:func:`cached_args`)."""
+
+    def make():
+        entry, tensors, ints = _kernel(ops, k3=k3, rows=rows)
         widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
-        launch("K2", entry, x,
-               x.data_ptr(), quad.data_ptr(), x.shape[0], len(ops.widths) - 1, widths,
-               pointers(tensors), *tiers)
+        return entry, (len(ops.widths) - 1, widths, pointers(tensors),
+                       member_strides(tensors, ops.members), ops.members or 1, *ints)
+
+    return cached_args(ops, (k3, rows), make)
+
+
+def _batch(ops: GramOperands, *shape) -> tuple:
+    """``shape``, after the member axis of stacked ``ops``."""
+    return shape if ops.members is None else (ops.members, *shape)
+
+
+def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Launch K2 on PyTorch's current stream (no synchronisation), one
+    launch for every member of stacked ``ops``; ``rows``:
+    ``fused_loglik_gram.cu``'s tile height."""
+    quad = torch.empty(_batch(ops, x.shape[0]), dtype=torch.float32, device=x.device)
+    if x.shape[0]:
+        entry, args = _launch_args(ops, False, rows)
+        launch("K2", entry, x, x.data_ptr(), quad.data_ptr(), x.shape[0], *args)
     return _value(ops, quad)
 
 
 def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[int] = None):
-    """Launch K3 on PyTorch's current stream (no synchronisation);
-    ``rows``: ``fused_loglik_grad_gram_f32.cu``'s tile height."""
-    quad = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
+    """Launch K3 on PyTorch's current stream (no synchronisation), one
+    launch for every member of stacked ``ops``; ``rows``:
+    ``fused_loglik_grad_gram_f32.cu``'s tile height."""
+    quad = torch.empty(_batch(ops, x.shape[0]), dtype=torch.float32, device=x.device)
+    dx = torch.empty(_batch(ops, *x.shape), dtype=torch.float32, device=x.device)
     if x.shape[0]:
-        entry, tensors, tiers = _kernel(ops, k3=True, rows=rows)
-        widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
-        launch("K3", entry, x,
-               x.data_ptr(), quad.data_ptr(), dx.data_ptr(), x.shape[0],
-               len(ops.widths) - 1, widths, pointers(tensors), *tiers)
+        entry, args = _launch_args(ops, True, rows)
+        launch("K3", entry, x, x.data_ptr(), quad.data_ptr(), dx.data_ptr(), x.shape[0], *args)
     return _value(ops, quad), -dx
 
 
@@ -323,16 +369,18 @@ def grad_f32_heights(widths) -> tuple:
     return tuple(r for r in F32_TILE_ROWS if grad_f32_bytes(widths, r) <= MAX_SHARED_BYTES)
 
 
-def pick_grad_rows(heights, n_rows: Optional[int], sm_count: Optional[int]) -> int:
+def pick_grad_rows(heights, n_rows: Optional[int], sm_count: Optional[int],
+                   members: int = 1) -> int:
     """Of ``heights`` (tallest first), the shortest that still runs a
-    batch of ``n_rows`` as at most one block per SM of ``sm_count``: a
-    block alone on its SM finishes sooner the shorter its tile. Where
-    even the tallest needs more blocks than SMs, or either count is
-    unknown, the tallest: it does the most work per weight read
-    (measured on an H100: PERF.md)."""
+    batch of ``n_rows`` for each of ``members`` as at most one block per
+    SM of ``sm_count`` (M·⌈B/h⌉ blocks): a block alone on its SM finishes
+    sooner the shorter its tile. Where even the tallest needs more blocks
+    than SMs, or either count is unknown, the tallest: it does the most
+    work per weight read (measured on an H100: PERF.md). A row's value
+    and gradient do not depend on the height."""
     if n_rows is not None and sm_count is not None:
         for r in reversed(heights):
-            if -(-n_rows // r) <= sm_count:
+            if members * -(-n_rows // r) <= sm_count:
                 return r
     return heights[0]
 
@@ -397,7 +445,7 @@ class _GramWrapper:
     name: str
 
     def __init__(self, config, norm, obs, noise_var, *, precision, grad_precision,
-                 device, tile_rows=None):
+                 device, tile_rows=None, members=None):
         if config.activation != "relu":
             raise NotImplementedError(
                 f"{self.name} hard-codes ReLU hidden layers; got "
@@ -443,6 +491,7 @@ class _GramWrapper:
         self.sm_count = (torch.cuda.get_device_properties(self.device).multi_processor_count
                          if self.device.type == "cuda" else None)
         self.n_params = config.n_params
+        self.members = check_members(members)
         self.launches = 0
         obs = obs_tensor(obs, config.n_bins, device=self.device)
         scale = noise_scale(noise_var, config.n_bins, device=self.device)
@@ -452,7 +501,7 @@ class _GramWrapper:
             grad_tier=self.grad_tier,
         )
 
-        def build(params) -> GramOperands:
+        def build_one(params) -> GramOperands:
             ops = fold(params)
             if ops.widths != widths:
                 raise ValueError(
@@ -466,13 +515,20 @@ class _GramWrapper:
                 return dataclasses.replace(ops, slabs=pack_grad_gram_slabs(ops))
             return ops
 
+        def build(params) -> GramOperands:
+            if self.members is None:
+                return build_one(params)
+            ops = stack_members([build_one(p) for p in member_layers(params, self.members)])
+            return dataclasses.replace(ops, c=ops.c.reshape(self.members, 1),
+                                       members=self.members)
+
         self.operands = OperandCache(build)
 
-    def _run(self, params, raw, plain, kernel):
+    def _run(self, params, raw, plain, members_plain, kernel):
         x = check_rows(raw, self.device, self.n_params)
         ops = self.operands(params)
         if x.device.type == "cpu":
-            return plain(ops, x)
+            return plain(ops, x) if ops.members is None else members_plain(ops, x)
         if x.device.type != "cuda":
             raise ValueError(f"{self.name} runs on CUDA or (plain) on the CPU; got {x.device}")
         if x.shape[0]:  # an empty batch launches nothing
@@ -492,19 +548,22 @@ class FusedLoglikGram(_GramWrapper):
     tier ``tile_rows`` (one of
     :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`) forces
     ``fused_loglik_gram.cu``'s tile height, else :func:`gram_f32_rows`
-    picks it (:attr:`tile_rows`).
+    picks it (:attr:`tile_rows`). ``members=M`` takes an ensemble's
+    stacked ``params`` and returns ``logL (M, B)`` from one launch per
+    call (:func:`loglik_gram_members_reference` on the CPU).
     """
 
     name = "K2"
 
     def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
-                 tile_rows=None, device):
+                 tile_rows=None, members=None, device):
         super().__init__(config, norm, obs, noise_var, precision=precision,
-                         grad_precision=None, device=device, tile_rows=tile_rows)
+                         grad_precision=None, device=device, tile_rows=tile_rows,
+                         members=members)
 
     @torch.no_grad()
     def __call__(self, params, raw):
-        return self._run(params, raw, loglik_gram_reference,
+        return self._run(params, raw, loglik_gram_reference, loglik_gram_members_reference,
                          functools.partial(_loglik_gram_cuda, rows=self.tile_rows))
 
 
@@ -520,56 +579,63 @@ class FusedLoglikGradGram(_GramWrapper):
     ``fused_loglik_grad_gram_f32.cu`` runs (:attr:`register_tiled`) at
     the tile height :meth:`rows_for` gives each batch; ``tile_rows`` (one
     of :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`)
-    forces one height for every batch.
+    forces one height for every batch. ``members=M`` takes an ensemble's
+    stacked ``params`` and returns ``(logL (M, B), dlogL/draw (M, B,
+    n_params))`` from one launch per call
+    (:func:`loglik_grad_gram_members_reference` on the CPU).
     """
 
     name = "K3"
 
     def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
-                 grad_precision=None, tile_rows=None, device):
+                 grad_precision=None, tile_rows=None, members=None, device):
         tier = resolve_tier(precision, "high")
         grad_tier = tier if grad_precision is None else resolve_tier(grad_precision)
         super().__init__(config, norm, obs, noise_var, precision=precision,
-                         grad_precision=grad_tier, device=device, tile_rows=tile_rows)
+                         grad_precision=grad_tier, device=device, tile_rows=tile_rows,
+                         members=members)
 
     def rows_for(self, n_rows: int) -> Optional[int]:
         """The register-tiled kernel's tile height for a batch of
-        ``n_rows`` rows (:func:`pick_grad_rows`), :attr:`tile_rows` if
-        forced; None on the other routes."""
+        ``n_rows`` rows of each member (:func:`pick_grad_rows`),
+        :attr:`tile_rows` if forced; None on the other routes."""
         if not self.register_tiled:
             return None
-        return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count)
+        return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count,
+                                                self.members or 1)
 
     @torch.no_grad()
     def __call__(self, params, raw):
         def kernel(ops, x):
             return _loglik_grad_gram_cuda(ops, x, self.rows_for(x.shape[0]))
 
-        return self._run(params, raw, loglik_grad_gram_reference, kernel)
+        return self._run(params, raw, loglik_grad_gram_reference,
+                         loglik_grad_gram_members_reference, kernel)
 
 
 def make_fused_loglik_gram(config, norm, obs, noise_var=1.0, *, precision="high",
-                           tile_rows=None, device) -> FusedLoglikGram:
+                           tile_rows=None, members=None, device) -> FusedLoglikGram:
     """Fused gram-form value (the builder of the JAX package's same
     name): ``precision`` tiers the trunk and ``G`` products;
-    ``tile_rows``: see :class:`FusedLoglikGram`."""
+    ``tile_rows`` and ``members``: see :class:`FusedLoglikGram`."""
     return FusedLoglikGram(config, norm, obs, noise_var, precision=precision,
-                           tile_rows=tile_rows, device=device)
+                           tile_rows=tile_rows, members=members, device=device)
 
 
 def make_fused_loglik_grad_gram(config, norm, obs, noise_var=1.0, *,
                                 precision="high", grad_precision=None,
-                                tile_rows=None, device) -> FusedLoglikGradGram:
+                                tile_rows=None, members=None,
+                                device) -> FusedLoglikGradGram:
     """Fused gram value-and-gradient (the builder of the JAX package's
     same name): ``precision`` tiers the value's matmuls,
     ``grad_precision`` (default: the same tier) the backward's. A
     cheaper backward tier only costs HMC acceptance rate: leapfrog with
     any deterministic force field stays reversible and volume-preserving,
-    and the accept step uses the value. ``tile_rows``: see
-    :class:`FusedLoglikGradGram`."""
+    and the accept step uses the value. ``tile_rows`` and ``members``:
+    see :class:`FusedLoglikGradGram`."""
     return FusedLoglikGradGram(
         config, norm, obs, noise_var, precision=precision,
-        grad_precision=grad_precision, tile_rows=tile_rows, device=device,
+        grad_precision=grad_precision, tile_rows=tile_rows, members=members, device=device,
     )
 
 
@@ -578,11 +644,12 @@ class FusedLoglik:
     = ``−½·Σ_bins r² + log_norm`` with ``r`` the folded network's output
     (obs and noise folded into its last layer), reduced inside the
     kernel, so the (B, n_bins) signal never reaches device memory.
-    Input and device rules, :attr:`launches` and ``tile_rows`` are K1's
+    Input and device rules, :attr:`launches`, ``tile_rows`` and
+    ``members`` (``logL (M, B)`` from one launch) are K1's
     (:class:`~tpu21cmvae_torch.ops.kernels.fused_mlp.FusedMLP`)."""
 
     def __init__(self, config, norm, obs, noise_var=1.0, *, precision="high",
-                 tile_rows=None, device):
+                 tile_rows=None, members=None, device):
         if config.activation != "relu":
             raise NotImplementedError(
                 "K1 hard-codes ReLU hidden layers; got "
@@ -595,9 +662,13 @@ class FusedLoglik:
         self.mlp = FusedMLP(
             config.mlp().sizes, log_clamp_input=True,
             precision="high" if precision is None else precision,
-            reduce="sumsq", tile_rows=tile_rows, device=device,
+            reduce="sumsq", tile_rows=tile_rows, members=members, device=device,
             fold=functools.partial(fold_loglik_constants, norm=norm, obs=obs, scale=scale),
         )
+
+    @property
+    def members(self):
+        return self.mlp.members
 
     @property
     def launches(self) -> int:
@@ -613,10 +684,11 @@ class FusedLoglik:
 
 
 def make_fused_loglik(config, norm, obs, noise_var=1.0, *, precision="high",
-                      tile_rows=None, device) -> FusedLoglik:
+                      tile_rows=None, members=None, device) -> FusedLoglik:
     """Fused direct-method Gaussian log-likelihood (the builder of the
     JAX package's same name): K1 over the network with the normalizer,
     the observation and the noise folded in, reduced by ``sumsq``;
-    ``tile_rows``: see :class:`~tpu21cmvae_torch.ops.kernels.fused_mlp.FusedMLP`."""
+    ``tile_rows`` and ``members``: see
+    :class:`~tpu21cmvae_torch.ops.kernels.fused_mlp.FusedMLP`."""
     return FusedLoglik(config, norm, obs, noise_var, precision=precision,
-                       tile_rows=tile_rows, device=device)
+                       tile_rows=tile_rows, members=members, device=device)

@@ -19,7 +19,9 @@ the CUDA cores, register-tiled over ``BM``-row tiles
 :func:`~tpu21cmvae_torch.ops.kernels._common.pack_slabs` packed once, and
 a network whose only layer is skinny at every tier.
 :func:`fused_mlp_reference` does the same arithmetic — same folds, same
-hi/lo split — in plain tensor operations.
+hi/lo split — in plain tensor operations. With ``members=M`` the wrapper
+runs an ensemble's M members in one launch (``_common.py``'s member
+axis); :func:`fused_mlp_members_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -43,14 +45,20 @@ from tpu21cmvae_torch.ops.kernels._common import (
     TIER_CODE,
     OperandCache,
     Slabs,
+    cached_args,
+    check_members,
     check_rows,
     f32_tile_bytes,
     f32_tile_rows,
     hi_lo,
     launch,
+    member_layers,
+    member_strides,
     pack_slabs,
     padk,
+    per_member,
     pointers,
+    stack_members,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
 
@@ -80,6 +88,9 @@ class MLPOperands:
     # fused_mlp.cu streams them (pack_slabs), or None where K1 runs
     # fused_mlp_mma.cu
     slabs: Slabs | None = None
+    # M where every tensor above is M members' stacked on a leading axis
+    # (stack_members), else None
+    members: int | None = None
 
 
 def _pad16(n: int) -> int:
@@ -156,6 +167,13 @@ def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
     return torch.sum(h * h, dim=-1) if ops.reduce == "sumsq" else h
 
 
+def fused_mlp_members_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
+    """The member-batched K1 in plain PyTorch: :func:`fused_mlp_reference`
+    of each member of stacked ``ops``, read out of the stacked buffers at
+    its member stride: (M, B, n_out), or (M, B) under ``sumsq``."""
+    return per_member(fused_mlp_reference, ops, x)
+
+
 def f32_geometry(widths) -> tuple:
     """``fused_mlp.cu``'s (input tile k rows, activation buffer k rows):
     the fan-in (padded to 32 unless the first layer is skinny) and the
@@ -191,24 +209,36 @@ def shared_bytes(widths, tier: str = "f32", rows: int | None = None) -> int:
 
 
 def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
-    """Launch K1 on PyTorch's current stream (no synchronisation);
-    ``rows``: ``fused_mlp.cu``'s tile height."""
+    """Launch K1 on PyTorch's current stream (no synchronisation), one
+    launch for every member of stacked ``ops``; ``rows``:
+    ``fused_mlp.cu``'s tile height."""
     n = x.shape[0]
     shape = (n,) if ops.reduce == "sumsq" else (n, ops.widths[-1])
+    if ops.members is not None:
+        shape = (ops.members, *shape)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if not n:
         return out
-    widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
-    args = (x.data_ptr(), out.data_ptr(), n, len(ops.w), widths)
+    entry, args = cached_args(ops, rows, lambda: _launch_args(ops, rows))
+    launch("K1", entry, x, x.data_ptr(), out.data_ptr(), n, *args)
+    return out
+
+
+def _launch_args(ops: MLPOperands, rows: int) -> tuple:
+    """The C entry of ``ops``' route and its arguments after the row
+    count: the layer count and widths, the operand pointers, their member
+    strides, the member count and the entry's ints."""
     flags = (int(ops.log_clamp), int(ops.reduce == "sumsq"))
     if ops.packed is not None:
         tensors = [t for pair in ops.packed for t in pair]
-        launch("K1", "k1_fused_mlp_mma", x, *args, pointers(tensors), TIER_CODE[ops.tier],
-               *flags)
+        entry, ints = "k1_fused_mlp_mma", (TIER_CODE[ops.tier], *flags)
     else:  # the fp32 tier, or a lone skinny layer (exact fp32 at every tier)
         skinny = (ops.w[0], ops.b[0]) if ops.skinny else (None, None)
-        launch("K1", "k1_fused_mlp", x, *args, pointers([*skinny, *ops.slabs]), *flags, rows)
-    return out
+        tensors = [*skinny, *ops.slabs]
+        entry, ints = "k1_fused_mlp", (*flags, rows)
+    widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
+    return entry, (len(ops.w), widths, pointers(tensors), member_strides(tensors, ops.members),
+                   ops.members or 1, *ints)
 
 
 class FusedMLP:
@@ -225,10 +255,16 @@ class FusedMLP:
     :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`) forces
     ``fused_mlp.cu``'s tile height, else :func:`f32_rows` picks it;
     :attr:`tile_rows` is what the fp32 route launches with.
+
+    ``members=M`` (default None: one model) takes an ensemble's stacked
+    ``params`` (layer dicts of ``(M, in, out)`` / ``(M, out)``), folds
+    each member as one model is folded, and returns ``(M, B, n_out)``
+    (``(M, B)`` under ``sumsq``) from one launch per call; on the CPU it
+    runs :func:`fused_mlp_members_reference`.
     """
 
     def __init__(self, sizes, *, log_clamp_input=False, precision="highest",
-                 reduce="none", fold=None, tile_rows=None, device):
+                 reduce="none", fold=None, tile_rows=None, members=None, device):
         self.sizes = tuple(int(s) for s in sizes)
         if reduce not in ("none", "sumsq"):
             raise ValueError(f"reduce must be 'none' or 'sumsq'; got {reduce!r}")
@@ -246,12 +282,20 @@ class FusedMLP:
             )
         self.device = torch.empty(0, device=device).device
         self.reduce = reduce
+        self.members = check_members(members)
         self.launches = 0
         self._fold = fold or (lambda params: params)
         self._log_clamp = log_clamp_input
         self.operands = OperandCache(self._build)
 
     def _build(self, params) -> MLPOperands:
+        if self.members is not None:
+            ops = stack_members([self._build_one(p)
+                                 for p in member_layers(params, self.members)])
+            return dataclasses.replace(ops, members=self.members)
+        return self._build_one(params)
+
+    def _build_one(self, params) -> MLPOperands:
         ops = mlp_operands(self._fold(params), self.tier, self._log_clamp, self.reduce)
         if ops.widths != self.sizes:
             raise ValueError(f"params have widths {ops.widths}; this K1 takes {self.sizes}")
@@ -262,6 +306,8 @@ class FusedMLP:
         x = check_rows(x, self.device, self.sizes[0])
         ops = self.operands(params)
         if x.device.type == "cpu":
+            if ops.members is not None:
+                return fused_mlp_members_reference(ops, x)
             return fused_mlp_reference(ops, x)
         if x.device.type != "cuda":
             raise ValueError(f"K1 runs on CUDA or (plain) on the CPU; got {x.device}")
@@ -271,14 +317,14 @@ class FusedMLP:
 
 
 def make_fused_mlp(sizes, *, log_clamp_input=False, precision="highest",
-                   reduce="none", tile_rows=None, device) -> FusedMLP:
+                   reduce="none", tile_rows=None, members=None, device) -> FusedMLP:
     """The whole MLP as one kernel (the builder of the JAX package's same
     name). ``precision``: ``"highest"``/``"contract"`` exact fp32,
     ``"high"`` bf16x3, ``"default"`` single-pass bf16; a fan-in ≤ 8 first
-    layer is exact fp32 at every tier. ``tile_rows``: see
+    layer is exact fp32 at every tier. ``tile_rows`` and ``members``: see
     :class:`FusedMLP`."""
     return FusedMLP(sizes, log_clamp_input=log_clamp_input, precision=precision,
-                    reduce=reduce, tile_rows=tile_rows, device=device)
+                    reduce=reduce, tile_rows=tile_rows, members=members, device=device)
 
 
 def make_fused_emulate(config, norm, *, precision="highest", tile_rows=None,

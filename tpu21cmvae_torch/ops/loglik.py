@@ -10,6 +10,10 @@ backends:
   (:mod:`tpu21cmvae_torch.ops.kernels.fused_loglik`): the value alone
   by K1 (``method="direct"``) or K2 (``"gram"``), the value with its
   gradient by K3. Each wrapper runs its plain version for CPU tensors.
+  :func:`make_member_loglik` and :func:`make_member_loglik_and_grad`
+  build the same kernels over an ensemble's stacked weights, all members
+  in one launch per call (JAX's ``vmap`` of the kernel likelihood over
+  the member axis).
 
 Both backends' value functions are differentiable by ``torch.autograd``
 with respect to the raw rows and the weights, as the JAX package's are.
@@ -249,6 +253,68 @@ class KernelLoglik:
     def __call__(self, params, raw):
         weights = [t for layer in params for t in (layer["w"], layer["b"])]
         return _KernelValue.apply(self.fused, self.twin, raw, *weights)
+
+
+def _stacked_twin(twin, members: int):
+    """``(stacked, raw) → (M, B)``: ``twin`` on each member's layers of a
+    stacked tree, the plain twin of a member-batched value kernel (its
+    autograd rule)."""
+
+    def stacked(params, raw):
+        return torch.stack([twin(tuple({"w": layer["w"][m], "b": layer["b"][m]}
+                                       for layer in params), raw)
+                            for m in range(members)])
+
+    return stacked
+
+
+@_on_each_device
+def make_member_loglik(config, norm, obs, noise_var=1.0, *, members: int,
+                       method: str = "direct", precision=None):
+    """``fn(stacked, raw) → (M, B)``: the kernel log-likelihood of each of
+    an ensemble's ``members`` at once, from its stacked weights (layer
+    dicts of ``(M, in, out)`` / ``(M, out)``), one launch of K1
+    (``method="direct"``) or K2 (``"gram"``) per call: what
+    :func:`make_loglik` with ``backend="kernel"`` gives one model, member
+    m's row bit for bit that model's. ``noise_var``, ``method`` and
+    ``precision`` as :func:`make_loglik`; a
+    :class:`~tpu21cmvae_torch.noisescale.ScaleMarginalNoise` re-scores
+    every member's value. Differentiable through the plain twin, per
+    member, as :class:`KernelLoglik`."""
+    if method not in ("direct", "gram"):
+        raise ValueError(f"method must be 'direct' or 'gram'; got {method!r}")
+    if isinstance(noise_var, ScaleMarginalNoise):
+        base = make_member_loglik(config, norm, obs, noise_var.base, members=members,
+                                  method=method, precision=precision)
+        return noise_var.wrap_value(base, config.n_bins)
+    build = make_fused_loglik if method == "direct" else make_fused_loglik_gram
+    return KernelLoglik(
+        build(config, norm, obs, noise_var, precision="high" if precision is None else precision,
+              members=members, device=norm.device),
+        _stacked_twin(make_loglik(config, norm, obs, noise_var, backend="torch",
+                                  method=method, precision=precision), members),
+    )
+
+
+@_on_each_device
+def make_member_loglik_and_grad(config, norm, obs, noise_var=1.0, *, members: int,
+                                method: str = "gram", precision=None, grad_precision=None):
+    """``fn(stacked, raw) → (logL (M, B), dlogL/draw (M, B, n_params))``
+    for each of an ensemble's ``members`` at once, one K3 launch per call:
+    what :func:`make_loglik_and_grad` with ``backend="kernel"`` gives one
+    model, member m's rows bit for bit that model's. Tiers and noise specs
+    as there; ``method`` must be ``"gram"``."""
+    if method != "gram":
+        raise ValueError(
+            f"the fused value+grad kernel exists for method='gram' only; got method={method!r}")
+    if isinstance(noise_var, ScaleMarginalNoise):
+        base = make_member_loglik_and_grad(config, norm, obs, noise_var.base, members=members,
+                                           precision=precision, grad_precision=grad_precision)
+        return noise_var.wrap_valgrad(base, config.n_bins)
+    return make_fused_loglik_grad_gram(
+        config, norm, obs, noise_var, precision="high" if precision is None else precision,
+        grad_precision=grad_precision, members=members, device=norm.device,
+    )
 
 
 @_on_each_device

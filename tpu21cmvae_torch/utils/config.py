@@ -43,6 +43,16 @@ class DirectEmulatorConfig:
         return MLPConfig(self.n_params, self.hidden_dims, self.n_bins, self.activation)
 
 
+DIRECT_ALIGNED = DirectEmulatorConfig(hidden_dims=(256, 256, 128, 128, 128))
+"""The aligned flagship architecture, 7 → 256 → 256 → 128 → 128 → 128 →
+451 (191,939 weights): every hidden width a multiple of 128, found by a
+throughput-aware successive-halving search and shipped, fine-tuned for
+the single-pass bf16 tier (``native_precision="default"``), as
+``pretrained/direct_aligned_bf16.npz``. Load it with
+``DirectEmulator.from_checkpoint`` and predict at
+``predict_fn(precision="native")``."""
+
+
 @dataclasses.dataclass(frozen=True)
 class AutoEncoderConfig:
     """Autoencoder-based emulator architecture (reference

@@ -15,16 +15,22 @@ Phases, one line each:
 3. hold K3 (the fused gram value-and-gradient kernel) against its plain
    PyTorch version on the card, at the flagship widths of
    ``pretrained/direct_synthetic.npz``, for batches 1, 37, 1024 (the
-   fits'), 4096 and 65,537 and four tier pairs (the bf16 pairs run the tensor-core
-   ``fused_gram_mma.cu``; (highest, highest) the register-tiled
-   ``fused_loglik_grad_gram_f32.cu``, at every tile height, forced, and
-   at the height the wrapper picks, its value held bit for bit to the
-   fp32 K2's at the same height; the mixed pair (highest, default)
+   fits'), 4096 and 65,537 and six tier pairs (the bf16 pairs run the
+   tensor-core ``fused_gram_mma.cu``; (highest, highest) the
+   register-tiled ``fused_loglik_grad_gram_f32.cu``, at every tile
+   height, forced, and at the height the wrapper picks; (highest,
+   default) and (highest, high) ``fused_gram_mixed.cu``, fp32 forward and
+   tensor-core backward, at 32 and 16 rows, forced, and at the picked
+   height; on both, the value held bit for bit to the fp32 K2's at the
+   same height; the reverse pair (high, highest) the 16-row CUDA-core
    ``fused_loglik_grad_gram.cu``);
 4. time K3 and its plain version at 4096 and 65,536 rows (CUDA events,
    warmup excluded, median of repeats), and the kernel's device time per
    call over back-to-back calls; then the fp32 K3 at every tile height,
-   forced, in turns;
+   forced, in turns; then ``fused_gram_mixed.cu`` at both mixed pairs in
+   turns with the fp32 K3 and with ``fused_loglik_grad_gram.cu`` on the
+   same pairs (through its C entry, the operands stripped of the packed
+   ones);
 5. the main path through the public entry points: load the checkpoint,
    predict (held to a float64 NumPy forward of the same file), sample a
    posterior with HMC, whose every leapfrog step runs K3 at (high,
@@ -33,7 +39,10 @@ Phases, one line each:
    exact tier (``loglik_and_grad_fn(precision="contract",
    backend="kernel")`` into ``sample_hmc``), whose every leapfrog step
    runs K3 on ``fused_loglik_grad_gram_f32.cu``, the final walkers'
-   carried log-density held to the plain exact-tier likelihood;
+   carried log-density held to the plain exact-tier likelihood; then the
+   same with a bf16 force (``grad_precision="default"``), every leapfrog
+   step on ``fused_gram_mixed.cu``; both at exactly the launches their
+   leapfrog counts imply;
 6. hold K1 (the fused MLP) against its plain version, as predict
    (``make_fused_emulate``) and as the direct likelihood's sum of squares
    (``make_fused_loglik``), and K2 (the fused gram value) against its
@@ -164,8 +173,9 @@ Phases, one line each:
     ``load_model``; their predictions against a float64 NumPy forward of
     each file; the golden errors of ``tests/test_pretrained.py``; the
     ensemble's mixtures on every route (K1 at contract and bf16x3, direct
-    form; K2 at bf16x3 and fp32; K3 at (high, default), (fp32, fp32) and
-    the mixed pair), each one member-batched wrapper over the stacked
+    form; K2 at bf16x3 and fp32; K3 at (high, default), (fp32, fp32), the
+    mixed pair (fp32, bf16) and the reverse pair (bf16x3, fp32)), each
+    one member-batched wrapper over the stacked
     weights, against the same mixtures of the plain versions at 4096 and
     8192 rows; each route's member-batched launch (M = 3) equal to the
     three members' single launches bit for bit at 37, 256 and 4096 rows,
@@ -260,6 +270,7 @@ from tpu21cmvae_torch.models.vae import VAEEmulator
 from tpu21cmvae_torch.noisescale import marginalize_noise_scale
 from tpu21cmvae_torch.ops.kernels import _build
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
+    _loglik_grad_gram_cuda,
     loglik_grad_gram_members_reference,
     loglik_grad_gram_reference,
     loglik_gram_members_reference,
@@ -297,18 +308,28 @@ K1_SOURCE, K1_REPLACES = KERNELS + "fused_mlp.cu", "tpu21cmvae/ops/pallas/fused_
 K1_MMA_SOURCE = KERNELS + "fused_mlp_mma.cu"  # K1 at the bf16 tiers
 K2_SOURCE = KERNELS + "fused_loglik_gram.cu"
 K2_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:204"
-K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"  # K3 at the mixed tier pairs
+K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"  # K3 at the reverse tier pairs, 16-row tiles
 K3_F32_SOURCE = KERNELS + "fused_loglik_grad_gram_f32.cu"  # K3 at (fp32, fp32)
+K3_MIXED_SOURCE = KERNELS + "fused_gram_mixed.cu"  # K3 at (fp32, bf16 tier)
 K3_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:401"
 GRAM_MMA_SOURCE = KERNELS + "fused_gram_mma.cu"  # K2 and K3 at the bf16 tiers
 TIERS = ("highest", "high", "default")
 TIER_PAIRS = (("highest", "highest"), ("highest", "default"), ("high", "high"),
-              ("high", "default"))
+              ("high", "default"), ("highest", "high"), ("high", "highest"))
+# Phases 3-4 draw the rows of these pairs and of the fp32 K3's heights from
+# the smoke's generator, and those of every pair, height and turn after
+# them from a generator of their own (ADDED_SEED), so that the observation
+# of phases 5-21, drawn from the smoke's generator after them, stays the
+# same whatever kernel checks are added.
+FIRST_PAIRS, ADDED_SEED = TIER_PAIRS[:4], 3
 MAIN_TIERS = ("high", "default")  # what sample_posterior runs K3 at
 EXACT_TIERS = ("highest", "highest")  # K3 on fused_loglik_grad_gram_f32.cu
-MIXED_TIERS = ("highest", "default")  # K3 on fused_loglik_grad_gram.cu
+MIXED_TIERS = ("highest", "default")  # K3 on fused_gram_mixed.cu: an exact value, a bf16 force
+MIXED_PAIRS = (MIXED_TIERS, ("highest", "high"))
+REVERSE_TIERS = ("high", "highest")  # K3 on fused_loglik_grad_gram.cu
 K3_F32_HEIGHTS = (64, 32, 16, 8)  # its tile heights, forced in phases 3 and 4
-EXACT_HMC = dict(n_walkers=4096, n_warmup=20, n_steps=20)  # phase 5's exact-tier run
+K3_MIXED_HEIGHTS = (32, 16)  # fused_gram_mixed.cu's, forced in phase 3
+EXACT_HMC = dict(n_walkers=4096, n_warmup=20, n_steps=20)  # phase 5's exact-value runs
 NOISE_VAR = 25.0
 # Value tolerance, kernel vs plain: |Δ logL| ≤ rtol·(|logL| + c/2) + 1e-2
 # nats. Both compute the same products and differ only in summation
@@ -431,8 +452,10 @@ ENS_ROUTES = {
     "k2_f32": (dict(precision="contract"), K2_SOURCE, ("highest", None)),
     "k3": (dict(grad_precision=MAIN_TIERS[1]), GRAM_MMA_SOURCE, MAIN_TIERS),
     "k3_f32": (dict(precision="contract"), K3_F32_SOURCE, EXACT_TIERS),
-    "k3_mixed": (dict(precision=MIXED_TIERS[0], grad_precision=MIXED_TIERS[1]), K3_SOURCE,
-                 MIXED_TIERS),
+    "k3_mixed": (dict(precision=MIXED_TIERS[0], grad_precision=MIXED_TIERS[1]),
+                 K3_MIXED_SOURCE, MIXED_TIERS),
+    "k3_reverse": (dict(precision=REVERSE_TIERS[0], grad_precision=REVERSE_TIERS[1]), K3_SOURCE,
+                   REVERSE_TIERS),
 }
 MEMBER_ROWS = (37, 256, 4096)  # member-batched against three single launches, bit for bit
 MEMBER_TIMING_ROWS = (256, 4096)
@@ -898,32 +921,40 @@ def k3_wrapper(model, obs, tiers, dev, tile_rows=None, noise_var=NOISE_VAR):
                                        tile_rows=tile_rows, device=dev)
 
 
-def k3_vs_plain(model, obs, rng, dev):
+def k3_vs_plain(model, obs, rng, added, dev):
     """Phase 3: K3 against its plain version at every tier pair; the
-    fp32 pair at every tile height, forced, and at the wrapper's own
-    choice, its value equal to the fp32 K2's at the same height bit for
-    bit. Returns the wrappers by tier pair (the fp32 pair's picks its
-    height) and the largest |Δ logL| by tier pair at 4096 rows (fp32 and
-    mixed pairs: over every batch)."""
+    fp32 pair at every tile height and the mixed pairs (an fp32 value, a
+    bf16 backward) at both of theirs, forced, and each at the wrapper's
+    own choice, the value equal to the fp32 K2's at the same height bit
+    for bit. Rows come from ``rng`` for ``FIRST_PAIRS`` and the fp32
+    heights, else from ``added``. Returns the wrappers by tier pair (the
+    fp32 and mixed pairs' pick their height) and the largest |Δ logL| by
+    tier pair at 4096 rows (pairs with an fp32 tier: over every batch)."""
     wrappers = {tiers: k3_wrapper(model, obs, tiers, dev) for tiers in TIER_PAIRS}
-    cases = [(f"{a}/{b}", (a, b), fn) for (a, b), fn in wrappers.items()]
-    cases += [(f"highest/highest@{h}", EXACT_TIERS, k3_wrapper(model, obs, EXACT_TIERS, dev, h))
-              for h in K3_F32_HEIGHTS]
+    cases = [(f"{a}/{b}", (a, b), fn, rng if (a, b) in FIRST_PAIRS else added)
+             for (a, b), fn in wrappers.items()]
+    cases += [(f"highest/highest@{h}", EXACT_TIERS,
+               k3_wrapper(model, obs, EXACT_TIERS, dev, h), rng) for h in K3_F32_HEIGHTS]
+    cases += [(f"{a}/{b}@{h}", (a, b), k3_wrapper(model, obs, (a, b), dev, h), added)
+              for a, b in MIXED_PAIRS for h in K3_MIXED_HEIGHTS]
     k2 = {h: make_fused_loglik_gram(model.config, model.normalizer, obs, NOISE_VAR,
                                     precision="highest", tile_rows=h, device=dev)
           for h in K3_F32_HEIGHTS}
     report = {}
     err = {tiers: 0.0 for tiers in TIER_PAIRS}
-    for label, tiers, fn in cases:
+    for label, tiers, fn, draws in cases:
         ops = fn.operands(model.params)
         check(fn.tensor_cores == ("highest" not in tiers), f"K3 route at {tiers}")
         check(fn.register_tiled == (tiers == EXACT_TIERS), f"K3 fp32 route at {tiers}")
-        for n, x in held_batches((1, 37, 4096, 65537), rng):
+        check(fn.mixed == (tiers in MIXED_PAIRS), f"K3 mixed route at {tiers}")
+        for n, x in held_batches((1, 37, 4096, 65537), draws):
+            fn.launches = 0
             vk, gk = fn(model.params, x)
+            check(fn.launches == 1, f"K3 {label} n={n}: {fn.launches} launches")
             vp, gp = loglik_grad_gram_reference(ops, x)
-            if fn.register_tiled:
+            if fn.register_tiled or fn.mixed:
                 same = torch.equal(vk, k2[fn.rows_for(n)](model.params, x))
-                check(same, f"K3 fp32 value != K2 fp32 value bit for bit, {label} n={n}")
+                check(same, f"K3 value != K2 fp32 value bit for bit, {label} n={n}")
             torch.cuda.synchronize()
             vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
             check(vk.shape == (n,) and gk.shape == (n, 7), f"shapes {label} n={n}")
@@ -948,32 +979,84 @@ def k3_vs_plain(model, obs, rng, dev):
                 "grad_q999_rel": q999,
                 "grad_max_rel": float(rel.max()),
             }
-            if fn.register_tiled:
+            if fn.register_tiled or fn.mixed:
                 report[f"{label}/{n}"]["tile_rows"] = fn.rows_for(n)
     torch.cuda.synchronize()
-    print(f"phase 3: kernel == plain within tolerance at every batch, tier pair and fp32 "
-          f"tile height; fp32 K3 value == fp32 K2 value bit for bit {json.dumps(report)}",
-          flush=True)
+    print(f"phase 3: kernel == plain within tolerance at every batch, tier pair and tile "
+          f"height; the fp32 and mixed K3's values == fp32 K2 value bit for bit "
+          f"{json.dumps(report)}", flush=True)
     return wrappers, err
 
 
-def time_k3(model, obs, wrappers, rng, dev) -> dict:
+def cuda_core_route(fn, model):
+    """K3 at ``fn``'s tiers on the 16-row ``fused_loglik_grad_gram.cu``,
+    whatever the wrapper routes them to: its C entry is the one
+    ``_kernel`` picks for operands that carry no packed slabs or
+    fragments (a comparison launch; it adds nothing to a count)."""
+    ops = dataclasses.replace(fn.operands(model.params), slabs=None, packed=None)
+    return lambda x: _loglik_grad_gram_cuda(ops, x)
+
+
+def mixed_in_turns(model, wrappers, timings, rng) -> dict:
+    """Phase 4's last part: ``fused_gram_mixed.cu`` at both mixed pairs in
+    turns with the fp32 K3 and with ``fused_loglik_grad_gram.cu`` on the
+    same pairs (:func:`cuda_core_route`, under ``<pair>/cuda_cores``),
+    forward order then reversed, at 4096 and 65,536 rows: ms per call and
+    device ms per call, each the mean of its two turns, with each pair's
+    plain ms (from ``timings``) and bound. That route is held to plain
+    first."""
+    trunk = model.config.mlp().sizes[:-1]
+    runs = {"highest/highest": lambda x: wrappers[EXACT_TIERS](model.params, x)}
+    for tiers in MIXED_PAIRS:
+        key = f"{tiers[0]}/{tiers[1]}"
+        runs[key] = lambda x, fn=wrappers[tiers]: fn(model.params, x)
+        runs[f"{key}/cuda_cores"] = cuda_core_route(wrappers[tiers], model)
+        x = rows(4096, rng)
+        ops = wrappers[tiers].operands(model.params)
+        (vk, gk), (vp, gp) = runs[f"{key}/cuda_cores"](x), loglik_grad_gram_reference(ops, x)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        tol = VALUE_RTOL["highest"] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
+        check(bool((np.abs(vk - vp) <= tol).all()) and grad_gate_violation(gk, gp) <= 0.0,
+              f"fused_loglik_grad_gram.cu at {tiers} vs plain")
+    order = list(runs) + list(runs)[::-1]
+    out = {}
+    for n, repeats in ((4096, 50), (65536, 20)):
+        x = rows(n, rng)
+        t, d = {k: [] for k in runs}, {k: [] for k in runs}
+        for k in order:
+            t[k].append(time_ms(lambda: runs[k](x), repeats))
+            d[k].append(stream_ms(lambda: runs[k](x), repeats))
+        out[str(n)] = {k: {"kernel_ms": sum(t[k]) / 2, "kernel_stream_ms": sum(d[k]) / 2}
+                       for k in runs}
+        for k, entry in out[str(n)].items():
+            a, b = k.split("/")[:2]
+            entry["plain_ms"] = timings[f"{a}/{b}/{n}"]["plain_ms"]
+            entry["bound_ms"] = bound("k3", trunk, n, BOUND_TIER[a], BOUND_TIER[b])[0]
+    torch.cuda.synchronize()
+    print(f"phase 4: mixed K3 in turns {json.dumps(out)}", flush=True)
+    return out
+
+
+def time_k3(model, obs, wrappers, rng, added, dev) -> dict:
     """Phase 4: ms per call of K3 and its plain version by tier pair at
     4096 and 65,536 rows, then the fp32 K3's tile heights, forced, in
     turns (64, 32, 16, 8, 8, 16, 32, 64): ms per wrapper call and device
-    ms per call, each the mean of its two turns."""
+    ms per call, each the mean of its two turns; then the mixed kernel in
+    turns (:func:`mixed_in_turns`, under ``"mixed_turns"``). Rows as in
+    phase 3: from ``rng`` for ``FIRST_PAIRS`` and the heights, else from
+    ``added``."""
     timings = {}
     for tiers, fn in wrappers.items():
         ops = fn.operands(model.params)
         for n, repeats in ((4096, 50), (65536, 20)):
-            x = rows(n, rng)
+            x = rows(n, rng if tiers in FIRST_PAIRS else added)
             kernel_ms = time_ms(lambda: fn(model.params, x), repeats)
             plain_ms = time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats)
             timings[f"{tiers[0]}/{tiers[1]}/{n}"] = {
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                 "kernel_stream_ms": stream_ms(lambda: fn(model.params, x), repeats),
             }
-            if fn.register_tiled:
+            if fn.register_tiled or fn.mixed:
                 timings[f"{tiers[0]}/{tiers[1]}/{n}"]["tile_rows"] = fn.rows_for(n)
     torch.cuda.synchronize()
     print(f"phase 4: median ms per call {json.dumps(timings)}", flush=True)
@@ -991,31 +1074,53 @@ def time_k3(model, obs, wrappers, rng, dev) -> dict:
             for i, h in enumerate(K3_F32_HEIGHTS)}
     torch.cuda.synchronize()
     print(f"phase 4: fp32 K3 tile heights {json.dumps(heights)}", flush=True)
+    timings["mixed_turns"] = mixed_in_turns(model, wrappers, timings, added)
     return timings
 
 
-def exact_tier_hmc(model, obs, dev):
-    """Phase 5's second run: a short HMC at the exact tier through
-    ``loglik_and_grad_fn(precision="contract", backend="kernel")`` and
-    ``sample_hmc``, every leapfrog step on ``fused_loglik_grad_gram_f32.cu``.
-    The log-density each final walker carries, less the sigmoid map's
-    log-Jacobian (the prior is flat), is the kernel's logL there: it is
-    held to the plain exact-tier likelihood within the fp32 value
-    tolerance plus the Jacobian's own rounding (the walker's place in the
-    box is known to fp32 only). Returns the kernel's launches."""
-    valgrad = model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", precision="contract")
-    check(not valgrad.tensor_cores and valgrad.register_tiled,
-          "exact-tier HMC runs fused_loglik_grad_gram_f32.cu")
+def hmc_launches(n_warmup: int, n_steps: int, seed: int = 0, n_leapfrog: int = 8) -> int:
+    """The gradient calls ``sample_hmc`` makes at its defaults: one at the
+    start, then one per leapfrog step, each iteration's count drawn from
+    ⌈L/2⌉ … L by its host generator seeded with ``seed``, replayed here."""
+    host = torch.Generator().manual_seed(seed)
+    low = max(1, (n_leapfrog + 1) // 2)
+    return 1 + sum(int(torch.randint(low, n_leapfrog + 1, (), generator=host))
+                   for _ in range(n_warmup + n_steps))
+
+
+def exact_value_hmc(model, obs, dev, grad_precision=None):
+    """Phase 5's exact-value runs: a short HMC through
+    ``loglik_and_grad_fn(precision="contract", grad_precision=...,
+    backend="kernel")`` and ``sample_hmc``, every leapfrog step on
+    ``fused_loglik_grad_gram_f32.cu`` (an exact force) or, with
+    ``grad_precision="default"``, on ``fused_gram_mixed.cu`` (a bf16
+    force), at exactly the launches its leapfrog counts imply. The
+    log-density each final walker carries, less the sigmoid map's
+    log-Jacobian (the prior is flat), is the kernel's logL there, which
+    is exact at either force: it is held to the plain exact-tier
+    likelihood within the fp32 value tolerance plus the Jacobian's own
+    rounding (the walker's place in the box is known to fp32 only).
+    Returns the kernel's launches."""
+    label = "exact-tier" if grad_precision is None else f"exact-value, {grad_precision} force,"
+    valgrad = model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", precision="contract",
+                                       grad_precision=grad_precision)
+    if grad_precision is None:
+        check(not valgrad.tensor_cores and valgrad.register_tiled,
+              "exact-tier HMC runs fused_loglik_grad_gram_f32.cu")
+    else:
+        check(valgrad.mixed and not valgrad.tensor_cores,
+              f"{label} HMC runs fused_gram_mixed.cu")
     valgrad.launches = 0
     res, wall = timed(lambda: sample_hmc(valgrad, model.params, device=dev, **EXACT_HMC))
     launches = valgrad.launches
     n_walkers, n_steps = EXACT_HMC["n_walkers"], EXACT_HMC["n_steps"]
-    check(launches >= EXACT_HMC["n_warmup"] + n_steps, f"exact-tier K3 launches {launches}")
-    check(res.chain.shape == (n_steps // 5, n_walkers, 7), f"exact chain shape {res.chain.shape}")
+    want = hmc_launches(EXACT_HMC["n_warmup"], n_steps)
+    check(launches == want, f"{label} K3 launches {launches}, not {want}")
+    check(res.chain.shape == (n_steps // 5, n_walkers, 7), f"{label} chain shape {res.chain.shape}")
     check(bool(np.isfinite(res.chain).all() and np.isfinite(res.logp).all()),
-          "exact-tier HMC: finite chain and logp")
+          f"{label} HMC: finite chain and logp")
     acc = float(np.mean(res.accept_rate))
-    check(0.3 <= acc <= 0.99, f"exact-tier HMC: mean acceptance {acc:.3f}")
+    check(0.3 <= acc <= 0.99, f"{label} HMC: mean acceptance {acc:.3f}")
     final = res.final.astype(np.float64)
     lo, hi = np.asarray(PAR_RANGES, np.float64).T
     s = (final - lo) / (hi - lo)
@@ -1030,10 +1135,11 @@ def exact_tier_hmc(model, obs, dev):
     tol = VALUE_RTOL["highest"] * (np.abs(ll) + 0.5 * abs(float(ops.c))) + VALUE_ATOL + jac_err
     gap = np.abs(res.logp - jac - ll)
     worst = float((gap[inside] / tol[inside]).max())
-    check(float(inside.mean()) >= 0.5, f"exact-tier HMC: {inside.mean():.3f} of walkers inside")
-    check(worst <= 1.0, f"exact-tier HMC: carried logp vs plain logL, worst |Δ|/tol {worst:.3g}")
-    print("phase 5: exact-tier HMC " + json.dumps({
-        "wall_s": wall, "k3_f32_launches": launches, "tile_rows": valgrad.rows_for(n_walkers),
+    check(float(inside.mean()) >= 0.5, f"{label} HMC: {inside.mean():.3f} of walkers inside")
+    check(worst <= 1.0, f"{label} HMC: carried logp vs plain logL, worst |Δ|/tol {worst:.3g}")
+    key = "k3_f32_launches" if grad_precision is None else "k3_mixed_launches"
+    print(f"phase 5: {label} HMC " + json.dumps({
+        "wall_s": wall, key: launches, "tile_rows": valgrad.rows_for(n_walkers),
         "accept": acc, "step_size": res.step_size, "walkers_checked": float(inside.mean()),
         "carried_logp_vs_plain_worst_over_tol": worst,
         "carried_logp_vs_plain_max_abs": float(gap[inside].max()),
@@ -1132,7 +1238,8 @@ def marginalized_kernels_vs_plain(model, truth, obs, basis, rng, dev):
                     q999 = float(np.quantile(grad_rel_error(gk, gp), 0.999))
                     check(q999 <= GRAD_Q999_F32, f"K3 gradient q99.9 {name} n={n}: {q999:.3g}")
                 source = {EXACT_TIERS: "fused_loglik_grad_gram_f32",
-                          MIXED_TIERS: "fused_loglik_grad_gram",
+                          MIXED_TIERS: "fused_gram_mixed",
+                          REVERSE_TIERS: "fused_loglik_grad_gram",
                           MAIN_TIERS: "fused_loglik_grad_gram_mma"}.get(tiers)
                 if "highest" in tiers or n == 8192:
                     note(f"k3/{name}/{tiers[0]}-{tiers[1]}", share, float(dv.max()), source)
@@ -3550,8 +3657,9 @@ def main() -> int:
     obs = model.predict(truth) + rng.normal(0.0, 5.0, model.config.n_bins)
 
     # -- phases 3-4: K3 vs plain at flagship widths, and its timing ----------
-    wrappers, k3_err = k3_vs_plain(model, obs, rng, dev)
-    timings = time_k3(model, obs, wrappers, rng, dev)
+    added = np.random.default_rng(ADDED_SEED)
+    wrappers, k3_err = k3_vs_plain(model, obs, rng, added, dev)
+    timings = time_k3(model, obs, wrappers, rng, added, dev)
 
     # -- phase 5: the main path ---------------------------------------------
     t0 = time.perf_counter()
@@ -3612,7 +3720,8 @@ def main() -> int:
         "hmc_wall_s": hmc_s, "phase_wall_s": time.perf_counter() - t0,
     }), flush=True)
 
-    k3_f32_launches = exact_tier_hmc(model, obs, dev)
+    k3_f32_launches = exact_value_hmc(model, obs, dev)
+    k3_mixed_launches = exact_value_hmc(model, obs, dev, grad_precision=MIXED_TIERS[1])
 
     # -- phases 6-8: the value kernels and the gradient-free samplers -------
     k1_err, k1_mma_err, k2_err, k2_mma_err = value_kernels_vs_plain(model, obs, rng, dev)
@@ -3663,11 +3772,13 @@ def main() -> int:
 
     # each kernel at the tier and the scale nearest to its main-path use
     # (the fp32 K1 and K2 at each chain's draws, with their 1 M-row
-    # figures beside; the fp32 K3 at the exact-tier HMC's walkers, with
-    # its 65,536-row figures beside); K3's mixed tier pairs run on no
-    # sampler's path, so fused_loglik_grad_gram.cu shows no launches; the
-    # launches of phases 12-13 and 15-16 count in the totals, by path
-    # beside them
+    # figures beside; the fp32 and mixed K3 at the exact-value HMCs'
+    # walkers, with their 65,536-row figures and phase 4's turns beside);
+    # K3's reverse tier pairs run on no sampler's path, so the 16-row
+    # fused_loglik_grad_gram.cu shows no launches (its row times the
+    # reverse pair; its times at the mixed pair, from phase 4's turns,
+    # beside); the launches of phases 12-13 and 15-16 count in the totals,
+    # by path beside them
     big = 1_048_576
     k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
 
@@ -3678,6 +3789,10 @@ def main() -> int:
     def at_64k(t, b):
         return {"ms_64k": t["kernel_ms"], "stream_ms_64k": t["kernel_stream_ms"],
                 "plain_ms_64k": t["plain_ms"], "bound_ms_64k": b[0]}
+
+    def turns(key):
+        """Phase 4's turns of ``key`` at 4096 and 65,536 rows."""
+        return {n: timings["mixed_turns"][n][key] for n in ("4096", "65536")}
 
     def entry(name, source, replaces, n_launch, err, *args, **extra):
         """The entry of kernel ``name``: its launches on the diagonal paths
@@ -3736,10 +3851,24 @@ def main() -> int:
               launches_serve=0, **ensemble("k3_f32"),
               **at_64k(timings["highest/highest/65536"],
                        bound("k3", trunk, 65536, "f32", "f32"))),
+        entry("fused_gram_mixed", K3_MIXED_SOURCE, K3_REPLACES,
+              k3_mixed_launches + ens_launches.get("k3_mixed", 0),
+              max(k3_err[MIXED_TIERS], k3_err[MIXED_PAIRS[1]]), timings["highest/default/4096"],
+              bound("k3", trunk, 4096, "f32", "bf16"), launches_exact_value_hmc=k3_mixed_launches,
+              launches_trained=0, launches_serve=0, in_turns={
+                  "highest/default": turns("highest/default"),
+                  "highest/high": turns("highest/high")},
+              **ensemble("k3_mixed"),
+              **at_64k(timings["highest/default/65536"],
+                       bound("k3", trunk, 65536, "f32", "bf16"))),
         entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
-              k3_err[MIXED_TIERS], timings["highest/default/65536"],
-              bound("k3", trunk, 65536, "f32", "bf16"), launches_trained=0, launches_serve=0,
-              **ensemble("k3_mixed")),
+              k3_err[REVERSE_TIERS], timings["high/highest/4096"],
+              bound("k3", trunk, 4096, "bf16x3", "f32"), launches_trained=0, launches_serve=0,
+              at_mixed_pair_in_turns={"highest/default": turns("highest/default/cuda_cores"),
+                                      "highest/high": turns("highest/high/cuda_cores")},
+              **ensemble("k3_reverse"),
+              **at_64k(timings["high/highest/65536"],
+                       bound("k3", trunk, 65536, "bf16x3", "f32"))),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
               launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc
               + mesh_launches["hmc_plain"] + mesh_launches["hmc_mesh"],

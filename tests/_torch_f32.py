@@ -1,10 +1,12 @@
 """What the CPU tests of the port's register-tiled fp32 kernels share
 (``csrc/tile_f32.cuh``: K1 ``fused_mlp.cu``, K2 ``fused_loglik_gram.cu``,
-K3 ``fused_loglik_grad_gram_f32.cu``): packed fp32 weight slabs read back
-by the kernels' layout, and the kernels' arithmetic in plain torch,
-through the packed stream, slab by slab, k ascending."""
+K3 ``fused_loglik_grad_gram_f32.cu`` and the forward of
+``fused_gram_mixed.cu``): packed fp32 weight slabs read back by the
+kernels' layout, and the kernels' arithmetic in plain torch, through the
+packed stream, slab by slab, k ascending."""
 
 import torch
+from _torch_mma import mma_product
 
 from tpu21cmvae_torch.ops.fold import _log_clamp, _log_clamp_grad
 from tpu21cmvae_torch.ops.kernels._common import SLAB_N, padk
@@ -126,7 +128,31 @@ def emulate_f32_grad_gram(ops, x):
         acc, at = slab_layer(e, ops.slabs, at, widths[i + 1], widths[i])
         e = torch.where(masks[i - 1], acc[:, : widths[i]], 0.0)
     assert at == ops.slabs.w.numel()
+    return _gram_value(ops, h, hg, u), _skinny_backward(ops, x, e)
+
+
+def _skinny_backward(ops, x, e):
+    """dlogL/dx from layer 0's backward signal ``e``: Σ_j e_j · w0[:, j],
+    j ascending, in fp32, times the log-clamp's derivative."""
     dx = x.new_zeros(x.shape)
-    for j in range(widths[1]):
+    for j in range(ops.widths[1]):
         dx = dx + e[:, j, None] * ops.w0[None, :, j]
-    return _gram_value(ops, h, hg, u), -(_log_clamp_grad(x) * dx)
+    return -(_log_clamp_grad(x) * dx)
+
+
+def emulate_mixed_grad_gram(ops, x):
+    """``fused_gram_mixed.cu``: K2's forward through ``ops.slabs`` (K2's
+    stream), then the backward through the packed ``W_iᵀ`` fragments at
+    ``ops.grad_tier`` as the tensor cores compute it (``mma_product``:
+    the signal split or rounded once per product), e = h > 0 ? h@G + u :
+    0 first, then e ← mask_{i−1} ? e @ W_iᵀ : 0 for i = n−1 … 1 with the
+    masks from the fp32 pre-activations, the skinny layer's backward in
+    fp32. ``(logL, dlogL/dx)``."""
+    widths = ops.widths
+    h, hg, u, masks, at = _gram_forward(ops, x)
+    assert at == ops.slabs.w.numel() and len(ops.packed.wt) == len(widths) - 2
+    e = torch.where(h > 0.0, hg + u, 0.0)
+    for i in range(len(widths) - 2, 0, -1):
+        acc = mma_product(e, ops.packed.wt[i - 1], ops.grad_tier)
+        e = torch.where(masks[i - 1], acc[:, : widths[i]], 0.0)
+    return _gram_value(ops, h, hg, u), _skinny_backward(ops, x, e)

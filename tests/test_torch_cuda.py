@@ -96,10 +96,11 @@ def test_k3_matches_plain(cuda, hidden, tiers):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tiers", [("high", "highest"), ("highest", "default")])
+@pytest.mark.parametrize("tiers", [("high", "highest"), ("default", "highest")])
 def test_k3_mixed_tiers_run_the_cuda_cores(cuda, tiers):
-    """A tier pair with one fp32 tier runs ``fused_loglik_grad_gram.cu``,
-    its bf16 tier split per product on the CUDA cores."""
+    """A reverse tier pair (a bf16 value tier, an fp32 backward) runs
+    ``fused_loglik_grad_gram.cu``, its bf16 tier split per product on the
+    CUDA cores."""
     m, obs, data = _model((32, 48, 32, 24), cuda)
     x = _rows(data, 100, cuda)
     fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
@@ -109,8 +110,9 @@ def test_k3_mixed_tiers_run_the_cuda_cores(cuda, tiers):
     vp, gp = loglik_grad_gram_reference(ops, x)
     torch.cuda.synchronize()
     assert fn.launches == 1 and not fn.tensor_cores and ops.packed is None
-    assert not fn.register_tiled and ops.slabs is None
-    _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), "high")
+    assert not fn.register_tiled and not fn.mixed and ops.slabs is None
+    assert fn.rows_for(100) is None
+    _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), tiers[0])
     assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
 
 
@@ -656,6 +658,127 @@ def test_k3_f32_wide_layer_runs_the_16_row_kernel(cuda):
     assert fn.launches == 1 and ops.slabs is None
     _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), "highest")
     assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+
+
+# K3 at an fp32 value tier with a bf16 backward: fused_gram_mixed.cu
+MIXED_PAIRS = [("highest", "high"), ("highest", "default")]
+MIXED_HEIGHTS = (32, 16)
+
+
+def _k3_mixed(m, obs, tiers, dev, rows=None, members=None):
+    """K3 at ``tiers`` on ``fused_gram_mixed.cu`` at tile height ``rows``
+    (None: picked per batch)."""
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], tile_rows=rows, members=members,
+                                     device=dev)
+    assert fn.mixed and not fn.tensor_cores and not fn.register_tiled
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+@pytest.mark.parametrize("rows", [*MIXED_HEIGHTS, None])
+@pytest.mark.parametrize("tiers", MIXED_PAIRS)
+def test_k3_mixed_matches_plain(cuda, hidden, rows, tiers):
+    """``fused_gram_mixed.cu`` at each tile height, forced, and at the
+    height the wrapper picks, for batches 1, 37, 100, 4096 and 65,537 with
+    an fx == 0 row: values within the fp32 tolerance of the plain version,
+    the gradient gate, the fx == 0 slot exactly 0, one launch per call;
+    its value equals the fp32 K2's at the same height bit for bit."""
+    m, obs, _ = _model(hidden, cuda)
+    fn = _k3_mixed(m, obs, tiers, cuda, rows)
+    k2 = {h: make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                    tile_rows=h, device=cuda) for h in MIXED_HEIGHTS}
+    ops = fn.operands(m.params)
+    for n in (1, 37, 100, 4096, 65537):
+        x = _prior_rows(n, cuda)
+        fn.launches = 0
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        height = fn.rows_for(n)
+        v2 = k2[height](m.params, x)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and height in MIXED_HEIGHTS and (rows is None or height == rows)
+        assert torch.equal(vk, v2)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        assert vk.shape == (n,) and gk.shape == (n, 7)
+        assert np.isfinite(vk).all() and np.isfinite(gk).all()
+        _close_values(vk, vp, float(ops.c), "highest")
+        assert grad_gate_violation(gk, gp) <= 0.0
+        assert gk[0, 2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", MIXED_HEIGHTS)
+@pytest.mark.parametrize("tiers", MIXED_PAIRS)
+def test_k3_mixed_members_equal_single_launches(cuda, rows, tiers):
+    """M = 3: one member-batched launch equals the three members' single
+    launches bit for bit at each height, at 1, 37, 100, 4096 and 65,537
+    rows, and holds to its member-batched plain version."""
+    ens, obs = _members((288, 352, 288, 224), cuda)
+    batched = _k3_mixed(ens, obs, tiers, cuda, rows, members=3)
+    singles = [_k3_mixed(ens, obs, tiers, cuda, rows) for _ in range(3)]
+    views = ens.member_params(ens.params)
+    ops = batched.operands(ens.params)
+    for n in (1, 37, 100, 4096, 65537):
+        x = _prior_rows(n, cuda)
+        v3, g3 = batched(ens.params, x)
+        vp, gp = fused_loglik.loglik_grad_gram_members_reference(ops, x)
+        for m, (f, p) in enumerate(zip(singles, views)):
+            v1, g1 = f(p, x)
+            assert torch.equal(v3[m], v1) and torch.equal(g3[m], g1), (n, m)
+            _close_values(v3[m].cpu().numpy(), vp[m].cpu().numpy(), float(ops.c[m]), "highest")
+            assert grad_gate_violation(g3[m].cpu().numpy(), gp[m].cpu().numpy()) <= 0.0
+    assert batched.launches == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", MIXED_HEIGHTS)
+def test_k3_mixed_rows_are_independent(cuda, rows):
+    """A row's value and gradient do not depend on the other rows of its
+    tile: one row alone equals the same row inside a batch of 100 bit for
+    bit, and a NaN row leaves the others as they were."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    x = _rows(data, 100, cuda)
+    fn = _k3_mixed(m, obs, MIXED_PAIRS[1], cuda, rows)
+    vb, gb = fn(m.params, x)
+    for i in (0, 7, 45, 99):
+        v1, g1 = fn(m.params, x[i])
+        assert torch.equal(v1[0], vb[i]) and torch.equal(g1[0], gb[i])
+    bad = x.clone()
+    bad[11, 4] = float("nan")
+    v, g = fn(m.params, bad)
+    keep = torch.arange(100, device=cuda) != 11
+    assert torch.isnan(v[11])
+    assert torch.equal(v[keep], vb[keep]) and torch.equal(g[keep], gb[keep])
+
+
+@pytest.mark.cuda
+def test_k3_mixed_refused_launch_raises(cuda):
+    """A tile height the C entry point was not built for is refused
+    there and raises with its CUDA error string; nothing falls back to
+    another kernel or the plain version."""
+    m, obs, data = _model((32, 48, 32, 24), cuda)
+    fn = _k3_mixed(m, obs, MIXED_PAIRS[0], cuda)
+    fn.tile_rows = 64
+    with pytest.raises(RuntimeError, match="K3 launch failed: invalid argument"):
+        fn(m.params, _rows(data, 5, cuda))
+
+
+@pytest.mark.cuda
+def test_hmc_with_an_exact_value_and_a_bf16_force_runs_the_mixed_k3(cuda):
+    """``loglik_and_grad_fn(precision="contract", grad_precision="default",
+    backend="kernel")`` is ``fused_gram_mixed.cu``, and ``sample_hmc``
+    launches it once per gradient: once at the start, then once per
+    leapfrog step."""
+    m, obs, _ = _model((32, 48, 32, 24), cuda)
+    k3 = m.loglik_and_grad_fn(obs, 25.0, backend="kernel", precision="contract",
+                              grad_precision="default")
+    assert k3.mixed and not k3.tensor_cores and not k3.register_tiled
+    k3.launches = 0
+    res = sample_hmc(k3, m.params, n_walkers=256, n_warmup=20, n_steps=20, seed=1, device=cuda)
+    assert k3.launches >= 41
+    assert np.isfinite(res.chain).all() and res.chain.shape == (4, 256, 7)
 
 
 @pytest.mark.cuda
@@ -1247,7 +1370,8 @@ MEMBER_ROUTES = [("k1", "highest", None), ("k1", "high", None), ("k1", "default"
                  ("k1_predict", "highest", None), ("k1_predict", "high", None),
                  ("k2", "highest", None), ("k2", "high", None), ("k2", "default", None),
                  ("k3", "highest", "highest"), ("k3", "high", "default"), ("k3", "high", "high"),
-                 ("k3", "highest", "default")]
+                 ("k3", "highest", "default"), ("k3", "highest", "high"),
+                 ("k3", "high", "highest")]
 MEMBER_IDS = [f"{k}-{t}-{g}" for k, t, g in MEMBER_ROUTES]
 
 

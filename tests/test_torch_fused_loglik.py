@@ -59,10 +59,13 @@ from tpu21cmvae_torch.ops.kernels._common import (
     f32_tile_bytes,
 )
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
+    MIXED_TILE_ROWS,
     _kernel,
     grad_f32_bytes,
     grad_f32_heights,
     grad_f32_rows,
+    grad_mixed_bytes,
+    grad_mixed_heights,
     gram_f32_rows,
     gram_shared_bytes,
     loglik_grad_gram_reference,
@@ -396,19 +399,36 @@ def test_gram_masks_follow_the_fp32_activations(port_model, splits):
 
 
 def test_gram_shared_bytes_and_routing(port_model):
-    """``fused_loglik_grad_gram.cu`` (a mixed tier pair) keeps fp32 tiles
-    of 16 rows, ``fused_loglik_gram.cu`` (fp32) k-major fp32 tiles of its
-    tile height (64 rows here) with k rows padded to 32, its height's
-    slab ring and 1 KB of row partials, ``fused_loglik_grad_gram_f32.cu``
-    (fp32, fp32) the same tiles, a two-slot ring at 64 rows and 8 mask
-    bytes per padded column of activations 0 … n−2; ``fused_gram_mma.cu`` (every
-    tier bf16 or bf16x3) bf16 A tiles of 16 rows, hi and lo where either
-    tier is bf16x3, with rows padded to the widest padded trunk width +
-    8, an fp32 tile of h (K3: and of layer 0's backward signal), K3's
-    mask words, the input tile and the quad partials. Each wrapper
-    routes, packs and refuses by the kernel its tiers run."""
-    mixed = 4 * 16 * (sum(FLAGSHIP) + 224)
-    assert shared_bytes(FLAGSHIP, "f32", "bf16") == shared_bytes(FLAGSHIP, "bf16x3", "f32") == mixed
+    """``fused_loglik_grad_gram.cu`` (a reverse tier pair: a bf16 value
+    tier, an fp32 backward) keeps fp32 tiles of 16 rows;
+    ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16 backward) the
+    fp32 K3's masks and partials and two regions, one for the fp32 ``e``
+    and later a bf16 A tile, one for the forward's other tile, ring and
+    input tile and later the other A tile, plus its 256-byte operand
+    struct: two 32-row blocks share an SM at the flagship;
+    ``fused_loglik_gram.cu`` (fp32) k-major fp32 tiles of its tile height
+    (64 rows here) with k rows padded to 32, its height's slab ring and 1
+    KB of row partials, ``fused_loglik_grad_gram_f32.cu`` (fp32, fp32) the
+    same tiles, a two-slot ring at 64 rows and 8 mask bytes per padded
+    column of activations 0 … n−2; ``fused_gram_mma.cu`` (every tier bf16
+    or bf16x3) bf16 A tiles of 16 rows, hi and lo where either tier is
+    bf16x3, with rows padded to the widest padded trunk width + 8, an fp32
+    tile of h (K3: and of layer 0's backward signal), K3's mask words, the
+    input tile and the quad partials. Each wrapper routes, packs and
+    refuses by the kernel its tiers run."""
+    assert shared_bytes(FLAGSHIP, "bf16x3", "f32") == 4 * 16 * (sum(FLAGSHIP) + 224)
+    assert shared_bytes(FLAGSHIP, "bf16", "f32") == 4 * 16 * (sum(FLAGSHIP) + 224)
+    # masks, partials, max(e tile, A tile), max(h tile + ring + input tile, A tile), struct
+    fwd32 = 4 * 32 * 352 + 4 * (2 * 16 * 128 + 32 * 7)
+    assert shared_bytes(FLAGSHIP, "f32", "bf16x3") == grad_mixed_bytes(FLAGSHIP, 32, "bf16x3") == (
+        4 * 928 + 1024 + 2 * 2 * 32 * 360 + fwd32 + 256) == 113_408
+    assert shared_bytes(FLAGSHIP, "f32", "bf16") == 4 * 928 + 1024 + 4 * 32 * 352 + fwd32 + 256
+    assert shared_bytes(FLAGSHIP, "f32", "bf16") == 112_384
+    assert 2 * (113_408 + 1024) <= 233_472  # two 32-row blocks per SM at bf16x3
+    fwd16 = 4 * 18 * 352 + 4 * (3 * 8 * 128 + 18 * 7)
+    assert shared_bytes(FLAGSHIP, "f32", "bf16x3", rows=16) == (
+        2 * 928 + 1024 + 4 * 18 * 352 + fwd16 + 256)
+    assert grad_mixed_heights(FLAGSHIP, "bf16x3") == MIXED_TILE_ROWS == (32, 16)
     assert shared_bytes(FLAGSHIP) == 182_016 + 2 * 32 * 128 * 4 + 1024 + 8 * 928 == 223_232
     tail = 4 * 16 * (7 + 8)  # input tile, quad partials
     k3 = 4 * 16 * (288 + 8) + 4 * (288 + 352 + 288) + tail
@@ -424,31 +444,57 @@ def test_gram_shared_bytes_and_routing(port_model):
 
     m, obs = port_model(SMALL)
     for case in [("highest", "highest"), ("high", "highest"), ("highest", "high"),
-                 *GRAM_CASES, ("highest", None)]:
+                 ("highest", "default"), ("default", "highest"), *GRAM_CASES,
+                 ("highest", None)]:
         fn = _wrapper(m, obs, case)
+        ops = fn.operands(m.params)
         on_mma = "highest" not in case
+        mixed = case in [("highest", "high"), ("highest", "default")]
         assert fn.tensor_cores == on_mma
-        assert (fn.operands(m.params).packed is not None) == on_mma
-        # the register-tiled fp32 kernels: K2 at fp32, K3 at (fp32, fp32) alone
-        tiled = case in [("highest", "highest"), ("highest", None)]
-        assert (fn.operands(m.params).slabs is not None) == tiled
+        # fused_gram_mma.cu reads every packed operand, fused_gram_mixed.cu
+        # the backward's fragments alone
+        assert (ops.packed is not None) == (on_mma or mixed)
+        if mixed:
+            assert ops.packed.w == ops.packed.b == () and ops.packed.g is None
+            assert len(ops.packed.wt) == len(SMALL) - 1
+        # the register-tiled fp32 forward: K2 at fp32, K3 at (fp32, fp32)
+        # (K3's longer stream) and at a mixed pair (K2's stream)
+        tiled = case in [("highest", "highest"), ("highest", None)] or mixed
+        assert (ops.slabs is not None) == tiled
         if case[1] is not None:
             assert fn.register_tiled == (case == ("highest", "highest"))
+            assert fn.mixed == mixed
     wide = DirectEmulatorConfig(hidden_dims=(1500,))  # fits the fp32 and bf16 tiles only
     assert shared_bytes((7, 1500), "bf16x3", "bf16x3") > MAX_SHARED_BYTES
     assert gram_shared_bytes((7, 1500), "bf16x3") > MAX_SHARED_BYTES
+    assert grad_mixed_heights((7, 1500), "bf16x3") == (16,)
     for precision in ("highest", "default"):
         make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision=precision, device="cpu")
         make_fused_loglik_gram(wide, m.normalizer, obs, precision=precision, device="cpu")
+    fn = make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="highest",
+                                     grad_precision="high", device="cpu")
+    assert fn.mixed and fn.heights == (16,)
     with pytest.raises(NotImplementedError, match="shared memory per K3 block at the bf16x3"):
         make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="high", device="cpu")
     with pytest.raises(NotImplementedError, match="shared memory per K2 block at the bf16x3"):
         make_fused_loglik_gram(wide, m.normalizer, obs, precision="high", device="cpu")
+    # too wide for the mixed kernel at either height: refused, as every
+    # kernel refuses a network it cannot hold
+    wider = DirectEmulatorConfig(hidden_dims=(1700,))
+    assert grad_mixed_heights((7, 1700), "bf16") == ()
+    with pytest.raises(NotImplementedError, match="shared memory per K3 block at the f32"):
+        make_fused_loglik_grad_gram(wider, m.normalizer, obs, precision="highest",
+                                    grad_precision="default", device="cpu")
+    for rows in (64, 8):
+        with pytest.raises(ValueError, match="mixed tier pair"):
+            make_fused_loglik_grad_gram(m.config, m.normalizer, obs, precision="highest",
+                                        grad_precision="default", tile_rows=rows, device="cpu")
 
 
 @pytest.mark.parametrize("case", [("highest", None), ("high", None), ("default", None),
                                   ("highest", "highest"), ("high", "highest"),
-                                  ("highest", "default"), ("high", "high"), ("high", "default")])
+                                  ("highest", "default"), ("high", "high"), ("high", "default"),
+                                  ("highest", "high"), ("default", "highest")])
 def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
     """Each tier (pair) reaches one C entry point with the operands in the
     order its source reads them: ``fused_gram_mma.cu`` the packed
@@ -456,8 +502,10 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
     tier codes; ``fused_loglik_gram.cu``, fp32 alone, the plain fp32
     operands and no tier code; ``fused_loglik_grad_gram_f32.cu``, (fp32,
     fp32) alone, its own longer stream and the tile height;
-    ``fused_loglik_grad_gram.cu`` every hi/lo part (lo None unless bf16x3)
-    and both tier codes."""
+    ``fused_gram_mixed.cu``, an fp32 value tier with a bf16 backward, K2's
+    stream, then the backward's fragments, the backward's tier code and
+    the tile height; ``fused_loglik_grad_gram.cu``, the reverse pairs,
+    every hi/lo part (lo None unless bf16x3) and both tier codes."""
     m, obs = port_model(SMALL)
     ops = _wrapper(m, obs, case).operands(m.params)
     k3 = case[1] is not None
@@ -484,6 +532,16 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
         assert torch.equal(ops.slabs.w[: k2_stream.numel()], k2_stream)
         assert ops.slabs.w.numel() > k2_stream.numel()
         assert all(t.dtype == torch.float32 for t in tensors)
+    elif case[0] == "highest":
+        assert entry == "k3_fused_loglik_grad_gram_mixed"
+        assert tiers == [TIER_CODE[ops.grad_tier], None]
+        assert _kernel(ops, k3, rows=32)[2] == [TIER_CODE[ops.grad_tier], 32]
+        want = [ops.slabs.w, ops.slabs.b, *ops.packed.wt]
+        k2 = _wrapper(m, obs, ("highest", None)).operands(m.params).slabs
+        assert torch.equal(ops.slabs.w, k2.w) and torch.equal(ops.slabs.b, k2.b)
+        for wt, fused in zip(ops.packed.wt, _wrapper(m, obs, ("high", case[1]))
+                             .operands(m.params).packed.wt, strict=True):
+            assert wt.dtype == torch.bfloat16 and torch.equal(wt, fused)
     else:
         assert entry == "k3_fused_loglik_grad_gram"
         assert tiers == [TIER_CODE[t] for t in names]

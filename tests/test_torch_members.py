@@ -28,7 +28,12 @@ import functools
 import numpy as np
 import pytest
 import torch
-from _torch_f32 import emulate_f32_grad_gram, emulate_f32_gram, emulate_f32_mlp
+from _torch_f32 import (
+    emulate_f32_grad_gram,
+    emulate_f32_gram,
+    emulate_f32_mlp,
+    emulate_mixed_grad_gram,
+)
 from _torch_pair import one_torch_thread  # noqa: F401
 from test_torch_fused_loglik import _emulate_gram
 from test_torch_fused_mlp import _emulate_mma
@@ -75,8 +80,9 @@ ROUTES = [
     ("k3", "highest", "highest"),  # fused_loglik_grad_gram_f32.cu
     ("k3", "high", "default"),  # fused_gram_mma.cu
     ("k3", "high", "high"),
-    ("k3", "highest", "default"),  # fused_loglik_grad_gram.cu, a mixed pair
-    ("k3", "high", "highest"),
+    ("k3", "highest", "default"),  # fused_gram_mixed.cu: fp32 forward, tensor-core backward
+    ("k3", "highest", "high"),
+    ("k3", "high", "highest"),  # fused_loglik_grad_gram.cu, the reverse pair
 ]
 IDS = [f"{k}-{t}-{g}" for k, t, g in ROUTES]
 
@@ -150,18 +156,20 @@ def emulation(route, ops):
     if kernel == "k2":
         return emulate_f32_gram if tier == "highest" else functools.partial(_emulate_gram,
                                                                              grad=False)
+    if ops.slabs is not None and ops.packed is not None:
+        return emulate_mixed_grad_gram
     if ops.slabs is not None:
         return emulate_f32_grad_gram
     if ops.packed is not None:
         return _emulate_gram
-    return None  # the mixed pair reads the tier operands, as its plain version
+    return None  # the reverse pair reads the tier operands, as its plain version
 
 
 @pytest.mark.parametrize("route", ROUTES, ids=IDS)
 def test_emulation_on_a_members_slice_equals_its_own_packing(ens, obs, x, route):
     """The kernels' CPU emulations on member m's slice of the stacked,
     packed operands (read at its member stride) equal the same emulation
-    on member m's own packed operands, bit for bit; the mixed K3 pair's
+    on member m's own packed operands, bit for bit; the reverse K3 pair's
     operands are its plain version's, held in the test above."""
     stacked = operands(wrapper(ens, obs, route, members=M), ens.params)
     assert stacked.members == M

@@ -2,7 +2,10 @@
 // bf16): the gram-form Gaussian log-likelihood of a batch of rows, with
 // (K3) or without (K2) its gradient with respect to the raw parameters,
 // in one kernel whose products run on the tensor cores. The fp32 tier
-// stays on fused_loglik_grad_gram.cu (K3) and fused_loglik_gram.cu (K2).
+// runs on fused_loglik_grad_gram_f32.cu (K3) and fused_loglik_gram.cu
+// (K2); K3 at an fp32 value tier with a bf16 backward on
+// fused_gram_mixed.cu, whose backward is this kernel's; K3 at a bf16 value
+// tier with an fp32 backward on fused_loglik_grad_gram.cu.
 //
 // Replaces, at their bf16 tiers:
 //   K3 tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram

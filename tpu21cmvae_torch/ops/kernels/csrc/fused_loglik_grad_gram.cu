@@ -1,11 +1,12 @@
-// K3 for Hopper where the tier pair mixes an fp32 tier with a bf16 one
-// (value bf16x3 with an fp32 backward, or fp32 with a bf16 backward): the
-// gram-form Gaussian log-likelihood and its gradient with respect to the
-// raw parameters, for a batch of rows, in one kernel. The bf16 pairs run
-// on the tensor cores (fused_gram_mma.cu) and the fp32 pair on the
-// register-tiled fused_loglik_grad_gram_f32.cu; this kernel also takes the
-// fp32 pair of a network whose widest layer does not fit that kernel's
-// two full-width buffers (it keeps every activation at its own width).
+// K3 for Hopper at the reverse tier pairs (a bf16x3 or bf16 value tier
+// with an fp32 backward): the gram-form Gaussian log-likelihood and its
+// gradient with respect to the raw parameters, for a batch of rows, in one
+// kernel. The bf16 pairs run on the tensor cores (fused_gram_mma.cu), the
+// fp32 pair on the register-tiled fused_loglik_grad_gram_f32.cu, and an
+// fp32 value tier with a bf16 backward on fused_gram_mixed.cu; this kernel
+// also takes the fp32 pair of a network whose widest layer does not fit
+// that kernel's two full-width buffers (it keeps every activation at its
+// own width). Its C entry still computes every tier pair.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
 // (kernel body _loglik_grad_gram_kernel). Same contract: per row it writes

@@ -1,8 +1,10 @@
 // K3 for Hopper at the fp32 tier (value and backward both fp32): the
 // gram-form Gaussian log-likelihood and its gradient with respect to the
 // raw parameters, for a batch of rows, in one kernel. The bf16 tier pairs
-// run on the tensor cores (fused_gram_mma.cu); a pair that mixes an fp32
-// tier with a bf16 one stays on fused_loglik_grad_gram.cu.
+// run on the tensor cores (fused_gram_mma.cu); an fp32 value tier with a
+// bf16 backward on fused_gram_mixed.cu (this kernel's forward, a
+// tensor-core backward); a bf16 value tier with an fp32 backward on
+// fused_loglik_grad_gram.cu.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
 // (kernel body _loglik_grad_gram_kernel), at its exact tier. Same contract:

@@ -1,8 +1,9 @@
 // What the port's register-tiled fp32 gram kernels share (K2
-// fused_loglik_gram.cu, K3 fused_loglik_grad_gram_f32.cu): the network a
-// launch carries, the CTA's shared-memory layout, and the forward: input
-// tile, skinny first layer, the streamed trunk layers and the gram head,
-// whose epilogue forms the per-row quad
+// fused_loglik_gram.cu, K3 fused_loglik_grad_gram_f32.cu, and the forward
+// of K3 fused_gram_mixed.cu): the network a launch carries, the CTA's
+// shared-memory layout, and the forward: input tile, skinny first layer,
+// the streamed trunk layers and the gram head, whose epilogue forms the
+// per-row quad
 //   quad = ‖r‖² − c = Σ_j (h@G + 2u)_j · h_j
 // from the registers and the fp32 h still in shared memory. K3 runs the
 // same forward with kGrad set: it also writes the ReLU masks of the

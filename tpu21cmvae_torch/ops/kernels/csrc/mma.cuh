@@ -1,8 +1,9 @@
 // Tensor-core device code shared by the port's bf16-tier kernels (K1
-// fused_mlp_mma.cu; K2 and K3 fused_gram_mma.cu): the ldmatrix and
-// mma.sync wrappers, the packed B-fragment loads, the split-once stores
-// into a layer's bf16 input tile, the skinny first layer, and one dense
-// layer on the tensor cores with a caller-supplied epilogue.
+// fused_mlp_mma.cu; K2 and K3 fused_gram_mma.cu; the backward of K3
+// fused_gram_mixed.cu): the ldmatrix and mma.sync wrappers, the packed
+// B-fragment loads, the split-once stores into a layer's bf16 input tile,
+// the skinny first layer, and one dense layer on the tensor cores with a
+// caller-supplied epilogue.
 //
 // Arithmetic (see fused_mlp_mma.cu): bf16x3 is hi(a)·w_hi + hi(a)·w_lo +
 // lo(a)·w_hi with hi(x) = bits(x) & 0xFFFF0000 and lo(x) = bf16_rn(x −

@@ -17,20 +17,24 @@ spec's whitening, a per-bin ``1/σ`` or a foreground-marginalized spec's
 dense ``R``, all in the weights; the 451-wide output layer collapsed into
 ``G = WWᵀ``, ``u``, ``c``) and split for the value and backward tiers.
 The kernels see the same widths under either noise spec.
-Each routes by tier (:func:`gram_on_tensor_cores`): at the bf16 tiers
-both run ``csrc/fused_gram_mma.cu`` on the tensor cores (K2 is its
-forward alone), from operands :func:`pack_gram_operands` packed once per
-model into bf16 ``mma`` fragments; at the fp32 tier K2 runs
+Each routes by tier (:func:`gram_on_tensor_cores`, :func:`gram_mixed`):
+at the bf16 tiers both run ``csrc/fused_gram_mma.cu`` on the tensor cores
+(K2 is its forward alone), from operands :func:`pack_gram_operands` packed
+once per model into bf16 ``mma`` fragments; at the fp32 tier K2 runs
 ``csrc/fused_loglik_gram.cu``, register-tiled on the CUDA cores from the
 fp32 slabs of :func:`pack_gram_slabs` (``csrc/tile_f32.cuh``), and K3 at
 (fp32, fp32) ``csrc/fused_loglik_grad_gram_f32.cu``, the same forward and
 the backward as more layers of one slab stream
 (:func:`pack_grad_gram_slabs`), at a tile height picked per call
-(:func:`grad_f32_rows`). A K3 pair that mixes an fp32 tier with a bf16
-one runs ``csrc/fused_loglik_grad_gram.cu`` on the CUDA cores, as does
-the fp32 pair of a network too wide for the register-tiled kernel's
-buffers. The CUDA kernels keep a row tile's activations on chip; the
-plain versions do the same arithmetic — same folds, same hi/lo split,
+(:func:`grad_f32_rows`). K3 at an fp32 value tier with a bf16 backward
+tier runs ``csrc/fused_gram_mixed.cu``: the same forward from K2's slabs,
+the backward on the tensor cores from the fragments of
+:func:`pack_grad_fragments`, at 32 or 16 rows picked per call
+(:meth:`FusedLoglikGradGram.rows_for`). The reverse pairs (a bf16 value
+tier with an fp32 backward) run ``csrc/fused_loglik_grad_gram.cu`` on
+the CUDA cores, as does the fp32 pair of a network too wide for the
+register-tiled kernel's buffers. The CUDA kernels keep a row tile's activations on chip;
+the plain versions do the same arithmetic — same folds, same hi/lo split,
 same epilogue — in plain tensor operations.
 
 Every wrapper here takes ``members=M`` (``_common.py``'s member axis): an
@@ -63,10 +67,14 @@ from tpu21cmvae_torch.ops.fold import (
     tier_matmul,
 )
 from tpu21cmvae_torch.ops.kernels._common import (
-    MAX_LAYERS,
     F32_TILE_ROWS,
+    GRAD_RING,
+    MASK_COL_BYTES,
+    MAX_LAYERS,
     MAX_SHARED_BYTES,
+    RED_FLOATS,
     ROWS_PER_BLOCK,
+    SLAB_N,
     TIER_CODE,
     OperandCache,
     Slabs,
@@ -85,6 +93,7 @@ from tpu21cmvae_torch.ops.kernels._common import (
     per_member,
     pointers,
     stack_members,
+    tile_stride,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     MMA_TIERS,
@@ -101,7 +110,9 @@ class GramPacked(NamedTuple):
     ``w0``, ``b0`` (:func:`pack_gram_operands`): per trunk layer i ≥ 1
     the packed B fragments ``w`` at the value tier and the bias ``b``
     zero-padded to 16, and (K3) ``wt``, the fragments of ``W_iᵀ`` at the
-    backward tier; ``g``, G's fragments at the value tier; ``u`` padded."""
+    backward tier; ``g``, G's fragments at the value tier; ``u`` padded.
+    For ``fused_gram_mixed.cu`` only ``wt`` is packed: ``w`` and ``b``
+    are empty, ``g`` and ``u`` None."""
 
     w: tuple
     b: tuple
@@ -122,9 +133,11 @@ class GramOperands:
     ``grad_tier`` None, for the value-only K2. ``g``: ``G`` at ``tier``.
     ``u``, ``c``, ``log_norm``: the rest of the gram form. ``packed``:
     the same operands as ``fused_gram_mma.cu`` reads them where the
-    tiers run on the tensor cores, else None. ``slabs``: the operands as
-    the register-tiled fp32 kernel streams them where it runs: K2's
-    (:func:`pack_gram_slabs`, ``fused_loglik_gram.cu``) or K3's
+    tiers run on the tensor cores, and the backward's fragments alone
+    where K3 runs ``fused_gram_mixed.cu``; else None. ``slabs``: the
+    operands as the register-tiled fp32 forward streams them where it
+    runs: K2's (:func:`pack_gram_slabs`, ``fused_loglik_gram.cu``, and
+    ``fused_gram_mixed.cu``'s forward) or K3's
     (:func:`pack_grad_gram_slabs`, ``fused_loglik_grad_gram_f32.cu``),
     else None. ``members``: M where every tensor is M members' stacked on
     a leading axis (``c`` as ``(M, 1)``), else None.
@@ -186,18 +199,35 @@ def gram_on_tensor_cores(tier: str, grad_tier: Optional[str] = None) -> bool:
     return tier in MMA_TIERS and (grad_tier is None or grad_tier in MMA_TIERS)
 
 
+def gram_mixed(tier: str, grad_tier: Optional[str]) -> bool:
+    """Whether K3 at (``tier``, ``grad_tier``) runs
+    ``fused_gram_mixed.cu``: an fp32 value tier with a bf16 or bf16x3
+    backward."""
+    return tier == "f32" and grad_tier in MMA_TIERS
+
+
+def pack_grad_fragments(ops: GramOperands) -> tuple:
+    """The backward's ``W_iᵀ`` for i = 1 … n−1 at ``ops.grad_tier`` as
+    ``mma`` B fragments
+    (:func:`~tpu21cmvae_torch.ops.kernels.fused_mlp.pack_mma_operands`,
+    zero-padded to multiples of 16): what ``fused_gram_mma.cu`` and
+    ``fused_gram_mixed.cu`` read for the backward."""
+    return tuple(pack_mma_operands(op, op.new_zeros(op.shape[1]), ops.grad_tier)[0]
+                 for op in ops.wt)
+
+
 def pack_gram_operands(ops: GramOperands) -> GramPacked:
     """``ops``' tier operands as ``fused_gram_mma.cu`` reads them
     (:func:`~tpu21cmvae_torch.ops.kernels.fused_mlp.pack_mma_operands`):
     the trunk layers and G at ``ops.tier``, the transposed backward
-    weights at ``ops.grad_tier``, zero-padded to multiples of 16."""
+    weights at ``ops.grad_tier`` (:func:`pack_grad_fragments`),
+    zero-padded to multiples of 16."""
     layers = [pack_mma_operands(w, b, ops.tier) for w, b in zip(ops.w, ops.b)]
     h = ops.u.shape[0]
     return GramPacked(
         w=tuple(w for w, _ in layers),
         b=tuple(b for _, b in layers),
-        wt=tuple(pack_mma_operands(op, op.new_zeros(op.shape[1]), ops.grad_tier)[0]
-                 for op in ops.wt),
+        wt=pack_grad_fragments(ops),
         g=pack_mma_operands(ops.g, ops.u.new_zeros(h), ops.tier)[0],
         u=torch.nn.functional.pad(ops.u, (0, _pad16(h) - h)),
     )
@@ -272,10 +302,11 @@ def loglik_grad_gram_members_reference(ops: GramOperands, x: torch.Tensor):
 
 def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     """The C entry point of the kernel ``ops``' tiers run
-    (:func:`gram_on_tensor_cores`), its operand pointers, and the int
-    arguments after them: the tier codes, or the register-tiled fp32
-    kernels' tile height ``rows`` (K2 at fp32; K3 at (fp32, fp32) where
-    its stream was packed)."""
+    (:func:`gram_on_tensor_cores`, :func:`gram_mixed`), its operand
+    pointers, and the int arguments after them: the tier codes, or the
+    register-tiled kernels' tile height ``rows`` (K2 at fp32; K3 at
+    (fp32, fp32) where its stream was packed; K3 at (fp32, bf16 tier),
+    after the backward's tier code, where its operands were packed)."""
     tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
     if gram_on_tensor_cores(*tiers):
@@ -286,6 +317,9 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
         return entry, [*tensors, p.g, p.u], [TIER_CODE[t] for t in tiers]
     if not k3:  # fused_loglik_gram.cu runs the fp32 tier alone
         return "k2_fused_loglik_gram", [*tensors, *ops.slabs], [rows]
+    if gram_mixed(*tiers) and ops.slabs is not None:  # fp32 forward, tensor-core backward
+        return ("k3_fused_loglik_grad_gram_mixed", [*tensors, *ops.slabs, *ops.packed.wt],
+                [TIER_CODE[ops.grad_tier], rows])
     if ops.slabs is not None:  # (fp32, fp32), register-tiled
         return "k3_fused_loglik_grad_gram_f32", [*tensors, *ops.slabs], [rows]
     for i, (w, b) in enumerate(zip(ops.w, ops.b)):
@@ -327,8 +361,8 @@ def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Te
 
 def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[int] = None):
     """Launch K3 on PyTorch's current stream (no synchronisation), one
-    launch for every member of stacked ``ops``; ``rows``:
-    ``fused_loglik_grad_gram_f32.cu``'s tile height."""
+    launch for every member of stacked ``ops``; ``rows``: the tile height
+    of ``fused_loglik_grad_gram_f32.cu`` or ``fused_gram_mixed.cu``."""
     quad = torch.empty(_batch(ops, x.shape[0]), dtype=torch.float32, device=x.device)
     dx = torch.empty(_batch(ops, *x.shape), dtype=torch.float32, device=x.device)
     if x.shape[0]:
@@ -369,6 +403,39 @@ def grad_f32_heights(widths) -> tuple:
     return tuple(r for r in F32_TILE_ROWS if grad_f32_bytes(widths, r) <= MAX_SHARED_BYTES)
 
 
+# csrc/fused_gram_mixed.cu: the tile heights it is built for, and
+# sizeof(MixedNet), the static shared memory its CTA adds to the dynamic
+MIXED_TILE_ROWS = (32, 16)
+MIXED_NET_BYTES = 256
+
+
+def grad_mixed_bytes(widths, rows: int, grad_tier: str) -> int:
+    """Shared memory of one ``fused_gram_mixed.cu`` block of ``rows``
+    rows at backward tier ``grad_tier`` (``launch_mixed`` there): the
+    mask bits of activations 0 … n−2 and the per-row partials, as the
+    fp32 K3 keeps them; a region that holds the fp32 ``e`` (a k-major
+    tile as wide as the widest trunk width padded to 32) and later a
+    bf16 A tile (hi and lo at bf16x3, rows padded to the widest trunk
+    width padded to 16, + 8); a region that holds the forward's other
+    tile, its slab ring (``GRAD_RING``) and the input tile, and later the
+    other A tile; and the static copy of the operand struct."""
+    s = tile_stride(rows)
+    tile = 4 * s * max(padk(w) for w in widths[1:])
+    parts = 2 if grad_tier == "bf16x3" else 1
+    a = 2 * parts * rows * (max(_pad16(w) for w in widths[1:]) + 8)
+    depth, slots = GRAD_RING[rows]
+    forward = tile + 4 * (slots * depth * SLAB_N + s * widths[0])
+    masks = MASK_COL_BYTES[rows] * sum(padk(w) for w in widths[1:-1])
+    return masks + 4 * RED_FLOATS + max(tile, a) + max(forward, a) + MIXED_NET_BYTES
+
+
+def grad_mixed_heights(widths, grad_tier: str) -> tuple:
+    """The tile heights, tallest first, at which trunk ``widths`` fit
+    ``fused_gram_mixed.cu``'s shared memory at ``grad_tier``."""
+    return tuple(r for r in MIXED_TILE_ROWS
+                 if grad_mixed_bytes(widths, r, grad_tier) <= MAX_SHARED_BYTES)
+
+
 def pick_grad_rows(heights, n_rows: Optional[int], sm_count: Optional[int],
                    members: int = 1) -> int:
     """Of ``heights`` (tallest first), the shortest that still runs a
@@ -403,12 +470,20 @@ def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
     ``grad_tier``). ``fused_gram_mma.cu`` keeps bf16 tiles
     (:func:`_gram_mma_bytes`); ``fused_loglik_grad_gram_f32.cu`` (fp32,
     fp32) k-major fp32 tiles of ``rows`` rows (:func:`grad_f32_bytes`;
-    default: the tallest height that fits); ``fused_loglik_grad_gram.cu``
-    (the mixed pairs, and the fp32 pair of a network that fits the
-    register-tiled kernel at no height) the input tile, every trunk
-    activation and ``h@G`` in fp32, ``ROWS_PER_BLOCK`` rows each."""
+    default: the tallest height that fits); ``fused_gram_mixed.cu`` (an
+    fp32 value tier, a bf16 backward tier) the fp32 tiles and bf16 A
+    tiles of :func:`grad_mixed_bytes` at ``rows`` (default: the tallest
+    height that fits, else the shortest, which then refuses the network);
+    ``fused_loglik_grad_gram.cu`` (the reverse pairs, and the fp32 pair
+    of a network that fits the register-tiled kernel at no height) the
+    input tile, every trunk activation and ``h@G`` in fp32,
+    ``ROWS_PER_BLOCK`` rows each."""
     if gram_on_tensor_cores(tier, grad_tier):
         return _gram_mma_bytes(widths, tier, grad_tier)
+    if gram_mixed(tier, grad_tier):
+        if rows is None:
+            rows = (grad_mixed_heights(widths, grad_tier) or MIXED_TILE_ROWS[-1:])[0]
+        return grad_mixed_bytes(widths, rows, grad_tier)
     if tier == grad_tier == "f32":
         rows = grad_f32_rows(widths, forced=rows)
         if rows is not None:
@@ -464,19 +539,26 @@ class _GramWrapper:
             )
         self.tier = resolve_tier(precision, "high")
         self.grad_tier = grad_precision
-        # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu, or
+        # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu;
+        # K3's fused_gram_mixed.cu (fp32 forward, tensor-core backward); or
         # on the CUDA cores K2's fused_loglik_gram.cu, K3's register-tiled
         # fused_loglik_grad_gram_f32.cu or its fused_loglik_grad_gram.cu
         self.tensor_cores = gram_on_tensor_cores(self.tier, self.grad_tier)
+        self.mixed = gram_mixed(self.tier, self.grad_tier)
         if self.grad_tier is None:
             # fused_loglik_gram.cu's tile height (K2 at the fp32 tier)
             self.tile_rows = gram_f32_rows(widths, tile_rows)
             need = gram_shared_bytes(widths, self.tier, self.tile_rows)
         else:
-            # fused_loglik_grad_gram_f32.cu's forced tile height, or None:
-            # picked per call among the heights that fit
+            # the forced tile height of fused_loglik_grad_gram_f32.cu or
+            # fused_gram_mixed.cu, or None: picked per call among the
+            # heights that fit
             self.tile_rows = check_tile_rows(tile_rows)
-            self.heights = grad_f32_heights(widths)
+            if self.mixed and tile_rows not in (None, *MIXED_TILE_ROWS):
+                raise ValueError(f"tile_rows at a mixed tier pair must be one of "
+                                 f"{MIXED_TILE_ROWS}; got {tile_rows!r}")
+            self.heights = (grad_mixed_heights(widths, self.grad_tier) if self.mixed
+                            else grad_f32_heights(widths))
             self.register_tiled = self.tier == self.grad_tier == "f32" and (
                 tile_rows is not None or bool(self.heights))
             need = shared_bytes(widths, self.tier, self.grad_tier, tile_rows)
@@ -511,6 +593,9 @@ class _GramWrapper:
                 return dataclasses.replace(ops, packed=pack_gram_operands(ops))
             if self.grad_tier is None:
                 return dataclasses.replace(ops, slabs=pack_gram_slabs(ops))
+            if self.mixed:  # K2's forward stream and the backward's fragments
+                return dataclasses.replace(ops, slabs=pack_gram_slabs(ops), packed=GramPacked(
+                    w=(), b=(), wt=pack_grad_fragments(ops), g=None, u=None))
             if self.register_tiled:
                 return dataclasses.replace(ops, slabs=pack_grad_gram_slabs(ops))
             return ops
@@ -576,13 +661,15 @@ class FusedLoglikGradGram(_GramWrapper):
     :func:`loglik_grad_gram_reference`. The folded operands are cached
     against the identity and version of the ``params`` tensors, so an
     in-place weight update refolds. At (fp32, fp32) the register-tiled
-    ``fused_loglik_grad_gram_f32.cu`` runs (:attr:`register_tiled`) at
-    the tile height :meth:`rows_for` gives each batch; ``tile_rows`` (one
-    of :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`)
-    forces one height for every batch. ``members=M`` takes an ensemble's
-    stacked ``params`` and returns ``(logL (M, B), dlogL/draw (M, B,
-    n_params))`` from one launch per call
-    (:func:`loglik_grad_gram_members_reference` on the CPU).
+    ``fused_loglik_grad_gram_f32.cu`` runs (:attr:`register_tiled`), at
+    an fp32 value tier with a bf16 backward tier ``fused_gram_mixed.cu``
+    (:attr:`mixed`), each at the tile height :meth:`rows_for` gives each
+    batch; ``tile_rows`` (one of
+    :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`, and of
+    :data:`MIXED_TILE_ROWS` at a mixed pair) forces one height for every
+    batch. ``members=M`` takes an ensemble's stacked ``params`` and
+    returns ``(logL (M, B), dlogL/draw (M, B, n_params))`` from one launch
+    per call (:func:`loglik_grad_gram_members_reference` on the CPU).
     """
 
     name = "K3"
@@ -596,10 +683,11 @@ class FusedLoglikGradGram(_GramWrapper):
                          members=members)
 
     def rows_for(self, n_rows: int) -> Optional[int]:
-        """The register-tiled kernel's tile height for a batch of
-        ``n_rows`` rows of each member (:func:`pick_grad_rows`),
-        :attr:`tile_rows` if forced; None on the other routes."""
-        if not self.register_tiled:
+        """The tile height of ``fused_loglik_grad_gram_f32.cu`` or
+        ``fused_gram_mixed.cu`` for a batch of ``n_rows`` rows of each
+        member (:func:`pick_grad_rows`), :attr:`tile_rows` if forced; None
+        on the other routes."""
+        if not (self.register_tiled or self.mixed):
             return None
         return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count,
                                                 self.members or 1)

@@ -15,22 +15,29 @@ Phases, one line each:
 3. hold K3 (the fused gram value-and-gradient kernel) against its plain
    PyTorch version on the card, at the flagship widths of
    ``pretrained/direct_synthetic.npz``, for batches 1, 37, 1024 (the
-   fits'), 4096 and 65,537 and six tier pairs (the bf16 pairs run the
+   fits'), 4096 and 65,537 and seven tier pairs (the bf16 pairs run the
    tensor-core ``fused_gram_mma.cu``; (highest, highest) the
    register-tiled ``fused_loglik_grad_gram_f32.cu``, at every tile
    height, forced, and at the height the wrapper picks; (highest,
    default) and (highest, high) ``fused_gram_mixed.cu``, fp32 forward and
    tensor-core backward, at 32 and 16 rows, forced, and at the picked
    height; on both, the value held bit for bit to the fp32 K2's at the
-   same height; the reverse pair (high, highest) the 16-row CUDA-core
-   ``fused_loglik_grad_gram.cu``);
+   same height; the reverse pairs (high, highest) and (default, highest)
+   ``fused_gram_mma.cu``'s reverse mode, its tensor-core forward and an
+   fp32 backward on the CUDA cores, the value held bit for bit to the
+   tensor-core K2's at the value tier);
 4. time K3 and its plain version at 4096 and 65,536 rows (CUDA events,
    warmup excluded, median of repeats), and the kernel's device time per
    call over back-to-back calls; then the fp32 K3 at every tile height,
    forced, in turns; then ``fused_gram_mixed.cu`` at both mixed pairs in
    turns with the fp32 K3 and with ``fused_loglik_grad_gram.cu`` on the
    same pairs (through its C entry, the operands stripped of the packed
-   ones);
+   ones); then the reverse mode at both reverse pairs in turns with
+   ``fused_loglik_grad_gram.cu`` on the same pairs and with the
+   tensor-core K3 at (high, high); then ``fused_loglik_grad_gram.cu`` on
+   its own route, (highest, highest) on a randomly initialised network
+   of hidden (3200, 64, 64), too wide for the register-tiled fp32 K3,
+   held to plain and timed;
 5. the main path through the public entry points: load the checkpoint,
    predict (held to a float64 NumPy forward of the same file), sample a
    posterior with HMC, whose every leapfrog step runs K3 at (high,
@@ -41,8 +48,13 @@ Phases, one line each:
    runs K3 on ``fused_loglik_grad_gram_f32.cu``, the final walkers'
    carried log-density held to the plain exact-tier likelihood; then the
    same with a bf16 force (``grad_precision="default"``), every leapfrog
-   step on ``fused_gram_mixed.cu``; both at exactly the launches their
-   leapfrog counts imply;
+   step on ``fused_gram_mixed.cu``; then with a bf16x3 value and an exact
+   force (``loglik_and_grad_fn(precision="high",
+   grad_precision="highest")``), every leapfrog step on
+   ``fused_gram_mma.cu``'s reverse mode, its acceptance within 0.05 of
+   the exact-tier run's and its carried log-density held to the plain
+   likelihood at bf16x3; each at exactly the launches its leapfrog counts
+   imply;
 6. hold K1 (the fused MLP) against its plain version, as predict
    (``make_fused_emulate``) and as the direct likelihood's sum of squares
    (``make_fused_loglik``), and K2 (the fused gram value) against its
@@ -174,13 +186,18 @@ Phases, one line each:
     each file; the golden errors of ``tests/test_pretrained.py``; the
     ensemble's mixtures on every route (K1 at contract and bf16x3, direct
     form; K2 at bf16x3 and fp32; K3 at (high, default), (fp32, fp32), the
-    mixed pair (fp32, bf16) and the reverse pair (bf16x3, fp32)), each
+    mixed pair (fp32, bf16) and the reverse pair (bf16x3, fp32), the last
+    on ``fused_gram_mma.cu``'s reverse mode), each
     one member-batched wrapper over the stacked
     weights, against the same mixtures of the plain versions at 4096 and
     8192 rows; each route's member-batched launch (M = 3) equal to the
     three members' single launches bit for bit at 37, 256 and 4096 rows,
     within tolerance of its member-batched plain version, and timed
-    beside the three single launches at 256 and 4096 rows; its HMC
+    beside the three single launches at 256 and 4096 rows; the same two
+    checks for a randomly initialised three-member ensemble of hidden
+    (3200, 64, 64), too wide for the reverse mode, whose mixture at
+    (bf16x3, fp32) runs ``fused_loglik_grad_gram.cu`` (one launch per
+    call, counted); the shipped ensemble's HMC
     (4096, 100 + 100) and MH (8192, 200 + 500) through
     ``sample_posterior``, launching exactly member 0's count alone (one
     launch per step), the chains bit for bit those of the per-member
@@ -293,6 +310,7 @@ from tpu21cmvae_torch.utils.config import (
     AE_EMULATOR_TRAIN_DEFAULT,
     AE_TRAIN_DEFAULT,
     DIRECT_TRAIN_DEFAULT,
+    DirectEmulatorConfig,
 )
 from tpu21cmvae_torch.utils.metrics import (
     grad_gate_violation,
@@ -308,14 +326,15 @@ K1_SOURCE, K1_REPLACES = KERNELS + "fused_mlp.cu", "tpu21cmvae/ops/pallas/fused_
 K1_MMA_SOURCE = KERNELS + "fused_mlp_mma.cu"  # K1 at the bf16 tiers
 K2_SOURCE = KERNELS + "fused_loglik_gram.cu"
 K2_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:204"
-K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"  # K3 at the reverse tier pairs, 16-row tiles
+K3_SOURCE = KERNELS + "fused_loglik_grad_gram.cu"  # K3 on a network too wide for the others
 K3_F32_SOURCE = KERNELS + "fused_loglik_grad_gram_f32.cu"  # K3 at (fp32, fp32)
 K3_MIXED_SOURCE = KERNELS + "fused_gram_mixed.cu"  # K3 at (fp32, bf16 tier)
 K3_REPLACES = "tpu21cmvae/ops/pallas/fused_loglik.py:401"
 GRAM_MMA_SOURCE = KERNELS + "fused_gram_mma.cu"  # K2 and K3 at the bf16 tiers
 TIERS = ("highest", "high", "default")
 TIER_PAIRS = (("highest", "highest"), ("highest", "default"), ("high", "high"),
-              ("high", "default"), ("highest", "high"), ("high", "highest"))
+              ("high", "default"), ("highest", "high"), ("high", "highest"),
+              ("default", "highest"))
 # Phases 3-4 draw the rows of these pairs and of the fp32 K3's heights from
 # the smoke's generator, and those of every pair, height and turn after
 # them from a generator of their own (ADDED_SEED), so that the observation
@@ -326,7 +345,13 @@ MAIN_TIERS = ("high", "default")  # what sample_posterior runs K3 at
 EXACT_TIERS = ("highest", "highest")  # K3 on fused_loglik_grad_gram_f32.cu
 MIXED_TIERS = ("highest", "default")  # K3 on fused_gram_mixed.cu: an exact value, a bf16 force
 MIXED_PAIRS = (MIXED_TIERS, ("highest", "high"))
-REVERSE_TIERS = ("high", "highest")  # K3 on fused_loglik_grad_gram.cu
+# K3 on fused_gram_mma.cu's reverse mode: a tensor-core forward, an fp32 backward
+REVERSE_TIERS = ("high", "highest")
+REVERSE_PAIRS = (REVERSE_TIERS, ("default", "highest"))
+# fused_loglik_grad_gram.cu's own route: (fp32, fp32) on a network whose widest layer
+# does not fit two 8-row fp32 buffers (ROADMAP's example), randomly
+# initialised from WIDE_SEED
+WIDE_HIDDEN, WIDE_SEED = (3200, 64, 64), 5
 K3_F32_HEIGHTS = (64, 32, 16, 8)  # its tile heights, forced in phases 3 and 4
 K3_MIXED_HEIGHTS = (32, 16)  # fused_gram_mixed.cu's, forced in phase 3
 EXACT_HMC = dict(n_walkers=4096, n_warmup=20, n_steps=20)  # phase 5's exact-value runs
@@ -454,9 +479,14 @@ ENS_ROUTES = {
     "k3_f32": (dict(precision="contract"), K3_F32_SOURCE, EXACT_TIERS),
     "k3_mixed": (dict(precision=MIXED_TIERS[0], grad_precision=MIXED_TIERS[1]),
                  K3_MIXED_SOURCE, MIXED_TIERS),
-    "k3_reverse": (dict(precision=REVERSE_TIERS[0], grad_precision=REVERSE_TIERS[1]), K3_SOURCE,
-                   REVERSE_TIERS),
+    "k3_reverse": (dict(precision=REVERSE_TIERS[0], grad_precision=REVERSE_TIERS[1]),
+                   GRAM_MMA_SOURCE, REVERSE_TIERS),
+    "k3_wide": (dict(precision=REVERSE_TIERS[0], grad_precision=REVERSE_TIERS[1]),
+                K3_SOURCE, REVERSE_TIERS),
 }
+# the routes run on an ensemble of networks too wide for the reverse mode
+# (:func:`wide_ensemble`), not on the shipped one
+WIDE_ENS_KEYS = ("k3_wide",)
 MEMBER_ROWS = (37, 256, 4096)  # member-batched against three single launches, bit for bit
 MEMBER_TIMING_ROWS = (256, 4096)
 BOUND_TIER = {"highest": "f32", "high": "bf16x3", "default": "bf16"}
@@ -926,10 +956,12 @@ def k3_vs_plain(model, obs, rng, added, dev):
     fp32 pair at every tile height and the mixed pairs (an fp32 value, a
     bf16 backward) at both of theirs, forced, and each at the wrapper's
     own choice, the value equal to the fp32 K2's at the same height bit
-    for bit. Rows come from ``rng`` for ``FIRST_PAIRS`` and the fp32
-    heights, else from ``added``. Returns the wrappers by tier pair (the
-    fp32 and mixed pairs' pick their height) and the largest |Δ logL| by
-    tier pair at 4096 rows (pairs with an fp32 tier: over every batch)."""
+    for bit; the reverse pairs (a bf16 value, an fp32 backward), the
+    value equal to the tensor-core K2's at the value tier bit for bit.
+    Rows come from ``rng`` for ``FIRST_PAIRS`` and the fp32 heights, else
+    from ``added``. Returns the wrappers by tier pair (the fp32 and mixed
+    pairs' pick their height) and the largest |Δ logL| by tier pair at
+    4096 rows (pairs with an fp32 tier: over every batch)."""
     wrappers = {tiers: k3_wrapper(model, obs, tiers, dev) for tiers in TIER_PAIRS}
     cases = [(f"{a}/{b}", (a, b), fn, rng if (a, b) in FIRST_PAIRS else added)
              for (a, b), fn in wrappers.items()]
@@ -940,6 +972,8 @@ def k3_vs_plain(model, obs, rng, added, dev):
     k2 = {h: make_fused_loglik_gram(model.config, model.normalizer, obs, NOISE_VAR,
                                     precision="highest", tile_rows=h, device=dev)
           for h in K3_F32_HEIGHTS}
+    k2_mma = {t: make_fused_loglik_gram(model.config, model.normalizer, obs, NOISE_VAR,
+                                        precision=t, device=dev) for t in MAIN_TIERS}
     report = {}
     err = {tiers: 0.0 for tiers in TIER_PAIRS}
     for label, tiers, fn, draws in cases:
@@ -947,6 +981,7 @@ def k3_vs_plain(model, obs, rng, added, dev):
         check(fn.tensor_cores == ("highest" not in tiers), f"K3 route at {tiers}")
         check(fn.register_tiled == (tiers == EXACT_TIERS), f"K3 fp32 route at {tiers}")
         check(fn.mixed == (tiers in MIXED_PAIRS), f"K3 mixed route at {tiers}")
+        check(fn.reverse == (tiers in REVERSE_PAIRS), f"K3 reverse route at {tiers}")
         for n, x in held_batches((1, 37, 4096, 65537), draws):
             fn.launches = 0
             vk, gk = fn(model.params, x)
@@ -955,6 +990,9 @@ def k3_vs_plain(model, obs, rng, added, dev):
             if fn.register_tiled or fn.mixed:
                 same = torch.equal(vk, k2[fn.rows_for(n)](model.params, x))
                 check(same, f"K3 value != K2 fp32 value bit for bit, {label} n={n}")
+            if fn.reverse:
+                same = torch.equal(vk, k2_mma[tiers[0]](model.params, x))
+                check(same, f"K3 value != tensor-core K2 value bit for bit, {label} n={n}")
             torch.cuda.synchronize()
             vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
             check(vk.shape == (n,) and gk.shape == (n, 7), f"shapes {label} n={n}")
@@ -983,8 +1021,8 @@ def k3_vs_plain(model, obs, rng, added, dev):
                 report[f"{label}/{n}"]["tile_rows"] = fn.rows_for(n)
     torch.cuda.synchronize()
     print(f"phase 3: kernel == plain within tolerance at every batch, tier pair and tile "
-          f"height; the fp32 and mixed K3's values == fp32 K2 value bit for bit "
-          f"{json.dumps(report)}", flush=True)
+          f"height; the fp32 and mixed K3's values == fp32 K2 value, the reverse pairs' == "
+          f"tensor-core K2 value bit for bit {json.dumps(report)}", flush=True)
     return wrappers, err
 
 
@@ -992,32 +1030,30 @@ def cuda_core_route(fn, model):
     """K3 at ``fn``'s tiers on the 16-row ``fused_loglik_grad_gram.cu``,
     whatever the wrapper routes them to: its C entry is the one
     ``_kernel`` picks for operands that carry no packed slabs or
-    fragments (a comparison launch; it adds nothing to a count)."""
+    fragments, as a network too wide for the other kernels has (a
+    comparison launch; it adds nothing to a count)."""
     ops = dataclasses.replace(fn.operands(model.params), slabs=None, packed=None)
     return lambda x: _loglik_grad_gram_cuda(ops, x)
 
 
 def mixed_in_turns(model, wrappers, timings, rng) -> dict:
-    """Phase 4's last part: ``fused_gram_mixed.cu`` at both mixed pairs in
-    turns with the fp32 K3 and with ``fused_loglik_grad_gram.cu`` on the
-    same pairs (:func:`cuda_core_route`, under ``<pair>/cuda_cores``),
-    forward order then reversed, at 4096 and 65,536 rows: ms per call and
-    device ms per call, each the mean of its two turns, with each pair's
-    plain ms (from ``timings``) and bound. That route is held to plain
-    first."""
+    """Phase 4: ``fused_gram_mixed.cu`` at both mixed pairs in turns with
+    the fp32 K3 and with ``fused_loglik_grad_gram.cu`` on the same pairs
+    (under ``<pair>/cuda_cores``, held to plain first), at 4096 and
+    65,536 rows (:func:`in_turns`)."""
     trunk = model.config.mlp().sizes[:-1]
     runs = {"highest/highest": lambda x: wrappers[EXACT_TIERS](model.params, x)}
     for tiers in MIXED_PAIRS:
-        key = f"{tiers[0]}/{tiers[1]}"
-        runs[key] = lambda x, fn=wrappers[tiers]: fn(model.params, x)
-        runs[f"{key}/cuda_cores"] = cuda_core_route(wrappers[tiers], model)
-        x = rows(4096, rng)
-        ops = wrappers[tiers].operands(model.params)
-        (vk, gk), (vp, gp) = runs[f"{key}/cuda_cores"](x), loglik_grad_gram_reference(ops, x)
-        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
-        tol = VALUE_RTOL["highest"] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
-        check(bool((np.abs(vk - vp) <= tol).all()) and grad_gate_violation(gk, gp) <= 0.0,
-              f"fused_loglik_grad_gram.cu at {tiers} vs plain")
+        runs[f"{tiers[0]}/{tiers[1]}"] = lambda x, fn=wrappers[tiers]: fn(model.params, x)
+    runs.update(cuda_cores_vs_plain(model, wrappers, MIXED_PAIRS, rng))
+    return in_turns(runs, timings, trunk, rng, "mixed K3")
+
+
+def in_turns(runs, timings, trunk, rng, label) -> dict:
+    """``runs`` (key → call on rows; each key ``<value tier>/<backward
+    tier>[/…]``) in turns, forward order then reversed, at 4096 and 65,536
+    rows: ms per call and device ms per call, each the mean of its two
+    turns, with the pair's plain ms (from ``timings``) and bound."""
     order = list(runs) + list(runs)[::-1]
     out = {}
     for n, repeats in ((4096, 50), (65536, 20)):
@@ -1033,7 +1069,86 @@ def mixed_in_turns(model, wrappers, timings, rng) -> dict:
             entry["plain_ms"] = timings[f"{a}/{b}/{n}"]["plain_ms"]
             entry["bound_ms"] = bound("k3", trunk, n, BOUND_TIER[a], BOUND_TIER[b])[0]
     torch.cuda.synchronize()
-    print(f"phase 4: mixed K3 in turns {json.dumps(out)}", flush=True)
+    print(f"phase 4: {label} in turns {json.dumps(out)}", flush=True)
+    return out
+
+
+def cuda_cores_vs_plain(model, wrappers, pairs, rng):
+    """``fused_loglik_grad_gram.cu`` (:func:`cuda_core_route`) at each of
+    ``pairs`` against the plain version on 4096 rows, at the value tier's
+    tolerance and the gradient gate. Returns the runs by
+    ``<pair>/cuda_cores``."""
+    runs = {}
+    for tiers in pairs:
+        key = f"{tiers[0]}/{tiers[1]}/cuda_cores"
+        runs[key] = cuda_core_route(wrappers[tiers], model)
+        x = rows(4096, rng)
+        ops = wrappers[tiers].operands(model.params)
+        (vk, gk), (vp, gp) = runs[key](x), loglik_grad_gram_reference(ops, x)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        tol = VALUE_RTOL[tiers[0]] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
+        check(bool((np.abs(vk - vp) <= tol).all()) and grad_gate_violation(gk, gp) <= 0.0,
+              f"fused_loglik_grad_gram.cu at {tiers} vs plain")
+    return runs
+
+
+def reverse_in_turns(model, wrappers, timings, rng) -> dict:
+    """Phase 4: ``fused_gram_mma.cu``'s reverse mode at both reverse pairs
+    in turns with ``fused_loglik_grad_gram.cu`` on the same pairs (under
+    ``<pair>/cuda_cores``, held to plain first) and with the tensor-core
+    K3 at (high, high), at 4096 and 65,536 rows (:func:`in_turns`)."""
+    trunk = model.config.mlp().sizes[:-1]
+    runs = {"high/high": lambda x: wrappers[("high", "high")](model.params, x)}
+    for tiers in REVERSE_PAIRS:
+        runs[f"{tiers[0]}/{tiers[1]}"] = lambda x, fn=wrappers[tiers]: fn(model.params, x)
+    runs.update(cuda_cores_vs_plain(model, wrappers, REVERSE_PAIRS, rng))
+    return in_turns(runs, timings, trunk, rng, "reverse K3")
+
+
+def wide_network_k3(model, rng, dev) -> dict:
+    """Phase 4: ``fused_loglik_grad_gram.cu`` on its own route, K3 at (fp32, fp32) on a
+    network of hidden ``WIDE_HIDDEN`` (too wide for the register-tiled
+    fp32 K3), randomly initialised from ``WIDE_SEED`` with the flagship's
+    normalizer: the wrapper routes it there, and it is held to the plain
+    version at 37, 4096 and 65,537 rows (the fp32 value tolerance, the
+    gradient gate), then timed with plain at 4096 and 65,536 rows, with
+    its bound. Returns the report."""
+    config = DirectEmulatorConfig(hidden_dims=WIDE_HIDDEN)
+    sizes = config.mlp().sizes
+    wide = DirectEmulator(config=config, normalizer=model.normalizer, seed=WIDE_SEED, device=dev)
+    obs = wide.predict(synthetic_params(1, rng)[0]) + rng.normal(0.0, 5.0, config.n_bins)
+    fn = k3_wrapper(wide, obs, EXACT_TIERS, dev)
+    check(not (fn.register_tiled or fn.tensor_cores or fn.mixed or fn.reverse),
+          f"K3 on hidden {WIDE_HIDDEN} routes to fused_loglik_grad_gram.cu")
+    ops = fn.operands(wide.params)
+    check(ops.slabs is None and ops.packed is None, "the wide network packs nothing")
+    out = {"hidden": list(WIDE_HIDDEN), "max_abs": 0.0, "worst_over_tol": 0.0}
+    for n, x in held_batches((37, 4096, 65537), rng):
+        fn.launches = 0
+        vk, gk = fn(wide.params, x)
+        check(fn.launches == 1, f"wide K3 n={n}: {fn.launches} launches")
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        check(bool(np.isfinite(vk).all() and np.isfinite(gk).all()), f"wide K3 finite n={n}")
+        tol = VALUE_RTOL["highest"] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
+        dv = np.abs(vk - vp)
+        check(bool((dv <= tol).all()), f"wide K3 value n={n}: {float((dv / tol).max()):.3g}")
+        gate = grad_gate_violation(gk, gp)
+        check(gate <= 0.0, f"wide K3 gradient gate n={n}: {gate:.3g}")
+        out["max_abs"] = max(out["max_abs"], float(dv.max()))
+        out["worst_over_tol"] = max(out["worst_over_tol"], float((dv / tol).max()))
+    trunk = sizes[:-1]
+    for n, repeats in ((4096, 50), (65536, 20)):
+        x = rows(n, rng)
+        b = bound("k3", trunk, n, "f32", "f32")
+        out[str(n)] = {
+            "kernel_ms": time_ms(lambda: fn(wide.params, x), repeats),
+            "kernel_stream_ms": stream_ms(lambda: fn(wide.params, x), repeats),
+            "plain_ms": time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats),
+            "bound_ms": b[0], "bound_by": b[1],
+        }
+    torch.cuda.synchronize()
+    print(f"phase 4: fused_loglik_grad_gram.cu on hidden {WIDE_HIDDEN} {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1042,9 +1157,11 @@ def time_k3(model, obs, wrappers, rng, added, dev) -> dict:
     4096 and 65,536 rows, then the fp32 K3's tile heights, forced, in
     turns (64, 32, 16, 8, 8, 16, 32, 64): ms per wrapper call and device
     ms per call, each the mean of its two turns; then the mixed kernel in
-    turns (:func:`mixed_in_turns`, under ``"mixed_turns"``). Rows as in
-    phase 3: from ``rng`` for ``FIRST_PAIRS`` and the heights, else from
-    ``added``."""
+    turns (:func:`mixed_in_turns`, under ``"mixed_turns"``), the reverse
+    mode in turns (:func:`reverse_in_turns`, under ``"reverse_turns"``)
+    and ``fused_loglik_grad_gram.cu`` on a too-wide network (:func:`wide_network_k3`,
+    under ``"wide"``). Rows as in phase 3: from ``rng`` for
+    ``FIRST_PAIRS`` and the heights, else from ``added``."""
     timings = {}
     for tiers, fn in wrappers.items():
         ops = fn.operands(model.params)
@@ -1060,6 +1177,8 @@ def time_k3(model, obs, wrappers, rng, added, dev) -> dict:
                 timings[f"{tiers[0]}/{tiers[1]}/{n}"]["tile_rows"] = fn.rows_for(n)
     torch.cuda.synchronize()
     print(f"phase 4: median ms per call {json.dumps(timings)}", flush=True)
+    timings["reverse_turns"] = reverse_in_turns(model, wrappers, timings, added)
+    timings["wide"] = wide_network_k3(model, added, dev)
 
     forced = {h: k3_wrapper(model, obs, EXACT_TIERS, dev, h) for h in K3_F32_HEIGHTS}
     turns = K3_F32_HEIGHTS + K3_F32_HEIGHTS[::-1]
@@ -1088,23 +1207,34 @@ def hmc_launches(n_warmup: int, n_steps: int, seed: int = 0, n_leapfrog: int = 8
                    for _ in range(n_warmup + n_steps))
 
 
-def exact_value_hmc(model, obs, dev, grad_precision=None):
-    """Phase 5's exact-value runs: a short HMC through
-    ``loglik_and_grad_fn(precision="contract", grad_precision=...,
-    backend="kernel")`` and ``sample_hmc``, every leapfrog step on
-    ``fused_loglik_grad_gram_f32.cu`` (an exact force) or, with
-    ``grad_precision="default"``, on ``fused_gram_mixed.cu`` (a bf16
-    force), at exactly the launches its leapfrog counts imply. The
-    log-density each final walker carries, less the sigmoid map's
-    log-Jacobian (the prior is flat), is the kernel's logL there, which
-    is exact at either force: it is held to the plain exact-tier
-    likelihood within the fp32 value tolerance plus the Jacobian's own
+def exact_value_hmc(model, obs, dev, grad_precision=None, precision="contract",
+                    accept_near=None):
+    """Phase 5's short HMCs: through ``loglik_and_grad_fn(precision=...,
+    grad_precision=..., backend="kernel")`` and ``sample_hmc``, every
+    leapfrog step on ``fused_loglik_grad_gram_f32.cu`` (the exact tier),
+    on ``fused_gram_mixed.cu`` (an exact value, ``grad_precision=
+    "default"``: a bf16 force) or, at ``precision="high",
+    grad_precision="highest"``, on ``fused_gram_mma.cu``'s reverse mode
+    (a bf16x3 value, an exact force), at exactly the launches its
+    leapfrog counts imply. The log-density each final walker carries,
+    less the sigmoid map's log-Jacobian (the prior is flat), is the
+    kernel's logL there: it is held to the plain likelihood at the value
+    tier within that tier's value tolerance plus the Jacobian's own
     rounding (the walker's place in the box is known to fp32 only).
-    Returns the kernel's launches."""
-    label = "exact-tier" if grad_precision is None else f"exact-value, {grad_precision} force,"
-    valgrad = model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", precision="contract",
+    ``accept_near``: an acceptance rate the run's must be within 0.05 of.
+    Returns the kernel's launches and the mean acceptance."""
+    if precision != "contract":
+        label = f"{precision}-value, exact force,"
+    elif grad_precision is None:
+        label = "exact-tier"
+    else:
+        label = f"exact-value, {grad_precision} force,"
+    valgrad = model.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel", precision=precision,
                                        grad_precision=grad_precision)
-    if grad_precision is None:
+    if precision != "contract":
+        check(valgrad.reverse and not valgrad.tensor_cores,
+              f"{label} HMC runs fused_gram_mma.cu's reverse mode")
+    elif grad_precision is None:
         check(not valgrad.tensor_cores and valgrad.register_tiled,
               "exact-tier HMC runs fused_loglik_grad_gram_f32.cu")
     else:
@@ -1121,6 +1251,9 @@ def exact_value_hmc(model, obs, dev, grad_precision=None):
           f"{label} HMC: finite chain and logp")
     acc = float(np.mean(res.accept_rate))
     check(0.3 <= acc <= 0.99, f"{label} HMC: mean acceptance {acc:.3f}")
+    if accept_near is not None:
+        check(abs(acc - accept_near) <= 0.05,
+              f"{label} HMC: acceptance {acc:.3f}, the exact tier's {accept_near:.3f}")
     final = res.final.astype(np.float64)
     lo, hi = np.asarray(PAR_RANGES, np.float64).T
     s = (final - lo) / (hi - lo)
@@ -1131,13 +1264,16 @@ def exact_value_hmc(model, obs, dev, grad_precision=None):
         jac_err = np.sum(ds * (1.0 / s + 1.0 / (1.0 - s)), axis=1)
     inside = np.isfinite(jac) & np.isfinite(jac_err)  # a walker rounded onto the box's edge
     ops = valgrad.operands(model.params)
-    ll = scores(exact_loglik(model, obs), model, res.final, dev)
-    tol = VALUE_RTOL["highest"] * (np.abs(ll) + 0.5 * abs(float(ops.c))) + VALUE_ATOL + jac_err
+    tier = "highest" if precision == "contract" else precision
+    plain = model.loglik_fn(obs, NOISE_VAR, precision=precision)  # backend "torch"
+    ll = scores(plain, model, res.final, dev)
+    tol = VALUE_RTOL[tier] * (np.abs(ll) + 0.5 * abs(float(ops.c))) + VALUE_ATOL + jac_err
     gap = np.abs(res.logp - jac - ll)
     worst = float((gap[inside] / tol[inside]).max())
     check(float(inside.mean()) >= 0.5, f"{label} HMC: {inside.mean():.3f} of walkers inside")
     check(worst <= 1.0, f"{label} HMC: carried logp vs plain logL, worst |Δ|/tol {worst:.3g}")
-    key = "k3_f32_launches" if grad_precision is None else "k3_mixed_launches"
+    key = ("k3_reverse_launches" if valgrad.reverse else "k3_mixed_launches" if valgrad.mixed
+           else "k3_f32_launches")
     print(f"phase 5: {label} HMC " + json.dumps({
         "wall_s": wall, key: launches, "tile_rows": valgrad.rows_for(n_walkers),
         "accept": acc, "step_size": res.step_size, "walkers_checked": float(inside.mean()),
@@ -1145,7 +1281,7 @@ def exact_value_hmc(model, obs, dev, grad_precision=None):
         "carried_logp_vs_plain_max_abs": float(gap[inside].max()),
         "loglik_final_max": float(ll.max()),
     }), flush=True)
-    return launches
+    return launches, acc
 
 
 def foreground_observation(model, truth, rng):
@@ -1239,7 +1375,7 @@ def marginalized_kernels_vs_plain(model, truth, obs, basis, rng, dev):
                     check(q999 <= GRAD_Q999_F32, f"K3 gradient q99.9 {name} n={n}: {q999:.3g}")
                 source = {EXACT_TIERS: "fused_loglik_grad_gram_f32",
                           MIXED_TIERS: "fused_gram_mixed",
-                          REVERSE_TIERS: "fused_loglik_grad_gram",
+                          REVERSE_TIERS: "fused_loglik_grad_gram_reverse",
                           MAIN_TIERS: "fused_loglik_grad_gram_mma"}.get(tiers)
                 if "highest" in tiers or n == 8192:
                     note(f"k3/{name}/{tiers[0]}-{tiers[1]}", share, float(dv.max()), source)
@@ -2477,15 +2613,17 @@ def recorded_steps():
         loop._train_step = base
 
 
-def ensemble_wrappers(ens, obs) -> dict:
+def ensemble_wrappers(ens, obs, keys=None) -> dict:
     """The ensemble's memoized kernel mixtures on ``obs`` at σ² = 25, one
-    per route of :data:`ENS_ROUTES`: each one member-batched wrapper, one
-    launch per call. Its entry points run K1 as the contract-tier direct
+    per route of ``keys`` (default: the routes of :data:`ENS_ROUTES` the
+    shipped ensemble runs): each one member-batched wrapper, one launch
+    per call. Its entry points run K1 as the contract-tier direct
     likelihood, K2 at bf16x3 (MH), K3 at (high, default) (HMC) and the
     fp32 K2 (the gram form at the contract tier); K1 at bf16x3, the fp32
-    K3 and the mixed K3 pair are built the same way."""
+    K3 and the mixed and reverse K3 pairs are built the same way."""
+    keys = keys or [k for k in ENS_ROUTES if k not in WIDE_ENS_KEYS]
     return {key: (ens.loglik_and_grad_fn if key.startswith("k3") else ens.loglik_fn)(
-        obs, NOISE_VAR, backend="kernel", **kw) for key, (kw, _, _) in ENS_ROUTES.items()}
+        obs, NOISE_VAR, backend="kernel", **ENS_ROUTES[key][0]) for key in keys}
 
 
 def batched_wrapper(mix):
@@ -2494,21 +2632,23 @@ def batched_wrapper(mix):
     return getattr(mix.members, "fused", mix.members)
 
 
-def ensemble_half_c(ens, wrappers) -> float:
+def ensemble_half_c(ens, wrappers, key="k2_f32") -> float:
     """The largest member's gram cancellation scale c/2 (phase 6's), read
-    from the fp32 K2 mixture's stacked operands (``c`` is (M, 1))."""
-    ops = batched_wrapper(wrappers["k2_f32"]).operands(ens.params)
+    from the stacked operands of the mixture of route ``key`` (``c`` is
+    (M, 1))."""
+    ops = batched_wrapper(wrappers[key]).operands(ens.params)
     return 0.5 * float(ops.c.abs().max())
 
 
 @torch.no_grad()
-def mixture_vs_plain(ens, obs, wrappers, rng) -> dict:
+def mixture_vs_plain(ens, obs, wrappers, rng, c_key="k2_f32") -> dict:
     """The ensemble's kernel mixtures against the same mixtures over the
     plain versions at ``MIXTURE_ROWS``: values within the member bound
     (logsumexp is 1-Lipschitz in the max norm), K3's gradient under
     ``bench_mcmc.py``'s gate (the fp32 pair also under its q99.9 bound).
-    Returns the report by route and c/2."""
-    half_c = ensemble_half_c(ens, wrappers)
+    Returns the report by route and c/2 (:func:`ensemble_half_c` of
+    ``c_key``)."""
+    half_c = ensemble_half_c(ens, wrappers, c_key)
     report = {}
     for key, fn in wrappers.items():
         kw, _, tiers = ENS_ROUTES[key]
@@ -2625,6 +2765,44 @@ def member_batched_vs_single(ens, obs, wrappers, half_c, rng, dev) -> dict:
         check(mix.folds == 1, f"ensemble {key}: {mix.folds} folds of the stacked operands")
         report[key] = entry
     return report
+
+
+def wide_ensemble(normalizer, rng, dev):
+    """Phase 19: three members of hidden ``WIDE_HIDDEN``, randomly
+    initialised from ``WIDE_SEED`` + 1, + 2, + 3 with ``normalizer``, and
+    an observation: member 0's prediction of a prior draw from ``rng``
+    with noise of σ = 5 from ``rng``."""
+    config = DirectEmulatorConfig(hidden_dims=WIDE_HIDDEN)
+    ens = DeepEnsemble([DirectEmulator(config=config, normalizer=normalizer,
+                                       seed=WIDE_SEED + 1 + i, device=dev) for i in range(3)])
+    obs = ens.members[0].predict(synthetic_params(1, rng)[0]) + rng.normal(0.0, 5.0, config.n_bins)
+    return ens, obs
+
+
+def wide_ensemble_routes(normalizer, dev):
+    """Phase 19: the routes of :data:`WIDE_ENS_KEYS` on
+    :func:`wide_ensemble`, whose mixtures run ``fused_loglik_grad_gram.cu``
+    member-batched: each mixture held to plain (:func:`mixture_vs_plain`;
+    its count set to 0 just before and read just after, one launch per
+    call), then its member-batched launch against the three members'
+    single launches and its member-batched plain version
+    (:func:`member_batched_vs_single`). Returns the report and the
+    launches by route."""
+    rng = np.random.default_rng(194)
+    ens, obs = wide_ensemble(normalizer, rng, dev)
+    wrappers = ensemble_wrappers(ens, obs, WIDE_ENS_KEYS)
+    for key, mix in wrappers.items():
+        fn = batched_wrapper(mix)
+        check(not (fn.reverse or fn.register_tiled or fn.tensor_cores or fn.mixed),
+              f"ensemble {key} on hidden {WIDE_HIDDEN} routes to fused_loglik_grad_gram.cu")
+        mix.launches = 0
+    held, half_c = mixture_vs_plain(ens, obs, wrappers, rng, c_key=WIDE_ENS_KEYS[0])
+    launches = {key: mix.launches for key, mix in wrappers.items()}
+    check(all(n == len(MIXTURE_ROWS) for n in launches.values()),
+          f"wide ensemble launches {launches}")
+    for key, entry in member_batched_vs_single(ens, obs, wrappers, half_c, rng, dev).items():
+        held[key]["member_batched"] = entry
+    return held, launches
 
 
 class PerMemberMixture:
@@ -2877,6 +3055,10 @@ def families_phase(truth, obs, data, dev, smi) -> dict:
     for key, entry in batched.items():
         held[key]["member_batched"] = entry
     launches, ens_paths = ensemble_main_path(ens, truth, obs, dev)
+    (wide_held, wide_launches), walls["wide_ensemble"] = timed(
+        lambda: wide_ensemble_routes(ens.normalizer, dev))
+    held.update(wide_held)
+    launches.update(wide_launches)
 
     # the autoencoder families: samplers through autograd, then training
     samplers = {}
@@ -3720,8 +3902,11 @@ def main() -> int:
         "hmc_wall_s": hmc_s, "phase_wall_s": time.perf_counter() - t0,
     }), flush=True)
 
-    k3_f32_launches = exact_value_hmc(model, obs, dev)
-    k3_mixed_launches = exact_value_hmc(model, obs, dev, grad_precision=MIXED_TIERS[1])
+    k3_f32_launches, exact_accept = exact_value_hmc(model, obs, dev)
+    k3_mixed_launches, _ = exact_value_hmc(model, obs, dev, grad_precision=MIXED_TIERS[1])
+    k3_reverse_launches, _ = exact_value_hmc(model, obs, dev, precision=REVERSE_TIERS[0],
+                                             grad_precision=REVERSE_TIERS[1],
+                                             accept_near=exact_accept)
 
     # -- phases 6-8: the value kernels and the gradient-free samplers -------
     k1_err, k1_mma_err, k2_err, k2_mma_err = value_kernels_vs_plain(model, obs, rng, dev)
@@ -3772,13 +3957,13 @@ def main() -> int:
 
     # each kernel at the tier and the scale nearest to its main-path use
     # (the fp32 K1 and K2 at each chain's draws, with their 1 M-row
-    # figures beside; the fp32 and mixed K3 at the exact-value HMCs'
-    # walkers, with their 65,536-row figures and phase 4's turns beside);
-    # K3's reverse tier pairs run on no sampler's path, so the 16-row
-    # fused_loglik_grad_gram.cu shows no launches (its row times the
-    # reverse pair; its times at the mixed pair, from phase 4's turns,
-    # beside); the launches of phases 12-13 and 15-16 count in the totals,
-    # by path beside them
+    # figures beside; the fp32, mixed and reverse K3 at phase 5's short
+    # HMCs' walkers, with their 65,536-row figures and phase 4's turns
+    # beside); the 16-row fused_loglik_grad_gram.cu runs only a network
+    # too wide for the others: its launches are phase 19's wide ensemble's
+    # (its row times phase 4's wide network; its times at the reverse and
+    # mixed pairs, from phase 4's turns, beside); the launches
+    # of phases 12-13 and 15-16 count in the totals, by path beside them
     big = 1_048_576
     k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
 
@@ -3790,9 +3975,9 @@ def main() -> int:
         return {"ms_64k": t["kernel_ms"], "stream_ms_64k": t["kernel_stream_ms"],
                 "plain_ms_64k": t["plain_ms"], "bound_ms_64k": b[0]}
 
-    def turns(key):
+    def turns(key, part="mixed_turns"):
         """Phase 4's turns of ``key`` at 4096 and 65,536 rows."""
-        return {n: timings["mixed_turns"][n][key] for n in ("4096", "65536")}
+        return {n: timings[part][n][key] for n in ("4096", "65536")}
 
     def entry(name, source, replaces, n_launch, err, *args, **extra):
         """The entry of kernel ``name``: its launches on the diagonal paths
@@ -3861,14 +4046,29 @@ def main() -> int:
               **ensemble("k3_mixed"),
               **at_64k(timings["highest/default/65536"],
                        bound("k3", trunk, 65536, "f32", "bf16"))),
-        entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, 0,
-              k3_err[REVERSE_TIERS], timings["high/highest/4096"],
-              bound("k3", trunk, 4096, "bf16x3", "f32"), launches_trained=0, launches_serve=0,
-              at_mixed_pair_in_turns={"highest/default": turns("highest/default/cuda_cores"),
-                                      "highest/high": turns("highest/high/cuda_cores")},
+        entry("fused_loglik_grad_gram_reverse", GRAM_MMA_SOURCE, K3_REPLACES,
+              k3_reverse_launches + ens_launches.get("k3_reverse", 0),
+              max(k3_err[REVERSE_TIERS], k3_err[REVERSE_PAIRS[1]]),
+              timings["high/highest/4096"], bound("k3", trunk, 4096, "bf16x3", "f32"),
+              launches_exact_force_hmc=k3_reverse_launches, launches_trained=0,
+              launches_serve=0, in_turns={
+                  "high/highest": turns("high/highest", "reverse_turns"),
+                  "default/highest": turns("default/highest", "reverse_turns"),
+                  "high/high": turns("high/high", "reverse_turns")},
               **ensemble("k3_reverse"),
               **at_64k(timings["high/highest/65536"],
                        bound("k3", trunk, 65536, "bf16x3", "f32"))),
+        entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, ens_launches["k3_wide"],
+              timings["wide"]["max_abs"], timings["wide"]["4096"],
+              (timings["wide"]["4096"]["bound_ms"], timings["wide"]["4096"]["bound_by"]),
+              hidden=timings["wide"]["hidden"], launches_trained=0, launches_serve=0,
+              at_reverse_pairs_in_turns={
+                  "high/highest": turns("high/highest/cuda_cores", "reverse_turns"),
+                  "default/highest": turns("default/highest/cuda_cores", "reverse_turns")},
+              at_mixed_pair_in_turns={"highest/default": turns("highest/default/cuda_cores"),
+                                      "highest/high": turns("highest/high/cuda_cores")},
+              hidden_ensemble=list(WIDE_HIDDEN), **ensemble("k3_wide"),
+              **at_64k(timings["wide"]["65536"], (timings["wide"]["65536"]["bound_ms"],))),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
               launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc
               + mesh_launches["hmc_plain"] + mesh_launches["hmc_mesh"],

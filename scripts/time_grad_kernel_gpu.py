@@ -8,6 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card and
 
     python3 scripts/time_grad_kernel_gpu.py [TREE] [--heights 64,32,16,8]
                                             [--rows 4096,65536]
+                                            [--tiers high/default,high/high]
 
 TREE (default: this checkout) is the root of a tree of this repository,
 for example a parent commit unpacked with ``git archive`` under
@@ -16,8 +17,9 @@ from there, so the kernel is built from its sources and timed by its own
 ``chip_smoke.time_ms`` (one wrapper call between two CUDA events,
 median) and ``chip_smoke.stream_ms`` (device time per call over
 back-to-back calls). On the flagship checkpoint with chip_smoke's
-observation and noise (σ² = 25) at precision ("highest", "highest"), it
-times the kernel, as ``make_fused_loglik_grad_gram`` builds it, and its
+observation and noise (σ² = 25) at precision ("highest", "highest") (or
+at each ``value/backward`` pair of ``--tiers``, keyed ``k3_value_backward``),
+it times the kernel, as ``make_fused_loglik_grad_gram`` builds it, and its
 plain version at 4096 rows (an HMC ensemble) and 65,536 rows (or the
 batches of ``--rows``), and prints one JSON line and the card's
 ``nvidia-smi`` name and power limit. With ``--heights`` (a tree whose
@@ -45,6 +47,8 @@ def main() -> int:
                         help="comma-separated tile heights to force, e.g. 64,32,16,8")
     parser.add_argument("--rows", default=",".join(str(n) for n in ROWS),
                         help="comma-separated batch sizes")
+    parser.add_argument("--tiers", default="highest/highest",
+                        help="comma-separated value/backward tier pairs")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     heights = tuple(int(h) for h in args.heights.split(",") if h)
@@ -70,25 +74,30 @@ def main() -> int:
     truth = synthetic_params(1, rng)[0]
     obs = model.predict(truth) + rng.normal(0.0, 5.0, model.config.n_bins)
 
-    def build(**kw):
+    def build(tiers=("highest", "highest"), **kw):
         return make_fused_loglik_grad_gram(model.config, model.normalizer, obs, smoke.NOISE_VAR,
-                                           precision="highest", grad_precision="highest",
+                                           precision=tiers[0], grad_precision=tiers[1],
                                            device=dev, **kw)
 
-    fn = build()
+    fns = {}
+    for pair in args.tiers.split(","):
+        tiers = tuple(pair.split("/"))
+        key = "k3" if tiers == ("highest", "highest") else f"k3_{tiers[0]}_{tiers[1]}"
+        fns[key] = build(tiers)
     forced = {h: build(tile_rows=h) for h in heights}
-    ops = fn.operands(model.params)
     out = {"tree": os.path.relpath(tree), "torch": torch.__version__}
     for n in (int(n) for n in args.rows.split(",")):
         repeats = 50 if n <= 8192 else 20
         x = smoke.rows(n, rng)
-        out[f"k3/{n}"] = {
-            "kernel_ms": smoke.time_ms(lambda: fn(model.params, x), repeats),
-            "kernel_stream_ms": smoke.stream_ms(lambda: fn(model.params, x), repeats),
-            "plain_ms": smoke.time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats),
-        }
-        if hasattr(fn, "rows_for"):
-            out[f"k3/{n}"]["tile_rows"] = fn.rows_for(n)
+        for key, fn in fns.items():
+            ops = fn.operands(model.params)
+            out[f"{key}/{n}"] = {
+                "kernel_ms": smoke.time_ms(lambda: fn(model.params, x), repeats),
+                "kernel_stream_ms": smoke.stream_ms(lambda: fn(model.params, x), repeats),
+                "plain_ms": smoke.time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats),
+            }
+            if hasattr(fn, "rows_for"):
+                out[f"{key}/{n}"]["tile_rows"] = fn.rows_for(n)
         turns = heights + heights[::-1]
         t = [smoke.stream_ms(lambda: forced[h](model.params, x), repeats) for h in turns]
         for i, h in enumerate(heights):

@@ -5,7 +5,7 @@ of squares) and K2, through one tree's own wrappers, on one NVIDIA GPU.
 Run from the root of a checkout, on a machine with a CUDA card and
 ``nvcc``:
 
-    python3 scripts/time_value_kernels_gpu.py [TREE]
+    python3 scripts/time_value_kernels_gpu.py [TREE] [--precision highest,high,default]
 
 TREE (default: this checkout) is the root of a tree of this repository,
 for example a parent commit unpacked with ``git archive`` under
@@ -14,14 +14,17 @@ from there, so the kernels are built from its sources and timed by its
 own ``chip_smoke.time_ms`` (one wrapper call between two CUDA events,
 median) and ``chip_smoke.stream_ms`` (device time per call over
 back-to-back calls). On the flagship checkpoint with chip_smoke's
-observation and noise (σ² = 25) at precision ``"highest"``, it times
-both kernels at 409,600 rows (each sampler chain's draws) and 1,048,576
-rows, and prints one JSON line and the card's ``nvidia-smi`` name and
+observation and noise (σ² = 25) at precision ``"highest"`` (or at each
+tier of ``--precision``; a tier other than ``"highest"`` keyed
+``k1_sumsq@tier`` and ``k2@tier``), it times both kernels at 409,600
+rows (each sampler chain's draws) and 1,048,576 rows, and prints one
+JSON line and the card's ``nvidia-smi`` name and
 power limit. Run it for two trees in turns (a, b, b, a) to compare them.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -31,8 +34,12 @@ ROWS = ((409_600, 5), (1_048_576, 3))  # (rows, repeats)
 
 
 def main() -> int:
-    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                           os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("tree", nargs="?", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--precision", default="highest", help="comma-separated tiers")
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -50,14 +57,16 @@ def main() -> int:
     rng = np.random.default_rng(0)
     truth = synthetic_params(1, rng)[0]
     obs = model.predict(truth) + rng.normal(0.0, 5.0, model.config.n_bins)
-    pairs, _ = smoke.value_kernels(model, obs, "highest", dev)
+    tiers = args.precision.split(",")
+    pairs = {t: smoke.value_kernels(model, obs, t, dev)[0] for t in tiers}
     out = {"tree": os.path.relpath(tree), "torch": torch.__version__}
     for n, repeats in ROWS:
         x = smoke.rows(n, rng)
-        for key in ("k1_sumsq", "k2"):
-            kernel = pairs[key][0]
+        for tier, key in ((t, k) for t in tiers for k in ("k1_sumsq", "k2")):
+            kernel = pairs[tier][key][0]
+            name = key if tier == "highest" else f"{key}@{tier}"
             with torch.no_grad():
-                out[f"{key}/{n}"] = {
+                out[f"{name}/{n}"] = {
                     "kernel_ms": smoke.time_ms(lambda: kernel(x), repeats, warmup=1),
                     "kernel_stream_ms": smoke.stream_ms(lambda: kernel(x), repeats),
                 }

@@ -1,9 +1,10 @@
 """What the CPU tests of the port's register-tiled fp32 kernels share
 (``csrc/tile_f32.cuh``: K1 ``fused_mlp.cu``, K2 ``fused_loglik_gram.cu``,
-K3 ``fused_loglik_grad_gram_f32.cu`` and the forward of
-``fused_gram_mixed.cu``): packed fp32 weight slabs read back by the
-kernels' layout, and the kernels' arithmetic in plain torch, through the
-packed stream, slab by slab, k ascending."""
+K3 ``fused_loglik_grad_gram_f32.cu``, the forward of
+``fused_gram_mixed.cu`` and the backward of ``fused_gram_mma.cu`` at a
+reverse pair): packed fp32 weight slabs read back by the kernels'
+layout, and the kernels' arithmetic in plain torch, through the packed
+stream, slab by slab, k ascending."""
 
 import torch
 from _torch_mma import mma_product
@@ -156,3 +157,41 @@ def emulate_mixed_grad_gram(ops, x):
         acc = mma_product(e, ops.packed.wt[i - 1], ops.grad_tier)
         e = torch.where(masks[i - 1], acc[:, : widths[i]], 0.0)
     return _gram_value(ops, h, hg, u), _skinny_backward(ops, x, e)
+
+
+def _mma_forward(ops, x):
+    """``csrc/fused_gram_mma.cu``'s forward through ``ops.packed`` (K2's,
+    and K3's at every pair it runs): the skinny layer exact, each
+    activation split or rounded once into the next product, padded to 16
+    columns with zeros, the quad from the fp32 ``h``. Returns the
+    activations (fp32, padded), ``h@G`` and the value."""
+    p = ops.packed
+    h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
+    h = torch.nn.functional.pad(h, (0, -h.shape[1] % 16))
+    acts = [h]
+    for w, b in zip(p.w, p.b):
+        h = torch.relu(mma_product(h, w, ops.tier) + b)
+        acts.append(h)
+    hg = mma_product(h, p.g, ops.tier)
+    value = -0.5 * (torch.sum((hg + 2.0 * p.u) * h, dim=-1) + ops.c) + ops.log_norm
+    return acts, hg, value
+
+
+def emulate_reverse_grad_gram(ops, x):
+    """``fused_gram_mma.cu`` at a reverse pair: the tensor-core forward at
+    ``ops.tier`` through the packed fragments (the value is the
+    tensor-core K2's), e = h > 0 ? h@G + u : 0 in fp32 from the gram head,
+    then e ← mask_{i−1} ? e @ W_iᵀ : 0 for i = n−1 … 1 through the fp32
+    slabs of ``ops.slabs`` (k ascending, one sum per output), the masks
+    from the fp32 pre-activations, the skinny layer's backward in fp32.
+    ``(logL, dlogL/dx)``."""
+    widths = ops.widths
+    acts, hg, value = _mma_forward(ops, x)
+    assert ops.packed.wt == () and ops.slabs.b.numel() == 0
+    e = torch.where(acts[-1] > 0.0, hg + ops.packed.u, 0.0)
+    at = 0
+    for i in range(len(widths) - 2, 0, -1):
+        acc, at = slab_layer(e, ops.slabs, at, widths[i + 1], widths[i])
+        e = torch.where(acts[i - 1][:, : widths[i]] > 0.0, acc[:, : widths[i]], 0.0)
+    assert at == ops.slabs.w.numel()
+    return value, _skinny_backward(ops, x, e[:, : widths[1]])

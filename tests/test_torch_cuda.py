@@ -11,7 +11,8 @@ plain version compute the same products and differ only in summation
 order, so values agree within rtol·(|logL| + c/2) + 1e-2 nats — the
 folded output layer's cancellation scale — with rtol 1e-5 at the fp32
 tier, 1e-4 at bf16x3 and 5e-3 at single-pass bf16 (K3's value tier is
-never bf16 here, so its checks keep 1e-4); K1's predictions agree within
+bf16 only at the reverse pair (default, highest); elsewhere its checks
+keep 1e-4); K1's predictions agree within
 1e-5, 1e-4 and 5e-3 of their amplitude; gradients pass the gradient gate
 of ``bench_mcmc.py``.
 """
@@ -99,8 +100,8 @@ def test_k3_matches_plain(cuda, hidden, tiers):
 @pytest.mark.parametrize("tiers", [("high", "highest"), ("default", "highest")])
 def test_k3_mixed_tiers_run_the_cuda_cores(cuda, tiers):
     """A reverse tier pair (a bf16 value tier, an fp32 backward) runs
-    ``fused_loglik_grad_gram.cu``, its bf16 tier split per product on the
-    CUDA cores."""
+    ``fused_gram_mma.cu``'s tensor-core forward and its fp32 backward on
+    the CUDA cores (``.reverse``), held to the plain version."""
     m, obs, data = _model((32, 48, 32, 24), cuda)
     x = _rows(data, 100, cuda)
     fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
@@ -109,8 +110,9 @@ def test_k3_mixed_tiers_run_the_cuda_cores(cuda, tiers):
     ops = fn.operands(m.params)
     vp, gp = loglik_grad_gram_reference(ops, x)
     torch.cuda.synchronize()
-    assert fn.launches == 1 and not fn.tensor_cores and ops.packed is None
-    assert not fn.register_tiled and not fn.mixed and ops.slabs is None
+    assert fn.launches == 1 and fn.reverse and not fn.tensor_cores
+    assert ops.packed is not None and ops.packed.wt == () and ops.slabs is not None
+    assert not fn.register_tiled and not fn.mixed
     assert fn.rows_for(100) is None
     _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), tiers[0])
     assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
@@ -658,6 +660,203 @@ def test_k3_f32_wide_layer_runs_the_16_row_kernel(cuda):
     assert fn.launches == 1 and ops.slabs is None
     _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), "highest")
     assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [("high", "highest"), ("highest", "highest")])
+def test_k3_too_wide_network_runs_the_16_row_kernel(cuda, tiers):
+    """A network too wide for ``fused_gram_mma.cu``'s fp32 backward tiles
+    (a reverse pair) or for two 8-row buffers (fp32, fp32) is routed to
+    ``fused_loglik_grad_gram.cu`` when the wrapper is built, and runs
+    there against the plain version."""
+    m, obs, data = _model((3200, 64, 64), cuda)
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], device=cuda)
+    assert not (fn.reverse or fn.register_tiled or fn.tensor_cores or fn.mixed)
+    x = _rows(data, 100, cuda)
+    vk, gk = fn(m.params, x)
+    ops = fn.operands(m.params)
+    vp, gp = loglik_grad_gram_reference(ops, x)
+    torch.cuda.synchronize()
+    assert fn.launches == 1 and ops.slabs is None and ops.packed is None
+    _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), tiers[0])
+    assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+
+
+# K3 at a bf16 value tier with an fp32 backward: fused_gram_mma.cu's
+# reverse mode. Every kernel computes the skinny first layer as one fmaf
+# per input column from 0, then adds the bias (mma.cuh, tile_f32.cuh);
+# the plain version's skinny_dense starts from the bias and rounds each
+# product. The two differ by an ulp on many columns, and at a
+# single-pass bf16 value tier the next layer's bf16 rounding can turn
+# that into a different activation: on some randomly initialised
+# networks the gradients of rare rows then leave the gate against plain,
+# and on one fx == 0 row of the shipped checkpoint's 65,537 the value
+# leaves VALUE_RTOL, every bf16-tier kernel alike (ROADMAP, queue 3). So
+# at (default, highest) the gradient on random networks and the value on
+# the shipped checkpoint are held, at the same gate and tolerance, to the
+# plain version with the kernels' skinny layer (_kernel_skinny_reference).
+REVERSE_PAIRS = [("high", "highest"), ("default", "highest")]
+
+
+def _fmaf_skinny(x, w, b):
+    """The kernels' skinny first layer: per output column one fmaf per
+    input column, from 0 and c ascending, then ``+ b``. Each fmaf is a
+    float64 multiply-add (the product of two fp32 values is exact there)
+    rounded to fp32."""
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float64, device=x.device)
+    for c in range(w.shape[0]):
+        acc = (x[:, c:c + 1].double() * w[c].double() + acc).float().double()
+    return acc.float() + b
+
+
+def _kernel_skinny_reference(reference, ops, x):
+    """``reference(ops, x)`` (a plain K3 of ``fused_loglik``) with the
+    kernels' skinny first layer (:func:`_fmaf_skinny`) in place of
+    ``skinny_dense``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_loglik, "skinny_dense", _fmaf_skinny)
+        return reference(ops, x)
+
+
+def _k3_reverse(m, obs, tiers, dev, members=None):
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], members=members, device=dev)
+    assert fn.reverse and not (fn.tensor_cores or fn.mixed or fn.register_tiled)
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", F32_GRAM_WIDTHS)
+@pytest.mark.parametrize("tiers", REVERSE_PAIRS)
+def test_k3_reverse_matches_plain(cuda, hidden, tiers):
+    """The reverse mode at batches 1, 37, 100, 4096 and 65,537 with an
+    fx == 0 row: values within the value tier's tolerance of the plain
+    version, gradients under the gate against it (at (default, highest)
+    against the plain version with the kernels' skinny layer), the fx ==
+    0 slot exactly 0, one launch per call; its value equals the
+    tensor-core K2's at the value tier bit for bit (the same forward)."""
+    m, obs, _ = _model(hidden, cuda)
+    fn = _k3_reverse(m, obs, tiers, cuda)
+    k2 = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                device=cuda)
+    assert k2.tensor_cores
+    ops = fn.operands(m.params)
+    for n in (1, 37, 100, 4096, 65537):
+        x = _prior_rows(n, cuda)
+        fn.launches = 0
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        if tiers[0] == "default":
+            _, gp = _kernel_skinny_reference(loglik_grad_gram_reference, ops, x)
+        v2 = k2(m.params, x)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and torch.equal(vk, v2)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        assert vk.shape == (n,) and gk.shape == (n, 7)
+        assert np.isfinite(vk).all() and np.isfinite(gk).all()
+        _close_values(vk, vp, float(ops.c), tiers[0])
+        assert grad_gate_violation(gk, gp) <= 0.0
+        assert gk[0, 2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", REVERSE_PAIRS)
+def test_k3_reverse_shipped_checkpoint_passes_the_gate(cuda, tiers):
+    """On the shipped flagship checkpoint, at both reverse pairs and
+    batches 1, 37, 4096 and 65,537: gradients under the gate against
+    plain, the value bit for bit the tensor-core K2's at the value tier,
+    and within the tier's tolerance of plain at (high, highest) and of
+    the plain version with the kernels' skinny layer at (default,
+    highest). (On one fx == 0 row of these 65,537 every kernel's
+    bf16-tier value, K2's and the 16-row kernel's alike, lies outside the
+    tolerance of plain itself: the two skinny layers differ by an ulp,
+    and the bf16 rounding of the next layer amplifies it. ROADMAP, queue
+    3.)"""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    m = DirectEmulator.from_checkpoint(os.path.join(root, "pretrained", "direct_synthetic.npz"),
+                                       device=cuda)
+    obs = m.predict(synthetic_params(1, np.random.default_rng(0))[0]) + (
+        np.random.default_rng(1).normal(0.0, 5.0, 451))
+    fn = _k3_reverse(m, obs, tiers, cuda)
+    k2 = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                device=cuda)
+    ops = fn.operands(m.params)
+    for n in (1, 37, 4096, 65537):
+        x = _prior_rows(n, cuda)
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        assert torch.equal(vk, k2(m.params, x))
+        if tiers[0] == "default":
+            vp, _ = _kernel_skinny_reference(loglik_grad_gram_reference, ops, x)
+        _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), tiers[0])
+        gk, gp = gk.cpu().numpy(), gp.cpu().numpy()
+        assert grad_gate_violation(gk, gp) <= 0.0
+        assert gk[0, 2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", REVERSE_PAIRS)
+def test_k3_reverse_members_equal_single_launches(cuda, tiers):
+    """M = 3: one member-batched launch equals the three members' single
+    launches bit for bit at 1, 37, 100, 4096 and 65,537 rows, and holds
+    to its member-batched plain version (the gradient gate; at (default,
+    highest) against the plain version with the kernels' skinny
+    layer)."""
+    ens, obs = _members((288, 352, 288, 224), cuda)
+    batched = _k3_reverse(ens, obs, tiers, cuda, members=3)
+    singles = [_k3_reverse(ens, obs, tiers, cuda) for _ in range(3)]
+    views = ens.member_params(ens.params)
+    ops = batched.operands(ens.params)
+    for n in (1, 37, 100, 4096, 65537):
+        x = _prior_rows(n, cuda)
+        v3, g3 = batched(ens.params, x)
+        vp, gp = fused_loglik.loglik_grad_gram_members_reference(ops, x)
+        if tiers[0] == "default":
+            _, gp = _kernel_skinny_reference(fused_loglik.loglik_grad_gram_members_reference,
+                                             ops, x)
+        for m, (f, p) in enumerate(zip(singles, views)):
+            v1, g1 = f(p, x)
+            assert torch.equal(v3[m], v1) and torch.equal(g3[m], g1), (n, m)
+            _close_values(v3[m].cpu().numpy(), vp[m].cpu().numpy(), float(ops.c[m]), tiers[0])
+            assert grad_gate_violation(g3[m].cpu().numpy(), gp[m].cpu().numpy()) <= 0.0
+    assert batched.launches == 5
+
+
+@pytest.mark.cuda
+def test_k3_reverse_rows_are_independent(cuda):
+    """One row alone equals the same row inside a batch of 100 bit for
+    bit, and a NaN row leaves the others as they were."""
+    m, obs, data = _model((288, 352, 288, 224), cuda)
+    x = _rows(data, 100, cuda)
+    fn = _k3_reverse(m, obs, REVERSE_PAIRS[0], cuda)
+    vb, gb = fn(m.params, x)
+    for i in (0, 7, 45, 99):
+        v1, g1 = fn(m.params, x[i])
+        assert torch.equal(v1[0], vb[i]) and torch.equal(g1[0], gb[i])
+    bad = x.clone()
+    bad[11, 4] = float("nan")
+    v, g = fn(m.params, bad)
+    keep = torch.arange(100, device=cuda) != 11
+    assert torch.isnan(v[11])
+    assert torch.equal(v[keep], vb[keep]) and torch.equal(g[keep], gb[keep])
+
+
+@pytest.mark.cuda
+def test_hmc_with_a_bf16x3_value_and_an_exact_force_runs_the_reverse_k3(cuda):
+    """``loglik_and_grad_fn(precision="high", grad_precision="highest",
+    backend="kernel")`` is the reverse mode, and ``sample_hmc`` launches
+    it once per gradient."""
+    m, obs, _ = _model((32, 48, 32, 24), cuda)
+    k3 = m.loglik_and_grad_fn(obs, 25.0, backend="kernel", precision="high",
+                              grad_precision="highest")
+    assert k3.reverse and not k3.tensor_cores
+    k3.launches = 0
+    res = sample_hmc(k3, m.params, n_walkers=256, n_warmup=20, n_steps=20, seed=1, device=cuda)
+    assert k3.launches >= 41
+    assert np.isfinite(res.chain).all() and res.chain.shape == (4, 256, 7)
 
 
 # K3 at an fp32 value tier with a bf16 backward: fused_gram_mixed.cu
@@ -1371,8 +1570,15 @@ MEMBER_ROUTES = [("k1", "highest", None), ("k1", "high", None), ("k1", "default"
                  ("k2", "highest", None), ("k2", "high", None), ("k2", "default", None),
                  ("k3", "highest", "highest"), ("k3", "high", "default"), ("k3", "high", "high"),
                  ("k3", "highest", "default"), ("k3", "highest", "high"),
-                 ("k3", "high", "highest")]
+                 ("k3", "high", "highest"), ("k3_wide", "high", "highest")]
 MEMBER_IDS = [f"{k}-{t}-{g}" for k, t, g in MEMBER_ROUTES]
+
+
+def _member_hidden(route, hidden):
+    """``hidden``, its first layer 1500 wide on the ``k3_wide`` route: too
+    wide for ``fused_gram_mma.cu``'s reverse mode, so K3 runs
+    ``fused_loglik_grad_gram.cu``."""
+    return (1500, *hidden[1:]) if route[0] == "k3_wide" else hidden
 
 
 def _members(hidden, dev, n=3):
@@ -1404,8 +1610,11 @@ def _route_wrapper(ens, obs, route, dev, members=None):
     if kernel == "k2":
         return make_fused_loglik_gram(cfg, norm, obs, 25.0, precision=tier, members=members,
                                       device=dev)
-    return make_fused_loglik_grad_gram(cfg, norm, obs, 25.0, precision=tier,
-                                       grad_precision=grad, members=members, device=dev)
+    fn = make_fused_loglik_grad_gram(cfg, norm, obs, 25.0, precision=tier,
+                                     grad_precision=grad, members=members, device=dev)
+    if kernel == "k3_wide":
+        assert not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
+    return fn
 
 
 def _tuple(out):
@@ -1420,7 +1629,7 @@ def test_member_batched_launch_equals_single_launches(cuda, route, hidden):
     three members' single-model launches bit for bit, at 1, 37 and 1000
     rows: a member's CTAs run the same arithmetic in the same order. One
     launch per call."""
-    ens, obs = _members(hidden, cuda)
+    ens, obs = _members(_member_hidden(route, hidden), cuda)
     batched = _route_wrapper(ens, obs, route, cuda, members=3)
     singles = [_route_wrapper(ens, obs, route, cuda) for _ in range(3)]
     views = ens.member_params(ens.params)
@@ -1441,7 +1650,7 @@ def test_member_batched_launch_equals_single_launches(cuda, route, hidden):
 def test_one_member_launch_equals_the_single_launch(cuda, route):
     """M = 1: the member-batched wrapper over a one-member stack equals
     today's single-model launch bit for bit."""
-    ens, obs = _members((32, 48, 32, 24), cuda, n=1)
+    ens, obs = _members(_member_hidden(route, (32, 48, 32, 24)), cuda, n=1)
     x = _rows_prior(37, cuda)
     with torch.no_grad():
         got = _tuple(_route_wrapper(ens, obs, route, cuda, members=1)(ens.params, x))
@@ -1459,7 +1668,7 @@ def test_member_count_beyond_the_grid_is_refused(cuda, route, monkeypatch):
     fail, as 65,535 they run, every member equal to the single launch."""
     from tpu21cmvae_torch.ops.kernels import _common
 
-    ens, obs = _members((32, 48, 32, 24), cuda, n=1)
+    ens, obs = _members(_member_hidden(route, (32, 48, 32, 24)), cuda, n=1)
     with pytest.raises(ValueError, match="members"):
         _route_wrapper(ens, obs, route, cuda, members=_common.MAX_MEMBERS + 1)
     fn = _route_wrapper(ens, obs, route, cuda)

@@ -34,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_f32 import emulate_f32_grad_gram, emulate_f32_gram, unpack_slabs
+from _torch_f32 import _mma_forward, emulate_f32_grad_gram, emulate_f32_gram, unpack_slabs
 from _torch_mma import mma_product, unpack
 
 from tpu21cmvae.models.direct import DirectEmulator as JaxEmulator
@@ -66,6 +66,7 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     grad_f32_rows,
     grad_mixed_bytes,
     grad_mixed_heights,
+    grad_reverse_bytes,
     gram_f32_rows,
     gram_shared_bytes,
     loglik_grad_gram_reference,
@@ -203,8 +204,11 @@ def test_operands_cached_until_weights_change(pair):
     fn = make_fused_loglik_grad_gram(tm.config, tm.normalizer, obs, 25.0, device="cpu")
     ops = fn.operands(tm.params)
     assert fn.operands(tm.params) is ops
-    mixed = 4 * 16 * (7 + sum(SMALL) + SMALL[-1])  # every activation, 16 rows
-    assert shared_bytes(ops.widths, "bf16x3", "f32") == mixed
+    # the reverse pair: masks, e, the backward's tile and ring (over the
+    # smaller forward tiles), the operand struct
+    mixed = 4 * (32 + 64 + 32) + 4 * 18 * 64 + 4 * 18 * 64 + 4 * 3 * 8 * 128 + 552
+    assert shared_bytes(ops.widths, "bf16x3", "f32") == grad_reverse_bytes(
+        ops.widths, "bf16x3") == mixed
     assert shared_bytes(ops.widths) == grad_f32_bytes(ops.widths, 64) == (
         4 * 64 * (7 + 2 * 64) + 2 * 32 * 128 * 4 + 1024 + 8 * (32 + 64 + 32))
     v0 = fn(tm.params, torch.as_tensor(raw))[0]
@@ -254,24 +258,18 @@ def _raw(splits, n=37):
 
 def _emulate_gram(ops, x, grad=True, active=lambda a: a > 0.0):
     """``csrc/fused_gram_mma.cu``'s arithmetic in plain torch, through the
-    packed, padded operands: the skinny layer exact, each activation split
-    (bf16x3) or rounded (bf16) once into the next product, the quad from
-    the fp32 ``h``, the ReLU masks from the fp32 activations (``active``),
-    layer 0's backward signal in fp32 into the exact skinny backward;
-    padded columns are carried as zeros. ``(logL, dlogL/dx)``, or ``logL``
-    alone without ``grad`` (K2)."""
-    p = ops.packed
-    h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
-    h = torch.nn.functional.pad(h, (0, -h.shape[1] % 16))
-    acts = [h]
-    for w, b in zip(p.w, p.b):
-        h = torch.relu(mma_product(h, w, ops.tier) + b)
-        acts.append(h)
-    hg = mma_product(h, p.g, ops.tier)
-    value = -0.5 * (torch.sum((hg + 2.0 * p.u) * h, dim=-1) + ops.c) + ops.log_norm
+    packed, padded operands: the forward of ``_torch_f32._mma_forward``
+    (the skinny layer exact, each activation split (bf16x3) or rounded
+    (bf16) once into the next product, the quad from the fp32 ``h``), the
+    ReLU masks from the fp32 activations (``active``), layer 0's backward
+    signal in fp32 into the exact skinny backward; padded columns are
+    carried as zeros. ``(logL, dlogL/dx)``, or ``logL`` alone without
+    ``grad`` (K2)."""
+    acts, hg, value = _mma_forward(ops, x)
     if not grad:
         return value
-    e = torch.where(active(h), hg + p.u, 0.0)
+    p = ops.packed
+    e = torch.where(active(acts[-1]), hg + p.u, 0.0)
     for i in range(len(acts) - 1, 0, -1):
         e = torch.where(active(acts[i - 1]), mma_product(e, p.wt[i - 1], ops.grad_tier), 0.0)
     e = e[:, : ops.w0.shape[1]] @ ops.w0.T
@@ -399,9 +397,12 @@ def test_gram_masks_follow_the_fp32_activations(port_model, splits):
 
 
 def test_gram_shared_bytes_and_routing(port_model):
-    """``fused_loglik_grad_gram.cu`` (a reverse tier pair: a bf16 value
-    tier, an fp32 backward) keeps fp32 tiles of 16 rows;
-    ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16 backward) the
+    """``fused_gram_mma.cu`` at a reverse tier pair (a bf16 value tier, an
+    fp32 backward) keeps its masks and the fp32 ``e`` apart, then the
+    larger of K2's tensor-core tiles and the backward's other fp32 tile
+    with its ring, plus its 552-byte operand struct: two blocks share an
+    SM at the flagship; ``fused_loglik_grad_gram.cu`` (a reverse pair too
+    wide for that) fp32 tiles of 16 rows; ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16 backward) the
     fp32 K3's masks and partials and two regions, one for the fp32 ``e``
     and later a bf16 A tile, one for the forward's other tile, ring and
     input tile and later the other A tile, plus its 256-byte operand
@@ -416,8 +417,14 @@ def test_gram_shared_bytes_and_routing(port_model):
     tile of h (K3: and of layer 0's backward signal), K3's mask words, the
     input tile and the quad partials. Each wrapper routes, packs and
     refuses by the kernel its tiers run."""
-    assert shared_bytes(FLAGSHIP, "bf16x3", "f32") == 4 * 16 * (sum(FLAGSHIP) + 224)
-    assert shared_bytes(FLAGSHIP, "bf16", "f32") == 4 * 16 * (sum(FLAGSHIP) + 224)
+    # masks, e, max(K2's tensor-core tiles, the backward's tile + ring), struct
+    rev = 4 * 928 + 4 * 18 * 352
+    assert shared_bytes(FLAGSHIP, "bf16x3", "f32") == grad_reverse_bytes(FLAGSHIP, "bf16x3") == (
+        rev + 61_888 + 552) == 91_496
+    assert shared_bytes(FLAGSHIP, "bf16", "f32") == rev + 2 * 2 * 16 * 360 + 4 * 16 * 232 + (
+        4 * 16 * (7 + 8)) + 552 == 68_456
+    assert 61_888 > 4 * 18 * 352 + 4 * 3 * 8 * 128  # the forward's tiles are the larger
+    assert 2 * (91_496 + 1024) <= 233_472  # two blocks per SM at bf16x3
     # masks, partials, max(e tile, A tile), max(h tile + ring + input tile, A tile), struct
     fwd32 = 4 * 32 * 352 + 4 * (2 * 16 * 128 + 32 * 7)
     assert shared_bytes(FLAGSHIP, "f32", "bf16x3") == grad_mixed_bytes(FLAGSHIP, 32, "bf16x3") == (
@@ -450,20 +457,25 @@ def test_gram_shared_bytes_and_routing(port_model):
         ops = fn.operands(m.params)
         on_mma = "highest" not in case
         mixed = case in [("highest", "high"), ("highest", "default")]
+        reverse = case in [("high", "highest"), ("default", "highest")]
         assert fn.tensor_cores == on_mma
-        # fused_gram_mma.cu reads every packed operand, fused_gram_mixed.cu
-        # the backward's fragments alone
-        assert (ops.packed is not None) == (on_mma or mixed)
+        # fused_gram_mma.cu reads every packed operand (at a reverse pair
+        # the forward's alone), fused_gram_mixed.cu the backward's
+        # fragments alone
+        assert (ops.packed is not None) == (on_mma or mixed or reverse)
         if mixed:
             assert ops.packed.w == ops.packed.b == () and ops.packed.g is None
             assert len(ops.packed.wt) == len(SMALL) - 1
-        # the register-tiled fp32 forward: K2 at fp32, K3 at (fp32, fp32)
-        # (K3's longer stream) and at a mixed pair (K2's stream)
-        tiled = case in [("highest", "highest"), ("highest", None)] or mixed
+        if reverse:
+            assert ops.packed.wt == () and len(ops.packed.w) == len(SMALL) - 1
+        # the register-tiled fp32 passes: K2 at fp32, K3 at (fp32, fp32)
+        # (K3's longer stream), at a mixed pair (K2's stream) and at a
+        # reverse pair (the backward's stream)
+        tiled = case in [("highest", "highest"), ("highest", None)] or mixed or reverse
         assert (ops.slabs is not None) == tiled
         if case[1] is not None:
             assert fn.register_tiled == (case == ("highest", "highest"))
-            assert fn.mixed == mixed
+            assert fn.mixed == mixed and fn.reverse == reverse
     wide = DirectEmulatorConfig(hidden_dims=(1500,))  # fits the fp32 and bf16 tiles only
     assert shared_bytes((7, 1500), "bf16x3", "bf16x3") > MAX_SHARED_BYTES
     assert gram_shared_bytes((7, 1500), "bf16x3") > MAX_SHARED_BYTES
@@ -474,6 +486,12 @@ def test_gram_shared_bytes_and_routing(port_model):
     fn = make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="highest",
                                      grad_precision="high", device="cpu")
     assert fn.mixed and fn.heights == (16,)
+    # too wide for the reverse mode: fused_loglik_grad_gram.cu, chosen here
+    assert grad_reverse_bytes((7, 1500), "bf16") > MAX_SHARED_BYTES
+    assert shared_bytes((7, 1500), "bf16", "f32") == 4 * 16 * (7 + 1500 + 1500)
+    fn = make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="default",
+                                     grad_precision="highest", device="cpu")
+    assert not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
     with pytest.raises(NotImplementedError, match="shared memory per K3 block at the bf16x3"):
         make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="high", device="cpu")
     with pytest.raises(NotImplementedError, match="shared memory per K2 block at the bf16x3"):
@@ -504,8 +522,13 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
     fp32) alone, its own longer stream and the tile height;
     ``fused_gram_mixed.cu``, an fp32 value tier with a bf16 backward, K2's
     stream, then the backward's fragments, the backward's tier code and
-    the tile height; ``fused_loglik_grad_gram.cu``, the reverse pairs,
-    every hi/lo part (lo None unless bf16x3) and both tier codes."""
+    the tile height; ``fused_gram_mma.cu``'s reverse entry, a bf16 value
+    tier with an fp32 backward, the forward's fragments, then the
+    backward's fp32 stream, and the value tier's code;
+    ``fused_loglik_grad_gram.cu`` (the same pairs' operands without
+    fragments or slabs, as a network too wide for the reverse mode
+    carries them) every hi/lo part (lo None unless bf16x3) and both tier
+    codes."""
     m, obs = port_model(SMALL)
     ops = _wrapper(m, obs, case).operands(m.params)
     k3 = case[1] is not None
@@ -543,6 +566,23 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
                              .operands(m.params).packed.wt, strict=True):
             assert wt.dtype == torch.bfloat16 and torch.equal(wt, fused)
     else:
+        p = ops.packed
+        assert entry == "k3_fused_loglik_grad_gram_reverse" and tiers == [TIER_CODE[ops.tier]]
+        want = [t for w, b in zip(p.w, p.b) for t in (w, b)] + [p.g, p.u, ops.slabs.w]
+        fused = _wrapper(m, obs, (case[0], None)).operands(m.params).packed
+        for got, k2 in zip(tensors[2:-1], [t for w, b in zip(fused.w, fused.b)
+                                           for t in (w, b)] + [fused.g, fused.u], strict=True):
+            assert torch.equal(got, k2)  # the tensor-core K2's operands at the value tier
+        assert tensors[-1].dtype == torch.float32
+        f32 = _wrapper(m, obs, ("highest", "highest")).operands(m.params).slabs.w
+        assert torch.equal(ops.slabs.w, f32[f32.numel() - ops.slabs.w.numel():])
+        got = tensors[2:]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        # stripped of fragments and slabs: fused_loglik_grad_gram.cu
+        ops = dataclasses.replace(ops, packed=None, slabs=None)
+        entry, tensors, tiers = _kernel(ops, k3)
         assert entry == "k3_fused_loglik_grad_gram"
         assert tiers == [TIER_CODE[t] for t in names]
         lo = lambda op, tier: (op[op.shape[0] // 3: 2 * op.shape[0] // 3]  # noqa: E731

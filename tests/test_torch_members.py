@@ -5,7 +5,8 @@ launch (``tpu21cmvae_torch/ops/kernels/_common.py``), the port of JAX's
 On the CPU a member-batched wrapper runs its ``*_members_reference``,
 which reads member m's operands out of the stacked buffers at the stride
 the kernel is given. Here, on three randomly initialised 7→32→48→451
-members and every route of K1, K2 and K3:
+members and every route of K1, K2 and K3 (``fused_loglik_grad_gram.cu``'s
+on three 7→1500→48→451 members, too wide for the others):
 
 - the member-batched plain version equals the single-model wrapper of
   each member, bit for bit (the same fold, the same arithmetic);
@@ -33,6 +34,7 @@ from _torch_f32 import (
     emulate_f32_gram,
     emulate_f32_mlp,
     emulate_mixed_grad_gram,
+    emulate_reverse_grad_gram,
 )
 from _torch_pair import one_torch_thread  # noqa: F401
 from test_torch_fused_loglik import _emulate_gram
@@ -50,6 +52,7 @@ from tpu21cmvae_torch.ops.kernels._common import (
 )
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     _kernel,
+    loglik_grad_gram_reference,
     make_fused_loglik,
     make_fused_loglik_grad_gram,
     make_fused_loglik_gram,
@@ -65,6 +68,8 @@ from tpu21cmvae_torch.ops.loglik import (
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 
 HIDDEN = (32, 48)
+# too wide for fused_gram_mma.cu's reverse mode: K3 runs fused_loglik_grad_gram.cu
+WIDE_HIDDEN = (1500, 48)
 M = 3
 NOISE_VAR = 25.0
 # (kernel, value tier, backward tier): every route of K1, K2 and K3
@@ -82,7 +87,8 @@ ROUTES = [
     ("k3", "high", "high"),
     ("k3", "highest", "default"),  # fused_gram_mixed.cu: fp32 forward, tensor-core backward
     ("k3", "highest", "high"),
-    ("k3", "high", "highest"),  # fused_loglik_grad_gram.cu, the reverse pair
+    ("k3", "high", "highest"),  # fused_gram_mma.cu with an fp32 backward, the reverse pair
+    ("k3_wide", "high", "highest"),  # fused_loglik_grad_gram.cu, on WIDE_HIDDEN
 ]
 IDS = [f"{k}-{t}-{g}" for k, t, g in ROUTES]
 
@@ -96,8 +102,28 @@ def ens(splits):
 
 @pytest.fixture(scope="module")
 def obs(ens, splits):
+    return observe(ens, splits)
+
+
+def observe(ens, splits):
     sig = ens.members[0].predict(splits.par_test[0])
     return (sig + np.random.default_rng(5).normal(0, 5.0, sig.shape)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def wide(splits):
+    """Three members of hidden ``WIDE_HIDDEN`` and their observation."""
+    members = [DirectEmulator(splits, config=DirectEmulatorConfig(hidden_dims=WIDE_HIDDEN),
+                              seed=s, device="cpu") for s in (11, 12, 13)]
+    ens = DeepEnsemble(members)
+    return ens, observe(ens, splits)
+
+
+@pytest.fixture
+def routed(route, ens, obs, request):
+    """The ensemble and observation ``route`` runs on: the wide one for
+    ``k3_wide``."""
+    return request.getfixturevalue("wide") if route[0] == "k3_wide" else (ens, obs)
 
 
 @pytest.fixture(scope="module")
@@ -135,10 +161,11 @@ def outputs(out):
 
 
 @pytest.mark.parametrize("route", ROUTES, ids=IDS)
-def test_member_batched_plain_equals_each_single_model(ens, obs, x, route):
+def test_member_batched_plain_equals_each_single_model(routed, x, route):
     """The member-batched wrapper on the stacked weights returns (M, B)
     values (and (M, B, 7) gradients), member m's bit for bit the
     single-model wrapper's on member m's weights."""
+    ens, obs = routed
     got = outputs(wrapper(ens, obs, route, members=M)(ens.params, x))
     for m, params in enumerate(ens.member_params(ens.params)):
         want = outputs(wrapper(ens, obs, route)(params, x))
@@ -153,24 +180,28 @@ def emulation(route, ops):
     kernel, tier, grad = route
     if kernel.startswith("k1"):
         return emulate_f32_mlp if tier == "highest" else _emulate_mma
+    if ops.packed is None and ops.slabs is None:  # fused_loglik_grad_gram.cu: plain fp32
+        return loglik_grad_gram_reference
     if kernel == "k2":
         return emulate_f32_gram if tier == "highest" else functools.partial(_emulate_gram,
                                                                              grad=False)
+    if tier != "highest" and grad == "highest":
+        return emulate_reverse_grad_gram
     if ops.slabs is not None and ops.packed is not None:
         return emulate_mixed_grad_gram
     if ops.slabs is not None:
         return emulate_f32_grad_gram
-    if ops.packed is not None:
-        return _emulate_gram
-    return None  # the reverse pair reads the tier operands, as its plain version
+    return _emulate_gram
 
 
 @pytest.mark.parametrize("route", ROUTES, ids=IDS)
-def test_emulation_on_a_members_slice_equals_its_own_packing(ens, obs, x, route):
+def test_emulation_on_a_members_slice_equals_its_own_packing(routed, x, route):
     """The kernels' CPU emulations on member m's slice of the stacked,
     packed operands (read at its member stride) equal the same emulation
-    on member m's own packed operands, bit for bit; the reverse K3 pair's
-    operands are its plain version's, held in the test above."""
+    on member m's own packed operands, bit for bit, on every route
+    (``fused_loglik_grad_gram.cu``, which packs nothing: its plain
+    version on the unpacked operands)."""
+    ens, obs = routed
     stacked = operands(wrapper(ens, obs, route, members=M), ens.params)
     assert stacked.members == M
     for m, params in enumerate(ens.member_params(ens.params)):
@@ -178,28 +209,30 @@ def test_emulation_on_a_members_slice_equals_its_own_packing(ens, obs, x, route)
         mine = member_of(stacked, m)
         assert mine.members is None
         emulate = emulation(route, own)
-        if emulate is None:
-            continue
         for g, w in zip(outputs(emulate(mine, x)), outputs(emulate(own, x))):
             assert torch.equal(g, w)
 
 
-GRAM_ROUTES = [r for r in ROUTES if r[0] in ("k2", "k3")]
+GRAM_ROUTES = [r for r in ROUTES if r[0] in ("k2", "k3", "k3_wide")]
 
 
 @pytest.mark.parametrize("route", GRAM_ROUTES, ids=[f"{k}-{t}-{g}" for k, t, g in GRAM_ROUTES])
-def test_member_strides_are_each_operands_member_block(ens, obs, route):
+def test_member_strides_are_each_operands_member_block(routed, route):
     """Each pointer a member-batched K2 or K3 launch passes has its own
     member stride, the bytes of one member's block of that operand, and
     member 1's block there is member 1's own operand; a single model's
     strides are 0 (K1: :func:`test_k1_pointer_strides`)."""
+    ens, obs = routed
     kernel, tier, grad = route
+    k3 = kernel.startswith("k3")
     stacked = wrapper(ens, obs, route, members=M).operands(ens.params)
-    _, tensors, _ = _kernel(stacked, k3=kernel == "k3", rows=16)
+    entry, tensors, _ = _kernel(stacked, k3=k3, rows=16)
+    if kernel == "k3_wide":
+        assert entry == "k3_fused_loglik_grad_gram"
     strides = list(member_strides(tensors, M))
     assert list(member_strides(tensors, None)) == [0] * len(tensors)
     single = wrapper(ens, obs, route).operands(ens.member_params(ens.params)[1])
-    _, own, _ = _kernel(single, k3=kernel == "k3", rows=16)
+    _, own, _ = _kernel(single, k3=k3, rows=16)
     for t, s, o in zip(tensors, strides, own):
         if t is None:
             assert s == 0 and o is None

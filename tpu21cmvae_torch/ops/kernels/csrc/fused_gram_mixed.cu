@@ -5,7 +5,8 @@
 // admissible cheap HMC: leapfrog with any deterministic force stays
 // reversible and volume-preserving, and the Metropolis step uses the exact
 // value, so gradient error costs only acceptance. The reverse pairs (a
-// bf16 value tier with an fp32 backward) stay on fused_loglik_grad_gram.cu.
+// bf16 value tier with an fp32 backward) run on fused_gram_mma.cu's
+// reverse mode, this design's mirror.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
 // (kernel body _loglik_grad_gram_kernel), at (highest, high) and (highest,

@@ -1,11 +1,14 @@
 // K3 and K2 for Hopper at the bf16 tiers ("high" bf16x3, "default"
 // bf16): the gram-form Gaussian log-likelihood of a batch of rows, with
 // (K3) or without (K2) its gradient with respect to the raw parameters,
-// in one kernel whose products run on the tensor cores. The fp32 tier
-// runs on fused_loglik_grad_gram_f32.cu (K3) and fused_loglik_gram.cu
-// (K2); K3 at an fp32 value tier with a bf16 backward on
-// fused_gram_mixed.cu, whose backward is this kernel's; K3 at a bf16 value
-// tier with an fp32 backward on fused_loglik_grad_gram.cu.
+// in one kernel whose products run on the tensor cores. K3 at a reverse
+// pair (a bf16 value tier with an fp32 backward) runs here too, in a
+// mode of its own (PB = kGradF32): this forward, then the backward
+// register-tiled on the CUDA cores. The fp32 tier runs on
+// fused_loglik_grad_gram_f32.cu (K3) and fused_loglik_gram.cu (K2); K3 at
+// an fp32 value tier with a bf16 backward on fused_gram_mixed.cu, whose
+// backward is this kernel's; a network too wide for this kernel's shared
+// memory at a reverse pair on fused_loglik_grad_gram.cu.
 //
 // Replaces, at their bf16 tiers:
 //   K3 tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
@@ -36,6 +39,9 @@
 // backward). At HMC's 4096 rows the grid is one wave of CTAs, so one
 // CTA's chain of seven tensor-core layers sets the time, not the card's
 // throughput (0.11 ms of device time against a 0.011 ms bound; PERF.md).
+// The reverse mode's backward is 0.267 M fp32 products per row on the
+// CUDA cores (0.52 ms per 65,536 rows at the 67 TFLOP/s peak), which
+// bounds it beside the forward's bf16 work.
 //
 // What the design does about it (the layer loop is K1's, mma.cuh):
 // - Forward: the skinny layer writes the first A tile; each hidden layer
@@ -57,6 +63,21 @@
 //   derivative) runs as exact fp32 on the CUDA cores, as in
 //   fused_loglik_grad_gram.cu. A trunk of the skinny layer alone has the
 //   gram head as its only mma layer and its e goes to fp32 directly.
+// - Reverse mode (K3 at a bf16 value tier, an fp32 backward): steps 1-4
+//   unchanged, so the value is the tensor-core K2's at the value tier bit
+//   for bit; the gram epilogue writes e = h > 0 ? hg + u : 0 in fp32 into
+//   a k-major tile (element c·18 + r, tile_f32.cuh's 16-row layout) kept
+//   apart from the forward's tiles. Then for i = n−1 … 1,
+//   tile_f32.cuh::tile_layer over W_iᵀ's fp32 slabs (the tail of the fp32
+//   K3's stream, ops/kernels/fused_loglik.py::pack_backward_slabs), one
+//   accumulator per output, k ascending, epilogue masked_store with
+//   activation i−1's words read at a 4-byte column stride; the other fp32
+//   tile and the slab ring (GradRing<16>) go over the forward's A tiles
+//   and h, dead once the quad is reduced. The mask words are laid out at
+//   padk(width) columns per activation and zeroed first, as are e's k rows
+//   pad16 … padk of h's width: the fp32 layers read k up to padk, the mma
+//   epilogues write up to pad16, and a NaN left there times a zero weight
+//   would poison a sum. The skinny layer's backward as above.
 // - Tile: kGramRows = 16 rows (one m16 tile) per CTA of 8 warps, two
 //   CTAs per SM (118–124 registers), so HMC's 4096 rows make 256 CTAs,
 //   one wave. 32-row tiles (two m16 tiles: half the weight stream, but
@@ -77,6 +98,14 @@
 //   the per-warp quad partials:                              8·16·4 =    512
 //   total 69,696 bytes; K2 at high, with no masks and a 224-column fp32
 //   tile, 61,888. Parts follow the wider of the two tiers.
+// The reverse mode (flagship, bf16x3), in order:
+//   mask words, padk(width) per activation:         (288+352+288)·4 =  3,712
+//   e, k-major, as wide as the widest trunk layer:         352·18·4 = 25,344
+//   then the larger of the forward's tiles (K2's, above)      61,888
+//     and the backward's other fp32 tile and slab ring:
+//                                     25,344 + 3·8·128·4 = 37,632
+//   total 90,944 dynamic bytes (67,904 at bf16) and the 552-byte static
+//   copy of the net: two CTAs per SM.
 // wgmma, TMA and warp specialisation are left for later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -84,14 +113,20 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "mma.cuh"
+#include "tile_f32.cuh"
 
 namespace {
 
 constexpr int kGramRows = 16;  // rows per CTA
 constexpr int kGramMTiles = kGramRows / 16;
 static_assert(kGramRows <= 32, "one 32-bit mask word holds a column of the tile");
+// PB of the reverse pairs' backward: fp32, register-tiled (tile_f32.cuh)
+constexpr int kGradF32 = 3;
+constexpr int kRevS = tile_stride(kGramRows);  // row stride of its k-major fp32 tiles
+using RevRing = GradRing<kGramRows>;           // its slab ring: 3 slots of 8 × 128 floats
 
 struct GramMmaNet {
   int n_layers;                // trunk layers, the skinny one included
@@ -110,6 +145,21 @@ struct GramMmaNet {
   long long s_w0, s_b0, s_w[kMaxLayers], s_b[kMaxLayers], s_wt[kMaxLayers], s_g, s_u;
 };
 
+// The reverse pairs' net: the forward's, then the backward's fp32 stream.
+struct GramReverseNet : GramMmaNet {
+  const float* slabs;  // W_iᵀ for i = n−1 … 1 as tile_f32.cuh streams them
+  long long s_slabs;   // its member stride in bytes (0: one model)
+  int total;           // slabs in that stream at RevRing's depth
+  int buf_cols;        // k rows of each fp32 tile: the widest trunk width padded to 32
+};
+// Its shared copy is the kernel's static shared memory, which the launch
+// and ops/kernels/fused_loglik.py::grad_reverse_bytes count beside the
+// dynamic bytes.
+static_assert(sizeof(GramReverseNet) == 552, "fused_loglik.py's REVERSE_NET_BYTES");
+
+template <int PB>
+using GramNetOf = std::conditional_t<PB == kGradF32, GramReverseNet, GramMmaNet>;
+
 // The net of member m: every operand moved by m times its stride.
 __device__ __forceinline__ void to_member(GramMmaNet& net, int m) {
   net.w0 = member_at(net.w0, net.s_w0, m);
@@ -124,25 +174,37 @@ __device__ __forceinline__ void to_member(GramMmaNet& net, int m) {
   net.u = member_at(net.u, net.s_u, m);
 }
 
+// The fp32 tiles' k rows: the reverse net's buf_cols, 0 for the others.
+template <class Net>
+__device__ __forceinline__ int fp32_cols(const Net& net) {
+  if constexpr (std::is_same_v<Net, GramReverseNet>) {
+    return net.buf_cols;
+  } else {
+    return 0;
+  }
+}
+
 // PF: parts of the value tier (2 bf16x3, 1 bf16); PB: of the grad tier,
-// 0 for K2 (no backward).
+// 0 for K2 (no backward), kGradF32 for the reverse pairs' fp32 backward.
 template <int PF, int PB>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
-                      float* __restrict__ dx, int n_rows, const GramMmaNet net_in) {
+                      float* __restrict__ dx, int n_rows, const GramNetOf<PB> net_in) {
+  constexpr bool kRev = PB == kGradF32;
   // member blockIdx.y: its operands, moved there once per CTA into a
   // shared copy (a copy per thread, in local memory, ran these kernels
   // 30-50 % slower on an H100), its rows of quad and dx; x is shared
-  __shared__ GramMmaNet net;
+  __shared__ GramNetOf<PB> net;
   if (threadIdx.x == 0) {
     net = net_in;
     to_member(net, blockIdx.y);
+    if constexpr (kRev) net.slabs = member_at(net.slabs, net.s_slabs, blockIdx.y);
   }
   __syncthreads();
   quad += static_cast<size_t>(blockIdx.y) * n_rows;
   if constexpr (PB > 0) dx += static_cast<size_t>(blockIdx.y) * n_rows * net.width[0];
   constexpr int MT = kGramMTiles;
-  constexpr int kParts = PF > PB ? PF : PB;
+  constexpr int kParts = kRev ? PF : PF > PB ? PF : PB;
   extern __shared__ uint4 smem_gram[];
   const int n_in = net.width[0];
   const int n = net.n_layers;
@@ -151,26 +213,42 @@ fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
   const int fstride = net.fstride;
   const int tile_elems = kGramRows * stride;
   const int buf_elems = kParts * tile_elems;  // buffer b at buf + b * buf_elems
-  __nv_bfloat16* const buf = reinterpret_cast<__nv_bfloat16*>(smem_gram);
+  // the reverse pairs keep their masks and e (fp32, k-major: element (c,
+  // r) at c·kRevS + r) first, apart from the forward's tiles, over which
+  // the backward's other fp32 tile and its slab ring go
+  const int head = kRev ? net.mask_at[n - 1] + kRevS * fp32_cols(net) : 0;  // 4-byte words
+  __nv_bfloat16* const buf =
+      reinterpret_cast<__nv_bfloat16*>(reinterpret_cast<uint32_t*>(smem_gram) + head);
   float* const hf = reinterpret_cast<float*>(buf + 2 * buf_elems);
-  uint32_t* const mask = reinterpret_cast<uint32_t*>(hf + kGramRows * fstride);
-  float* const xl = reinterpret_cast<float*>(mask + (PB > 0 ? net.mask_at[n - 1] : 0));
+  uint32_t* const mask = kRev ? reinterpret_cast<uint32_t*>(smem_gram)
+                              : reinterpret_cast<uint32_t*>(hf + kGramRows * fstride);
+  float* const xl = kRev ? hf + kGramRows * fstride
+                         : reinterpret_cast<float*>(mask + (PB > 0 ? net.mask_at[n - 1] : 0));
   float* const red = xl + kGramRows * n_in;
+  float* const ef = kRev ? reinterpret_cast<float*>(mask + net.mask_at[n - 1]) : nullptr;
   const int row0 = blockIdx.x * kGramRows;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
   // 1. the input tile, log-clamped; rows past the batch are zero and
   //    never stored. K3 zeroes activation 0's mask words, which the
-  //    skinny layer sets bit by bit.
+  //    skinny layer sets bit by bit; the reverse pairs zero every mask
+  //    word (the epilogues write pad16 columns of an activation, the fp32
+  //    backward reads padk) and e's k rows pad16(hidden) … padk(hidden).
   for (int t = threadIdx.x; t < kGramRows * n_in; t += blockDim.x) {
     const int row = row0 + t / n_in;
     const int c = t % n_in;
     xl[t] = row < n_rows ? log_clamp(x[static_cast<size_t>(row) * n_in + c], c) : 0.f;
   }
   if constexpr (PB > 0) {
-    const int words0 = n > 1 ? net.mask_at[1] : 0;
+    const int words0 = kRev ? net.mask_at[n - 1] : n > 1 ? net.mask_at[1] : 0;
     for (int t = threadIdx.x; t < words0; t += blockDim.x) mask[t] = 0u;
+  }
+  if constexpr (kRev) {
+    const int c0 = pad16(hidden);
+    for (int t = threadIdx.x; t < (padk(hidden) - c0) * kRevS; t += blockDim.x) {
+      ef[c0 * kRevS + t] = 0.f;
+    }
   }
   __syncthreads();
 
@@ -229,7 +307,8 @@ fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
   }
 
   // 4. gram head: hg = h @ G in registers; quad partials Σ (hg + 2u)·h;
-  //    (K3) e = hg + u masked by h > 0, the first backward input
+  //    (K3) e = hg + u masked by h > 0, the first backward input: an A
+  //    tile at the grad tier, or (reverse pairs) fp32 into ef
   float q[MT][2] = {};
   {
     const float* u = net.u;
@@ -251,7 +330,10 @@ fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
                             if constexpr (PB > 0) {
                               const float e0 = hv.x > 0.f ? g0 + uj.x : 0.f;
                               const float e1 = hv.y > 0.f ? g1 + uj.y : 0.f;
-                              if (n > 1) {
+                              if constexpr (kRev) {
+                                ef[col * kRevS + r] = e0;
+                                ef[(col + 1) * kRevS + r] = e1;
+                              } else if (n > 1) {
                                 store_pair<PB>(out, tile_elems, r * stride + col, e0, e1);
                               } else {
                                 *hp = make_float2(e0, e1);  // in place: this lane read it
@@ -276,33 +358,63 @@ fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
     quad[row0 + threadIdx.x] = s;
   }
   if constexpr (PB > 0) {
-    // 5. backward through trunk layers n−1 … 1: e ← (e @ W_iᵀ) masked by
-    //    activation i−1; layer 1 writes fp32 into the h tile
-    cur ^= 1;
-    for (int i = n - 1; i >= 1; --i) {
-      const uint32_t* m = mask + net.mask_at[i - 1];
-      __nv_bfloat16* out = buf + (cur ^ 1) * buf_elems;
-      mma_layer<PB, MT>(buf + cur * buf_elems, pad16(net.width[i + 1]), net.wt[i],
-                        net.width[i], stride, tile_elems, [&](int col, const float (&a)[MT][4]) {
-                          const uint32_t m0 = m[col];
-                          const uint32_t m1 = m[col + 1];
-#pragma unroll
-                          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                            for (int h = 0; h < 2; ++h) {
-                              const int r = mma_row(mt, h);
-                              const float e0 = (m0 >> r) & 1u ? a[mt][2 * h] : 0.f;
-                              const float e1 = (m1 >> r) & 1u ? a[mt][2 * h + 1] : 0.f;
-                              if (i == 1) {
-                                *reinterpret_cast<float2*>(hf + r * fstride + col) =
-                                    make_float2(e0, e1);
-                              } else {
-                                store_pair<PB>(out, tile_elems, r * stride + col, e0, e1);
-                              }
-                            }
-                        });
+    // layer 0's backward signal in fp32: row-major in hf, or (reverse
+    // pairs) k-major
+    const float* grad0 = hf;
+    if constexpr (kRev) {
+      // 5. backward through trunk layers n−1 … 1 on the CUDA cores:
+      //    tile_layer over W_iᵀ's fp32 slabs, k ascending in one
+      //    accumulator per output, masked by activation i−1's words;
+      //    ping-pong between ef and a tile over the dead forward tiles
+      __syncthreads();  // the quad partials are read: buf, hf, xl and red are dead
+      float* const other = reinterpret_cast<float*>(buf);
+      float* const ring = other + kRevS * net.buf_cols;
+      int g = 0;
+      start_ring<kGramRows, RevRing>(ring, net.slabs, net.total);
+      float* in = ef;
+      float* out = other;
+      for (int i = n - 1; i >= 1; --i) {
+        const uint8_t* const m = reinterpret_cast<const uint8_t*>(mask + net.mask_at[i - 1]);
+        const int w = net.width[i];
+        float* const to = out;
+        tile_layer<kGramRows, RevRing>(in, net.width[i + 1], w, net.slabs, net.total, ring, g,
+                                       [&](int c0, const float (&acc)[kGramRows / 8][4]) {
+                                         masked_store<kGramRows, 4>(to, m, w, c0, acc);
+                                       });
+        out = in;
+        in = to;
+      }
       __syncthreads();
+      grad0 = in;
+    } else {
+      // 5. backward through trunk layers n−1 … 1: e ← (e @ W_iᵀ) masked by
+      //    activation i−1; layer 1 writes fp32 into the h tile
       cur ^= 1;
+      for (int i = n - 1; i >= 1; --i) {
+        const uint32_t* m = mask + net.mask_at[i - 1];
+        __nv_bfloat16* out = buf + (cur ^ 1) * buf_elems;
+        mma_layer<PB, MT>(buf + cur * buf_elems, pad16(net.width[i + 1]), net.wt[i],
+                          net.width[i], stride, tile_elems, [&](int col, const float (&a)[MT][4]) {
+                            const uint32_t m0 = m[col];
+                            const uint32_t m1 = m[col + 1];
+#pragma unroll
+                            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                              for (int h = 0; h < 2; ++h) {
+                                const int r = mma_row(mt, h);
+                                const float e0 = (m0 >> r) & 1u ? a[mt][2 * h] : 0.f;
+                                const float e1 = (m1 >> r) & 1u ? a[mt][2 * h + 1] : 0.f;
+                                if (i == 1) {
+                                  *reinterpret_cast<float2*>(hf + r * fstride + col) =
+                                      make_float2(e0, e1);
+                                } else {
+                                  store_pair<PB>(out, tile_elems, r * stride + col, e0, e1);
+                                }
+                              }
+                          });
+        __syncthreads();
+        cur ^= 1;
+      }
     }
 
     // 6. skinny layer backward, exact fp32, times the log-clamp derivative
@@ -312,7 +424,10 @@ fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
       const int c = t / kGramRows;
       const int row = row0 + r;
       float acc = 0.f;
-      for (int j = 0; j < n1; ++j) acc = fmaf(hf[r * fstride + j], __ldg(net.w0 + c * n1 + j), acc);
+      for (int j = 0; j < n1; ++j) {
+        const float ej = kRev ? grad0[j * kRevS + r] : grad0[r * fstride + j];
+        acc = fmaf(ej, __ldg(net.w0 + c * n1 + j), acc);
+      }
       if (row < n_rows) {
         const size_t at = static_cast<size_t>(row) * n_in + c;
         dx[at] = log_clamp_grad(x[at], c) * acc;
@@ -323,7 +438,7 @@ fused_gram_mma_kernel(const float* __restrict__ x, float* __restrict__ quad,
 
 template <int PF, int PB>
 cudaError_t launch_gram(const float* x, float* quad, float* dx, int n_rows, int n_members,
-                        const GramMmaNet& net, size_t smem, cudaStream_t stream) {
+                        const GramNetOf<PB>& net, size_t smem, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(fused_gram_mma_kernel<PF, PB>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
@@ -336,38 +451,54 @@ cudaError_t launch_gram(const float* x, float* quad, float* dx, int n_rows, int 
 int parts_of(int tier) { return tier == kBF16x3 ? 2 : 1; }
 
 // Checks the shapes and tiers, fills the net from ptrs and launches.
-// grad_tier < 0: K2 (no backward operands in ptrs, dx unused).
+// grad_tier < 0: K2 (no backward operands in ptrs, dx unused); kF32: K3
+// at a reverse pair (no wt entries; the backward's slab stream last).
 int launch_gram_mma(const float* x, float* quad, float* dx, int n_rows, int n_layers,
                     const int* widths, const void* const* ptrs, const long long* strides,
                     int n_members, int tier, int grad_tier, void* stream) {
   const bool k3 = grad_tier >= 0;
+  const bool rev = grad_tier == kF32;
   if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers ||
       widths[0] < 1 || widths[0] > kMaxIn || (tier != kBF16 && tier != kBF16x3) ||
-      (k3 && grad_tier != kBF16 && grad_tier != kBF16x3)) {
+      (k3 && !rev && grad_tier != kBF16 && grad_tier != kBF16x3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  GramMmaNet net{};
+  GramReverseNet net{};  // the other routes launch its GramMmaNet part
   net.n_layers = n_layers;
   int kp_max = 0;
   for (int i = 0; i <= n_layers; ++i) {
     if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     net.width[i] = widths[i];
-    if (i > 0) kp_max = std::max(kp_max, (widths[i] + 15) & ~15);
+    if (i > 0) {
+      kp_max = std::max(kp_max, (widths[i] + 15) & ~15);
+      net.buf_cols = std::max(net.buf_cols, padk(widths[i]));
+    }
   }
   const int hidden = widths[n_layers];
   net.stride = kp_max + 8;
-  net.fstride = ((std::max(hidden, k3 ? widths[1] : 0) + 15) & ~15) + 8;
+  net.fstride = ((std::max(hidden, k3 && !rev ? widths[1] : 0) + 15) & ~15) + 8;
   for (int i = 0, words = 0; i < n_layers; ++i) {
     net.mask_at[i] = words;
-    words += (widths[i + 1] + 15) & ~15;
+    words += rev ? padk(widths[i + 1]) : (widths[i + 1] + 15) & ~15;
   }
-  const int parts = std::max(parts_of(tier), k3 ? parts_of(grad_tier) : 0);
-  const size_t smem =
+  const int parts = std::max(parts_of(tier), k3 && !rev ? parts_of(grad_tier) : 0);
+  const size_t mask_bytes = static_cast<size_t>(k3 ? net.mask_at[n_layers - 1] : 0) * 4;
+  const size_t forward =
       static_cast<size_t>(2) * parts * kGramRows * net.stride * sizeof(__nv_bfloat16) +
       static_cast<size_t>(kGramRows) * net.fstride * sizeof(float) +
-      static_cast<size_t>(k3 ? net.mask_at[n_layers - 1] : 0) * sizeof(uint32_t) +
       static_cast<size_t>(kGramRows) * (widths[0] + kMmaWarps) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  // the reverse pairs: the masks and e, then the forward's tiles or the
+  // backward's other fp32 tile and its slab ring (ops/kernels/
+  // fused_loglik.py::grad_reverse_bytes mirrors it, with the static copy
+  // of the net)
+  const size_t f32_tile = sizeof(float) * kRevS * net.buf_cols;
+  const size_t smem =
+      rev ? mask_bytes + f32_tile +
+                std::max(forward, f32_tile + sizeof(float) * RevRing::kSlots * RevRing::kFloats)
+          : forward + mask_bytes;
+  if (smem + (rev ? sizeof(GramReverseNet) : 0) > static_cast<size_t>(kMaxSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 
   int k = 0;
   net.s_w0 = strides[k];
@@ -379,7 +510,7 @@ int launch_gram_mma(const float* x, float* quad, float* dx, int n_rows, int n_la
     net.w[i] = static_cast<const uint32_t*>(ptrs[k++]);
     net.s_b[i] = strides[k];
     net.b[i] = static_cast<const float*>(ptrs[k++]);
-    if (k3) {
+    if (k3 && !rev) {
       net.s_wt[i] = strides[k];
       net.wt[i] = static_cast<const uint32_t*>(ptrs[k++]);
     }
@@ -391,16 +522,32 @@ int launch_gram_mma(const float* x, float* quad, float* dx, int n_rows, int n_la
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int pf = parts_of(tier);
+  if (rev) {
+    net.s_slabs = strides[k];
+    net.slabs = static_cast<const float*>(ptrs[k++]);
+    // backward layer i maps width[i+1] → width[i], i = n−1 … 1
+    int kin[kMaxLayers], nout[kMaxLayers], layers = 0;
+    for (int i = n_layers - 1; i >= 1; --i, ++layers) {
+      kin[layers] = widths[i + 1];
+      nout[layers] = widths[i];
+    }
+    net.total = stream_slabs<kGramRows, RevRing>(kin, nout, layers);
+    const cudaError_t err =
+        pf == 2 ? launch_gram<2, kGradF32>(x, quad, dx, n_rows, n_members, net, smem, s)
+                : launch_gram<1, kGradF32>(x, quad, dx, n_rows, n_members, net, smem, s);
+    return static_cast<int>(err);
+  }
   const int pb = k3 ? parts_of(grad_tier) : 0;
+  const GramMmaNet& m = net;
   cudaError_t err;
   if (pf == 2) {
-    err = pb == 2   ? launch_gram<2, 2>(x, quad, dx, n_rows, n_members, net, smem, s)
-          : pb == 1 ? launch_gram<2, 1>(x, quad, dx, n_rows, n_members, net, smem, s)
-                    : launch_gram<2, 0>(x, quad, dx, n_rows, n_members, net, smem, s);
+    err = pb == 2   ? launch_gram<2, 2>(x, quad, dx, n_rows, n_members, m, smem, s)
+          : pb == 1 ? launch_gram<2, 1>(x, quad, dx, n_rows, n_members, m, smem, s)
+                    : launch_gram<2, 0>(x, quad, dx, n_rows, n_members, m, smem, s);
   } else {
-    err = pb == 2   ? launch_gram<1, 2>(x, quad, dx, n_rows, n_members, net, smem, s)
-          : pb == 1 ? launch_gram<1, 1>(x, quad, dx, n_rows, n_members, net, smem, s)
-                    : launch_gram<1, 0>(x, quad, dx, n_rows, n_members, net, smem, s);
+    err = pb == 2   ? launch_gram<1, 2>(x, quad, dx, n_rows, n_members, m, smem, s)
+          : pb == 1 ? launch_gram<1, 1>(x, quad, dx, n_rows, n_members, m, smem, s)
+                    : launch_gram<1, 0>(x, quad, dx, n_rows, n_members, m, smem, s);
   }
   return static_cast<int>(err);
 }
@@ -424,9 +571,22 @@ int k3_fused_loglik_grad_gram_mma(const float* x, float* quad, float* dx, int n_
                                   int n_layers, const int* widths, const void* const* ptrs,
                                   const long long* strides, int n_members, int tier,
                                   int tier_bwd, void* stream) {
-  if (tier_bwd < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tier_bwd != kBF16 && tier_bwd != kBF16x3) return static_cast<int>(cudaErrorInvalidValue);
   return launch_gram_mma(x, quad, dx, n_rows, n_layers, widths, ptrs, strides, n_members, tier,
                          tier_bwd, stream);
+}
+
+// K3 at a reverse pair (value tier `tier`, fp32 backward): ptrs and
+// strides as K3's above without the wt entries, then the backward's fp32
+// slabs of W_iᵀ for i = n_layers-1 … 1 (ops/kernels/fused_loglik.py::
+// pack_backward_slabs; their zero biases are not passed). The value is
+// K2's at `tier` bit for bit.
+int k3_fused_loglik_grad_gram_reverse(const float* x, float* quad, float* dx, int n_rows,
+                                      int n_layers, const int* widths, const void* const* ptrs,
+                                      const long long* strides, int n_members, int tier,
+                                      void* stream) {
+  return launch_gram_mma(x, quad, dx, n_rows, n_layers, widths, ptrs, strides, n_members, tier,
+                         kF32, stream);
 }
 
 // K3's forward alone: ptrs and strides as K3's without the wt entries;

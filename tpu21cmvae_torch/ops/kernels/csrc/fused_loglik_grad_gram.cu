@@ -1,12 +1,14 @@
-// K3 for Hopper at the reverse tier pairs (a bf16x3 or bf16 value tier
-// with an fp32 backward): the gram-form Gaussian log-likelihood and its
-// gradient with respect to the raw parameters, for a batch of rows, in one
-// kernel. The bf16 pairs run on the tensor cores (fused_gram_mma.cu), the
-// fp32 pair on the register-tiled fused_loglik_grad_gram_f32.cu, and an
-// fp32 value tier with a bf16 backward on fused_gram_mixed.cu; this kernel
-// also takes the fp32 pair of a network whose widest layer does not fit
-// that kernel's two full-width buffers (it keeps every activation at its
-// own width). Its C entry still computes every tier pair.
+// K3 for Hopper on a network too wide for the redesigned kernels: the
+// gram-form Gaussian log-likelihood and its gradient with respect to the
+// raw parameters, for a batch of rows, in one kernel. The bf16 pairs run
+// on the tensor cores (fused_gram_mma.cu), the reverse pairs (a bf16x3 or
+// bf16 value tier with an fp32 backward) on that kernel's reverse mode,
+// the fp32 pair on the register-tiled fused_loglik_grad_gram_f32.cu, and
+// an fp32 value tier with a bf16 backward on fused_gram_mixed.cu. This
+// kernel takes a reverse pair, or the fp32 pair, of a network whose
+// widest layer does not fit those kernels' full-width buffers (it keeps
+// every activation at its own width; e.g. hidden (3200, 64, 64)). Its C
+// entry still computes every tier pair.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
 // (kernel body _loglik_grad_gram_kernel). Same contract: per row it writes

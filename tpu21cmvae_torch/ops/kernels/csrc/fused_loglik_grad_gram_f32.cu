@@ -4,7 +4,8 @@
 // run on the tensor cores (fused_gram_mma.cu); an fp32 value tier with a
 // bf16 backward on fused_gram_mixed.cu (this kernel's forward, a
 // tensor-core backward); a bf16 value tier with an fp32 backward on
-// fused_loglik_grad_gram.cu.
+// fused_gram_mma.cu's reverse mode (a tensor-core forward, this kernel's
+// backward layers).
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
 // (kernel body _loglik_grad_gram_kernel), at its exact tier. Same contract:

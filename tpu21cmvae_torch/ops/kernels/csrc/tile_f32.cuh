@@ -1,6 +1,7 @@
 // Register-tiled fp32 device code shared by the port's CUDA-core kernels
 // (K1 fused_mlp.cu, K2 fused_loglik_gram.cu, K3 at fp32
-// fused_loglik_grad_gram_f32.cu): the tile geometry, the cp.async
+// fused_loglik_grad_gram_f32.cu, and the backward of fused_gram_mma.cu's
+// reverse mode): the tile geometry, the cp.async
 // weight-slab ring, the input tile, the skinny first layer, one dense
 // layer with a caller-supplied epilogue, the fixed-order per-row
 // reduction, and (K3) ReLU masks kept as bits.
@@ -422,20 +423,25 @@ __device__ __forceinline__ void relu_mask_store(float* out, uint8_t* mask,
 }
 
 // The backward's epilogue: out[c0 + q, row + i] = acc where the mask bit of
-// that (row, column) is set, else 0, for the columns below padk(n).
-template <int BM>
+// that (row, column) is set, else 0, for the columns below padk(n). A
+// column's mask bytes start every COL bytes: MaskBits' kColBytes as the
+// forward here writes them, or 4 where a column is one 32-bit word with
+// bit r for row r (fused_gram_mma.cu's tensor-core forward; from 16 rows
+// up MaskBits puts the same bits in its first kColBytes bytes).
+template <int BM, int COL = MaskBits<BM>::kColBytes>
 __device__ __forceinline__ void masked_store(float* out, const uint8_t* mask, int n, int c0,
                                              const float (&acc)[BM / 8][4]) {
   using M = MaskBits<BM>;
   constexpr int TM = BM / 8;
   constexpr int S = tile_stride(BM);
+  static_assert(COL >= M::kColBytes, "a column's bytes do not overlap the next column's");
   if (c0 >= padk(n)) return;
   const TileThread<BM> t;
   const int shift = (threadIdx.x & 3) * TM;
-  const uint8_t* at = mask + c0 * M::kColBytes + ((threadIdx.x >> 5) & 1) * M::kHalfBytes;
+  const uint8_t* at = mask + c0 * COL + ((threadIdx.x >> 5) & 1) * M::kHalfBytes;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const unsigned bits = load_bits<M::kHalfBytes>(at + q * M::kColBytes) >> shift;
+    const unsigned bits = load_bits<M::kHalfBytes>(at + q * COL) >> shift;
     float v[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) v[i] = (bits >> i) & 1u ? acc[i][q] : 0.f;

@@ -17,10 +17,11 @@ spec's whitening, a per-bin ``1/σ`` or a foreground-marginalized spec's
 dense ``R``, all in the weights; the 451-wide output layer collapsed into
 ``G = WWᵀ``, ``u``, ``c``) and split for the value and backward tiers.
 The kernels see the same widths under either noise spec.
-Each routes by tier (:func:`gram_on_tensor_cores`, :func:`gram_mixed`):
-at the bf16 tiers both run ``csrc/fused_gram_mma.cu`` on the tensor cores
-(K2 is its forward alone), from operands :func:`pack_gram_operands` packed
-once per model into bf16 ``mma`` fragments; at the fp32 tier K2 runs
+Each routes by tier (:func:`gram_on_tensor_cores`, :func:`gram_mixed`,
+:func:`gram_reverse`): at the bf16 tiers both run
+``csrc/fused_gram_mma.cu`` on the tensor cores (K2 is its forward alone),
+from operands :func:`pack_gram_operands` packed once per model into bf16
+``mma`` fragments; at the fp32 tier K2 runs
 ``csrc/fused_loglik_gram.cu``, register-tiled on the CUDA cores from the
 fp32 slabs of :func:`pack_gram_slabs` (``csrc/tile_f32.cuh``), and K3 at
 (fp32, fp32) ``csrc/fused_loglik_grad_gram_f32.cu``, the same forward and
@@ -31,9 +32,13 @@ tier runs ``csrc/fused_gram_mixed.cu``: the same forward from K2's slabs,
 the backward on the tensor cores from the fragments of
 :func:`pack_grad_fragments`, at 32 or 16 rows picked per call
 (:meth:`FusedLoglikGradGram.rows_for`). The reverse pairs (a bf16 value
-tier with an fp32 backward) run ``csrc/fused_loglik_grad_gram.cu`` on
-the CUDA cores, as does the fp32 pair of a network too wide for the
-register-tiled kernel's buffers. The CUDA kernels keep a row tile's activations on chip;
+tier with an fp32 backward) run ``csrc/fused_gram_mma.cu`` too: its
+tensor-core forward (the value is the tensor-core K2's bit for bit), then
+the backward register-tiled on the CUDA cores over the fp32 slabs of
+:func:`pack_backward_slabs`. A network too wide for that kernel's shared
+memory at a reverse pair, and the fp32 pair of a network too wide for the
+register-tiled kernel's buffers, run ``csrc/fused_loglik_grad_gram.cu``
+on the CUDA cores. The CUDA kernels keep a row tile's activations on chip;
 the plain versions do the same arithmetic — same folds, same hi/lo split,
 same epilogue — in plain tensor operations.
 
@@ -112,7 +117,8 @@ class GramPacked(NamedTuple):
     zero-padded to 16, and (K3) ``wt``, the fragments of ``W_iᵀ`` at the
     backward tier; ``g``, G's fragments at the value tier; ``u`` padded.
     For ``fused_gram_mixed.cu`` only ``wt`` is packed: ``w`` and ``b``
-    are empty, ``g`` and ``u`` None."""
+    are empty, ``g`` and ``u`` None. At a reverse pair (an fp32
+    backward) ``wt`` is empty."""
 
     w: tuple
     b: tuple
@@ -133,13 +139,15 @@ class GramOperands:
     ``grad_tier`` None, for the value-only K2. ``g``: ``G`` at ``tier``.
     ``u``, ``c``, ``log_norm``: the rest of the gram form. ``packed``:
     the same operands as ``fused_gram_mma.cu`` reads them where the
-    tiers run on the tensor cores, and the backward's fragments alone
-    where K3 runs ``fused_gram_mixed.cu``; else None. ``slabs``: the
-    operands as the register-tiled fp32 forward streams them where it
-    runs: K2's (:func:`pack_gram_slabs`, ``fused_loglik_gram.cu``, and
-    ``fused_gram_mixed.cu``'s forward) or K3's
-    (:func:`pack_grad_gram_slabs`, ``fused_loglik_grad_gram_f32.cu``),
-    else None. ``members``: M where every tensor is M members' stacked on
+    tiers run on the tensor cores (at a reverse pair, the forward's
+    alone), and the backward's fragments alone where K3 runs
+    ``fused_gram_mixed.cu``; else None. ``slabs``: the operands as a
+    register-tiled fp32 pass streams them where it runs: K2's
+    (:func:`pack_gram_slabs`, ``fused_loglik_gram.cu``, and
+    ``fused_gram_mixed.cu``'s forward), K3's
+    (:func:`pack_grad_gram_slabs`, ``fused_loglik_grad_gram_f32.cu``) or
+    the reverse pairs' backward (:func:`pack_backward_slabs`'s ``w``;
+    ``b`` empty), else None. ``members``: M where every tensor is M members' stacked on
     a leading axis (``c`` as ``(M, 1)``), else None.
     """
 
@@ -206,6 +214,15 @@ def gram_mixed(tier: str, grad_tier: Optional[str]) -> bool:
     return tier == "f32" and grad_tier in MMA_TIERS
 
 
+def gram_reverse(tier: str, grad_tier: Optional[str]) -> bool:
+    """Whether K3 at (``tier``, ``grad_tier``) is a reverse pair: a bf16
+    or bf16x3 value tier with an fp32 backward. Where the network fits
+    (:func:`grad_reverse_bytes`) it runs ``fused_gram_mma.cu``'s
+    tensor-core forward with an fp32 backward
+    (:attr:`FusedLoglikGradGram.reverse`)."""
+    return tier in MMA_TIERS and grad_tier == "f32"
+
+
 def pack_grad_fragments(ops: GramOperands) -> tuple:
     """The backward's ``W_iᵀ`` for i = 1 … n−1 at ``ops.grad_tier`` as
     ``mma`` B fragments
@@ -220,14 +237,15 @@ def pack_gram_operands(ops: GramOperands) -> GramPacked:
     """``ops``' tier operands as ``fused_gram_mma.cu`` reads them
     (:func:`~tpu21cmvae_torch.ops.kernels.fused_mlp.pack_mma_operands`):
     the trunk layers and G at ``ops.tier``, the transposed backward
-    weights at ``ops.grad_tier`` (:func:`pack_grad_fragments`),
-    zero-padded to multiples of 16."""
+    weights at ``ops.grad_tier`` where it is a bf16 tier
+    (:func:`pack_grad_fragments`; none at an fp32 backward), zero-padded
+    to multiples of 16."""
     layers = [pack_mma_operands(w, b, ops.tier) for w, b in zip(ops.w, ops.b)]
     h = ops.u.shape[0]
     return GramPacked(
         w=tuple(w for w, _ in layers),
         b=tuple(b for _, b in layers),
-        wt=pack_grad_fragments(ops),
+        wt=pack_grad_fragments(ops) if ops.grad_tier in MMA_TIERS else (),
         g=pack_mma_operands(ops.g, ops.u.new_zeros(h), ops.tier)[0],
         u=torch.nn.functional.pad(ops.u, (0, _pad16(h) - h)),
     )
@@ -241,13 +259,23 @@ def pack_gram_slabs(ops: GramOperands) -> Slabs:
     return pack_slabs([*zip(ops.w, ops.b), (ops.g, ops.u)])
 
 
+def pack_backward_slabs(ops: GramOperands) -> Slabs:
+    """The backward's ``W_iᵀ`` (fp32) for i = n−1 … 1 as the
+    register-tiled kernels stream them
+    (:func:`~tpu21cmvae_torch.ops.kernels._common.pack_slabs`), each with
+    a zero bias no kernel reads; empty, on the operands' device, for a
+    trunk of the skinny layer alone."""
+    if not ops.wt:
+        return Slabs(w=ops.w0.new_zeros(0), b=ops.w0.new_zeros(0))
+    return pack_slabs([(wt, wt.new_zeros(wt.shape[1])) for wt in reversed(ops.wt)])
+
+
 def pack_grad_gram_slabs(ops: GramOperands) -> Slabs:
     """K3's fp32 operands as ``fused_loglik_grad_gram_f32.cu`` streams
     them: K2's stream (:func:`pack_gram_slabs`), then the backward's
-    ``W_iᵀ`` for i = n−1 … 1, each with a zero bias the kernel never
-    reads."""
-    backward = [(wt, wt.new_zeros(wt.shape[1])) for wt in reversed(ops.wt)]
-    return pack_slabs([*zip(ops.w, ops.b), (ops.g, ops.u), *backward])
+    (:func:`pack_backward_slabs`)."""
+    forward, backward = pack_gram_slabs(ops), pack_backward_slabs(ops)
+    return Slabs(w=torch.cat([forward.w, backward.w]), b=torch.cat([forward.b, backward.b]))
 
 
 def _value(ops: GramOperands, quad):
@@ -302,11 +330,13 @@ def loglik_grad_gram_members_reference(ops: GramOperands, x: torch.Tensor):
 
 def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     """The C entry point of the kernel ``ops``' tiers run
-    (:func:`gram_on_tensor_cores`, :func:`gram_mixed`), its operand
-    pointers, and the int arguments after them: the tier codes, or the
-    register-tiled kernels' tile height ``rows`` (K2 at fp32; K3 at
-    (fp32, fp32) where its stream was packed; K3 at (fp32, bf16 tier),
-    after the backward's tier code, where its operands were packed)."""
+    (:func:`gram_on_tensor_cores`, :func:`gram_mixed`,
+    :func:`gram_reverse`), its operand pointers, and the int arguments
+    after them: the tier codes (at a reverse pair the value tier's alone,
+    where its operands were packed), or the register-tiled kernels' tile
+    height ``rows`` (K2 at fp32; K3 at (fp32, fp32) where its stream was
+    packed; K3 at (fp32, bf16 tier), after the backward's tier code,
+    where its operands were packed)."""
     tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
     if gram_on_tensor_cores(*tiers):
@@ -320,6 +350,12 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     if gram_mixed(*tiers) and ops.slabs is not None:  # fp32 forward, tensor-core backward
         return ("k3_fused_loglik_grad_gram_mixed", [*tensors, *ops.slabs, *ops.packed.wt],
                 [TIER_CODE[ops.grad_tier], rows])
+    if gram_reverse(*tiers) and ops.packed is not None:  # tensor-core forward, fp32 backward
+        p = ops.packed
+        for w, b in zip(p.w, p.b):
+            tensors += [w, b]
+        return ("k3_fused_loglik_grad_gram_reverse", [*tensors, p.g, p.u, ops.slabs.w],
+                [TIER_CODE[ops.tier]])
     if ops.slabs is not None:  # (fp32, fp32), register-tiled
         return "k3_fused_loglik_grad_gram_f32", [*tensors, *ops.slabs], [rows]
     for i, (w, b) in enumerate(zip(ops.w, ops.b)):
@@ -362,7 +398,8 @@ def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Te
 def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[int] = None):
     """Launch K3 on PyTorch's current stream (no synchronisation), one
     launch for every member of stacked ``ops``; ``rows``: the tile height
-    of ``fused_loglik_grad_gram_f32.cu`` or ``fused_gram_mixed.cu``."""
+    of ``fused_loglik_grad_gram_f32.cu`` or ``fused_gram_mixed.cu`` (None
+    on the other routes)."""
     quad = torch.empty(_batch(ops, x.shape[0]), dtype=torch.float32, device=x.device)
     dx = torch.empty(_batch(ops, *x.shape), dtype=torch.float32, device=x.device)
     if x.shape[0]:
@@ -436,6 +473,30 @@ def grad_mixed_heights(widths, grad_tier: str) -> tuple:
                  if grad_mixed_bytes(widths, r, grad_tier) <= MAX_SHARED_BYTES)
 
 
+# sizeof(GramReverseNet) in csrc/fused_gram_mma.cu: the static shared
+# memory a reverse-mode CTA adds to the dynamic
+REVERSE_NET_BYTES = 552
+
+
+def grad_reverse_bytes(widths, tier: str) -> int:
+    """Shared memory of one ``fused_gram_mma.cu`` block at a reverse pair
+    (value tier ``tier``, an fp32 backward; ``launch_gram_mma`` there):
+    the mask words of activations 0 … n−2 (one per column padded to 32)
+    and the fp32 ``e`` (a k-major 16-row tile as wide as the widest trunk
+    width padded to 32), apart; then the larger of the forward's tiles
+    (:func:`_gram_mma_bytes` of K2 at ``tier``: bf16 A tiles, the fp32
+    ``h``, the input tile and the quad partials) and the backward's other
+    fp32 tile with its slab ring (``GRAD_RING[16]``); and the static copy
+    of the operand struct."""
+    rows = 16  # kGramRows
+    tile = 4 * tile_stride(rows) * max(padk(w) for w in widths[1:])
+    masks = 4 * sum(padk(w) for w in widths[1:-1])
+    depth, slots = GRAD_RING[rows]
+    backward = tile + 4 * slots * depth * SLAB_N
+    return (masks + tile + max(_gram_mma_bytes(widths, tier, None), backward)
+            + REVERSE_NET_BYTES)
+
+
 def pick_grad_rows(heights, n_rows: Optional[int], sm_count: Optional[int],
                    members: int = 1) -> int:
     """Of ``heights`` (tallest first), the shortest that still runs a
@@ -468,18 +529,22 @@ def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
                  rows: Optional[int] = None) -> int:
     """Dynamic shared memory of one K3 block at (``tier``,
     ``grad_tier``). ``fused_gram_mma.cu`` keeps bf16 tiles
-    (:func:`_gram_mma_bytes`); ``fused_loglik_grad_gram_f32.cu`` (fp32,
-    fp32) k-major fp32 tiles of ``rows`` rows (:func:`grad_f32_bytes`;
-    default: the tallest height that fits); ``fused_gram_mixed.cu`` (an
-    fp32 value tier, a bf16 backward tier) the fp32 tiles and bf16 A
-    tiles of :func:`grad_mixed_bytes` at ``rows`` (default: the tallest
-    height that fits, else the shortest, which then refuses the network);
-    ``fused_loglik_grad_gram.cu`` (the reverse pairs, and the fp32 pair
-    of a network that fits the register-tiled kernel at no height) the
-    input tile, every trunk activation and ``h@G`` in fp32,
-    ``ROWS_PER_BLOCK`` rows each."""
+    (:func:`_gram_mma_bytes`), and at a reverse pair (a bf16 value tier,
+    an fp32 backward) also the fp32 tiles of :func:`grad_reverse_bytes`;
+    ``fused_loglik_grad_gram_f32.cu`` (fp32, fp32) k-major fp32 tiles of
+    ``rows`` rows (:func:`grad_f32_bytes`; default: the tallest height
+    that fits); ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16
+    backward tier) the fp32 tiles and bf16 A tiles of
+    :func:`grad_mixed_bytes` at ``rows`` (default: the tallest height
+    that fits, else the shortest, which then refuses the network);
+    ``fused_loglik_grad_gram.cu`` (a reverse pair, or the fp32 pair, of a
+    network too wide for those) the input tile, every trunk activation
+    and ``h@G`` in fp32, ``ROWS_PER_BLOCK`` rows each."""
     if gram_on_tensor_cores(tier, grad_tier):
         return _gram_mma_bytes(widths, tier, grad_tier)
+    if gram_reverse(tier, grad_tier) and (
+            grad_reverse_bytes(widths, tier) <= MAX_SHARED_BYTES):
+        return grad_reverse_bytes(widths, tier)
     if gram_mixed(tier, grad_tier):
         if rows is None:
             rows = (grad_mixed_heights(widths, grad_tier) or MIXED_TILE_ROWS[-1:])[0]
@@ -539,12 +604,16 @@ class _GramWrapper:
             )
         self.tier = resolve_tier(precision, "high")
         self.grad_tier = grad_precision
-        # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu;
-        # K3's fused_gram_mixed.cu (fp32 forward, tensor-core backward); or
-        # on the CUDA cores K2's fused_loglik_gram.cu, K3's register-tiled
-        # fused_loglik_grad_gram_f32.cu or its fused_loglik_grad_gram.cu
+        # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu,
+        # with (K3 at a reverse pair, where the network fits) an fp32
+        # backward; K3's fused_gram_mixed.cu (fp32 forward, tensor-core
+        # backward); or on the CUDA cores K2's fused_loglik_gram.cu, K3's
+        # register-tiled fused_loglik_grad_gram_f32.cu or its
+        # fused_loglik_grad_gram.cu. Chosen here, by tiers and shape.
         self.tensor_cores = gram_on_tensor_cores(self.tier, self.grad_tier)
         self.mixed = gram_mixed(self.tier, self.grad_tier)
+        self.reverse = gram_reverse(self.tier, self.grad_tier) and (
+            grad_reverse_bytes(widths, self.tier) <= MAX_SHARED_BYTES)
         if self.grad_tier is None:
             # fused_loglik_gram.cu's tile height (K2 at the fp32 tier)
             self.tile_rows = gram_f32_rows(widths, tile_rows)
@@ -596,6 +665,10 @@ class _GramWrapper:
             if self.mixed:  # K2's forward stream and the backward's fragments
                 return dataclasses.replace(ops, slabs=pack_gram_slabs(ops), packed=GramPacked(
                     w=(), b=(), wt=pack_grad_fragments(ops), g=None, u=None))
+            if self.reverse:  # the forward's fragments and the backward's fp32 slabs
+                backward = pack_backward_slabs(ops).w
+                return dataclasses.replace(ops, packed=pack_gram_operands(ops),
+                                           slabs=Slabs(w=backward, b=backward.new_zeros(0)))
             if self.register_tiled:
                 return dataclasses.replace(ops, slabs=pack_grad_gram_slabs(ops))
             return ops
@@ -664,7 +737,9 @@ class FusedLoglikGradGram(_GramWrapper):
     ``fused_loglik_grad_gram_f32.cu`` runs (:attr:`register_tiled`), at
     an fp32 value tier with a bf16 backward tier ``fused_gram_mixed.cu``
     (:attr:`mixed`), each at the tile height :meth:`rows_for` gives each
-    batch; ``tile_rows`` (one of
+    batch; at a reverse pair (a bf16 value tier, an fp32 backward)
+    ``fused_gram_mma.cu`` with its fp32 backward, 16-row tiles
+    (:attr:`reverse`); ``tile_rows`` (one of
     :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`, and of
     :data:`MIXED_TILE_ROWS` at a mixed pair) forces one height for every
     batch. ``members=M`` takes an ensemble's stacked ``params`` and

@@ -30,14 +30,12 @@ Phases, one line each:
    warmup excluded, median of repeats), and the kernel's device time per
    call over back-to-back calls; then the fp32 K3 at every tile height,
    forced, in turns; then ``fused_gram_mixed.cu`` at both mixed pairs in
-   turns with the fp32 K3 and with ``fused_loglik_grad_gram.cu`` on the
-   same pairs (through its C entry, the operands stripped of the packed
-   ones); then the reverse mode at both reverse pairs in turns with
-   ``fused_loglik_grad_gram.cu`` on the same pairs and with the
-   tensor-core K3 at (high, high); then ``fused_loglik_grad_gram.cu`` on
-   its own route, (highest, highest) on a randomly initialised network
-   of hidden (3200, 64, 64), too wide for the register-tiled fp32 K3,
-   held to plain and timed;
+   turns with the fp32 K3; then the reverse mode at both reverse pairs in
+   turns with the tensor-core K3 at (high, high); then K3's wide route,
+   ``fused_loglik_grad_gram.cu``, at (highest, highest) and both reverse
+   pairs on a randomly initialised network of hidden (3200, 64, 64), too
+   wide for the register-tiled fp32 K3 and the reverse mode, held to
+   plain and timed at 4096 and 65,536 rows;
 5. the main path through the public entry points: load the checkpoint,
    predict (held to a float64 NumPy forward of the same file), sample a
    posterior with HMC, whose every leapfrog step runs K3 at (high,
@@ -287,7 +285,6 @@ from tpu21cmvae_torch.models.vae import VAEEmulator
 from tpu21cmvae_torch.noisescale import marginalize_noise_scale
 from tpu21cmvae_torch.ops.kernels import _build
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
-    _loglik_grad_gram_cuda,
     loglik_grad_gram_members_reference,
     loglik_grad_gram_reference,
     loglik_gram_members_reference,
@@ -312,6 +309,8 @@ from tpu21cmvae_torch.utils.config import (
     DIRECT_TRAIN_DEFAULT,
     DirectEmulatorConfig,
 )
+from tpu21cmvae_torch.ops.fold import _log_clamp, tier_matmul
+from tpu21cmvae_torch.ops.mlp import fused_skinny_dense
 from tpu21cmvae_torch.utils.metrics import (
     grad_gate_violation,
     error,
@@ -348,10 +347,11 @@ MIXED_PAIRS = (MIXED_TIERS, ("highest", "high"))
 # K3 on fused_gram_mma.cu's reverse mode: a tensor-core forward, an fp32 backward
 REVERSE_TIERS = ("high", "highest")
 REVERSE_PAIRS = (REVERSE_TIERS, ("default", "highest"))
-# fused_loglik_grad_gram.cu's own route: (fp32, fp32) on a network whose widest layer
-# does not fit two 8-row fp32 buffers (ROADMAP's example), randomly
-# initialised from WIDE_SEED
+# K3's wide route, fused_loglik_grad_gram.cu: (fp32, fp32) and the reverse
+# pairs on a network whose widest layer does not fit two 8-row fp32
+# buffers, randomly initialised from WIDE_SEED
 WIDE_HIDDEN, WIDE_SEED = (3200, 64, 64), 5
+WIDE_PAIRS = (EXACT_TIERS, *REVERSE_PAIRS)
 K3_F32_HEIGHTS = (64, 32, 16, 8)  # its tile heights, forced in phases 3 and 4
 K3_MIXED_HEIGHTS = (32, 16)  # fused_gram_mixed.cu's, forced in phase 3
 EXACT_HMC = dict(n_walkers=4096, n_warmup=20, n_steps=20)  # phase 5's exact-value runs
@@ -442,6 +442,12 @@ PT_SIZES = dict(n_rungs=16, n_walkers=256, n_steps=400, n_warmup=200, thin=10)
 # batched evidence on four of phase 14's observations at a cut ascent.
 ADVI_STEPS, ADVI_MC = 600, 512
 FLOW_WARM, FLOW_STEPS, FLOW_MC, FLOW_IS = 400, 1500, 256, 16384
+# K3 is held to plain on this many draws of each fitted distribution, in
+# calls of the path's batch: over one call of 256 rows the gradient gate's
+# q99.9 is 0.745 of the largest row's error, so a single kink row (a ReLU
+# pre-activation within rounding of 0, whose gradient is set-valued) would
+# decide it, against the gate's definition (metrics.py::grad_gate_violation)
+HELD_DRAWS = 4096
 EVIDENCE_BATCH_OBS = 4
 EVIDENCE_BATCH_CUTS = dict(n_starts=1024, n_steps=500)  # the JAX defaults: 4096 × 2000
 # Phase 18: training the flagship at the reference's data scale (bench.py's
@@ -1026,26 +1032,13 @@ def k3_vs_plain(model, obs, rng, added, dev):
     return wrappers, err
 
 
-def cuda_core_route(fn, model):
-    """K3 at ``fn``'s tiers on the 16-row ``fused_loglik_grad_gram.cu``,
-    whatever the wrapper routes them to: its C entry is the one
-    ``_kernel`` picks for operands that carry no packed slabs or
-    fragments, as a network too wide for the other kernels has (a
-    comparison launch; it adds nothing to a count)."""
-    ops = dataclasses.replace(fn.operands(model.params), slabs=None, packed=None)
-    return lambda x: _loglik_grad_gram_cuda(ops, x)
-
-
 def mixed_in_turns(model, wrappers, timings, rng) -> dict:
     """Phase 4: ``fused_gram_mixed.cu`` at both mixed pairs in turns with
-    the fp32 K3 and with ``fused_loglik_grad_gram.cu`` on the same pairs
-    (under ``<pair>/cuda_cores``, held to plain first), at 4096 and
-    65,536 rows (:func:`in_turns`)."""
+    the fp32 K3, at 4096 and 65,536 rows (:func:`in_turns`)."""
     trunk = model.config.mlp().sizes[:-1]
     runs = {"highest/highest": lambda x: wrappers[EXACT_TIERS](model.params, x)}
     for tiers in MIXED_PAIRS:
         runs[f"{tiers[0]}/{tiers[1]}"] = lambda x, fn=wrappers[tiers]: fn(model.params, x)
-    runs.update(cuda_cores_vs_plain(model, wrappers, MIXED_PAIRS, rng))
     return in_turns(runs, timings, trunk, rng, "mixed K3")
 
 
@@ -1073,82 +1066,71 @@ def in_turns(runs, timings, trunk, rng, label) -> dict:
     return out
 
 
-def cuda_cores_vs_plain(model, wrappers, pairs, rng):
-    """``fused_loglik_grad_gram.cu`` (:func:`cuda_core_route`) at each of
-    ``pairs`` against the plain version on 4096 rows, at the value tier's
-    tolerance and the gradient gate. Returns the runs by
-    ``<pair>/cuda_cores``."""
-    runs = {}
-    for tiers in pairs:
-        key = f"{tiers[0]}/{tiers[1]}/cuda_cores"
-        runs[key] = cuda_core_route(wrappers[tiers], model)
-        x = rows(4096, rng)
-        ops = wrappers[tiers].operands(model.params)
-        (vk, gk), (vp, gp) = runs[key](x), loglik_grad_gram_reference(ops, x)
-        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
-        tol = VALUE_RTOL[tiers[0]] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
-        check(bool((np.abs(vk - vp) <= tol).all()) and grad_gate_violation(gk, gp) <= 0.0,
-              f"fused_loglik_grad_gram.cu at {tiers} vs plain")
-    return runs
-
-
 def reverse_in_turns(model, wrappers, timings, rng) -> dict:
     """Phase 4: ``fused_gram_mma.cu``'s reverse mode at both reverse pairs
-    in turns with ``fused_loglik_grad_gram.cu`` on the same pairs (under
-    ``<pair>/cuda_cores``, held to plain first) and with the tensor-core
-    K3 at (high, high), at 4096 and 65,536 rows (:func:`in_turns`)."""
+    in turns with the tensor-core K3 at (high, high), at 4096 and 65,536
+    rows (:func:`in_turns`)."""
     trunk = model.config.mlp().sizes[:-1]
     runs = {"high/high": lambda x: wrappers[("high", "high")](model.params, x)}
     for tiers in REVERSE_PAIRS:
         runs[f"{tiers[0]}/{tiers[1]}"] = lambda x, fn=wrappers[tiers]: fn(model.params, x)
-    runs.update(cuda_cores_vs_plain(model, wrappers, REVERSE_PAIRS, rng))
     return in_turns(runs, timings, trunk, rng, "reverse K3")
 
 
 def wide_network_k3(model, rng, dev) -> dict:
-    """Phase 4: ``fused_loglik_grad_gram.cu`` on its own route, K3 at (fp32, fp32) on a
+    """Phase 4: ``fused_loglik_grad_gram.cu``, K3's wide route, on a
     network of hidden ``WIDE_HIDDEN`` (too wide for the register-tiled
-    fp32 K3), randomly initialised from ``WIDE_SEED`` with the flagship's
-    normalizer: the wrapper routes it there, and it is held to the plain
-    version at 37, 4096 and 65,537 rows (the fp32 value tolerance, the
-    gradient gate), then timed with plain at 4096 and 65,536 rows, with
-    its bound. Returns the report."""
+    fp32 K3 and for the reverse mode), randomly initialised from
+    ``WIDE_SEED`` with the flagship's normalizer, at each of
+    ``WIDE_PAIRS``: the wrapper routes it there, and it is held to the
+    plain version at 37, 4096 and 65,537 rows (the value tier's
+    tolerance, the gradient gate, the fx == 0 slot 0), then timed with
+    plain at 4096 and 65,536 rows (``kernel_ms``, ``kernel_stream_ms``
+    and the tile height the wrapper picks), with its bound. Returns the
+    report by pair."""
     config = DirectEmulatorConfig(hidden_dims=WIDE_HIDDEN)
-    sizes = config.mlp().sizes
     wide = DirectEmulator(config=config, normalizer=model.normalizer, seed=WIDE_SEED, device=dev)
     obs = wide.predict(synthetic_params(1, rng)[0]) + rng.normal(0.0, 5.0, config.n_bins)
-    fn = k3_wrapper(wide, obs, EXACT_TIERS, dev)
-    check(not (fn.register_tiled or fn.tensor_cores or fn.mixed or fn.reverse),
-          f"K3 on hidden {WIDE_HIDDEN} routes to fused_loglik_grad_gram.cu")
-    ops = fn.operands(wide.params)
-    check(ops.slabs is None and ops.packed is None, "the wide network packs nothing")
-    out = {"hidden": list(WIDE_HIDDEN), "max_abs": 0.0, "worst_over_tol": 0.0}
-    for n, x in held_batches((37, 4096, 65537), rng):
-        fn.launches = 0
-        vk, gk = fn(wide.params, x)
-        check(fn.launches == 1, f"wide K3 n={n}: {fn.launches} launches")
-        vp, gp = loglik_grad_gram_reference(ops, x)
-        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
-        check(bool(np.isfinite(vk).all() and np.isfinite(gk).all()), f"wide K3 finite n={n}")
-        tol = VALUE_RTOL["highest"] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
-        dv = np.abs(vk - vp)
-        check(bool((dv <= tol).all()), f"wide K3 value n={n}: {float((dv / tol).max()):.3g}")
-        gate = grad_gate_violation(gk, gp)
-        check(gate <= 0.0, f"wide K3 gradient gate n={n}: {gate:.3g}")
-        out["max_abs"] = max(out["max_abs"], float(dv.max()))
-        out["worst_over_tol"] = max(out["worst_over_tol"], float((dv / tol).max()))
-    trunk = sizes[:-1]
-    for n, repeats in ((4096, 50), (65536, 20)):
-        x = rows(n, rng)
-        b = bound("k3", trunk, n, "f32", "f32")
-        out[str(n)] = {
-            "kernel_ms": time_ms(lambda: fn(wide.params, x), repeats),
-            "kernel_stream_ms": stream_ms(lambda: fn(wide.params, x), repeats),
-            "plain_ms": time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats),
-            "bound_ms": b[0], "bound_by": b[1],
-        }
+    trunk = config.mlp().sizes[:-1]
+    out = {"hidden": list(WIDE_HIDDEN)}
+    for tiers in WIDE_PAIRS:
+        label = f"{tiers[0]}/{tiers[1]}"
+        fn = k3_wrapper(wide, obs, tiers, dev)
+        check(fn.wide and not (fn.register_tiled or fn.tensor_cores or fn.mixed or fn.reverse),
+              f"K3 {label} on hidden {WIDE_HIDDEN} routes to fused_loglik_grad_gram.cu")
+        ops = fn.operands(wide.params)
+        check(ops.program is not None, f"the wide route's operands at {label} carry its program")
+        rep = {"max_abs": 0.0, "worst_over_tol": 0.0, "heights": list(fn.heights)}
+        for n, x in held_batches((37, 4096, 65537), rng):
+            fn.launches = 0
+            vk, gk = fn(wide.params, x)
+            check(fn.launches == 1, f"wide K3 {label} n={n}: {fn.launches} launches")
+            vp, gp = loglik_grad_gram_reference(ops, x)
+            vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+            check(bool(np.isfinite(vk).all() and np.isfinite(gk).all()),
+                  f"wide K3 {label} finite n={n}")
+            tol = VALUE_RTOL[tiers[0]] * (np.abs(vp) + 0.5 * abs(float(ops.c))) + VALUE_ATOL
+            dv = np.abs(vk - vp)
+            check(bool((dv <= tol).all()),
+                  f"wide K3 {label} value n={n}: {float((dv / tol).max()):.3g}")
+            gate = grad_gate_violation(gk, gp)
+            check(gate <= 0.0, f"wide K3 {label} gradient gate n={n}: {gate:.3g}")
+            check(gk[0, 2] == 0.0, f"wide K3 {label} fx == 0 gradient slot n={n}: {gk[0, 2]}")
+            rep["max_abs"] = max(rep["max_abs"], float(dv.max()))
+            rep["worst_over_tol"] = max(rep["worst_over_tol"], float((dv / tol).max()))
+        for n, repeats in ((4096, 50), (65536, 20)):
+            x = rows(n, rng)
+            b = bound("k3", trunk, n, BOUND_TIER[tiers[0]], "f32")
+            rep[str(n)] = {
+                "kernel_ms": time_ms(lambda: fn(wide.params, x), repeats),
+                "kernel_stream_ms": stream_ms(lambda: fn(wide.params, x), repeats),
+                "plain_ms": time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats),
+                "bound_ms": b[0], "bound_by": b[1], "tile_rows": fn.rows_for(n),
+            }
+        out[label] = rep
     torch.cuda.synchronize()
-    print(f"phase 4: fused_loglik_grad_gram.cu on hidden {WIDE_HIDDEN} {json.dumps(out)}", flush=True)
+    print(f"phase 4: fused_loglik_grad_gram.cu on hidden {WIDE_HIDDEN} {json.dumps(out)}",
+          flush=True)
     return out
 
 
@@ -1159,8 +1141,8 @@ def time_k3(model, obs, wrappers, rng, added, dev) -> dict:
     ms per call, each the mean of its two turns; then the mixed kernel in
     turns (:func:`mixed_in_turns`, under ``"mixed_turns"``), the reverse
     mode in turns (:func:`reverse_in_turns`, under ``"reverse_turns"``)
-    and ``fused_loglik_grad_gram.cu`` on a too-wide network (:func:`wide_network_k3`,
-    under ``"wide"``). Rows as in phase 3: from ``rng`` for
+    and the wide route ``fused_loglik_grad_gram.cu`` on a too-wide network
+    at each of its pairs (:func:`wide_network_k3`, under ``"wide"``). Rows as in phase 3: from ``rng`` for
     ``FIRST_PAIRS`` and the heights, else from ``added``."""
     timings = {}
     for tiers, fn in wrappers.items():
@@ -2175,33 +2157,56 @@ def tempered_samplers(model, obs, witness, dev):
     return launches
 
 
+def kink_margin(ops, x) -> np.ndarray:
+    """Per row, the smallest |pre-activation| of any hidden unit of the
+    plain forward at ``ops``' value tier, over the mean |pre-activation|
+    of its layer: near 0 the ReLU's gradient is set-valued (a kink row),
+    and two summation orders may land on either side."""
+    z = fused_skinny_dense(_log_clamp(x), ops.w0, ops.b0)
+    margins = []
+    for w, b in (*zip(ops.w, ops.b), (None, None)):
+        margins.append((z.abs() / z.abs().mean(1, keepdim=True)).min(1).values)
+        if w is not None:
+            z = tier_matmul(torch.relu(z), w, ops.tier) + b
+    return torch.stack(margins).min(0).values.cpu().numpy()
+
+
 @torch.no_grad()
 def hold_variational_batches(model, obs, advi_rows, flow_rows, is_rows, dev) -> dict:
     """Phase 17's kernels against their plain versions, fresh wrappers
-    (these launches count for no path): K3 at (high, default) on draws of
-    the fitted ADVI Gaussian in a call of its 512 rows and on draws of the
-    fitted flow in calls of its 256 (the distributions the fits' last
-    steps scored), value and gradient; the fp32 K2 on the importance
-    sweep's own rows in one call of 16,384. Each pair is then timed at
-    that batch (``time_pair``). Returns worst |Δ|/tol, largest |Δ logL|,
-    gradient q99.9 and the times, by case."""
+    (these launches count for no path): K3 at (high, default) on
+    ``HELD_DRAWS`` draws of the fitted ADVI Gaussian in calls of its 512
+    rows and of the fitted flow in calls of its 256 (the distributions the
+    fits' last steps scored), value and gradient, the gate over all the
+    draws; the fp32 K2 on the importance sweep's own rows in one call of
+    16,384. Each pair is then timed at that batch (``time_pair``).
+    Returns worst |Δ|/tol, largest |Δ logL|, gradient q99.9, the worst
+    gradient row's error and kink margin (:func:`kink_margin`) beside the
+    rows' median margin, and the times, by case."""
     report = {}
     trunk = model.config.mlp().sizes[:-1]
     k3 = k3_wrapper(model, obs, MAIN_TIERS, dev)
     ops = k3.operands(model.params)
     half_c = 0.5 * abs(float(ops.c))
-    for label, rows in (("k3_high_default_advi", advi_rows), ("k3_high_default_flow", flow_rows)):
+    for label, rows, batch in (("k3_high_default_advi", advi_rows, ADVI_MC),
+                               ("k3_high_default_flow", flow_rows, FLOW_MC)):
         x = torch.as_tensor(rows, dtype=torch.float32, device=dev)
-        vk, gk = k3(model.params, x)
-        vp, gp = loglik_grad_gram_reference(ops, x)
-        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        calls = [(k3(model.params, q), loglik_grad_gram_reference(ops, q)) for q in x.split(batch)]
+        vk, gk, vp, gp = (torch.cat([c[i][j] for c in calls]).cpu().numpy()
+                          for i, j in ((0, 0), (0, 1), (1, 0), (1, 1)))
+        x = x[:batch]
         worst, max_abs = value_worst(vk, vp, MAIN_TIERS[0], half_c)
-        q999 = float(np.quantile(grad_rel_error(gk, gp), 0.999))
+        rel = grad_rel_error(gk, gp)
+        q999 = float(np.quantile(rel, 0.999))
+        margin = kink_margin(ops, torch.as_tensor(rows, dtype=torch.float32, device=dev))
         check(worst <= 1.0 and grad_gate_violation(gk, gp) <= 0.0,
               f"{label}: worst |Δ|/tol {worst:.3g}, gradient gate "
               f"{grad_gate_violation(gk, gp):.3g}")
-        report[label] = {"rows": int(x.shape[0]), "worst_over_tol": worst, "max_abs": max_abs,
-                         "grad_q999_rel": q999,
+        report[label] = {"rows": int(x.shape[0]), "held_rows": int(vk.shape[0]),
+                         "worst_over_tol": worst, "max_abs": max_abs, "grad_q999_rel": q999,
+                         "grad_max_rel": float(rel.max()),
+                         "worst_row_kink_margin": float(margin[int(np.argmax(rel))]),
+                         "median_kink_margin": float(np.median(margin)),
                          **time_pair(lambda q: k3(model.params, q),
                                      lambda q: loglik_grad_gram_reference(ops, q), x, 50,
                                      gram_flops(trunk, True)),
@@ -2317,7 +2322,7 @@ def variational_path(model, obs, witness, obs_batch, dev):
           f"flow: log Z {ev.logz:.3f} is {gap:+.3f} from the witness's {w_logz:.3f} "
           f"(tolerance {tol:.3f})")
     out["held_at_path_batches"] = hold_variational_batches(
-        model, obs, advi.sample(ADVI_MC, seed=2), flow.sample(FLOW_MC, seed=2), ev._x, dev)
+        model, obs, advi.sample(HELD_DRAWS, seed=2), flow.sample(HELD_DRAWS, seed=2), ev._x, dev)
     print("phase 17: " + json.dumps(out), flush=True)
 
     stages = {}
@@ -2793,7 +2798,7 @@ def wide_ensemble_routes(normalizer, dev):
     wrappers = ensemble_wrappers(ens, obs, WIDE_ENS_KEYS)
     for key, mix in wrappers.items():
         fn = batched_wrapper(mix)
-        check(not (fn.reverse or fn.register_tiled or fn.tensor_cores or fn.mixed),
+        check(fn.wide and not (fn.reverse or fn.register_tiled or fn.tensor_cores or fn.mixed),
               f"ensemble {key} on hidden {WIDE_HIDDEN} routes to fused_loglik_grad_gram.cu")
         mix.launches = 0
     held, half_c = mixture_vs_plain(ens, obs, wrappers, rng, c_key=WIDE_ENS_KEYS[0])
@@ -3959,10 +3964,10 @@ def main() -> int:
     # (the fp32 K1 and K2 at each chain's draws, with their 1 M-row
     # figures beside; the fp32, mixed and reverse K3 at phase 5's short
     # HMCs' walkers, with their 65,536-row figures and phase 4's turns
-    # beside); the 16-row fused_loglik_grad_gram.cu runs only a network
+    # beside); the wide route fused_loglik_grad_gram.cu runs only a network
     # too wide for the others: its launches are phase 19's wide ensemble's
-    # (its row times phase 4's wide network; its times at the reverse and
-    # mixed pairs, from phase 4's turns, beside); the launches
+    # (its row times phase 4's wide network at (fp32, fp32), the reverse
+    # pairs' beside); the launches
     # of phases 12-13 and 15-16 count in the totals, by path beside them
     big = 1_048_576
     k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
@@ -3974,6 +3979,10 @@ def main() -> int:
     def at_64k(t, b):
         return {"ms_64k": t["kernel_ms"], "stream_ms_64k": t["kernel_stream_ms"],
                 "plain_ms_64k": t["plain_ms"], "bound_ms_64k": b[0]}
+
+    wide = timings["wide"]
+    wide_pairs = [f"{a}/{b}" for a, b in WIDE_PAIRS]
+    exact = wide_pairs[0]
 
     def turns(key, part="mixed_turns"):
         """Phase 4's turns of ``key`` at 4096 and 65,536 rows."""
@@ -4059,16 +4068,14 @@ def main() -> int:
               **at_64k(timings["high/highest/65536"],
                        bound("k3", trunk, 65536, "bf16x3", "f32"))),
         entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, ens_launches["k3_wide"],
-              timings["wide"]["max_abs"], timings["wide"]["4096"],
-              (timings["wide"]["4096"]["bound_ms"], timings["wide"]["4096"]["bound_by"]),
-              hidden=timings["wide"]["hidden"], launches_trained=0, launches_serve=0,
-              at_reverse_pairs_in_turns={
-                  "high/highest": turns("high/highest/cuda_cores", "reverse_turns"),
-                  "default/highest": turns("default/highest/cuda_cores", "reverse_turns")},
-              at_mixed_pair_in_turns={"highest/default": turns("highest/default/cuda_cores"),
-                                      "highest/high": turns("highest/high/cuda_cores")},
+              max(wide[p]["max_abs"] for p in wide_pairs), wide[exact]["4096"],
+              (wide[exact]["4096"]["bound_ms"], wide[exact]["4096"]["bound_by"]),
+              hidden=wide["hidden"], launches_trained=0, launches_serve=0,
+              tile_rows=wide[exact]["4096"]["tile_rows"],
+              reverse_pairs={p: {n: wide[p][n] for n in ("4096", "65536")}
+                             for p in wide_pairs if p != exact},
               hidden_ensemble=list(WIDE_HIDDEN), **ensemble("k3_wide"),
-              **at_64k(timings["wide"]["65536"], (timings["wide"]["65536"]["bound_ms"],))),
+              **at_64k(wide[exact]["65536"], (wide[exact]["65536"]["bound_ms"],))),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
               launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc
               + mesh_launches["hmc_plain"] + mesh_launches["hmc_mesh"],

@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with a CUDA card and
     python3 scripts/time_grad_kernel_gpu.py [TREE] [--heights 64,32,16,8]
                                             [--rows 4096,65536]
                                             [--tiers high/default,high/high]
+                                            [--hidden 3200,64,64] [--members 3]
 
 TREE (default: this checkout) is the root of a tree of this repository,
 for example a parent commit unpacked with ``git archive`` under
@@ -24,8 +25,14 @@ plain version at 4096 rows (an HMC ensemble) and 65,536 rows (or the
 batches of ``--rows``), and prints one JSON line and the card's
 ``nvidia-smi`` name and power limit. With ``--heights`` (a tree whose
 ``make_fused_loglik_grad_gram`` takes ``tile_rows=``) it also times the
-device time per call of each forced tile height, in turns there and back. Run it for two trees
-in turns (a, b, b, a) to compare them.
+device time per call of each forced tile height, in turns there and back.
+With ``--hidden`` the network is not the checkpoint but one of those
+hidden widths, randomly initialised from chip_smoke's ``WIDE_SEED`` with
+the checkpoint's normalizer (``--hidden 3200,64,64``: K3's wide route);
+with ``--members M`` it also times one member-batched launch over M such
+networks (seeds ``WIDE_SEED`` + 1 … + M, keyed ``…_m<M>``) beside its
+plain version. Run it for two trees in turns (a, b, b, a) to compare
+them.
 """
 
 from __future__ import annotations
@@ -49,6 +56,10 @@ def main() -> int:
                         help="comma-separated batch sizes")
     parser.add_argument("--tiers", default="highest/highest",
                         help="comma-separated value/backward tier pairs")
+    parser.add_argument("--hidden", default="",
+                        help="comma-separated hidden widths of a seeded network, e.g. 3200,64,64")
+    parser.add_argument("--members", type=int, default=0,
+                        help="also time one member-batched launch of this many seeded networks")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     heights = tuple(int(h) for h in args.heights.split(",") if h)
@@ -59,10 +70,13 @@ def main() -> int:
     import chip_smoke as smoke
     from tpu21cmvae_torch.data.synthetic import synthetic_params
     from tpu21cmvae_torch.models.direct import DirectEmulator
+    from tpu21cmvae_torch.models.ensemble import DeepEnsemble
     from tpu21cmvae_torch.ops.kernels.fused_loglik import (
+        loglik_grad_gram_members_reference,
         loglik_grad_gram_reference,
         make_fused_loglik_grad_gram,
     )
+    from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 
     if not torch.cuda.is_available():
         print("time_grad_kernel_gpu: no CUDA device", file=sys.stderr)
@@ -70,6 +84,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     model = DirectEmulator.from_checkpoint(smoke.CHECKPOINT, device=dev)
+    ens = None
+    if args.hidden:
+        config = DirectEmulatorConfig(hidden_dims=tuple(int(w) for w in args.hidden.split(",")))
+        norm = model.normalizer
+        model = DirectEmulator(config=config, normalizer=norm, seed=smoke.WIDE_SEED, device=dev)
+        if args.members:
+            ens = DeepEnsemble([DirectEmulator(config=config, normalizer=norm,
+                                               seed=smoke.WIDE_SEED + 1 + i, device=dev)
+                                for i in range(args.members)])
     rng = np.random.default_rng(0)
     truth = synthetic_params(1, rng)[0]
     obs = model.predict(truth) + rng.normal(0.0, 5.0, model.config.n_bins)
@@ -79,22 +102,27 @@ def main() -> int:
                                            precision=tiers[0], grad_precision=tiers[1],
                                            device=dev, **kw)
 
-    fns = {}
+    fns = {}  # key: (wrapper, its params, its plain version)
     for pair in args.tiers.split(","):
         tiers = tuple(pair.split("/"))
         key = "k3" if tiers == ("highest", "highest") else f"k3_{tiers[0]}_{tiers[1]}"
-        fns[key] = build(tiers)
+        fns[key] = (build(tiers), model.params, loglik_grad_gram_reference)
+        if ens is not None:
+            fns[f"{key}_m{args.members}"] = (
+                build(tiers, members=args.members), ens.params,
+                loglik_grad_gram_members_reference)
     forced = {h: build(tile_rows=h) for h in heights}
-    out = {"tree": os.path.relpath(tree), "torch": torch.__version__}
+    out = {"tree": os.path.relpath(tree), "torch": torch.__version__,
+           "hidden": list(model.config.hidden_dims)}
     for n in (int(n) for n in args.rows.split(",")):
         repeats = 50 if n <= 8192 else 20
         x = smoke.rows(n, rng)
-        for key, fn in fns.items():
-            ops = fn.operands(model.params)
+        for key, (fn, params, plain) in fns.items():
+            ops = fn.operands(params)
             out[f"{key}/{n}"] = {
-                "kernel_ms": smoke.time_ms(lambda: fn(model.params, x), repeats),
-                "kernel_stream_ms": smoke.stream_ms(lambda: fn(model.params, x), repeats),
-                "plain_ms": smoke.time_ms(lambda: loglik_grad_gram_reference(ops, x), repeats),
+                "kernel_ms": smoke.time_ms(lambda: fn(params, x), repeats),
+                "kernel_stream_ms": smoke.stream_ms(lambda: fn(params, x), repeats),
+                "plain_ms": smoke.time_ms(lambda: plain(ops, x), repeats),
             }
             if hasattr(fn, "rows_for"):
                 out[f"{key}/{n}"]["tile_rows"] = fn.rows_for(n)

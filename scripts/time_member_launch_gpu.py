@@ -20,7 +20,7 @@ fp32 (``fused_mlp.cu``) and bf16x3 (``fused_mlp_mma.cu``), K2 at fp32
 (``fused_loglik_gram.cu``) and bf16x3 (``fused_gram_mma.cu``), K3 at
 (high, default) (``fused_gram_mma.cu``), (fp32, fp32)
 (``fused_loglik_grad_gram_f32.cu``) and (fp32, bf16)
-(``fused_loglik_grad_gram.cu``), on the members of
+(``fused_gram_mixed.cu``), on the members of
 ``pretrained/ensemble_direct`` (flagship widths) with chip_smoke's noise
 (σ² = 25). Prints one JSON line and the card's ``nvidia-smi`` name and
 power limit. Run it for two trees in turns (a, b, b, a) to compare them.

@@ -1,17 +1,20 @@
 """What the CPU tests of the port's register-tiled fp32 kernels share
 (``csrc/tile_f32.cuh``: K1 ``fused_mlp.cu``, K2 ``fused_loglik_gram.cu``,
 K3 ``fused_loglik_grad_gram_f32.cu``, the forward of
-``fused_gram_mixed.cu`` and the backward of ``fused_gram_mma.cu`` at a
-reverse pair): packed fp32 weight slabs read back by the kernels'
-layout, and the kernels' arithmetic in plain torch, through the packed
-stream, slab by slab, k ascending."""
+``fused_gram_mixed.cu``, the backward of ``fused_gram_mma.cu`` at a
+reverse pair, and the wide route ``fused_loglik_grad_gram.cu``): packed
+fp32 weight slabs read back by the kernels' layout, and the kernels'
+arithmetic in plain torch, through the packed stream, slab by slab, k
+ascending."""
+
+import functools
 
 import torch
-from _torch_mma import mma_product
+from _torch_mma import mma_product, unpack
 
 from tpu21cmvae_torch.ops.fold import _log_clamp, _log_clamp_grad
 from tpu21cmvae_torch.ops.kernels._common import SLAB_N, padk
-from tpu21cmvae_torch.ops.mlp import skinny_dense
+from tpu21cmvae_torch.ops.mlp import fused_skinny_dense
 
 
 def chunks(n: int) -> int:
@@ -72,7 +75,7 @@ def emulate_f32_mlp(ops, x):
     widths = ops.widths
     first = 0
     if ops.skinny:
-        h = skinny_dense(h, ops.w[0], ops.b[0])
+        h = fused_skinny_dense(h, ops.w[0], ops.b[0])
         first = 1
         if len(widths) > 2:
             h = torch.relu(h)
@@ -90,7 +93,7 @@ def _gram_forward(ops, x):
     it (fp32 pre-activation > 0, false for NaN), and the stream offset
     after ``G``."""
     widths = ops.widths
-    y = skinny_dense(_log_clamp(x), ops.w0, ops.b0)
+    y = fused_skinny_dense(_log_clamp(x), ops.w0, ops.b0)
     masks, h = [y > 0.0], torch.relu(y)
     at = bias_at = 0
     for k, n in zip(widths[1:-1], widths[2:]):
@@ -166,7 +169,7 @@ def _mma_forward(ops, x):
     columns with zeros, the quad from the fp32 ``h``. Returns the
     activations (fp32, padded), ``h@G`` and the value."""
     p = ops.packed
-    h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
+    h = torch.relu(fused_skinny_dense(_log_clamp(x), ops.w0, ops.b0))
     h = torch.nn.functional.pad(h, (0, -h.shape[1] % 16))
     acts = [h]
     for w, b in zip(p.w, p.b):
@@ -195,3 +198,129 @@ def emulate_reverse_grad_gram(ops, x):
         e = torch.where(acts[i - 1][:, : widths[i]] > 0.0, acc[:, : widths[i]], 0.0)
     assert at == ops.slabs.w.numel()
     return value, _skinny_backward(ops, x, e[:, : widths[1]])
+
+
+def emulate_wide_grad_gram(ops, x):
+    """``fused_loglik_grad_gram.cu``: the program of ``ops.program``
+    (``ops/kernels/wide.py``) run op by op on the CPU, as the kernel runs
+    it on a tile (at any height: nothing depends on it), every buffer of
+    the tile NaN until an op writes it (a read of memory no op wrote
+    turns the result NaN). The fp32 products come from the stream
+    ``ops.slabs.w`` in program order, one sum per output over k
+    ascending, the accumulators carried between chunks; a split layer's
+    upper 64 rows into sums of their own, added in the epilogue. The
+    tensor-core products (a reverse pair) through the packed fragments of
+    ``ops.packed``, the chunk split or rounded once, each chunk's
+    products added to the carried sums. Activation 0 recomputed from the
+    input at each chunk (``fused_skinny_dense``), the masks from the fp32
+    pre-activations, the quad summed per (row, slice: columns ≡ slice mod
+    8) and dx per (row, slice: groups of four columns ≡ slice mod 8), the
+    eight slices in order. ``(logL, dlogL/dx)``."""
+    from tpu21cmvae_torch.ops.fold import _split_hi_lo, bf16_round
+    from tpu21cmvae_torch.ops.kernels import wide
+    from tpu21cmvae_torch.ops.kernels.fused_loglik import wide_parts
+
+    n_in, W = ops.widths[0], ops.widths[1:]
+    parts = wide_parts(ops.tier)
+    slices = 8  # kSlices
+    B = x.shape[0]
+    xl = _log_clamp(x)
+    nan = float("nan")
+    buf = {i: torch.full((B, 4096), nan) for i in (wide.CA, wide.CB, *wide.HELD)}
+    masks = torch.zeros((B, max(1, sum(padk(w) for w in W[:-1]))), dtype=torch.bool)
+    frags = ([unpack(f) for f in (*ops.packed.w, ops.packed.g)] if parts else None)
+    q = x.new_zeros((slices, B))
+    dxp = x.new_zeros((slices, B, n_in))
+    at = 0  # the stream's float offset
+    quad = dx = None
+
+    def skinny(j0, valid):
+        return fused_skinny_dense(xl, ops.w0[:, j0: j0 + valid], ops.b0[j0: j0 + valid])
+
+    for op in ops.program.tolist():
+        code = op[0]
+        if code == wide.OP_SKINNY:
+            kappa, cols, valid, mask_col = op[1:5]
+            v = torch.zeros((B, cols))
+            v[:, :valid] = skinny(SLAB_N * kappa, valid)
+            buf[wide.CA][:, :cols] = torch.relu(v)
+            if mask_col >= 0:
+                masks[:, mask_col: mask_col + cols] = v > 0.0
+        elif code == wide.OP_MM:
+            src, src_row, k, d0, d1, flags, dst, col0, frag, kstep0, n = op[1:12]
+            first = flags & wide.MM_FIRST
+            a = buf[src][:, src_row: src_row + k]
+            out = buf[dst]
+            if frag >= 0:  # tensor cores: the chunk split or rounded once
+                wp = frags[frag - 1][:, 16 * kstep0: 16 * kstep0 + k]
+                c0, c1 = SLAB_N * d0, min(SLAB_N * d1, wide.pad16(n))
+                if parts == 2:
+                    hi, lo = _split_hi_lo(a)
+                    prod = hi @ wp[0] + hi @ wp[1] + lo @ wp[0]
+                else:
+                    prod = bf16_round(a) @ wp[0]
+                cols = slice(c0 - col0, c1 - col0)
+                acc = prod[:, c0:c1] if first else out[:, cols] + prod[:, c0:c1]
+                out[:, cols] = acc
+                continue
+            split = flags & wide.MM_SPLIT
+            for d in range(d0, d1):
+                depth = 64 if split else k
+                blk = ops.slabs.w[at: at + depth * SLAB_N].reshape(depth, SLAB_N)
+                at += blk.numel()
+                cols = slice(SLAB_N * d - col0, SLAB_N * (d + 1) - col0)
+                acc = x.new_zeros((B, SLAB_N)) if first else out[:, cols].clone()
+                if split:
+                    for v in range(min(k, 64)):
+                        acc[:, :64] = acc[:, :64] + a[:, v, None] * blk[v, :64]
+                    for v in range(k - 64):
+                        acc[:, 64:] = acc[:, 64:] + a[:, 64 + v, None] * blk[v, 64:]
+                else:
+                    for kk in range(k):
+                        acc = acc + a[:, kk, None] * blk[kk]
+                # a column quarter past the layer's width is never written
+                live = [qq for qq in range(4)
+                        if (32 * (qq & 1) if split else SLAB_N * d + 32 * qq) < n]
+                for qq in live:
+                    out[:, cols.start + 32 * qq: cols.start + 32 * qq + 32] = acc[:, 32 * qq:
+                                                                                 32 * qq + 32]
+        elif code == wide.OP_FIN:
+            dst, cols, valid, bias, split, mask_col, masked = op[1:8]
+            out = buf[dst]
+            v = torch.zeros((B, cols))
+            v[:, :valid] = out[:, :valid] + (out[:, 64: 64 + valid] if split else 0.0)
+            if masked:
+                out[:, :cols] = torch.where(masks[:, mask_col: mask_col + cols], v, 0.0)
+            else:
+                v[:, :valid] = v[:, :valid] + ops.slabs.b[bias: bias + valid]
+                out[:, :cols] = torch.relu(v)
+                if mask_col >= 0:
+                    masks[:, mask_col: mask_col + cols] = v > 0.0
+        elif code == wide.OP_GRAM:
+            h_id, e_id, H, col0, cols, u_at = op[1:7]
+            e = buf[e_id]
+            for jl in range(cols):
+                j = col0 + jl
+                if j < H:
+                    hv = (torch.relu(skinny(j, 1))[:, 0] if h_id < 0 else buf[h_id][:, j])
+                    hg, uj = e[:, jl], ops.slabs.b[u_at + j]
+                else:
+                    hv = hg = uj = x.new_zeros(B)
+                q[jl % slices] = q[jl % slices] + (hg + 2.0 * uj) * hv
+                e[:, jl] = torch.where(hv > 0.0, hg + uj, 0.0)
+        elif code == wide.OP_QUAD_WRITE:
+            quad = functools.reduce(lambda s, t: s + t, q)
+        elif code == wide.OP_DX:  # slice p takes the groups of four columns ≡ p (mod slices)
+            src, src_row, valid, w0_col = op[1:5]
+            for j in range(valid):
+                p = j // 4 % slices
+                dxp[p] = dxp[p] + buf[src][:, src_row + j, None] * ops.w0[None, :, w0_col + j]
+        elif code == wide.OP_DX_WRITE:
+            dx = functools.reduce(lambda s, t: s + t, dxp)
+        elif code == wide.OP_RING:
+            pass
+        else:
+            raise ValueError(f"unknown op {code}")
+    assert at == ops.slabs.w.numel()
+    value = -0.5 * (quad + ops.c) + ops.log_norm
+    return value, -(_log_clamp_grad(x) * dx)

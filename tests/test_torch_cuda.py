@@ -635,7 +635,7 @@ def test_k3_f32_picks_its_height_by_batch(cuda):
 def test_k3_f32_refused_launch_raises(cuda):
     """A tile height the C entry point was not built for is refused
     there and raises with its CUDA error string; nothing falls back to
-    the 16-row kernel or the plain version."""
+    another kernel or the plain version."""
     m, obs, data = _model((32, 48, 32, 24), cuda)
     fn = _k3_f32(m, obs, cuda)
     fn.tile_rows = 48
@@ -643,80 +643,127 @@ def test_k3_f32_refused_launch_raises(cuda):
         fn(m.params, _rows(data, 5, cuda))
 
 
+# K3 on a network too wide for the kernels above: fused_loglik_grad_gram.cu,
+# at (fp32, fp32) and at both reverse pairs
+WIDE_PAIRS = [("highest", "highest"), ("high", "highest"), ("default", "highest")]
+WIDE_HIDDEN = (3200, 64, 64)
+
+
+def _k3_wide(m, obs, tiers, dev, members=None):
+    """K3 at ``tiers`` on the wide route, its height picked per batch."""
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], members=members, device=dev)
+    assert fn.wide and not (fn.reverse or fn.register_tiled or fn.tensor_cores or fn.mixed)
+    return fn
+
+
 @pytest.mark.cuda
-def test_k3_f32_wide_layer_runs_the_16_row_kernel(cuda):
-    """A network whose widest layer does not fit two full-width 8-row
-    buffers, but whose activations fit ``fused_loglik_grad_gram.cu`` at
-    their own widths, still runs at (fp32, fp32), on that kernel."""
-    m, obs, data = _model((3200, 64, 64), cuda)
-    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
-                                     grad_precision="highest", device=cuda)
-    assert not fn.register_tiled and not fn.tensor_cores
-    x = _rows(data, 100, cuda)
-    vk, gk = fn(m.params, x)
+@pytest.mark.parametrize("tiers", WIDE_PAIRS)
+def test_k3_wide_matches_plain(cuda, tiers):
+    """The wide route on hidden (3200, 64, 64) at batches 1, 37, 100, 4096
+    and 65,537 with an fx == 0 row, at every height it is built for (the
+    wrapper's own pick through the wrapper, the others launched
+    directly): values within the value tier's tolerance of the plain
+    version, gradients under the gate, the fx == 0 slot exactly 0, one
+    launch per wrapper call, and every height bit for bit the others (no
+    sum depends on the tile height)."""
+    m, obs, _ = _model(WIDE_HIDDEN, cuda)
+    fn = _k3_wide(m, obs, tiers, cuda)
     ops = fn.operands(m.params)
-    vp, gp = loglik_grad_gram_reference(ops, x)
-    torch.cuda.synchronize()
-    assert fn.launches == 1 and ops.slabs is None
-    _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), "highest")
-    assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+    assert ops.program is not None and (ops.packed is not None) == (tiers[0] != "highest")
+    for n in (1, 37, 100, 4096, 65537):
+        x = _prior_rows(n, cuda)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        vp, gp = vp.cpu().numpy(), gp.cpu().numpy()
+        first = None
+        for rows in fn.heights:
+            fn.launches = 0
+            if rows == fn.rows_for(n):
+                vk, gk = fn(m.params, x)
+                assert fn.launches == 1
+            else:
+                vk, gk = fused_loglik._loglik_grad_gram_cuda(ops, x, rows)
+            torch.cuda.synchronize()
+            first = first or (vk, gk)
+            assert torch.equal(vk, first[0]) and torch.equal(gk, first[1]), (n, rows)
+            vk, gk = vk.cpu().numpy(), gk.cpu().numpy()
+            assert vk.shape == (n,) and gk.shape == (n, 7)
+            assert np.isfinite(vk).all() and np.isfinite(gk).all()
+            _close_values(vk, vp, float(ops.c), tiers[0])
+            assert grad_gate_violation(gk, gp) <= 0.0, (n, rows)
+            assert gk[0, 2] == 0.0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tiers", [("high", "highest"), ("highest", "highest")])
-def test_k3_too_wide_network_runs_the_16_row_kernel(cuda, tiers):
-    """A network too wide for ``fused_gram_mma.cu``'s fp32 backward tiles
-    (a reverse pair) or for two 8-row buffers (fp32, fp32) is routed to
-    ``fused_loglik_grad_gram.cu`` when the wrapper is built, and runs
-    there against the plain version."""
-    m, obs, data = _model((3200, 64, 64), cuda)
+@pytest.mark.parametrize("hidden", [(3623, 1), (100, 3300, 64), (1700, 1700, 8), (1500,)])
+@pytest.mark.parametrize("tiers", WIDE_PAIRS)
+def test_k3_wide_networks_match_plain(cuda, hidden, tiers):
+    """Every shape of the wide plan: a 3623-wide skinny layer into one
+    column, a streamed middle layer (100, 3300, 64), two adjacent wide
+    layers (1700, 1700, 8: the second streamed, e_1 held) and a lone
+    skinny layer whose gram head streams e_0 into dx (1500,), at each
+    pair that routes there (a network the register-tiled fp32 K3 holds
+    stays there), at 37 and 4096 rows."""
+    m, obs, _ = _model(hidden, cuda)
     fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
                                      grad_precision=tiers[1], device=cuda)
-    assert not (fn.reverse or fn.register_tiled or fn.tensor_cores or fn.mixed)
-    x = _rows(data, 100, cuda)
-    vk, gk = fn(m.params, x)
+    if not fn.wide:
+        assert fn.register_tiled and tiers == ("highest", "highest")
+        return
     ops = fn.operands(m.params)
-    vp, gp = loglik_grad_gram_reference(ops, x)
-    torch.cuda.synchronize()
-    assert fn.launches == 1 and ops.slabs is None and ops.packed is None
-    _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), tiers[0])
-    assert grad_gate_violation(gk.cpu().numpy(), gp.cpu().numpy()) <= 0.0
+    for n in (37, 4096):
+        x = _prior_rows(n, cuda)
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        assert np.isfinite(vk).all() and np.isfinite(gk).all()
+        _close_values(vk, vp, float(ops.c), tiers[0])
+        assert grad_gate_violation(gk, gp) <= 0.0, n
+        assert gk[0, 2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", WIDE_PAIRS)
+def test_k3_wide_members_equal_single_launches(cuda, tiers):
+    """M = 3 on the wide route: one member-batched launch equals the three
+    members' single launches bit for bit at 37 and 4096 rows, and holds
+    to the member-batched plain version."""
+    ens, obs = _members(WIDE_HIDDEN, cuda)
+    batched = _k3_wide(ens, obs, tiers, cuda, members=3)
+    singles = [_k3_wide(ens, obs, tiers, cuda) for _ in range(3)]
+    views = ens.member_params(ens.params)
+    ops = batched.operands(ens.params)
+    for n in (37, 4096):
+        x = _prior_rows(n, cuda)
+        v3, g3 = batched(ens.params, x)
+        vp, gp = fused_loglik.loglik_grad_gram_members_reference(ops, x)
+        for k, (f, p) in enumerate(zip(singles, views)):
+            v1, g1 = f(p, x)
+            assert torch.equal(v3[k], v1) and torch.equal(g3[k], g1), (n, k)
+            _close_values(v3[k].cpu().numpy(), vp[k].cpu().numpy(), float(ops.c[k]), tiers[0])
+            assert grad_gate_violation(g3[k].cpu().numpy(), gp[k].cpu().numpy()) <= 0.0
+    assert batched.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_clamp", [False, True])
+def test_k1_lone_skinny_layer_equals_plain_bit_for_bit(cuda, log_clamp):
+    """K1 at fp32 on a network whose only layer is skinny (7 → 40): kernel
+    and plain version compute the layer in one order (the Pallas
+    kernel's: products from column 0, each product and each sum rounded,
+    then the bias), so predict equals plain bit for bit, on raw rows and
+    on log-clamped ones."""
+    params = _random_params((7, 40), cuda)
+    x = _prior_rows(4096, cuda)
+    fn = make_fused_mlp((7, 40), precision="highest", log_clamp_input=log_clamp, device=cuda)
+    ops = fn.operands(params)
+    assert ops.skinny
+    assert torch.equal(fn(params, x), fused_mlp_reference(ops, x))
 
 
 # K3 at a bf16 value tier with an fp32 backward: fused_gram_mma.cu's
-# reverse mode. Every kernel computes the skinny first layer as one fmaf
-# per input column from 0, then adds the bias (mma.cuh, tile_f32.cuh);
-# the plain version's skinny_dense starts from the bias and rounds each
-# product. The two differ by an ulp on many columns, and at a
-# single-pass bf16 value tier the next layer's bf16 rounding can turn
-# that into a different activation: on some randomly initialised
-# networks the gradients of rare rows then leave the gate against plain,
-# and on one fx == 0 row of the shipped checkpoint's 65,537 the value
-# leaves VALUE_RTOL, every bf16-tier kernel alike (ROADMAP, queue 3). So
-# at (default, highest) the gradient on random networks and the value on
-# the shipped checkpoint are held, at the same gate and tolerance, to the
-# plain version with the kernels' skinny layer (_kernel_skinny_reference).
+# reverse mode
 REVERSE_PAIRS = [("high", "highest"), ("default", "highest")]
-
-
-def _fmaf_skinny(x, w, b):
-    """The kernels' skinny first layer: per output column one fmaf per
-    input column, from 0 and c ascending, then ``+ b``. Each fmaf is a
-    float64 multiply-add (the product of two fp32 values is exact there)
-    rounded to fp32."""
-    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float64, device=x.device)
-    for c in range(w.shape[0]):
-        acc = (x[:, c:c + 1].double() * w[c].double() + acc).float().double()
-    return acc.float() + b
-
-
-def _kernel_skinny_reference(reference, ops, x):
-    """``reference(ops, x)`` (a plain K3 of ``fused_loglik``) with the
-    kernels' skinny first layer (:func:`_fmaf_skinny`) in place of
-    ``skinny_dense``."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fused_loglik, "skinny_dense", _fmaf_skinny)
-        return reference(ops, x)
 
 
 def _k3_reverse(m, obs, tiers, dev, members=None):
@@ -732,10 +779,9 @@ def _k3_reverse(m, obs, tiers, dev, members=None):
 def test_k3_reverse_matches_plain(cuda, hidden, tiers):
     """The reverse mode at batches 1, 37, 100, 4096 and 65,537 with an
     fx == 0 row: values within the value tier's tolerance of the plain
-    version, gradients under the gate against it (at (default, highest)
-    against the plain version with the kernels' skinny layer), the fx ==
-    0 slot exactly 0, one launch per call; its value equals the
-    tensor-core K2's at the value tier bit for bit (the same forward)."""
+    version, gradients under the gate against it, the fx == 0 slot
+    exactly 0, one launch per call; its value equals the tensor-core
+    K2's at the value tier bit for bit (the same forward)."""
     m, obs, _ = _model(hidden, cuda)
     fn = _k3_reverse(m, obs, tiers, cuda)
     k2 = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
@@ -747,8 +793,6 @@ def test_k3_reverse_matches_plain(cuda, hidden, tiers):
         fn.launches = 0
         vk, gk = fn(m.params, x)
         vp, gp = loglik_grad_gram_reference(ops, x)
-        if tiers[0] == "default":
-            _, gp = _kernel_skinny_reference(loglik_grad_gram_reference, ops, x)
         v2 = k2(m.params, x)
         torch.cuda.synchronize()
         assert fn.launches == 1 and torch.equal(vk, v2)
@@ -765,14 +809,10 @@ def test_k3_reverse_matches_plain(cuda, hidden, tiers):
 def test_k3_reverse_shipped_checkpoint_passes_the_gate(cuda, tiers):
     """On the shipped flagship checkpoint, at both reverse pairs and
     batches 1, 37, 4096 and 65,537: gradients under the gate against
-    plain, the value bit for bit the tensor-core K2's at the value tier,
-    and within the tier's tolerance of plain at (high, highest) and of
-    the plain version with the kernels' skinny layer at (default,
-    highest). (On one fx == 0 row of these 65,537 every kernel's
-    bf16-tier value, K2's and the 16-row kernel's alike, lies outside the
-    tolerance of plain itself: the two skinny layers differ by an ulp,
-    and the bf16 rounding of the next layer amplifies it. ROADMAP, queue
-    3.)"""
+    plain, the value bit for bit the tensor-core K2's at the value tier
+    and, on every row, within the tier's tolerance of plain: kernel and
+    plain compute the skinny layer in one order, so the single-pass bf16
+    rounding of the next layer has nothing to amplify."""
     import os
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -789,8 +829,6 @@ def test_k3_reverse_shipped_checkpoint_passes_the_gate(cuda, tiers):
         vk, gk = fn(m.params, x)
         vp, gp = loglik_grad_gram_reference(ops, x)
         assert torch.equal(vk, k2(m.params, x))
-        if tiers[0] == "default":
-            vp, _ = _kernel_skinny_reference(loglik_grad_gram_reference, ops, x)
         _close_values(vk.cpu().numpy(), vp.cpu().numpy(), float(ops.c), tiers[0])
         gk, gp = gk.cpu().numpy(), gp.cpu().numpy()
         assert grad_gate_violation(gk, gp) <= 0.0
@@ -802,9 +840,7 @@ def test_k3_reverse_shipped_checkpoint_passes_the_gate(cuda, tiers):
 def test_k3_reverse_members_equal_single_launches(cuda, tiers):
     """M = 3: one member-batched launch equals the three members' single
     launches bit for bit at 1, 37, 100, 4096 and 65,537 rows, and holds
-    to its member-batched plain version (the gradient gate; at (default,
-    highest) against the plain version with the kernels' skinny
-    layer)."""
+    to its member-batched plain version (the gradient gate)."""
     ens, obs = _members((288, 352, 288, 224), cuda)
     batched = _k3_reverse(ens, obs, tiers, cuda, members=3)
     singles = [_k3_reverse(ens, obs, tiers, cuda) for _ in range(3)]
@@ -814,9 +850,6 @@ def test_k3_reverse_members_equal_single_launches(cuda, tiers):
         x = _prior_rows(n, cuda)
         v3, g3 = batched(ens.params, x)
         vp, gp = fused_loglik.loglik_grad_gram_members_reference(ops, x)
-        if tiers[0] == "default":
-            _, gp = _kernel_skinny_reference(fused_loglik.loglik_grad_gram_members_reference,
-                                             ops, x)
         for m, (f, p) in enumerate(zip(singles, views)):
             v1, g1 = f(p, x)
             assert torch.equal(v3[m], v1) and torch.equal(g3[m], g1), (n, m)
@@ -1613,7 +1646,7 @@ def _route_wrapper(ens, obs, route, dev, members=None):
     fn = make_fused_loglik_grad_gram(cfg, norm, obs, 25.0, precision=tier,
                                      grad_precision=grad, members=members, device=dev)
     if kernel == "k3_wide":
-        assert not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
+        assert fn.wide and not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
     return fn
 
 

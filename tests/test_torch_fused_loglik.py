@@ -76,7 +76,8 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     pack_gram_operands,
     shared_bytes,
 )
-from tpu21cmvae_torch.ops.mlp import skinny_dense
+from tpu21cmvae_torch.ops.kernels.wide import wide_bytes
+from tpu21cmvae_torch.ops.mlp import fused_skinny_dense
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 from tpu21cmvae_torch.utils.metrics import grad_gate_violation, grad_rel_error
 
@@ -383,7 +384,7 @@ def test_gram_masks_follow_the_fp32_activations(port_model, splits):
     ops = dataclasses.replace(ops, packed=pack_gram_operands(ops))
     x = _raw(splits)
     x[:, 6] = 0.0
-    a0 = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))[:, j]
+    a0 = torch.relu(fused_skinny_dense(_log_clamp(x), ops.w0, ops.b0))[:, j]
     assert (a0 > 0).all() and not _split_hi_lo(a0)[0].any() and not bf16_round(a0).any()
     _, want = loglik_grad_gram_reference(ops, x)
     _, got = _emulate_gram(ops, x)
@@ -402,7 +403,8 @@ def test_gram_shared_bytes_and_routing(port_model):
     larger of K2's tensor-core tiles and the backward's other fp32 tile
     with its ring, plus its 552-byte operand struct: two blocks share an
     SM at the flagship; ``fused_loglik_grad_gram.cu`` (a reverse pair too
-    wide for that) fp32 tiles of 16 rows; ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16 backward) the
+    wide for that) the tiles of its plan (``ops/kernels/wide.py``:
+    ``wide_bytes``) at the tallest height that fits; ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16 backward) the
     fp32 K3's masks and partials and two regions, one for the fp32 ``e``
     and later a bf16 A tile, one for the forward's other tile, ring and
     input tile and later the other A tile, plus its 256-byte operand
@@ -488,9 +490,10 @@ def test_gram_shared_bytes_and_routing(port_model):
     assert fn.mixed and fn.heights == (16,)
     # too wide for the reverse mode: fused_loglik_grad_gram.cu, chosen here
     assert grad_reverse_bytes((7, 1500), "bf16") > MAX_SHARED_BYTES
-    assert shared_bytes((7, 1500), "bf16", "f32") == 4 * 16 * (7 + 1500 + 1500)
+    assert shared_bytes((7, 1500), "bf16", "f32") == wide_bytes((7, 1500), 32, 1)
     fn = make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="default",
                                      grad_precision="highest", device="cpu")
+    assert fn.wide and fn.heights == (32, 16)
     assert not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
     with pytest.raises(NotImplementedError, match="shared memory per K3 block at the bf16x3"):
         make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="high", device="cpu")
@@ -525,10 +528,8 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
     the tile height; ``fused_gram_mma.cu``'s reverse entry, a bf16 value
     tier with an fp32 backward, the forward's fragments, then the
     backward's fp32 stream, and the value tier's code;
-    ``fused_loglik_grad_gram.cu`` (the same pairs' operands without
-    fragments or slabs, as a network too wide for the reverse mode
-    carries them) every hi/lo part (lo None unless bf16x3) and both tier
-    codes."""
+    operands stripped of fragments and slabs reach no kernel (the wide
+    route's operands: ``test_torch_wide_gram.py``)."""
     m, obs = port_model(SMALL)
     ops = _wrapper(m, obs, case).operands(m.params)
     k3 = case[1] is not None
@@ -580,19 +581,10 @@ def test_gram_entry_point_and_operands_follow_the_tiers(port_model, case):
         assert len(got) == len(want)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-        # stripped of fragments and slabs: fused_loglik_grad_gram.cu
-        ops = dataclasses.replace(ops, packed=None, slabs=None)
-        entry, tensors, tiers = _kernel(ops, k3)
-        assert entry == "k3_fused_loglik_grad_gram"
-        assert tiers == [TIER_CODE[t] for t in names]
-        lo = lambda op, tier: (op[op.shape[0] // 3: 2 * op.shape[0] // 3]  # noqa: E731
-                               if tier == "bf16x3" else None)
-        hi = lambda op, tier: op[: op.shape[0] // 3] if tier == "bf16x3" else op  # noqa: E731
-        want = []
-        for w, b, wt in zip(ops.w, ops.b, ops.wt):
-            want += [hi(w, ops.tier), lo(w, ops.tier), b,
-                     hi(wt, ops.grad_tier), lo(wt, ops.grad_tier)]
-        want += [hi(ops.g, ops.tier), lo(ops.g, ops.tier), ops.u]
+        # stripped of fragments and slabs: no kernel's operands
+        with pytest.raises(ValueError, match="no kernel's packing"):
+            _kernel(dataclasses.replace(ops, packed=None, slabs=None), k3)
+        return
     got = tensors[2:]
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -810,13 +802,13 @@ def test_grad_gram_f32_tile_height_follows_the_batch(n_rows, sm_count, want):
 
 
 def test_grad_gram_f32_takes_what_the_16_row_kernel_took(port_model):
-    """No network ``fused_loglik_grad_gram.cu`` holds (every activation
-    and ``h@G`` at 16 rows within the block's shared memory) is refused at
-    (fp32, fp32): the register-tiled kernel takes it at some height down
-    to 8 rows (stride 9), or, where one layer is too wide for two
-    full-width 8-row buffers, the 16-row kernel still does. Heights are
-    forced through the wrapper and per call; an unknown height is
-    refused."""
+    """No network the first, 16-row kernel held (every activation and ``h@G``
+    at 16 rows within the block's shared memory) is refused at (fp32,
+    fp32): the register-tiled kernel takes it at some height down to 8
+    rows (stride 9), or, where one layer is too wide for two full-width
+    8-row buffers, the wide route (``fused_loglik_grad_gram.cu``) does,
+    at 32 rows. Heights are forced through the wrapper and per call; an
+    unknown height is refused."""
     m, obs = port_model(SMALL)
     every = lambda widths: 4 * 16 * (sum(widths) + widths[-1])  # noqa: E731
     for trunk in [(7, 1812), (7, 1200, 1200), (7, 896, 896, 896), (8, 30, 1000, 1000),
@@ -828,14 +820,15 @@ def test_grad_gram_f32_takes_what_the_16_row_kernel_took(port_model):
     for width in range(1, 1816, 37):
         assert grad_f32_heights((7, width, max(1, width // 3)))
     # one layer far wider than the rest: two full-width buffers do not fit
-    # at 8 rows, every activation at its own width does at 16
+    # at 8 rows; the wide route streams it at 32
     for trunk in [(7, 3623, 1), (7, 3200, 64, 64)]:
         assert every(trunk) <= MAX_SHARED_BYTES and grad_f32_heights(trunk) == ()
         assert grad_f32_rows(trunk, 4096, 132) is None
-        assert shared_bytes(trunk) == every(trunk)
+        assert shared_bytes(trunk) == wide_bytes(trunk, 32, 0) <= MAX_SHARED_BYTES
         fn = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=trunk[1:]),
                                          m.normalizer, obs, precision="highest", device="cpu")
-        assert not fn.register_tiled and not fn.tensor_cores and fn.rows_for(4096) is None
+        assert fn.wide and not fn.register_tiled and not fn.tensor_cores
+        assert fn.heights == (32, 16) and fn.rows_for(4096) == 32
     fn = _f32_grad_gram(m, obs)
     assert fn.tile_rows is None and fn.heights == F32_TILE_ROWS and fn.sm_count is None
     assert fn.rows_for(4096) == 64  # on the CPU no SM count: the tallest

@@ -52,7 +52,7 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     pack_mma_operands,
     shared_bytes,
 )
-from tpu21cmvae_torch.ops.mlp import skinny_dense
+from tpu21cmvae_torch.ops.mlp import fused_skinny_dense
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 
 SMALL = (32, 48, 32, 24)
@@ -242,7 +242,7 @@ def _emulate_mma(ops, x):
     last = len(ops.packed) - 1
     for i, (w, b) in enumerate(ops.packed):
         if i == 0 and ops.skinny:
-            h = skinny_dense(h, w, b)
+            h = fused_skinny_dense(h, w, b)
         else:
             h = mma_product(h, w, ops.tier) + b
         if i < last:

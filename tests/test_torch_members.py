@@ -5,8 +5,9 @@ launch (``tpu21cmvae_torch/ops/kernels/_common.py``), the port of JAX's
 On the CPU a member-batched wrapper runs its ``*_members_reference``,
 which reads member m's operands out of the stacked buffers at the stride
 the kernel is given. Here, on three randomly initialised 7→32→48→451
-members and every route of K1, K2 and K3 (``fused_loglik_grad_gram.cu``'s
-on three 7→1500→48→451 members, too wide for the others):
+members and every route of K1, K2 and K3 (the wide route,
+``fused_loglik_grad_gram.cu``, on three 7→1500→48→451 members, too wide
+for the others):
 
 - the member-batched plain version equals the single-model wrapper of
   each member, bit for bit (the same fold, the same arithmetic);
@@ -35,6 +36,7 @@ from _torch_f32 import (
     emulate_f32_mlp,
     emulate_mixed_grad_gram,
     emulate_reverse_grad_gram,
+    emulate_wide_grad_gram,
 )
 from _torch_pair import one_torch_thread  # noqa: F401
 from test_torch_fused_loglik import _emulate_gram
@@ -52,7 +54,6 @@ from tpu21cmvae_torch.ops.kernels._common import (
 )
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     _kernel,
-    loglik_grad_gram_reference,
     make_fused_loglik,
     make_fused_loglik_grad_gram,
     make_fused_loglik_gram,
@@ -68,7 +69,8 @@ from tpu21cmvae_torch.ops.loglik import (
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 
 HIDDEN = (32, 48)
-# too wide for fused_gram_mma.cu's reverse mode: K3 runs fused_loglik_grad_gram.cu
+# too wide for fused_gram_mma.cu's reverse mode: K3 runs the wide route,
+# fused_loglik_grad_gram.cu
 WIDE_HIDDEN = (1500, 48)
 M = 3
 NOISE_VAR = 25.0
@@ -180,8 +182,8 @@ def emulation(route, ops):
     kernel, tier, grad = route
     if kernel.startswith("k1"):
         return emulate_f32_mlp if tier == "highest" else _emulate_mma
-    if ops.packed is None and ops.slabs is None:  # fused_loglik_grad_gram.cu: plain fp32
-        return loglik_grad_gram_reference
+    if ops.program is not None:  # the wide route, fused_loglik_grad_gram.cu
+        return emulate_wide_grad_gram
     if kernel == "k2":
         return emulate_f32_gram if tier == "highest" else functools.partial(_emulate_gram,
                                                                              grad=False)
@@ -198,9 +200,7 @@ def emulation(route, ops):
 def test_emulation_on_a_members_slice_equals_its_own_packing(routed, x, route):
     """The kernels' CPU emulations on member m's slice of the stacked,
     packed operands (read at its member stride) equal the same emulation
-    on member m's own packed operands, bit for bit, on every route
-    (``fused_loglik_grad_gram.cu``, which packs nothing: its plain
-    version on the unpacked operands)."""
+    on member m's own packed operands, bit for bit, on every route."""
     ens, obs = routed
     stacked = operands(wrapper(ens, obs, route, members=M), ens.params)
     assert stacked.members == M

@@ -249,9 +249,10 @@ def test_reverse_routing_bytes_and_the_too_wide_network(port_model):
     forward's fragments, then the backward's fp32 stream, and the value
     tier's code alone, where the network fits its shared memory
     (:func:`grad_reverse_bytes`: two blocks per SM at the flagship); a
-    network too wide for it that fits ``fused_loglik_grad_gram.cu``'s
-    16-row tiles runs that, with the tier operands; one too wide for both
-    is refused."""
+    network too wide for it runs the wide route
+    (``fused_loglik_grad_gram.cu``), with its program, stream and the
+    forward's fragments, and the value tier's code, the height and the
+    plan's sizes; one too wide for both is refused."""
     assert gram_reverse("bf16x3", "f32") and gram_reverse("bf16", "f32")
     assert not any(gram_reverse(t, g) for t, g in [("f32", "f32"), ("bf16x3", "bf16"),
                                                    ("f32", "bf16"), ("bf16", "bf16x3")])
@@ -278,9 +279,20 @@ def test_reverse_routing_bytes_and_the_too_wide_network(port_model):
     for tiers in REVERSE:
         fn = make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision=tiers[0],
                                          grad_precision=tiers[1], device="cpu")
-        assert not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
-    wider = DirectEmulatorConfig(hidden_dims=(1900,))
+        assert fn.wide and not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
+        ops = fn.operands(DirectEmulator(config=wide, normalizer=m.normalizer, seed=1,
+                                         device="cpu").params)
+        entry, tensors, ints = _kernel(ops, True, rows=fn.rows_for(4096))
+        assert entry == "k3_fused_loglik_grad_gram" and ints[:2] == [TIER_CODE[ops.tier], 32]
+        assert tensors[2:5] == [ops.slabs.b, ops.slabs.w, ops.program]
+        assert tensors[5:] == [*ops.packed.w, ops.packed.g]
+    # a lone skinny layer streams its e_0 into dx: no held tile, so a
+    # layer the first, 16-row kernel refused (every activation at its own width) fits
     assert 4 * 16 * (7 + 2 * 1900) > MAX_SHARED_BYTES
+    fn = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(1900,)), m.normalizer,
+                                     obs, precision="high", grad_precision="highest", device="cpu")
+    assert fn.wide
+    wider = DirectEmulatorConfig(hidden_dims=(3000, 3000))
     with pytest.raises(NotImplementedError, match="shared memory per K3 block at the bf16x3"):
         make_fused_loglik_grad_gram(wider, m.normalizer, obs, precision="high",
                                     grad_precision="highest", device="cpu")

@@ -121,7 +121,7 @@ def load_library() -> ctypes.CDLL:
     lib.k1_fused_mlp_mma.argtypes = [p, p, i, i, p, p, p, i, i, i, i, p]
     lib.k2_fused_loglik_gram.argtypes = [p, p, i, i, p, p, p, i, i, p]
     lib.k2_fused_loglik_gram_mma.argtypes = [p, p, i, i, p, p, p, i, i, p]
-    lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
+    lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.k3_fused_loglik_grad_gram_f32.argtypes = [p, p, p, i, i, p, p, p, i, i, p]
     lib.k3_fused_loglik_grad_gram_mma.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
     lib.k3_fused_loglik_grad_gram_mixed.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]

@@ -27,11 +27,6 @@ from typing import NamedTuple
 
 import torch
 
-# kRows in csrc/trunk.cuh: the tile height of fused_loglik_grad_gram.cu
-# (K3 on a network too wide for the other kernels' shared memory at a
-# reverse tier pair or at fp32), the only kernel still built on
-# trunk.cuh's 16-row dense layers
-ROWS_PER_BLOCK = 16
 MAX_LAYERS = 8  # kMaxLayers in csrc/trunk.cuh
 MAX_SHARED_BYTES = 232448  # an H100 block's dynamic shared-memory limit
 MAX_MEMBERS = 65535  # kMaxMembers in csrc/trunk.cuh: a grid's y limit

@@ -23,7 +23,7 @@
 // the 67 TFLOP/s peak) and 0.267 M backward at the bf16 tier, which the
 // tensor cores run at 989 TFLOP/s (0.035 ms at bf16, 0.11 ms at bf16x3).
 // Each row reads 28 bytes and writes 32. The first design
-// (fused_loglik_grad_gram.cu: one output column of a 16-row tile per
+// (fused_loglik_grad_gram.cu's first version: one output column of a 16-row tile per
 // thread, every activation in shared memory, the bf16 products emulated by
 // fp32 FMAs) spent five loads on every 16 FMAs and ran 2.4× slower than
 // its plain PyTorch version at 65,536 rows.

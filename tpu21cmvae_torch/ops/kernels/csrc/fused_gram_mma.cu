@@ -25,8 +25,8 @@
 // Arithmetic: the products of the plain version (ops/kernels/
 // fused_loglik.py::loglik_grad_gram_reference), split or rounded exactly
 // as its tier_matmul does (mma.cuh), so kernel and plain differ only in
-// summation order. The skinny first layer (fan-in ≤ 8) is exact fp32 FMA
-// in both directions. The ReLU masks of the backward are taken from the
+// summation order. The skinny first layer (fan-in ≤ 8) is exact fp32 in
+// both directions, the forward in the plain version's order (skinny_dot). The ReLU masks of the backward are taken from the
 // fp32 activations, as the plain version takes them, never from a split
 // tile: hi() and bf16_rn() of a tiny positive subnormal are 0. The quad
 // multiplies the fp32 h, not its split.
@@ -61,7 +61,7 @@
 //   layer 1 writes e in fp32 over the h tile, and the skinny layer's
 //   backward (Σ_j e_j·w0[c, j], j ascending, times the log-clamp
 //   derivative) runs as exact fp32 on the CUDA cores, as in
-//   fused_loglik_grad_gram.cu. A trunk of the skinny layer alone has the
+//   fused_loglik_grad_gram_f32.cu. A trunk of the skinny layer alone has the
 //   gram head as its only mma layer and its e goes to fp32 directly.
 // - Reverse mode (K3 at a bf16 value tier, an fp32 backward): steps 1-4
 //   unchanged, so the value is the tensor-core K2's at the value tier bit

@@ -1,44 +1,74 @@
-// K3 for Hopper on a network too wide for the redesigned kernels: the
-// gram-form Gaussian log-likelihood and its gradient with respect to the
-// raw parameters, for a batch of rows, in one kernel. The bf16 pairs run
-// on the tensor cores (fused_gram_mma.cu), the reverse pairs (a bf16x3 or
-// bf16 value tier with an fp32 backward) on that kernel's reverse mode,
-// the fp32 pair on the register-tiled fused_loglik_grad_gram_f32.cu, and
-// an fp32 value tier with a bf16 backward on fused_gram_mixed.cu. This
-// kernel takes a reverse pair, or the fp32 pair, of a network whose
-// widest layer does not fit those kernels' full-width buffers (it keeps
-// every activation at its own width; e.g. hidden (3200, 64, 64)). Its C
-// entry still computes every tier pair.
+// K3 for Hopper on a network too wide for the kernels that hold two
+// full-width activation buffers: the gram-form Gaussian log-likelihood
+// and its gradient with respect to the raw parameters, for a batch of
+// rows, in one kernel. It takes (fp32, fp32) and the reverse pairs (a
+// bf16 or bf16x3 value tier, an fp32 backward) of such a network, e.g.
+// hidden (3200, 64, 64), (100, 3300, 64) or (1700, 1700, 8). The other
+// pairs and narrower networks run fused_loglik_grad_gram_f32.cu,
+// fused_gram_mma.cu and fused_gram_mixed.cu.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
-// (kernel body _loglik_grad_gram_kernel). Same contract: per row it writes
+// (kernel body _loglik_grad_gram_kernel), on a wide network. Same
+// contract: per row it writes
 //   quad = ‖r‖² − c = Σ_j (h@G + 2u)_j · h_j
 //   dx   = ½ · d‖r‖²/dx_raw
 // where h is the last ReLU trunk activation of the folded network and
 // (G, u, c) come from ops/fold.py::gram_fold; the caller returns
 // (−½·(quad + c) + log_norm, −dx).
 //
-// What bounds it on an H100: fp32 FMA throughput on the CUDA cores. At the
-// flagship widths (7→288→352→288→224, gram head 224×224) a row needs
-// ≈1.18 MFLOP at the f32 tier (forward trunk, gram head, backward trunk),
-// and the bf16x3 ("high") tier issues three FMAs per product, so about 3×
-// that on the matrix products. The weights (≈1.5 MB of fp32 at the
-// flagship) are read once per row tile.
+// What bounds it on an H100: fp32 FMA throughput on the CUDA cores (at
+// the reverse pairs the forward's bf16 products go to the tensor cores,
+// the backward stays fp32). On hidden (3200, 64, 64) a row needs 0.213 M
+// products forward, 0.209 M backward and 22,400 each way in the skinny
+// layer: 0.93 MFLOP, 0.91 ms per 65,536 rows at 67 TFLOP/s. The first
+// design (one thread per output column of a 16-row tile, every
+// activation held at its own width, 217 KB of shared memory, one CTA per
+// SM) left 3/4 of the threads idle on 3200 → 64 and walked 3200 columns
+// in one thread per (row, input) in the skinny backward: 4.8 % of the
+// bound.
 //
-// What the design does about it: one CTA of 256 threads per tile of kRows
-// rows. Every activation of the tile stays in shared memory (column-major,
-// element (column c, row r) at c * kRows + r), so nothing row-shaped goes
-// back to device memory except the (rows,) value and the (rows, n_in)
-// gradient; the backward writes its masked signal over the forward
-// activation it has just consumed as a mask. Weights stream from device
-// memory through L2, where all of them fit; each thread owns one output
-// column at a time, keeps kRows sums in registers, reads W[k, j] coalesced
-// across the warp and the activations as broadcast float4 loads. The
-// backward reads pre-transposed weights so its reads coalesce too. The
-// skinny first layer (fan-in ≤ 8) runs as exact fp32 FMA in both
-// directions at every tier.
-//
-// The tiers, the tile layout and the dense layers are in trunk.cuh.
+// What the design does about it (ops/kernels/wide.py, which builds the
+// program this kernel runs; tests/_torch_f32.py runs the same program on
+// the CPU):
+// - Row tiles of BM = 32 or 16 rows to CTAs of 256 threads, the height
+//   picked per call as the fp32 K3 picks its own (32-row tiles, two CTAs
+//   per SM, ran faster than 64-row ones at every batch measured:
+//   PERF.md). Every fp32 product runs on tile_f32.cuh's register tiles: a
+//   thread holds BM/8 × 4 sums, fed from a four-slot cp.async slab ring
+//   (WideRing), the weights packed once per fold in the order the
+//   program reads them.
+// - No wide activation is held whole. Layer 0 (the skinny layer) is
+//   recomputed chunk by chunk from the input tile wherever it is read
+//   (n_in ≤ 8 products an element). Every dense layer is summed k-outer:
+//   a 128-row input chunk at a time, its products added to accumulators
+//   that wait in the output's tile between chunks, so a layer's output
+//   is one fp32 sum over k ascending per element, as in the other
+//   register-tiled kernels. A wide activation between two layers is
+//   produced one 128-column chunk at a time (bias, ReLU, mask bits) and
+//   consumed at once as one k-chunk of the next layer.
+// - Masks are bits, one per (row, column) of every activation but the
+//   last (tile_f32.cuh's MaskBits layout: 12.8 KB for 3200 columns at 32
+//   rows). The backward mirrors the forward: each chunk of e is produced
+//   from the narrower signal after it, masked by the stored bits and
+//   consumed at once; e_0's chunks go straight into dx, each CTA's
+//   threads splitting a chunk's columns and summing their partials in a
+//   fixed order at the end.
+// - A narrow output of a wide input (≤ 64 columns, ≥ 256 rows: 3200 →
+//   64) would leave two of a chunk's four column quarters idle; there
+//   the upper quarters take the upper 64 rows of every input chunk into
+//   sums of their own, added to the lower ones in the epilogue.
+// - Reverse pairs: the forward's products run on the tensor cores
+//   (mma.cuh's fragment loads and mma.sync, B as pack_mma_operands packs
+//   it); each input chunk is split (bf16x3) or rounded (bf16) once into
+//   an A-chunk tile for the layer that reads it, and each k-step's
+//   products are added to the waiting sums in k-step order, so hg and
+//   every activation are the tensor-core K2's bit for bit. The backward
+//   runs in fp32 as above.
+// Shared memory (hidden (3200, 64, 64), fp32, 32 rows): the ring 32 KB,
+// the input tile, two chunk buffers and two held tiles (the split 64-wide
+// layer's 128 columns and 64) 57 KB, the masks 12.8 KB: 105,488 bytes
+// with the static copy of the net, two CTAs per SM (114,704 at bf16x3,
+// with the A-chunk tile).
 //
 // Members: grid y runs an ensemble's M members in one launch, each CTA on
 // one member's stacked operands (trunk.cuh, member_at). Nothing else
@@ -48,127 +78,617 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (tpu21cmvae_torch/ops/kernels/_build.py).
 
-#include "trunk.cuh"
+#include <cstdint>
+
+#include "mma.cuh"
+#include "tile_f32.cuh"
 
 namespace {
 
-struct Net {
-  int n_layers;
-  int width[kMaxLayers + 1];  // width[0] = n_in; trunk layer i maps width[i] → width[i+1]
-  int tier_fwd;
-  int tier_bwd;
-  const float* w0;            // (n_in, width[1]), exact fp32
-  const float* b0;            // (width[1],)
-  const float* w_hi[kMaxLayers];   // layer i ≥ 1: (width[i], width[i+1]) at tier_fwd
-  const float* w_lo[kMaxLayers];   // bf16x3 only
-  const float* b[kMaxLayers];      // (width[i+1],)
-  const float* wt_hi[kMaxLayers];  // layer i ≥ 1 transposed: (width[i+1], width[i]) at tier_bwd
-  const float* wt_lo[kMaxLayers];  // bf16x3 only
-  const float* g_hi;               // (H, H) at tier_fwd, H = width[n_layers]
-  const float* g_lo;               // bf16x3 only
-  const float* u;                  // (H,)
-  // each operand's member stride in bytes (0: one model)
-  long long s_w0, s_b0, s_w_hi[kMaxLayers], s_w_lo[kMaxLayers], s_b[kMaxLayers],
-      s_wt_hi[kMaxLayers], s_wt_lo[kMaxLayers], s_g_hi, s_g_lo, s_u;
+// the op program (ops/kernels/wide.py): kOpInts ints per op, code first
+constexpr int kOpInts = 12;
+enum WideOp : int {
+  kOpSkinny = 1,
+  kOpMM = 2,
+  kOpFin = 3,
+  kOpGram = 4,
+  kOpDx = 5,
+  kOpDxWrite = 6,
+  kOpRing = 7,
+  kOpQuadWrite = 8,
+};
+enum WideBuf : int { kCA = 0, kCB = 1, kP = 2, kQ = 3, kR = 4 };
+constexpr int kMMSplit = 1, kMMFirst = 2;
+constexpr int kAStride = kSlabN + 8;  // bf16 per row of the A-chunk tile
+constexpr int kWideNTiles = 2;        // n8 tiles a warp carries at once (mma.cuh: kNTiles)
+constexpr int kInRows = kMaxIn;       // k rows of the input tile
+// The quad and dx are summed per row by kSlices threads, thread (row r,
+// slice p) over columns p, p + kSlices, …, then the slices in order: the
+// same at every tile height (the first kSlices·BM threads take part: all
+// of them at 32 rows), so a row's result does not depend on the height,
+// nor on the member count through it.
+constexpr int kSlices = 8;
+// A staged chunk of w0 (kMaxIn rows of kSlabN columns). With the
+// tensor-core forward it lies over the A-chunk tile (at least 4352
+// bytes), which only an mma OP_MM uses, from its own conversion on; the
+// passes that stage w0 (OP_SKINNY, OP_DX) never overlap one.
+constexpr int kW0Floats = kSlabN * kMaxIn;
+
+// The slab ring by tile height: tile_f32.cuh's depths (16 k rows at 32
+// rows, 8 at 16) in four slots, so three slabs are in flight while one is
+// read (a layer's chunk here is 4 to 16 such short slabs, between other
+// ops).
+template <int BM>
+struct WideRing {
+  static constexpr int kDepth = Ring<BM>::kDepth;
+  static constexpr int kSlots = 4;
+  static constexpr int kFloats = kDepth * kSlabN;
 };
 
+struct WideNet {
+  int n_layers;               // trunk layers, the skinny one included
+  int width[kMaxLayers + 1];  // width[0] = n_in; activation i is width[i + 1] wide
+  int n_ops;
+  int cols[3];                // k rows of the held tiles P, Q, R
+  int total;                  // slabs in the fp32 stream at this tile height
+  const float* w0;            // (n_in, width[1]), exact fp32
+  const float* b0;            // (width[1],)
+  const float* bias;          // trunk layers 1 … n−1 padded to 128·chunks, then u
+  const float* slabs;         // the fp32 stream, in the program's order
+  const int4* prog;           // n_ops · kOpInts ints
+  const uint32_t* frag[kMaxLayers];  // reverse pairs: layer i's fragments at frag[i − 1], G's last
+  long long s_w0, s_b0, s_bias, s_slabs, s_prog, s_frag[kMaxLayers];
+};
+static_assert(sizeof(WideNet) == 272, "ops/kernels/wide.py's WIDE_NET_BYTES");
+static_assert(2 * 16 * kAStride >= 4 * kSlabN * kMaxIn, "w0's chunk fits the smallest A tile");
+
 // The net of member m: every operand moved by m times its stride.
-__device__ __forceinline__ void to_member(Net& net, int m) {
+__device__ __forceinline__ void to_member(WideNet& net, int m) {
   net.w0 = member_at(net.w0, net.s_w0, m);
   net.b0 = member_at(net.b0, net.s_b0, m);
+  net.bias = member_at(net.bias, net.s_bias, m);
+  net.slabs = member_at(net.slabs, net.s_slabs, m);
+  net.prog = member_at(net.prog, net.s_prog, m);
 #pragma unroll
-  for (int i = 1; i < kMaxLayers; ++i) {
-    net.w_hi[i] = member_at(net.w_hi[i], net.s_w_hi[i], m);
-    net.w_lo[i] = member_at(net.w_lo[i], net.s_w_lo[i], m);
-    net.b[i] = member_at(net.b[i], net.s_b[i], m);
-    net.wt_hi[i] = member_at(net.wt_hi[i], net.s_wt_hi[i], m);
-    net.wt_lo[i] = member_at(net.wt_lo[i], net.s_wt_lo[i], m);
-  }
-  net.g_hi = member_at(net.g_hi, net.s_g_hi, m);
-  net.g_lo = member_at(net.g_lo, net.s_g_lo, m);
-  net.u = member_at(net.u, net.s_u, m);
+  for (int i = 0; i < kMaxLayers; ++i) net.frag[i] = member_at(net.frag[i], net.s_frag[i], m);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------- fp32 MM
+
+// acc[j, r] (+)= Σ_{k < kr} in[k, r] · W[k, j] for the layer's output
+// chunks d0 … d1−1 (n columns), k ascending in one fp32 sum per element
+// by fmaf, from the next slabs of the stream. The sums wait in `out`
+// (k-major, stride S; the layer's column c at c − col0) between calls:
+// loaded unless `first`, stored after. Split (n ≤ 64, one chunk): the
+// upper two column quarters take rows 64 … 127 of the chunk into columns
+// 64 … 127 of `out`, from the slab's upper 64 columns; a quarter skips a
+// slab whose rows lie at or past kr.
+template <int BM, class R>
+__device__ __forceinline__ void mm_f32(const float* in, int kr, int n, bool split, float* out,
+                                       int col0, int d0, int d1, bool first,
+                                       const float* __restrict__ slabs, int total, float* ring,
+                                       int& g) {
+  constexpr int TM = BM / 8;
+  constexpr int S = tile_stride(BM);
+  const TileThread<BM> t;
+  const bool upper = split && t.quarter >= 2;
+  const int steps = (split ? kSlabN / 2 : kr) / R::kDepth;
+  const int valid = split ? (upper ? kr - kSlabN / 2 : min(kr, kSlabN / 2)) : kr;
+  const float* a_base = in + t.row + (upper ? (kSlabN / 2) * S : 0);
+  for (int d = d0; d < d1; ++d) {
+    const bool active = split ? (t.quarter & 1) * 32 < n : d * kSlabN + t.quarter * 32 < n;
+    float* o = out + (d * kSlabN + t.col - col0) * S + t.row;
+    float acc[TM][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v[TM];
+      if (active && !first) {
+        load_rows<TM>(v, o + q * S);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) v[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) acc[i][q] = v[i];
+    }
+    for (int s = 0; s < steps; ++s, ++g) {
+      cp_async_wait<R::kSlots - 2>();  // slab g has landed (this thread's copies)
+      pair_sync();                     // … the pair's; its part of slot g − 1 is free
+      issue_slab<BM, R>(ring, slabs, g + R::kSlots - 1, total);
+      if (active && s * R::kDepth < valid) {
+        const float* w = ring + (g % R::kSlots) * R::kFloats + t.col;
+        const float* a = a_base + s * R::kDepth * S;
+#pragma unroll
+        for (int kk = 0; kk < R::kDepth; ++kk) {
+          const float4 wv = *reinterpret_cast<const float4*>(w + kk * kSlabN);
+          float av[TM];
+          load_rows<TM>(av, a + kk * S);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            acc[i][0] = fmaf(av[i], wv.x, acc[i][0]);
+            acc[i][1] = fmaf(av[i], wv.y, acc[i][1]);
+            acc[i][2] = fmaf(av[i], wv.z, acc[i][2]);
+            acc[i][3] = fmaf(av[i], wv.w, acc[i][3]);
+          }
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float v[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) v[i] = acc[i][q];
+        store_rows<TM>(o + q * S, v);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- mma MM
+
+// The first kr16 k rows of a k-major fp32 tile `in` into the A-chunk
+// tile (row-major, kAStride), split (PF 2) or rounded (PF 1) once.
+template <int BM, int PF>
+__device__ __forceinline__ void to_a_chunk(const float* in, int kr16, __nv_bfloat16* at) {
+  constexpr int S = tile_stride(BM);
+  for (int t = threadIdx.x; t < BM * kr16 / 2; t += blockDim.x) {
+    const int r = t % BM;
+    const int k = 2 * (t / BM);
+    store_pair<PF>(at, BM * kAStride, r * kAStride + k, in[k * S + r], in[(k + 1) * S + r]);
+  }
+}
+
+// acc[j, r] (+)= the A chunk's kr16 k rows times k-steps kstep0 … of the
+// layer's packed fragments w (ksteps k-steps in all), for the n8 tiles
+// t0 … t1−1, on the tensor cores: each k-step's products summed by the
+// mma from zero and added to the running sum by an IEEE add (mma.cuh).
+// The sums wait in `out` as in mm_f32. The warps split the tiles evenly
+// and carry up to kWideNTiles at once (fewer than mma_layer's kNTiles:
+// the interpreter keeps more live, and four spilled).
+template <int BM, int PF>
+__device__ __forceinline__ void mm_mma(const __nv_bfloat16* at, int kr16,
+                                       const uint32_t* __restrict__ w, int ksteps, int kstep0,
+                                       int t0, int t1, float* out, int col0, bool first) {
+  constexpr int MT = BM / 16;
+  constexpr int S = tile_stride(BM);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tig = lane & 3;
+  const int tiles = t1 - t0;
+  const int t_begin = t0 + warp * tiles / kMmaWarps;
+  const int mine = t0 + (warp + 1) * tiles / kMmaWarps - t_begin;
+  const int steps = kr16 / 16;
+  const size_t tile_words = static_cast<size_t>(ksteps) * 32 * 2 * PF;
+  constexpr int kstep_words = 32 * 2 * PF;
+  const __nv_bfloat16* a_row = at + (lane & 15) * kAStride + (lane >> 4) * 8;
+  for (int c = 0; c < mine; c += kWideNTiles) {
+    const int cnt = min(kWideNTiles, mine - c);
+    const int tf = t_begin + c;
+    const uint32_t* wt = w + tf * tile_words + kstep0 * kstep_words + lane * 2 * PF;
+    float acc[kWideNTiles][MT][4];
+#pragma unroll
+    for (int j = 0; j < kWideNTiles; ++j)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = (tf + j) * 8 + 2 * tig - col0;
+          const int r = mma_row(mt, h);
+          const bool load = j < cnt && !first;
+          acc[j][mt][2 * h] = load ? out[col * S + r] : 0.f;
+          acc[j][mt][2 * h + 1] = load ? out[(col + 1) * S + r] : 0.f;
+        }
+    uint32_t bc[kWideNTiles][2 * PF];
+    uint32_t bn[kWideNTiles][2 * PF];
+#pragma unroll
+    for (int j = 0; j < kWideNTiles; ++j)
+      if (j < cnt) load_b<PF>(bc[j], wt + j * tile_words);
+    for (int s = 0; s < steps; ++s) {
+      if (s + 1 < steps) {
+#pragma unroll
+        for (int j = 0; j < kWideNTiles; ++j)
+          if (j < cnt) load_b<PF>(bn[j], wt + j * tile_words + (s + 1) * kstep_words);
+      }
+      uint32_t a[MT][PF][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int p = 0; p < PF; ++p)
+          ldmatrix_x4(a[mt][p], a_row + p * BM * kAStride + mt * 16 * kAStride + s * 16);
+#pragma unroll
+      for (int j = 0; j < kWideNTiles; ++j) {
+        if (j < cnt) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            float p4[4] = {0.f, 0.f, 0.f, 0.f};  // this k-step's products alone
+            mma_bf16(p4, a[mt][0], bc[j][0], bc[j][1]);  // hi·w_hi (bf16: a·w)
+            if constexpr (PF == 2) {
+              mma_bf16(p4, a[mt][0], bc[j][2], bc[j][3]);  // hi·w_lo
+              mma_bf16(p4, a[mt][1], bc[j][0], bc[j][1]);  // lo·w_hi
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[j][mt][q] += p4[q];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kWideNTiles; ++j)
+#pragma unroll
+        for (int q = 0; q < 2 * PF; ++q) bc[j][q] = bn[j][q];
+    }
+#pragma unroll
+    for (int j = 0; j < kWideNTiles; ++j)
+      if (j < cnt) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = (tf + j) * 8 + 2 * tig - col0;
+            const int r = mma_row(mt, h);
+            out[col * S + r] = acc[j][mt][2 * h];
+            out[(col + 1) * S + r] = acc[j][mt][2 * h + 1];
+          }
+      }
+  }
+}
+
+// ---------------------------------------------------------- elementwise
+
+// The elementwise passes give each thread one row of the tile (lane r =
+// threadIdx.x mod BM, so a warp's loads and stores of a k-major column
+// meet no bank conflict) and kThreads/BM columns at a time; a column's
+// ReLU mask is one __ballot_sync of its rows, bit r for row r
+// (tile_f32.cuh's MaskBits layout at 16 and 32 rows), stored by the lane
+// of row 0.
+template <int BM>
+__device__ __forceinline__ void store_mask(uint8_t* mask, int j, unsigned ballot) {
+  const int lane = threadIdx.x & 31;
+  if (lane % BM == 0) {
+    const unsigned bits = BM == 32 ? ballot : (ballot >> lane) & ((1u << (BM % 32)) - 1u);
+    store_bits<BM / 8>(mask + j * (BM / 8), bits);
+  }
+}
+
+// w0's columns col0 … col0 + valid − 1 into `ws` (input column c's at
+// ws[c·kSlabN …], 0 past valid and past n_in), each warp reading 32
+// consecutive weights: a chunk of the skinny layer read once from
+// device memory by the pass that needs it. The caller syncs after.
+__device__ __forceinline__ void stage_w0(const WideNet& net, int col0, int valid, float* ws) {
+  const int n_in = net.width[0];
+  const int n1 = net.width[1];
+  for (int t = threadIdx.x; t < kSlabN * kMaxIn; t += blockDim.x) {
+    const int c = t / kSlabN;
+    const int jj = t % kSlabN;
+    ws[t] = jj < valid && c < n_in ? __ldg(net.w0 + c * n1 + col0 + jj) : 0.f;
+  }
+}
+
+// Input column c's staged weights of the four columns j … j + 3.
+__device__ __forceinline__ float4 staged4(const float* ws, int c, int j) {
+  return *reinterpret_cast<const float4*>(ws + c * kSlabN + j);
+}
+
+// Forward (bias ≠ null): v = (j < valid ? acc (+ the split's upper acc at
+// j + 64) + bias[j] : 0), out = relu(v), the mask bit v > 0 stored where
+// `mask` is not null. Backward (bias null): out = the mask bit ? acc :
+// 0. Columns j < cols (a multiple of 32).
+template <int BM>
+__device__ __forceinline__ void finish(float* out, int cols, int valid,
+                                       const float* __restrict__ bias, bool split,
+                                       uint8_t* mask) {
+  constexpr int S = tile_stride(BM);
+  constexpr int P = kThreads / BM;
+  const int r = threadIdx.x % BM;
+  const bool masked = bias == nullptr;
+  for (int j = static_cast<int>(threadIdx.x) / BM; j < cols; j += P) {
+    float v = 0.f;
+    if (j < valid) {
+      v = out[j * S + r];
+      if (split) v = v + out[(j + kSlabN / 2) * S + r];
+    }
+    if (masked) {
+      const unsigned bits = load_bits<BM / 8>(mask + j * (BM / 8));
+      out[j * S + r] = (bits >> r) & 1u ? v : 0.f;
+    } else {
+      v = v + (j < valid ? __ldg(bias + j) : 0.f);
+      out[j * S + r] = relu(v);
+      if (mask != nullptr) store_mask<BM>(mask, j, __ballot_sync(0xffffffffu, v > 0.f));
+    }
+  }
+}
+
+// Chunk kappa of activation 0 into `out`: relu(skinny) on its first cols
+// columns (0 from `valid` on), its mask bits where `mask` is not null;
+// each element trunk.cuh::skinny_dot's sum, in its order, from the
+// thread's row of the input tile in registers and the chunk's weights
+// staged in `ws`. A thread carries four consecutive columns (one float4
+// of weights per input column), the block 4·kThreads/BM columns a pass.
+template <int BM>
+__device__ __forceinline__ void skinny_chunk(const float* xl, const WideNet& net, int kappa,
+                                             int cols, int valid, float* out, uint8_t* mask,
+                                             float* ws) {
+  constexpr int S = tile_stride(BM);
+  constexpr int P = kThreads / BM;
+  stage_w0(net, kappa * kSlabN, valid, ws);
+  __syncthreads();
+  const int n_in = net.width[0];
+  const int r = threadIdx.x % BM;
+  float x[kMaxIn];
+#pragma unroll
+  for (int c = 0; c < kMaxIn; ++c) x[c] = c < n_in ? xl[c * S + r] : 0.f;
+  for (int jb = 0; jb < cols; jb += 4 * P) {  // the same trip count in every warp
+    const int j0 = jb + 4 * static_cast<int>(threadIdx.x / BM);
+    const bool live = j0 < cols;  // 4 | cols: a group is all in or all out
+    float acc[4];
+    if (live) {
+      const float4 w = staged4(ws, 0, j0);
+      acc[0] = __fmul_rn(x[0], w.x), acc[1] = __fmul_rn(x[0], w.y);
+      acc[2] = __fmul_rn(x[0], w.z), acc[3] = __fmul_rn(x[0], w.w);
+#pragma unroll
+      for (int c = 1; c < kMaxIn; ++c) {
+        if (c < n_in) {
+          const float4 wc = staged4(ws, c, j0);
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(x[c], wc.x));
+          acc[1] = __fadd_rn(acc[1], __fmul_rn(x[c], wc.y));
+          acc[2] = __fadd_rn(acc[2], __fmul_rn(x[c], wc.z));
+          acc[3] = __fadd_rn(acc[3], __fmul_rn(x[c], wc.w));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u;
+      const float v =
+          live && j < valid ? __fadd_rn(acc[u], __ldg(net.b0 + kappa * kSlabN + j)) : 0.f;
+      if (live) out[j * S + r] = relu(v);
+      if (mask != nullptr) {
+        const unsigned bits = __ballot_sync(0xffffffffu, v > 0.f);
+        if (live) store_mask<BM>(mask, j, bits);
+      }
+    }
+  }
+}
+
+// The gram head's epilogue on its columns col0 … col0 + cols − 1, hg in
+// e (column j at j − col0), by the first kSlices·BM threads: thread (row
+// r, slice p) over columns p, p + kSlices, … adds (hg + 2u)_j · h_j to its
+// quad partial q by fmaf and sets e ← h > 0 ? hg + u : 0 in place (0 past
+// H). h from the tile `h` (the layer's column j at j), or (null)
+// recomputed from the input tile (a trunk of the skinny layer alone).
+template <int BM>
+__device__ __forceinline__ void gram_epilogue(const float* h, float* e, int H, int col0, int cols,
+                                              const float* __restrict__ u, const float* xl,
+                                              const WideNet& net, float& q) {
+  constexpr int S = tile_stride(BM);
+  constexpr int P = kSlices;
+  if (threadIdx.x >= P * BM) return;
+  const int r = threadIdx.x % BM;
+  for (int jl = static_cast<int>(threadIdx.x) / BM; jl < cols; jl += P) {
+    const int j = col0 + jl;
+    float hv = 0.f, hg = 0.f, uj = 0.f;
+    if (j < H) {
+      hv = h != nullptr
+               ? h[j * S + r]
+               : relu(skinny_dot(xl + r, S, net.width[0], net.w0 + j, H, __ldg(net.b0 + j)));
+      hg = e[jl * S + r];
+      uj = __ldg(u + j);
+    }
+    q = fmaf(hg + 2.f * uj, hv, q);
+    e[jl * S + r] = hv > 0.f ? hg + uj : 0.f;
+  }
+}
+
+// out[row0 + r] = Σ over the kSlices slices, in order, of the partials v
+// of row r.
+template <int BM>
+__device__ __forceinline__ void rows_write(float v, float* red, float* __restrict__ out,
+                                           int row0, int n_rows) {
+  constexpr int P = kSlices;
+  if (threadIdx.x < P * BM) red[threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.x < BM && row0 + static_cast<int>(threadIdx.x) < n_rows) {
+    float s = 0.f;
+    for (int k = 0; k < P; ++k) s += red[k * BM + threadIdx.x];
+    out[row0 + threadIdx.x] = s;
+  }
+}
+
+// dx partials from `valid` columns of a chunk of e_0 (w0's columns
+// w0_col …, staged in `ws`, 0 past valid): thread (row r, slice p <
+// kSlices) over the groups of four columns 4p … 4p + 3, 4p + 32 …, in
+// column order, one fp32 sum per input column by fmaf.
+template <int BM>
+__device__ __forceinline__ void dx_partials(const float* e, int valid, int w0_col,
+                                            const WideNet& net, float (&dxp)[kMaxIn],
+                                            float* ws) {
+  constexpr int S = tile_stride(BM);
+  constexpr int P = kSlices;
+  stage_w0(net, w0_col, valid, ws);
+  __syncthreads();
+  if (threadIdx.x >= P * BM) return;
+  const int r = threadIdx.x % BM;
+  const int n_in = net.width[0];
+  for (int j0 = 4 * static_cast<int>(threadIdx.x / BM); j0 < valid; j0 += 4 * P) {
+    float ev[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) ev[u] = j0 + u < valid ? e[(j0 + u) * S + r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxIn; ++c) {
+      if (c < n_in) {
+        const float4 w = staged4(ws, c, j0);
+        dxp[c] = fmaf(ev[0], w.x, dxp[c]);
+        if (j0 + 1 < valid) dxp[c] = fmaf(ev[1], w.y, dxp[c]);
+        if (j0 + 2 < valid) dxp[c] = fmaf(ev[2], w.z, dxp[c]);
+        if (j0 + 3 < valid) dxp[c] = fmaf(ev[3], w.w, dxp[c]);
+      }
+    }
+  }
+}
+
+// dx = Σ over the kSlices slices, in order, of the partials, times the
+// log-clamp's derivative.
+template <int BM>
+__device__ __forceinline__ void dx_write(const float (&dxp)[kMaxIn], const float* __restrict__ x,
+                                         float* __restrict__ dx, float* red, int n_in, int row0,
+                                         int n_rows) {
+  constexpr int P = kSlices;
+#pragma unroll
+  for (int c = 0; c < kMaxIn; ++c) {
+    if (c >= n_in) break;
+    __syncthreads();
+    if (threadIdx.x < P * BM) red[threadIdx.x] = dxp[c];
+    __syncthreads();
+    const int row = row0 + static_cast<int>(threadIdx.x);
+    if (threadIdx.x < BM && row < n_rows) {
+      float s = 0.f;
+      for (int k = 0; k < P; ++k) s += red[k * BM + threadIdx.x];
+      const size_t at = static_cast<size_t>(row) * n_in + c;
+      dx[at] = log_clamp_grad(x[at], c) * s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- kernel
+
+// PF: the forward's tier parts on the tensor cores (1 bf16, 2 bf16x3), 0
+// for the fp32 forward on the CUDA cores. The backward is fp32 at all.
+template <int BM, int PF>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ quad,
-                              float* __restrict__ dx, int n_rows, const Net net_in) {
+                              float* __restrict__ dx, int n_rows, const WideNet net_in) {
+  using R = WideRing<BM>;
+  using M = MaskBits<BM>;
+  constexpr int S = tile_stride(BM);
   // member blockIdx.y: its operands, moved there once per CTA into a
-  // shared copy (a copy per thread, in local memory, ran these kernels
-  // 30-50 % slower on an H100), its rows of quad and dx; x is shared
-  __shared__ Net net;
+  // shared copy, its rows of quad and dx; x is shared
+  __shared__ WideNet net;
   if (threadIdx.x == 0) {
     net = net_in;
     to_member(net, blockIdx.y);
   }
   __syncthreads();
-  quad += static_cast<size_t>(blockIdx.y) * n_rows;
-  dx += static_cast<size_t>(blockIdx.y) * n_rows * net.width[0];
-  extern __shared__ float4 smem4[];
   const int n_in = net.width[0];
-  const int n_layers = net.n_layers;
-  const int hidden = net.width[n_layers];
-  const int n1 = net.width[1];
-  const int row0 = blockIdx.x * kRows;
+  quad += static_cast<size_t>(blockIdx.y) * n_rows;
+  dx += static_cast<size_t>(blockIdx.y) * n_rows * n_in;
+  const int row0 = blockIdx.x * BM;
 
-  // shared-memory tiles: log-clamped input, one per trunk activation, h@G
-  float* xl = reinterpret_cast<float*>(smem4);
-  float* act[kMaxLayers];
-  float* next = xl + n_in * kRows;
-  for (int i = 0; i < n_layers; ++i) {
-    act[i] = next;
-    next += net.width[i + 1] * kRows;
-  }
-  float* hg = next;
+  // shared memory: the ring, the A-chunk tile, the partials, the staged
+  // w0 chunk (over the A-chunk tile where there is one), the input tile,
+  // CA, CB, P, Q, R, the mask bytes
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  __nv_bfloat16* const at = reinterpret_cast<__nv_bfloat16*>(ring + R::kSlots * R::kFloats);
+  float* const red = reinterpret_cast<float*>(at + PF * BM * kAStride);
+  float* const ws = PF > 0 ? reinterpret_cast<float*>(at) : red + kRedFloats;
+  float* const xl = red + kRedFloats + (PF > 0 ? 0 : kW0Floats);
+  // buffer id → its tile: CA, CB, P, Q, R back to back after the input tile
+  const int cols0 = net.cols[0], cols1 = net.cols[1];
+  const auto buf = [&](int id) {
+    return xl + S * (kInRows + (id >= kCB ? kSlabN : 0) + (id >= kP ? kSlabN : 0) +
+                     (id >= kQ ? cols0 : 0) + (id >= kR ? cols1 : 0));
+  };
+  uint8_t* const mask = reinterpret_cast<uint8_t*>(buf(kR) + S * net.cols[2]);
 
-  // 1. input tile, log-clamped; rows past the batch are zero and never stored
-  load_input_tile(x, n_rows, row0, n_in, true, xl);
-  __syncthreads();
+  int g = 0;  // the fp32 stream's slab counter
+  if constexpr (PF == 0) start_ring<BM, R>(ring, net.slabs, net.total);
+  load_input<BM>(x, n_rows, row0, n_in, n_in, true, xl);
+  float q = 0.f;  // this thread's quad partial
+  float dxp[kMaxIn];
+#pragma unroll
+  for (int c = 0; c < kMaxIn; ++c) dxp[c] = 0.f;
 
-  // 2. skinny first layer, exact fp32 at every tier
-  skinny_relu_layer(xl, n_in, net.w0, net.b0, act[0], n1);
-  __syncthreads();
-
-  // 3. hidden layers, ReLU
-  for (int i = 1; i < n_layers; ++i) {
-    dense_at<kBiasRelu>(net.tier_fwd, act[i - 1], net.width[i], net.w_hi[i], net.w_lo[i],
-                        net.b[i], act[i], net.width[i + 1]);
-    __syncthreads();
-  }
-
-  // 4. gram head: hg = h @ G
-  dense_at<kStore>(net.tier_fwd, act[n_layers - 1], hidden, net.g_hi, net.g_lo, nullptr, hg,
-                   hidden);
-  __syncthreads();
-
-  // 5. quad = Σ_j (hg + 2u)_j h_j per row; the backward signal
-  //    ½·dquad/dh = hg + u, masked by the last ReLU, replaces hg in place
-  gram_quad(act[n_layers - 1], hg, net.u, hidden, row0, n_rows, quad, true);
-  __syncthreads();
-
-  // 6. backward through hidden layers n_layers-1 … 1: e ← (e @ W_iᵀ) masked
-  //    by the ReLU of activation i-1, written over that activation
-  for (int i = n_layers - 1; i >= 1; --i) {
-    const float* e = i == n_layers - 1 ? hg : act[i];
-    dense_at<kMask>(net.tier_bwd, e, net.width[i + 1], net.wt_hi[i], net.wt_lo[i], nullptr,
-                    act[i - 1], net.width[i]);
-    __syncthreads();
-  }
-
-  // 7. skinny layer backward, exact fp32, times the log-clamp derivative
-  {
-    const float* e = n_layers == 1 ? hg : act[0];
-    for (int t = threadIdx.x; t < kRows * n_in; t += blockDim.x) {
-      const int r = t % kRows;
-      const int c = t / kRows;
-      const int row = row0 + r;
-      float acc = 0.f;
-      for (int j = 0; j < n1; ++j) acc = fmaf(e[j * kRows + r], __ldg(net.w0 + c * n1 + j), acc);
-      if (row < n_rows) {
-        const size_t at = static_cast<size_t>(row) * n_in + c;
-        dx[at] = log_clamp_grad(x[at], c) * acc;
+  for (int pc = 0; pc < net.n_ops; ++pc) {
+    int f[kOpInts];
+#pragma unroll
+    for (int k = 0; k < kOpInts / 4; ++k) {
+      const int4 v = __ldg(net.prog + pc * (kOpInts / 4) + k);
+      f[4 * k] = v.x;
+      f[4 * k + 1] = v.y;
+      f[4 * k + 2] = v.z;
+      f[4 * k + 3] = v.w;
+    }
+    __syncthreads();  // the last op's outputs are complete, its inputs free
+    switch (f[0]) {
+      case kOpSkinny:  // κ, cols, valid, mask_col
+        skinny_chunk<BM>(xl, net, f[1], f[2], f[3], buf(kCA),
+                         f[4] < 0 ? nullptr : mask + f[4] * M::kColBytes, ws);
+        break;
+      case kOpMM: {  // src, src_row, k, d0, d1, flags, dst, dst_col0, frag, kstep0, n
+        const float* in = buf(f[1]) + f[2] * S;
+        const bool first = f[6] & kMMFirst;
+        if constexpr (PF > 0) {
+          if (f[9] >= 0) {  // the forward, on the tensor cores
+            to_a_chunk<BM, PF>(in, f[3], at);
+            __syncthreads();
+            const int frag = f[9];  // trunk layer frag (fan-in width[frag]), or G (n_layers)
+            const int tiles = ((f[11] + 15) & ~15) / 8;
+            mm_mma<BM, PF>(at, f[3], net.frag[frag - 1], (net.width[frag] + 15) / 16, f[10],
+                           16 * f[4], min(16 * f[5], tiles), buf(f[7]), f[8], first);
+            break;
+          }
+        }
+        mm_f32<BM, R>(in, f[3], f[11], f[6] & kMMSplit, buf(f[7]), f[8], f[4], f[5], first,
+                      net.slabs, net.total, ring, g);
+        break;
       }
+      case kOpFin:  // dst, cols, valid, bias, split, mask_col, masked
+        finish<BM>(buf(f[1]), f[2], f[3], f[7] ? nullptr : net.bias + f[4], f[5],
+                   f[6] < 0 ? nullptr : mask + f[6] * M::kColBytes);
+        break;
+      case kOpGram:  // h, e, H, col0, cols, u
+        gram_epilogue<BM>(f[1] < 0 ? nullptr : buf(f[1]), buf(f[2]), f[3], f[4], f[5],
+                          net.bias + f[6], xl, net, q);
+        break;
+      case kOpQuadWrite:
+        rows_write<BM>(q, red, quad, row0, n_rows);
+        break;
+      case kOpDx:  // src, src_row, valid, w0_col
+        dx_partials<BM>(buf(f[1]) + f[2] * S, f[3], f[4], net, dxp, ws);
+        break;
+      case kOpDxWrite:
+        dx_write<BM>(dxp, x, dx, red, n_in, row0, n_rows);
+        break;
+      case kOpRing:
+        start_ring<BM, R>(ring, net.slabs, net.total);
+        break;
+      default:
+        break;
     }
   }
+}
+
+// Dynamic shared memory of one block (ops/kernels/wide.py::wide_bytes
+// mirrors it, with the static copy of the net).
+template <int BM, int PF>
+size_t wide_smem_bytes(const int (&cols)[3], int mask_cols) {
+  using R = WideRing<BM>;
+  const size_t held = static_cast<size_t>(cols[0]) + cols[1] + cols[2];
+  const size_t floats = R::kSlots * R::kFloats + kRedFloats + (PF > 0 ? 0 : kW0Floats) +
+                        static_cast<size_t>(tile_stride(BM)) * (kInRows + 2 * kSlabN + held);
+  return 4 * floats + static_cast<size_t>(2 * PF * BM * kAStride) +
+         static_cast<size_t>(MaskBits<BM>::kColBytes) * mask_cols;
+}
+
+template <int BM, int PF>
+cudaError_t launch_wide(const float* x, float* quad, float* dx, int n_rows, int n_members,
+                        WideNet net, int mask_cols, int stream_rows, cudaStream_t s) {
+  using R = WideRing<BM>;
+  const size_t smem = wide_smem_bytes<BM, PF>(net.cols, mask_cols);
+  if (smem + sizeof(WideNet) > static_cast<size_t>(kMaxSmem) || stream_rows % R::kDepth != 0) {
+    return cudaErrorInvalidValue;
+  }
+  net.total = stream_rows / R::kDepth;
+  auto* kernel = fused_loglik_grad_gram_kernel<BM, PF>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n_rows + BM - 1) / BM, n_members), kThreads, smem, s>>>(x, quad, dx, n_rows,
+                                                                       net);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -180,60 +700,75 @@ const char* t21_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// ptrs, in order: w0, b0; then for each trunk layer i = 1 … n_layers-1:
-// w_hi, w_lo, b, wt_hi, wt_lo; then g_hi, g_lo, u. A *_lo pointer may be
-// null unless its tier is bf16x3. strides: each operand's member stride in
-// bytes, parallel to ptrs; n_members (1 … 65,535) networks run on the
-// same x, member m writing quad[m·n_rows …] and dx[m·n_rows·n_in …] (a
-// single model: 1 member, zero strides). Launches on `stream`, allocates
-// nothing and does not synchronise; returns the cudaError_t of the launch.
-int k3_fused_loglik_grad_gram(const float* x, float* quad, float* dx, int n_rows,
-                              int n_layers, const int* widths, const void* const* ptrs,
-                              const long long* strides, int n_members, int tier_fwd,
-                              int tier_bwd, void* stream) {
+// ptrs, in order: w0, b0 (the skinny layer, exact fp32), the padded
+// biases (trunk layers 1 … n_layers−1, then u), the fp32 stream, the op
+// program (int32, 12 per op; ops/kernels/wide.py::wide_plan), then at a
+// reverse pair (tier 1 bf16, 2 bf16x3) the packed fragments of trunk
+// layers 1 … n_layers−1 and of G at that tier; at tier 0 (fp32, fp32)
+// none. The backward is fp32 at every pair this entry takes. strides:
+// each operand's member stride in bytes, parallel to ptrs; n_members
+// (1 … 65,535) networks run on the same x, member m writing
+// quad[m·n_rows …] and dx[m·n_rows·n_in …]. tile_rows: 32 or 16;
+// p_cols, q_cols, r_cols: the held tiles' k rows;
+// mask_cols: the activations' padded columns whose masks are kept;
+// stream_rows: the fp32 stream's k rows; n_ops: the program's length.
+// Launches on `stream`, allocates nothing and does not synchronise;
+// returns the cudaError_t of the launch.
+int k3_fused_loglik_grad_gram(const float* x, float* quad, float* dx, int n_rows, int n_layers,
+                              const int* widths, const void* const* ptrs,
+                              const long long* strides, int n_members, int tier, int tile_rows,
+                              int p_cols, int q_cols, int r_cols, int mask_cols, int stream_rows,
+                              int n_ops, void* stream) {
   if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers ||
-      widths[0] < 1 || widths[0] > kMaxIn || tier_fwd < kF32 || tier_fwd > kBF16x3 ||
-      tier_bwd < kF32 || tier_bwd > kBF16x3) {
+      widths[0] < 1 || widths[0] > kMaxIn || tier < kF32 || tier > kBF16x3 || n_ops < 1 ||
+      p_cols < 0 || q_cols < 0 || r_cols < 0 || mask_cols < 0 || stream_rows < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Net net{};
+  WideNet net{};
   net.n_layers = n_layers;
-  net.tier_fwd = tier_fwd;
-  net.tier_bwd = tier_bwd;
-  size_t floats = widths[0] + widths[n_layers];
   for (int i = 0; i <= n_layers; ++i) {
+    if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     net.width[i] = widths[i];
-    if (i > 0) floats += widths[i];
   }
-  const size_t smem = floats * kRows * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-
+  net.n_ops = n_ops;
+  net.cols[0] = p_cols;
+  net.cols[1] = q_cols;
+  net.cols[2] = r_cols;
   int k = 0;
   auto next = [&](long long& stride) {
     stride = strides[k];
-    return static_cast<const float*>(ptrs[k++]);
+    return ptrs[k++];
   };
-  net.w0 = next(net.s_w0);
-  net.b0 = next(net.s_b0);
-  for (int i = 1; i < n_layers; ++i) {
-    net.w_hi[i] = next(net.s_w_hi[i]);
-    net.w_lo[i] = next(net.s_w_lo[i]);
-    net.b[i] = next(net.s_b[i]);
-    net.wt_hi[i] = next(net.s_wt_hi[i]);
-    net.wt_lo[i] = next(net.s_wt_lo[i]);
+  net.w0 = static_cast<const float*>(next(net.s_w0));
+  net.b0 = static_cast<const float*>(next(net.s_b0));
+  net.bias = static_cast<const float*>(next(net.s_bias));
+  net.slabs = static_cast<const float*>(next(net.s_slabs));
+  net.prog = static_cast<const int4*>(next(net.s_prog));
+  if (tier != kF32) {
+    for (int i = 0; i < n_layers; ++i) net.frag[i] = static_cast<const uint32_t*>(next(net.s_frag[i]));
   }
-  net.g_hi = next(net.s_g_hi);
-  net.g_lo = next(net.s_g_lo);
-  net.u = next(net.s_u);
-
-  cudaError_t err = cudaFuncSetAttribute(fused_loglik_grad_gram_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_rows + kRows - 1) / kRows, n_members);
-  fused_loglik_grad_gram_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, quad, dx, n_rows, net);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tier == kF32) {
+    switch (tile_rows) {
+      case 32: err = launch_wide<32, 0>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
+      case 16: err = launch_wide<16, 0>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
+      default: break;
+    }
+  } else if (tier == kBF16x3) {
+    switch (tile_rows) {
+      case 32: err = launch_wide<32, 2>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
+      case 16: err = launch_wide<16, 2>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
+      default: break;
+    }
+  } else {
+    switch (tile_rows) {
+      case 32: err = launch_wide<32, 1>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
+      case 16: err = launch_wide<16, 1>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
+      default: break;
+    }
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -20,7 +20,7 @@
 // flagship widths (7→288→352→288→224, gram head 224×224) a row needs
 // 1.18 MFLOP: 0.317 M products forward, 0.267 M backward, and the skinny
 // layer twice. Each row reads 28 bytes and writes 32, so device memory is
-// not the limit. The first design (fused_loglik_grad_gram.cu: one output
+// not the limit. The first design (fused_loglik_grad_gram.cu's first version: one output
 // column of a 16-row tile per thread, every activation kept in shared
 // memory) spent five loads on every 16 FMAs, streamed the weights (2.5 MB
 // forward and transposed) from L2 once per 16 rows, and ran slower than

@@ -25,7 +25,7 @@
 // once per model into fp32 slabs (ops/kernels/_common.py::pack_slabs:
 // trunk layers 1 … n−1, then G, whose bias slot holds u) and streamed
 // through a cp.async ring, one barrier per slab. The
-// skinny first layer is a (row, column) loop of exact fp32 FMA. The gram
+// skinny first layer is a (row, column) loop of exact fp32. The gram
 // head is one more register-tiled layer with G; its epilogue forms
 // (hg + 2u)·h from the registers and the fp32 h still in shared memory at
 // the same (row, column), so no hg tile exists, and the per-row quad is

@@ -7,7 +7,7 @@
 // Replaces: tpu21cmvae/ops/pallas/fused_mlp.py::make_fused_mlp (kernel
 // body _mlp_kernel, products _dot_refs), at its exact tier. Same
 // contract: optional log10/clamp of input columns 0–2, a skinny first
-// layer (fan-in ≤ 8) as exact fp32 FMA, (matmul + bias, ReLU that keeps
+// layer (fan-in ≤ 8) in exact fp32, (matmul + bias, ReLU that keeps
 // NaN) for every hidden layer, a linear last layer; with sumsq it writes
 // Σ_j y_j² per row instead of y. The callers fold the normalizer
 // (predict) or the normalizer, observation and noise (the direct
@@ -46,8 +46,8 @@
 //   under sumsq, squares and sums them per thread, then per row across
 //   the 8 lanes and the 4 column quarters that share it in a fixed order,
 //   so the (B, 451) signal never reaches device memory.
-// - The skinny layer stays a (row, column) loop of exact fp32 FMA, c
-//   ascending; a network of that layer alone writes straight from it.
+// - The skinny layer stays a (row, column) loop of exact fp32 in the
+//   Pallas kernel's order (trunk.cuh, skinny_dot); a network of that layer alone writes straight from it.
 // Shared memory per CTA: 4·S·(in rows + 2·buffer columns) bytes of tiles
 // plus the ring (48 KB at BM = 64, 16 KB at 32, 12 KB below) and 1 KB of
 // partials, S = BM (64, 32), 18 (16), 9 (8): 232,192 bytes at the
@@ -68,7 +68,7 @@ namespace {
 struct MlpNet {
   int n_layers;
   int width[kMaxLayers + 1];  // width[0] = n_in; layer i maps width[i] → width[i+1]
-  int skinny;                 // layer 0 is exact fp32 FMA (n_in ≤ kMaxIn)
+  int skinny;                 // layer 0 is exact fp32 (n_in ≤ kMaxIn)
   int in_rows;                // k rows of the input tile: n_in if skinny, else padk(n_in)
   int buf_cols;               // k rows of each activation buffer: widest hidden, padded to 32
   int log_clamp;              // log10/clamp input columns 0..2

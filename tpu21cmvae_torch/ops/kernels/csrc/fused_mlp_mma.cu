@@ -6,7 +6,7 @@
 // Replaces: tpu21cmvae/ops/pallas/fused_mlp.py::make_fused_mlp (kernel
 // body _mlp_kernel, products _dot_refs), at its bf16 tiers. Same
 // contract as fused_mlp.cu: optional log10/clamp of input columns 0–2, a
-// skinny first layer (fan-in ≤ 8) as exact fp32 FMA, else a tier matmul,
+// skinny first layer (fan-in ≤ 8) in exact fp32, else a tier matmul,
 // (matmul + bias, ReLU that keeps NaN) for every hidden layer, a linear
 // last layer; with sumsq it writes Σ_j y_j² per row instead of y. Rows
 // past the batch are zero in the input tile and never stored.

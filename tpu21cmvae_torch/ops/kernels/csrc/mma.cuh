@@ -100,9 +100,9 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* tile, int tile_elems, 
   }
 }
 
-// The skinny first layer, exact fp32 FMA in fused_mlp.cu's order (c
-// ascending, then the bias, then ReLU), from the fp32 input tile xl (rows
-// × n_in, row-major): store(r, j, v) for every row r and every column j <
+// The skinny first layer, exact fp32 in the Pallas kernels' order
+// (trunk.cuh, skinny_dot), then ReLU, from the fp32 input tile xl (rows ×
+// n_in, row-major): store(r, j, v) for every row r and every column j <
 // pad16(n_out), v = 0 on the padded columns.
 template <class Store>
 __device__ __forceinline__ void skinny_layer(const float* xl, int rows, int n_in,
@@ -114,11 +114,7 @@ __device__ __forceinline__ void skinny_layer(const float* xl, int rows, int n_in
     const int r = t / np;
     const int j = t % np;
     float v = 0.f;
-    if (j < n_out) {
-      float acc = 0.f;
-      for (int c = 0; c < n_in; ++c) acc = fmaf(xl[r * n_in + c], __ldg(w0 + c * n_out + j), acc);
-      v = relu(acc + __ldg(b0 + j));
-    }
+    if (j < n_out) v = relu(skinny_dot(xl + r * n_in, 1, n_in, w0 + j, n_out, __ldg(b0 + j)));
     store(r, j, v);
   }
 }

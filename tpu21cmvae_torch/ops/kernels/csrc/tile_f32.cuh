@@ -218,18 +218,16 @@ __device__ __forceinline__ void load_input(const float* __restrict__ x, int n_ro
   }
 }
 
-// Σ_c xl[c, r] · w0[c, j], c ascending, then + b0[j]: the skinny first
-// layer (fan-in ≤ kMaxIn) in exact fp32, in fused_mlp.cu's historical
-// order (trunk.cuh::skinny_column).
+// Σ_c xl[c, r] · w0[c, j], then + b0[j]: the skinny first layer (fan-in
+// ≤ kMaxIn) in exact fp32, in the Pallas kernels' order (trunk.cuh,
+// skinny_dot).
 template <int BM>
 __device__ __forceinline__ float skinny_value(const float* xl, int n_in,
                                               const float* __restrict__ w0,
                                               const float* __restrict__ b0, int n_out, int r,
                                               int j) {
   constexpr int S = tile_stride(BM);
-  float acc = 0.f;
-  for (int c = 0; c < n_in; ++c) acc = fmaf(xl[c * S + r], __ldg(w0 + c * n_out + j), acc);
-  return acc + __ldg(b0 + j);
+  return skinny_dot(xl + r, S, n_in, w0 + j, n_out, __ldg(b0 + j));
 }
 
 // The skinny layer as a hidden layer: out[j, r] = relu(skinny_value) for

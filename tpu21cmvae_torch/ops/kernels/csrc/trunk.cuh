@@ -1,12 +1,6 @@
-// Device code shared by the port's fused-network kernels (K1
-// fused_mlp.cu, K2 fused_loglik_gram.cu, K3 fused_loglik_grad_gram.cu):
-// the launch geometry, the matmul tiers, the input log-clamp, and dense
-// layers over a tile of kRows rows held in shared memory.
-//
-// Tile layout: column-major, element (column c, row r) at c * kRows + r,
-// so a thread that owns output column j reads a whole input column as
-// kRows / 4 broadcast float4 loads. Rows past the batch are zero in the
-// input tile and are never stored.
+// Device code shared by every kernel of the port: the launch limits, the
+// member axis, the matmul tiers' rounding, the input log-clamp and its
+// derivative, and the skinny first layer's dot product.
 //
 // Tiers (per product a·w, fp32 accumulation):
 //   f32:    a · w
@@ -27,10 +21,8 @@
 namespace {
 
 constexpr int kMaxLayers = 8;   // layers of a network (K2/K3: trunk layers)
-constexpr int kMaxIn = 8;       // widest skinny input (exact fp32 FMA)
+constexpr int kMaxIn = 8;       // widest skinny input (exact fp32)
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;       // rows per CTA
 constexpr int kLogCols = 3;     // log10 on input columns 0..2
 constexpr int kMaxSmem = 232448;
 
@@ -50,7 +42,6 @@ __device__ __forceinline__ T* member_at(T* p, long long stride, int m) {
 }
 
 enum Tier : int { kF32 = 0, kBF16 = 1, kBF16x3 = 2 };
-enum Epilogue : int { kBiasRelu = 0, kStore = 1, kMask = 2 };
 
 __device__ __forceinline__ float bf16_rn(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -58,19 +49,6 @@ __device__ __forceinline__ float bf16_rn(float x) {
 
 __device__ __forceinline__ float hi_part(float x) {
   return __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
-}
-
-template <int TIER>
-__device__ __forceinline__ float tier_fma(float a, float w_hi, float w_lo, float acc) {
-  if constexpr (TIER == kF32) {
-    return fmaf(a, w_hi, acc);
-  } else if constexpr (TIER == kBF16) {
-    return fmaf(bf16_rn(a), w_hi, acc);
-  } else {
-    const float a_hi = hi_part(a);
-    const float a_lo = bf16_rn(a - a_hi);
-    return fmaf(a_lo, w_hi, fmaf(a_hi, w_lo, fmaf(a_hi, w_hi, acc)));
-  }
 }
 
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }  // keeps NaN
@@ -87,134 +65,18 @@ __device__ __forceinline__ float log_clamp_grad(float v, int c) {
   return 1.f / (v * 2.302585093f);
 }
 
-// The tile's input rows x[row0 .. row0 + kRows) (row-major, n_in columns)
-// into `xl`, log-clamped if asked; rows past the batch are zero.
-__device__ __forceinline__ void load_input_tile(const float* __restrict__ x, int n_rows,
-                                                int row0, int n_in, bool log_cols,
-                                                float* xl) {
-  for (int t = threadIdx.x; t < kRows * n_in; t += blockDim.x) {
-    const int r = t / n_in;
-    const int c = t % n_in;
-    const int row = row0 + r;
-    float v = 0.f;
-    if (row < n_rows) {
-      v = x[static_cast<size_t>(row) * n_in + c];
-      if (log_cols) v = log_clamp(v, c);
-    }
-    xl[c * kRows + r] = v;
-  }
-}
-
-// acc[r] = Σ_k in[k, r] · W[k, j] at TIER, k ascending, with W (n_in,
-// n_out) row-major in device memory.
-template <int TIER>
-__device__ __forceinline__ void dot_column(const float* in, int n_in,
-                                           const float* __restrict__ w_hi,
-                                           const float* __restrict__ w_lo, int n_out, int j,
-                                           float (&acc)[kRows]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < n_in; ++k) {
-    const size_t at = static_cast<size_t>(k) * n_out + j;
-    const float wh = __ldg(w_hi + at);
-    const float wl = TIER == kBF16x3 ? __ldg(w_lo + at) : 0.f;
-    const float4* a4 = reinterpret_cast<const float4*>(in + k * kRows);
-#pragma unroll
-    for (int q = 0; q < kRows / 4; ++q) {
-      const float4 a = a4[q];
-      acc[4 * q + 0] = tier_fma<TIER>(a.x, wh, wl, acc[4 * q + 0]);
-      acc[4 * q + 1] = tier_fma<TIER>(a.y, wh, wl, acc[4 * q + 1]);
-      acc[4 * q + 2] = tier_fma<TIER>(a.z, wh, wl, acc[4 * q + 2]);
-      acc[4 * q + 3] = tier_fma<TIER>(a.w, wh, wl, acc[4 * q + 3]);
-    }
-  }
-}
-
-// acc[r] = Σ_c in[c, r] · w0[c, j] in exact fp32, c ascending: the skinny
-// (fan-in ≤ kMaxIn) first layer at every tier.
-__device__ __forceinline__ void skinny_column(const float* in, int n_in,
-                                              const float* __restrict__ w0, int n_out, int j,
-                                              float (&acc)[kRows]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-  for (int c = 0; c < n_in; ++c) {
-    const float w = __ldg(w0 + c * n_out + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(in[c * kRows + r], w, acc[r]);
-  }
-}
-
-// out[j, r] = relu(Σ_c in[c, r] · w0[c, j] + b0[j]): the skinny first
-// layer into a shared-memory tile.
-__device__ void skinny_relu_layer(const float* in, int n_in, const float* __restrict__ w0,
-                                  const float* __restrict__ b0, float* out, int n_out) {
-  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
-    float acc[kRows];
-    skinny_column(in, n_in, w0, n_out, j, acc);
-    const float bj = __ldg(b0 + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) out[j * kRows + r] = relu(acc[r] + bj);
-  }
-}
-
-// out[j, r] = epilogue(Σ_k in[k, r] · W[k, j]) for every j < n_out, with
-// in/out tiles in shared memory. kBiasRelu: relu(· + bias[j]); kStore: as
-// is; kMask: masked by the value already in `out` (a forward activation),
-// in place — the backward's ReLU mask.
-template <int TIER, int EPI>
-__device__ void dense(const float* in, int n_in, const float* __restrict__ w_hi,
-                      const float* __restrict__ w_lo, const float* __restrict__ bias,
-                      float* out, int n_out) {
-  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
-    float acc[kRows];
-    dot_column<TIER>(in, n_in, w_hi, w_lo, n_out, j, acc);
-    float* o = out + j * kRows;
-    if constexpr (EPI == kBiasRelu) {
-      const float bj = __ldg(bias + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] = relu(acc[r] + bj);
-    } else if constexpr (EPI == kStore) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] = acc[r];
-    } else {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] = o[r] > 0.f ? acc[r] : 0.f;
-    }
-  }
-}
-
-template <int EPI>
-__device__ void dense_at(int tier, const float* in, int n_in, const float* w_hi,
-                         const float* w_lo, const float* bias, float* out, int n_out) {
-  switch (tier) {
-    case kF32: dense<kF32, EPI>(in, n_in, w_hi, w_lo, bias, out, n_out); break;
-    case kBF16: dense<kBF16, EPI>(in, n_in, w_hi, w_lo, bias, out, n_out); break;
-    default: dense<kBF16x3, EPI>(in, n_in, w_hi, w_lo, bias, out, n_out); break;
-  }
-}
-
-// quad[row0 + r] = Σ_j (hg[j, r] + 2·u[j]) · h[j, r] for the tile's rows
-// (one warp per row); with `signal`, hg is then replaced in place by the
-// backward signal ½·dquad/dh = hg + u masked by the last ReLU (G is
-// symmetric, so h@G is reused).
-__device__ void gram_quad(const float* h, float* hg, const float* __restrict__ u, int hidden,
-                          int row0, int n_rows, float* __restrict__ quad, bool signal) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < kRows; r += blockDim.x / 32) {
-    float s = 0.f;
-    for (int j = lane; j < hidden; j += 32) {
-      const float g = hg[j * kRows + r];
-      const float hj = h[j * kRows + r];
-      const float uj = __ldg(u + j);
-      s = fmaf(g + 2.f * uj, hj, s);
-      if (signal) hg[j * kRows + r] = hj > 0.f ? g + uj : 0.f;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0 && row0 + r < n_rows) quad[row0 + r] = s;
-  }
+// The skinny first layer (fan-in ≤ kMaxIn) at one (row, column): Σ_c
+// x[c·xs] · w[c·ws] + b in the Pallas kernels' order
+// (tpu21cmvae/ops/pallas/fused_mlp.py:265-270, bias at :281): the products
+// from c = 0 ascending, each product and each sum rounded to fp32 (no
+// contraction into an fma), then the bias. The plain versions compute the
+// same (ops/mlp.py::fused_skinny_dense), so the layer is bit for bit the
+// same on the card and in plain PyTorch.
+__device__ __forceinline__ float skinny_dot(const float* x, int xs, int n_in,
+                                            const float* __restrict__ w, int ws, float b) {
+  float acc = __fmul_rn(x[0], __ldg(w));
+  for (int c = 1; c < n_in; ++c) acc = __fadd_rn(acc, __fmul_rn(x[c * xs], __ldg(w + c * ws)));
+  return __fadd_rn(acc, b);
 }
 
 }  // namespace

@@ -38,7 +38,9 @@ the backward register-tiled on the CUDA cores over the fp32 slabs of
 :func:`pack_backward_slabs`. A network too wide for that kernel's shared
 memory at a reverse pair, and the fp32 pair of a network too wide for the
 register-tiled kernel's buffers, run ``csrc/fused_loglik_grad_gram.cu``
-on the CUDA cores. The CUDA kernels keep a row tile's activations on chip;
+(:attr:`FusedLoglikGradGram.wide`): the program of
+:mod:`~tpu21cmvae_torch.ops.kernels.wide`, which streams a wide layer in
+128-column chunks. The CUDA kernels keep a row tile's activations on chip;
 the plain versions do the same arithmetic — same folds, same hi/lo split,
 same epilogue — in plain tensor operations.
 
@@ -78,7 +80,6 @@ from tpu21cmvae_torch.ops.kernels._common import (
     MAX_LAYERS,
     MAX_SHARED_BYTES,
     RED_FLOATS,
-    ROWS_PER_BLOCK,
     SLAB_N,
     TIER_CODE,
     OperandCache,
@@ -89,7 +90,6 @@ from tpu21cmvae_torch.ops.kernels._common import (
     check_tile_rows,
     f32_tile_bytes,
     f32_tile_rows,
-    hi_lo,
     launch,
     member_layers,
     member_strides,
@@ -107,7 +107,15 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     _pad16,
     pack_mma_operands,
 )
-from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
+from tpu21cmvae_torch.ops.kernels.wide import (
+    WIDE_TILE_ROWS,
+    pack_wide_slabs,
+    program_table,
+    wide_bytes,
+    wide_heights,
+    wide_plan,
+)
+from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
 
 
 class GramPacked(NamedTuple):
@@ -147,8 +155,13 @@ class GramOperands:
     ``fused_gram_mixed.cu``'s forward), K3's
     (:func:`pack_grad_gram_slabs`, ``fused_loglik_grad_gram_f32.cu``) or
     the reverse pairs' backward (:func:`pack_backward_slabs`'s ``w``;
-    ``b`` empty), else None. ``members``: M where every tensor is M members' stacked on
-    a leading axis (``c`` as ``(M, 1)``), else None.
+    ``b`` empty) or the wide route's stream and biases
+    (:func:`~tpu21cmvae_torch.ops.kernels.wide.pack_wide_slabs`), else
+    None. ``program``: the wide route's op table
+    (:func:`~tpu21cmvae_torch.ops.kernels.wide.program_table`; at a
+    reverse pair ``packed`` then holds the forward's fragments, ``w``
+    and ``g``), else None. ``members``: M where every tensor is M
+    members' stacked on a leading axis (``c`` as ``(M, 1)``), else None.
     """
 
     tier: str
@@ -164,6 +177,7 @@ class GramOperands:
     log_norm: float
     packed: Optional[GramPacked] = None
     slabs: Optional[Slabs] = None
+    program: Optional[torch.Tensor] = None
     members: Optional[int] = None
 
     @property
@@ -270,6 +284,24 @@ def pack_backward_slabs(ops: GramOperands) -> Slabs:
     return pack_slabs([(wt, wt.new_zeros(wt.shape[1])) for wt in reversed(ops.wt)])
 
 
+def pack_wide_operands(ops: GramOperands) -> GramOperands:
+    """``ops`` (K3 at (fp32, fp32) or a reverse pair) packed for the wide
+    route ``fused_loglik_grad_gram.cu``: its program and fp32 stream with
+    the biases (:mod:`~tpu21cmvae_torch.ops.kernels.wide`), and at a
+    reverse pair the forward's fragments at the value tier, trunk layers
+    1 … n−1 in ``packed.w`` and G in ``packed.g``."""
+    mma = wide_parts(ops.tier) > 0
+    plan = wide_plan(ops.widths, mma)
+    packed = None
+    if mma:
+        zeros = ops.u.new_zeros(ops.u.shape[0])
+        packed = GramPacked(w=tuple(pack_mma_operands(w, b, ops.tier)[0]
+                                    for w, b in zip(ops.w, ops.b)),
+                            b=(), wt=(), g=pack_mma_operands(ops.g, zeros, ops.tier)[0], u=None)
+    return dataclasses.replace(ops, slabs=pack_wide_slabs(ops, plan), packed=packed,
+                               program=program_table(plan).to(ops.w0.device))
+
+
 def pack_grad_gram_slabs(ops: GramOperands) -> Slabs:
     """K3's fp32 operands as ``fused_loglik_grad_gram_f32.cu`` streams
     them: K2's stream (:func:`pack_gram_slabs`), then the backward's
@@ -285,7 +317,7 @@ def _value(ops: GramOperands, quad):
 
 def _gram_forward(ops: GramOperands, x: torch.Tensor):
     """The trunk activations, ``h@G`` and ``quad`` per row."""
-    h = torch.relu(skinny_dense(_log_clamp(x), ops.w0, ops.b0))
+    h = torch.relu(fused_skinny_dense(_log_clamp(x), ops.w0, ops.b0))
     acts = [h]
     for w, b in zip(ops.w, ops.b):
         h = torch.relu(tier_matmul(h, w, ops.tier) + b)
@@ -331,12 +363,14 @@ def loglik_grad_gram_members_reference(ops: GramOperands, x: torch.Tensor):
 def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     """The C entry point of the kernel ``ops``' tiers run
     (:func:`gram_on_tensor_cores`, :func:`gram_mixed`,
-    :func:`gram_reverse`), its operand pointers, and the int arguments
-    after them: the tier codes (at a reverse pair the value tier's alone,
-    where its operands were packed), or the register-tiled kernels' tile
-    height ``rows`` (K2 at fp32; K3 at (fp32, fp32) where its stream was
-    packed; K3 at (fp32, bf16 tier), after the backward's tier code,
-    where its operands were packed)."""
+    :func:`gram_reverse`, and the wide route where ``ops`` carry its
+    program), its operand pointers, and the int arguments after them:
+    the tier codes (at a reverse pair the value tier's alone, where its
+    operands were packed), or the register-tiled kernels' tile height
+    ``rows`` (K2 at fp32; K3 at (fp32, fp32) where its stream was packed;
+    K3 at (fp32, bf16 tier), after the backward's tier code, where its
+    operands were packed); the wide route the value tier's code, the
+    height and its plan's sizes (:func:`_wide_ints`)."""
     tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
     if gram_on_tensor_cores(*tiers):
@@ -347,6 +381,11 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
         return entry, [*tensors, p.g, p.u], [TIER_CODE[t] for t in tiers]
     if not k3:  # fused_loglik_gram.cu runs the fp32 tier alone
         return "k2_fused_loglik_gram", [*tensors, *ops.slabs], [rows]
+    if ops.program is not None:  # the wide route: its program, stream and fragments
+        frags = [*ops.packed.w, ops.packed.g] if ops.packed is not None else []
+        return ("k3_fused_loglik_grad_gram",
+                [*tensors, ops.slabs.b, ops.slabs.w, ops.program, *frags],
+                [TIER_CODE[ops.tier], rows, *_wide_ints(ops)])
     if gram_mixed(*tiers) and ops.slabs is not None:  # fp32 forward, tensor-core backward
         return ("k3_fused_loglik_grad_gram_mixed", [*tensors, *ops.slabs, *ops.packed.wt],
                 [TIER_CODE[ops.grad_tier], rows])
@@ -358,10 +397,15 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
                 [TIER_CODE[ops.tier]])
     if ops.slabs is not None:  # (fp32, fp32), register-tiled
         return "k3_fused_loglik_grad_gram_f32", [*tensors, *ops.slabs], [rows]
-    for i, (w, b) in enumerate(zip(ops.w, ops.b)):
-        tensors += [*hi_lo(w, ops.tier), b, *hi_lo(ops.wt[i], ops.grad_tier)]
-    tensors += [*hi_lo(ops.g, ops.tier), ops.u]
-    return "k3_fused_loglik_grad_gram", tensors, [TIER_CODE[t] for t in tiers]
+    raise ValueError(f"K3 operands at {tiers} carry no kernel's packing")
+
+
+def _wide_ints(ops: GramOperands) -> list:
+    """The wide route's plan sizes the C entry takes after the height:
+    the three held tiles' k rows, the mask columns, the stream's rows and
+    the program's length."""
+    plan = wide_plan(ops.widths, ops.packed is not None)
+    return [*plan.cols, plan.mask_cols, plan.stream_rows, len(plan.ops)]
 
 
 def _launch_args(ops: GramOperands, k3: bool, rows: Optional[int]) -> tuple:
@@ -398,8 +442,8 @@ def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Te
 def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[int] = None):
     """Launch K3 on PyTorch's current stream (no synchronisation), one
     launch for every member of stacked ``ops``; ``rows``: the tile height
-    of ``fused_loglik_grad_gram_f32.cu`` or ``fused_gram_mixed.cu`` (None
-    on the other routes)."""
+    of ``fused_loglik_grad_gram_f32.cu``, ``fused_gram_mixed.cu`` or
+    ``fused_loglik_grad_gram.cu`` (None on the other routes)."""
     quad = torch.empty(_batch(ops, x.shape[0]), dtype=torch.float32, device=x.device)
     dx = torch.empty(_batch(ops, *x.shape), dtype=torch.float32, device=x.device)
     if x.shape[0]:
@@ -538,8 +582,10 @@ def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
     :func:`grad_mixed_bytes` at ``rows`` (default: the tallest height
     that fits, else the shortest, which then refuses the network);
     ``fused_loglik_grad_gram.cu`` (a reverse pair, or the fp32 pair, of a
-    network too wide for those) the input tile, every trunk activation
-    and ``h@G`` in fp32, ``ROWS_PER_BLOCK`` rows each."""
+    network too wide for those) the tiles of its plan
+    (:func:`~tpu21cmvae_torch.ops.kernels.wide.wide_bytes`) at ``rows``
+    (default: the tallest height that fits, else the shortest, which
+    then refuses the network)."""
     if gram_on_tensor_cores(tier, grad_tier):
         return _gram_mma_bytes(widths, tier, grad_tier)
     if gram_reverse(tier, grad_tier) and (
@@ -550,10 +596,20 @@ def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
             rows = (grad_mixed_heights(widths, grad_tier) or MIXED_TILE_ROWS[-1:])[0]
         return grad_mixed_bytes(widths, rows, grad_tier)
     if tier == grad_tier == "f32":
-        rows = grad_f32_rows(widths, forced=rows)
-        if rows is not None:
-            return grad_f32_bytes(widths, rows)
-    return 4 * ROWS_PER_BLOCK * (sum(widths) + widths[-1])
+        f32_rows = grad_f32_rows(widths, forced=rows)
+        if f32_rows is not None:
+            return grad_f32_bytes(widths, f32_rows)
+    parts = wide_parts(tier)
+    if rows is None:
+        rows = (wide_heights(widths, parts) or WIDE_TILE_ROWS[-1:])[0]
+    return wide_bytes(widths, rows, parts)
+
+
+def wide_parts(tier: str) -> int:
+    """The wide route's forward on the tensor cores: the value tier's
+    parts (2 bf16x3, 1 bf16), or 0 for its fp32 forward on the CUDA
+    cores."""
+    return {"f32": 0, "bf16": 1, "bf16x3": 2}[tier]
 
 
 def gram_f32_rows(widths, forced: Optional[int] = None) -> int:
@@ -608,8 +664,9 @@ class _GramWrapper:
         # with (K3 at a reverse pair, where the network fits) an fp32
         # backward; K3's fused_gram_mixed.cu (fp32 forward, tensor-core
         # backward); or on the CUDA cores K2's fused_loglik_gram.cu, K3's
-        # register-tiled fused_loglik_grad_gram_f32.cu or its
-        # fused_loglik_grad_gram.cu. Chosen here, by tiers and shape.
+        # register-tiled fused_loglik_grad_gram_f32.cu or, on a network
+        # too wide for those, its fused_loglik_grad_gram.cu (the wide
+        # route). Chosen here, by tiers and shape.
         self.tensor_cores = gram_on_tensor_cores(self.tier, self.grad_tier)
         self.mixed = gram_mixed(self.tier, self.grad_tier)
         self.reverse = gram_reverse(self.tier, self.grad_tier) and (
@@ -630,6 +687,13 @@ class _GramWrapper:
                             else grad_f32_heights(widths))
             self.register_tiled = self.tier == self.grad_tier == "f32" and (
                 tile_rows is not None or bool(self.heights))
+            self.wide = not (self.mixed or self.reverse or self.register_tiled) and (
+                self.tier == self.grad_tier == "f32" or gram_reverse(self.tier, self.grad_tier))
+            if self.wide:
+                self.heights = wide_heights(widths, wide_parts(self.tier))
+                if tile_rows is not None and tile_rows not in self.heights:
+                    raise ValueError(f"tile_rows on the wide route must be one of "
+                                     f"{self.heights}; got {tile_rows!r}")
             need = shared_bytes(widths, self.tier, self.grad_tier, tile_rows)
         if need > MAX_SHARED_BYTES:
             raise NotImplementedError(
@@ -671,7 +735,7 @@ class _GramWrapper:
                                            slabs=Slabs(w=backward, b=backward.new_zeros(0)))
             if self.register_tiled:
                 return dataclasses.replace(ops, slabs=pack_grad_gram_slabs(ops))
-            return ops
+            return pack_wide_operands(ops)
 
         def build(params) -> GramOperands:
             if self.members is None:
@@ -739,7 +803,9 @@ class FusedLoglikGradGram(_GramWrapper):
     (:attr:`mixed`), each at the tile height :meth:`rows_for` gives each
     batch; at a reverse pair (a bf16 value tier, an fp32 backward)
     ``fused_gram_mma.cu`` with its fp32 backward, 16-row tiles
-    (:attr:`reverse`); ``tile_rows`` (one of
+    (:attr:`reverse`); a reverse pair or (fp32, fp32) on a network too
+    wide for those ``fused_loglik_grad_gram.cu`` (:attr:`wide`, 32- or
+    16-row tiles by batch); ``tile_rows`` (one of
     :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`, and of
     :data:`MIXED_TILE_ROWS` at a mixed pair) forces one height for every
     batch. ``members=M`` takes an ensemble's stacked ``params`` and
@@ -758,11 +824,11 @@ class FusedLoglikGradGram(_GramWrapper):
                          members=members)
 
     def rows_for(self, n_rows: int) -> Optional[int]:
-        """The tile height of ``fused_loglik_grad_gram_f32.cu`` or
-        ``fused_gram_mixed.cu`` for a batch of ``n_rows`` rows of each
-        member (:func:`pick_grad_rows`), :attr:`tile_rows` if forced; None
-        on the other routes."""
-        if not (self.register_tiled or self.mixed):
+        """The tile height of ``fused_loglik_grad_gram_f32.cu``,
+        ``fused_gram_mixed.cu`` or ``fused_loglik_grad_gram.cu`` for a
+        batch of ``n_rows`` rows of each member (:func:`pick_grad_rows`),
+        :attr:`tile_rows` if forced; None on the other routes."""
+        if not (self.register_tiled or self.mixed or self.wide):
             return None
         return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count,
                                                 self.members or 1)

@@ -60,7 +60,7 @@ from tpu21cmvae_torch.ops.kernels._common import (
     pointers,
     stack_members,
 )
-from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
+from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
 
 WARPS_PER_BLOCK = 8  # kMmaWarps in csrc/mma.cuh
 MMA_ROWS_PER_BLOCK = 32  # kTileRows in csrc/fused_mlp_mma.cu
@@ -159,7 +159,7 @@ def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
     last = len(ops.w) - 1
     for i, (w, b) in enumerate(zip(ops.w, ops.b)):
         if i == 0 and ops.skinny:
-            h = skinny_dense(h, w, b)
+            h = fused_skinny_dense(h, w, b)
         else:
             h = tier_matmul(h, w, ops.tier) + b
         if i < last:

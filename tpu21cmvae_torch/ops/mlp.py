@@ -85,6 +85,20 @@ def skinny_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return acc
 
 
+def fused_skinny_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` in the fused kernels' order: the products summed from
+    input column 0 ascending, each product and each sum rounded to fp32,
+    then the bias added (the Pallas kernels' skinny mode,
+    ``tpu21cmvae/ops/pallas/fused_mlp.py:265-270``, bias at ``:281``).
+    The plain versions of the port's kernels use it, so a kernel and its
+    plain version compute the same skinny layer bit for bit;
+    :func:`skinny_dense` keeps the order of JAX's plain ``mlp_apply``."""
+    acc = x[:, 0:1] * w[0][None, :]
+    for k in range(1, w.shape[0]):
+        acc = acc + x[:, k: k + 1] * w[k][None, :]
+    return acc + b[None, :]
+
+
 def mlp_apply(params: MLPParams, x: torch.Tensor, activation="relu",
               precision="highest") -> torch.Tensor:
     """Forward pass: ``activation`` after every layer except the last,

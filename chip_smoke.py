@@ -243,6 +243,15 @@ Phases, one line each:
     ``fit``; ``tune_direct_halving`` (4 candidates, 2 rungs of 2 epochs)
     on that split and the CLI's ``tune --trials 2 --halving``.
 
+22. the wide route, ``fused_loglik_grad_gram.cu``, at every K2 tier and
+    K3 pair on three seeded networks the dedicated kernels refuse (by
+    width, (1536,)×3; by shared memory at every pair, (4096, 4096), whose
+    plan spills to the workspace; by depth, (256,)×12): held to plain at
+    37, 1024, 4096 and 65,537 rows and timed at 4096 and 65,536 with the
+    workspace's bytes; then HMC (K3 at (high, default)) and MH (K2 at
+    bf16x3) through ``sample_posterior`` on (1536,)×3 at the launches
+    their sizes imply (``wide_routes_phase``).
+
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound (phase 18's launches under
 ``launches_trained``, beside the total; phase 19's under
@@ -292,6 +301,9 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     make_fused_loglik,
     make_fused_loglik_grad_gram,
     make_fused_loglik_gram,
+    ops_plan,
+    pack_wide_operands,
+    WideLaunch,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     fused_mlp_members_reference,
@@ -312,6 +324,7 @@ from tpu21cmvae_torch.utils.config import (
 from tpu21cmvae_torch.ops.fold import _log_clamp, tier_matmul
 from tpu21cmvae_torch.ops.mlp import fused_skinny_dense
 from tpu21cmvae_torch.utils.metrics import (
+    grad_gate_beside,
     grad_gate_violation,
     error,
     grad_rel_error,
@@ -352,6 +365,13 @@ REVERSE_PAIRS = (REVERSE_TIERS, ("default", "highest"))
 # buffers, randomly initialised from WIDE_SEED
 WIDE_HIDDEN, WIDE_SEED = (3200, 64, 64), 5
 WIDE_PAIRS = (EXACT_TIERS, *REVERSE_PAIRS)
+# Phase 22: the wide route at every K2 tier and K3 pair on three seeded
+# networks the dedicated kernels refuse (by width at the samplers' tiers,
+# by the workspace at every pair, by depth), and the samplers on the
+# first; rows and networks from a generator of their own
+WIDE_NETS = {"1536x3": (1536, 1536, 1536), "4096x2": (4096, 4096), "256x12": (256,) * 12}
+WIDE_ROUTES_SEED = 22
+WIDE_ROUTES = [(t, None) for t in TIERS] + [(a, b) for a in TIERS for b in TIERS]
 K3_F32_HEIGHTS = (64, 32, 16, 8)  # its tile heights, forced in phases 3 and 4
 K3_MIXED_HEIGHTS = (32, 16)  # fused_gram_mixed.cu's, forced in phase 3
 EXACT_HMC = dict(n_walkers=4096, n_warmup=20, n_steps=20)  # phase 5's exact-value runs
@@ -3811,6 +3831,185 @@ def mesh_phase(model, obs, dev, smi) -> dict:
     return launches, [r["k2_launches"] for r in ranks]
 
 
+def wide_route_call(net, obs, tiers, dev):
+    """K2 (``tiers[1]`` None) or K3 at ``tiers`` on ``net``'s wrapper, and
+    the wide route's operands, its launches (:class:`WideLaunch`, whose
+    workspace the call allocates) and its call: the wrapper's own where it
+    routes the network there, else (a dedicated kernel holds it) the wide
+    route's operands packed all the same and launched directly at the
+    tallest height."""
+    k3 = tiers[1] is not None
+    if k3:
+        fn = make_fused_loglik_grad_gram(net.config, net.normalizer, obs, NOISE_VAR,
+                                         precision=tiers[0], grad_precision=tiers[1], device=dev)
+    else:
+        fn = make_fused_loglik_gram(net.config, net.normalizer, obs, NOISE_VAR,
+                                    precision=tiers[0], device=dev)
+    ops = fn.operands(net.params)
+    if fn.wide:
+        check(not (fn.tensor_cores or fn.mixed or fn.reverse or fn.register_tiled),
+              f"{tiers}: one route")
+        return fn, ops, fn.wide_launch, lambda x: fn(net.params, x)
+    ops = pack_wide_operands(dataclasses.replace(ops, slabs=None, packed=None, program=None,
+                                                 frags=None))
+    route = WideLaunch(ops_plan(ops), k3, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count, dev)
+    return fn, ops, route, lambda x: route(ops, x, route.plan.heights[0])
+
+
+def exact_gradient(net, obs, dev):
+    """The plain K3 at (fp32, fp32) on ``net``'s weights: ``x →`` the
+    exact gradient, against which a tensor-core tier's kernel and plain
+    version are each held (``grad_gate_beside``)."""
+    ops = make_fused_loglik_grad_gram(net.config, net.normalizer, obs, NOISE_VAR,
+                                      precision="highest", grad_precision="highest",
+                                      device=dev).operands(net.params)
+    return lambda x: loglik_grad_gram_reference(ops, x)[1].cpu().numpy()
+
+
+def wide_routes_phase(model, dev) -> dict:
+    """Phase 22: the wide route, ``fused_loglik_grad_gram.cu``, at every
+    K2 tier and K3 pair on three networks randomly initialised from
+    ``WIDE_ROUTES_SEED`` with the flagship's normalizer (``WIDE_NETS``:
+    (1536,)×3, which the dedicated kernels refuse at the samplers' tiers;
+    (4096, 4096), whose plan spills to the workspace at every pair;
+    (256,)×12, deeper than their eight layers). Each route: one launch per
+    wrapper call where the wrapper routes the network there (on (1536,)×3
+    a tier or pair whose dedicated kernel holds it keeps that kernel, and
+    the wide route's operands are launched directly), held to the plain
+    version at 37, 4096 and 65,537 rows (values within ``VALUE_RTOL``, the
+    fx == 0 slot exactly 0, gradients under the gate at an fp32 value
+    tier; at a bf16 or bf16x3 value tier, where on networks this wide or
+    deep kernel and plain each flip more ReLU masks than the gate's 0.1 %
+    of rows, as the CPU emulation of the same program does, every row no
+    less accurate than plain against the exact (fp32, fp32) gradient by
+    the gate's margins, over the 70,694 held rows together:
+    ``grad_gate_beside``; over 4096 rows its q99.9 is the fifth-largest
+    row's error, which two roundings of one tier move by more than the
+    gate's margin on (256,)×12, over 65,536 rows by far less:
+    ``scripts/grad_gate_spread_cpu.py``), then timed with plain at 4096
+    and 65,536 rows beside its bound, with the workspace's bytes. Then,
+    on (1536,)×3, ``sample_posterior`` runs HMC (K3 at (high, default),
+    phase 5's exact-run sizes) and MH (K2 at high, phase 8's sizes), each
+    wrapper's count set to 0 before and read after: the launches their
+    sizes imply, finite draws, and the best draw (scored by the plain
+    likelihood at the exact tier) at least as likely as the truth less 5
+    nats. Returns the report, with the samplers' launches."""
+    rng = np.random.default_rng(WIDE_ROUTES_SEED)
+    report = {}
+    t_phase = time.perf_counter()
+    for label, hidden in WIDE_NETS.items():
+        config = DirectEmulatorConfig(hidden_dims=hidden)
+        net = DirectEmulator(config=config, normalizer=model.normalizer, seed=WIDE_ROUTES_SEED,
+                             device=dev)
+        truth = synthetic_params(1, rng)[0]
+        obs = net.predict(truth) + rng.normal(0.0, 5.0, config.n_bins)
+        trunk = config.mlp().sizes[:-1]
+        out = {"hidden": list(hidden)}
+        exact = exact_gradient(net, obs, dev)
+        for tiers in WIDE_ROUTES:
+            k3 = tiers[1] is not None
+            key = f"k3 {tiers[0]}/{tiers[1]}" if k3 else f"k2 {tiers[0]}"
+            fn, ops, route, call = wide_route_call(net, obs, tiers, dev)
+            check(fn.wide or label == "1536x3", f"{label} {key} routes to the wide route")
+            plan = route.plan
+            plain = loglik_grad_gram_reference if k3 else loglik_gram_reference
+            half_c = 0.5 * abs(float(ops.c))
+            rep = {"wrapper_route": "wide" if fn.wide else "dedicated",
+                   "spilled": len(plan.spilled), "masks_in_ws": plan.masks_in_ws,
+                   "heights": list(plan.heights), "worst_over_tol": 0.0, "max_abs": 0.0}
+            pooled = []  # (kernel, plain, exact) gradients of every held batch
+            for n, x in held_batches((37, 4096, 65537), rng):
+                fn.launches = 0
+                got = call(x)
+                check(fn.launches == int(fn.wide), f"{label} {key} n={n}: {fn.launches} launches")
+                want = plain(ops, x)
+                vk, vp = (got[0], want[0]) if k3 else (got, want)
+                vk, vp = vk.cpu().numpy(), vp.cpu().numpy()
+                check(bool(np.isfinite(vk).all()), f"{label} {key} finite values n={n}")
+                worst, max_abs = value_worst(vk, vp, tiers[0], half_c)
+                check(worst <= 1.0, f"{label} {key} value n={n}: worst |Δ|/tol {worst:.3g}")
+                rep["worst_over_tol"] = max(rep["worst_over_tol"], worst)
+                rep["max_abs"] = max(rep["max_abs"], max_abs)
+                if k3:
+                    gk, gp = got[1].cpu().numpy(), want[1].cpu().numpy()
+                    check(bool(np.isfinite(gk).all()), f"{label} {key} finite gradients n={n}")
+                    check(gk[0, 2] == 0.0, f"{label} {key} fx == 0 gradient slot n={n}")
+                    rel = grad_rel_error(gk, gp)
+                    rep[f"grad_q999_{n}"] = float(np.quantile(rel, 0.999))
+                    if tiers[0] != "highest":  # a tensor-core forward: masks flip on both
+                        ge = exact(x)
+                        pooled.append((gk, gp, ge))
+                        rep[f"grad_off_share_{n}"] = float(np.mean(rel > 1e-2))
+                        rep[f"grad_q999_exact_{n}"] = [float(np.quantile(grad_rel_error(g, ge),
+                                                                         0.999)) for g in (gk, gp)]
+                    else:
+                        gate = grad_gate_violation(gk, gp)
+                        check(gate <= 0.0, f"{label} {key} gradient gate n={n}: {gate:.3g}")
+            if pooled:  # the gate's q99.9 over every held row, as phase 17 pools its draws
+                gate = grad_gate_beside(*(np.concatenate(g) for g in zip(*pooled)))
+                rep["grad_gate_beside"] = gate
+                check(gate <= 0.0, f"{label} {key} gradient gate beside plain, every held row: "
+                      f"{gate:.3g}")
+            for n, repeats in ((4096, 5), (65536, 3)):
+                x = rows(n, rng)
+                b = bound("k3" if k3 else "k2", trunk, n, BOUND_TIER[tiers[0]],
+                          BOUND_TIER[tiers[1]] if k3 else None)
+                rep[str(n)] = {
+                    "kernel_ms": time_ms(lambda: call(x), repeats, warmup=1),
+                    "kernel_stream_ms": stream_ms(lambda: call(x), repeats, rounds=1),
+                    "plain_ms": time_ms(lambda: plain(ops, x), repeats, warmup=1),
+                    "bound_ms": b[0], "bound_by": b[1],
+                    "tile_rows": fn.rows_for(n) if fn.wide else plan.heights[0]}
+            rep["workspace_bytes"] = 0 if route.workspace is None else route.workspace.numel()
+            out[key] = rep
+        report[label] = out
+        print(f"phase 22: wide route on hidden {label} {json.dumps(out)}", flush=True)
+    report["held_s"] = time.perf_counter() - t_phase
+
+    # the samplers through sample_posterior on (1536,)×3
+    t0 = time.perf_counter()
+    config = DirectEmulatorConfig(hidden_dims=WIDE_NETS["1536x3"])
+    net = DirectEmulator(config=config, normalizer=model.normalizer, seed=WIDE_ROUTES_SEED,
+                         device=dev)
+    truth = synthetic_params(1, rng)[0]
+    obs = net.predict(truth) + rng.normal(0.0, 5.0, config.n_bins)
+    exact = net.loglik_fn(obs, NOISE_VAR, precision="contract")  # plain, the exact tier
+    valgrad = net.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel",
+                                     grad_precision=MAIN_TIERS[1])
+    k2 = net.loglik_fn(obs, NOISE_VAR, backend="kernel")
+    check(valgrad.wide and k2.fused.wide,
+          "the samplers' K3 and K2 on (1536,)×3 run the wide route")
+    samplers = {}
+    for sampler, sizes, fn in (("hmc", EXACT_HMC, valgrad), ("mh", MH_SIZES, k2)):
+        fn.launches = 0
+        res, wall = timed(lambda: net.sample_posterior(obs, NOISE_VAR, sampler=sampler, **sizes))
+        launches = fn.launches
+        want = (hmc_launches(sizes["n_warmup"], sizes["n_steps"]) if sampler == "hmc"
+                else 1 + sizes["n_warmup"] + sizes["n_steps"])
+        check(launches == want, f"(1536,)×3 {sampler}: launches {launches}, not {want}")
+        thin = 5 if sampler == "hmc" else 10
+        check(res.chain.shape == (sizes["n_steps"] // thin, sizes["n_walkers"], 7),
+              f"(1536,)×3 {sampler}: chain shape {res.chain.shape}")
+        flat = res.flat
+        ll = np.concatenate([scores(exact, net, q, dev) for q in np.array_split(
+            flat, max(1, flat.shape[0] // 65536))])
+        ll_truth = float(scores(exact, net, truth, dev)[0])
+        check(bool(np.isfinite(res.chain).all() and np.isfinite(res.logp).all()
+                   and np.isfinite(ll).all()), f"(1536,)×3 {sampler}: finite draws")
+        check(float(ll.max()) >= ll_truth - 5.0,
+              f"(1536,)×3 {sampler}: best draw {float(ll.max()):.2f} < logL(truth) "
+              f"{ll_truth:.2f} − 5")
+        samplers[sampler] = {"launches": launches, "wall_s": wall,
+                             "accept": float(np.mean(res.accept_rate)),
+                             "loglik_truth": ll_truth, "loglik_draws_max": float(ll.max()),
+                             "share_at_least_truth": float(np.mean(ll >= ll_truth))}
+    report["samplers"] = samplers
+    report["samplers_s"] = time.perf_counter() - t0
+    print(f"phase 22: sample_posterior on hidden (1536,)×3 {json.dumps(samplers)}", flush=True)
+    return report
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -3951,6 +4150,9 @@ def main() -> int:
     # -- phase 21: mesh= on the card, two processes, data-parallel training,
     # the tuner ------------------------------------------------------------------
     mesh_launches, rank_launches = mesh_phase(model, obs, dev, smi)
+    # -- phase 22: the wide route at every K2 tier and K3 pair on three
+    # networks the dedicated kernels refuse; the samplers on one ------------
+    wide_routes = wide_routes_phase(model, dev)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
               "launches_fit": fits["fit"], "launches_profile": fits["profile"],
               "launches_ladder_warm_start": evidence["ladder"]["k3"],
@@ -3965,9 +4167,11 @@ def main() -> int:
     # figures beside; the fp32, mixed and reverse K3 at phase 5's short
     # HMCs' walkers, with their 65,536-row figures and phase 4's turns
     # beside); the wide route fused_loglik_grad_gram.cu runs only a network
-    # too wide for the others: its launches are phase 19's wide ensemble's
-    # (its row times phase 4's wide network at (fp32, fp32), the reverse
-    # pairs' beside); the launches
+    # the others refuse: K3's launches there are phase 19's wide ensemble's
+    # and phase 22's HMC (its row times phase 4's wide network at (fp32,
+    # fp32), the reverse pairs' beside, and phase 22's device ms per call
+    # at 4096 and 65,536 rows by network and route), K2's phase 22's MH (its
+    # row times (1536,)×3 at bf16x3); the launches
     # of phases 12-13 and 15-16 count in the totals, by path beside them
     big = 1_048_576
     k1_sizes, trunk = model.config.mlp().sizes, model.config.mlp().sizes[:-1]
@@ -3982,6 +4186,12 @@ def main() -> int:
 
     wide = timings["wide"]
     wide_pairs = [f"{a}/{b}" for a, b in WIDE_PAIRS]
+    wide_k2 = wide_routes["1536x3"]["k2 high"]
+    wide_stream = {label: {key: [r["4096"]["kernel_stream_ms"], r["65536"]["kernel_stream_ms"]]
+                           for key, r in wide_routes[label].items() if key != "hidden"}
+                   for label in WIDE_NETS}
+    wide_err = max(r["max_abs"] for label in WIDE_NETS for key, r in wide_routes[label].items()
+                   if key.startswith("k3"))
     exact = wide_pairs[0]
 
     def turns(key, part="mixed_turns"):
@@ -4067,15 +4277,26 @@ def main() -> int:
               **ensemble("k3_reverse"),
               **at_64k(timings["high/highest/65536"],
                        bound("k3", trunk, 65536, "bf16x3", "f32"))),
-        entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES, ens_launches["k3_wide"],
-              max(wide[p]["max_abs"] for p in wide_pairs), wide[exact]["4096"],
+        entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES,
+              ens_launches["k3_wide"] + wide_routes["samplers"]["hmc"]["launches"],
+              max(wide_err, *(wide[p]["max_abs"] for p in wide_pairs)), wide[exact]["4096"],
               (wide[exact]["4096"]["bound_ms"], wide[exact]["4096"]["bound_by"]),
               hidden=wide["hidden"], launches_trained=0, launches_serve=0,
+              launches_wide_hmc=wide_routes["samplers"]["hmc"]["launches"],
+              stream_ms_by_network_4096_65536=wide_stream,
               tile_rows=wide[exact]["4096"]["tile_rows"],
               reverse_pairs={p: {n: wide[p][n] for n in ("4096", "65536")}
                              for p in wide_pairs if p != exact},
               hidden_ensemble=list(WIDE_HIDDEN), **ensemble("k3_wide"),
               **at_64k(wide[exact]["65536"], (wide[exact]["65536"]["bound_ms"],))),
+        entry("fused_loglik_gram_wide", K3_SOURCE, K2_REPLACES,
+              wide_routes["samplers"]["mh"]["launches"],
+              max(r["max_abs"] for label in WIDE_NETS for key, r in wide_routes[label].items()
+                  if key.startswith("k2")),
+              wide_k2["4096"], (wide_k2["4096"]["bound_ms"], wide_k2["4096"]["bound_by"]),
+              hidden=list(WIDE_NETS["1536x3"]), launches_wide_mh=wide_routes["samplers"]["mh"][
+                  "launches"], launches_trained=0, launches_serve=0,
+              **at_64k(wide_k2["65536"], (wide_k2["65536"]["bound_ms"],))),
         entry("fused_loglik_grad_gram_mma", GRAM_MMA_SOURCE, K3_REPLACES,
               launches + sum(new_k3.values()) + ens_launches["k3"] + serve["k3"] + cli_hmc
               + mesh_launches["hmc_plain"] + mesh_launches["hmc_mesh"],

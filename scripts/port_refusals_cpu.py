@@ -69,7 +69,9 @@ def main() -> int:
             out[key][layers] = refused
     shipped = [(288, 352, 288, 224), (256, 256, 128, 128, 128)]
     taken = {f"{k} {'/'.join(t)}": all(builds(k, t, h) for h in shipped) for k, t in cases}
-    print(json.dumps({"narrowest_refused_uniform_width": out, "shipped_widths_taken": taken}))
+    deep = {f"{k} {'/'.join(t)}": builds(k, t, (256,) * 12) for k, t in cases}
+    print(json.dumps({"narrowest_refused_uniform_width": out, "shipped_widths_taken": taken,
+                      "deep_256x12_taken": deep}))
     return 0
 
 

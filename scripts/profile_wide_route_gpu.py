@@ -68,15 +68,14 @@ def main() -> int:
             keep[name] = codes != code
         keep["mm_only"] = ((codes == wide.OP_MM) | (codes == wide.OP_RING)
                            | (codes == wide.OP_DX_WRITE))
-        plan = wide.wide_plan(ops.widths, ops.packed is not None)
         for name, kept in keep.items():
             # the C entry takes the program's length from the plan
-            fused_loglik.wide_plan = lambda *_, n=int(kept.sum()): plan._replace(ops=plan.ops[:n])
+            route = fused_loglik.WideLaunch(fn.plan._replace(ops=fn.plan.ops[:int(kept.sum())]),
+                                            True, fn.sm_count, dev)
             stripped = dataclasses.replace(ops, program=table[kept].contiguous().to(dev))
             for h in fn.heights:
                 out[f"{tiers[0]}/{tiers[1]}@{h}/{name}"] = smoke.stream_ms(
-                    lambda: fused_loglik._loglik_grad_gram_cuda(stripped, x, h), 10)
-        fused_loglik.wide_plan = wide.wide_plan
+                    lambda: route(stripped, x, h), 10)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps(out), flush=True)

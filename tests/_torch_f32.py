@@ -200,35 +200,52 @@ def emulate_reverse_grad_gram(ops, x):
     return value, _skinny_backward(ops, x, e[:, : widths[1]])
 
 
-def emulate_wide_grad_gram(ops, x):
+def _frag_matrix(flat, word, k, n, parts):
+    """The (parts, 16·k-steps, 8·n-tiles) weights of the matrix whose
+    fragments start at ``word`` of the fragment buffer ``flat`` (bf16)."""
+    from tpu21cmvae_torch.ops.kernels.wide import frag_words, pad16
+
+    size = 2 * frag_words(k, n, parts)
+    packed = flat[2 * word: 2 * word + size]
+    return unpack(packed.reshape(pad16(n) // 8, pad16(k) // 16, 32, parts, 4))
+
+
+def emulate_wide(ops, x, plan=None):
     """``fused_loglik_grad_gram.cu``: the program of ``ops.program``
-    (``ops/kernels/wide.py``) run op by op on the CPU, as the kernel runs
+    (``ops/kernels/wide.py``; ``plan``, the one ``ops`` were packed
+    under, default ``ops_plan``'s) run op by op on the CPU, as the kernel runs
     it on a tile (at any height: nothing depends on it), every buffer of
-    the tile NaN until an op writes it (a read of memory no op wrote
-    turns the result NaN). The fp32 products come from the stream
-    ``ops.slabs.w`` in program order, one sum per output over k
+    the tile and of the workspace NaN until an op writes it (a read of
+    memory no op wrote turns the result NaN). The fp32 products come from
+    the stream ``ops.slabs.w`` in program order, one sum per output over k
     ascending, the accumulators carried between chunks; a split layer's
     upper 64 rows into sums of their own, added in the epilogue. The
-    tensor-core products (a reverse pair) through the packed fragments of
-    ``ops.packed``, the chunk split or rounded once, each chunk's
-    products added to the carried sums. Activation 0 recomputed from the
-    input at each chunk (``fused_skinny_dense``), the masks from the fp32
+    tensor-core products through the fragment buffer ``ops.frags`` at each
+    op's own parts, the chunk split or rounded once, each 128-column
+    chunk's products (``mma_product``'s) added to the carried sums. The
+    workspace ops are copies. Activation 0 recomputed from the input at
+    each chunk (``fused_skinny_dense``), the masks from the fp32
     pre-activations, the quad summed per (row, slice: columns ≡ slice mod
     8) and dx per (row, slice: groups of four columns ≡ slice mod 8), the
-    eight slices in order. ``(logL, dlogL/dx)``."""
+    eight slices in order. ``(logL, dlogL/dx)``, or K2's ``logL`` where
+    ``ops.grad_tier`` is None."""
     from tpu21cmvae_torch.ops.fold import _split_hi_lo, bf16_round
     from tpu21cmvae_torch.ops.kernels import wide
-    from tpu21cmvae_torch.ops.kernels.fused_loglik import wide_parts
+    from tpu21cmvae_torch.ops.kernels.fused_loglik import ops_plan
 
+    plan = plan or ops_plan(ops)
     n_in, W = ops.widths[0], ops.widths[1:]
-    parts = wide_parts(ops.tier)
     slices = 8  # kSlices
     B = x.shape[0]
     xl = _log_clamp(x)
     nan = float("nan")
-    buf = {i: torch.full((B, 4096), nan) for i in (wide.CA, wide.CB, *wide.HELD)}
+    width = {wide.CA: SLAB_N, wide.CB: SLAB_N, **dict(zip(wide.HELD, plan.cols))}
+    # each buffer as wide as its whole chunks: a product reads and writes
+    # whole 32-column quarters, and those past a layer's width are not read
+    buf = {i: torch.full((B, max(chunks(c), 1) * SLAB_N), nan) for i, c in width.items()}
+    ws = torch.full((B, max(plan.ws_cols, 1)), nan)
     masks = torch.zeros((B, max(1, sum(padk(w) for w in W[:-1]))), dtype=torch.bool)
-    frags = ([unpack(f) for f in (*ops.packed.w, ops.packed.g)] if parts else None)
+    mats = {}
     q = x.new_zeros((slices, B))
     dxp = x.new_zeros((slices, B, n_in))
     at = 0  # the stream's float offset
@@ -247,21 +264,21 @@ def emulate_wide_grad_gram(ops, x):
             if mask_col >= 0:
                 masks[:, mask_col: mask_col + cols] = v > 0.0
         elif code == wide.OP_MM:
-            src, src_row, k, d0, d1, flags, dst, col0, frag, kstep0, n = op[1:12]
+            src, src_row, k, d0, d1, flags, dst, col0, parts, frag, ksteps, kstep0, n = op[1:14]
             first = flags & wide.MM_FIRST
             a = buf[src][:, src_row: src_row + k]
             out = buf[dst]
-            if frag >= 0:  # tensor cores: the chunk split or rounded once
-                wp = frags[frag - 1][:, 16 * kstep0: 16 * kstep0 + k]
-                c0, c1 = SLAB_N * d0, min(SLAB_N * d1, wide.pad16(n))
-                if parts == 2:
-                    hi, lo = _split_hi_lo(a)
-                    prod = hi @ wp[0] + hi @ wp[1] + lo @ wp[0]
-                else:
-                    prod = bf16_round(a) @ wp[0]
-                cols = slice(c0 - col0, c1 - col0)
-                acc = prod[:, c0:c1] if first else out[:, cols] + prod[:, c0:c1]
-                out[:, cols] = acc
+            if parts:  # tensor cores: the chunk split or rounded once
+                if frag not in mats:
+                    mats[frag] = _frag_matrix(ops.frags, frag, 16 * ksteps, n, parts)
+                wp = mats[frag][:, 16 * kstep0: 16 * kstep0 + k]
+                hi, lo = _split_hi_lo(a) if parts == 2 else (bf16_round(a), None)
+                for d in range(d0, d1):  # one 128-column product at a time
+                    c0, c1 = SLAB_N * d, min(SLAB_N * (d + 1), wide.pad16(n))
+                    w = wp[:, :, c0:c1]
+                    prod = hi @ w[0] + hi @ w[1] + lo @ w[0] if parts == 2 else hi @ w[0]
+                    cols = slice(c0 - col0, c1 - col0)
+                    out[:, cols] = prod if first else out[:, cols] + prod
                 continue
             split = flags & wide.MM_SPLIT
             for d in range(d0, d1):
@@ -297,17 +314,16 @@ def emulate_wide_grad_gram(ops, x):
                 if mask_col >= 0:
                     masks[:, mask_col: mask_col + cols] = v > 0.0
         elif code == wide.OP_GRAM:
-            h_id, e_id, H, col0, cols, u_at = op[1:7]
+            h_id, h0, e_id, e0, H, j0, cols, u_at = op[1:9]
             e = buf[e_id]
-            for jl in range(cols):
-                j = col0 + jl
+            for j in range(j0, j0 + cols):
                 if j < H:
-                    hv = (torch.relu(skinny(j, 1))[:, 0] if h_id < 0 else buf[h_id][:, j])
-                    hg, uj = e[:, jl], ops.slabs.b[u_at + j]
+                    hv = torch.relu(skinny(j, 1))[:, 0] if h_id < 0 else buf[h_id][:, j - h0]
+                    hg, uj = e[:, j - e0], ops.slabs.b[u_at + j]
                 else:
                     hv = hg = uj = x.new_zeros(B)
-                q[jl % slices] = q[jl % slices] + (hg + 2.0 * uj) * hv
-                e[:, jl] = torch.where(hv > 0.0, hg + uj, 0.0)
+                q[j % slices] = q[j % slices] + (hg + 2.0 * uj) * hv
+                e[:, j - e0] = torch.where(hv > 0.0, hg + uj, 0.0)
         elif code == wide.OP_QUAD_WRITE:
             quad = functools.reduce(lambda s, t: s + t, q)
         elif code == wide.OP_DX:  # slice p takes the groups of four columns ≡ p (mod slices)
@@ -317,10 +333,19 @@ def emulate_wide_grad_gram(ops, x):
                 dxp[p] = dxp[p] + buf[src][:, src_row + j, None] * ops.w0[None, :, w0_col + j]
         elif code == wide.OP_DX_WRITE:
             dx = functools.reduce(lambda s, t: s + t, dxp)
+        elif code == wide.OP_LOAD:
+            col, dst = op[1:3]
+            buf[dst][:, :SLAB_N] = ws[:, col: col + SLAB_N]
+        elif code == wide.OP_STORE:
+            src, col = op[1:3]
+            ws[:, col: col + SLAB_N] = buf[src][:, :SLAB_N]
         elif code == wide.OP_RING:
             pass
         else:
             raise ValueError(f"unknown op {code}")
     assert at == ops.slabs.w.numel()
     value = -0.5 * (quad + ops.c) + ops.log_norm
+    if ops.grad_tier is None:
+        return value
     return value, -(_log_clamp_grad(x) * dx)
+

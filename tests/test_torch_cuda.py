@@ -44,7 +44,12 @@ from tpu21cmvae_torch.priors import GaussianBoxPrior
 from tpu21cmvae_torch.sampling._common import valgrad_from_loglik
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig, TrainConfig
 from tpu21cmvae_torch.sampling.gradient import sample_hmc
-from tpu21cmvae_torch.utils.metrics import grad_gate_violation, grad_rel_error
+from tpu21cmvae_torch.ops.kernels._common import member_of
+from tpu21cmvae_torch.utils.metrics import (
+    grad_gate_beside,
+    grad_gate_violation,
+    grad_rel_error,
+)
 
 TIER_PAIRS = [("highest", "highest"), ("high", "high"), ("high", "default")]
 TIERS = ["highest", "high", "default"]
@@ -670,7 +675,7 @@ def test_k3_wide_matches_plain(cuda, tiers):
     m, obs, _ = _model(WIDE_HIDDEN, cuda)
     fn = _k3_wide(m, obs, tiers, cuda)
     ops = fn.operands(m.params)
-    assert ops.program is not None and (ops.packed is not None) == (tiers[0] != "highest")
+    assert ops.program is not None and (ops.frags is not None) == (tiers[0] != "highest")
     for n in (1, 37, 100, 4096, 65537):
         x = _prior_rows(n, cuda)
         vp, gp = loglik_grad_gram_reference(ops, x)
@@ -742,6 +747,224 @@ def test_k3_wide_members_equal_single_launches(cuda, tiers):
             assert torch.equal(v3[k], v1) and torch.equal(g3[k], g1), (n, k)
             _close_values(v3[k].cpu().numpy(), vp[k].cpu().numpy(), float(ops.c[k]), tiers[0])
             assert grad_gate_violation(g3[k].cpu().numpy(), gp[k].cpu().numpy()) <= 0.0
+    assert batched.launches == 2
+
+
+# Every network no dedicated kernel holds, at every K2 tier and K3 pair:
+# the wide route. (1536,)×3 is too wide for the tensor-core kernels,
+# (4096, 4096) spills to the workspace at every pair, (256,)×12 is deeper
+# than the dedicated kernels' eight layers.
+ALL_PAIRS = [(a, b) for a in TIERS for b in TIERS]
+WIDE_NETS = [(1536, 1536, 1536), (4096, 4096), (256,) * 12]
+
+
+def _wide_route(m, obs, tiers, dev, members=None):
+    """K2 (``tiers[1]`` None) or K3 at ``tiers`` on the wide route."""
+    if tiers[1] is None:
+        fn = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                    members=members, device=dev)
+    else:
+        fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                         grad_precision=tiers[1], members=members, device=dev)
+    assert fn.wide and not (fn.reverse or fn.register_tiled or fn.tensor_cores or fn.mixed)
+    return fn
+
+
+def _to_cpu(ops):
+    """An operand record (dataclasses, tuples, tensors) with every tensor
+    on the CPU."""
+    import dataclasses
+
+    if isinstance(ops, torch.Tensor):
+        return ops.cpu()
+    if dataclasses.is_dataclass(ops):
+        return dataclasses.replace(ops, **{f.name: _to_cpu(getattr(ops, f.name))
+                                           for f in dataclasses.fields(ops)})
+    if isinstance(ops, tuple):
+        parts = [_to_cpu(t) for t in ops]
+        return type(ops)(*parts) if hasattr(ops, "_fields") else tuple(parts)
+    return ops
+
+
+def _exact_gradient(m, obs, params, x):
+    """The plain K3 at (fp32, fp32) on ``params`` (``m``'s network): the
+    exact gradient against which a tensor-core tier's kernel and plain
+    version are each held."""
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision="highest",
+                                     grad_precision="highest", device=x.device)
+    return loglik_grad_gram_reference(fn.operands(params), x)[1]
+
+
+def _held_to_plain(got, want, ops, tiers, exact=None):
+    """Values within the value tier's tolerance of plain (``ops``: one
+    model's operands); gradients (K3) under the gate at an fp32 value
+    tier, at a tensor-core one no less accurate than plain against the
+    ``exact`` gradient (:func:`_exact_gradient`) by the gate's margins
+    (``grad_gate_beside``: on networks this wide or deep both flip ReLU
+    masks on more rows than the gate's 0.1 %); the fx == 0 slot exactly
+    0."""
+    if tiers[1] is None:
+        got, want = (got,), (want,)
+    got = [t.cpu().numpy() for t in got]
+    want = [t.cpu().numpy() for t in want]
+    assert all(np.isfinite(t).all() for t in got)
+    _close_values(got[0], want[0], float(ops.c), tiers[0])
+    if tiers[1] is not None:
+        if tiers[0] == "highest":
+            assert grad_gate_violation(got[1], want[1]) <= 0.0
+        else:
+            assert grad_gate_beside(got[1], want[1], exact.cpu().numpy()) <= 0.0
+        assert got[1][0, 2] == 0.0
+
+
+def _wide_anyway(fn, ops, k3):
+    """The wide route's call on ``fn``'s network where a dedicated kernel
+    holds it: its operands packed for the wide route, launched directly
+    at the tallest height (:class:`fused_loglik.WideLaunch`)."""
+    import dataclasses
+
+    ops = fused_loglik.pack_wide_operands(dataclasses.replace(
+        ops, slabs=None, packed=None, program=None, frags=None))
+    route = fused_loglik.WideLaunch(fused_loglik.ops_plan(ops), k3, fn.sm_count, fn.device)
+    return ops, lambda x: route(ops, x, route.plan.heights[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", WIDE_NETS, ids=["1536x3", "4096x2", "256x12"])
+@pytest.mark.parametrize("tiers", [(t, None) for t in TIERS] + ALL_PAIRS,
+                         ids=[f"k2-{t}" for t in TIERS] + [f"k3-{a}-{b}" for a, b in ALL_PAIRS])
+def test_wide_routes_match_plain(cuda, hidden, tiers):
+    """K2 at every tier and K3 at every pair on the wide route: one launch
+    per wrapper call where the dedicated kernels refuse the network (at a
+    tier or pair whose dedicated kernel holds (1536,)×3 the wrapper keeps
+    it, and the wide route's operands are launched directly), within the
+    value tier's tolerance of the plain version at 37 and 4096 rows,
+    gradients under the gate (at a tensor-core value tier beside plain
+    against the exact gradient: ``_held_to_plain``), the fx == 0 slot
+    exactly 0; where the plan spills, the wrapper's workspace is allocated
+    once and reused."""
+    m, obs, _ = _model(hidden, cuda)
+    k3 = tiers[1] is not None
+    if k3:
+        fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                         grad_precision=tiers[1], device=cuda)
+    else:
+        fn = make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                    device=cuda)
+    ops = fn.operands(m.params)
+    if fn.wide:
+        def call(x):
+            return fn(m.params, x)
+    else:
+        assert hidden == (1536, 1536, 1536) and tiers in [
+            ("highest", None), ("default", None), ("highest", "highest"), ("default", "default")]
+        ops, call = _wide_anyway(fn, ops, k3)
+    plain = loglik_grad_gram_reference if k3 else loglik_gram_reference
+    for n in (37, 4096):
+        x = _prior_rows(n, cuda)
+        fn.launches = 0
+        got = call(x)
+        assert fn.launches == int(fn.wide)
+        exact = _exact_gradient(m, obs, m.params, x) if k3 else None
+        _held_to_plain(got, plain(ops, x), ops, tiers, exact)
+    if fn.wide:
+        assert (fn.wide_launch.workspace is not None) == bool(fn.plan.spilled
+                                                              or fn.plan.masks_in_ws)
+    if hidden == (4096, 4096):
+        assert fn.plan.spilled
+        workspace = fn.wide_launch.workspace
+        fn(m.params, _prior_rows(100, cuda))
+        assert fn.wide_launch.workspace is workspace
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [(t, None) for t in TIERS] + ALL_PAIRS,
+                         ids=[f"k2-{t}" for t in TIERS] + [f"k3-{a}-{b}" for a, b in ALL_PAIRS])
+def test_wide_workspace_plan_equals_the_shared_plan(cuda, tiers):
+    """A network's plan under a small shared-memory budget (its vectors in
+    the workspace, at K3 also with the mask bits there; a persistent grid
+    of a few CTAs) gives the all-shared plan's results bit for bit on the
+    card, at each height, and both hold to the CPU emulation of the
+    program and to plain."""
+    import dataclasses
+    import sys
+
+    sys.path.insert(0, __file__.rsplit("/", 1)[0])
+    from _torch_f32 import emulate_wide
+
+    from tpu21cmvae_torch.ops.kernels import wide
+    from tpu21cmvae_torch.ops.kernels._common import MAX_SHARED_BYTES
+
+    m, obs, _ = _model((1200, 1300), cuda)
+    k3 = tiers[1] is not None
+    fn = (make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                      grad_precision=tiers[1], device=cuda) if k3 else
+          make_fused_loglik_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                 device=cuda))
+    base = dataclasses.replace(fn.operands(m.params), slabs=None, packed=None, program=None,
+                               frags=None)
+
+    def route(budget):  # the operands packed under ``budget`` and their launches
+        plan = fused_loglik.ops_plan(base, budget)
+        return (fused_loglik.pack_wide_operands(base, budget),
+                fused_loglik.WideLaunch(plan, k3, fn.sm_count, cuda))
+
+    shared, spilled = route(MAX_SHARED_BYTES), route(120_000)
+    plan = spilled[1].plan
+    assert plan.spilled and not shared[1].plan.spilled
+    x = _prior_rows(1000, cuda)
+    want = shared[1](shared[0], x, 16)
+    emulated = emulate_wide(_to_cpu(spilled[0]), x[:37].cpu(), plan)
+    runs = [spilled]
+    if k3:  # a budget a byte short of the masks as well: they go to the workspace
+        runs.append(route(wide.plan_bytes(plan, 32) - 1))
+        assert runs[-1][1].plan.masks_in_ws
+    for ops, launch in runs:
+        for rows in launch.plan.heights:
+            # fewer CTAs than row tiles: each loops over several
+            got = launch(ops, x, rows, ctas=5)
+            torch.cuda.synchronize()
+            pairs = zip(got, want) if k3 else [(got, want)]
+            assert all(torch.equal(a, b) for a, b in pairs), rows
+    plain = loglik_grad_gram_reference if k3 else loglik_gram_reference
+    exact = _exact_gradient(m, obs, m.params, x) if k3 else None
+    _held_to_plain(want, plain(shared[0], x), shared[0], tiers, exact)
+    first = [t[:37] for t in want] if k3 else want[:37]
+    _held_to_plain(first, emulated, shared[0], tiers, None if exact is None else exact[:37])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [("high", None), ("high", "default"), ("highest", "default"),
+                                   ("default", "high")])
+def test_wide_new_routes_members_equal_single_launches(cuda, tiers):
+    """M = 3 on the wide route at the new tiers and pairs, on a network
+    that spills: one member-batched launch equals the three members'
+    single launches bit for bit, and holds to the member-batched plain
+    version."""
+    hidden = (4096, 4096)
+    ens, obs = _members(hidden, cuda)
+    batched = _wide_route(ens, obs, tiers, cuda, members=3)
+    singles = [_wide_route(ens, obs, tiers, cuda) for _ in range(3)]
+    assert batched.plan.spilled
+    views = ens.member_params(ens.params)
+    ops = batched.operands(ens.params)
+    k3 = tiers[1] is not None
+    plain = (fused_loglik.loglik_grad_gram_members_reference if k3
+             else fused_loglik.loglik_gram_members_reference)
+    for n in (37, 4096):
+        x = _prior_rows(n, cuda)
+        got = batched(ens.params, x)
+        want = plain(ops, x)
+        for k, (f, p) in enumerate(zip(singles, views)):
+            one = f(p, x)
+            own = member_of(ops, k)
+            if k3:
+                assert torch.equal(got[0][k], one[0]) and torch.equal(got[1][k], one[1]), (n, k)
+                _held_to_plain((got[0][k], got[1][k]), (want[0][k], want[1][k]), own, tiers,
+                               _exact_gradient(ens, obs, p, x))
+            else:
+                assert torch.equal(got[k], one), (n, k)
+                _held_to_plain(got[k], want[k], own, tiers)
     assert batched.launches == 2
 
 

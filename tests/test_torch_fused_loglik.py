@@ -60,6 +60,7 @@ from tpu21cmvae_torch.ops.kernels._common import (
 )
 from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     MIXED_TILE_ROWS,
+    _gram_mma_bytes,
     _kernel,
     grad_f32_bytes,
     grad_f32_heights,
@@ -76,7 +77,7 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     pack_gram_operands,
     shared_bytes,
 )
-from tpu21cmvae_torch.ops.kernels.wide import wide_bytes
+from tpu21cmvae_torch.ops.kernels.wide import plan_bytes, wide_plan
 from tpu21cmvae_torch.ops.mlp import fused_skinny_dense
 from tpu21cmvae_torch.utils.config import DirectEmulatorConfig
 from tpu21cmvae_torch.utils.metrics import grad_gate_violation, grad_rel_error
@@ -191,13 +192,16 @@ def test_wrapper_rejects_bad_inputs(pair):
     with pytest.raises(NotImplementedError, match="ReLU"):
         make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=SMALL, activation="tanh"),
                                     tm.normalizer, obs, device="cpu")
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(1536,) * 3),
+    with pytest.raises(NotImplementedError, match="input parameters"):
+        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=SMALL, n_params=9),
                                     tm.normalizer, obs, device="cpu")
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        # no fp32 layout holds it either: not two 8-row buffers, not every activation
-        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(3200,) * 3),
-                                    tm.normalizer, obs, precision="highest", device="cpu")
+    # too wide for the tensor-core and the register-tiled kernels: the wide
+    # route takes them, spilling to its workspace what shared memory
+    # cannot hold
+    for hidden, tier in (((1536,) * 3, "high"), ((3200,) * 3, "highest")):
+        fn = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=hidden),
+                                         tm.normalizer, obs, precision=tier, device="cpu")
+        assert fn.wide and fn.plan.heights
 
 
 def test_operands_cached_until_weights_change(pair):
@@ -404,7 +408,7 @@ def test_gram_shared_bytes_and_routing(port_model):
     with its ring, plus its 552-byte operand struct: two blocks share an
     SM at the flagship; ``fused_loglik_grad_gram.cu`` (a reverse pair too
     wide for that) the tiles of its plan (``ops/kernels/wide.py``:
-    ``wide_bytes``) at the tallest height that fits; ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16 backward) the
+    ``plan_bytes``) at the tallest height that fits; ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16 backward) the
     fp32 K3's masks and partials and two regions, one for the fp32 ``e``
     and later a bf16 A tile, one for the forward's other tile, ring and
     input tile and later the other A tile, plus its 256-byte operand
@@ -479,8 +483,8 @@ def test_gram_shared_bytes_and_routing(port_model):
             assert fn.register_tiled == (case == ("highest", "highest"))
             assert fn.mixed == mixed and fn.reverse == reverse
     wide = DirectEmulatorConfig(hidden_dims=(1500,))  # fits the fp32 and bf16 tiles only
-    assert shared_bytes((7, 1500), "bf16x3", "bf16x3") > MAX_SHARED_BYTES
-    assert gram_shared_bytes((7, 1500), "bf16x3") > MAX_SHARED_BYTES
+    assert _gram_mma_bytes((7, 1500), "bf16x3", "bf16x3") > MAX_SHARED_BYTES
+    assert _gram_mma_bytes((7, 1500), "bf16x3", None) > MAX_SHARED_BYTES
     assert grad_mixed_heights((7, 1500), "bf16x3") == (16,)
     for precision in ("highest", "default"):
         make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision=precision, device="cpu")
@@ -490,22 +494,27 @@ def test_gram_shared_bytes_and_routing(port_model):
     assert fn.mixed and fn.heights == (16,)
     # too wide for the reverse mode: fused_loglik_grad_gram.cu, chosen here
     assert grad_reverse_bytes((7, 1500), "bf16") > MAX_SHARED_BYTES
-    assert shared_bytes((7, 1500), "bf16", "f32") == wide_bytes((7, 1500), 32, 1)
+    assert shared_bytes((7, 1500), "bf16", "f32") == plan_bytes(wide_plan((7, 1500), 1), 32)
     fn = make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="default",
                                      grad_precision="highest", device="cpu")
     assert fn.wide and fn.heights == (32, 16)
     assert not (fn.reverse or fn.tensor_cores or fn.mixed or fn.register_tiled)
-    with pytest.raises(NotImplementedError, match="shared memory per K3 block at the bf16x3"):
-        make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="high", device="cpu")
-    with pytest.raises(NotImplementedError, match="shared memory per K2 block at the bf16x3"):
-        make_fused_loglik_gram(wide, m.normalizer, obs, precision="high", device="cpu")
-    # too wide for the mixed kernel at either height: refused, as every
-    # kernel refuses a network it cannot hold
+    # too wide for the tensor-core kernel at bf16x3: K2 and K3 run the wide
+    # route, whose plan fits
+    fn = make_fused_loglik_grad_gram(wide, m.normalizer, obs, precision="high", device="cpu")
+    assert fn.wide and not fn.tensor_cores
+    assert shared_bytes((7, 1500), "bf16x3", "bf16x3") == plan_bytes(fn.plan, 32) <= (
+        MAX_SHARED_BYTES)
+    fn = make_fused_loglik_gram(wide, m.normalizer, obs, precision="high", device="cpu")
+    assert fn.wide and not fn.tensor_cores
+    assert gram_shared_bytes((7, 1500), "bf16x3") == plan_bytes(fn.plan, 32) <= MAX_SHARED_BYTES
+    # too wide for the mixed kernel at either height: the wide route, with
+    # its fp32 forward and tensor-core backward
     wider = DirectEmulatorConfig(hidden_dims=(1700,))
     assert grad_mixed_heights((7, 1700), "bf16") == ()
-    with pytest.raises(NotImplementedError, match="shared memory per K3 block at the f32"):
-        make_fused_loglik_grad_gram(wider, m.normalizer, obs, precision="highest",
-                                    grad_precision="default", device="cpu")
+    fn = make_fused_loglik_grad_gram(wider, m.normalizer, obs, precision="highest",
+                                     grad_precision="default", device="cpu")
+    assert fn.wide and not fn.mixed
     for rows in (64, 8):
         with pytest.raises(ValueError, match="mixed tier pair"):
             make_fused_loglik_grad_gram(m.config, m.normalizer, obs, precision="highest",
@@ -824,7 +833,7 @@ def test_grad_gram_f32_takes_what_the_16_row_kernel_took(port_model):
     for trunk in [(7, 3623, 1), (7, 3200, 64, 64)]:
         assert every(trunk) <= MAX_SHARED_BYTES and grad_f32_heights(trunk) == ()
         assert grad_f32_rows(trunk, 4096, 132) is None
-        assert shared_bytes(trunk) == wide_bytes(trunk, 32, 0) <= MAX_SHARED_BYTES
+        assert shared_bytes(trunk) == plan_bytes(wide_plan(trunk, 0), 32) <= MAX_SHARED_BYTES
         fn = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=trunk[1:]),
                                          m.normalizer, obs, precision="highest", device="cpu")
         assert fn.wide and not fn.register_tiled and not fn.tensor_cores

@@ -36,7 +36,7 @@ from _torch_f32 import (
     emulate_f32_mlp,
     emulate_mixed_grad_gram,
     emulate_reverse_grad_gram,
-    emulate_wide_grad_gram,
+    emulate_wide,
 )
 from _torch_pair import one_torch_thread  # noqa: F401
 from test_torch_fused_loglik import _emulate_gram
@@ -183,7 +183,7 @@ def emulation(route, ops):
     if kernel.startswith("k1"):
         return emulate_f32_mlp if tier == "highest" else _emulate_mma
     if ops.program is not None:  # the wide route, fused_loglik_grad_gram.cu
-        return emulate_wide_grad_gram
+        return emulate_wide
     if kernel == "k2":
         return emulate_f32_gram if tier == "highest" else functools.partial(_emulate_gram,
                                                                              grad=False)

@@ -250,9 +250,10 @@ def test_reverse_routing_bytes_and_the_too_wide_network(port_model):
     tier's code alone, where the network fits its shared memory
     (:func:`grad_reverse_bytes`: two blocks per SM at the flagship); a
     network too wide for it runs the wide route
-    (``fused_loglik_grad_gram.cu``), with its program, stream and the
-    forward's fragments, and the value tier's code, the height and the
-    plan's sizes; one too wide for both is refused."""
+    (``fused_loglik_grad_gram.cu``), with its program, stream and
+    fragment buffer, and its A tile's parts (the value tier's code), the
+    height and the plan's sizes; one too wide for both spills to the
+    workspace."""
     assert gram_reverse("bf16x3", "f32") and gram_reverse("bf16", "f32")
     assert not any(gram_reverse(t, g) for t, g in [("f32", "f32"), ("bf16x3", "bf16"),
                                                    ("f32", "bf16"), ("bf16", "bf16x3")])
@@ -285,14 +286,16 @@ def test_reverse_routing_bytes_and_the_too_wide_network(port_model):
         entry, tensors, ints = _kernel(ops, True, rows=fn.rows_for(4096))
         assert entry == "k3_fused_loglik_grad_gram" and ints[:2] == [TIER_CODE[ops.tier], 32]
         assert tensors[2:5] == [ops.slabs.b, ops.slabs.w, ops.program]
-        assert tensors[5:] == [*ops.packed.w, ops.packed.g]
+        assert tensors[5:] == [ops.frags] and ops.packed is None
     # a lone skinny layer streams its e_0 into dx: no held tile, so a
     # layer the first, 16-row kernel refused (every activation at its own width) fits
     assert 4 * 16 * (7 + 2 * 1900) > MAX_SHARED_BYTES
     fn = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=(1900,)), m.normalizer,
                                      obs, precision="high", grad_precision="highest", device="cpu")
     assert fn.wide
+    # too wide for every tile of shared memory: the wide route spills its
+    # held vectors to the workspace, and refuses nothing
     wider = DirectEmulatorConfig(hidden_dims=(3000, 3000))
-    with pytest.raises(NotImplementedError, match="shared memory per K3 block at the bf16x3"):
-        make_fused_loglik_grad_gram(wider, m.normalizer, obs, precision="high",
-                                    grad_precision="highest", device="cpu")
+    fn = make_fused_loglik_grad_gram(wider, m.normalizer, obs, precision="high",
+                                     grad_precision="highest", device="cpu")
+    assert fn.wide and fn.plan.spilled and fn.plan.heights == (32, 16)

@@ -3,7 +3,7 @@ plan (``tpu21cmvae_torch/ops/kernels/wide.py``), the routing that sends a
 network there, and its arithmetic through the packed operands.
 
 The kernel runs the op program the plan builds; here
-``tests/_torch_f32.py::emulate_wide_grad_gram`` runs the same program on
+``tests/_torch_f32.py::emulate_wide`` runs the same program on
 the CPU — the chunk order, the recomputed skinny chunks, the mask bits,
 the split layers, the quad and dx summed per (row, slice) — and is held
 to the port's plain version on 37 rows with an fx == 0 row, at (fp32,
@@ -30,7 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_f32 import emulate_wide_grad_gram
+from _torch_f32 import emulate_wide
 from _torch_pair import one_torch_thread  # noqa: F401
 from test_torch_fused_loglik import port_model  # noqa: F401
 
@@ -123,7 +123,7 @@ def test_wide_emulation_matches_pallas_and_plain(wide_pair, hidden, tiers):
     # JAX's DEFAULT forward runs fp32 under XLA on the CPU, where the port
     # rounds every activation to bf16: (default, highest) is held to plain
     refs = [(vp, gp)] + ([(vj, gj)] if tiers[0] != "default" else [])
-    ve, ge = (t.numpy() for t in emulate_wide_grad_gram(ops, x))
+    ve, ge = (t.numpy() for t in emulate_wide(ops, x))
     assert np.isfinite(ve).all() and np.isfinite(ge).all()
     assert ge[5, 2] == 0.0
     for v, g in refs:
@@ -164,9 +164,10 @@ def test_wide_routes_where_the_16_row_kernel_ran(port_model, trunk):
         assert fn.wide == (old == "16-row")
         if fn.wide:
             parts = {"highest": 0, "high": 2, "default": 1}[tier]
-            assert fn.heights == wide.wide_heights(trunk, parts) != ()
-            assert shared_bytes(trunk, TIER[tier], "f32") == wide.wide_bytes(
-                trunk, fn.heights[0], parts) <= MAX_SHARED_BYTES
+            plan = wide.wide_plan(trunk, parts)
+            assert fn.heights == plan.heights != ()
+            assert shared_bytes(trunk, TIER[tier], "f32") == wide.plan_bytes(
+                plan, fn.heights[0]) <= MAX_SHARED_BYTES
 
 
 def test_wide_route_refuses_no_network_the_16_row_kernel_ran():
@@ -188,19 +189,20 @@ def test_wide_route_refuses_no_network_the_16_row_kernel_ran():
             if _old_route(trunk, tier) == "16-row":
                 checked += 1
                 parts = {"f32": 0, "bf16x3": 2, "bf16": 1}[tier]
-                assert wide.wide_heights(trunk, parts), (trunk, tier)
+                assert wide.wide_plan(trunk, parts).heights, (trunk, tier)
     assert checked > 1000
 
 
 @pytest.mark.parametrize("tiers", PAIRS, ids=["-".join(t) for t in PAIRS])
 def test_wide_entry_and_operands(port_model, tiers):
     """The wide route's C entry, its operands in the order the source reads
-    them (w0, b0, the biases, the stream, the program, then at a reverse
-    pair the forward's fragments, trunk layers then G) and its ints (the
-    value tier's code, the height, the three held tiles' k rows, the mask
-    columns, the stream's rows, the program's length); the stream holds
-    exactly the rows the program's fp32 ops read; a member-batched
-    wrapper's operands have their member strides."""
+    them (w0, b0, the biases, the stream, the program, the fragment buffer:
+    at a reverse pair the forward's fragments, none at (fp32, fp32)) and
+    its ints (the A tile's parts: the value tier's code, the height, the
+    three held tiles' k rows, the mask columns, the stream's rows, the
+    program's length, no workspace); the stream holds exactly the rows the
+    program's fp32 ops read; a member-batched wrapper's operands have their
+    member strides."""
     m, obs = port_model((32,))
     cfg = DirectEmulatorConfig(hidden_dims=(3200, 64, 64))
     fn = make_fused_loglik_grad_gram(cfg, m.normalizer, obs, precision=tiers[0],
@@ -208,31 +210,32 @@ def test_wide_entry_and_operands(port_model, tiers):
     assert fn.wide
     params = DirectEmulator(config=cfg, normalizer=m.normalizer, seed=1, device="cpu").params
     ops = fn.operands(params)
-    plan = wide.wide_plan(ops.widths, tiers[0] != "highest")
+    plan = wide.wide_plan(ops.widths, TIER_CODE[ops.tier], 0)
+    assert fn.plan == plan
     entry, tensors, ints = _kernel(ops, True, rows=fn.rows_for(4096))
     assert entry == "k3_fused_loglik_grad_gram"
     assert ints == [TIER_CODE[ops.tier], fn.heights[0], *plan.cols, plan.mask_cols,
-                    plan.stream_rows, len(plan.ops)]
-    frags = [] if tiers[0] == "highest" else [*ops.packed.w, ops.packed.g]
+                    plan.stream_rows, len(plan.ops), 0, 0, 0, None]
+    frags = None if tiers[0] == "highest" else ops.frags
     assert all(a is b for a, b in zip(tensors, [ops.w0, ops.b0, ops.slabs.b, ops.slabs.w,
-                                                ops.program, *frags]))
-    assert len(tensors) == 5 + len(frags)
-    assert ops.program.dtype == torch.int32 and ops.program.shape == (len(plan.ops), 12)
+                                                ops.program, frags]))
+    assert len(tensors) == 6 and (frags is None) == (tiers[0] == "highest")
+    assert ops.program.dtype == torch.int32 and ops.program.shape == (len(plan.ops), 16)
     assert ops.slabs.w.numel() == wide.SLAB_N * plan.stream_rows
     read = sum((64 if op[6] & wide.MM_SPLIT else op[3]) * (op[5] - op[4])
-               for op in plan.ops if op[0] == wide.OP_MM and op[9] < 0)
+               for op in plan.ops if op[0] == wide.OP_MM and op[9] == 0)
     assert read == plan.stream_rows
     # (3200, 64, 64): layer 0 recomputed, 3200 → 64 split on the CUDA
     # cores, e_0 streamed into dx; two 32-row CTAs share an SM
     assert plan.streamed_forward == frozenset() and plan.streamed_backward == {0}
     assert plan.split == ({("a", 1)} if tiers[0] == "highest" else set())
-    assert 2 * (wide.wide_bytes(ops.widths, 32, 0) + 1024) <= 233_472
+    assert 2 * (wide.plan_bytes(wide.wide_plan(ops.widths, 0), 32) + 1024) <= 233_472
     stacked = make_fused_loglik_grad_gram(cfg, m.normalizer, obs, precision=tiers[0],
                                           grad_precision=tiers[1], members=2, device="cpu")
     two = tuple({k: torch.stack([v, v]) for k, v in layer.items()} for layer in params)
     _, tensors2, _ = _kernel(stacked.operands(two), True, rows=32)
-    assert list(member_strides(tensors2, 2)) == [t[0].numel() * t.element_size()
-                                                 for t in tensors2]
+    assert list(member_strides(tensors2, 2)) == [
+        0 if t is None else t[0].numel() * t.element_size() for t in tensors2]
 
 
 @pytest.mark.parametrize("n_in", [1, 7, 8])

@@ -1,31 +1,33 @@
-// K3 for Hopper on a network too wide for the kernels that hold two
-// full-width activation buffers: the gram-form Gaussian log-likelihood
-// and its gradient with respect to the raw parameters, for a batch of
-// rows, in one kernel. It takes (fp32, fp32) and the reverse pairs (a
-// bf16 or bf16x3 value tier, an fp32 backward) of such a network, e.g.
-// hidden (3200, 64, 64), (100, 3300, 64) or (1700, 1700, 8). The other
-// pairs and narrower networks run fused_loglik_grad_gram_f32.cu,
-// fused_gram_mma.cu and fused_gram_mixed.cu.
+// K2 and K3 for Hopper on every network the dedicated kernels cannot
+// hold: the gram-form Gaussian log-likelihood, and (K3) its gradient with
+// respect to the raw parameters, for a batch of rows, in one kernel. It
+// takes K2 at every tier and K3 at every (value, backward) tier pair, at
+// any width and any depth: a network too wide for the kernels that hold
+// two full-width activation buffers or a row tile's bf16 activations, e.g.
+// hidden (3200, 64, 64), (1536, 1536, 1536) or (4096, 4096), or deeper
+// than their kMaxLayers, e.g. (256,)×12. Other networks run
+// fused_loglik_gram.cu, fused_loglik_grad_gram_f32.cu, fused_gram_mma.cu
+// and fused_gram_mixed.cu.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
-// (kernel body _loglik_grad_gram_kernel), on a wide network. Same
-// contract: per row it writes
+// (kernel body _loglik_grad_gram_kernel) and make_fused_loglik_gram
+// (_loglik_gram_kernel), on such a network. Same contract: per row it
+// writes
 //   quad = ‖r‖² − c = Σ_j (h@G + 2u)_j · h_j
-//   dx   = ½ · d‖r‖²/dx_raw
+//   dx   = ½ · d‖r‖²/dx_raw                      (K3)
 // where h is the last ReLU trunk activation of the folded network and
 // (G, u, c) come from ops/fold.py::gram_fold; the caller returns
-// (−½·(quad + c) + log_norm, −dx).
+// −½·(quad + c) + log_norm (and −dx).
 //
-// What bounds it on an H100: fp32 FMA throughput on the CUDA cores (at
-// the reverse pairs the forward's bf16 products go to the tensor cores,
-// the backward stays fp32). On hidden (3200, 64, 64) a row needs 0.213 M
-// products forward, 0.209 M backward and 22,400 each way in the skinny
-// layer: 0.93 MFLOP, 0.91 ms per 65,536 rows at 67 TFLOP/s. The first
-// design (one thread per output column of a 16-row tile, every
-// activation held at its own width, 217 KB of shared memory, one CTA per
-// SM) left 3/4 of the threads idle on 3200 → 64 and walked 3200 columns
-// in one thread per (row, input) in the skinny backward: 4.8 % of the
-// bound.
+// What bounds it on an H100: fp32 FMA throughput on the CUDA cores where
+// a tier is fp32, the tensor cores' bf16 rate where it is bf16 or bf16x3.
+// On hidden (3200, 64, 64) a row needs 0.213 M products forward, 0.209 M
+// backward and 22,400 each way in the skinny layer: 0.93 MFLOP, 0.91 ms
+// per 65,536 rows at 67 TFLOP/s. The first design (one thread per output
+// column of a 16-row tile, every activation held at its own width, 217 KB
+// of shared memory, one CTA per SM) left 3/4 of the threads idle on 3200
+// → 64 and walked 3200 columns in one thread per (row, input) in the
+// skinny backward: 4.8 % of the bound.
 //
 // What the design does about it (ops/kernels/wide.py, which builds the
 // program this kernel runs; tests/_torch_f32.py runs the same program on
@@ -39,13 +41,21 @@
 //   program reads them.
 // - No wide activation is held whole. Layer 0 (the skinny layer) is
 //   recomputed chunk by chunk from the input tile wherever it is read
-//   (n_in ≤ 8 products an element). Every dense layer is summed k-outer:
-//   a 128-row input chunk at a time, its products added to accumulators
+//   (n_in ≤ 8 products an element). A held layer is summed k-outer: a
+//   128-row input chunk at a time, its products added to accumulators
 //   that wait in the output's tile between chunks, so a layer's output
 //   is one fp32 sum over k ascending per element, as in the other
 //   register-tiled kernels. A wide activation between two layers is
 //   produced one 128-column chunk at a time (bias, ReLU, mask bits) and
 //   consumed at once as one k-chunk of the next layer.
+// - What shared memory cannot hold goes to a per-CTA region of a global
+//   workspace: such a vector is summed n-outer, a 128-column chunk at a
+//   time over every input chunk, finished in a chunk buffer and stored
+//   (OP_STORE); its readers load a chunk at a time by cp.async (OP_LOAD).
+//   The mask bits go there too where they do not fit; they are read and
+//   written in place. Then the grid is persistent: as many CTAs as the
+//   card holds at once per member, each looping over row tiles, so the
+//   workspace is bounded by resident CTAs, not by the batch.
 // - Masks are bits, one per (row, column) of every activation but the
 //   last (tile_f32.cuh's MaskBits layout: 12.8 KB for 3200 columns at 32
 //   rows). The backward mirrors the forward: each chunk of e is produced
@@ -57,18 +67,22 @@
 //   64) would leave two of a chunk's four column quarters idle; there
 //   the upper quarters take the upper 64 rows of every input chunk into
 //   sums of their own, added to the lower ones in the epilogue.
-// - Reverse pairs: the forward's products run on the tensor cores
-//   (mma.cuh's fragment loads and mma.sync, B as pack_mma_operands packs
-//   it); each input chunk is split (bf16x3) or rounded (bf16) once into
-//   an A-chunk tile for the layer that reads it, and each k-step's
-//   products are added to the waiting sums in k-step order, so hg and
-//   every activation are the tensor-core K2's bit for bit. The backward
-//   runs in fp32 as above.
+// - Every product carries its own tier parts: an fp32 one runs as above;
+//   a bf16 or bf16x3 one on the tensor cores (mma.cuh's fragment loads
+//   and mma.sync, B as pack_mma_operands packs it, from one fragment
+//   buffer): its input chunk is split (bf16x3) or rounded (bf16) once
+//   into an A-chunk tile, and each k-step's products are added to the
+//   waiting sums in k-step order, so at a bf16 value tier hg and every
+//   activation are the tensor-core K2's bit for bit, and a bf16 backward
+//   computes fused_gram_mixed.cu's products.
+// No placement moves a sum: whatever is held, streamed or spilled, each
+// element is summed over the same products in the same order, so the
+// results do not depend on the plan, the tile height or the member count.
 // Shared memory (hidden (3200, 64, 64), fp32, 32 rows): the ring 32 KB,
 // the input tile, two chunk buffers and two held tiles (the split 64-wide
-// layer's 128 columns and 64) 57 KB, the masks 12.8 KB: 105,488 bytes
-// with the static copy of the net, two CTAs per SM (114,704 at bf16x3,
-// with the A-chunk tile).
+// layer's 128 columns and 64) 57 KB, the staged w0 chunk 4 KB, the masks
+// 12.8 KB: 109,464 bytes with the static copy of the net, two CTAs per
+// SM (114,584 at bf16x3, with the A-chunk tile over the w0 chunk).
 //
 // Members: grid y runs an ensemble's M members in one launch, each CTA on
 // one member's stacked operands (trunk.cuh, member_at). Nothing else
@@ -86,7 +100,7 @@
 namespace {
 
 // the op program (ops/kernels/wide.py): kOpInts ints per op, code first
-constexpr int kOpInts = 12;
+constexpr int kOpInts = 16;
 enum WideOp : int {
   kOpSkinny = 1,
   kOpMM = 2,
@@ -96,20 +110,23 @@ enum WideOp : int {
   kOpDxWrite = 6,
   kOpRing = 7,
   kOpQuadWrite = 8,
+  kOpLoad = 9,
+  kOpStore = 10,
 };
 enum WideBuf : int { kCA = 0, kCB = 1, kP = 2, kQ = 3, kR = 4 };
 constexpr int kMMSplit = 1, kMMFirst = 2;
 constexpr int kAStride = kSlabN + 8;  // bf16 per row of the A-chunk tile
 constexpr int kWideNTiles = 2;        // n8 tiles a warp carries at once (mma.cuh: kNTiles)
 constexpr int kInRows = kMaxIn;       // k rows of the input tile
+constexpr int kWsAlign = 256;         // a CTA's workspace starts on this many bytes
 // The quad and dx are summed per row by kSlices threads, thread (row r,
 // slice p) over columns p, p + kSlices, …, then the slices in order: the
 // same at every tile height (the first kSlices·BM threads take part: all
 // of them at 32 rows), so a row's result does not depend on the height,
 // nor on the member count through it.
 constexpr int kSlices = 8;
-// A staged chunk of w0 (kMaxIn rows of kSlabN columns). With the
-// tensor-core forward it lies over the A-chunk tile (at least 4352
+// A staged chunk of w0 (kMaxIn rows of kSlabN columns). Where any product
+// runs on the tensor cores it lies over the A-chunk tile (at least 4352
 // bytes), which only an mma OP_MM uses, from its own conversion on; the
 // passes that stage w0 (OP_SKINNY, OP_DX) never overlap one.
 constexpr int kW0Floats = kSlabN * kMaxIn;
@@ -126,20 +143,25 @@ struct WideRing {
 };
 
 struct WideNet {
-  int n_layers;               // trunk layers, the skinny one included
-  int width[kMaxLayers + 1];  // width[0] = n_in; activation i is width[i + 1] wide
+  int n_in;                 // the skinny layer's fan-in …
+  int n1;                   // … and width: w0 is (n_in, n1)
   int n_ops;
-  int cols[3];                // k rows of the held tiles P, Q, R
-  int total;                  // slabs in the fp32 stream at this tile height
-  const float* w0;            // (n_in, width[1]), exact fp32
-  const float* b0;            // (width[1],)
-  const float* bias;          // trunk layers 1 … n−1 padded to 128·chunks, then u
-  const float* slabs;         // the fp32 stream, in the program's order
-  const int4* prog;           // n_ops · kOpInts ints
-  const uint32_t* frag[kMaxLayers];  // reverse pairs: layer i's fragments at frag[i − 1], G's last
-  long long s_w0, s_b0, s_bias, s_slabs, s_prog, s_frag[kMaxLayers];
+  int cols[3];              // k rows of the held tiles P, Q, R
+  int total;                // slabs in the fp32 stream at this tile height
+  int ws_cols;              // k rows of a CTA's workspace tiles
+  int ws_masks;             // the mask bits lie in the workspace (after its tiles)
+  int n_tiles;              // row tiles of the batch
+  long long ws_cta_bytes;   // a CTA's workspace
+  const float* w0;          // (n_in, n1), exact fp32
+  const float* b0;          // (n1,)
+  const float* bias;        // trunk layers 1 … n−1 padded to 128·chunks, then u
+  const float* slabs;       // the fp32 stream, in the program's order
+  const int4* prog;         // n_ops · kOpInts ints
+  const uint32_t* frags;    // the fragment buffer (mma operands), or null
+  uint8_t* ws;              // the workspace (every CTA's region), or null
+  long long s_w0, s_b0, s_bias, s_slabs, s_prog, s_frags;
 };
-static_assert(sizeof(WideNet) == 272, "ops/kernels/wide.py's WIDE_NET_BYTES");
+static_assert(sizeof(WideNet) == 152, "ops/kernels/wide.py's WIDE_NET_BYTES");
 static_assert(2 * 16 * kAStride >= 4 * kSlabN * kMaxIn, "w0's chunk fits the smallest A tile");
 
 // The net of member m: every operand moved by m times its stride.
@@ -149,8 +171,16 @@ __device__ __forceinline__ void to_member(WideNet& net, int m) {
   net.bias = member_at(net.bias, net.s_bias, m);
   net.slabs = member_at(net.slabs, net.s_slabs, m);
   net.prog = member_at(net.prog, net.s_prog, m);
-#pragma unroll
-  for (int i = 0; i < kMaxLayers; ++i) net.frag[i] = member_at(net.frag[i], net.s_frag[i], m);
+  net.frags = member_at(net.frags, net.s_frags, m);
+}
+
+// One CTA's workspace: its k-major fp32 tiles (ws_cols k rows of stride
+// S), then (ws_masks) the mask bits, rounded up to kWsAlign bytes
+// (ops/kernels/wide.py::ws_cta_bytes).
+template <int BM>
+__host__ __device__ long long ws_cta_bytes(int ws_cols, int mask_bytes) {
+  const long long size = 4LL * tile_stride(BM) * ws_cols + mask_bytes;
+  return (size + kWsAlign - 1) / kWsAlign * kWsAlign;
 }
 
 // ---------------------------------------------------------------- fp32 MM
@@ -354,19 +384,19 @@ __device__ __forceinline__ void store_mask(uint8_t* mask, int j, unsigned ballot
 // ws[c·kSlabN …], 0 past valid and past n_in), each warp reading 32
 // consecutive weights: a chunk of the skinny layer read once from
 // device memory by the pass that needs it. The caller syncs after.
-__device__ __forceinline__ void stage_w0(const WideNet& net, int col0, int valid, float* ws) {
-  const int n_in = net.width[0];
-  const int n1 = net.width[1];
+__device__ __forceinline__ void stage_w0(const WideNet& net, int col0, int valid, float* w0s) {
+  const int n_in = net.n_in;
+  const int n1 = net.n1;
   for (int t = threadIdx.x; t < kSlabN * kMaxIn; t += blockDim.x) {
     const int c = t / kSlabN;
     const int jj = t % kSlabN;
-    ws[t] = jj < valid && c < n_in ? __ldg(net.w0 + c * n1 + col0 + jj) : 0.f;
+    w0s[t] = jj < valid && c < n_in ? __ldg(net.w0 + c * n1 + col0 + jj) : 0.f;
   }
 }
 
 // Input column c's staged weights of the four columns j … j + 3.
-__device__ __forceinline__ float4 staged4(const float* ws, int c, int j) {
-  return *reinterpret_cast<const float4*>(ws + c * kSlabN + j);
+__device__ __forceinline__ float4 staged4(const float* w0s, int c, int j) {
+  return *reinterpret_cast<const float4*>(w0s + c * kSlabN + j);
 }
 
 // Forward (bias ≠ null): v = (j < valid ? acc (+ the split's upper acc at
@@ -402,17 +432,17 @@ __device__ __forceinline__ void finish(float* out, int cols, int valid,
 // columns (0 from `valid` on), its mask bits where `mask` is not null;
 // each element trunk.cuh::skinny_dot's sum, in its order, from the
 // thread's row of the input tile in registers and the chunk's weights
-// staged in `ws`. A thread carries four consecutive columns (one float4
+// staged in `w0s`. A thread carries four consecutive columns (one float4
 // of weights per input column), the block 4·kThreads/BM columns a pass.
 template <int BM>
 __device__ __forceinline__ void skinny_chunk(const float* xl, const WideNet& net, int kappa,
                                              int cols, int valid, float* out, uint8_t* mask,
-                                             float* ws) {
+                                             float* w0s) {
   constexpr int S = tile_stride(BM);
   constexpr int P = kThreads / BM;
-  stage_w0(net, kappa * kSlabN, valid, ws);
+  stage_w0(net, kappa * kSlabN, valid, w0s);
   __syncthreads();
-  const int n_in = net.width[0];
+  const int n_in = net.n_in;
   const int r = threadIdx.x % BM;
   float x[kMaxIn];
 #pragma unroll
@@ -422,13 +452,13 @@ __device__ __forceinline__ void skinny_chunk(const float* xl, const WideNet& net
     const bool live = j0 < cols;  // 4 | cols: a group is all in or all out
     float acc[4];
     if (live) {
-      const float4 w = staged4(ws, 0, j0);
+      const float4 w = staged4(w0s, 0, j0);
       acc[0] = __fmul_rn(x[0], w.x), acc[1] = __fmul_rn(x[0], w.y);
       acc[2] = __fmul_rn(x[0], w.z), acc[3] = __fmul_rn(x[0], w.w);
 #pragma unroll
       for (int c = 1; c < kMaxIn; ++c) {
         if (c < n_in) {
-          const float4 wc = staged4(ws, c, j0);
+          const float4 wc = staged4(w0s, c, j0);
           acc[0] = __fadd_rn(acc[0], __fmul_rn(x[c], wc.x));
           acc[1] = __fadd_rn(acc[1], __fmul_rn(x[c], wc.y));
           acc[2] = __fadd_rn(acc[2], __fmul_rn(x[c], wc.z));
@@ -450,14 +480,16 @@ __device__ __forceinline__ void skinny_chunk(const float* xl, const WideNet& net
   }
 }
 
-// The gram head's epilogue on its columns col0 … col0 + cols − 1, hg in
-// e (column j at j − col0), by the first kSlices·BM threads: thread (row
-// r, slice p) over columns p, p + kSlices, … adds (hg + 2u)_j · h_j to its
+// The gram head's epilogue on its columns j0 … j0 + cols − 1, hg in e
+// (column j at j − e_col0), by the first kSlices·BM threads: thread (row
+// r, slice p) over columns ≡ p (mod kSlices) adds (hg + 2u)_j · h_j to its
 // quad partial q by fmaf and sets e ← h > 0 ? hg + u : 0 in place (0 past
-// H). h from the tile `h` (the layer's column j at j), or (null)
-// recomputed from the input tile (a trunk of the skinny layer alone).
+// H). h from the tile `h` (column j at j − h_col0), or (null) recomputed
+// from the input tile (a trunk of the skinny layer alone). j0 is a
+// multiple of kSlices, so a column's slice is the same in every plan.
 template <int BM>
-__device__ __forceinline__ void gram_epilogue(const float* h, float* e, int H, int col0, int cols,
+__device__ __forceinline__ void gram_epilogue(const float* h, int h_col0, float* e, int e_col0,
+                                              int H, int j0, int cols,
                                               const float* __restrict__ u, const float* xl,
                                               const WideNet& net, float& q) {
   constexpr int S = tile_stride(BM);
@@ -465,17 +497,17 @@ __device__ __forceinline__ void gram_epilogue(const float* h, float* e, int H, i
   if (threadIdx.x >= P * BM) return;
   const int r = threadIdx.x % BM;
   for (int jl = static_cast<int>(threadIdx.x) / BM; jl < cols; jl += P) {
-    const int j = col0 + jl;
+    const int j = j0 + jl;
     float hv = 0.f, hg = 0.f, uj = 0.f;
     if (j < H) {
       hv = h != nullptr
-               ? h[j * S + r]
-               : relu(skinny_dot(xl + r, S, net.width[0], net.w0 + j, H, __ldg(net.b0 + j)));
-      hg = e[jl * S + r];
+               ? h[(j - h_col0) * S + r]
+               : relu(skinny_dot(xl + r, S, net.n_in, net.w0 + j, net.n1, __ldg(net.b0 + j)));
+      hg = e[(j - e_col0) * S + r];
       uj = __ldg(u + j);
     }
     q = fmaf(hg + 2.f * uj, hv, q);
-    e[jl * S + r] = hv > 0.f ? hg + uj : 0.f;
+    e[(j - e_col0) * S + r] = hv > 0.f ? hg + uj : 0.f;
   }
 }
 
@@ -495,20 +527,20 @@ __device__ __forceinline__ void rows_write(float v, float* red, float* __restric
 }
 
 // dx partials from `valid` columns of a chunk of e_0 (w0's columns
-// w0_col …, staged in `ws`, 0 past valid): thread (row r, slice p <
+// w0_col …, staged in `w0s`, 0 past valid): thread (row r, slice p <
 // kSlices) over the groups of four columns 4p … 4p + 3, 4p + 32 …, in
 // column order, one fp32 sum per input column by fmaf.
 template <int BM>
 __device__ __forceinline__ void dx_partials(const float* e, int valid, int w0_col,
                                             const WideNet& net, float (&dxp)[kMaxIn],
-                                            float* ws) {
+                                            float* w0s) {
   constexpr int S = tile_stride(BM);
   constexpr int P = kSlices;
-  stage_w0(net, w0_col, valid, ws);
+  stage_w0(net, w0_col, valid, w0s);
   __syncthreads();
   if (threadIdx.x >= P * BM) return;
   const int r = threadIdx.x % BM;
-  const int n_in = net.width[0];
+  const int n_in = net.n_in;
   for (int j0 = 4 * static_cast<int>(threadIdx.x / BM); j0 < valid; j0 += 4 * P) {
     float ev[4];
 #pragma unroll
@@ -516,7 +548,7 @@ __device__ __forceinline__ void dx_partials(const float* e, int valid, int w0_co
 #pragma unroll
     for (int c = 0; c < kMaxIn; ++c) {
       if (c < n_in) {
-        const float4 w = staged4(ws, c, j0);
+        const float4 w = staged4(w0s, c, j0);
         dxp[c] = fmaf(ev[0], w.x, dxp[c]);
         if (j0 + 1 < valid) dxp[c] = fmaf(ev[1], w.y, dxp[c]);
         if (j0 + 2 < valid) dxp[c] = fmaf(ev[2], w.z, dxp[c]);
@@ -549,11 +581,47 @@ __device__ __forceinline__ void dx_write(const float (&dxp)[kMaxIn], const float
   }
 }
 
+// A 128-column chunk of the workspace's tiles (k rows col …) into the
+// chunk buffer `dst`, by cp.async, each thread waiting for its own copies
+// (the next op's barrier makes the chunk whole); the wait also lands the
+// ring's slabs in flight.
+template <int BM>
+__device__ __forceinline__ void ws_load(const float* ws, int col, float* dst) {
+  constexpr int S = tile_stride(BM);
+  const float* src = ws + static_cast<size_t>(col) * S;
+  for (int t = threadIdx.x; t < kSlabN * S / 4; t += kThreads) cp_async16(dst + 4 * t, src + 4 * t);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_wait<0>();
+}
+
+// The chunk buffer `src` into the workspace's k rows col … col + 127.
+template <int BM>
+__device__ __forceinline__ void ws_store(const float* src, float* ws, int col) {
+  constexpr int S = tile_stride(BM);
+  float4* dst = reinterpret_cast<float4*>(ws + static_cast<size_t>(col) * S);
+  for (int t = threadIdx.x; t < kSlabN * S / 4; t += kThreads)
+    dst[t] = reinterpret_cast<const float4*>(src)[t];
+}
+
 // ---------------------------------------------------------------- kernel
 
-// PF: the forward's tier parts on the tensor cores (1 bf16, 2 bf16x3), 0
-// for the fp32 forward on the CUDA cores. The backward is fp32 at all.
+// One OP_MM on the tensor cores at PF parts: the input chunk split or
+// rounded into the A-chunk tile, then the products.
 template <int BM, int PF>
+__device__ __forceinline__ void op_mma(const int (&f)[kOpInts], const float* in,
+                                       __nv_bfloat16* at, const uint32_t* __restrict__ frags,
+                                       float* out) {
+  to_a_chunk<BM, PF>(in, f[3], at);
+  __syncthreads();
+  const int tiles = ((f[13] + 15) & ~15) / 8;
+  mm_mma<BM, PF>(at, f[3], frags + f[10], f[11], f[12], 16 * f[4], min(16 * f[5], tiles), out,
+                 f[8], f[6] & kMMFirst);
+}
+
+// PA: the A-chunk tile's parts, the most any op of the program runs on
+// the tensor cores (0: every product is fp32, on the CUDA cores; 1 bf16;
+// 2 bf16x3). dx null: K2, a program without a backward.
+template <int BM, int PA>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ quad,
                               float* __restrict__ dx, int n_rows, const WideNet net_in) {
@@ -568,127 +636,209 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
     to_member(net, blockIdx.y);
   }
   __syncthreads();
-  const int n_in = net.width[0];
+  const int n_in = net.n_in;
   quad += static_cast<size_t>(blockIdx.y) * n_rows;
-  dx += static_cast<size_t>(blockIdx.y) * n_rows * n_in;
-  const int row0 = blockIdx.x * BM;
+  if (dx != nullptr) dx += static_cast<size_t>(blockIdx.y) * n_rows * n_in;
 
   // shared memory: the ring, the A-chunk tile, the partials, the staged
   // w0 chunk (over the A-chunk tile where there is one), the input tile,
-  // CA, CB, P, Q, R, the mask bytes
+  // CA, CB, P, Q, R, the mask bytes (unless they lie in the workspace)
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
   __nv_bfloat16* const at = reinterpret_cast<__nv_bfloat16*>(ring + R::kSlots * R::kFloats);
-  float* const red = reinterpret_cast<float*>(at + PF * BM * kAStride);
-  float* const ws = PF > 0 ? reinterpret_cast<float*>(at) : red + kRedFloats;
-  float* const xl = red + kRedFloats + (PF > 0 ? 0 : kW0Floats);
+  float* const red = reinterpret_cast<float*>(at + PA * BM * kAStride);
+  float* const w0s = PA > 0 ? reinterpret_cast<float*>(at) : red + kRedFloats;
+  float* const xl = red + kRedFloats + (PA > 0 ? 0 : kW0Floats);
   // buffer id → its tile: CA, CB, P, Q, R back to back after the input tile
   const int cols0 = net.cols[0], cols1 = net.cols[1];
   const auto buf = [&](int id) {
     return xl + S * (kInRows + (id >= kCB ? kSlabN : 0) + (id >= kP ? kSlabN : 0) +
                      (id >= kQ ? cols0 : 0) + (id >= kR ? cols1 : 0));
   };
-  uint8_t* const mask = reinterpret_cast<uint8_t*>(buf(kR) + S * net.cols[2]);
+  // this CTA's region of the workspace: its tiles, then the mask bits
+  // where they lie there
+  uint8_t* const wsb =
+      net.ws == nullptr
+          ? nullptr
+          : net.ws + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * net.ws_cta_bytes;
+  float* const wsf = reinterpret_cast<float*>(wsb);
+  uint8_t* const mask = net.ws_masks ? wsb + 4LL * S * net.ws_cols
+                                     : reinterpret_cast<uint8_t*>(buf(kR) + S * net.cols[2]);
 
-  int g = 0;  // the fp32 stream's slab counter
-  if constexpr (PF == 0) start_ring<BM, R>(ring, net.slabs, net.total);
-  load_input<BM>(x, n_rows, row0, n_in, n_in, true, xl);
-  float q = 0.f;  // this thread's quad partial
-  float dxp[kMaxIn];
+  // the row tiles of a persistent grid (gridDim.x CTAs per member), one
+  // each otherwise
+  for (int tile = blockIdx.x; tile < net.n_tiles; tile += gridDim.x) {
+    const int row0 = tile * BM;
+    int g = 0;  // the fp32 stream's slab counter
+    __syncthreads();  // the last tile's ops are done with every buffer
+    load_input<BM>(x, n_rows, row0, n_in, n_in, true, xl);
+    float q = 0.f;  // this thread's quad partial
+    float dxp[kMaxIn];
 #pragma unroll
-  for (int c = 0; c < kMaxIn; ++c) dxp[c] = 0.f;
+    for (int c = 0; c < kMaxIn; ++c) dxp[c] = 0.f;
 
-  for (int pc = 0; pc < net.n_ops; ++pc) {
-    int f[kOpInts];
+    for (int pc = 0; pc < net.n_ops; ++pc) {
+      int f[kOpInts];
 #pragma unroll
-    for (int k = 0; k < kOpInts / 4; ++k) {
-      const int4 v = __ldg(net.prog + pc * (kOpInts / 4) + k);
-      f[4 * k] = v.x;
-      f[4 * k + 1] = v.y;
-      f[4 * k + 2] = v.z;
-      f[4 * k + 3] = v.w;
-    }
-    __syncthreads();  // the last op's outputs are complete, its inputs free
-    switch (f[0]) {
-      case kOpSkinny:  // κ, cols, valid, mask_col
-        skinny_chunk<BM>(xl, net, f[1], f[2], f[3], buf(kCA),
-                         f[4] < 0 ? nullptr : mask + f[4] * M::kColBytes, ws);
-        break;
-      case kOpMM: {  // src, src_row, k, d0, d1, flags, dst, dst_col0, frag, kstep0, n
-        const float* in = buf(f[1]) + f[2] * S;
-        const bool first = f[6] & kMMFirst;
-        if constexpr (PF > 0) {
-          if (f[9] >= 0) {  // the forward, on the tensor cores
-            to_a_chunk<BM, PF>(in, f[3], at);
-            __syncthreads();
-            const int frag = f[9];  // trunk layer frag (fan-in width[frag]), or G (n_layers)
-            const int tiles = ((f[11] + 15) & ~15) / 8;
-            mm_mma<BM, PF>(at, f[3], net.frag[frag - 1], (net.width[frag] + 15) / 16, f[10],
-                           16 * f[4], min(16 * f[5], tiles), buf(f[7]), f[8], first);
-            break;
-          }
-        }
-        mm_f32<BM, R>(in, f[3], f[11], f[6] & kMMSplit, buf(f[7]), f[8], f[4], f[5], first,
-                      net.slabs, net.total, ring, g);
-        break;
+      for (int k = 0; k < kOpInts / 4; ++k) {
+        const int4 v = __ldg(net.prog + pc * (kOpInts / 4) + k);
+        f[4 * k] = v.x;
+        f[4 * k + 1] = v.y;
+        f[4 * k + 2] = v.z;
+        f[4 * k + 3] = v.w;
       }
-      case kOpFin:  // dst, cols, valid, bias, split, mask_col, masked
-        finish<BM>(buf(f[1]), f[2], f[3], f[7] ? nullptr : net.bias + f[4], f[5],
-                   f[6] < 0 ? nullptr : mask + f[6] * M::kColBytes);
-        break;
-      case kOpGram:  // h, e, H, col0, cols, u
-        gram_epilogue<BM>(f[1] < 0 ? nullptr : buf(f[1]), buf(f[2]), f[3], f[4], f[5],
-                          net.bias + f[6], xl, net, q);
-        break;
-      case kOpQuadWrite:
-        rows_write<BM>(q, red, quad, row0, n_rows);
-        break;
-      case kOpDx:  // src, src_row, valid, w0_col
-        dx_partials<BM>(buf(f[1]) + f[2] * S, f[3], f[4], net, dxp, ws);
-        break;
-      case kOpDxWrite:
-        dx_write<BM>(dxp, x, dx, red, n_in, row0, n_rows);
-        break;
-      case kOpRing:
-        start_ring<BM, R>(ring, net.slabs, net.total);
-        break;
-      default:
-        break;
+      __syncthreads();  // the last op's outputs are complete, its inputs free
+      switch (f[0]) {
+        case kOpSkinny:  // κ, cols, valid, mask_col
+          skinny_chunk<BM>(xl, net, f[1], f[2], f[3], buf(kCA),
+                           f[4] < 0 ? nullptr : mask + f[4] * M::kColBytes, w0s);
+          break;
+        case kOpMM: {  // src, src_row, k, d0, d1, flags, dst, dst_col0, parts, frag, ksteps,
+                       // kstep0, n
+          const float* in = buf(f[1]) + f[2] * S;
+          if constexpr (PA >= 1) {
+            if (f[9] == 1) {
+              op_mma<BM, 1>(f, in, at, net.frags, buf(f[7]));
+              break;
+            }
+          }
+          if constexpr (PA == 2) {
+            if (f[9] == 2) {
+              op_mma<BM, 2>(f, in, at, net.frags, buf(f[7]));
+              break;
+            }
+          }
+          mm_f32<BM, R>(in, f[3], f[13], f[6] & kMMSplit, buf(f[7]), f[8], f[4], f[5],
+                        f[6] & kMMFirst, net.slabs, net.total, ring, g);
+          break;
+        }
+        case kOpFin:  // dst, cols, valid, bias, split, mask_col, masked
+          finish<BM>(buf(f[1]), f[2], f[3], f[7] ? nullptr : net.bias + f[4], f[5],
+                     f[6] < 0 ? nullptr : mask + f[6] * M::kColBytes);
+          break;
+        case kOpGram:  // h, h_col0, e, e_col0, H, j0, cols, u
+          gram_epilogue<BM>(f[1] < 0 ? nullptr : buf(f[1]), f[2], buf(f[3]), f[4], f[5], f[6],
+                            f[7], net.bias + f[8], xl, net, q);
+          break;
+        case kOpQuadWrite:
+          rows_write<BM>(q, red, quad, row0, n_rows);
+          break;
+        case kOpDx:  // src, src_row, valid, w0_col
+          dx_partials<BM>(buf(f[1]) + f[2] * S, f[3], f[4], net, dxp, w0s);
+          break;
+        case kOpDxWrite:
+          dx_write<BM>(dxp, x, dx, red, n_in, row0, n_rows);
+          break;
+        case kOpRing:
+          start_ring<BM, R>(ring, net.slabs, net.total);
+          break;
+        case kOpLoad:  // col, dst
+          ws_load<BM>(wsf, f[1], buf(f[2]));
+          break;
+        case kOpStore:  // src, col
+          ws_store<BM>(buf(f[1]), wsf, f[2]);
+          break;
+        default:
+          break;
+      }
     }
   }
 }
 
-// Dynamic shared memory of one block (ops/kernels/wide.py::wide_bytes
+// Dynamic shared memory of one block (ops/kernels/wide.py::plan_bytes
 // mirrors it, with the static copy of the net).
-template <int BM, int PF>
-size_t wide_smem_bytes(const int (&cols)[3], int mask_cols) {
+template <int BM, int PA>
+size_t wide_smem_bytes(const int (&cols)[3], int mask_bytes) {
   using R = WideRing<BM>;
   const size_t held = static_cast<size_t>(cols[0]) + cols[1] + cols[2];
-  const size_t floats = R::kSlots * R::kFloats + kRedFloats + (PF > 0 ? 0 : kW0Floats) +
+  const size_t floats = R::kSlots * R::kFloats + kRedFloats + (PA > 0 ? 0 : kW0Floats) +
                         static_cast<size_t>(tile_stride(BM)) * (kInRows + 2 * kSlabN + held);
-  return 4 * floats + static_cast<size_t>(2 * PF * BM * kAStride) +
-         static_cast<size_t>(MaskBits<BM>::kColBytes) * mask_cols;
+  return 4 * floats + static_cast<size_t>(2 * PA * BM * kAStride) + mask_bytes;
 }
 
-template <int BM, int PF>
+// max_ctas: where the plan uses the workspace, the CTAs per member it was
+// sized for (the persistent grid's width); else 0, one CTA per row tile.
+template <int BM, int PA>
 cudaError_t launch_wide(const float* x, float* quad, float* dx, int n_rows, int n_members,
-                        WideNet net, int mask_cols, int stream_rows, cudaStream_t s) {
+                        WideNet net, int mask_cols, int stream_rows, int max_ctas,
+                        cudaStream_t s) {
   using R = WideRing<BM>;
-  const size_t smem = wide_smem_bytes<BM, PF>(net.cols, mask_cols);
+  const int mask_bytes = MaskBits<BM>::kColBytes * mask_cols;
+  const size_t smem = wide_smem_bytes<BM, PA>(net.cols, net.ws_masks ? 0 : mask_bytes);
   if (smem + sizeof(WideNet) > static_cast<size_t>(kMaxSmem) || stream_rows % R::kDepth != 0) {
     return cudaErrorInvalidValue;
   }
   net.total = stream_rows / R::kDepth;
-  auto* kernel = fused_loglik_grad_gram_kernel<BM, PF>;
+  net.n_tiles = (n_rows + BM - 1) / BM;
+  net.ws_cta_bytes = ws_cta_bytes<BM>(net.ws_cols, net.ws_masks ? mask_bytes : 0);
+  int grid_x = net.n_tiles;
+  if (net.ws_cols > 0 || net.ws_masks) {
+    if (net.ws == nullptr || max_ctas < 1) return cudaErrorInvalidValue;
+    grid_x = grid_x < max_ctas ? grid_x : max_ctas;
+  }
+  auto* kernel = fused_loglik_grad_gram_kernel<BM, PA>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((n_rows + BM - 1) / BM, n_members), kThreads, smem, s>>>(x, quad, dx, n_rows,
-                                                                       net);
+  kernel<<<dim3(grid_x, n_members), kThreads, smem, s>>>(x, quad, dx, n_rows, net);
   return cudaGetLastError();
+}
+
+int wide_entry(const float* x, float* quad, float* dx, int n_rows, int n_layers,
+               const int* widths, const void* const* ptrs, const long long* strides,
+               int n_members, int a_parts, int tile_rows, int p_cols, int q_cols, int r_cols,
+               int mask_cols, int stream_rows, int n_ops, int ws_cols, int ws_masks,
+               int max_ctas, void* workspace, void* stream) {
+  if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || widths[0] < 1 ||
+      widths[0] > kMaxIn || a_parts < 0 || a_parts > 2 || n_ops < 1 || p_cols < 0 ||
+      q_cols < 0 || r_cols < 0 || mask_cols < 0 || stream_rows < 0 || ws_cols < 0 ||
+      max_ctas < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i <= n_layers; ++i) {
+    if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WideNet net{};
+  net.n_in = widths[0];
+  net.n1 = widths[1];
+  net.n_ops = n_ops;
+  net.cols[0] = p_cols;
+  net.cols[1] = q_cols;
+  net.cols[2] = r_cols;
+  net.ws_cols = ws_cols;
+  net.ws_masks = ws_masks != 0;
+  net.ws = static_cast<uint8_t*>(workspace);
+  int k = 0;
+  auto next = [&](long long& stride) {
+    stride = strides[k];
+    return ptrs[k++];
+  };
+  net.w0 = static_cast<const float*>(next(net.s_w0));
+  net.b0 = static_cast<const float*>(next(net.s_b0));
+  net.bias = static_cast<const float*>(next(net.s_bias));
+  net.slabs = static_cast<const float*>(next(net.s_slabs));
+  net.prog = static_cast<const int4*>(next(net.s_prog));
+  net.frags = static_cast<const uint32_t*>(next(net.s_frags));
+  if (a_parts > 0 && net.frags == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define T21_WIDE(BM, PA)                                                                     \
+  err = launch_wide<BM, PA>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows,   \
+                            max_ctas, s)
+  if (tile_rows == 32) {
+    if (a_parts == 0) T21_WIDE(32, 0);
+    else if (a_parts == 1) T21_WIDE(32, 1);
+    else T21_WIDE(32, 2);
+  } else if (tile_rows == 16) {
+    if (a_parts == 0) T21_WIDE(16, 0);
+    else if (a_parts == 1) T21_WIDE(16, 1);
+    else T21_WIDE(16, 2);
+  }
+#undef T21_WIDE
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -700,75 +850,46 @@ const char* t21_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// ptrs, in order: w0, b0 (the skinny layer, exact fp32), the padded
+// K3. ptrs, in order: w0, b0 (the skinny layer, exact fp32), the padded
 // biases (trunk layers 1 … n_layers−1, then u), the fp32 stream, the op
-// program (int32, 12 per op; ops/kernels/wide.py::wide_plan), then at a
-// reverse pair (tier 1 bf16, 2 bf16x3) the packed fragments of trunk
-// layers 1 … n_layers−1 and of G at that tier; at tier 0 (fp32, fp32)
-// none. The backward is fp32 at every pair this entry takes. strides:
+// program (int32, 16 per op; ops/kernels/wide.py::wide_plan), the
+// fragment buffer (null where no op runs on the tensor cores). strides:
 // each operand's member stride in bytes, parallel to ptrs; n_members
 // (1 … 65,535) networks run on the same x, member m writing
-// quad[m·n_rows …] and dx[m·n_rows·n_in …]. tile_rows: 32 or 16;
-// p_cols, q_cols, r_cols: the held tiles' k rows;
-// mask_cols: the activations' padded columns whose masks are kept;
-// stream_rows: the fp32 stream's k rows; n_ops: the program's length.
-// Launches on `stream`, allocates nothing and does not synchronise;
-// returns the cudaError_t of the launch.
+// quad[m·n_rows …] and dx[m·n_rows·n_in …]. a_parts: the A-chunk tile's
+// parts (0, 1 bf16, 2 bf16x3: the most any op takes); tile_rows: 32 or
+// 16; p_cols, q_cols, r_cols: the held tiles' k rows; mask_cols: the
+// activations' padded columns whose masks are kept; stream_rows: the fp32
+// stream's k rows; n_ops: the program's length; ws_cols: the k rows of a
+// CTA's workspace tiles; ws_masks: the mask bits lie in the workspace;
+// max_ctas: where either does, the persistent grid's CTAs per member,
+// and `workspace` holds max_ctas · n_members regions of ws_cta_bytes.
+// widths: n_in and the trunk's widths (any depth; the program carries
+// the layers). Launches on `stream`, allocates nothing and does not
+// synchronise; returns the cudaError_t of the launch.
 int k3_fused_loglik_grad_gram(const float* x, float* quad, float* dx, int n_rows, int n_layers,
                               const int* widths, const void* const* ptrs,
-                              const long long* strides, int n_members, int tier, int tile_rows,
-                              int p_cols, int q_cols, int r_cols, int mask_cols, int stream_rows,
-                              int n_ops, void* stream) {
-  if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || n_layers > kMaxLayers ||
-      widths[0] < 1 || widths[0] > kMaxIn || tier < kF32 || tier > kBF16x3 || n_ops < 1 ||
-      p_cols < 0 || q_cols < 0 || r_cols < 0 || mask_cols < 0 || stream_rows < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  WideNet net{};
-  net.n_layers = n_layers;
-  for (int i = 0; i <= n_layers; ++i) {
-    if (widths[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    net.width[i] = widths[i];
-  }
-  net.n_ops = n_ops;
-  net.cols[0] = p_cols;
-  net.cols[1] = q_cols;
-  net.cols[2] = r_cols;
-  int k = 0;
-  auto next = [&](long long& stride) {
-    stride = strides[k];
-    return ptrs[k++];
-  };
-  net.w0 = static_cast<const float*>(next(net.s_w0));
-  net.b0 = static_cast<const float*>(next(net.s_b0));
-  net.bias = static_cast<const float*>(next(net.s_bias));
-  net.slabs = static_cast<const float*>(next(net.s_slabs));
-  net.prog = static_cast<const int4*>(next(net.s_prog));
-  if (tier != kF32) {
-    for (int i = 0; i < n_layers; ++i) net.frag[i] = static_cast<const uint32_t*>(next(net.s_frag[i]));
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (tier == kF32) {
-    switch (tile_rows) {
-      case 32: err = launch_wide<32, 0>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
-      case 16: err = launch_wide<16, 0>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
-      default: break;
-    }
-  } else if (tier == kBF16x3) {
-    switch (tile_rows) {
-      case 32: err = launch_wide<32, 2>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
-      case 16: err = launch_wide<16, 2>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
-      default: break;
-    }
-  } else {
-    switch (tile_rows) {
-      case 32: err = launch_wide<32, 1>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
-      case 16: err = launch_wide<16, 1>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows, s); break;
-      default: break;
-    }
-  }
-  return static_cast<int>(err);
+                              const long long* strides, int n_members, int a_parts,
+                              int tile_rows, int p_cols, int q_cols, int r_cols, int mask_cols,
+                              int stream_rows, int n_ops, int ws_cols, int ws_masks,
+                              int max_ctas, void* workspace, void* stream) {
+  if (dx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return wide_entry(x, quad, dx, n_rows, n_layers, widths, ptrs, strides, n_members, a_parts,
+                    tile_rows, p_cols, q_cols, r_cols, mask_cols, stream_rows, n_ops, ws_cols,
+                    ws_masks, max_ctas, workspace, stream);
+}
+
+// K2: the same, from a value-only program (no backward ops, no masks),
+// writing quad alone.
+int k2_fused_loglik_gram_wide(const float* x, float* quad, int n_rows, int n_layers,
+                              const int* widths, const void* const* ptrs,
+                              const long long* strides, int n_members, int a_parts,
+                              int tile_rows, int p_cols, int q_cols, int r_cols, int mask_cols,
+                              int stream_rows, int n_ops, int ws_cols, int ws_masks,
+                              int max_ctas, void* workspace, void* stream) {
+  return wide_entry(x, quad, nullptr, n_rows, n_layers, widths, ptrs, strides, n_members,
+                    a_parts, tile_rows, p_cols, q_cols, r_cols, mask_cols, stream_rows, n_ops,
+                    ws_cols, ws_masks, max_ctas, workspace, stream);
 }
 
 }  // extern "C"

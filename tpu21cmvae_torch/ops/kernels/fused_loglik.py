@@ -35,12 +35,13 @@ the backward on the tensor cores from the fragments of
 tier with an fp32 backward) run ``csrc/fused_gram_mma.cu`` too: its
 tensor-core forward (the value is the tensor-core K2's bit for bit), then
 the backward register-tiled on the CUDA cores over the fp32 slabs of
-:func:`pack_backward_slabs`. A network too wide for that kernel's shared
-memory at a reverse pair, and the fp32 pair of a network too wide for the
-register-tiled kernel's buffers, run ``csrc/fused_loglik_grad_gram.cu``
-(:attr:`FusedLoglikGradGram.wide`): the program of
-:mod:`~tpu21cmvae_torch.ops.kernels.wide`, which streams a wide layer in
-128-column chunks. The CUDA kernels keep a row tile's activations on chip;
+:func:`pack_backward_slabs`. Every network, at every K2 tier and K3
+pair, that the kernel its tiers pick cannot hold, by shared memory or by
+depth, runs ``csrc/fused_loglik_grad_gram.cu`` (the wrappers' ``wide``):
+the program of :mod:`~tpu21cmvae_torch.ops.kernels.wide`, which streams a
+wide layer in 128-column chunks and keeps what shared memory cannot hold
+in a workspace in device memory, allocated once per wrapper. The CUDA
+kernels keep a row tile's activations on chip;
 the plain versions do the same arithmetic — same folds, same hi/lo split,
 same epilogue — in plain tensor operations.
 
@@ -108,12 +109,14 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     pack_mma_operands,
 )
 from tpu21cmvae_torch.ops.kernels.wide import (
-    WIDE_TILE_ROWS,
+    WidePlan,
+    pack_wide_frags,
     pack_wide_slabs,
+    plan_bytes,
     program_table,
-    wide_bytes,
-    wide_heights,
+    resident_ctas,
     wide_plan,
+    ws_cta_bytes,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
 
@@ -158,10 +161,12 @@ class GramOperands:
     ``b`` empty) or the wide route's stream and biases
     (:func:`~tpu21cmvae_torch.ops.kernels.wide.pack_wide_slabs`), else
     None. ``program``: the wide route's op table
-    (:func:`~tpu21cmvae_torch.ops.kernels.wide.program_table`; at a
-    reverse pair ``packed`` then holds the forward's fragments, ``w``
-    and ``g``), else None. ``members``: M where every tensor is M
-    members' stacked on a leading axis (``c`` as ``(M, 1)``), else None.
+    (:func:`~tpu21cmvae_torch.ops.kernels.wide.program_table`), else
+    None; ``frags``: its fragment buffer
+    (:func:`~tpu21cmvae_torch.ops.kernels.wide.pack_wide_frags`; None
+    where no op runs on the tensor cores). ``members``: M where
+    every tensor is M members' stacked on a leading axis (``c`` as ``(M,
+    1)``), else None.
     """
 
     tier: str
@@ -178,6 +183,7 @@ class GramOperands:
     packed: Optional[GramPacked] = None
     slabs: Optional[Slabs] = None
     program: Optional[torch.Tensor] = None
+    frags: Optional[torch.Tensor] = None
     members: Optional[int] = None
 
     @property
@@ -284,22 +290,24 @@ def pack_backward_slabs(ops: GramOperands) -> Slabs:
     return pack_slabs([(wt, wt.new_zeros(wt.shape[1])) for wt in reversed(ops.wt)])
 
 
-def pack_wide_operands(ops: GramOperands) -> GramOperands:
-    """``ops`` (K3 at (fp32, fp32) or a reverse pair) packed for the wide
-    route ``fused_loglik_grad_gram.cu``: its program and fp32 stream with
-    the biases (:mod:`~tpu21cmvae_torch.ops.kernels.wide`), and at a
-    reverse pair the forward's fragments at the value tier, trunk layers
-    1 … n−1 in ``packed.w`` and G in ``packed.g``."""
-    mma = wide_parts(ops.tier) > 0
-    plan = wide_plan(ops.widths, mma)
-    packed = None
-    if mma:
-        zeros = ops.u.new_zeros(ops.u.shape[0])
-        packed = GramPacked(w=tuple(pack_mma_operands(w, b, ops.tier)[0]
-                                    for w, b in zip(ops.w, ops.b)),
-                            b=(), wt=(), g=pack_mma_operands(ops.g, zeros, ops.tier)[0], u=None)
-    return dataclasses.replace(ops, slabs=pack_wide_slabs(ops, plan), packed=packed,
-                               program=program_table(plan).to(ops.w0.device))
+def ops_plan(ops: GramOperands, budget: int = MAX_SHARED_BYTES) -> WidePlan:
+    """The wide route's plan of ``ops``' widths and tiers (K2 where
+    ``ops.grad_tier`` is None) under a shared-memory ``budget``."""
+    return wide_route_plan(ops.widths, ops.tier, ops.grad_tier, budget)
+
+
+def pack_wide_operands(ops: GramOperands, budget: int = MAX_SHARED_BYTES) -> GramOperands:
+    """``ops`` (K2 at any tier, K3 at any pair) packed for the wide route
+    ``fused_loglik_grad_gram.cu`` under a shared-memory ``budget``: its
+    program, its fp32 stream with the biases and its fragment buffer
+    (:mod:`~tpu21cmvae_torch.ops.kernels.wide`); a launch of them takes
+    the same budget's plan (:func:`ops_plan`, :class:`WideLaunch`)."""
+    plan = ops_plan(ops, budget)
+    return dataclasses.replace(
+        ops, slabs=pack_wide_slabs(ops, plan), packed=None,
+        frags=pack_wide_frags(ops, plan, lambda w, tier: pack_mma_operands(
+            w, w.new_zeros(w.shape[1]), tier)[0]),
+        program=program_table(plan).to(ops.w0.device))
 
 
 def pack_grad_gram_slabs(ops: GramOperands) -> Slabs:
@@ -360,19 +368,36 @@ def loglik_grad_gram_members_reference(ops: GramOperands, x: torch.Tensor):
     return per_member(loglik_grad_gram_reference, ops, x)
 
 
-def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
+def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None,
+            workspace: Optional[torch.Tensor] = None, ctas: int = 0,
+            plan: Optional[WidePlan] = None):
     """The C entry point of the kernel ``ops``' tiers run
     (:func:`gram_on_tensor_cores`, :func:`gram_mixed`,
     :func:`gram_reverse`, and the wide route where ``ops`` carry its
-    program), its operand pointers, and the int arguments after them:
-    the tier codes (at a reverse pair the value tier's alone, where its
+    program), its operand pointers, and the arguments after them: the
+    tier codes (at a reverse pair the value tier's alone, where its
     operands were packed), or the register-tiled kernels' tile height
     ``rows`` (K2 at fp32; K3 at (fp32, fp32) where its stream was packed;
     K3 at (fp32, bf16 tier), after the backward's tier code, where its
-    operands were packed); the wide route the value tier's code, the
-    height and its plan's sizes (:func:`_wide_ints`)."""
+    operands were packed); the wide route the A-chunk tile's parts, the
+    height and the sizes of ``plan``, the one its operands were packed
+    under (default: :func:`ops_plan`'s; :func:`_wide_ints`), then the CTAs
+    of its persistent grid and the ``workspace``, where the plan spills."""
     tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
+    if ops.program is not None:  # the wide route: its program, stream and fragments
+        plan = plan or ops_plan(ops)
+        if plan.ws_cols or plan.masks_in_ws:
+            need = ctas * (ops.members or 1) * ws_cta_bytes(plan, rows)
+            if workspace is None or ctas < 1 or workspace.numel() < need:
+                raise ValueError(f"the wide route's plan needs a workspace of {need} bytes "
+                                 f"for {ctas} CTAs")
+        else:
+            workspace, ctas = None, 0
+        return ("k3_fused_loglik_grad_gram" if k3 else "k2_fused_loglik_gram_wide",
+                [*tensors, ops.slabs.b, ops.slabs.w, ops.program, ops.frags],
+                [plan.a_parts, rows, *_wide_ints(plan), ctas,
+                 None if workspace is None else workspace.data_ptr()])
     if gram_on_tensor_cores(*tiers):
         p = ops.packed
         for i, (w, b) in enumerate(zip(p.w, p.b)):
@@ -381,11 +406,6 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
         return entry, [*tensors, p.g, p.u], [TIER_CODE[t] for t in tiers]
     if not k3:  # fused_loglik_gram.cu runs the fp32 tier alone
         return "k2_fused_loglik_gram", [*tensors, *ops.slabs], [rows]
-    if ops.program is not None:  # the wide route: its program, stream and fragments
-        frags = [*ops.packed.w, ops.packed.g] if ops.packed is not None else []
-        return ("k3_fused_loglik_grad_gram",
-                [*tensors, ops.slabs.b, ops.slabs.w, ops.program, *frags],
-                [TIER_CODE[ops.tier], rows, *_wide_ints(ops)])
     if gram_mixed(*tiers) and ops.slabs is not None:  # fp32 forward, tensor-core backward
         return ("k3_fused_loglik_grad_gram_mixed", [*tensors, *ops.slabs, *ops.packed.wt],
                 [TIER_CODE[ops.grad_tier], rows])
@@ -400,27 +420,34 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None):
     raise ValueError(f"K3 operands at {tiers} carry no kernel's packing")
 
 
-def _wide_ints(ops: GramOperands) -> list:
+def _wide_ints(plan: WidePlan) -> list:
     """The wide route's plan sizes the C entry takes after the height:
-    the three held tiles' k rows, the mask columns, the stream's rows and
-    the program's length."""
-    plan = wide_plan(ops.widths, ops.packed is not None)
-    return [*plan.cols, plan.mask_cols, plan.stream_rows, len(plan.ops)]
+    the three held tiles' k rows, the mask columns, the stream's rows,
+    the program's length, the workspace's k rows per CTA and whether the
+    mask bits lie there."""
+    return [*plan.cols, plan.mask_cols, plan.stream_rows, len(plan.ops), plan.ws_cols,
+            int(plan.masks_in_ws)]
 
 
-def _launch_args(ops: GramOperands, k3: bool, rows: Optional[int]) -> tuple:
+def _launch_args(ops: GramOperands, k3: bool, rows: Optional[int],
+                 workspace: Optional[torch.Tensor] = None, ctas: int = 0,
+                 plan: Optional[WidePlan] = None) -> tuple:
     """The C entry of ``ops``' route (:func:`_kernel`) and its arguments
     after the row count: the trunk's layer count and widths, the operand
     pointers, their member strides, the member count and the entry's
-    ints; built once per fold (:func:`cached_args`)."""
+    ints; built once per fold, height, workspace and wide plan
+    (:func:`cached_args`)."""
 
     def make():
-        entry, tensors, ints = _kernel(ops, k3=k3, rows=rows)
+        entry, tensors, ints = _kernel(ops, k3=k3, rows=rows, workspace=workspace, ctas=ctas,
+                                       plan=plan)
         widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
         return entry, (len(ops.widths) - 1, widths, pointers(tensors),
                        member_strides(tensors, ops.members), ops.members or 1, *ints)
 
-    return cached_args(ops, (k3, rows), make)
+    key = (k3, rows, None if workspace is None else workspace.data_ptr(), ctas,
+           None if plan is None else (plan.a_parts, *_wide_ints(plan)))
+    return cached_args(ops, key, make)
 
 
 def _batch(ops: GramOperands, *shape) -> tuple:
@@ -428,28 +455,73 @@ def _batch(ops: GramOperands, *shape) -> tuple:
     return shape if ops.members is None else (ops.members, *shape)
 
 
-def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
+def _loglik_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: int,
+                      workspace: Optional[torch.Tensor] = None, ctas: int = 0,
+                      plan: Optional[WidePlan] = None) -> torch.Tensor:
     """Launch K2 on PyTorch's current stream (no synchronisation), one
     launch for every member of stacked ``ops``; ``rows``:
-    ``fused_loglik_gram.cu``'s tile height."""
+    ``fused_loglik_gram.cu``'s or the wide route's tile height;
+    ``workspace``, ``ctas`` and ``plan``: the wide route's
+    (:class:`WideLaunch`)."""
     quad = torch.empty(_batch(ops, x.shape[0]), dtype=torch.float32, device=x.device)
     if x.shape[0]:
-        entry, args = _launch_args(ops, False, rows)
+        entry, args = _launch_args(ops, False, rows, workspace, ctas, plan)
         launch("K2", entry, x, x.data_ptr(), quad.data_ptr(), x.shape[0], *args)
     return _value(ops, quad)
 
 
-def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[int] = None):
+def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[int] = None,
+                           workspace: Optional[torch.Tensor] = None, ctas: int = 0,
+                           plan: Optional[WidePlan] = None):
     """Launch K3 on PyTorch's current stream (no synchronisation), one
     launch for every member of stacked ``ops``; ``rows``: the tile height
     of ``fused_loglik_grad_gram_f32.cu``, ``fused_gram_mixed.cu`` or
-    ``fused_loglik_grad_gram.cu`` (None on the other routes)."""
+    ``fused_loglik_grad_gram.cu`` (None on the other routes);
+    ``workspace``, ``ctas`` and ``plan``: the wide route's
+    (:class:`WideLaunch`)."""
     quad = torch.empty(_batch(ops, x.shape[0]), dtype=torch.float32, device=x.device)
     dx = torch.empty(_batch(ops, *x.shape), dtype=torch.float32, device=x.device)
     if x.shape[0]:
-        entry, args = _launch_args(ops, True, rows)
+        entry, args = _launch_args(ops, True, rows, workspace, ctas, plan)
         launch("K3", entry, x, x.data_ptr(), quad.data_ptr(), dx.data_ptr(), x.shape[0], *args)
     return _value(ops, quad), -dx
+
+
+class WideLaunch:
+    """Launches of the wide route's operands packed under ``plan``
+    (:func:`pack_wide_operands`), K3's where ``k3`` else K2's, on a card
+    of ``sm_count`` SMs: where the plan spills, a persistent grid of the
+    CTAs per member the card holds at the call's height (:meth:`ctas`)
+    and the workspace they need at the height that needs the most,
+    allocated at the first launch and reused by every one after
+    (:attr:`workspace`, None where the plan does not spill). The
+    wrappers launch the route through it, and so do direct launches of
+    its operands."""
+
+    def __init__(self, plan: WidePlan, k3: bool, sm_count: int, device, members=None):
+        self.plan, self.k3, self.sm_count = plan, k3, sm_count
+        self.device, self.members = device, members
+        self.spills = bool(plan.ws_cols or plan.masks_in_ws)
+        self.workspace = None
+
+    def ctas(self, rows: int) -> int:
+        """The persistent grid's CTAs per member at ``rows`` rows
+        (:func:`~tpu21cmvae_torch.ops.kernels.wide.resident_ctas`) where
+        the plan spills; else 0."""
+        return resident_ctas(self.plan, rows, self.sm_count) if self.spills else 0
+
+    def __call__(self, ops: GramOperands, x: torch.Tensor, rows: int,
+                 ctas: Optional[int] = None):
+        """Launch ``ops`` on ``x`` at tile height ``rows`` (one of the
+        plan's), on :meth:`ctas` CTAs per member, or on ``ctas`` (at most
+        that many) where given."""
+        if self.spills and self.workspace is None:
+            size = max(self.ctas(r) * ws_cta_bytes(self.plan, r) for r in self.plan.heights)
+            self.workspace = torch.empty(size * (self.members or 1), dtype=torch.uint8,
+                                         device=self.device)
+        launch_fn = _loglik_grad_gram_cuda if self.k3 else _loglik_gram_cuda
+        return launch_fn(ops, x, rows, self.workspace,
+                         self.ctas(rows) if ctas is None else ctas, self.plan)
 
 
 def _gram_mma_bytes(widths, tier: str, grad_tier: Optional[str]) -> int:
@@ -569,46 +641,85 @@ def grad_f32_rows(widths, n_rows: Optional[int] = None, sm_count: Optional[int] 
     return pick_grad_rows(heights, n_rows, sm_count) if heights else None
 
 
+def k3_route(widths, tier: str, grad_tier: str, tile_rows: Optional[int] = None) -> str:
+    """The kernel K3 at (``tier``, ``grad_tier``) runs trunk ``widths``
+    on: ``"mma"`` (``fused_gram_mma.cu``, every tier bf16 or bf16x3),
+    ``"reverse"`` (its reverse mode: a bf16 value tier, an fp32
+    backward), ``"mixed"`` (``fused_gram_mixed.cu``: an fp32 value tier, a
+    bf16 backward), ``"f32"`` (``fused_loglik_grad_gram_f32.cu``: fp32,
+    fp32), each where it holds the network at some height and depth (a
+    forced ``tile_rows`` keeps the register-tiled and mixed kernels,
+    which then refuse a height that does not fit); else ``"wide"``
+    (``fused_loglik_grad_gram.cu``)."""
+    if len(widths) - 1 > MAX_LAYERS:
+        return "wide"
+    if gram_on_tensor_cores(tier, grad_tier):
+        return "mma" if _gram_mma_bytes(widths, tier, grad_tier) <= MAX_SHARED_BYTES else "wide"
+    if gram_reverse(tier, grad_tier):
+        return "reverse" if grad_reverse_bytes(widths, tier) <= MAX_SHARED_BYTES else "wide"
+    if gram_mixed(tier, grad_tier):
+        return "mixed" if tile_rows is not None or grad_mixed_heights(widths, grad_tier) else "wide"
+    return "f32" if tile_rows is not None or grad_f32_heights(widths) else "wide"
+
+
+def k2_route(widths, tier: str, tile_rows: Optional[int] = None) -> str:
+    """The kernel K2 at ``tier`` runs trunk ``widths`` on: ``"mma"``
+    (``fused_gram_mma.cu``, bf16 and bf16x3), ``"f32"``
+    (``fused_loglik_gram.cu``; a forced ``tile_rows`` keeps it, which then
+    refuses a height that does not fit), each where it holds the network;
+    else ``"wide"`` (``fused_loglik_grad_gram.cu``'s value-only
+    program)."""
+    if len(widths) - 1 > MAX_LAYERS:
+        return "wide"
+    if gram_on_tensor_cores(tier):
+        return "mma" if _gram_mma_bytes(widths, tier, None) <= MAX_SHARED_BYTES else "wide"
+    fits = f32_tile_bytes(gram_f32_rows(widths), widths[0],
+                          max(padk(w) for w in widths[1:])) <= MAX_SHARED_BYTES
+    return "f32" if tile_rows is not None or fits else "wide"
+
+
+def wide_route_plan(widths, tier: str, grad_tier: Optional[str],
+                    budget: int = MAX_SHARED_BYTES) -> WidePlan:
+    """The wide route's plan of trunk ``widths`` for K3 at (``tier``,
+    ``grad_tier``), or K2 at ``tier`` (``grad_tier`` None), under a
+    shared-memory ``budget``."""
+    grad = None if grad_tier is None else wide_parts(grad_tier)
+    return wide_plan(tuple(widths), wide_parts(tier), grad, budget)
+
+
 def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
                  rows: Optional[int] = None) -> int:
-    """Dynamic shared memory of one K3 block at (``tier``,
-    ``grad_tier``). ``fused_gram_mma.cu`` keeps bf16 tiles
-    (:func:`_gram_mma_bytes`), and at a reverse pair (a bf16 value tier,
-    an fp32 backward) also the fp32 tiles of :func:`grad_reverse_bytes`;
-    ``fused_loglik_grad_gram_f32.cu`` (fp32, fp32) k-major fp32 tiles of
-    ``rows`` rows (:func:`grad_f32_bytes`; default: the tallest height
-    that fits); ``fused_gram_mixed.cu`` (an fp32 value tier, a bf16
-    backward tier) the fp32 tiles and bf16 A tiles of
-    :func:`grad_mixed_bytes` at ``rows`` (default: the tallest height
+    """Dynamic shared memory of one K3 block at (``tier``, ``grad_tier``)
+    on the kernel :func:`k3_route` picks. ``fused_gram_mma.cu`` keeps
+    bf16 tiles (:func:`_gram_mma_bytes`), and at a reverse pair (a bf16
+    value tier, an fp32 backward) also the fp32 tiles of
+    :func:`grad_reverse_bytes`; ``fused_loglik_grad_gram_f32.cu`` (fp32,
+    fp32) k-major fp32 tiles of ``rows`` rows (:func:`grad_f32_bytes`;
+    default: the tallest height that fits); ``fused_gram_mixed.cu`` (an
+    fp32 value tier, a bf16 backward tier) the fp32 tiles and bf16 A tiles
+    of :func:`grad_mixed_bytes` at ``rows`` (default: the tallest height
     that fits, else the shortest, which then refuses the network);
-    ``fused_loglik_grad_gram.cu`` (a reverse pair, or the fp32 pair, of a
-    network too wide for those) the tiles of its plan
-    (:func:`~tpu21cmvae_torch.ops.kernels.wide.wide_bytes`) at ``rows``
-    (default: the tallest height that fits, else the shortest, which
-    then refuses the network)."""
-    if gram_on_tensor_cores(tier, grad_tier):
+    ``fused_loglik_grad_gram.cu`` (every network those cannot hold) the
+    tiles of its plan (:func:`~tpu21cmvae_torch.ops.kernels.wide.plan_bytes`)
+    at ``rows`` (default: the tallest height that fits)."""
+    route = k3_route(widths, tier, grad_tier, rows)
+    if route == "mma":
         return _gram_mma_bytes(widths, tier, grad_tier)
-    if gram_reverse(tier, grad_tier) and (
-            grad_reverse_bytes(widths, tier) <= MAX_SHARED_BYTES):
+    if route == "reverse":
         return grad_reverse_bytes(widths, tier)
-    if gram_mixed(tier, grad_tier):
+    if route == "mixed":
         if rows is None:
             rows = (grad_mixed_heights(widths, grad_tier) or MIXED_TILE_ROWS[-1:])[0]
         return grad_mixed_bytes(widths, rows, grad_tier)
-    if tier == grad_tier == "f32":
-        f32_rows = grad_f32_rows(widths, forced=rows)
-        if f32_rows is not None:
-            return grad_f32_bytes(widths, f32_rows)
-    parts = wide_parts(tier)
-    if rows is None:
-        rows = (wide_heights(widths, parts) or WIDE_TILE_ROWS[-1:])[0]
-    return wide_bytes(widths, rows, parts)
+    if route == "f32":
+        return grad_f32_bytes(widths, grad_f32_rows(widths, forced=rows))
+    plan = wide_route_plan(widths, tier, grad_tier)
+    return plan_bytes(plan, rows or plan.heights[0])
 
 
 def wide_parts(tier: str) -> int:
-    """The wide route's forward on the tensor cores: the value tier's
-    parts (2 bf16x3, 1 bf16), or 0 for its fp32 forward on the CUDA
-    cores."""
+    """The wide route's products at ``tier`` on the tensor cores: the
+    tier's parts (2 bf16x3, 1 bf16), or 0 for fp32 on the CUDA cores."""
     return {"f32": 0, "bf16": 1, "bf16x3": 2}[tier]
 
 
@@ -619,24 +730,30 @@ def gram_f32_rows(widths, forced: Optional[int] = None) -> int:
 
 
 def gram_shared_bytes(widths, tier: str = "f32", rows: Optional[int] = None) -> int:
-    """Dynamic shared memory of one K2 block at ``tier``.
-    ``fused_loglik_gram.cu``
+    """Dynamic shared memory of one K2 block at ``tier`` on the kernel
+    :func:`k2_route` picks. ``fused_loglik_gram.cu``
     (:func:`~tpu21cmvae_torch.ops.kernels._common.f32_tile_bytes`) keeps
     a ``rows``-row input tile, two fp32 activation buffers as wide as the
     widest trunk layer padded to 32 (they take turns as a layer's input
     and output; ``h@G`` stays in registers), the weight-slab ring and the
     per-row partials; ``rows`` defaults to the height
     :func:`gram_f32_rows` picks. ``fused_gram_mma.cu`` keeps bf16 tiles
-    (:func:`_gram_mma_bytes`)."""
-    if gram_on_tensor_cores(tier):
+    (:func:`_gram_mma_bytes`); ``fused_loglik_grad_gram.cu`` the tiles of
+    its value-only plan at ``rows`` (default: the tallest that fits)."""
+    route = k2_route(widths, tier, rows)
+    if route == "mma":
         return _gram_mma_bytes(widths, tier, None)
-    return f32_tile_bytes(rows or gram_f32_rows(widths), widths[0],
-                          max(padk(w) for w in widths[1:]))
+    if route == "f32":
+        return f32_tile_bytes(rows or gram_f32_rows(widths), widths[0],
+                              max(padk(w) for w in widths[1:]))
+    plan = wide_route_plan(widths, tier, None)
+    return plan_bytes(plan, rows or plan.heights[0])
 
 
 class _GramWrapper:
-    """What K2's and K3's wrappers share: the refusals, the folded
-    observation and noise, the operand cache and the launch count."""
+    """What K2's and K3's wrappers share: the routing and the refusals,
+    the folded observation and noise, the operand cache, the wide
+    route's workspace and the launch count."""
 
     name: str
 
@@ -648,11 +765,8 @@ class _GramWrapper:
                 f"activation={config.activation!r}"
             )
         widths = (config.n_params, *config.hidden_dims)
-        if not 1 <= len(config.hidden_dims) <= MAX_LAYERS:
-            raise NotImplementedError(
-                f"{self.name} takes 1 to {MAX_LAYERS} hidden layers; got "
-                f"{len(config.hidden_dims)}"
-            )
+        if not config.hidden_dims:
+            raise NotImplementedError(f"{self.name} takes at least one hidden layer")
         if config.n_params > SKINNY_DENSE_MAX_IN:
             raise NotImplementedError(
                 f"{self.name} takes at most {SKINNY_DENSE_MAX_IN} input "
@@ -660,18 +774,34 @@ class _GramWrapper:
             )
         self.tier = resolve_tier(precision, "high")
         self.grad_tier = grad_precision
-        # the kernel this wrapper's CUDA calls launch: fused_gram_mma.cu,
-        # with (K3 at a reverse pair, where the network fits) an fp32
-        # backward; K3's fused_gram_mixed.cu (fp32 forward, tensor-core
-        # backward); or on the CUDA cores K2's fused_loglik_gram.cu, K3's
-        # register-tiled fused_loglik_grad_gram_f32.cu or, on a network
-        # too wide for those, its fused_loglik_grad_gram.cu (the wide
-        # route). Chosen here, by tiers and shape.
-        self.tensor_cores = gram_on_tensor_cores(self.tier, self.grad_tier)
-        self.mixed = gram_mixed(self.tier, self.grad_tier)
-        self.reverse = gram_reverse(self.tier, self.grad_tier) and (
-            grad_reverse_bytes(widths, self.tier) <= MAX_SHARED_BYTES)
+        # the kernel this wrapper's CUDA calls launch (k2_route, k3_route):
+        # fused_gram_mma.cu, with (K3 at a reverse pair) an fp32 backward;
+        # K3's fused_gram_mixed.cu (fp32 forward, tensor-core backward); on
+        # the CUDA cores K2's fused_loglik_gram.cu or K3's register-tiled
+        # fused_loglik_grad_gram_f32.cu; or, for every network those cannot
+        # hold, by shared memory or depth, fused_loglik_grad_gram.cu (the
+        # wide route). Chosen here, by tiers and shape.
         if self.grad_tier is None:
+            route = k2_route(widths, self.tier, tile_rows)
+        else:
+            route = k3_route(widths, self.tier, self.grad_tier, tile_rows)
+        self.tensor_cores = route == "mma"
+        self.mixed = route == "mixed"
+        self.reverse = route == "reverse"
+        self.register_tiled = route == "f32" and self.grad_tier is not None
+        self.wide = route == "wide"
+        self.plan = None
+        if self.wide:
+            # the wide route's plan and tile heights; the height is picked
+            # per call among them unless forced
+            self.plan = wide_route_plan(widths, self.tier, self.grad_tier)
+            self.heights = self.plan.heights
+            if tile_rows is not None and tile_rows not in self.heights:
+                raise ValueError(f"tile_rows on the wide route must be one of "
+                                 f"{self.heights}; got {tile_rows!r}")
+            self.tile_rows = tile_rows
+            need = plan_bytes(self.plan, tile_rows or self.heights[0])
+        elif self.grad_tier is None:
             # fused_loglik_gram.cu's tile height (K2 at the fp32 tier)
             self.tile_rows = gram_f32_rows(widths, tile_rows)
             need = gram_shared_bytes(widths, self.tier, self.tile_rows)
@@ -685,15 +815,6 @@ class _GramWrapper:
                                  f"{MIXED_TILE_ROWS}; got {tile_rows!r}")
             self.heights = (grad_mixed_heights(widths, self.grad_tier) if self.mixed
                             else grad_f32_heights(widths))
-            self.register_tiled = self.tier == self.grad_tier == "f32" and (
-                tile_rows is not None or bool(self.heights))
-            self.wide = not (self.mixed or self.reverse or self.register_tiled) and (
-                self.tier == self.grad_tier == "f32" or gram_reverse(self.tier, self.grad_tier))
-            if self.wide:
-                self.heights = wide_heights(widths, wide_parts(self.tier))
-                if tile_rows is not None and tile_rows not in self.heights:
-                    raise ValueError(f"tile_rows on the wide route must be one of "
-                                     f"{self.heights}; got {tile_rows!r}")
             need = shared_bytes(widths, self.tier, self.grad_tier, tile_rows)
         if need > MAX_SHARED_BYTES:
             raise NotImplementedError(
@@ -707,6 +828,9 @@ class _GramWrapper:
                          if self.device.type == "cuda" else None)
         self.n_params = config.n_params
         self.members = check_members(members)
+        # the wide route's launches and workspace
+        self.wide_launch = (WideLaunch(self.plan, self.grad_tier is not None, self.sm_count,
+                                       self.device, self.members) if self.wide else None)
         self.launches = 0
         obs = obs_tensor(obs, config.n_bins, device=self.device)
         scale = noise_scale(noise_var, config.n_bins, device=self.device)
@@ -722,6 +846,8 @@ class _GramWrapper:
                 raise ValueError(
                     f"params have trunk widths {ops.widths}; this {self.name} takes {widths}"
                 )
+            if self.wide:
+                return pack_wide_operands(ops)
             if self.tensor_cores:
                 return dataclasses.replace(ops, packed=pack_gram_operands(ops))
             if self.grad_tier is None:
@@ -733,9 +859,7 @@ class _GramWrapper:
                 backward = pack_backward_slabs(ops).w
                 return dataclasses.replace(ops, packed=pack_gram_operands(ops),
                                            slabs=Slabs(w=backward, b=backward.new_zeros(0)))
-            if self.register_tiled:
-                return dataclasses.replace(ops, slabs=pack_grad_gram_slabs(ops))
-            return pack_wide_operands(ops)
+            return dataclasses.replace(ops, slabs=pack_grad_gram_slabs(ops))
 
         def build(params) -> GramOperands:
             if self.members is None:
@@ -746,6 +870,27 @@ class _GramWrapper:
 
         self.operands = OperandCache(build)
 
+    def rows_for(self, n_rows: int) -> Optional[int]:
+        """The tile height of ``fused_loglik_grad_gram_f32.cu``,
+        ``fused_gram_mixed.cu`` or ``fused_loglik_grad_gram.cu`` for a
+        batch of ``n_rows`` rows of each member (:func:`pick_grad_rows`),
+        :attr:`tile_rows` if forced; None on the other routes (K2's fp32
+        kernel keeps its :attr:`tile_rows`)."""
+        if not (self.register_tiled or self.mixed or self.wide):
+            return None
+        return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count,
+                                                self.members or 1)
+
+    def _launch_kernel(self, launch_fn, ops, x):
+        """``launch_fn(ops, x, rows)`` at the height this batch takes
+        (:meth:`rows_for`; K2's fp32 kernel its own); the wide route's
+        through :attr:`wide_launch`."""
+        rows = self.rows_for(x.shape[0]) if self.grad_tier is not None or self.wide else (
+            self.tile_rows)
+        if self.wide:
+            return self.wide_launch(ops, x, rows)
+        return launch_fn(ops, x, rows)
+
     def _run(self, params, raw, plain, members_plain, kernel):
         x = check_rows(raw, self.device, self.n_params)
         ops = self.operands(params)
@@ -755,7 +900,7 @@ class _GramWrapper:
             raise ValueError(f"{self.name} runs on CUDA or (plain) on the CPU; got {x.device}")
         if x.shape[0]:  # an empty batch launches nothing
             self.launches += 1
-        return kernel(ops, x)
+        return self._launch_kernel(kernel, ops, x)
 
 
 class FusedLoglikGram(_GramWrapper):
@@ -770,9 +915,12 @@ class FusedLoglikGram(_GramWrapper):
     tier ``tile_rows`` (one of
     :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`) forces
     ``fused_loglik_gram.cu``'s tile height, else :func:`gram_f32_rows`
-    picks it (:attr:`tile_rows`). ``members=M`` takes an ensemble's
-    stacked ``params`` and returns ``logL (M, B)`` from one launch per
-    call (:func:`loglik_gram_members_reference` on the CPU).
+    picks it (:attr:`tile_rows`). A network neither
+    ``fused_loglik_gram.cu`` nor ``fused_gram_mma.cu`` holds runs the wide
+    route's value-only program (``fused_loglik_grad_gram.cu``,
+    :attr:`wide`, 32- or 16-row tiles by batch). ``members=M`` takes an
+    ensemble's stacked ``params`` and returns ``logL (M, B)`` from one
+    launch per call (:func:`loglik_gram_members_reference` on the CPU).
     """
 
     name = "K2"
@@ -786,7 +934,7 @@ class FusedLoglikGram(_GramWrapper):
     @torch.no_grad()
     def __call__(self, params, raw):
         return self._run(params, raw, loglik_gram_reference, loglik_gram_members_reference,
-                         functools.partial(_loglik_gram_cuda, rows=self.tile_rows))
+                         _loglik_gram_cuda)
 
 
 class FusedLoglikGradGram(_GramWrapper):
@@ -803,9 +951,11 @@ class FusedLoglikGradGram(_GramWrapper):
     (:attr:`mixed`), each at the tile height :meth:`rows_for` gives each
     batch; at a reverse pair (a bf16 value tier, an fp32 backward)
     ``fused_gram_mma.cu`` with its fp32 backward, 16-row tiles
-    (:attr:`reverse`); a reverse pair or (fp32, fp32) on a network too
-    wide for those ``fused_loglik_grad_gram.cu`` (:attr:`wide`, 32- or
-    16-row tiles by batch); ``tile_rows`` (one of
+    (:attr:`reverse`); every bf16 or bf16x3 pair ``fused_gram_mma.cu``
+    with a tensor-core backward (:attr:`tensor_cores`); any pair on a
+    network its kernel cannot hold (too wide, or deeper than eight
+    layers) ``fused_loglik_grad_gram.cu`` (:attr:`wide`, 32- or 16-row
+    tiles by batch); ``tile_rows`` (one of
     :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`, and of
     :data:`MIXED_TILE_ROWS` at a mixed pair) forces one height for every
     batch. ``members=M`` takes an ensemble's stacked ``params`` and
@@ -823,23 +973,10 @@ class FusedLoglikGradGram(_GramWrapper):
                          grad_precision=grad_tier, device=device, tile_rows=tile_rows,
                          members=members)
 
-    def rows_for(self, n_rows: int) -> Optional[int]:
-        """The tile height of ``fused_loglik_grad_gram_f32.cu``,
-        ``fused_gram_mixed.cu`` or ``fused_loglik_grad_gram.cu`` for a
-        batch of ``n_rows`` rows of each member (:func:`pick_grad_rows`),
-        :attr:`tile_rows` if forced; None on the other routes."""
-        if not (self.register_tiled or self.mixed or self.wide):
-            return None
-        return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count,
-                                                self.members or 1)
-
     @torch.no_grad()
     def __call__(self, params, raw):
-        def kernel(ops, x):
-            return _loglik_grad_gram_cuda(ops, x, self.rows_for(x.shape[0]))
-
         return self._run(params, raw, loglik_grad_gram_reference,
-                         loglik_grad_gram_members_reference, kernel)
+                         loglik_grad_gram_members_reference, _loglik_grad_gram_cuda)
 
 
 def make_fused_loglik_gram(config, norm, obs, noise_var=1.0, *, precision="high",

@@ -1,43 +1,58 @@
-"""K3's wide-network route (``csrc/fused_loglik_grad_gram.cu``): the
+"""The wide route of K2 and K3 (``csrc/fused_loglik_grad_gram.cu``): the
 plan a network's widths give it, the op program the kernel runs, the
-operands packed in the order it reads them, and its shared memory.
+operands packed in the order it reads them, its shared memory and its
+workspace.
 
-The route takes K3 at (fp32, fp32) and at the reverse pairs (a bf16 or
-bf16x3 value tier, an fp32 backward) on a network too wide for the
-kernels that hold two full-width activation buffers. No activation wider
-than a 128-column chunk (``SLAB_N``) has to be held whole:
+The route takes every network no dedicated kernel holds: K2 at every
+tier and K3 at every (value, backward) tier pair, at any width and any
+depth. No activation wider than a 128-column chunk (``SLAB_N``) has to
+be held whole:
 
 * Layer 0, the skinny layer, is never stored: each 128-column chunk of
   its activation is recomputed from the input tile (≤ 8 products an
   element) where the next layer reads it.
-* Every dense layer is summed k-outer: for each 128-row chunk of its
-  input, the chunk's products are added to the output's accumulators,
-  which wait in the output's shared-memory tile between chunks. Each
-  output element is still one fp32 sum over k ascending (the
-  register-tiled layers' order, ``csrc/tile_f32.cuh``), or, at a bf16
-  value tier, each k-step's ``mma`` products added to it in k-step order
-  (``csrc/mma.cuh``'s).
-* A wide activation between two layers is *streamed*: produced one chunk
-  at a time (the chunk's full k-sum waits in a chunk buffer), then its
-  bias, ReLU and mask bits, then consumed at once as one k-chunk of the
-  next layer. The backward streams the same way; its last signal
-  ``e_0`` always goes chunk by chunk into ``dx``, summed across threads.
+* A *held* vector waits in one of three shared-memory tiles (P, Q, R),
+  its layer summed k-outer: for each 128-row chunk of the input, the
+  chunk's products are added to the output's accumulators, which wait in
+  the tile between chunks. Each output element is one fp32 sum over k
+  ascending (the register-tiled layers' order, ``csrc/tile_f32.cuh``),
+  or, on the tensor cores, each k-step's ``mma`` products added to it in
+  k-step order (``csrc/mma.cuh``'s).
+* A *streamed* vector is produced one chunk at a time (the chunk's full
+  k-sum waits in a chunk buffer), then its bias, ReLU and mask bits, then
+  consumed at once as one k-chunk of the next layer. The backward's last
+  signal ``e_0`` goes chunk by chunk into ``dx``, summed across threads.
+* A *spilled* vector lives in the CTA's region of a global workspace:
+  it is summed n-outer, one output chunk at a time over every input
+  chunk into a chunk buffer, finished there and stored (``OP_STORE``);
+  a reader loads a chunk of it into a chunk buffer (``OP_LOAD``,
+  ``cp.async``) and multiplies from there. A vector is spilled, widest
+  first, only where the plan does not fit the shared-memory budget at
+  the tallest tile height; the mask bits go to the workspace next.
 * A narrow output (≤ 64 columns) of a wide input (≥ 256 rows) on the
   CUDA cores is *split*: the column quarters that would idle take the
   upper 64 rows of each 128-row chunk into 64 more accumulators, added
   to the lower ones in the epilogue, so every thread works.
 
+None of these choices moves a sum: each element is summed over the same
+products in the same order whatever is held, streamed or spilled (a
+split layer is split in every plan), so a workspace plan's results are
+the all-shared plan's bit for bit. Each ``OP_MM`` carries its own tier
+parts: 0, the fp32 stream on the CUDA cores; 1 or 2, the bf16 or bf16x3
+``mma`` fragments of its matrix, so a forward and a backward at
+different tiers share one program.
+
 The plan (:func:`wide_plan`) is a list of ops, the same for every tile
 height and for every member of an ensemble; the wrapper ships it to the
 card as an int32 table (:func:`program_table`) and the kernel runs it op
-by op. ``tests/_torch_f32.py::emulate_wide_grad_gram`` runs the same
-table on the CPU.
+by op. ``tests/_torch_f32.py::emulate_wide`` runs the same table on the
+CPU.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -60,8 +75,10 @@ WIDE_TILE_ROWS = (32, 16)
 WIDE_RING = {32: (16, 4), 16: (8, 4)}
 A_STRIDE = 136  # bf16 elements per row of the A-chunk tile: 128 + 8 (kAStride)
 MAX_IN = 8  # k rows of the input tile: the widest skinny input (kMaxIn)
-WIDE_NET_BYTES = 272  # sizeof(WideNet) in the source: its static shared copy
-OP_INTS = 12  # ints per op of the program table (kOpInts)
+WIDE_NET_BYTES = 152  # sizeof(WideNet) in the source: its static shared copy
+OP_INTS = 16  # ints per op of the program table (kOpInts)
+WS_ALIGN = 256  # a CTA's workspace starts on this many bytes
+SM_BYTES = 233_472  # an H100 SM's shared memory; each CTA also takes 1 KB
 # A layer is split when its output is at most SPLIT_MAX_N wide and its
 # input at least SPLIT_MIN_K deep: the output fills at most two of the
 # four 32-column quarters of a chunk, and the input has at least two
@@ -69,7 +86,8 @@ OP_INTS = 12  # ints per op of the program table (kOpInts)
 SPLIT_MAX_N, SPLIT_MIN_K = 64, 256
 
 # op codes (kOp* in the source) and buffer ids
-OP_SKINNY, OP_MM, OP_FIN, OP_GRAM, OP_DX, OP_DX_WRITE, OP_RING, OP_QUAD_WRITE = range(1, 9)
+(OP_SKINNY, OP_MM, OP_FIN, OP_GRAM, OP_DX, OP_DX_WRITE, OP_RING, OP_QUAD_WRITE, OP_LOAD,
+ OP_STORE) = range(1, 11)
 CA, CB, P, Q, R = range(5)  # the input chunk, the streamed chunk, three held tiles
 HELD = (P, Q, R)
 MM_SPLIT, MM_FIRST = 1, 2  # OP_MM flags
@@ -81,6 +99,13 @@ def chunks(n: int) -> int:
 
 def pad16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def frag_words(k: int, n: int, parts: int) -> int:
+    """32-bit words of a (k, n) matrix's ``mma`` fragments at ``parts``
+    (``fused_mlp.py::pack_mma_operands``: n8 tiles × k-steps × 32 lanes ×
+    parts × 4 bf16)."""
+    return pad16(n) // 8 * (pad16(k) // 16) * 64 * parts
 
 
 class Block(NamedTuple):
@@ -101,25 +126,33 @@ class Block(NamedTuple):
 
 class WidePlan(NamedTuple):
     """What :func:`wide_plan` gives a network: the ops (tuples, see
-    :func:`program_table`), the fp32 stream's blocks in the order the ops
-    read them, the k rows of the three held tiles, the mask columns (every
-    activation but the last, padded to 32), the stream's rows, and the
-    streamed and split activations (for the record)."""
+    :func:`wide_plan`); the fp32 stream's blocks in the order the ops
+    read them; the fragment buffer's matrices, ``(matrix, layer, k, n,
+    parts, word offset)``; the k rows of the three held tiles; the mask
+    columns (every activation but the last, padded to 32; none for K2)
+    and whether they lie in the workspace; the workspace's fp32 k rows
+    per CTA; the stream's rows; the A-chunk tile's parts (the most any op
+    takes); the tile heights at which the plan fits its budget; and, for
+    the record, the streamed, split and spilled vectors."""
 
     ops: tuple
     blocks: tuple
+    frags: tuple
     cols: tuple
     mask_cols: int
+    masks_in_ws: bool
+    ws_cols: int
     stream_rows: int
+    a_parts: int
+    heights: tuple
     streamed_forward: frozenset
     streamed_backward: frozenset
     split: frozenset
+    spilled: frozenset
 
-
-# the op fields that name a buffer, by op code; placeholders of held
-# vectors start at _HELD0 until _assign_tiles places them
-_ID_FIELDS = {OP_MM: (1, 7), OP_FIN: (1,), OP_GRAM: (1, 2), OP_DX: (1,)}
-_HELD0 = 100
+    @property
+    def frag_words(self) -> int:
+        return sum(frag_words(k, n, parts) for _, _, k, n, parts, _ in self.frags)
 
 
 def _assign_tiles(held):
@@ -151,7 +184,7 @@ def _assign_tiles(held):
     return [HELD[t] for t in tiles], caps
 
 
-def _streamed(widths, first: int, n: int, always=()) -> frozenset:
+def _streamed(widths, first: int, n: int, always=()) -> set:
     """Activations first … n−2 that are streamed: widest first, those
     wider than a chunk (and those in ``always``), no two neighbours (a
     streamed activation is produced from a held one and consumed into
@@ -160,55 +193,65 @@ def _streamed(widths, first: int, n: int, always=()) -> frozenset:
     for i in sorted(range(first, n - 1), key=lambda i: (-widths[i], i)):
         if (widths[i] > SLAB_N or i in always) and not {i - 1, i + 1} & chosen:
             chosen.add(i)
-    return frozenset(chosen)
+    return chosen
 
 
-@functools.lru_cache(maxsize=64)
-def wide_plan(trunk: tuple, mma: bool) -> WidePlan:
-    """The op program of ``trunk`` = (n_in, W_0 … W_{n−1}) (activation i
-    is W_i wide; trunk layer i ≥ 1 maps W_{i−1} → W_i, the skinny layer
-    0 n_in → W_0; the gram head H × H, H = W_{n−1}). ``mma``: the
-    forward runs on the tensor cores (a reverse pair), whose layers read
-    fragments rather than the fp32 stream and are never split.
+def _source(v, n: int, fwd: int, bwd: Optional[int]):
+    """The vector layer v reads, its matrix, its layer and its parts."""
+    kind, i = v
+    if kind == "a":
+        return ("a", i - 1), "w", i, fwd
+    if i == n - 1:
+        return ("a", n - 1), "g", n, fwd
+    return ("e", i + 1), "wt", i + 1, bwd
 
-    Ops, in order (buffer ids ``CA``, ``CB``, ``P``, ``Q``, ``R``; rows and
-    columns in the layer's own coordinates):
 
-    * ``(OP_SKINNY, κ, cols, valid, mask_col)``: chunk κ of activation
-      0 into CA from the input tile: columns 128κ … of relu(skinny),
-      ``cols`` of them written (0 from ``valid`` on); its mask bits at
-      ``mask_col`` (−1: not written).
-    * ``(OP_MM, src, src_row, k, d0, d1, flags, dst, dst_col0, frag,
-      kstep0, n)``: the next ``k`` rows of ``src`` from row ``src_row``
-      times the layer's rows for output chunks d0 … d1 − 1 (a layer
-      ``n`` wide), added to the accumulators in ``dst`` (column c of the
-      layer at c − ``dst_col0``), from 0 with ``MM_FIRST``. ``frag``
-      −1: the fp32 stream's next block, on the CUDA cores; else the
-      fragments of trunk layer ``frag`` (n_layers: G) from k-step
-      ``kstep0``, ``src`` split or rounded into the A-chunk tile first.
-    * ``(OP_FIN, dst, cols, valid, bias, split, mask_col, masked)``: the
-      epilogue of ``dst``'s first ``cols`` columns (0 from ``valid`` on):
-      the split's upper sums added, then the forward's bias (offset
-      ``bias`` into the biases), ReLU and mask bits at ``mask_col``
-      (−1: none), or (``masked``) the backward's mask from ``mask_col``.
-    * ``(OP_GRAM, h, e, H, col0, cols, u)``: columns col0 … col0 + cols
-      − 1 of the gram head: quad partials Σ (hg + 2u)·h from hg in ``e``
-      (its column c at c − col0) and h in ``h`` (−1: recomputed from the
-      input tile), then e ← h > 0 ? hg + u : 0 in place;
-      ``(OP_QUAD_WRITE,)`` sums the partials across threads and writes
-      the quad.
-    * ``(OP_DX, src, src_row, valid, w0_col)``: dx partials from ``valid``
-      columns of e_0 in ``src`` from ``src_row``, w0's columns ``w0_col
-      …``; ``(OP_DX_WRITE,)`` sums them across threads and writes dx.
-    * ``(OP_RING,)``: starts the slab ring (the mma forward streams
-      nothing, so its backward starts it).
-    """
-    n_in, W = trunk[0], trunk[1:]
+def _splits(W, v, fwd: int, bwd: Optional[int]) -> bool:
+    """Whether layer v is split (only where it is held)."""
+    u, _, _, parts = _source(v, len(W), fwd, bwd)
+    return (not parts and v != ("e", len(W) - 1) and W[v[1]] <= SPLIT_MAX_N
+            and W[u[1]] >= SPLIT_MIN_K)
+
+
+def _held(W, bwd: Optional[int], sf, sb, spilled) -> list:
+    """The vectors a layer sums into a held tile, in the order they are
+    made."""
     n = len(W)
-    sf = _streamed(W, 1, n)  # activation 0 is recomputed, never held
-    # e_0 goes into dx unless e_1 is streamed; e_{n−1} may be streamed too
-    sb = _streamed(W, 0, n + 1, always=(0,))
-    ops, blocks, split_set = [], [], set()
+    vs = [("a", i) for i in range(1, n) if i not in sf]
+    if bwd is not None:
+        vs += [("e", t) for t in range(n - 1, -1, -1) if t not in sb]
+    return [v for v in vs if v not in spilled]
+
+
+def _a_parts(n: int, fwd: int, bwd: Optional[int]) -> int:
+    """The most parts an op of the plan takes: the forward's (the gram
+    head is always there), the backward's where it has a dense layer."""
+    return max(fwd, bwd or 0 if n > 1 else 0)
+
+
+def _bytes(W, fwd, bwd, sf, sb, spilled, masks_in_ws, rows) -> int:
+    """:func:`plan_bytes` of the plan :func:`_emit` would make, without
+    making it."""
+    held = [SLAB_N if _splits(W, v, fwd, bwd) else padk(W[v[1]])
+            for v in _held(W, bwd, sf, sb, spilled)]
+    mask_cols = 0 if bwd is None else sum(padk(w) for w in W[:-1])
+    return _shared_bytes(_assign_tiles(held)[1], _a_parts(len(W), fwd, bwd),
+                         0 if masks_in_ws else mask_cols, rows)
+
+
+def _emit(W, fwd: int, bwd: Optional[int], sf, sb, spilled, masks_in_ws: bool) -> WidePlan:
+    """The plan of trunk widths ``W`` with the forward at ``fwd`` parts
+    and the backward at ``bwd`` (None: K2, value only), activations
+    ``sf`` and signals ``sb`` streamed, the vectors ``spilled`` (``("a",
+    i)``: activation i; ``("e", t)``: the backward's signal t) in the
+    workspace. A held tile is named ``("tile", k)`` and a workspace column
+    ``("ws", k, col)`` (the k-th held or spilled vector) until the tiles
+    and regions are laid out."""
+    n = len(W)
+    value_only = bwd is None
+    ops, blocks = [], []
+    held, spill_order, split_set = [], [], set()
+    place = {}
     mask_at, at = [], 0
     for i in range(n - 1):
         mask_at.append(at)
@@ -218,139 +261,289 @@ def wide_plan(trunk: tuple, mma: bool) -> WidePlan:
         bias_at[i] = at
         at += chunks(W[i]) * SLAB_N
     u_at = at
-    held = []  # the k rows of each held vector, in the order they are made
-    region = {}
+    # the fragment buffer: the forward's trunk layers and G at fwd parts,
+    # then the backward's Wᵢᵀ at bwd parts, i = n−1 … 1
+    frags, words = [], 0
+    mats = ([("w", i, W[i - 1], W[i], fwd) for i in range(1, n)] + [("g", n, W[-1], W[-1], fwd)]
+            if fwd else [])
+    mats += [("wt", i, W[i], W[i - 1], bwd) for i in range(n - 1, 0, -1)] if bwd else []
+    for matrix, layer, k, n_out, parts in mats:
+        frags.append((matrix, layer, k, n_out, parts, words))
+        words += frag_words(k, n_out, parts)
+    frag_at = {(f[0], f[1]): f[5] for f in frags}
+    masked0 = set()  # chunks of activation 0 whose mask bits are written
 
-    def alloc(key, c):
-        """A placeholder for the next held vector's tile
-        (:func:`_assign_tiles` picks it once every one is known)."""
-        held.append(c)
-        region[key] = _HELD0 + len(held) - 1
-        return region[key]
+    def streamed(v):
+        return v[1] in (sf if v[0] == "a" else sb)
 
-    def kr(K, kappa, on_mma):
-        return min(SLAB_N, (pad16(K) if on_mma else padk(K)) - SLAB_N * kappa)
+    def source(v):
+        return _source(v, n, fwd, bwd)
 
-    def fwd_src(i_in, kappa, write_mask):
-        if i_in == 0:
-            ops.append((OP_SKINNY, kappa, min(SLAB_N, padk(W[0]) - SLAB_N * kappa),
-                        min(SLAB_N, W[0] - SLAB_N * kappa),
-                        mask_at[0] + SLAB_N * kappa if write_mask and n > 1 else -1))
-            return CA, 0
-        return region[("a", i_in)], SLAB_N * kappa
-
-    def mm(src, k_in, kappa, matrix, layer, d0, d1, split, dst, col0, n_out, on_mma):
-        src_id, src_row = src
+    def mm(src, v, kappa, d0, d1, split, dst, col0):
+        u, matrix, layer, parts = source(v)
+        K, N = W[u[1]], W[v[1]]
         first = MM_FIRST if kappa == 0 else 0
-        k = kr(k_in, kappa, on_mma)
-        if on_mma:
-            ops.append((OP_MM, src_id, src_row, k, d0, d1, first, dst, col0,
-                        n if matrix == "g" else layer, 8 * kappa, n_out))
+        k = min(SLAB_N, (pad16(K) if parts else padk(K)) - SLAB_N * kappa)
+        if parts:
+            ops.append((OP_MM, *src, k, d0, d1, first, dst, col0, parts,
+                        frag_at[(matrix, layer)], pad16(K) // 16, 8 * kappa, N))
         else:
-            ops.append((OP_MM, src_id, src_row, k, d0, d1, first | (MM_SPLIT if split else 0),
-                        dst, col0, -1, 0, n_out))
+            ops.append((OP_MM, *src, k, d0, d1, first | (MM_SPLIT if split else 0), dst, col0,
+                        0, 0, 0, 0, N))
             blocks.append(Block(matrix, layer, SLAB_N * kappa, k, d0, d1, split))
 
-    def splits(n_out, k_in, on_mma):
-        return not on_mma and n_out <= SPLIT_MAX_N and k_in >= SPLIT_MIN_K
+    def ws(v, col):
+        return ("ws", place[v][1], col)
 
-    # forward: trunk layers 1 … n−1, each into a held tile
-    for i in range(1, n):
-        if i in sf:
-            continue
-        split = splits(W[i], W[i - 1], mma)
-        if split:
-            split_set.add(("a", i))
-        dst = alloc(("a", i), SLAB_N if split else padk(W[i]))
-        d1 = chunks(W[i])
-        if i - 1 in sf:  # activation s = i − 1 streamed, chunk by chunk
-            s = i - 1
-            for c in range(chunks(W[s])):
-                for kappa in range(chunks(W[s - 1])):
-                    mm(fwd_src(s - 1, kappa, c == 0), W[s - 1], kappa, "w", s, c, c + 1,
-                       False, CB, SLAB_N * c, W[s], mma)
-                ops.append((OP_FIN, CB, min(SLAB_N, padk(W[s]) - SLAB_N * c),
-                            min(SLAB_N, W[s] - SLAB_N * c), bias_at[s] + SLAB_N * c, 0,
-                            mask_at[s] + SLAB_N * c, 0))
-                mm((CB, 0), W[s], c, "w", i, 0, d1, split, dst, 0, W[i], mma)
+    def src_chunk(u, kappa):
+        """Chunk κ of vector u where a product can read it: (buffer, row)."""
+        if u == ("a", 0):
+            write = not value_only and n > 1 and kappa not in masked0
+            masked0.add(kappa)
+            ops.append((OP_SKINNY, kappa, min(SLAB_N, padk(W[0]) - SLAB_N * kappa),
+                        min(SLAB_N, W[0] - SLAB_N * kappa),
+                        mask_at[0] + SLAB_N * kappa if write else -1))
+            return CA, 0
+        if streamed(u):
+            produce_chunk(u, kappa)
+            return CB, 0
+        if u in spilled:
+            ops.append((OP_LOAD, ws(u, SLAB_N * kappa), CA))
+            return CA, 0
+        return place[u], SLAB_N * kappa
+
+    def h_chunk(d):
+        """The gram head's h for its chunk d: (buffer, its first column)."""
+        h = ("a", n - 1)
+        if n == 1:
+            return -1, 0
+        if h in spilled:
+            ops.append((OP_LOAD, ws(h, SLAB_N * d), CA))
+            return CA, SLAB_N * d
+        return place[h], 0
+
+    def epilogue(v, dst, c0, cols, valid, split):
+        """Bias, ReLU and mask bits (an activation), the mask (a signal)
+        or the gram head's epilogue, on v's columns c0 … in dst."""
+        kind, i = v
+        if v == ("e", n - 1):
+            e0 = c0 if dst == CB else 0
+            if dst != CB and n > 1 and ("a", n - 1) in spilled:
+                for d in range(chunks(W[i])):  # h a chunk at a time
+                    ops.append((OP_GRAM, *h_chunk(d), dst, e0, W[i], SLAB_N * d,
+                                min(SLAB_N, padk(W[i]) - SLAB_N * d), u_at))
+            else:
+                ops.append((OP_GRAM, *h_chunk(c0 // SLAB_N), dst, e0, W[i], c0, cols, u_at))
+        elif kind == "a":
+            mask = mask_at[i] + c0 if i < n - 1 and not value_only else -1
+            ops.append((OP_FIN, dst, cols, valid, bias_at[i] + c0, int(split), mask, 0))
         else:
-            for kappa in range(chunks(W[i - 1])):
-                mm(fwd_src(i - 1, kappa, True), W[i - 1], kappa, "w", i, 0, d1, split, dst, 0,
-                   W[i], mma)
-        ops.append((OP_FIN, dst, padk(W[i]), W[i], bias_at[i], int(split),
-                    mask_at[i] if i < n - 1 else -1, 0))
+            ops.append((OP_FIN, dst, cols, valid, -1, int(split), mask_at[i] + c0, 1))
 
-    # gram head, hg = h @ G, then the quad and e_{n−1} = h > 0 ? hg + u : 0:
-    # into a held tile, or (streamed) chunk by chunk where the backward
-    # reads it; the backward is fp32 on the CUDA cores throughout
-    H = W[-1]
-    h_id = -1 if n == 1 else region[("a", n - 1)]
-    if mma:
-        ops.append((OP_RING,))
+    def produce_chunk(v, d):
+        """Chunk d of v, summed over every input chunk, into CB, finished."""
+        u, w = source(v)[0], W[v[1]]
+        for kappa in range(chunks(W[u[1]])):
+            mm(src_chunk(u, kappa), v, kappa, d, d + 1, False, CB, SLAB_N * d)
+        epilogue(v, CB, SLAB_N * d, min(SLAB_N, padk(w) - SLAB_N * d),
+                 min(SLAB_N, w - SLAB_N * d), False)
 
-    def gram_into(dst, col0, c0, c1):
-        for kappa in range(chunks(H)):
-            src = fwd_src(0, kappa, False) if n == 1 else (h_id, SLAB_N * kappa)
-            mm(src, H, kappa, "g", n, c0, c1, False, dst, col0, H, mma)
-        ops.append((OP_GRAM, h_id, dst, H, col0, min(SLAB_N * c1, padk(H)) - col0, u_at))
-
-    if n - 1 not in sb:
-        gram_into(alloc(("e", n - 1), padk(H)), 0, 0, chunks(H))
-
-    def e_chunk(s_, c):
-        """Chunk c of the streamed e_s into CB: from the gram head, or from
-        the held e_{s+1}, masked by activation s."""
-        if s_ == n - 1:
-            gram_into(CB, SLAB_N * c, c, c + 1)
+    def produce(v):
+        """v whole: into the workspace chunk by chunk, or k-outer into a
+        held tile."""
+        w = W[v[1]]
+        if v in spilled:
+            place[v] = ("ws", len(spill_order))
+            spill_order.append(w)
+            for d in range(chunks(w)):
+                produce_chunk(v, d)
+                ops.append((OP_STORE, CB, ws(v, SLAB_N * d)))
             return
-        for kappa in range(chunks(W[s_ + 1])):
-            mm((region[("e", s_ + 1)], SLAB_N * kappa), W[s_ + 1], kappa, "wt", s_ + 1, c, c + 1,
-               False, CB, SLAB_N * c, W[s_], False)
-        ops.append((OP_FIN, CB, min(SLAB_N, padk(W[s_]) - SLAB_N * c),
-                    min(SLAB_N, W[s_] - SLAB_N * c), -1, 0, mask_at[s_] + SLAB_N * c, 1))
-
-    def dx_chunks(src, width):
-        for c in range(chunks(width)):
-            ops.append((OP_DX, src, SLAB_N * c, min(SLAB_N, width - SLAB_N * c), SLAB_N * c))
-
-    # e_t = mask_t ⊙ (e_{t+1} @ W_{t+1}ᵀ) for t = n−2 … 0, then dx from e_0
-    for t in range(n - 1, -1, -1):
-        if t == 0 and t in sb:  # e_0 chunk by chunk into dx
-            for c in range(chunks(W[0])):
-                e_chunk(0, c)
-                ops.append((OP_DX, CB, 0, min(SLAB_N, W[0] - SLAB_N * c), SLAB_N * c))
-            continue
-        if t == n - 1:  # e_{n−1}: the gram head's (above, or streamed)
-            continue
-        if t in sb:
-            continue
-        split = splits(W[t], W[t + 1], False)
+        split = _splits(W, v, fwd, bwd)
         if split:
-            split_set.add(("e", t))
-        dst = alloc(("e", t), SLAB_N if split else padk(W[t]))
-        d1 = chunks(W[t])
-        if t + 1 in sb:  # e_s streamed, s = t + 1, each chunk consumed at once
-            s = t + 1
-            for c in range(chunks(W[s])):
-                e_chunk(s, c)
-                mm((CB, 0), W[s], c, "wt", s, 0, d1, split, dst, 0, W[t], False)
-        else:
-            for kappa in range(chunks(W[t + 1])):
-                mm((region[("e", t + 1)], SLAB_N * kappa), W[t + 1], kappa, "wt", t + 1, 0, d1,
-                   split, dst, 0, W[t], False)
-        ops.append((OP_FIN, dst, padk(W[t]), W[t], -1, int(split), mask_at[t], 1))
-        if t == 0:  # e_0 held (e_1 was streamed into it): dx chunk by chunk
-            dx_chunks(dst, W[0])
-    ops.append((OP_QUAD_WRITE,))
-    ops.append((OP_DX_WRITE,))
+            split_set.add(v)
+        place[v] = ("tile", len(held))
+        held.append(SLAB_N if split else padk(w))
+        u = source(v)[0]
+        for kappa in range(chunks(W[u[1]])):
+            mm(src_chunk(u, kappa), v, kappa, 0, chunks(w), split, place[v], 0)
+        epilogue(v, place[v], 0, padk(w), w, split)
 
-    stream_rows = sum((64 if b.split else b.rows) * (b.d1 - b.d0) for b in blocks)
+    for i in range(1, n):
+        if i not in sf:
+            produce(("a", i))
+    if value_only:  # h@G chunk by chunk, each chunk's quad partials at once
+        for d in range(chunks(W[-1])):
+            produce_chunk(("e", n - 1), d)
+        ops.append((OP_QUAD_WRITE,))
+    else:
+        for t in range(n - 1, -1, -1):
+            v = ("e", t)
+            if t == 0:  # e_0 into dx, chunk by chunk
+                if streamed(v):
+                    for c in range(chunks(W[0])):
+                        produce_chunk(v, c)
+                        ops.append((OP_DX, CB, 0, min(SLAB_N, W[0] - SLAB_N * c), SLAB_N * c))
+                else:
+                    produce(v)
+                    for c in range(chunks(W[0])):
+                        ops.append((OP_DX, place[v], SLAB_N * c, min(SLAB_N, W[0] - SLAB_N * c),
+                                    SLAB_N * c))
+            elif not streamed(v):
+                produce(v)
+        ops.append((OP_QUAD_WRITE,))
+        ops.append((OP_DX_WRITE,))
+    if blocks:  # the ring's first slabs: at the start, or where the backward's fp32 begins
+        first = next(k for k, op in enumerate(ops) if op[0] == OP_MM and not op[9])
+        mma_before = any(op[0] == OP_MM and op[9] for op in ops[:first])
+        ops.insert(first if mma_before else 0, (OP_RING,))
+
+    # the workspace: two regions, spilled vectors alternating between them
+    # (a spilled vector and the next one are read and written at once)
+    region = [chunks(max(spill_order[r::2], default=0)) * SLAB_N for r in (0, 1)]
     tiles, cols = _assign_tiles(held)
-    ops = [tuple(tiles[v - _HELD0] if k in _ID_FIELDS.get(op[0], ()) and v >= _HELD0 else v
-                 for k, v in enumerate(op)) for op in ops]
-    return WidePlan(ops=tuple(ops), blocks=tuple(blocks), cols=cols,
-                    mask_cols=sum(padk(w) for w in W[:-1]), stream_rows=stream_rows,
-                    streamed_forward=sf, streamed_backward=sb, split=frozenset(split_set))
+
+    def resolve(v):
+        if isinstance(v, tuple) and v[0] == "tile":
+            return tiles[v[1]]
+        if isinstance(v, tuple):  # ("ws", k, col)
+            return (0 if v[1] % 2 == 0 else region[0]) + v[2]
+        return v
+
+    ops = tuple(tuple(resolve(v) for v in op) for op in ops)
+    mask_cols = 0 if value_only else sum(padk(w) for w in W[:-1])
+    return WidePlan(
+        ops=ops, blocks=tuple(blocks), frags=tuple(frags), cols=cols, mask_cols=mask_cols,
+        masks_in_ws=masks_in_ws and mask_cols > 0, ws_cols=sum(region),
+        stream_rows=sum((64 if b.split else b.rows) * (b.d1 - b.d0) for b in blocks),
+        a_parts=_a_parts(n, fwd, bwd), heights=(),
+        streamed_forward=frozenset(sf), streamed_backward=frozenset(sb),
+        split=frozenset(split_set), spilled=frozenset(spilled))
+
+
+def _shared_bytes(cols, a_parts: int, mask_cols: int, rows: int) -> int:
+    s = tile_stride(rows)
+    depth, slots = WIDE_RING[rows]
+    floats = (slots * depth * SLAB_N + RED_FLOATS + (0 if a_parts else MAX_IN * SLAB_N)
+              + s * (MAX_IN + 2 * SLAB_N + sum(cols)))
+    return (4 * floats + 2 * a_parts * rows * A_STRIDE + MASK_COL_BYTES[rows] * mask_cols
+            + WIDE_NET_BYTES)
+
+
+def plan_bytes(plan: WidePlan, rows: int) -> int:
+    """Shared memory of one block of ``rows`` rows (``launch_wide`` in the
+    source): the slab ring (``WIDE_RING``), the A-chunk tile (bf16, hi and
+    lo at bf16x3; none where no op runs on the tensor cores), the per-row
+    partials, a staged chunk of the skinny layer's weights (over the
+    A-chunk tile where there is one), the input tile (8 k rows), the two
+    chunk buffers, the three held tiles, the mask bits (unless they lie
+    in the workspace) and the static copy of the net."""
+    return _shared_bytes(plan.cols, plan.a_parts,
+                         0 if plan.masks_in_ws else plan.mask_cols, rows)
+
+
+def ws_cta_bytes(plan: WidePlan, rows: int) -> int:
+    """One CTA's workspace at ``rows`` rows (``ws_cta_bytes`` in the
+    source): the spilled vectors' k-major fp32 tiles, then the mask bits
+    where they lie there, rounded up to ``WS_ALIGN``; 0 without one."""
+    masks = MASK_COL_BYTES[rows] * plan.mask_cols if plan.masks_in_ws else 0
+    size = 4 * tile_stride(rows) * plan.ws_cols + masks
+    return -(-size // WS_ALIGN) * WS_ALIGN
+
+
+def resident_ctas(plan: WidePlan, rows: int, sm_count: int) -> int:
+    """The CTAs of ``rows`` rows the card holds at once (at most two per
+    SM, the kernel's launch bounds): the persistent grid's width where the
+    plan uses the workspace."""
+    per_sm = max(1, min(2, SM_BYTES // (plan_bytes(plan, rows) + 1024)))
+    return sm_count * per_sm
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(trunk: tuple, parts: int, grad_parts: Optional[int] = 0,
+              budget: int = MAX_SHARED_BYTES) -> WidePlan:
+    """The op program of ``trunk`` = (n_in, W_0 … W_{n−1}) (activation i
+    is W_i wide; trunk layer i ≥ 1 maps W_{i−1} → W_i, the skinny layer
+    0 n_in → W_0; the gram head H × H, H = W_{n−1}), with the forward's
+    products at ``parts`` (0 the fp32 stream, 1 bf16, 2 bf16x3
+    fragments) and the backward's at ``grad_parts`` (None: K2, the value
+    alone). Everything is held or streamed where that fits ``budget``
+    bytes of shared memory at some tile height; else vectors are spilled
+    to the workspace, widest first (a vector whose input was streamed
+    takes its input's place in the stream order, and ``e_0`` is streamed
+    rather than spilled), then the mask bits, until the plan fits at
+    the tallest height.
+
+    Ops, in order (buffer ids ``CA``, ``CB``, ``P``, ``Q``, ``R``; rows and
+    columns in the layer's own coordinates):
+
+    * ``(OP_SKINNY, κ, cols, valid, mask_col)``: chunk κ of activation
+      0 into CA from the input tile: columns 128κ … of relu(skinny),
+      ``cols`` of them written (0 from ``valid`` on); its mask bits at
+      ``mask_col`` (−1: not written).
+    * ``(OP_MM, src, src_row, k, d0, d1, flags, dst, dst_col0, parts,
+      frag, ksteps, kstep0, n)``: the next ``k`` rows of ``src`` from row
+      ``src_row`` times the layer's rows for output chunks d0 … d1 − 1 (a
+      layer ``n`` wide), added to the accumulators in ``dst`` (column c of
+      the layer at c − ``dst_col0``), from 0 with ``MM_FIRST``. ``parts``
+      0: the fp32 stream's next block, on the CUDA cores; else the
+      fragments at word ``frag`` of the fragment buffer (a matrix of
+      ``ksteps`` k-steps) from k-step ``kstep0``, ``src`` split (2) or
+      rounded (1) once into the A-chunk tile first.
+    * ``(OP_FIN, dst, cols, valid, bias, split, mask_col, masked)``: the
+      epilogue of ``dst``'s first ``cols`` columns (0 from ``valid`` on):
+      the split's upper sums added, then the forward's bias (offset
+      ``bias`` into the biases), ReLU and mask bits at ``mask_col``
+      (−1: none), or (``masked``) the backward's mask from ``mask_col``.
+    * ``(OP_GRAM, h, h_col0, e, e_col0, H, j0, cols, u)``: columns j0 … j0
+      + cols − 1 of the gram head: quad partials Σ (hg + 2u)·h from hg in
+      ``e`` (column j at j − ``e_col0``) and h in ``h`` (at j −
+      ``h_col0``; −1: recomputed from the input tile), then e ← h > 0 ?
+      hg + u : 0 in place; ``(OP_QUAD_WRITE,)`` sums the partials across
+      threads and writes the quad.
+    * ``(OP_DX, src, src_row, valid, w0_col)``: dx partials from ``valid``
+      columns of e_0 in ``src`` from ``src_row``, w0's columns ``w0_col
+      …``; ``(OP_DX_WRITE,)`` sums them across threads and writes dx.
+    * ``(OP_LOAD, col, dst)``: the workspace's k rows col … col + 127 into
+      the chunk buffer ``dst``; ``(OP_STORE, src, col)``: the chunk
+      buffer ``src`` into them.
+    * ``(OP_RING,)``: starts the slab ring, before the first fp32
+      product.
+    """
+    n_in, W = trunk[0], trunk[1:]
+    n = len(W)
+    value_only = grad_parts is None
+    sf = _streamed(W, 1, n)  # activation 0 is recomputed, never held
+    # e_0 goes into dx unless e_1 is streamed; e_{n−1} may be streamed too
+    sb = set() if value_only else _streamed(W, 0, n + 1, always=(0,))
+    heights = tuple(r for r in WIDE_TILE_ROWS
+                    if _bytes(W, parts, grad_parts, sf, sb, (), False, r) <= budget)
+    if heights:
+        return _emit(W, parts, grad_parts, sf, sb, frozenset(), False)._replace(heights=heights)
+    spilled, masks_in_ws = set(), False
+    mask_cols = 0 if value_only else sum(padk(w) for w in W[:-1])
+    rows = WIDE_TILE_ROWS[0]
+    while _bytes(W, parts, grad_parts, sf, sb, spilled, masks_in_ws, rows) > budget:
+        # the held vectors, widest first; a split one stays (its sums'
+        # order is its own)
+        held = sorted((v for v in _held(W, grad_parts, sf, sb, spilled)
+                       if not _splits(W, v, parts, grad_parts)), key=lambda v: (-W[v[1]], v))
+        if held and (W[held[0][1]] > SLAB_N or masks_in_ws or not mask_cols):
+            v = held[0]
+        elif not masks_in_ws and mask_cols:
+            masks_in_ws = True
+            continue
+        else:
+            raise ValueError(f"no plan of trunk {trunk} fits {budget} bytes of shared memory")
+        if v == ("e", 0):  # into dx chunk by chunk, its input held instead
+            sb = (sb - {1}) | {0}
+            continue
+        u = _source(v, n, parts, grad_parts)[0]  # a spilled vector's input is not streamed
+        (sf if u[0] == "a" else sb).discard(u[1])
+        spilled.add(v)
+    plan = _emit(W, parts, grad_parts, sf, sb, frozenset(spilled), masks_in_ws)
+    return plan._replace(heights=tuple(r for r in WIDE_TILE_ROWS
+                                       if plan_bytes(plan, r) <= budget))
 
 
 def program_table(plan: WidePlan) -> torch.Tensor:
@@ -360,29 +553,6 @@ def program_table(plan: WidePlan) -> torch.Tensor:
     for i, op in enumerate(plan.ops):
         table[i, : len(op)] = torch.tensor(op, dtype=torch.int32)
     return table
-
-
-def wide_bytes(trunk, rows: int, parts: int) -> int:
-    """Shared memory of one block of ``rows`` rows (``launch_wide`` in the
-    source): the slab ring (``WIDE_RING``), the A-chunk tile (bf16, hi and
-    lo at bf16x3; ``parts`` 0 with the fp32 forward), the per-row
-    partials, a staged chunk of the skinny layer's weights (over the
-    A-chunk tile where there is one), the input tile (8 k rows), the two
-    chunk buffers, the three held tiles, the mask bits and the static
-    copy of the net."""
-    plan = wide_plan(tuple(trunk), parts > 0)
-    s = tile_stride(rows)
-    depth, slots = WIDE_RING[rows]
-    floats = (slots * depth * SLAB_N + RED_FLOATS + (0 if parts else MAX_IN * SLAB_N)
-              + s * (MAX_IN + 2 * SLAB_N + sum(plan.cols)))
-    return (4 * floats + 2 * parts * rows * A_STRIDE
-            + MASK_COL_BYTES[rows] * plan.mask_cols + WIDE_NET_BYTES)
-
-
-def wide_heights(trunk, parts: int) -> tuple:
-    """The tile heights, tallest first, at which ``trunk`` fits the
-    kernel's shared memory (``parts``: as :func:`wide_bytes`)."""
-    return tuple(r for r in WIDE_TILE_ROWS if wide_bytes(trunk, r, parts) <= MAX_SHARED_BYTES)
 
 
 def _block(w: torch.Tensor, b: Block) -> torch.Tensor:
@@ -418,3 +588,20 @@ def pack_wide_slabs(ops, plan: WidePlan) -> Slabs:
     w = torch.cat(parts) if parts else ops.w0.new_zeros(0)
     assert w.numel() == plan.stream_rows * SLAB_N
     return Slabs(w=w.contiguous(), b=torch.cat(biases).contiguous())
+
+
+def pack_wide_frags(ops, plan: WidePlan, pack) -> Optional[torch.Tensor]:
+    """The fragment buffer of ``plan``: each matrix's ``mma`` fragments
+    (``pack(w, tier)``, bf16, ``fused_mlp.py::pack_mma_operands``'s
+    layout) back to back at its word offset, the forward's at
+    ``ops.tier`` and the backward's at ``ops.grad_tier``; None where no
+    op reads one."""
+    if not plan.frags:
+        return None
+    mats = {"w": lambda i: ops.w[i - 1], "wt": lambda i: ops.wt[i - 1], "g": lambda i: ops.g}
+    out = []
+    for matrix, layer, _, _, _, word in plan.frags:
+        tier = ops.grad_tier if matrix == "wt" else ops.tier
+        assert 2 * word == sum(t.numel() for t in out)
+        out.append(pack(mats[matrix](layer), tier).reshape(-1))
+    return torch.cat(out).contiguous()

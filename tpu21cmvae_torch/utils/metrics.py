@@ -113,3 +113,21 @@ def grad_gate_violation(got, ref) -> float:
     rel = grad_rel_error(got, ref)
     q999 = float(np.quantile(rel, 0.999))
     return max(q999 - GRAD_RTOL, float(rel.max()) - GRAD_MAX_REL)
+
+
+def grad_gate_beside(got, ref, exact) -> float:
+    """Worst excess (≤ 0 passes) of ``got``'s gradient error against
+    ``exact`` over ``ref``'s own, by the gate's two parts: q99.9 of
+    :func:`grad_rel_error` against ``exact`` at most ``ref``'s plus
+    :data:`GRAD_RTOL`, its max at most ``ref``'s plus
+    :data:`GRAD_MAX_REL`. Where ``ref`` equals ``exact`` this is
+    :func:`grad_gate_violation` of ``got``. For two roundings of one tier
+    (a kernel and its plain version) whose forward rounds so often that
+    they part on more than 0.1 % of rows, which :func:`grad_gate_violation`
+    between them cannot allow: ``got`` may be no less accurate than
+    ``ref``, by the gate's margins, every row counted against ``exact``
+    (the plain version at the exact tiers on the same weights)."""
+    mine, theirs = grad_rel_error(got, exact), grad_rel_error(ref, exact)
+    q = [float(np.quantile(r, 0.999)) for r in (mine, theirs)]
+    return max(q[0] - q[1] - GRAD_RTOL, float(mine.max() - theirs.max()) - GRAD_MAX_REL)
+

@@ -252,11 +252,27 @@ Phases, one line each:
     bf16x3) through ``sample_posterior`` on (1536,)×3 at the launches
     their sizes imply (``wide_routes_phase``).
 
+23. K1 on the wide route (``k1_fused_mlp_wide``) and a dense first layer
+    on K2 and K3: (a) on phase 22's three networks at every tier,
+    predict and Σy², held to ``fused_mlp_reference`` at 37, 1024, 4096
+    and 65,537 rows and timed at 4096 and 65,536 (``k1_wide_phase``);
+    (b) 65,536 rows served on (1536,)×3 through
+    ``ShardedEmulator.for_model(backend="kernel")`` at bf16x3, its wide
+    K1 launches counted and the signals held to ``predict_fn``
+    (``served_wide_phase``); (c) a seeded fan-in-12 direct model of the
+    flagship's hidden widths: K2 at every tier and K3 at every pair held
+    to plain at 37, 4096 and 65,537 rows (gradients at a tensor-core
+    value tier pooled over the 69,670 rows), timed, and HMC (K3 at
+    (high, default), 4096 walkers, 20 + 20) through ``sample_posterior``
+    at its launches (``fan_in_phase``); (d) the flagship's K1 launches
+    and every earlier wrapper's route unchanged (``main_path_guard``).
+
 Then one JSON line listing every kernel with its time, its plain
 version's and its bound (phase 18's launches under
 ``launches_trained``, beside the total; phase 19's under
 ``launches_ensemble`` and phase 20's under ``launches_serve`` and
-``launches_cli``, in it; phase 21's sharded runs under
+``launches_cli``, in it; phase 23's served wide K1 under ``fused_mlp_wide``
+and its fan-in HMC under ``launches_fan_in_hmc``; phase 21's sharded runs under
 ``launches_mesh`` and each rank's under ``launches_mesh_ranks``, beside;
 the served wrappers' largest |Δ| from plain under
 ``max_abs_err_serve``), the card's name and power limit, and a last
@@ -306,10 +322,14 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     WideLaunch,
 )
 from tpu21cmvae_torch.ops.kernels.fused_mlp import (
+    _fused_mlp_wide_cuda,
     fused_mlp_members_reference,
     fused_mlp_reference,
+    k1_wide_plan,
     make_fused_emulate,
+    pack_wide_mlp,
 )
+from tpu21cmvae_torch.ops.kernels.wide import WideLaunch as K1WideLaunch
 from tpu21cmvae_torch.ops.loglik import make_loglik, make_loglik_and_grad
 from tpu21cmvae_torch.priors import GaussianBoxPrior
 from tpu21cmvae_torch.sampling.gradient import sample_hmc
@@ -322,6 +342,8 @@ from tpu21cmvae_torch.utils.config import (
     DirectEmulatorConfig,
 )
 from tpu21cmvae_torch.ops.fold import _log_clamp, tier_matmul
+from tpu21cmvae_torch.ops.transforms import Normalizer
+from tpu21cmvae_torch.parallel.inference import ShardedEmulator
 from tpu21cmvae_torch.ops.mlp import fused_skinny_dense
 from tpu21cmvae_torch.utils.metrics import (
     grad_gate_beside,
@@ -372,6 +394,17 @@ WIDE_PAIRS = (EXACT_TIERS, *REVERSE_PAIRS)
 WIDE_NETS = {"1536x3": (1536, 1536, 1536), "4096x2": (4096, 4096), "256x12": (256,) * 12}
 WIDE_ROUTES_SEED = 22
 WIDE_ROUTES = [(t, None) for t in TIERS] + [(a, b) for a in TIERS for b in TIERS]
+# Phase 23: K1's wide route on phase 22's networks, the served path on
+# (1536,)×3 at bf16x3 (where the dedicated K1 refuses it), and a seeded
+# fan-in-12 direct model of the flagship's hidden widths
+K1_WIDE_BATCHES = (37, 1024, 4096, 65537)
+SERVED_ROWS, SERVED_TIER = 65536, "high"
+FAN_IN, FAN_IN_SEED = 12, 12
+FAN_IN_BATCHES = (37, 4096, 65537)
+POOLED_ROWS = 65536  # the gradient gate beside plain over at least this many rows
+# the flagship's launches of fused_mlp.cu and fused_mlp_mma.cu on phases
+# 1-22's paths
+FLAGSHIP_K1_LAUNCHES = {"fused_mlp": 59, "fused_mlp_mma": 2}
 K3_F32_HEIGHTS = (64, 32, 16, 8)  # its tile heights, forced in phases 3 and 4
 K3_MIXED_HEIGHTS = (32, 16)  # fused_gram_mixed.cu's, forced in phase 3
 EXACT_HMC = dict(n_walkers=4096, n_warmup=20, n_steps=20)  # phase 5's exact-value runs
@@ -708,10 +741,15 @@ def bound(kernel, widths, n, tier, grad_tier=None):
     rows in, the results out, the weights as the kernel reads them, each
     once) over the HBM rate, and its products over the peak rate of
     their type (bf16x3: three bf16 products each; the skinny layer and
-    the fp32 tier on the CUDA cores). ``widths``: K1's layer sizes, or
-    K2's and K3's trunk (n_in, hidden…) with the gram head H×H."""
+    the fp32 tier on the CUDA cores; a first layer of fan-in above 8 is a
+    tier product like the others, and K3's backward runs it too).
+    ``widths``: K1's layer sizes, or K2's and K3's trunk (n_in, hidden…)
+    with the gram head H×H."""
+    first = widths[0] * widths[1]
     dense = [a * b for a, b in zip(widths[1:-1], widths[2:])]
-    skinny = widths[0] * widths[1]
+    skinny = first if widths[0] <= 8 else 0
+    if not skinny:
+        dense.append(first)
     products = {"k1": [(sum(dense), tier)],
                 "k2": [(sum(dense) + widths[-1] ** 2, tier)],
                 "k3": [(sum(dense) + widths[-1] ** 2, tier), (sum(dense), grad_tier)]}[kernel]
@@ -4010,6 +4048,283 @@ def wide_routes_phase(model, dev) -> dict:
     return report
 
 
+def k1_wide_call(net, tier, reduce, obs, dev):
+    """K1 at ``tier`` on ``net``: predict (``make_fused_emulate``) or the
+    direct likelihood's Σy² (``make_fused_loglik``'s K1), its operands, its
+    launches and its call: the wrapper's own where it routes the network
+    to the wide route, else the wide route's K1 operands packed all the
+    same and launched directly at the tallest height."""
+    if reduce == "sumsq":
+        fn = make_fused_loglik(net.config, net.normalizer, obs, NOISE_VAR, precision=tier,
+                               device=dev).mlp
+    else:
+        fn = make_fused_emulate(net.config, net.normalizer, precision=tier, device=dev)
+    ops = fn.operands(net.params)
+    if fn.wide:
+        return fn, ops, fn.wide_launch, lambda x: fn(net.params, x)
+    plan = k1_wide_plan(fn.sizes, fn.tier, reduce)
+    ops = pack_wide_mlp(ops, plan)
+    route = K1WideLaunch(plan, _fused_mlp_wide_cuda, torch.cuda.get_device_properties(dev)
+                         .multi_processor_count, dev)
+    return fn, ops, route, lambda x: route(ops, x, plan.heights[0])
+
+
+def k1_wide_phase(model, rng, dev) -> dict:
+    """Phase 23 (a): K1's wide route (``k1_fused_mlp_wide``) on phase 22's
+    three networks (``WIDE_NETS``, seeded as there, at full width) at
+    every tier, predict and Σy²: one launch per wrapper call where the
+    wrapper routes the network there (where a dedicated kernel holds it,
+    the wide operands are launched directly), held to
+    ``fused_mlp_reference`` at ``K1_WIDE_BATCHES`` (predict within
+    ``AMPLITUDE_RTOL`` of the amplitude; Σy² as ½Σy² within ``VALUE_RTOL``
+    of the folded likelihood's scale, c the output layer's b·b), then timed
+    with plain at 4096 and 65,536 rows beside its bound."""
+    report = {}
+    for label, hidden in WIDE_NETS.items():
+        config = DirectEmulatorConfig(hidden_dims=hidden)
+        net = DirectEmulator(config=config, normalizer=model.normalizer, seed=WIDE_ROUTES_SEED,
+                             device=dev)
+        obs = net.predict(synthetic_params(1, rng)[0]) + rng.normal(0.0, 5.0, config.n_bins)
+        out = {"hidden": list(hidden)}
+        for tier in TIERS:
+            for reduce in ("none", "sumsq"):
+                key = f"{tier} {'sumsq' if reduce == 'sumsq' else 'predict'}"
+                fn, ops, route, call = k1_wide_call(net, tier, reduce, obs, dev)
+                check(fn.wide or label == "1536x3", f"K1 {label} {key} routes to the wide route")
+                half_c = 0.5 * float(ops.b[-1] @ ops.b[-1])
+                rep = {"wrapper_route": fn.route, "spilled": len(route.plan.spilled),
+                       "heights": list(route.plan.heights), "worst_over_tol": 0.0,
+                       "max_abs": 0.0}
+                for n, x in held_batches(K1_WIDE_BATCHES, rng):
+                    fn.launches = 0
+                    got = call(x)
+                    check(fn.launches == int(fn.wide), f"K1 {label} {key} n={n}: launches")
+                    got, want = got.cpu().numpy(), fused_mlp_reference(ops, x).cpu().numpy()
+                    shape = (n,) if reduce == "sumsq" else (n, config.n_bins)
+                    check(got.shape == shape and bool(np.isfinite(got).all()),
+                          f"K1 {label} {key} n={n}: shape and finite")
+                    if reduce == "none":
+                        worst = float(np.abs(got - want).max() / np.abs(want).max()
+                                      / AMPLITUDE_RTOL[tier])
+                        max_abs = float(np.abs(got - want).max())
+                    else:
+                        worst, max_abs = value_worst(-0.5 * got, -0.5 * want, tier, half_c)
+                    check(worst <= 1.0, f"K1 {label} {key} n={n}: worst |Δ|/tol {worst:.3g}")
+                    rep["worst_over_tol"] = max(rep["worst_over_tol"], worst)
+                    rep["max_abs"] = max(rep["max_abs"], max_abs)
+                for n, repeats in ((4096, 5), (65536, 3)):
+                    x = rows(n, rng)
+                    b = bound("k1", config.mlp().sizes, n, BOUND_TIER[tier])
+                    rep[str(n)] = {
+                        "kernel_ms": time_ms(lambda: call(x), repeats, warmup=1),
+                        "kernel_stream_ms": stream_ms(lambda: call(x), repeats, rounds=1),
+                        "plain_ms": time_ms(lambda: fused_mlp_reference(ops, x), repeats,
+                                            warmup=1),
+                        "bound_ms": b[0], "bound_by": b[1],
+                        "tile_rows": fn.rows_for(n) if fn.wide else route.plan.heights[0]}
+                rep["workspace_bytes"] = (0 if route.workspace is None
+                                          else route.workspace.numel())
+                out[key] = rep
+        report[label] = out
+        print(f"phase 23: K1 wide route on hidden {label} {json.dumps(out)}", flush=True)
+    return report
+
+
+def served_wide_phase(model, rng, dev) -> dict:
+    """Phase 23 (b): ``SERVED_ROWS`` rows served on (1536,)×3 through
+    ``ShardedEmulator.for_model(backend="kernel")`` at bf16x3, where the
+    dedicated K1 refuses the network: its K1 (the wide route) counted from
+    0 (one launch per call), the signals held to the model's
+    ``predict_fn`` at the same tier within ``AMPLITUDE_RTOL``."""
+    config = DirectEmulatorConfig(hidden_dims=WIDE_NETS["1536x3"])
+    net = DirectEmulator(config=config, normalizer=model.normalizer, seed=WIDE_ROUTES_SEED,
+                         device=dev)
+    svc = ShardedEmulator.for_model(net, backend="kernel", precision=SERVED_TIER)
+    (k1,) = [fn for fn in svc.fns if fn is not None]
+    check(k1.wide, "the served K1 on (1536,)×3 at bf16x3 runs the wide route")
+    raw = synthetic_params(SERVED_ROWS, rng).astype(np.float32)
+    raw[0, 2] = 0.0
+    svc(raw[:1024])  # warm the operand cache and the workspace
+    k1.launches = 0
+    got, wall = timed(lambda: svc(raw))
+    launches = k1.launches
+    with torch.no_grad():
+        want = net.predict_fn(precision=SERVED_TIER)(
+            net.params, torch.as_tensor(raw, device=dev)).cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(got.shape == (SERVED_ROWS, config.n_bins) and bool(np.isfinite(got).all()),
+          "served K1: shape and finite")
+    check(launches >= 1, f"served K1: {launches} wide launches")
+    check(rel <= AMPLITUDE_RTOL[SERVED_TIER], f"served K1 vs predict_fn: {rel:.3g}")
+    out = {"rows": SERVED_ROWS, "tier": SERVED_TIER, "launches": launches, "wall_s": wall,
+           "rel_amp": rel, "max_abs": float(np.abs(got - want).max())}
+    print("phase 23: served on hidden (1536,)×3 " + json.dumps(out), flush=True)
+    return out
+
+
+def fan_in_model(dev):
+    """A direct model with ``FAN_IN`` inputs (a dense first layer) and the
+    flagship's hidden widths, randomly initialised from ``FAN_IN_SEED``
+    with a seeded normalizer of its own over a box of positive columns
+    0–2; the box, an observation of a truth inside it and a row sampler
+    (row 0 at fx == 0)."""
+    rng = np.random.default_rng(FAN_IN_SEED)
+    lo = rng.uniform(0.1, 1.0, FAN_IN).astype(np.float32)
+    hi = lo + rng.uniform(0.5, 2.0, FAN_IN).astype(np.float32)
+    logs = _log_clamp(torch.as_tensor(np.stack([lo, hi]))).to(dev)
+    config = DirectEmulatorConfig(n_params=FAN_IN)
+    norm = Normalizer(signal_mean=torch.as_tensor(rng.normal(0.0, 20.0, config.n_bins),
+                                                  dtype=torch.float32, device=dev),
+                      signal_std=torch.tensor(30.0, device=dev), par_min=logs[0],
+                      par_max=logs[1])
+    net = DirectEmulator(config=config, normalizer=norm, seed=FAN_IN_SEED, device=dev)
+    truth = rng.uniform(lo, hi).astype(np.float32)
+    obs = net.predict(truth) + rng.normal(0.0, 5.0, config.n_bins)
+
+    def draw(n):
+        x = rng.uniform(lo, hi, (n, FAN_IN)).astype(np.float32)
+        x[0, 2] = 0.0
+        return torch.as_tensor(x, device=dev)
+
+    return net, np.stack([lo, hi], 1), truth, obs, draw
+
+
+def fan_in_phase(dev) -> dict:
+    """Phase 23 (c): the fan-in-12 model (:func:`fan_in_model`): K2 at
+    every tier and K3 at every pair on the wide route with a dense first
+    layer, one launch per call, held to plain at ``FAN_IN_BATCHES``
+    (values within ``VALUE_RTOL``, the fx == 0 slot 0, gradients under the
+    gate per batch at an fp32 value tier, at a tensor-core one beside plain
+    against the exact gradient over the 69,670 rows pooled), timed at 4096
+    and 65,536 rows; then HMC through ``sample_posterior`` (4096 walkers,
+    20 + 20, K3 at (high, default)) in its box: exactly the launches
+    ``hmc_launches`` replays, finite chains, acceptance in the HMC range,
+    the best draw at least as likely as the truth less 5 nats."""
+    net, box, truth, obs, draw = fan_in_model(dev)
+    trunk = net.config.mlp().sizes[:-1]
+    exact = exact_gradient(net, obs, dev)
+    out = {"n_params": FAN_IN, "hidden": list(net.config.hidden_dims)}
+    for tiers in WIDE_ROUTES:
+        k3 = tiers[1] is not None
+        key = f"k3 {tiers[0]}/{tiers[1]}" if k3 else f"k2 {tiers[0]}"
+        fn, ops, route, call = wide_route_call(net, obs, tiers, dev)
+        check(fn.wide and fn.plan.dense, f"fan-in {key}: the wide route, a dense first layer")
+        plain = loglik_grad_gram_reference if k3 else loglik_gram_reference
+        half_c = 0.5 * abs(float(ops.c))
+        rep = {"worst_over_tol": 0.0, "max_abs": 0.0}
+        pooled = []
+        for n in FAN_IN_BATCHES:
+            x = draw(n)
+            fn.launches = 0
+            got = call(x)
+            check(fn.launches == 1, f"fan-in {key} n={n}: {fn.launches} launches")
+            want = plain(ops, x)
+            vk, vp = ((got[0], want[0]) if k3 else (got, want))
+            worst, max_abs = value_worst(vk.cpu().numpy(), vp.cpu().numpy(), tiers[0], half_c)
+            check(bool(torch.isfinite(vk).all()) and worst <= 1.0,
+                  f"fan-in {key} value n={n}: worst |Δ|/tol {worst:.3g}")
+            rep["worst_over_tol"] = max(rep["worst_over_tol"], worst)
+            rep["max_abs"] = max(rep["max_abs"], max_abs)
+            if k3:
+                gk, gp = got[1].cpu().numpy(), want[1].cpu().numpy()
+                check(bool(np.isfinite(gk).all()) and gk[0, 2] == 0.0,
+                      f"fan-in {key} n={n}: finite gradients, the fx == 0 slot 0")
+                if tiers[0] == "highest":
+                    gate = grad_gate_violation(gk, gp)
+                    check(gate <= 0.0, f"fan-in {key} gradient gate n={n}: {gate:.3g}")
+                else:
+                    pooled.append((gk, gp, exact(x)))
+        if pooled:
+            g = [np.concatenate(t) for t in zip(*pooled)]
+            check(g[0].shape[0] >= POOLED_ROWS, f"fan-in {key}: {g[0].shape[0]} pooled rows")
+            rep["grad_gate_beside"] = grad_gate_beside(*g)
+            check(rep["grad_gate_beside"] <= 0.0,
+                  f"fan-in {key} gradient gate beside plain: {rep['grad_gate_beside']:.3g}")
+        for n, repeats in ((4096, 5), (65536, 3)):
+            x = draw(n)
+            b = bound("k3" if k3 else "k2", trunk, n, BOUND_TIER[tiers[0]],
+                      BOUND_TIER[tiers[1]] if k3 else None)
+            rep[str(n)] = {"kernel_ms": time_ms(lambda: call(x), repeats, warmup=1),
+                           "kernel_stream_ms": stream_ms(lambda: call(x), repeats, rounds=1),
+                           "plain_ms": time_ms(lambda: plain(ops, x), repeats, warmup=1),
+                           "bound_ms": b[0], "bound_by": b[1], "tile_rows": fn.rows_for(n)}
+        out[key] = rep
+    print(f"phase 23: fan-in {FAN_IN} {json.dumps(out)}", flush=True)
+
+    valgrad = net.loglik_and_grad_fn(obs, NOISE_VAR, backend="kernel",
+                                     grad_precision=MAIN_TIERS[1])
+    check(valgrad.wide and valgrad.plan.dense, "fan-in HMC: K3 on the wide route")
+    plain_ll = net.loglik_fn(obs, NOISE_VAR, precision="contract")
+    valgrad.launches = 0
+    res, wall = timed(lambda: net.sample_posterior(obs, NOISE_VAR, sampler="hmc", bounds=box,
+                                                   **EXACT_HMC))
+    launches = valgrad.launches
+    want = hmc_launches(EXACT_HMC["n_warmup"], EXACT_HMC["n_steps"])
+    check(launches == want, f"fan-in HMC: {launches} K3 launches, not {want}")
+    check(res.chain.shape == (EXACT_HMC["n_steps"] // 5, EXACT_HMC["n_walkers"], FAN_IN),
+          f"fan-in HMC: chain shape {res.chain.shape}")
+    acc = float(np.mean(res.accept_rate))
+    ll = scores(plain_ll, net, res.flat, dev)
+    ll_truth = float(scores(plain_ll, net, truth, dev)[0])
+    check(bool(np.isfinite(res.chain).all() and np.isfinite(ll).all()), "fan-in HMC: finite")
+    check(ACCEPT_RANGE["hmc"][0] <= acc <= ACCEPT_RANGE["hmc"][1],
+          f"fan-in HMC: acceptance {acc:.3f}")
+    check(float(ll.max()) >= ll_truth - 5.0,
+          f"fan-in HMC: best draw {float(ll.max()):.2f} < logL(truth) {ll_truth:.2f} − 5")
+    out["hmc"] = {"launches": launches, "wall_s": wall, "accept": acc,
+                  "loglik_truth": ll_truth, "loglik_draws_max": float(ll.max())}
+    print("phase 23: fan-in HMC " + json.dumps(out["hmc"]), flush=True)
+    return out
+
+
+def main_path_guard(model, obs, launches: dict, wide_routes: dict, dev) -> dict:
+    """Phase 23 (d): the flagship's K1 launches on phases 1-22's paths
+    (``launches``: by kernel) are ``FLAGSHIP_K1_LAUNCHES``, and every
+    wrapper of those phases keeps its route: the flagship's K1, K2 and K3
+    at every tier and pair on their dedicated kernels, phase 19's wide
+    ensemble's K3 on the wide route, and phase 22's networks on theirs
+    (the dedicated kernel at the four tiers and pairs where one holds
+    (1536,)×3, else the wide route)."""
+    check(launches == FLAGSHIP_K1_LAUNCHES,
+          f"flagship K1 launches {launches}, not {FLAGSHIP_K1_LAUNCHES}")
+    cfg, norm = model.config, model.normalizer
+    routes = {}
+    for tier in TIERS:
+        want = "f32" if tier == "highest" else "mma"
+        routes[f"k1 {tier}"] = (make_fused_emulate(cfg, norm, precision=tier, device=dev).route,
+                                make_fused_loglik(cfg, norm, obs, NOISE_VAR, precision=tier,
+                                                  device=dev).mlp.route)
+        check(routes[f"k1 {tier}"] == (want, want), f"flagship K1 {tier}: {routes[f'k1 {tier}']}")
+        k2 = make_fused_loglik_gram(cfg, norm, obs, NOISE_VAR, precision=tier, device=dev)
+        check(not k2.wide and k2.tensor_cores == (tier != "highest"), f"flagship K2 {tier}")
+        for grad in TIERS:
+            k3 = k3_wrapper(model, obs, (tier, grad), dev)
+            a, b = BOUND_TIER[tier], BOUND_TIER[grad]
+            want = ("f32" if a == b == "f32" else "mixed" if a == "f32" else
+                    "reverse" if b == "f32" else "mma")
+            got = [r for r, on in (("f32", k3.register_tiled), ("mixed", k3.mixed),
+                                   ("reverse", k3.reverse), ("mma", k3.tensor_cores),
+                                   ("wide", k3.wide)) if on]
+            check(got == [want], f"flagship K3 {tier}/{grad}: {got}")
+            routes[f"k3 {tier}/{grad}"] = want
+    wide_k3 = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=WIDE_HIDDEN), norm,
+                                          obs, NOISE_VAR, precision="high",
+                                          grad_precision="highest", device=dev)
+    check(wide_k3.wide and not wide_k3.plan.dense, "phase 19's wide ensemble: the wide route")
+    dedicated = {("highest", None), ("default", None), ("highest", "highest"),
+                 ("default", "default")}
+    for label, report in wide_routes.items():
+        if label not in WIDE_NETS:
+            continue
+        for tiers in WIDE_ROUTES:
+            key = f"k3 {tiers[0]}/{tiers[1]}" if tiers[1] else f"k2 {tiers[0]}"
+            want = "dedicated" if label == "1536x3" and tiers in dedicated else "wide"
+            check(report[key]["wrapper_route"] == want, f"phase 22 {label} {key}: route")
+    out = {"k1_launches": launches, "flagship_routes": routes}
+    print("phase 23: main-path guard " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     # -- phase 1: device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -4153,6 +4468,16 @@ def main() -> int:
     # -- phase 22: the wide route at every K2 tier and K3 pair on three
     # networks the dedicated kernels refuse; the samplers on one ------------
     wide_routes = wide_routes_phase(model, dev)
+    # -- phase 23: K1's wide route, the served path on it, a dense first
+    # layer on K2 and K3 (fan-in 12), the main path's guard --------------------
+    t23 = time.perf_counter()
+    k1_wide = k1_wide_phase(model, np.random.default_rng(WIDE_ROUTES_SEED + 1), dev)
+    served = served_wide_phase(model, np.random.default_rng(WIDE_ROUTES_SEED + 2), dev)
+    fan_in = fan_in_phase(dev)
+    main_path_guard(model, obs, {
+        "fused_mlp": k1_launches + ens_launches["k1"] + serve["k1"] + marg.get("fused_mlp", 0),
+        "fused_mlp_mma": k1_mma_launches + marg.get("fused_mlp_mma", 0)}, wide_routes, dev)
+    print(f"phase 23: wall {time.perf_counter() - t23:.1f} s", flush=True)
     new_k3 = {"launches_chees": adaptive["chees"], "launches_nuts": adaptive["nuts"],
               "launches_fit": fits["fit"], "launches_profile": fits["profile"],
               "launches_ladder_warm_start": evidence["ladder"]["k3"],
@@ -4185,6 +4510,7 @@ def main() -> int:
                 "plain_ms_64k": t["plain_ms"], "bound_ms_64k": b[0]}
 
     wide = timings["wide"]
+    k1_served = k1_wide["1536x3"][f"{SERVED_TIER} predict"]
     wide_pairs = [f"{a}/{b}" for a, b in WIDE_PAIRS]
     wide_k2 = wide_routes["1536x3"]["k2 high"]
     wide_stream = {label: {key: [r["4096"]["kernel_stream_ms"], r["65536"]["kernel_stream_ms"]]
@@ -4278,17 +4604,39 @@ def main() -> int:
               **at_64k(timings["high/highest/65536"],
                        bound("k3", trunk, 65536, "bf16x3", "f32"))),
         entry("fused_loglik_grad_gram", K3_SOURCE, K3_REPLACES,
-              ens_launches["k3_wide"] + wide_routes["samplers"]["hmc"]["launches"],
+              ens_launches["k3_wide"] + wide_routes["samplers"]["hmc"]["launches"]
+              + fan_in["hmc"]["launches"],
               max(wide_err, *(wide[p]["max_abs"] for p in wide_pairs)), wide[exact]["4096"],
               (wide[exact]["4096"]["bound_ms"], wide[exact]["4096"]["bound_by"]),
               hidden=wide["hidden"], launches_trained=0, launches_serve=0,
               launches_wide_hmc=wide_routes["samplers"]["hmc"]["launches"],
+              launches_fan_in_hmc=fan_in["hmc"]["launches"],
+              fan_in_12={key: {n: r[n] for n in ("4096", "65536")}
+                         for key, r in fan_in.items() if key.startswith("k")},
               stream_ms_by_network_4096_65536=wide_stream,
               tile_rows=wide[exact]["4096"]["tile_rows"],
               reverse_pairs={p: {n: wide[p][n] for n in ("4096", "65536")}
                              for p in wide_pairs if p != exact},
               hidden_ensemble=list(WIDE_HIDDEN), **ensemble("k3_wide"),
               **at_64k(wide[exact]["65536"], (wide[exact]["65536"]["bound_ms"],))),
+        entry("fused_mlp_wide", K3_SOURCE, K1_REPLACES, served["launches"],
+              max(r["max_abs"] for label in WIDE_NETS for key, r in k1_wide[label].items()
+                  if key.endswith("predict")),
+              k1_served["65536"], (k1_served["65536"]["bound_ms"],
+                                   k1_served["65536"]["bound_by"]),
+              hidden=list(WIDE_NETS["1536x3"]), tier=SERVED_TIER, rows=65536,
+              launches_served=served["launches"], launches_trained=0, launches_serve=0,
+              max_abs_err_served=served["max_abs"],
+              max_abs_err_sumsq=max(r["max_abs"] for label in WIDE_NETS
+                                    for key, r in k1_wide[label].items()
+                                    if key.endswith("sumsq")),
+              ms_4096=k1_served["4096"]["kernel_ms"],
+              plain_ms_4096=k1_served["4096"]["plain_ms"],
+              bound_ms_4096=k1_served["4096"]["bound_ms"],
+              stream_ms_by_network_4096_65536={
+                  label: {key: [r["4096"]["kernel_stream_ms"], r["65536"]["kernel_stream_ms"]]
+                          for key, r in k1_wide[label].items() if key != "hidden"}
+                  for label in WIDE_NETS}),
         entry("fused_loglik_gram_wide", K3_SOURCE, K2_REPLACES,
               wide_routes["samplers"]["mh"]["launches"],
               max(r["max_abs"] for label in WIDE_NETS for key, r in wide_routes[label].items()

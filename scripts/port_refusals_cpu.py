@@ -8,8 +8,10 @@ are built, a network whose row tile does not fit an H100 block's shared
 memory. This script builds every wrapper on the CPU (nothing is folded
 or launched) over a grid of trunks and prints, per (kernel, tier, layer
 count), the narrowest uniform hidden width (a multiple of 32, up to
-4096) the port refuses, and whether the shipped and tuner widths are
-all taken.
+4096) the port refuses, per kernel and tier the smallest fan-in (of 1 to
+12, 160 and 4096, on the flagship's hidden widths and on (4096, 4096))
+it refuses, and whether the shipped widths and (256,)×12 are taken; null
+wherever nothing is refused.
 
     python3 scripts/port_refusals_cpu.py
 """
@@ -36,13 +38,15 @@ from tpu21cmvae_torch.utils.config import DirectEmulatorConfig  # noqa: E402
 TIERS = ("highest", "high", "default")
 LAYERS = (1, 2, 3, 4, 8)
 WIDTHS = range(32, 4097, 32)
+FAN_INS = (*range(1, 13), 160, 4096)
 
 
-def builds(kernel, tiers, hidden) -> bool:
-    """Whether the wrapper of ``kernel`` at ``tiers`` takes ``hidden``."""
-    cfg = DirectEmulatorConfig(hidden_dims=hidden)
+def builds(kernel, tiers, hidden, n_params=7) -> bool:
+    """Whether the wrapper of ``kernel`` at ``tiers`` takes ``hidden`` after
+    ``n_params`` inputs."""
+    cfg = DirectEmulatorConfig(n_params=n_params, hidden_dims=hidden)
     norm = Normalizer(signal_mean=torch.zeros(cfg.n_bins), signal_std=torch.tensor(1.0),
-                      par_min=torch.zeros(7), par_max=torch.ones(7))
+                      par_min=torch.zeros(n_params), par_max=torch.ones(n_params))
     obs = np.zeros(cfg.n_bins, np.float32)
     try:
         if kernel == "K1":
@@ -70,8 +74,10 @@ def main() -> int:
     shipped = [(288, 352, 288, 224), (256, 256, 128, 128, 128)]
     taken = {f"{k} {'/'.join(t)}": all(builds(k, t, h) for h in shipped) for k, t in cases}
     deep = {f"{k} {'/'.join(t)}": builds(k, t, (256,) * 12) for k, t in cases}
+    fan_in = {f"{k} {'/'.join(t)}": next((n for n in FAN_INS for hidden in shipped[:1] + [
+        (4096, 4096)] if not builds(k, t, hidden, n)), None) for k, t in cases}
     print(json.dumps({"narrowest_refused_uniform_width": out, "shipped_widths_taken": taken,
-                      "deep_256x12_taken": deep}))
+                      "deep_256x12_taken": deep, "smallest_refused_fan_in": fan_in}))
     return 0
 
 

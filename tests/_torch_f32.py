@@ -213,38 +213,56 @@ def _frag_matrix(flat, word, k, n, parts):
 def emulate_wide(ops, x, plan=None):
     """``fused_loglik_grad_gram.cu``: the program of ``ops.program``
     (``ops/kernels/wide.py``; ``plan``, the one ``ops`` were packed
-    under, default ``ops_plan``'s) run op by op on the CPU, as the kernel runs
-    it on a tile (at any height: nothing depends on it), every buffer of
-    the tile and of the workspace NaN until an op writes it (a read of
-    memory no op wrote turns the result NaN). The fp32 products come from
-    the stream ``ops.slabs.w`` in program order, one sum per output over k
-    ascending, the accumulators carried between chunks; a split layer's
-    upper 64 rows into sums of their own, added in the epilogue. The
-    tensor-core products through the fragment buffer ``ops.frags`` at each
-    op's own parts, the chunk split or rounded once, each 128-column
-    chunk's products (``mma_product``'s) added to the carried sums. The
-    workspace ops are copies. Activation 0 recomputed from the input at
-    each chunk (``fused_skinny_dense``), the masks from the fp32
-    pre-activations, the quad summed per (row, slice: columns ≡ slice mod
-    8) and dx per (row, slice: groups of four columns ≡ slice mod 8), the
-    eight slices in order. ``(logL, dlogL/dx)``, or K2's ``logL`` where
-    ``ops.grad_tier`` is None."""
+    under, default ``ops_plan``'s, or K1's ``k1_wide_plan``) run op by op
+    on the CPU, as the kernel runs it on a tile (at any height: nothing
+    depends on it), every buffer of the tile and of the workspace NaN
+    until an op writes it (a read of memory no op wrote turns the result
+    NaN). The fp32 products come from the stream ``ops.slabs.w`` in
+    program order, one sum per output over k ascending, the accumulators
+    carried between chunks; a split layer's upper 64 rows into sums of
+    their own, added in the epilogue. The tensor-core products through
+    the fragment buffer ``ops.frags`` at each op's own parts, the chunk
+    split or rounded once, each 128-column chunk's products
+    (``mma_product``'s) added to the carried sums. The workspace ops are
+    copies. A skinny activation 0 recomputed from the input at each chunk
+    (``fused_skinny_dense``); a dense layer 0's input read a chunk at a
+    time, log-clamped, zero past its width. The masks from the fp32
+    pre-activations, the quad (K1: Σy²) summed per (row, slice: columns ≡
+    slice mod 8) and a skinny layer's dx per (row, slice: groups of four
+    columns ≡ slice mod 8), the eight slices in order; a dense layer's dx
+    a chunk at a time from its products. ``(logL, dlogL/dx)``, K2's
+    ``logL`` where ``ops.grad_tier`` is None, or (``ops``: K1's
+    :class:`MLPOperands`) the signal (B, n_out) or each row's Σy². It runs
+    on ``x``'s device (``ops`` there too): on a card, at the batches the
+    kernel's tests pool."""
     from tpu21cmvae_torch.ops.fold import _split_hi_lo, bf16_round
     from tpu21cmvae_torch.ops.kernels import wide
     from tpu21cmvae_torch.ops.kernels.fused_loglik import ops_plan
+    from tpu21cmvae_torch.ops.kernels.fused_mlp import MLPOperands, k1_wide_plan
 
-    plan = plan or ops_plan(ops)
-    n_in, W = ops.widths[0], ops.widths[1:]
+    k1 = isinstance(ops, MLPOperands)
+    if k1:
+        plan = plan or k1_wide_plan(ops.widths, ops.tier, ops.reduce)
+        n_in, W, n_out = ops.widths[0], ops.widths[1:-1], ops.widths[-1]
+        w0, b0 = ops.w[0], ops.b[0]
+        xl = _log_clamp(x) if ops.log_clamp else x
+        k3 = False
+    else:
+        plan = plan or ops_plan(ops)
+        n_in, W = ops.widths[0], ops.widths[1:]
+        w0, b0 = ops.w0, ops.b0
+        xl = _log_clamp(x)
+        k3 = ops.grad_tier is not None
     slices = 8  # kSlices
     B = x.shape[0]
-    xl = _log_clamp(x)
     nan = float("nan")
     width = {wide.CA: SLAB_N, wide.CB: SLAB_N, **dict(zip(wide.HELD, plan.cols))}
     # each buffer as wide as its whole chunks: a product reads and writes
     # whole 32-column quarters, and those past a layer's width are not read
-    buf = {i: torch.full((B, max(chunks(c), 1) * SLAB_N), nan) for i, c in width.items()}
-    ws = torch.full((B, max(plan.ws_cols, 1)), nan)
-    masks = torch.zeros((B, max(1, sum(padk(w) for w in W[:-1]))), dtype=torch.bool)
+    buf = {i: x.new_full((B, max(chunks(c), 1) * SLAB_N), nan) for i, c in width.items()}
+    ws = x.new_full((B, max(plan.ws_cols, 1)), nan)
+    masks = torch.zeros((B, max(1, sum(padk(w) for w in W[:-1]))), dtype=torch.bool,
+                        device=x.device)
     mats = {}
     q = x.new_zeros((slices, B))
     dxp = x.new_zeros((slices, B, n_in))
@@ -252,13 +270,17 @@ def emulate_wide(ops, x, plan=None):
     quad = dx = None
 
     def skinny(j0, valid):
-        return fused_skinny_dense(xl, ops.w0[:, j0: j0 + valid], ops.b0[j0: j0 + valid])
+        return fused_skinny_dense(xl, w0[:, j0: j0 + valid], b0[j0: j0 + valid])
+
+    xin = torch.nn.functional.pad(xl, (0, chunks(n_in) * SLAB_N - n_in))
+    signal = x.new_full((B, n_out), nan) if k1 else None
+    dx_dense = x.new_full((B, n_in), nan)
 
     for op in ops.program.tolist():
         code = op[0]
         if code == wide.OP_SKINNY:
             kappa, cols, valid, mask_col = op[1:5]
-            v = torch.zeros((B, cols))
+            v = x.new_zeros((B, cols))
             v[:, :valid] = skinny(SLAB_N * kappa, valid)
             buf[wide.CA][:, :cols] = torch.relu(v)
             if mask_col >= 0:
@@ -269,8 +291,9 @@ def emulate_wide(ops, x, plan=None):
             a = buf[src][:, src_row: src_row + k]
             out = buf[dst]
             if parts:  # tensor cores: the chunk split or rounded once
-                if frag not in mats:
-                    mats[frag] = _frag_matrix(ops.frags, frag, 16 * ksteps, n, parts)
+                if frag not in mats:  # read back on the CPU, used where x is
+                    mats[frag] = _frag_matrix(ops.frags.cpu(), frag, 16 * ksteps, n,
+                                              parts).to(x.device)
                 wp = mats[frag][:, 16 * kstep0: 16 * kstep0 + k]
                 hi, lo = _split_hi_lo(a) if parts == 2 else (bf16_round(a), None)
                 for d in range(d0, d1):  # one 128-column product at a time
@@ -301,18 +324,31 @@ def emulate_wide(ops, x, plan=None):
                 for qq in live:
                     out[:, cols.start + 32 * qq: cols.start + 32 * qq + 32] = acc[:, 32 * qq:
                                                                                  32 * qq + 32]
+        elif code == wide.OP_INPUT:
+            kappa, dst = op[1:3]
+            buf[dst][:, :SLAB_N] = xin[:, SLAB_N * kappa: SLAB_N * (kappa + 1)]
         elif code == wide.OP_FIN:
-            dst, cols, valid, bias, split, mask_col, masked = op[1:8]
+            dst, cols, valid, bias, split, mask_col, kind = op[1:8]
             out = buf[dst]
-            v = torch.zeros((B, cols))
+            v = x.new_zeros((B, cols))
             v[:, :valid] = out[:, :valid] + (out[:, 64: 64 + valid] if split else 0.0)
-            if masked:
+            if kind == wide.FIN_MASKED:
                 out[:, :cols] = torch.where(masks[:, mask_col: mask_col + cols], v, 0.0)
             else:
                 v[:, :valid] = v[:, :valid] + ops.slabs.b[bias: bias + valid]
-                out[:, :cols] = torch.relu(v)
+                out[:, :cols] = v if kind == wide.FIN_LINEAR else torch.relu(v)
                 if mask_col >= 0:
                     masks[:, mask_col: mask_col + cols] = v > 0.0
+        elif code == wide.OP_OUT:
+            src, col0, valid, mode = op[1:5]
+            v = buf[src][:, :valid]
+            if mode == wide.OUT_SUMSQ:
+                for j in range(valid):
+                    q[j % slices] = q[j % slices] + v[:, j] * v[:, j]
+            elif mode == wide.OUT_SIGNAL:
+                signal[:, col0: col0 + valid] = v
+            else:
+                dx_dense[:, col0: col0 + valid] = v
         elif code == wide.OP_GRAM:
             h_id, h0, e_id, e0, H, j0, cols, u_at = op[1:9]
             e = buf[e_id]
@@ -330,7 +366,7 @@ def emulate_wide(ops, x, plan=None):
             src, src_row, valid, w0_col = op[1:5]
             for j in range(valid):
                 p = j // 4 % slices
-                dxp[p] = dxp[p] + buf[src][:, src_row + j, None] * ops.w0[None, :, w0_col + j]
+                dxp[p] = dxp[p] + buf[src][:, src_row + j, None] * w0[None, :, w0_col + j]
         elif code == wide.OP_DX_WRITE:
             dx = functools.reduce(lambda s, t: s + t, dxp)
         elif code == wide.OP_LOAD:
@@ -344,8 +380,12 @@ def emulate_wide(ops, x, plan=None):
         else:
             raise ValueError(f"unknown op {code}")
     assert at == ops.slabs.w.numel()
+    if k1:
+        return quad if ops.reduce == "sumsq" else signal
     value = -0.5 * (quad + ops.c) + ops.log_norm
-    if ops.grad_tier is None:
+    if not k3:
         return value
+    if dx is None:  # a dense layer 0: dx a chunk at a time
+        dx = dx_dense
     return value, -(_log_clamp_grad(x) * dx)
 

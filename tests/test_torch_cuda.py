@@ -795,14 +795,22 @@ def _exact_gradient(m, obs, params, x):
     return loglik_grad_gram_reference(fn.operands(params), x)[1]
 
 
-def _held_to_plain(got, want, ops, tiers, exact=None):
+# the rows over which a gradient at a tensor-core value tier is held beside
+# its reference against the exact gradient (grad_gate_beside): its q99.9
+# over 4096 rows is the fifth-largest row's error, which two roundings of
+# one tier move by more than the gate's margin on (256,)×12; over 65,536
+# rows by ≤ 0.0021 (scripts/grad_gate_spread_cpu.py)
+POOLED_ROWS = 65_536
+
+
+def _held_to_plain(got, want, ops, tiers, exact=None, pool=None):
     """Values within the value tier's tolerance of plain (``ops``: one
-    model's operands); gradients (K3) under the gate at an fp32 value
-    tier, at a tensor-core one no less accurate than plain against the
-    ``exact`` gradient (:func:`_exact_gradient`) by the gate's margins
-    (``grad_gate_beside``: on networks this wide or deep both flip ReLU
-    masks on more rows than the gate's 0.1 %); the fx == 0 slot exactly
-    0."""
+    model's operands), per batch; gradients (K3) under the gate at an
+    fp32 value tier, per batch; at a tensor-core one, where on networks
+    this wide or deep both flip ReLU masks on more rows than the gate's
+    0.1 %, the batch's kernel, plain and ``exact`` gradients
+    (:func:`_exact_gradient`) go into ``pool``, held together by
+    :func:`_pooled_gate`; the fx == 0 slot exactly 0."""
     if tiers[1] is None:
         got, want = (got,), (want,)
     got = [t.cpu().numpy() for t in got]
@@ -813,8 +821,22 @@ def _held_to_plain(got, want, ops, tiers, exact=None):
         if tiers[0] == "highest":
             assert grad_gate_violation(got[1], want[1]) <= 0.0
         else:
-            assert grad_gate_beside(got[1], want[1], exact.cpu().numpy()) <= 0.0
+            pool.append((got[1], want[1], exact.cpu().numpy()))
         assert got[1][0, 2] == 0.0
+
+
+def _pooled_gate(pool):
+    """The gradients ``pool`` collected (:func:`_held_to_plain`), at least
+    :data:`POOLED_ROWS` rows: every row no less accurate than its
+    reference against the exact gradient by the gate's margins, q99.9
+    and max over the rows together (``grad_gate_beside``), as smoke
+    phase 22 pools its rows. Nothing to hold where the pool is empty (an
+    fp32 value tier, or K2)."""
+    if not pool:
+        return
+    got, want, exact = (np.concatenate(g) for g in zip(*pool))
+    assert got.shape[0] >= POOLED_ROWS
+    assert grad_gate_beside(got, want, exact) <= 0.0
 
 
 def _wide_anyway(fn, ops, k3):
@@ -838,11 +860,12 @@ def test_wide_routes_match_plain(cuda, hidden, tiers):
     per wrapper call where the dedicated kernels refuse the network (at a
     tier or pair whose dedicated kernel holds (1536,)×3 the wrapper keeps
     it, and the wide route's operands are launched directly), within the
-    value tier's tolerance of the plain version at 37 and 4096 rows,
-    gradients under the gate (at a tensor-core value tier beside plain
-    against the exact gradient: ``_held_to_plain``), the fx == 0 slot
-    exactly 0; where the plan spills, the wrapper's workspace is allocated
-    once and reused."""
+    value tier's tolerance of the plain version at 37, 4096 and 65,536
+    rows, gradients under the gate per batch at an fp32 value tier, at a
+    tensor-core one beside plain against the exact gradient over the
+    69,669 rows pooled (``_held_to_plain``, ``_pooled_gate``), the fx ==
+    0 slot exactly 0; where the plan spills, the wrapper's workspace is
+    allocated once and reused."""
     m, obs, _ = _model(hidden, cuda)
     k3 = tiers[1] is not None
     if k3:
@@ -860,13 +883,15 @@ def test_wide_routes_match_plain(cuda, hidden, tiers):
             ("highest", None), ("default", None), ("highest", "highest"), ("default", "default")]
         ops, call = _wide_anyway(fn, ops, k3)
     plain = loglik_grad_gram_reference if k3 else loglik_gram_reference
-    for n in (37, 4096):
+    pool = []
+    for n in (37, 4096, POOLED_ROWS):
         x = _prior_rows(n, cuda)
         fn.launches = 0
         got = call(x)
         assert fn.launches == int(fn.wide)
         exact = _exact_gradient(m, obs, m.params, x) if k3 else None
-        _held_to_plain(got, plain(ops, x), ops, tiers, exact)
+        _held_to_plain(got, plain(ops, x), ops, tiers, exact, pool)
+    _pooled_gate(pool)
     if fn.wide:
         assert (fn.wide_launch.workspace is not None) == bool(fn.plan.spilled
                                                               or fn.plan.masks_in_ws)
@@ -885,7 +910,9 @@ def test_wide_workspace_plan_equals_the_shared_plan(cuda, tiers):
     the workspace, at K3 also with the mask bits there; a persistent grid
     of a few CTAs) gives the all-shared plan's results bit for bit on the
     card, at each height, and both hold to the CPU emulation of the
-    program and to plain."""
+    program and to plain: on 1000 rows (37 emulated), the gradients at a
+    tensor-core value tier pooled with 65,536 more, against plain and
+    against the program's emulation run on the card."""
     import dataclasses
     import sys
 
@@ -915,6 +942,7 @@ def test_wide_workspace_plan_equals_the_shared_plan(cuda, tiers):
     x = _prior_rows(1000, cuda)
     want = shared[1](shared[0], x, 16)
     emulated = emulate_wide(_to_cpu(spilled[0]), x[:37].cpu(), plan)
+    pooled = k3 and tiers[0] != "highest"
     runs = [spilled]
     if k3:  # a budget a byte short of the masks as well: they go to the workspace
         runs.append(route(wide.plan_bytes(plan, 32) - 1))
@@ -928,9 +956,20 @@ def test_wide_workspace_plan_equals_the_shared_plan(cuda, tiers):
             assert all(torch.equal(a, b) for a, b in pairs), rows
     plain = loglik_grad_gram_reference if k3 else loglik_gram_reference
     exact = _exact_gradient(m, obs, m.params, x) if k3 else None
-    _held_to_plain(want, plain(shared[0], x), shared[0], tiers, exact)
+    pool, to_emulation = [], []
+    _held_to_plain(want, plain(shared[0], x), shared[0], tiers, exact, pool)
     first = [t[:37] for t in want] if k3 else want[:37]
-    _held_to_plain(first, emulated, shared[0], tiers, None if exact is None else exact[:37])
+    _held_to_plain(first, emulated, shared[0], tiers, None if exact is None else exact[:37],
+                   to_emulation)
+    if pooled:  # 65,536 more rows, against plain and against the program's emulation
+        more = _prior_rows(POOLED_ROWS, cuda)
+        got = shared[1](shared[0], more, 16)
+        exact = _exact_gradient(m, obs, m.params, more)
+        _held_to_plain(got, plain(shared[0], more), shared[0], tiers, exact, pool)
+        _held_to_plain(got, emulate_wide(spilled[0], more, plan), shared[0], tiers, exact,
+                       to_emulation)
+    _pooled_gate(pool)
+    _pooled_gate(to_emulation)
 
 
 @pytest.mark.cuda
@@ -939,8 +978,9 @@ def test_wide_workspace_plan_equals_the_shared_plan(cuda, tiers):
 def test_wide_new_routes_members_equal_single_launches(cuda, tiers):
     """M = 3 on the wide route at the new tiers and pairs, on a network
     that spills: one member-batched launch equals the three members'
-    single launches bit for bit, and holds to the member-batched plain
-    version."""
+    single launches bit for bit at 37, 4096 and 65,536 rows, and holds to
+    the member-batched plain version (each member's gradients at a
+    tensor-core value tier pooled over the three batches)."""
     hidden = (4096, 4096)
     ens, obs = _members(hidden, cuda)
     batched = _wide_route(ens, obs, tiers, cuda, members=3)
@@ -951,7 +991,8 @@ def test_wide_new_routes_members_equal_single_launches(cuda, tiers):
     k3 = tiers[1] is not None
     plain = (fused_loglik.loglik_grad_gram_members_reference if k3
              else fused_loglik.loglik_gram_members_reference)
-    for n in (37, 4096):
+    pools = [[] for _ in singles]
+    for n in (37, 4096, POOLED_ROWS):
         x = _prior_rows(n, cuda)
         got = batched(ens.params, x)
         want = plain(ops, x)
@@ -961,11 +1002,147 @@ def test_wide_new_routes_members_equal_single_launches(cuda, tiers):
             if k3:
                 assert torch.equal(got[0][k], one[0]) and torch.equal(got[1][k], one[1]), (n, k)
                 _held_to_plain((got[0][k], got[1][k]), (want[0][k], want[1][k]), own, tiers,
-                               _exact_gradient(ens, obs, p, x))
+                               _exact_gradient(ens, obs, p, x), pools[k])
             else:
                 assert torch.equal(got[k], one), (n, k)
                 _held_to_plain(got[k], want[k], own, tiers)
+    for pool in pools:
+        _pooled_gate(pool)
+    assert batched.launches == 3
+
+
+def _k1_wide(m, obs, tier, reduce, dev, members=None):
+    """K1 at ``tier`` on ``m``'s network: predict (``make_fused_emulate``)
+    or the direct likelihood's Σy² (``make_fused_loglik``'s K1), its
+    operands and its call: the wrapper's where it routes the network to
+    the wide route, else the wide route's operands packed all the same
+    and launched directly at the tallest height."""
+    from tpu21cmvae_torch.ops.kernels import wide
+
+    if reduce == "sumsq":
+        fn = make_fused_loglik(m.config, m.normalizer, obs, 25.0, precision=tier,
+                               members=members, device=dev).mlp
+    else:
+        fn = make_fused_emulate(m.config, m.normalizer, precision=tier, device=dev)
+    ops = fn.operands(m.params)
+    if fn.wide:
+        return fn, ops, lambda x: fn(m.params, x)
+    plan = fused_mlp.k1_wide_plan(fn.sizes, fn.tier, reduce)
+    ops = fused_mlp.pack_wide_mlp(ops, plan)
+    route = wide.WideLaunch(plan, fused_mlp._fused_mlp_wide_cuda, fn.sm_count, dev)
+    return fn, ops, lambda x: route(ops, x, plan.heights[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["none", "sumsq"])
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("hidden", WIDE_NETS, ids=["1536x3", "4096x2", "256x12"])
+def test_k1_wide_route_matches_plain(cuda, hidden, tier, reduce):
+    """K1's wide program (``k1_fused_mlp_wide``) at every tier, predict and
+    Σy²: one launch per wrapper call where the dedicated kernels refuse the
+    network (where one holds (1536,)×3 the wrapper keeps it and the wide
+    operands are launched directly), within AMPLITUDE_RTOL of plain's
+    amplitude (predict) or VALUE_RTOL of the folded likelihood's scale
+    (Σy², as ½Σy²) at 37, 4096 and 65,537 rows; where the plan spills,
+    the workspace is allocated once and reused."""
+    m, obs, _ = _model(hidden, cuda)
+    fn, ops, call = _k1_wide(m, obs, tier, reduce, cuda)
+    assert fn.wide or hidden == (1536, 1536, 1536)
+    c = float(ops.b[-1] @ ops.b[-1])
+    for n in (37, 4096, 65_537):
+        x = _prior_rows(n, cuda)
+        fn.launches = 0
+        got = call(x)
+        assert fn.launches == int(fn.wide)
+        want = fused_mlp_reference(ops, x)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        assert got.shape == ((n,) if reduce == "sumsq" else (n, 451)) and np.isfinite(got).all()
+        if reduce == "none":
+            assert np.abs(got - want).max() <= AMPLITUDE_RTOL[tier] * np.abs(want).max()
+        else:
+            _close_values(-0.5 * got, -0.5 * want, c, tier)
+    if fn.wide and hidden == (4096, 4096):
+        assert fn.plan.spilled
+        workspace = fn.wide_launch.workspace
+        assert workspace is not None
+        fn(m.params, _prior_rows(100, cuda))
+        assert fn.wide_launch.workspace is workspace
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["none", "sumsq"])
+@pytest.mark.parametrize("tier", TIERS)
+def test_k1_wide_members_equal_single_launches(cuda, tier, reduce):
+    """M = 3 on K1's wide route ((256,)×12, deeper than the dedicated
+    kernels): one member-batched launch equals the three members' single
+    launches bit for bit at 37 and 4096 rows, one launch per call."""
+    ens, obs = _members((256,) * 12, cuda)
+    route = ("k1" if reduce == "sumsq" else "k1_predict", tier, None)
+    batched = _route_wrapper(ens, obs, route, cuda, members=3)
+    singles = [_route_wrapper(ens, obs, route, cuda) for _ in range(3)]
+    k1 = batched.mlp if reduce == "sumsq" else batched
+    assert k1.wide and k1.wide_launch.members == 3
+    views = ens.member_params(ens.params)
+    for n in (37, 4096):
+        x = _prior_rows(n, cuda)
+        got = batched(ens.params, x)
+        for k, (f, p) in enumerate(zip(singles, views)):
+            assert torch.equal(got[k], f(p, x)), (n, k)
     assert batched.launches == 2
+
+
+def _fan_in_model(dev, n_params=12, hidden=(288, 352, 288, 224), seed=12):
+    """A seeded direct model with ``n_params`` inputs (a dense first
+    layer), its own seeded normalizer, an observation and a row sampler
+    over its box (columns 0–2 positive, row 0 at fx == 0)."""
+    from tpu21cmvae_torch.ops.fold import _log_clamp
+    from tpu21cmvae_torch.ops.transforms import Normalizer
+
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0.1, 1.0, n_params).astype(np.float32)
+    hi = lo + rng.uniform(0.5, 2.0, n_params).astype(np.float32)
+    bounds = _log_clamp(torch.as_tensor(np.stack([lo, hi])))
+    cfg = DirectEmulatorConfig(n_params=n_params, hidden_dims=hidden)
+    norm = Normalizer(signal_mean=torch.as_tensor(rng.normal(0, 20.0, cfg.n_bins),
+                                                  dtype=torch.float32, device=dev),
+                      signal_std=torch.tensor(30.0, device=dev),
+                      par_min=bounds[0].to(dev), par_max=bounds[1].to(dev))
+    m = DirectEmulator(config=cfg, normalizer=norm, seed=seed, device=dev)
+
+    def rows(n):
+        x = np.random.default_rng(n).uniform(lo, hi, (n, n_params)).astype(np.float32)
+        x[0, 2] = 0.0
+        return torch.as_tensor(x, device=dev)
+
+    obs = m.predict(rows(2)[1].cpu().numpy()) + rng.normal(0, 5.0, cfg.n_bins)
+    return m, obs, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [(t, None) for t in TIERS] + ALL_PAIRS,
+                         ids=[f"k2-{t}" for t in TIERS] + [f"k3-{a}-{b}" for a, b in ALL_PAIRS])
+def test_fan_in_12_routes_match_plain(cuda, tiers):
+    """K2 at every tier and K3 at every pair on a fan-in-12 model of the
+    flagship's hidden widths: the wide route with a dense first layer, one
+    launch per call, within the value tier's tolerance of plain at 37,
+    4096 and 65,537 rows, gradients under the gate per batch at an fp32
+    value tier, at a tensor-core one beside plain against the exact
+    gradient over the 69,670 rows pooled; the fx == 0 slot exactly 0."""
+    m, obs, rows = _fan_in_model(cuda)
+    fn = _wide_route(m, obs, tiers, cuda)
+    assert fn.plan.dense
+    ops = fn.operands(m.params)
+    k3 = tiers[1] is not None
+    plain = loglik_grad_gram_reference if k3 else loglik_gram_reference
+    pool = []
+    for n in (37, 4096, 65_537):
+        x = rows(n)
+        fn.launches = 0
+        got = fn(m.params, x)
+        assert fn.launches == 1
+        exact = _exact_gradient(m, obs, m.params, x) if k3 else None
+        _held_to_plain(got, plain(ops, x), ops, tiers, exact, pool)
+    _pooled_gate(pool)
 
 
 @pytest.mark.cuda

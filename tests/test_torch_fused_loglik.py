@@ -70,6 +70,7 @@ from tpu21cmvae_torch.ops.kernels.fused_loglik import (
     grad_reverse_bytes,
     gram_f32_rows,
     gram_shared_bytes,
+    k3_route,
     loglik_grad_gram_reference,
     loglik_gram_reference,
     make_fused_loglik_grad_gram,
@@ -192,9 +193,10 @@ def test_wrapper_rejects_bad_inputs(pair):
     with pytest.raises(NotImplementedError, match="ReLU"):
         make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=SMALL, activation="tanh"),
                                     tm.normalizer, obs, device="cpu")
-    with pytest.raises(NotImplementedError, match="input parameters"):
-        make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=SMALL, n_params=9),
-                                    tm.normalizer, obs, device="cpu")
+    # a fan-in above 8 is a dense first layer: the wide route takes it
+    nine = make_fused_loglik_grad_gram(DirectEmulatorConfig(hidden_dims=SMALL, n_params=9),
+                                       tm.normalizer, obs, device="cpu")
+    assert nine.wide and nine.plan.dense and k3_route((9, *SMALL), "bf16x3", "bf16x3") == "wide"
     # too wide for the tensor-core and the register-tiled kernels: the wide
     # route takes them, spilling to its workspace what shared memory
     # cannot hold

@@ -47,6 +47,7 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     f32_geometry,
     f32_rows,
     fused_mlp_reference,
+    k1_route,
     make_fused_emulate,
     make_fused_mlp,
     pack_mma_operands,
@@ -204,10 +205,11 @@ def test_wrapper_rejects_bad_inputs_and_caches(small_model, splits):
         make_fused_mlp((7, 8, 451), device="cpu")(m.params, x)
     with pytest.raises(ValueError, match="reduce"):
         make_fused_mlp((7, 8), reduce="mean", device="cpu")
-    with pytest.raises(NotImplementedError, match="layers"):
-        make_fused_mlp((7,) + (8,) * 9 + (3,), device="cpu")
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        make_fused_mlp((7, 4096, 4096, 3), device="cpu")
+    # deeper than the dedicated kernels' eight layers, or wider than their
+    # shared memory: the wide route takes them
+    deep, wide = (7,) + (8,) * 9 + (3,), (7, 4096, 4096, 3)
+    assert k1_route(deep, "f32") == k1_route(wide, "f32") == "wide"
+    assert make_fused_mlp(deep, device="cpu").wide and make_fused_mlp(wide, device="cpu").wide
     with pytest.raises(NotImplementedError, match="ReLU"):
         make_fused_emulate(DirectEmulatorConfig(hidden_dims=SMALL, activation="tanh"),
                            m.normalizer, device="cpu")
@@ -324,8 +326,8 @@ def test_shared_bytes_per_kernel():
     slots at 64 rows, 16 × 128 in two at 32, 8 × 128 in three below) and
     1 KB of row partials; ``fused_mlp_mma.cu`` bf16
     tiles of 32 rows, hi and lo at bf16x3, with rows padded to the widest
-    padded layer input + 8; the wrapper refuses by the kernel its tier
-    runs."""
+    padded layer input + 8; a network the kernel its tier runs cannot
+    hold routes to the wide route (``k1_route``)."""
     f32 = 4 * 64 * (7 + 2 * 352) + 4 * 3 * 32 * 128 + 1024
     assert shared_bytes(FLAGSHIP) == shared_bytes(FLAGSHIP, "f32") == f32 == 232_192
     assert shared_bytes(FLAGSHIP, "f32", 32) == 4 * 32 * (7 + 2 * 352) + 4 * 2 * 16 * 128 + 1024
@@ -338,10 +340,9 @@ def test_shared_bytes_per_kernel():
     assert shared_bytes((40, 20), "bf16x3") == 2 * 2 * 2 * 32 * 56 + 4 * 32 * (40 + 8)
     wide = (7, 1000, 3)  # fits the fp32 and bf16 kernels, not bf16x3's two tiles
     assert shared_bytes(wide, "bf16x3") > MAX_SHARED_BYTES
-    for precision in ("highest", "default"):
-        make_fused_mlp(wide, precision=precision, device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16x3"):
-        make_fused_mlp(wide, precision="high", device="cpu")
+    for precision, route in (("highest", "f32"), ("default", "mma"), ("high", "wide")):
+        fn = make_fused_mlp(wide, precision=precision, device="cpu")
+        assert k1_route(wide, fn.tier) == fn.route == route and fn.wide == (route == "wide")
 
 
 def _f32_ops(sizes, reduce="none", seed=None):

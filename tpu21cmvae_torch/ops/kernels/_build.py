@@ -125,12 +125,14 @@ def load_library() -> ctypes.CDLL:
     wide = [i] * 11 + [p, p]
     lib.k3_fused_loglik_grad_gram.argtypes = [p, p, p, i, i, p, p, p, i, *wide]
     lib.k2_fused_loglik_gram_wide.argtypes = [p, p, i, i, p, p, p, i, *wide]
+    # K1 on the wide route: the same, then log_clamp and reduce before the stream
+    lib.k1_fused_mlp_wide.argtypes = [p, p, i, i, p, p, p, i, *wide[:-1], i, i, p]
     lib.k3_fused_loglik_grad_gram_f32.argtypes = [p, p, p, i, i, p, p, p, i, i, p]
     lib.k3_fused_loglik_grad_gram_mma.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
     lib.k3_fused_loglik_grad_gram_mixed.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
     lib.k3_fused_loglik_grad_gram_reverse.argtypes = [p, p, p, i, i, p, p, p, i, i, p]
-    for entry in ("k1_fused_mlp", "k1_fused_mlp_mma", "k2_fused_loglik_gram",
-                  "k2_fused_loglik_gram_mma", "k2_fused_loglik_gram_wide",
+    for entry in ("k1_fused_mlp", "k1_fused_mlp_mma", "k1_fused_mlp_wide",
+                  "k2_fused_loglik_gram", "k2_fused_loglik_gram_mma", "k2_fused_loglik_gram_wide",
                   "k3_fused_loglik_grad_gram",
                   "k3_fused_loglik_grad_gram_f32", "k3_fused_loglik_grad_gram_mma",
                   "k3_fused_loglik_grad_gram_mixed", "k3_fused_loglik_grad_gram_reverse"):

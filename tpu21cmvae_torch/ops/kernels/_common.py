@@ -91,6 +91,21 @@ def f32_tile_rows(in_rows: int, buf_cols: int, forced: int | None = None) -> int
     return fits[0] if fits else F32_TILE_ROWS[-1]
 
 
+def pick_grad_rows(heights, n_rows: int | None, sm_count: int | None, members: int = 1) -> int:
+    """Of ``heights`` (tallest first), the shortest that still runs a
+    batch of ``n_rows`` for each of ``members`` as at most one block per
+    SM of ``sm_count`` (M·⌈B/h⌉ blocks): a block alone on its SM finishes
+    sooner the shorter its tile. Where even the tallest needs more blocks
+    than SMs, or either count is unknown, the tallest: it does the most
+    work per weight read (measured on an H100: PERF.md). A row's value
+    and gradient do not depend on the height."""
+    if n_rows is not None and sm_count is not None:
+        for r in reversed(heights):
+            if members * -(-n_rows // r) <= sm_count:
+                return r
+    return heights[0]
+
+
 class Slabs(NamedTuple):
     """fp32 layers as ``csrc/tile_f32.cuh`` streams them
     (:func:`pack_slabs`): ``w`` every layer's slabs back to back, ``b``

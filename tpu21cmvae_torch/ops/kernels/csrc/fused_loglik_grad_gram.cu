@@ -1,23 +1,27 @@
-// K2 and K3 for Hopper on every network the dedicated kernels cannot
-// hold: the gram-form Gaussian log-likelihood, and (K3) its gradient with
-// respect to the raw parameters, for a batch of rows, in one kernel. It
-// takes K2 at every tier and K3 at every (value, backward) tier pair, at
-// any width and any depth: a network too wide for the kernels that hold
+// K1, K2 and K3 for Hopper on every network the dedicated kernels cannot
+// hold: the MLP's signal or its Σy², the gram-form Gaussian
+// log-likelihood, and (K3) its gradient with respect to the raw
+// parameters, for a batch of rows, in one kernel. It takes K1 and K2 at
+// every tier and K3 at every (value, backward) tier pair, at any width,
+// any depth and any fan-in: a network too wide for the kernels that hold
 // two full-width activation buffers or a row tile's bf16 activations, e.g.
-// hidden (3200, 64, 64), (1536, 1536, 1536) or (4096, 4096), or deeper
-// than their kMaxLayers, e.g. (256,)×12. Other networks run
+// hidden (3200, 64, 64), (1536, 1536, 1536) or (4096, 4096), deeper than
+// their kMaxLayers, e.g. (256,)×12, or (K2, K3) with a first layer of
+// fan-in above kMaxIn. Other networks run fused_mlp.cu, fused_mlp_mma.cu,
 // fused_loglik_gram.cu, fused_loglik_grad_gram_f32.cu, fused_gram_mma.cu
 // and fused_gram_mixed.cu.
 //
 // Replaces: tpu21cmvae/ops/pallas/fused_loglik.py::make_fused_loglik_grad_gram
 // (kernel body _loglik_grad_gram_kernel) and make_fused_loglik_gram
-// (_loglik_gram_kernel), on such a network. Same contract: per row it
-// writes
+// (_loglik_gram_kernel), and tpu21cmvae/ops/pallas/fused_mlp.py::
+// make_fused_mlp (_mlp_kernel), on such a network. Same contract: per row
+// it writes
 //   quad = ‖r‖² − c = Σ_j (h@G + 2u)_j · h_j
 //   dx   = ½ · d‖r‖²/dx_raw                      (K3)
 // where h is the last ReLU trunk activation of the folded network and
 // (G, u, c) come from ops/fold.py::gram_fold; the caller returns
-// −½·(quad + c) + log_norm (and −dx).
+// −½·(quad + c) + log_norm (and −dx). K1 writes y = h@W + b (the linear
+// output layer) or its Σ_j y_j², summed as the quad is.
 //
 // What bounds it on an H100: fp32 FMA throughput on the CUDA cores where
 // a tier is fp32, the tensor cores' bf16 rate where it is bf16 or bf16x3.
@@ -39,9 +43,15 @@
 //   thread holds BM/8 × 4 sums, fed from a four-slot cp.async slab ring
 //   (WideRing), the weights packed once per fold in the order the
 //   program reads them.
-// - No wide activation is held whole. Layer 0 (the skinny layer) is
+// - No wide activation is held whole. Layer 0, where it is skinny, is
 //   recomputed chunk by chunk from the input tile wherever it is read
-//   (n_in ≤ 8 products an element). A held layer is summed k-outer: a
+//   (n_in ≤ 8 products an element); a dense layer 0 is an ordinary layer
+//   whose input is read from device memory a 128-column chunk at a time,
+//   log-clamped (OP_INPUT, no input tile), and whose backward is one more
+//   product, each chunk of dx written with the log-clamp's derivative
+//   (OP_OUT). K1's head is its output layer, each 128-column chunk of y
+//   finished with its bias and no ReLU, then written or squared into the
+//   per-row partials (OP_OUT). A held layer is summed k-outer: a
 //   128-row input chunk at a time, its products added to accumulators
 //   that wait in the output's tile between chunks, so a layer's output
 //   is one fp32 sum over k ascending per element, as in the other
@@ -112,12 +122,16 @@ enum WideOp : int {
   kOpQuadWrite = 8,
   kOpLoad = 9,
   kOpStore = 10,
+  kOpInput = 11,
+  kOpOut = 12,
 };
 enum WideBuf : int { kCA = 0, kCB = 1, kP = 2, kQ = 3, kR = 4 };
 constexpr int kMMSplit = 1, kMMFirst = 2;
+enum FinKind : int { kFinRelu = 0, kFinMasked = 1, kFinLinear = 2 };  // OP_FIN
+enum OutMode : int { kOutSignal = 0, kOutSumsq = 1, kOutDx = 2 };      // OP_OUT
 constexpr int kAStride = kSlabN + 8;  // bf16 per row of the A-chunk tile
 constexpr int kWideNTiles = 2;        // n8 tiles a warp carries at once (mma.cuh: kNTiles)
-constexpr int kInRows = kMaxIn;       // k rows of the input tile
+constexpr int kInRows = kMaxIn;       // k rows of the input tile (none where layer 0 is dense)
 constexpr int kWsAlign = 256;         // a CTA's workspace starts on this many bytes
 // The quad and dx are summed per row by kSlices threads, thread (row r,
 // slice p) over columns p, p + kSlices, …, then the slices in order: the
@@ -143,8 +157,8 @@ struct WideRing {
 };
 
 struct WideNet {
-  int n_in;                 // the skinny layer's fan-in …
-  int n1;                   // … and width: w0 is (n_in, n1)
+  int n_in;                 // layer 0's fan-in (skinny where ≤ kMaxIn) …
+  int n1;                   // … and width: a skinny w0 is (n_in, n1)
   int n_ops;
   int cols[3];              // k rows of the held tiles P, Q, R
   int total;                // slabs in the fp32 stream at this tile height
@@ -400,13 +414,14 @@ __device__ __forceinline__ float4 staged4(const float* w0s, int c, int j) {
 }
 
 // Forward (bias ≠ null): v = (j < valid ? acc (+ the split's upper acc at
-// j + 64) + bias[j] : 0), out = relu(v), the mask bit v > 0 stored where
-// `mask` is not null. Backward (bias null): out = the mask bit ? acc :
-// 0. Columns j < cols (a multiple of 32).
+// j + 64) + bias[j] : 0), out = relu(v) (v itself where `linear`: K1's
+// output layer), the mask bit v > 0 stored where `mask` is not null.
+// Backward (bias null): out = the mask bit ? acc : 0. Columns j < cols (a
+// multiple of 32).
 template <int BM>
 __device__ __forceinline__ void finish(float* out, int cols, int valid,
                                        const float* __restrict__ bias, bool split,
-                                       uint8_t* mask) {
+                                       uint8_t* mask, bool linear) {
   constexpr int S = tile_stride(BM);
   constexpr int P = kThreads / BM;
   const int r = threadIdx.x % BM;
@@ -422,7 +437,7 @@ __device__ __forceinline__ void finish(float* out, int cols, int valid,
       out[j * S + r] = (bits >> r) & 1u ? v : 0.f;
     } else {
       v = v + (j < valid ? __ldg(bias + j) : 0.f);
-      out[j * S + r] = relu(v);
+      out[j * S + r] = linear ? v : relu(v);
       if (mask != nullptr) store_mask<BM>(mask, j, __ballot_sync(0xffffffffu, v > 0.f));
     }
   }
@@ -581,6 +596,64 @@ __device__ __forceinline__ void dx_write(const float (&dxp)[kMaxIn], const float
   }
 }
 
+// Columns kappa·kSlabN … + kSlabN − 1 of the input rows into the k-major
+// chunk buffer `dst` (0 past n_in and past n_rows), log-clamped where
+// `log_cols`: a chunk of a dense layer 0's input, read from device memory
+// where a product needs it (as load_input reads the skinny layer's).
+template <int BM>
+__device__ __forceinline__ void input_chunk(const float* __restrict__ x, int n_rows, int row0,
+                                            int n_in, int kappa, bool log_cols, float* dst) {
+  constexpr int S = tile_stride(BM);
+  for (int t = threadIdx.x; t < BM * kSlabN; t += blockDim.x) {
+    const int r = t % BM;
+    const int k = t / BM;
+    const int row = row0 + r;
+    const int c = kappa * kSlabN + k;
+    float v = 0.f;
+    if (row < n_rows && c < n_in) {
+      v = x[static_cast<size_t>(row) * n_in + c];
+      if (log_cols) v = log_clamp(v, c);
+    }
+    dst[k * S + r] = v;
+  }
+}
+
+// `valid` columns of a finished chunk `src` (row r's column j at j·S + r),
+// columns col0 + j of a row's output: K1's signal (kOutSignal, rows of
+// `cols` floats), dx times the log-clamp's derivative (kOutDx, rows of
+// n_in), or (kOutSumsq) y² added by fmaf to the Σy² partial q of thread
+// (row r, slice p) over the chunk's columns j ≡ p (mod kSlices), j
+// ascending, as gram_epilogue adds the quad's. The writes take a row's
+// consecutive columns per warp.
+template <int BM>
+__device__ __forceinline__ void out_chunk(const float* src, int col0, int valid, int mode,
+                                          const float* __restrict__ x, float* __restrict__ out,
+                                          int cols, int n_in, int row0, int n_rows, float& q) {
+  constexpr int S = tile_stride(BM);
+  if (mode == kOutSumsq) {
+    if (threadIdx.x >= kSlices * BM) return;
+    const int r = threadIdx.x % BM;
+    for (int j = static_cast<int>(threadIdx.x) / BM; j < valid; j += kSlices) {
+      const float v = src[j * S + r];
+      q = fmaf(v, v, q);
+    }
+    return;
+  }
+  for (int t = threadIdx.x; t < BM * kSlabN; t += blockDim.x) {
+    const int j = t % kSlabN;
+    const int r = t / kSlabN;
+    const int row = row0 + r;
+    if (j >= valid || row >= n_rows) continue;
+    const float v = src[j * S + r];
+    if (mode == kOutDx) {
+      const size_t at = static_cast<size_t>(row) * n_in + col0 + j;
+      out[at] = log_clamp_grad(x[at], col0 + j) * v;
+    } else {
+      out[static_cast<size_t>(row) * cols + col0 + j] = v;
+    }
+  }
+}
+
 // A 128-column chunk of the workspace's tiles (k rows col …) into the
 // chunk buffer `dst`, by cp.async, each thread waiting for its own copies
 // (the next op's barrier makes the chunk whole); the wait also lands the
@@ -620,11 +693,14 @@ __device__ __forceinline__ void op_mma(const int (&f)[kOpInts], const float* in,
 
 // PA: the A-chunk tile's parts, the most any op of the program runs on
 // the tensor cores (0: every product is fp32, on the CUDA cores; 1 bf16;
-// 2 bf16x3). dx null: K2, a program without a backward.
+// 2 bf16x3). dx null: K2 or K1, a program without a backward. out: the
+// quad (K2, K3), or K1's Σy² (out_cols 1) or signal (out_cols n_out
+// floats a row); log_cols: the input's columns 0–2 are log-clamped.
 template <int BM, int PA>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ quad,
-                              float* __restrict__ dx, int n_rows, const WideNet net_in) {
+                              float* __restrict__ dx, int n_rows, int out_cols, int log_cols,
+                              const WideNet net_in) {
   using R = WideRing<BM>;
   using M = MaskBits<BM>;
   constexpr int S = tile_stride(BM);
@@ -637,22 +713,25 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
   }
   __syncthreads();
   const int n_in = net.n_in;
-  quad += static_cast<size_t>(blockIdx.y) * n_rows;
+  const bool dense = n_in > kMaxIn;  // layer 0 an ordinary layer: no input tile
+  quad += static_cast<size_t>(blockIdx.y) * n_rows * out_cols;
   if (dx != nullptr) dx += static_cast<size_t>(blockIdx.y) * n_rows * n_in;
 
   // shared memory: the ring, the A-chunk tile, the partials, the staged
-  // w0 chunk (over the A-chunk tile where there is one), the input tile,
-  // CA, CB, P, Q, R, the mask bytes (unless they lie in the workspace)
+  // w0 chunk (over the A-chunk tile where there is one) and the input
+  // tile (neither where layer 0 is dense), CA, CB, P, Q, R, the mask bytes
+  // (unless they lie in the workspace)
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
   __nv_bfloat16* const at = reinterpret_cast<__nv_bfloat16*>(ring + R::kSlots * R::kFloats);
   float* const red = reinterpret_cast<float*>(at + PA * BM * kAStride);
   float* const w0s = PA > 0 ? reinterpret_cast<float*>(at) : red + kRedFloats;
-  float* const xl = red + kRedFloats + (PA > 0 ? 0 : kW0Floats);
+  float* const xl = red + kRedFloats + (PA > 0 || dense ? 0 : kW0Floats);
   // buffer id → its tile: CA, CB, P, Q, R back to back after the input tile
   const int cols0 = net.cols[0], cols1 = net.cols[1];
+  const int in_rows = dense ? 0 : kInRows;
   const auto buf = [&](int id) {
-    return xl + S * (kInRows + (id >= kCB ? kSlabN : 0) + (id >= kP ? kSlabN : 0) +
+    return xl + S * (in_rows + (id >= kCB ? kSlabN : 0) + (id >= kP ? kSlabN : 0) +
                      (id >= kQ ? cols0 : 0) + (id >= kR ? cols1 : 0));
   };
   // this CTA's region of the workspace: its tiles, then the mask bits
@@ -671,8 +750,8 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
     const int row0 = tile * BM;
     int g = 0;  // the fp32 stream's slab counter
     __syncthreads();  // the last tile's ops are done with every buffer
-    load_input<BM>(x, n_rows, row0, n_in, n_in, true, xl);
-    float q = 0.f;  // this thread's quad partial
+    if (!dense) load_input<BM>(x, n_rows, row0, n_in, n_in, log_cols != 0, xl);
+    float q = 0.f;  // this thread's quad (K1: Σy²) partial
     float dxp[kMaxIn];
 #pragma unroll
     for (int c = 0; c < kMaxIn; ++c) dxp[c] = 0.f;
@@ -712,9 +791,9 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
                         f[6] & kMMFirst, net.slabs, net.total, ring, g);
           break;
         }
-        case kOpFin:  // dst, cols, valid, bias, split, mask_col, masked
-          finish<BM>(buf(f[1]), f[2], f[3], f[7] ? nullptr : net.bias + f[4], f[5],
-                     f[6] < 0 ? nullptr : mask + f[6] * M::kColBytes);
+        case kOpFin:  // dst, cols, valid, bias, split, mask_col, kind
+          finish<BM>(buf(f[1]), f[2], f[3], f[7] == kFinMasked ? nullptr : net.bias + f[4],
+                     f[5], f[6] < 0 ? nullptr : mask + f[6] * M::kColBytes, f[7] == kFinLinear);
           break;
         case kOpGram:  // h, h_col0, e, e_col0, H, j0, cols, u
           gram_epilogue<BM>(f[1] < 0 ? nullptr : buf(f[1]), f[2], buf(f[3]), f[4], f[5], f[6],
@@ -738,6 +817,13 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
         case kOpStore:  // src, col
           ws_store<BM>(buf(f[1]), wsf, f[2]);
           break;
+        case kOpInput:  // κ, dst
+          input_chunk<BM>(x, n_rows, row0, n_in, f[1], log_cols != 0, buf(f[2]));
+          break;
+        case kOpOut:  // src, col0, valid, mode
+          out_chunk<BM>(buf(f[1]), f[2], f[3], f[4], x, f[4] == kOutDx ? dx : quad, out_cols,
+                        n_in, row0, n_rows, q);
+          break;
         default:
           break;
       }
@@ -748,23 +834,26 @@ fused_loglik_grad_gram_kernel(const float* __restrict__ x, float* __restrict__ q
 // Dynamic shared memory of one block (ops/kernels/wide.py::plan_bytes
 // mirrors it, with the static copy of the net).
 template <int BM, int PA>
-size_t wide_smem_bytes(const int (&cols)[3], int mask_bytes) {
+size_t wide_smem_bytes(const int (&cols)[3], int mask_bytes, bool dense) {
   using R = WideRing<BM>;
   const size_t held = static_cast<size_t>(cols[0]) + cols[1] + cols[2];
-  const size_t floats = R::kSlots * R::kFloats + kRedFloats + (PA > 0 ? 0 : kW0Floats) +
-                        static_cast<size_t>(tile_stride(BM)) * (kInRows + 2 * kSlabN + held);
+  const size_t floats = R::kSlots * R::kFloats + kRedFloats +
+                        (PA > 0 || dense ? 0 : kW0Floats) +
+                        static_cast<size_t>(tile_stride(BM)) *
+                            ((dense ? 0 : kInRows) + 2 * kSlabN + held);
   return 4 * floats + static_cast<size_t>(2 * PA * BM * kAStride) + mask_bytes;
 }
 
 // max_ctas: where the plan uses the workspace, the CTAs per member it was
 // sized for (the persistent grid's width); else 0, one CTA per row tile.
 template <int BM, int PA>
-cudaError_t launch_wide(const float* x, float* quad, float* dx, int n_rows, int n_members,
-                        WideNet net, int mask_cols, int stream_rows, int max_ctas,
-                        cudaStream_t s) {
+cudaError_t launch_wide(const float* x, float* quad, float* dx, int n_rows, int out_cols,
+                        int log_cols, int n_members, WideNet net, int mask_cols,
+                        int stream_rows, int max_ctas, cudaStream_t s) {
   using R = WideRing<BM>;
   const int mask_bytes = MaskBits<BM>::kColBytes * mask_cols;
-  const size_t smem = wide_smem_bytes<BM, PA>(net.cols, net.ws_masks ? 0 : mask_bytes);
+  const size_t smem =
+      wide_smem_bytes<BM, PA>(net.cols, net.ws_masks ? 0 : mask_bytes, net.n_in > kMaxIn);
   if (smem + sizeof(WideNet) > static_cast<size_t>(kMaxSmem) || stream_rows % R::kDepth != 0) {
     return cudaErrorInvalidValue;
   }
@@ -783,17 +872,18 @@ cudaError_t launch_wide(const float* x, float* quad, float* dx, int n_rows, int 
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(grid_x, n_members), kThreads, smem, s>>>(x, quad, dx, n_rows, net);
+  kernel<<<dim3(grid_x, n_members), kThreads, smem, s>>>(x, quad, dx, n_rows, out_cols,
+                                                         log_cols, net);
   return cudaGetLastError();
 }
 
-int wide_entry(const float* x, float* quad, float* dx, int n_rows, int n_layers,
-               const int* widths, const void* const* ptrs, const long long* strides,
-               int n_members, int a_parts, int tile_rows, int p_cols, int q_cols, int r_cols,
-               int mask_cols, int stream_rows, int n_ops, int ws_cols, int ws_masks,
-               int max_ctas, void* workspace, void* stream) {
+int wide_entry(const float* x, float* quad, float* dx, int n_rows, int out_cols, int log_cols,
+               int n_layers, const int* widths, const void* const* ptrs,
+               const long long* strides, int n_members, int a_parts, int tile_rows, int p_cols,
+               int q_cols, int r_cols, int mask_cols, int stream_rows, int n_ops, int ws_cols,
+               int ws_masks, int max_ctas, void* workspace, void* stream) {
   if (n_rows <= 0 || !members_ok(n_members) || n_layers < 1 || widths[0] < 1 ||
-      widths[0] > kMaxIn || a_parts < 0 || a_parts > 2 || n_ops < 1 || p_cols < 0 ||
+      out_cols < 1 || a_parts < 0 || a_parts > 2 || n_ops < 1 || p_cols < 0 ||
       q_cols < 0 || r_cols < 0 || mask_cols < 0 || stream_rows < 0 || ws_cols < 0 ||
       max_ctas < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -826,8 +916,8 @@ int wide_entry(const float* x, float* quad, float* dx, int n_rows, int n_layers,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define T21_WIDE(BM, PA)                                                                     \
-  err = launch_wide<BM, PA>(x, quad, dx, n_rows, n_members, net, mask_cols, stream_rows,   \
-                            max_ctas, s)
+  err = launch_wide<BM, PA>(x, quad, dx, n_rows, out_cols, log_cols, n_members, net,        \
+                            mask_cols, stream_rows, max_ctas, s)
   if (tile_rows == 32) {
     if (a_parts == 0) T21_WIDE(32, 0);
     else if (a_parts == 1) T21_WIDE(32, 1);
@@ -874,9 +964,9 @@ int k3_fused_loglik_grad_gram(const float* x, float* quad, float* dx, int n_rows
                               int stream_rows, int n_ops, int ws_cols, int ws_masks,
                               int max_ctas, void* workspace, void* stream) {
   if (dx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return wide_entry(x, quad, dx, n_rows, n_layers, widths, ptrs, strides, n_members, a_parts,
-                    tile_rows, p_cols, q_cols, r_cols, mask_cols, stream_rows, n_ops, ws_cols,
-                    ws_masks, max_ctas, workspace, stream);
+  return wide_entry(x, quad, dx, n_rows, 1, 1, n_layers, widths, ptrs, strides, n_members,
+                    a_parts, tile_rows, p_cols, q_cols, r_cols, mask_cols, stream_rows, n_ops,
+                    ws_cols, ws_masks, max_ctas, workspace, stream);
 }
 
 // K2: the same, from a value-only program (no backward ops, no masks),
@@ -887,9 +977,29 @@ int k2_fused_loglik_gram_wide(const float* x, float* quad, int n_rows, int n_lay
                               int tile_rows, int p_cols, int q_cols, int r_cols, int mask_cols,
                               int stream_rows, int n_ops, int ws_cols, int ws_masks,
                               int max_ctas, void* workspace, void* stream) {
-  return wide_entry(x, quad, nullptr, n_rows, n_layers, widths, ptrs, strides, n_members,
+  return wide_entry(x, quad, nullptr, n_rows, 1, 1, n_layers, widths, ptrs, strides, n_members,
                     a_parts, tile_rows, p_cols, q_cols, r_cols, mask_cols, stream_rows, n_ops,
                     ws_cols, ws_masks, max_ctas, workspace, stream);
+}
+
+// K1 on the same program: a value-only program whose head is the network's
+// linear output layer (ops/kernels/wide.py::wide_plan with n_out), writing
+// per row the signal out[row·n_out …] (reduce 0; n_out = widths[n_layers])
+// or its Σy² out[row] (reduce 1, the program's OP_OUT mode and its
+// OP_QUAD_WRITE). widths: n_in and every layer's width, the output's
+// last; log_clamp: log10/clamp of input columns 0–2. ptrs as K3's, the
+// biases layers 1 … (0 … where layer 0 is dense) then the output's; member
+// m writes out[m·n_rows·(reduce ? 1 : n_out) …].
+int k1_fused_mlp_wide(const float* x, float* out, int n_rows, int n_layers, const int* widths,
+                      const void* const* ptrs, const long long* strides, int n_members,
+                      int a_parts, int tile_rows, int p_cols, int q_cols, int r_cols,
+                      int mask_cols, int stream_rows, int n_ops, int ws_cols, int ws_masks,
+                      int max_ctas, void* workspace, int log_clamp, int reduce, void* stream) {
+  if (n_layers < 1 || mask_cols != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int out_cols = reduce ? 1 : widths[n_layers];
+  return wide_entry(x, out, nullptr, n_rows, out_cols, log_clamp, n_layers, widths, ptrs,
+                    strides, n_members, a_parts, tile_rows, p_cols, q_cols, r_cols, mask_cols,
+                    stream_rows, n_ops, ws_cols, ws_masks, max_ctas, workspace, stream);
 }
 
 }  // extern "C"

@@ -37,7 +37,9 @@ tensor-core forward (the value is the tensor-core K2's bit for bit), then
 the backward register-tiled on the CUDA cores over the fp32 slabs of
 :func:`pack_backward_slabs`. Every network, at every K2 tier and K3
 pair, that the kernel its tiers pick cannot hold, by shared memory or by
-depth, runs ``csrc/fused_loglik_grad_gram.cu`` (the wrappers' ``wide``):
+depth, or whose first layer has a fan-in above 8 (a dense first layer,
+a tier matmul as in JAX's kernels), runs
+``csrc/fused_loglik_grad_gram.cu`` (the wrappers' ``wide``):
 the program of :mod:`~tpu21cmvae_torch.ops.kernels.wide`, which streams a
 wide layer in 128-column chunks and keeps what shared memory cannot hold
 in a workspace in device memory, allocated once per wrapper. The CUDA
@@ -97,6 +99,7 @@ from tpu21cmvae_torch.ops.kernels._common import (
     pack_slabs,
     padk,
     per_member,
+    pick_grad_rows,
     pointers,
     stack_members,
     tile_stride,
@@ -106,17 +109,19 @@ from tpu21cmvae_torch.ops.kernels.fused_mlp import (
     WARPS_PER_BLOCK,
     FusedMLP,
     _pad16,
+    pack_frags,
     pack_mma_operands,
 )
+from tpu21cmvae_torch.ops.kernels import wide
 from tpu21cmvae_torch.ops.kernels.wide import (
     WidePlan,
     pack_wide_frags,
     pack_wide_slabs,
     plan_bytes,
     program_table,
-    resident_ctas,
+    wide_ints,
     wide_plan,
-    ws_cta_bytes,
+    wide_tail,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
 
@@ -143,7 +148,9 @@ class GramOperands:
     """Everything K2, K3 and their plain versions read besides the input
     rows.
 
-    ``w0``/``b0``: the skinny first layer, exact fp32. ``w``/``b``: the
+    ``w0``/``b0``: the first layer, exact fp32 where it is skinny; where
+    it is ``dense`` (fan-in above 8) ``w0`` prepared at ``tier`` and
+    ``w0t``, its transpose, at ``grad_tier`` (K3). ``w``/``b``: the
     other trunk layers, ``w`` prepared at ``tier``
     (:func:`~tpu21cmvae_torch.ops.fold.prepare_operand`); ``wt``: the same
     weights transposed, prepared at ``grad_tier`` — empty, and
@@ -185,28 +192,31 @@ class GramOperands:
     program: Optional[torch.Tensor] = None
     frags: Optional[torch.Tensor] = None
     members: Optional[int] = None
+    dense: bool = False
+    w0t: Optional[torch.Tensor] = None
 
     @property
     def widths(self) -> tuple:
         """``(n_in, *trunk widths)``."""
-        return (*self.w0.shape[-2:], *(b.shape[-1] for b in self.b))
+        k, n = self.w0.shape[-2:]
+        if self.dense and self.tier == "bf16x3":  # [w_hi; w_lo; w_hi]
+            k //= 3
+        return (k, n, *(b.shape[-1] for b in self.b))
 
 
 def gram_operands(params, norm, obs, scale, log_norm, tier,
                   grad_tier=None) -> GramOperands:
     """Fold ``params`` (exact fp32) and split them for the tiers; with
-    ``grad_tier`` None the transposed backward operands are not built."""
+    ``grad_tier`` None the transposed backward operands are not built. A
+    first layer of fan-in above 8 is a tier layer like the others (JAX's
+    ``layer_mode_plan``)."""
     trunk, G, u, c = gram_fold(params, norm, obs, scale)
     first, *rest = trunk
-    if first["w"].shape[0] > SKINNY_DENSE_MAX_IN:
-        raise NotImplementedError(
-            f"the gram kernels need a skinny first layer (fan-in ≤ "
-            f"{SKINNY_DENSE_MAX_IN}); got fan-in {first['w'].shape[0]}"
-        )
+    dense = first["w"].shape[0] > SKINNY_DENSE_MAX_IN
     return GramOperands(
         tier=tier,
         grad_tier=grad_tier,
-        w0=first["w"].contiguous(),
+        w0=prepare_operand(first["w"], tier) if dense else first["w"].contiguous(),
         b0=first["b"].contiguous(),
         w=tuple(prepare_operand(layer["w"], tier) for layer in rest),
         b=tuple(layer["b"].contiguous() for layer in rest),
@@ -217,6 +227,8 @@ def gram_operands(params, norm, obs, scale, log_norm, tier,
         u=u.contiguous(),
         c=c,
         log_norm=log_norm,
+        dense=dense,
+        w0t=prepare_operand(first["w"].T, grad_tier) if dense and grad_tier else None,
     )
 
 
@@ -296,18 +308,36 @@ def ops_plan(ops: GramOperands, budget: int = MAX_SHARED_BYTES) -> WidePlan:
     return wide_route_plan(ops.widths, ops.tier, ops.grad_tier, budget)
 
 
+def _wide_matrix(ops: GramOperands):
+    """``(name, layer) → (w, tier)``: the prepared operands of the wide
+    route's plan (:mod:`~tpu21cmvae_torch.ops.kernels.wide`): ``"w"``
+    trunk layer i (0: a dense first layer), ``"wt"`` its transpose at
+    ``grad_tier``, ``"g"`` G."""
+
+    def matrix(name, layer):
+        if name == "g":
+            return ops.g, ops.tier
+        if name == "w":
+            return (ops.w0 if layer == 0 else ops.w[layer - 1]), ops.tier
+        return (ops.w0t if layer == 0 else ops.wt[layer - 1]), ops.grad_tier
+
+    return matrix
+
+
 def pack_wide_operands(ops: GramOperands, budget: int = MAX_SHARED_BYTES) -> GramOperands:
     """``ops`` (K2 at any tier, K3 at any pair) packed for the wide route
     ``fused_loglik_grad_gram.cu`` under a shared-memory ``budget``: its
-    program, its fp32 stream with the biases and its fragment buffer
+    program, its fp32 stream with the biases (a dense first layer's
+    first) and its fragment buffer
     (:mod:`~tpu21cmvae_torch.ops.kernels.wide`); a launch of them takes
     the same budget's plan (:func:`ops_plan`, :class:`WideLaunch`)."""
     plan = ops_plan(ops, budget)
+    matrix = _wide_matrix(ops)
+    biases = [*([ops.b0] if ops.dense else []), *ops.b, ops.u]
     return dataclasses.replace(
-        ops, slabs=pack_wide_slabs(ops, plan), packed=None,
-        frags=pack_wide_frags(ops, plan, lambda w, tier: pack_mma_operands(
-            w, w.new_zeros(w.shape[1]), tier)[0]),
-        program=program_table(plan).to(ops.w0.device))
+        ops, slabs=pack_wide_slabs(matrix, biases, plan), packed=None,
+        frags=pack_wide_frags(matrix, plan, pack_frags),
+        program=program_table(plan).to(ops.b0.device))
 
 
 def pack_grad_gram_slabs(ops: GramOperands) -> Slabs:
@@ -324,8 +354,11 @@ def _value(ops: GramOperands, quad):
 
 
 def _gram_forward(ops: GramOperands, x: torch.Tensor):
-    """The trunk activations, ``h@G`` and ``quad`` per row."""
-    h = torch.relu(fused_skinny_dense(_log_clamp(x), ops.w0, ops.b0))
+    """The trunk activations, ``h@G`` and ``quad`` per row; a dense first
+    layer a tier matmul, as JAX's kernels run it."""
+    xl = _log_clamp(x)
+    h = torch.relu(tier_matmul(xl, ops.w0, ops.tier) + ops.b0 if ops.dense
+                   else fused_skinny_dense(xl, ops.w0, ops.b0))
     acts = [h]
     for w, b in zip(ops.w, ops.b):
         h = torch.relu(tier_matmul(h, w, ops.tier) + b)
@@ -349,7 +382,9 @@ def loglik_grad_gram_reference(ops: GramOperands, x: torch.Tensor):
     for i in range(len(acts) - 1, 0, -1):
         e = torch.where(acts[i] > 0.0, e, 0.0)
         e = tier_matmul(e, ops.wt[i - 1], ops.grad_tier)
-    e = torch.where(acts[0] > 0.0, e, 0.0) @ ops.w0.T  # skinny layer: exact fp32
+    e = torch.where(acts[0] > 0.0, e, 0.0)
+    # a dense first layer at the backward tier (JAX's _dot_refs); the skinny one exact
+    e = tier_matmul(e, ops.w0t, ops.grad_tier) if ops.dense else e @ ops.w0.T
     return _value(ops, quad), -(_log_clamp_grad(x) * e)
 
 
@@ -381,23 +416,17 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None,
     K3 at (fp32, bf16 tier), after the backward's tier code, where its
     operands were packed); the wide route the A-chunk tile's parts, the
     height and the sizes of ``plan``, the one its operands were packed
-    under (default: :func:`ops_plan`'s; :func:`_wide_ints`), then the CTAs
-    of its persistent grid and the ``workspace``, where the plan spills."""
+    under (default: :func:`ops_plan`'s), then the CTAs of its persistent
+    grid and the ``workspace``, where the plan spills
+    (:func:`~tpu21cmvae_torch.ops.kernels.wide.wide_tail`)."""
     tiers = (ops.tier, ops.grad_tier) if k3 else (ops.tier,)
     tensors = [ops.w0, ops.b0]
     if ops.program is not None:  # the wide route: its program, stream and fragments
         plan = plan or ops_plan(ops)
-        if plan.ws_cols or plan.masks_in_ws:
-            need = ctas * (ops.members or 1) * ws_cta_bytes(plan, rows)
-            if workspace is None or ctas < 1 or workspace.numel() < need:
-                raise ValueError(f"the wide route's plan needs a workspace of {need} bytes "
-                                 f"for {ctas} CTAs")
-        else:
-            workspace, ctas = None, 0
+        skinny = [None, None] if ops.dense else tensors  # a dense layer 0 is in the stream
         return ("k3_fused_loglik_grad_gram" if k3 else "k2_fused_loglik_gram_wide",
-                [*tensors, ops.slabs.b, ops.slabs.w, ops.program, ops.frags],
-                [plan.a_parts, rows, *_wide_ints(plan), ctas,
-                 None if workspace is None else workspace.data_ptr()])
+                [*skinny, ops.slabs.b, ops.slabs.w, ops.program, ops.frags],
+                wide_tail(plan, rows, ops.members, workspace, ctas))
     if gram_on_tensor_cores(*tiers):
         p = ops.packed
         for i, (w, b) in enumerate(zip(p.w, p.b)):
@@ -420,15 +449,6 @@ def _kernel(ops: GramOperands, k3: bool, rows: Optional[int] = None,
     raise ValueError(f"K3 operands at {tiers} carry no kernel's packing")
 
 
-def _wide_ints(plan: WidePlan) -> list:
-    """The wide route's plan sizes the C entry takes after the height:
-    the three held tiles' k rows, the mask columns, the stream's rows,
-    the program's length, the workspace's k rows per CTA and whether the
-    mask bits lie there."""
-    return [*plan.cols, plan.mask_cols, plan.stream_rows, len(plan.ops), plan.ws_cols,
-            int(plan.masks_in_ws)]
-
-
 def _launch_args(ops: GramOperands, k3: bool, rows: Optional[int],
                  workspace: Optional[torch.Tensor] = None, ctas: int = 0,
                  plan: Optional[WidePlan] = None) -> tuple:
@@ -446,7 +466,7 @@ def _launch_args(ops: GramOperands, k3: bool, rows: Optional[int],
                        member_strides(tensors, ops.members), ops.members or 1, *ints)
 
     key = (k3, rows, None if workspace is None else workspace.data_ptr(), ctas,
-           None if plan is None else (plan.a_parts, *_wide_ints(plan)))
+           None if plan is None else (plan.a_parts, *wide_ints(plan)))
     return cached_args(ops, key, make)
 
 
@@ -487,41 +507,14 @@ def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[in
     return _value(ops, quad), -dx
 
 
-class WideLaunch:
-    """Launches of the wide route's operands packed under ``plan``
-    (:func:`pack_wide_operands`), K3's where ``k3`` else K2's, on a card
-    of ``sm_count`` SMs: where the plan spills, a persistent grid of the
-    CTAs per member the card holds at the call's height (:meth:`ctas`)
-    and the workspace they need at the height that needs the most,
-    allocated at the first launch and reused by every one after
-    (:attr:`workspace`, None where the plan does not spill). The
-    wrappers launch the route through it, and so do direct launches of
-    its operands."""
+class WideLaunch(wide.WideLaunch):
+    """:class:`~tpu21cmvae_torch.ops.kernels.wide.WideLaunch` of K3's
+    operands where ``k3``, else K2's."""
 
     def __init__(self, plan: WidePlan, k3: bool, sm_count: int, device, members=None):
-        self.plan, self.k3, self.sm_count = plan, k3, sm_count
-        self.device, self.members = device, members
-        self.spills = bool(plan.ws_cols or plan.masks_in_ws)
-        self.workspace = None
-
-    def ctas(self, rows: int) -> int:
-        """The persistent grid's CTAs per member at ``rows`` rows
-        (:func:`~tpu21cmvae_torch.ops.kernels.wide.resident_ctas`) where
-        the plan spills; else 0."""
-        return resident_ctas(self.plan, rows, self.sm_count) if self.spills else 0
-
-    def __call__(self, ops: GramOperands, x: torch.Tensor, rows: int,
-                 ctas: Optional[int] = None):
-        """Launch ``ops`` on ``x`` at tile height ``rows`` (one of the
-        plan's), on :meth:`ctas` CTAs per member, or on ``ctas`` (at most
-        that many) where given."""
-        if self.spills and self.workspace is None:
-            size = max(self.ctas(r) * ws_cta_bytes(self.plan, r) for r in self.plan.heights)
-            self.workspace = torch.empty(size * (self.members or 1), dtype=torch.uint8,
-                                         device=self.device)
-        launch_fn = _loglik_grad_gram_cuda if self.k3 else _loglik_gram_cuda
-        return launch_fn(ops, x, rows, self.workspace,
-                         self.ctas(rows) if ctas is None else ctas, self.plan)
+        super().__init__(plan, _loglik_grad_gram_cuda if k3 else _loglik_gram_cuda, sm_count,
+                         device, members)
+        self.k3 = k3
 
 
 def _gram_mma_bytes(widths, tier: str, grad_tier: Optional[str]) -> int:
@@ -613,22 +606,6 @@ def grad_reverse_bytes(widths, tier: str) -> int:
             + REVERSE_NET_BYTES)
 
 
-def pick_grad_rows(heights, n_rows: Optional[int], sm_count: Optional[int],
-                   members: int = 1) -> int:
-    """Of ``heights`` (tallest first), the shortest that still runs a
-    batch of ``n_rows`` for each of ``members`` as at most one block per
-    SM of ``sm_count`` (M·⌈B/h⌉ blocks): a block alone on its SM finishes
-    sooner the shorter its tile. Where even the tallest needs more blocks
-    than SMs, or either count is unknown, the tallest: it does the most
-    work per weight read (measured on an H100: PERF.md). A row's value
-    and gradient do not depend on the height."""
-    if n_rows is not None and sm_count is not None:
-        for r in reversed(heights):
-            if members * -(-n_rows // r) <= sm_count:
-                return r
-    return heights[0]
-
-
 def grad_f32_rows(widths, n_rows: Optional[int] = None, sm_count: Optional[int] = None,
                   forced: Optional[int] = None) -> Optional[int]:
     """The tile height ``fused_loglik_grad_gram_f32.cu`` runs a batch of
@@ -650,8 +627,9 @@ def k3_route(widths, tier: str, grad_tier: str, tile_rows: Optional[int] = None)
     fp32), each where it holds the network at some height and depth (a
     forced ``tile_rows`` keeps the register-tiled and mixed kernels,
     which then refuse a height that does not fit); else ``"wide"``
-    (``fused_loglik_grad_gram.cu``)."""
-    if len(widths) - 1 > MAX_LAYERS:
+    (``fused_loglik_grad_gram.cu``), which alone takes a dense first
+    layer (fan-in above 8)."""
+    if len(widths) - 1 > MAX_LAYERS or widths[0] > SKINNY_DENSE_MAX_IN:
         return "wide"
     if gram_on_tensor_cores(tier, grad_tier):
         return "mma" if _gram_mma_bytes(widths, tier, grad_tier) <= MAX_SHARED_BYTES else "wide"
@@ -668,8 +646,8 @@ def k2_route(widths, tier: str, tile_rows: Optional[int] = None) -> str:
     (``fused_loglik_gram.cu``; a forced ``tile_rows`` keeps it, which then
     refuses a height that does not fit), each where it holds the network;
     else ``"wide"`` (``fused_loglik_grad_gram.cu``'s value-only
-    program)."""
-    if len(widths) - 1 > MAX_LAYERS:
+    program), which alone takes a dense first layer (fan-in above 8)."""
+    if len(widths) - 1 > MAX_LAYERS or widths[0] > SKINNY_DENSE_MAX_IN:
         return "wide"
     if gram_on_tensor_cores(tier):
         return "mma" if _gram_mma_bytes(widths, tier, None) <= MAX_SHARED_BYTES else "wide"
@@ -683,8 +661,8 @@ def wide_route_plan(widths, tier: str, grad_tier: Optional[str],
     """The wide route's plan of trunk ``widths`` for K3 at (``tier``,
     ``grad_tier``), or K2 at ``tier`` (``grad_tier`` None), under a
     shared-memory ``budget``."""
-    grad = None if grad_tier is None else wide_parts(grad_tier)
-    return wide_plan(tuple(widths), wide_parts(tier), grad, budget)
+    grad = None if grad_tier is None else TIER_CODE[grad_tier]  # a tier's code is its parts
+    return wide_plan(tuple(widths), TIER_CODE[tier], grad, budget)
 
 
 def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
@@ -715,12 +693,6 @@ def shared_bytes(widths, tier: str = "f32", grad_tier: str = "f32",
         return grad_f32_bytes(widths, grad_f32_rows(widths, forced=rows))
     plan = wide_route_plan(widths, tier, grad_tier)
     return plan_bytes(plan, rows or plan.heights[0])
-
-
-def wide_parts(tier: str) -> int:
-    """The wide route's products at ``tier`` on the tensor cores: the
-    tier's parts (2 bf16x3, 1 bf16), or 0 for fp32 on the CUDA cores."""
-    return {"f32": 0, "bf16": 1, "bf16x3": 2}[tier]
 
 
 def gram_f32_rows(widths, forced: Optional[int] = None) -> int:
@@ -767,11 +739,6 @@ class _GramWrapper:
         widths = (config.n_params, *config.hidden_dims)
         if not config.hidden_dims:
             raise NotImplementedError(f"{self.name} takes at least one hidden layer")
-        if config.n_params > SKINNY_DENSE_MAX_IN:
-            raise NotImplementedError(
-                f"{self.name} takes at most {SKINNY_DENSE_MAX_IN} input "
-                f"parameters; got {config.n_params}"
-            )
         self.tier = resolve_tier(precision, "high")
         self.grad_tier = grad_precision
         # the kernel this wrapper's CUDA calls launch (k2_route, k3_route):

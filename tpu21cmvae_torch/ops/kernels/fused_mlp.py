@@ -11,13 +11,19 @@ direct likelihood's tail, reduced inside the kernel
 :func:`make_fused_emulate` folds the normalizer into the first and last
 layers (``ops/fold.py::fold_emulator_constants``) and predicts.
 
-Two CUDA kernels: ``csrc/fused_mlp_mma.cu`` runs the bf16 tiers on the
-tensor cores, from weights that :func:`pack_mma_operands` packed once
-into bf16 ``mma`` fragments; ``csrc/fused_mlp.cu`` runs the fp32 tier on
-the CUDA cores, register-tiled over ``BM``-row tiles
-(``csrc/tile_f32.cuh``), from fp32 weight slabs that
-:func:`~tpu21cmvae_torch.ops.kernels._common.pack_slabs` packed once, and
-a network whose only layer is skinny at every tier.
+Three CUDA kernels, picked by :func:`k1_route`: ``csrc/fused_mlp_mma.cu``
+runs the bf16 tiers on the tensor cores, from weights that
+:func:`pack_mma_operands` packed once into bf16 ``mma`` fragments;
+``csrc/fused_mlp.cu`` runs the fp32 tier on the CUDA cores,
+register-tiled over ``BM``-row tiles (``csrc/tile_f32.cuh``), from fp32
+weight slabs that :func:`~tpu21cmvae_torch.ops.kernels._common.pack_slabs`
+packed once, and a network whose only layer is skinny at every tier;
+every network those two refuse, by depth (more than eight layers) or by
+shared memory, runs at every tier on the wide route,
+``csrc/fused_loglik_grad_gram.cu``'s K1 program
+(:func:`~tpu21cmvae_torch.ops.kernels.wide.wide_plan` with ``n_out``:
+the layers streamed in 128-column chunks, what shared memory cannot hold
+in a workspace in device memory, allocated once per wrapper).
 :func:`fused_mlp_reference` does the same arithmetic — same folds, same
 hi/lo split — in plain tensor operations. With ``members=M`` the wrapper
 runs an ensemble's M members in one launch (``_common.py``'s member
@@ -57,8 +63,19 @@ from tpu21cmvae_torch.ops.kernels._common import (
     pack_slabs,
     padk,
     per_member,
+    pick_grad_rows,
     pointers,
     stack_members,
+)
+from tpu21cmvae_torch.ops.kernels.wide import (
+    WideLaunch,
+    WidePlan,
+    pack_wide_frags,
+    pack_wide_slabs,
+    program_table,
+    wide_ints,
+    wide_plan,
+    wide_tail,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
 
@@ -85,12 +102,17 @@ class MLPOperands:
     # fused_mlp.cu
     packed: tuple | None = None
     # the layers after a skinny first one (all of them without one) as
-    # fused_mlp.cu streams them (pack_slabs), or None where K1 runs
+    # fused_mlp.cu streams them (pack_slabs); on the wide route its fp32
+    # stream and biases (pack_wide_slabs); None where K1 runs
     # fused_mlp_mma.cu
     slabs: Slabs | None = None
     # M where every tensor above is M members' stacked on a leading axis
     # (stack_members), else None
     members: int | None = None
+    # the wide route's op table (program_table) and fragment buffer
+    # (pack_wide_frags; None where no product runs on the tensor cores)
+    program: torch.Tensor | None = None
+    frags: torch.Tensor | None = None
 
 
 def _pad16(n: int) -> int:
@@ -131,9 +153,17 @@ def pack_mma_operands(w_op: torch.Tensor, b: torch.Tensor, tier: str):
     return packed, bias
 
 
-def mlp_operands(params, tier: str, log_clamp: bool, reduce: str) -> MLPOperands:
+def pack_frags(w: torch.Tensor, tier: str) -> torch.Tensor:
+    """A prepared operand's ``mma`` B fragments alone
+    (:func:`pack_mma_operands`)."""
+    return pack_mma_operands(w, w.new_zeros(w.shape[1]), tier)[0]
+
+
+def mlp_operands(params, tier: str, log_clamp: bool, reduce: str,
+                 plan: WidePlan | None = None) -> MLPOperands:
     """Split (already folded) layer dicts for ``tier``; a first layer of
-    fan-in ≤ 8 stays exact fp32."""
+    fan-in ≤ 8 stays exact fp32. Packed for the wide route's ``plan``
+    where given, else for the kernel the tier runs."""
     skinny = params[0]["w"].shape[0] <= SKINNY_DENSE_MAX_IN
     widths = (params[0]["w"].shape[0], *(layer["b"].shape[0] for layer in params))
     w = tuple(
@@ -143,6 +173,9 @@ def mlp_operands(params, tier: str, log_clamp: bool, reduce: str) -> MLPOperands
     )
     b = tuple(layer["b"].to(torch.float32).contiguous() for layer in params)
     packed = slabs = None
+    if plan is not None:
+        return pack_wide_mlp(MLPOperands(tier=tier, skinny=skinny, log_clamp=log_clamp,
+                                         reduce=reduce, widths=widths, w=w, b=b), plan)
     if runs_on_tensor_cores(widths, tier):
         packed = tuple((wi, bi) if i == 0 and skinny else pack_mma_operands(wi, bi, tier)
                        for i, (wi, bi) in enumerate(zip(w, b)))
@@ -150,6 +183,22 @@ def mlp_operands(params, tier: str, log_clamp: bool, reduce: str) -> MLPOperands
         slabs = pack_slabs(list(zip(w, b))[int(skinny):])
     return MLPOperands(tier=tier, skinny=skinny, log_clamp=log_clamp, reduce=reduce,
                        widths=widths, w=w, b=b, packed=packed, slabs=slabs)
+
+
+def pack_wide_mlp(ops: MLPOperands, plan: WidePlan) -> MLPOperands:
+    """``ops`` packed for the wide route's K1 ``plan``
+    (:func:`k1_wide_plan`): its program, its fp32 stream with the biases
+    (layers 1 …, or 0 … where layer 0 is dense, the output's last) and
+    its fragment buffer; layer i's matrix is ``ops.w[i]`` at ``ops.tier``,
+    the output layer's the last."""
+
+    def matrix(_, layer):
+        return ops.w[layer], ops.tier
+
+    return dataclasses.replace(
+        ops, packed=None, slabs=pack_wide_slabs(matrix, ops.b[int(ops.skinny):], plan),
+        frags=pack_wide_frags(matrix, plan, pack_frags),
+        program=program_table(plan).to(ops.b[0].device))
 
 
 def fused_mlp_reference(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
@@ -208,19 +257,80 @@ def shared_bytes(widths, tier: str = "f32", rows: int | None = None) -> int:
             + 4 * MMA_ROWS_PER_BLOCK * (widths[0] + WARPS_PER_BLOCK))
 
 
-def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
-    """Launch K1 on PyTorch's current stream (no synchronisation), one
-    launch for every member of stacked ``ops``; ``rows``:
-    ``fused_mlp.cu``'s tile height."""
+def k1_route(widths, tier: str, tile_rows: int | None = None) -> str:
+    """The kernel K1 at ``tier`` runs ``widths`` (``(n_in, *layer
+    widths)``) on: ``"mma"`` (``fused_mlp_mma.cu``: a bf16 tier and a
+    layer that is not the skinny exact-fp32 one), ``"f32"``
+    (``fused_mlp.cu``: the fp32 tier, or a lone skinny layer; a forced
+    ``tile_rows`` keeps it, which then refuses a height that does not
+    fit), each where it holds the network by depth and shared memory;
+    else ``"wide"`` (``fused_loglik_grad_gram.cu``'s K1 program)."""
+    if len(widths) - 1 > MAX_LAYERS:
+        return "wide"
+    mma = runs_on_tensor_cores(widths, tier)
+    if not mma and tile_rows is not None:
+        return "f32"
+    if shared_bytes(widths, tier) > MAX_SHARED_BYTES:
+        return "wide"
+    return "mma" if mma else "f32"
+
+
+def k1_wide_plan(widths, tier: str, reduce: str = "none") -> WidePlan:
+    """The wide route's K1 program of ``widths`` at ``tier`` (its trunk
+    the ReLU activations, its head the linear output layer), reduced to
+    each row's Σy² under ``sumsq``."""
+    widths = tuple(widths)
+    return wide_plan(widths[:-1], TIER_CODE[tier], None, n_out=widths[-1],
+                     sumsq=reduce == "sumsq")
+
+
+def _out(ops: MLPOperands, x: torch.Tensor) -> torch.Tensor:
+    """K1's output buffer for rows ``x``: (B, n_out), or (B,) under
+    ``sumsq``, after the member axis of stacked ``ops``."""
     n = x.shape[0]
     shape = (n,) if ops.reduce == "sumsq" else (n, ops.widths[-1])
     if ops.members is not None:
         shape = (ops.members, *shape)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    if not n:
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+
+def _fused_mlp_cuda(ops: MLPOperands, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Launch K1 on PyTorch's current stream (no synchronisation), one
+    launch for every member of stacked ``ops``; ``rows``:
+    ``fused_mlp.cu``'s tile height."""
+    out = _out(ops, x)
+    if not x.shape[0]:
         return out
     entry, args = cached_args(ops, rows, lambda: _launch_args(ops, rows))
-    launch("K1", entry, x, x.data_ptr(), out.data_ptr(), n, *args)
+    launch("K1", entry, x, x.data_ptr(), out.data_ptr(), x.shape[0], *args)
+    return out
+
+
+def _fused_mlp_wide_cuda(ops: MLPOperands, x: torch.Tensor, rows: int,
+                         workspace: torch.Tensor | None, ctas: int,
+                         plan: WidePlan) -> torch.Tensor:
+    """Launch K1's wide program (``fused_loglik_grad_gram.cu``,
+    ``k1_fused_mlp_wide``) on PyTorch's current stream, one launch for
+    every member of stacked ``ops`` packed under ``plan``, at tile height
+    ``rows``; ``workspace`` and ``ctas``: the persistent grid's, where the
+    plan spills (:class:`~tpu21cmvae_torch.ops.kernels.wide.WideLaunch`)."""
+    out = _out(ops, x)
+    if not x.shape[0]:
+        return out
+
+    def make():
+        skinny = [ops.w[0], ops.b[0]] if ops.skinny else [None, None]
+        tensors = [*skinny, ops.slabs.b, ops.slabs.w, ops.program, ops.frags]
+        widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
+        return "k1_fused_mlp_wide", (
+            len(ops.w), widths, pointers(tensors), member_strides(tensors, ops.members),
+            ops.members or 1, *wide_tail(plan, rows, ops.members, workspace, ctas),
+            int(ops.log_clamp), int(ops.reduce == "sumsq"))
+
+    key = ("wide", rows, None if workspace is None else workspace.data_ptr(), ctas,
+           plan.a_parts, *wide_ints(plan))
+    entry, args = cached_args(ops, key, make)
+    launch("K1", entry, x, x.data_ptr(), out.data_ptr(), x.shape[0], *args)
     return out
 
 
@@ -251,10 +361,15 @@ class FusedMLP:
     :func:`fused_mlp_reference`. ``fold`` (optional) maps ``params`` to
     the layers K1 runs (a normalizer or likelihood fold); the folded,
     tier-split operands are cached against the identity and version of
-    the ``params`` tensors. ``tile_rows`` (one of
+    the ``params`` tensors. The kernel is :func:`k1_route`'s
+    (:attr:`route`): on ``fused_mlp.cu`` ``tile_rows`` (one of
     :data:`~tpu21cmvae_torch.ops.kernels._common.F32_TILE_ROWS`) forces
-    ``fused_mlp.cu``'s tile height, else :func:`f32_rows` picks it;
-    :attr:`tile_rows` is what the fp32 route launches with.
+    the tile height, else :func:`f32_rows` picks it; :attr:`tile_rows` is
+    what the fp32 route launches with. On the wide route (:attr:`wide`,
+    any width and depth) the height is one of its plan's
+    (:attr:`heights`, 32 or 16 rows), forced by ``tile_rows`` or picked
+    per batch (:meth:`rows_for`), and :attr:`wide_launch` holds the
+    workspace.
 
     ``members=M`` (default None: one model) takes an ensemble's stacked
     ``params`` (layer dicts of ``(M, in, out)`` / ``(M, out)``), folds
@@ -268,21 +383,35 @@ class FusedMLP:
         self.sizes = tuple(int(s) for s in sizes)
         if reduce not in ("none", "sumsq"):
             raise ValueError(f"reduce must be 'none' or 'sumsq'; got {reduce!r}")
-        if not 1 <= len(self.sizes) - 1 <= MAX_LAYERS:
-            raise NotImplementedError(
-                f"K1 takes 1 to {MAX_LAYERS} layers; got {len(self.sizes) - 1}"
-            )
+        if len(self.sizes) < 2:
+            raise ValueError(f"K1 takes at least one layer; got sizes {self.sizes}")
         self.tier = resolve_tier(precision, "highest")
-        self.tile_rows = f32_rows(self.sizes, tile_rows)
-        need = shared_bytes(self.sizes, self.tier, self.tile_rows)
-        if need > MAX_SHARED_BYTES:
-            raise NotImplementedError(
-                f"widths {self.sizes} need {need} bytes of shared memory per K1 "
-                f"block at the {self.tier} tier; the limit is {MAX_SHARED_BYTES}"
-            )
+        self.route = k1_route(self.sizes, self.tier, tile_rows)
+        self.wide = self.route == "wide"
+        self.plan = None
+        if self.wide:
+            self.plan = k1_wide_plan(self.sizes, self.tier, reduce)
+            self.heights = self.plan.heights
+            if tile_rows is not None and tile_rows not in self.heights:
+                raise ValueError(f"tile_rows on the wide route must be one of "
+                                 f"{self.heights}; got {tile_rows!r}")
+            self.tile_rows = tile_rows
+        else:
+            self.tile_rows = f32_rows(self.sizes, tile_rows)
+            need = shared_bytes(self.sizes, self.tier, self.tile_rows)
+            if need > MAX_SHARED_BYTES:  # a forced height that does not fit
+                raise NotImplementedError(
+                    f"widths {self.sizes} need {need} bytes of shared memory per K1 "
+                    f"block at the {self.tier} tier; the limit is {MAX_SHARED_BYTES}"
+                )
         self.device = torch.empty(0, device=device).device
         self.reduce = reduce
         self.members = check_members(members)
+        # the wide route's height rule counts blocks against the card's SMs
+        self.sm_count = (torch.cuda.get_device_properties(self.device).multi_processor_count
+                         if self.device.type == "cuda" else None)
+        self.wide_launch = (WideLaunch(self.plan, _fused_mlp_wide_cuda, self.sm_count,
+                                       self.device, self.members) if self.wide else None)
         self.launches = 0
         self._fold = fold or (lambda params: params)
         self._log_clamp = log_clamp_input
@@ -296,7 +425,8 @@ class FusedMLP:
         return self._build_one(params)
 
     def _build_one(self, params) -> MLPOperands:
-        ops = mlp_operands(self._fold(params), self.tier, self._log_clamp, self.reduce)
+        ops = mlp_operands(self._fold(params), self.tier, self._log_clamp, self.reduce,
+                           self.plan)
         if ops.widths != self.sizes:
             raise ValueError(f"params have widths {ops.widths}; this K1 takes {self.sizes}")
         return ops
@@ -313,7 +443,18 @@ class FusedMLP:
             raise ValueError(f"K1 runs on CUDA or (plain) on the CPU; got {x.device}")
         if x.shape[0]:  # an empty batch launches nothing
             self.launches += 1
+        if self.wide:
+            return self.wide_launch(ops, x, self.rows_for(x.shape[0]))
         return _fused_mlp_cuda(ops, x, self.tile_rows)
+
+    def rows_for(self, n_rows: int) -> int | None:
+        """The wide route's tile height for a batch of ``n_rows`` rows of
+        each member (:func:`~tpu21cmvae_torch.ops.kernels._common.pick_grad_rows`),
+        :attr:`tile_rows` if forced; None on the other routes."""
+        if not self.wide:
+            return None
+        return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count,
+                                                self.members or 1)
 
 
 def make_fused_mlp(sizes, *, log_clamp_input=False, precision="highest",

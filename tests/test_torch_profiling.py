@@ -1,16 +1,22 @@
 """The port's profiling utilities (``tpu21cmvae_torch.utils.profiling``)
-on the CPU: timing, a trace with a named region, the roofline prices
-against ``chip_smoke.py::bound``'s, and the NaN trap."""
+on the CPU: timing, the span and counter recorder, a Chrome trace with
+the program's spans beside the profiler's events, the spans and counters
+the hot path records, and the NaN trap; on a card, that every kernel's
+launch call lies in the launch span that issued it."""
 
 import glob
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 from tpu21cmvae_torch.utils import profiling
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+THETA = np.array([0.1, 40.0, 10.0, 0.06, 1.2, 1.0, 30.0])
 
 
 def test_benchmark_times_every_call():
@@ -22,43 +28,215 @@ def test_benchmark_times_every_call():
     assert res.min_s <= res.mean_s and res.std_s >= 0
 
 
-def test_annotate_inside_trace_writes_a_chrome_trace(tmp_path):
+def test_spans_nest_under_their_parents_and_share_their_root():
+    with profiling.recording() as rec:
+        with profiling.span("a", profiling.ENTRY):
+            with profiling.span("b", profiling.WRAPPERS):
+                with profiling.span("c", profiling.KERNELS):
+                    pass
+            with profiling.span("d", profiling.ENTRY):
+                pass
+        with profiling.span("e", profiling.SAMPLER):
+            pass
+    a, b, c, d, e = rec.spans
+    assert [s.name for s in rec.spans] == list("abcde")
+    assert [s.layer for s in rec.spans] == [profiling.ENTRY, profiling.WRAPPERS, profiling.KERNELS,
+                                            profiling.ENTRY, profiling.SAMPLER]
+    assert [s.parent for s in rec.spans] == [None, 0, 1, 0, None]
+    assert [s.root for s in rec.spans] == [0, 0, 0, 0, 4]
+    assert (a.start_ns <= b.start_ns <= c.start_ns <= c.end_ns <= b.end_ns <= d.start_ns
+            <= d.end_ns <= a.end_ns <= e.start_ns <= e.end_ns)
+    assert {s.thread for s in rec.spans} == {threading.get_ident()}
+
+
+def test_a_second_threads_spans_do_not_nest_under_the_first():
+    opened, done = threading.Event(), threading.Event()
+
+    def other():
+        assert opened.wait(10)
+        with profiling.span("other", profiling.SAMPLER):
+            with profiling.span("inner", profiling.KERNELS):
+                pass
+        done.set()
+
+    with profiling.recording() as rec:
+        worker = threading.Thread(target=other)
+        worker.start()
+        with profiling.span("main", profiling.ENTRY):
+            opened.set()
+            assert done.wait(10)
+        worker.join(10)
+    assert not worker.is_alive()
+    index = {s.name: i for i, s in enumerate(rec.spans)}
+    main, o, inner = (rec.spans[index[n]] for n in ("main", "other", "inner"))
+    assert main.parent is None and main.root == index["main"]
+    assert o.parent is None and o.root == index["other"]
+    assert inner.parent == index["other"] and inner.root == index["other"]
+    assert main.thread == threading.get_ident() != o.thread == inner.thread
+    # the other thread's span lies inside the main one's time, not under it
+    assert main.start_ns <= o.start_ns <= o.end_ns <= main.end_ns
+
+
+def test_off_records_nothing_and_reads_no_clock(monkeypatch):
+    noop = profiling.span("x", profiling.KERNELS)
+    assert noop is profiling.span("y", profiling.ENTRY)  # the one shared context
+
+    def no_clock():
+        raise AssertionError("the clock was read with recording off")
+
+    monkeypatch.setattr(profiling.time, "time_ns", no_clock)
+    with profiling.span("x", profiling.KERNELS):
+        profiling.count("operand.hit", 5)
+    monkeypatch.undo()
+    with profiling.recording() as rec:
+        profiling.count("operand.hit", 5)
+        profiling.count("operand.hit")
+        profiling.count("memo.hit")
+        with profiling.span("x", profiling.KERNELS):
+            pass
+    with profiling.span("after", profiling.KERNELS):
+        profiling.count("operand.hit", 5)
+    assert [s.name for s in rec.spans] == ["x"]
+    assert rec.counters == {"operand.hit": 6, "memo.hit": 1}
+    with pytest.raises(RuntimeError, match="already open"):
+        with profiling.recording():
+            with profiling.recording():
+                pass
+    assert profiling.span("z", profiling.KERNELS) is noop
+
+
+def test_trace_writes_the_programs_spans_beside_the_profilers_events(tmp_path):
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("t21_region"):
+        with profiling.span("t21_region", profiling.ENTRY):
             torch.ones(64, 64) @ torch.ones(64, 64)
     (path,) = glob.glob(os.path.join(str(tmp_path), "trace_*.json"))
-    names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
-    assert "t21_region" in names
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    (mine,) = [e for e in events if e.get("name") == "t21_region"]
+    assert mine["ph"] == "X" and mine["cat"] == profiling.ENTRY
+    assert mine["args"] == {"layer": profiling.ENTRY, "span": 0, "parent": None, "root": 0}
+    # the matmul ran inside the span: both on the profiler's clock
+    (mm,) = [e for e in events if e.get("name") == "aten::matmul"]
+    assert mine["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= mine["ts"] + mine["dur"]
+    assert profiling.span("after", profiling.KERNELS) is profiling.span("again", profiling.KERNELS)
+
+
+def test_a_region_that_raises_closes_its_spans_and_its_recording(tmp_path):
+    with pytest.raises(ValueError):
+        with profiling.recording() as rec:
+            with profiling.span("outer", profiling.ENTRY):
+                with profiling.span("inner", profiling.KERNELS):
+                    raise ValueError("in the launch")
+    outer, inner = rec.spans
+    assert inner.parent == 0 and outer.start_ns <= inner.end_ns <= outer.end_ns
+    assert profiling.span("after", profiling.KERNELS) is profiling.span("x", profiling.ENTRY)
+    with pytest.raises(ValueError):
+        with profiling.trace(str(tmp_path)):
+            with profiling.span("t21_region", profiling.ENTRY):
+                raise ValueError("in the region")
+    assert profiling.span("after", profiling.KERNELS) is profiling.span("x", profiling.ENTRY)
+    with profiling.recording() as rec:  # a new recording starts with an empty stack
+        with profiling.span("fresh", profiling.SAMPLER):
+            pass
+    assert [(s.name, s.parent, s.root) for s in rec.spans] == [("fresh", None, 0)]
+
+
+def _direct(monkeypatch):
+    """The shipped direct emulator on the CPU, its samplers routed
+    through the kernel wrappers (which run their plain versions here)."""
+    from tpu21cmvae_torch.models.direct import DirectEmulator
+
+    torch.set_num_threads(1)
+    model = DirectEmulator.from_checkpoint(
+        os.path.join(ROOT, "pretrained/direct_synthetic.npz"), device="cpu")
+    monkeypatch.setattr(model, "_backend", lambda: "kernel")
+    return model
+
+
+def _named(rec, layer):
+    return [s for s in rec.spans if s.layer == layer]
+
+
+def _sampler_phases(rec):
+    """The root ``sample_posterior`` and its four phases, in order."""
+    root, *phases = _named(rec, profiling.SAMPLER)
+    assert root.name == "sample_posterior" and root.parent is None
+    assert [s.name for s in phases] == ["start", "warmup", "draws", "collect"]
+    assert all(rec.spans[s.parent] is root for s in phases)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(phases, phases[1:]))
+    return root, phases
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "mh"])
+def test_a_sampler_call_records_its_phases_wrappers_and_counters(sampler, monkeypatch):
+    model = _direct(monkeypatch)
+    obs = model.predict(THETA)
+    kw = (dict(n_leapfrog=3, jitter=False, thin=1) if sampler == "hmc" else dict(thin=1))
+    call = dict(sampler=sampler, n_walkers=16, n_warmup=2, n_steps=2, **kw)
+    model.sample_posterior(obs, 25.0, **call)  # builds, folds and memoizes the wrapper
+    with profiling.recording() as rec:
+        model.sample_posterior(obs, 25.0, **call)
+    root, phases = _sampler_phases(rec)
+    wrappers = _named(rec, profiling.WRAPPERS)
+    assert {s.root for s in rec.spans} == {0}
+    if sampler == "hmc":
+        # the first gradient, then 4 iterations of 3 leapfrog steps, each a K3 call
+        assert [s.name for s in wrappers] == ["K3"] * 13
+        assert {rec.spans[s.parent].name for s in wrappers} == {"start", "warmup", "draws"}
+        assert rec.counters == {"memo.hit": 1, "operand.hit": 13}
+    else:
+        # the first value, then one proposal batch per iteration: the
+        # kernel value wrapper around K2
+        outer = [s for s in wrappers if s.name == "kernel_value"]
+        inner = [s for s in wrappers if s.name == "K2"]
+        assert len(outer) == len(inner) == 5
+        assert all(rec.spans[s.parent] is o for s, o in zip(inner, outer))
+        assert rec.counters == {"memo.hit": 1, "operand.hit": 5}
+    assert not _named(rec, profiling.KERNELS)  # the plain versions launch nothing
+
+
+def test_emulation_records_the_entry_point_and_k1(monkeypatch):
+    from tpu21cmvae_torch.parallel.inference import ShardedEmulator
+    from tpu21cmvae_torch.parallel.mesh import make_mesh
+
+    model = _direct(monkeypatch)
+    emulator = ShardedEmulator.for_model(model, mesh=make_mesh([torch.device("cpu")]),
+                                         backend="kernel")
+    x = torch.as_tensor(np.tile(THETA, (16, 1)), dtype=torch.float32)
+    emulator.device_call(x)
+    with profiling.recording() as rec:
+        on_device = emulator.device_call(x)
+        on_host = emulator(x.numpy()[:5])
+    assert [(s.name, s.layer, s.parent) for s in rec.spans] == [
+        ("device_call", profiling.ENTRY, None), ("split_rows", profiling.ENTRY, 0),
+        ("run", profiling.ENTRY, 0), ("K1", profiling.WRAPPERS, 2),
+        ("merge_rows", profiling.ENTRY, 0),
+        ("call", profiling.ENTRY, None), ("split_rows", profiling.ENTRY, 5),
+        ("run", profiling.ENTRY, 5), ("K1", profiling.WRAPPERS, 7),
+        ("merge_rows", profiling.ENTRY, 5)]
+    assert [s.root for s in rec.spans] == [0] * 5 + [5] * 5
+    assert rec.counters == {"operand.hit": 2}
+    assert on_device.shape == (16, 451) and on_host.shape == (5, 451)
+
+
+def test_the_autoencoders_sampler_records_its_autograd_wrapper():
+    from tpu21cmvae_torch.models.autoencoder import AutoEncoderEmulator
+
+    torch.set_num_threads(1)
+    model = AutoEncoderEmulator.from_checkpoint(
+        os.path.join(ROOT, "pretrained/ae_synthetic.npz"), device="cpu")
+    obs = model.predict(THETA)
+    with profiling.recording() as rec:
+        model.sample_posterior(obs, 25.0, n_walkers=16, n_warmup=2, n_steps=2, thin=1,
+                               jitter=False, n_leapfrog=3)
+    _sampler_phases(rec)
+    wrappers = _named(rec, profiling.WRAPPERS)
+    assert [s.name for s in wrappers] == ["autograd_valgrad"] * 13
+    assert rec.counters == {"memo.miss": 1}
 
 
 def test_device_memory_stats_is_none_on_the_cpu():
     assert profiling.device_memory_stats("cpu") is None
-
-
-def test_flop_prices_match_the_smoke_bound():
-    """The products per row ``chip_smoke.py::bound`` prices for the
-    flagship K1 (the dense layers on the tensor cores, the skinny first
-    layer apart), unpadded; the MFU line charges bf16x3 three passes."""
-    import chip_smoke
-
-    sizes = (7, 288, 352, 288, 224, 451)
-    flops = profiling.matmul_flops_per_row(sizes)
-    dense = sum(a * b for a, b in zip(sizes[1:-1], sizes[2:]))
-    assert flops == 2 * dense
-    assert profiling.matmul_flops_per_row(sizes, skip_first=False) == flops + 2 * 7 * 288
-    assert (profiling.H100_BF16_PEAK_FLOPS, profiling.H100_F32_PEAK_FLOPS,
-            profiling.H100_HBM_BYTES_PER_S) == (chip_smoke.PEAK_BF16, chip_smoke.PEAK_F32,
-                                                chip_smoke.PEAK_BYTES)
-    n = 1 << 20
-    ms, by = chip_smoke.bound("k1", sizes, n, "bf16x3")
-    assert by == "operations"
-    t_ops = n * (3 * flops / chip_smoke.PEAK_BF16 + 2 * 7 * 288 / chip_smoke.PEAK_F32)
-    assert ms == pytest.approx(1e3 * t_ops)
-    rows_per_s = n / (ms * 1e-3)
-    line = profiling.mfu_line("k1", rows_per_s, flops, "high")
-    share = rows_per_s * flops * 3 / chip_smoke.PEAK_BF16 * 100
-    assert f"{share:.1f}% of the H100 bf16 peak" in line
-    assert "f32 peak" in profiling.mfu_line("k1", 1e6, flops, "highest")
 
 
 def test_debug_guard_traps_a_nan():
@@ -73,3 +251,65 @@ def test_debug_guard_traps_a_nan():
         with profiling.debug_guard(infs=True):
             torch.exp(torch.tensor([1000.0]))
     assert np.isnan(torch.sqrt(x).numpy()).any()  # the mode is gone after the region
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels launch only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_each_launch_call_lies_in_one_launch_span_and_its_kernel_follows_it(cuda):
+    """The spans are on the profiler's host clock on the card: each K1, K2
+    and K3 kernel's runtime launch call (joined by the profiler's
+    correlation id) lies inside one launch span, and on an idle device the
+    kernel starts no later than 2 ms after that span's end. That the kernel
+    starts after the span opened is not checked: the profiler's device
+    timestamps run off its host timestamps in some profiles (kernels that
+    seem to start up to 17 ms before their launch call, on an H100)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu21cmvae_torch.models.direct import DirectEmulator
+    from tpu21cmvae_torch.ops.kernels.fused_loglik import (
+        make_fused_loglik_grad_gram,
+        make_fused_loglik_gram,
+    )
+    from tpu21cmvae_torch.ops.kernels.fused_mlp import make_fused_emulate
+
+    model = DirectEmulator.from_checkpoint(
+        os.path.join(ROOT, "pretrained/direct_synthetic.npz"), device=cuda)
+    obs = model.predict(THETA)
+    args = (model.config, model.normalizer, obs, 25.0)
+    fns = [make_fused_emulate(model.config, model.normalizer, device=cuda),
+           make_fused_loglik_gram(*args, device=cuda),
+           make_fused_loglik_grad_gram(*args, grad_precision="default", device=cuda)]
+    x = torch.as_tensor(np.tile(THETA, (4096, 1)), dtype=torch.float32, device=cuda)
+    for fn in fns:  # build, load and fold before the profile
+        fn(model.params, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.recording() as rec:
+            for _ in range(20):
+                for fn in fns:
+                    fn(model.params, x)
+                    torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    on_card = torch.autograd.DeviceType.CUDA
+    host = {e.correlation_id(): e.start_ns() for e in events
+            if e.device_type() != on_card and "aunchKernel" in e.name()}
+    ran = [(e.start_ns(), e.name(), host[e.correlation_id()]) for e in events
+           if e.device_type() == on_card and e.correlation_id() in host]
+    launches = _named(rec, profiling.KERNELS)
+    assert len(launches) == 60
+    checked = 0
+    for start, name, launched in ran:
+        if "fused_" not in name:
+            continue
+        (s,) = [s for s in launches if s.start_ns <= launched <= s.end_ns]
+        assert start <= s.end_ns + 2_000_000, (s.name, name, start - s.end_ns)
+        checked += 1
+    # the profiler may drop a record now and then; most launches are checked
+    assert checked >= 55

@@ -22,6 +22,7 @@ import copy
 import numpy as np
 import torch
 
+from tpu21cmvae_torch.utils.profiling import count
 from tpu21cmvae_torch.utils.tree import tree_map
 
 _CAP = 8
@@ -58,10 +59,12 @@ def memo_program(model, key_parts, build, *, memo: bool = True):
     )
     fn = cache.get(key)
     if fn is None:
+        count("memo.miss")
         fn = cache[key] = build()
         if len(cache) > _CAP:
             cache.popitem(last=False)
     else:
+        count("memo.hit")
         cache.move_to_end(key)
     return fn
 

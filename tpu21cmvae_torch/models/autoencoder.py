@@ -45,6 +45,7 @@ from tpu21cmvae_torch.utils.config import (
     TrainConfig,
 )
 from tpu21cmvae_torch.utils.metrics import error
+from tpu21cmvae_torch.utils.profiling import SAMPLER, span
 from tpu21cmvae_torch.utils.tree import tree_leaves, treedef
 
 
@@ -197,30 +198,31 @@ class PredictFamily:
         (``target_ess=`` runs ``sample_to_ess``), ``"ensemble"``, ``"pt"``
         and ``"smc"`` score through :meth:`loglik_fn`; ``"hmc"``,
         ``"chees"`` and ``"nuts"`` through :meth:`loglik_and_grad_fn`."""
-        if sampler in ("mh", "ensemble", "pt", "smc"):
-            from tpu21cmvae_torch.sampling.driver import sample_to_ess
-            from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
-            from tpu21cmvae_torch.sampling.pt import sample_pt
-            from tpu21cmvae_torch.sampling.smc import sample_smc
+        with span("sample_posterior", SAMPLER):
+            if sampler in ("mh", "ensemble", "pt", "smc"):
+                from tpu21cmvae_torch.sampling.driver import sample_to_ess
+                from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
+                from tpu21cmvae_torch.sampling.pt import sample_pt
+                from tpu21cmvae_torch.sampling.smc import sample_smc
 
-            if sampler == "mh" and "target_ess" in kwargs:
-                run = sample_to_ess
-            else:
-                run = {"mh": sample_mh, "ensemble": sample_ensemble, "pt": sample_pt,
-                       "smc": sample_smc}[sampler]
-            return run(self.loglik_fn(obs, noise_var), self.params, bounds=bounds,
+                if sampler == "mh" and "target_ess" in kwargs:
+                    run = sample_to_ess
+                else:
+                    run = {"mh": sample_mh, "ensemble": sample_ensemble, "pt": sample_pt,
+                           "smc": sample_smc}[sampler]
+                return run(self.loglik_fn(obs, noise_var), self.params, bounds=bounds,
+                           device=self.device, **kwargs)
+            if sampler not in ("hmc", "chees", "nuts"):
+                raise ValueError(
+                    "sampler must be 'mh', 'ensemble', 'hmc', 'chees', 'nuts', "
+                    f"'pt' or 'smc'; got {sampler!r}"
+                )
+            from tpu21cmvae_torch.sampling import gradient
+
+            run = {"hmc": gradient.sample_hmc, "chees": gradient.sample_chees,
+                   "nuts": gradient.sample_nuts}[sampler]
+            return run(self.loglik_and_grad_fn(obs, noise_var), self.params, bounds=bounds,
                        device=self.device, **kwargs)
-        if sampler not in ("hmc", "chees", "nuts"):
-            raise ValueError(
-                "sampler must be 'mh', 'ensemble', 'hmc', 'chees', 'nuts', "
-                f"'pt' or 'smc'; got {sampler!r}"
-            )
-        from tpu21cmvae_torch.sampling import gradient
-
-        run = {"hmc": gradient.sample_hmc, "chees": gradient.sample_chees,
-               "nuts": gradient.sample_nuts}[sampler]
-        return run(self.loglik_and_grad_fn(obs, noise_var), self.params, bounds=bounds,
-                   device=self.device, **kwargs)
 
     def sample_posterior_batch(self, obs_batch, noise_var=1.0, *, sampler: str = "mh",
                                n_walkers: int = 256, bounds=None, **kwargs):

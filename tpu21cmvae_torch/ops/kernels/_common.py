@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from tpu21cmvae_torch.utils.profiling import KERNELS, count, span
+
 MAX_LAYERS = 8  # kMaxLayers in csrc/trunk.cuh
 MAX_SHARED_BYTES = 232448  # an H100 block's dynamic shared-memory limit
 MAX_MEMBERS = 65535  # kMaxMembers in csrc/trunk.cuh: a grid's y limit
@@ -270,7 +272,9 @@ class OperandCache:
             and all(a is b for a, b in zip(hit[0], tensors))
             and hit[1] == versions
         ):
+            count("operand.hit")
             return hit[2]
+        count("operand.fold")
         with torch.no_grad():
             ops = self._build(tuple({k: v.detach() for k, v in layer.items()}
                                     for layer in params))
@@ -306,7 +310,9 @@ def launch(name: str, entry: str, x: torch.Tensor, *args):
 
     lib = load_library()
     with torch.cuda.device(x.device):
-        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        with span(entry, KERNELS):
+            rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} launch failed: {lib.t21_error_string(rc).decode()} (cudaError {rc})"

@@ -124,6 +124,7 @@ from tpu21cmvae_torch.ops.kernels.wide import (
     wide_tail,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
+from tpu21cmvae_torch.utils.profiling import WRAPPERS, span
 
 
 class GramPacked(NamedTuple):
@@ -859,15 +860,16 @@ class _GramWrapper:
         return launch_fn(ops, x, rows)
 
     def _run(self, params, raw, plain, members_plain, kernel):
-        x = check_rows(raw, self.device, self.n_params)
-        ops = self.operands(params)
-        if x.device.type == "cpu":
-            return plain(ops, x) if ops.members is None else members_plain(ops, x)
-        if x.device.type != "cuda":
-            raise ValueError(f"{self.name} runs on CUDA or (plain) on the CPU; got {x.device}")
-        if x.shape[0]:  # an empty batch launches nothing
-            self.launches += 1
-        return self._launch_kernel(kernel, ops, x)
+        with span(self.name, WRAPPERS):
+            x = check_rows(raw, self.device, self.n_params)
+            ops = self.operands(params)
+            if x.device.type == "cpu":
+                return plain(ops, x) if ops.members is None else members_plain(ops, x)
+            if x.device.type != "cuda":
+                raise ValueError(f"{self.name} runs on CUDA or (plain) on the CPU; got {x.device}")
+            if x.shape[0]:  # an empty batch launches nothing
+                self.launches += 1
+            return self._launch_kernel(kernel, ops, x)
 
 
 class FusedLoglikGram(_GramWrapper):

@@ -78,6 +78,7 @@ from tpu21cmvae_torch.ops.kernels.wide import (
     wide_tail,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
+from tpu21cmvae_torch.utils.profiling import WRAPPERS, span
 
 WARPS_PER_BLOCK = 8  # kMmaWarps in csrc/mma.cuh
 MMA_ROWS_PER_BLOCK = 32  # kTileRows in csrc/fused_mlp_mma.cu
@@ -433,19 +434,20 @@ class FusedMLP:
 
     @torch.no_grad()
     def __call__(self, params, x):
-        x = check_rows(x, self.device, self.sizes[0])
-        ops = self.operands(params)
-        if x.device.type == "cpu":
-            if ops.members is not None:
-                return fused_mlp_members_reference(ops, x)
-            return fused_mlp_reference(ops, x)
-        if x.device.type != "cuda":
-            raise ValueError(f"K1 runs on CUDA or (plain) on the CPU; got {x.device}")
-        if x.shape[0]:  # an empty batch launches nothing
-            self.launches += 1
-        if self.wide:
-            return self.wide_launch(ops, x, self.rows_for(x.shape[0]))
-        return _fused_mlp_cuda(ops, x, self.tile_rows)
+        with span("K1", WRAPPERS):
+            x = check_rows(x, self.device, self.sizes[0])
+            ops = self.operands(params)
+            if x.device.type == "cpu":
+                if ops.members is not None:
+                    return fused_mlp_members_reference(ops, x)
+                return fused_mlp_reference(ops, x)
+            if x.device.type != "cuda":
+                raise ValueError(f"K1 runs on CUDA or (plain) on the CPU; got {x.device}")
+            if x.shape[0]:  # an empty batch launches nothing
+                self.launches += 1
+            if self.wide:
+                return self.wide_launch(ops, x, self.rows_for(x.shape[0]))
+            return _fused_mlp_cuda(ops, x, self.tile_rows)
 
     def rows_for(self, n_rows: int) -> int | None:
         """The wide route's tile height for a batch of ``n_rows`` rows of

@@ -68,6 +68,7 @@ from tpu21cmvae_torch.ops.mlp import (
 )
 from tpu21cmvae_torch.ops.transforms import par_transform, unpreproc
 from tpu21cmvae_torch.parallel.mesh import replica_of, replicable, tree_to
+from tpu21cmvae_torch.utils.profiling import WRAPPERS, span
 
 
 def _on_each_device(factory):
@@ -181,7 +182,7 @@ def per_row_grad(loglik, *, device=None):
 
 def _per_row_grad(loglik, device):
     def loglik_and_grad(weights, raw):
-        with torch.enable_grad():
+        with span("autograd_valgrad", WRAPPERS), torch.enable_grad():
             x = torch.atleast_2d(torch.as_tensor(raw, dtype=torch.float32, device=device))
             x = x.detach().requires_grad_(True)
             val = loglik(weights, x)
@@ -251,8 +252,9 @@ class KernelLoglik:
         self.fused.launches = n
 
     def __call__(self, params, raw):
-        weights = [t for layer in params for t in (layer["w"], layer["b"])]
-        return _KernelValue.apply(self.fused, self.twin, raw, *weights)
+        with span("kernel_value", WRAPPERS):
+            weights = [t for layer in params for t in (layer["w"], layer["b"])]
+            return _KernelValue.apply(self.fused, self.twin, raw, *weights)
 
 
 def _stacked_twin(twin, members: int):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from tpu21cmvae_torch.parallel.mesh import Mesh, make_mesh, merge_rows, replicate, split_rows
+from tpu21cmvae_torch.utils.profiling import ENTRY, span
 
 
 def _bucket_size(n: int, quantum: int) -> int:
@@ -117,15 +118,21 @@ class ShardedEmulator:
         Pads to a bucket boundary (replicating row 0, results discarded);
         a single row comes back squeezed, as ``DirectEmulator.predict``
         returns it."""
-        raw = np.atleast_2d(np.asarray(raw_params, dtype=np.float32))
-        n = raw.shape[0]
-        b = _bucket_size(n, self.quantum)
-        if b != n:
-            raw = np.concatenate([raw, np.broadcast_to(raw[:1], (b - n, raw.shape[1]))], axis=0)
-        # split_rows makes each chunk contiguous: NumPy may lay a padded
-        # batch out column-major, and the kernels take row-major rows only
-        chunks, sizes = split_rows(torch.as_tensor(raw), self.mesh)
-        out = merge_rows(self._run(chunks), self.mesh, sizes, "cpu").numpy()[:n]
+        with span("call", ENTRY):
+            with span("split_rows", ENTRY):
+                raw = np.atleast_2d(np.asarray(raw_params, dtype=np.float32))
+                n = raw.shape[0]
+                b = _bucket_size(n, self.quantum)
+                if b != n:
+                    raw = np.concatenate([raw, np.broadcast_to(raw[:1], (b - n, raw.shape[1]))],
+                                         axis=0)
+                # split_rows makes each chunk contiguous: NumPy may lay a padded
+                # batch out column-major, and the kernels take row-major rows only
+                chunks, sizes = split_rows(torch.as_tensor(raw), self.mesh)
+            with span("run", ENTRY):
+                outs = self._run(chunks)
+            with span("merge_rows", ENTRY):
+                out = merge_rows(outs, self.mesh, sizes, "cpu").numpy()[:n]
         return out[0] if n == 1 else out
 
     def warmup(self, batch_sizes, n_params: int = 7) -> None:
@@ -146,13 +153,19 @@ class ShardedEmulator:
         the input's device; a list of per-device shards
         (:func:`~tpu21cmvae_torch.parallel.mesh.shard_batch`) gives one
         output per device of this process."""
-        if isinstance(raw_params_device, (list, tuple)):
-            return self._run(raw_params_device)
-        x = raw_params_device
-        if x.shape[0] % len(self.devices):
-            raise ValueError(
-                f"the batch ({x.shape[0]}) must divide evenly across the "
-                f"{len(self.devices)}-device mesh"
-            )
-        chunks, sizes = split_rows(x, self.mesh)
-        return merge_rows(self._run(chunks), self.mesh, sizes, x.device)
+        with span("device_call", ENTRY):
+            if isinstance(raw_params_device, (list, tuple)):
+                with span("run", ENTRY):
+                    return self._run(raw_params_device)
+            x = raw_params_device
+            if x.shape[0] % len(self.devices):
+                raise ValueError(
+                    f"the batch ({x.shape[0]}) must divide evenly across the "
+                    f"{len(self.devices)}-device mesh"
+                )
+            with span("split_rows", ENTRY):
+                chunks, sizes = split_rows(x, self.mesh)
+            with span("run", ENTRY):
+                outs = self._run(chunks)
+            with span("merge_rows", ENTRY):
+                return merge_rows(outs, self.mesh, sizes, x.device)

@@ -39,6 +39,7 @@ from tpu21cmvae_torch.sampling._common import (
     _thin_write,
 )
 from tpu21cmvae_torch.sampling.results import SampleResult
+from tpu21cmvae_torch.utils import profiling
 
 _, _GAMMA, _T0, _KAPPA = _dual_averaging_consts(1.0)  # Hoffman & Gelman 2014
 
@@ -308,48 +309,52 @@ def sample_hmc(
             f"n_walkers ({n_walkers}) must divide into adapt_blocks "
             f"({adapt_blocks}) equal contiguous blocks"
         )
-    gen = torch.Generator(device=device).manual_seed(seed)
-    host = torch.Generator().manual_seed(seed)
-    y = _start_walkers(x0, gen, n_walkers, lo, hi)
-    use_metric, dense = _resolve_metric(
-        metric, precondition, n_warmup, y.shape[0], auto_dense=False
-    )
-    n_warm1 = n_warmup // 2 if use_metric else n_warmup
-    to_params, logp_and_grad = _whitened_target(_shard_rows(valgrad, mesh, y.shape[0]),
-                                                 log_prior, lo, span)
-    l_min = max(1, (n_leapfrog + 1) // 2)
+    with profiling.span("start", profiling.SAMPLER):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        host = torch.Generator().manual_seed(seed)
+        y = _start_walkers(x0, gen, n_walkers, lo, hi)
+        use_metric, dense = _resolve_metric(
+            metric, precondition, n_warmup, y.shape[0], auto_dense=False
+        )
+        n_warm1 = n_warmup // 2 if use_metric else n_warmup
+        to_params, logp_and_grad = _whitened_target(_shard_rows(valgrad, mesh, y.shape[0]),
+                                                     log_prior, lo, span)
+        l_min = max(1, (n_leapfrog + 1) // 2)
 
-    def step(y, lp, glp, met, eps):
-        n_leap = n_leapfrog
-        if jitter and l_min != n_leapfrog:
-            n_leap = int(torch.randint(l_min, n_leapfrog + 1, (), generator=host))
-        p0, log_u = _draw(gen, y)
-        return hmc_step(logp_and_grad, params, y, lp, glp, met, eps, n_leap, p0, log_u)
+        def step(y, lp, glp, met, eps):
+            n_leap = n_leapfrog
+            if jitter and l_min != n_leapfrog:
+                n_leap = int(torch.randint(l_min, n_leapfrog + 1, (), generator=host))
+            p0, log_u = _draw(gen, y)
+            return hmc_step(logp_and_grad, params, y, lp, glp, met, eps, n_leap, p0, log_u)
 
-    lp, glp = logp_and_grad(params, y)
-    met = torch.ones((y.shape[1],), dtype=y.dtype, device=device)
-    eps = torch.full((adapt_blocks,), init_step, dtype=torch.float32, device=device)
-    if n_warm1 > 0:
-        y, lp, glp, eps = _dual_averaging(step, y, lp, glp, met, eps, n_warm1,
-                                          target_accept)
-    if use_metric:
-        met = _ens_metric_blocks(y, dense, 1)
-        y, lp, glp, eps = _dual_averaging(step, y, lp, glp, met, eps,
-                                          n_warmup - n_warm1, target_accept)
-    _, buf = _thin_state(n_steps, thin, y)
-    rates = torch.empty((n_steps,), dtype=torch.float32, device=device)
-    for t in range(n_steps):
-        y, lp, glp, a_mean = step(y, lp, glp, met, eps)
-        _thin_write(buf, t, to_params(y), thin)
-        rates[t] = a_mean.mean()
-    return SampleResult(
-        chain=buf.cpu().numpy(),
-        final=to_params(y).cpu().numpy(),
-        logp=lp.cpu().numpy(),
-        accept_rate=rates.cpu().numpy(),
-        step_size=float(eps.mean()),
-        block_step_sizes=eps.cpu().numpy(),
-    )
+        lp, glp = logp_and_grad(params, y)
+        met = torch.ones((y.shape[1],), dtype=y.dtype, device=device)
+        eps = torch.full((adapt_blocks,), init_step, dtype=torch.float32, device=device)
+    with profiling.span("warmup", profiling.SAMPLER):
+        if n_warm1 > 0:
+            y, lp, glp, eps = _dual_averaging(step, y, lp, glp, met, eps, n_warm1,
+                                              target_accept)
+        if use_metric:
+            met = _ens_metric_blocks(y, dense, 1)
+            y, lp, glp, eps = _dual_averaging(step, y, lp, glp, met, eps,
+                                              n_warmup - n_warm1, target_accept)
+    with profiling.span("draws", profiling.SAMPLER):
+        _, buf = _thin_state(n_steps, thin, y)
+        rates = torch.empty((n_steps,), dtype=torch.float32, device=device)
+        for t in range(n_steps):
+            y, lp, glp, a_mean = step(y, lp, glp, met, eps)
+            _thin_write(buf, t, to_params(y), thin)
+            rates[t] = a_mean.mean()
+    with profiling.span("collect", profiling.SAMPLER):
+        return SampleResult(
+            chain=buf.cpu().numpy(),
+            final=to_params(y).cpu().numpy(),
+            logp=lp.cpu().numpy(),
+            accept_rate=rates.cpu().numpy(),
+            step_size=float(eps.mean()),
+            block_step_sizes=eps.cpu().numpy(),
+        )
 
 
 def _vdc(i: int) -> float:

@@ -36,6 +36,7 @@ from tpu21cmvae_torch.sampling._common import (
     _thin_write,
 )
 from tpu21cmvae_torch.sampling.results import SampleResult
+from tpu21cmvae_torch.utils.profiling import SAMPLER, span
 
 
 def _box_score(loglik, log_prior, lo, hi):
@@ -124,48 +125,52 @@ def sample_mh(
             f"n_walkers ({n_walkers}) must divide into adapt_blocks "
             f"({adapt_blocks}) equal contiguous blocks"
         )
-    gen = torch.Generator(device=device).manual_seed(seed)
-    x = _start(x0, gen, n_walkers, lo, hi)
-    loglik = _shard_rows(loglik, mesh, x.shape[0])
-    score = _box_score(loglik, log_prior, lo, hi)
+    with span("start", SAMPLER):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = _start(x0, gen, n_walkers, lo, hi)
+        loglik = _shard_rows(loglik, mesh, x.shape[0])
+        score = _box_score(loglik, log_prior, lo, hi)
 
-    def step(x, lp, mult):
-        noise = torch.randn(x.shape, generator=gen, device=device)
-        log_u = torch.log(torch.rand((x.shape[0],), generator=gen, device=device))
-        return mh_step(score, params, x, lp, mult, base_scale, noise, log_u)
+        def step(x, lp, mult):
+            noise = torch.randn(x.shape, generator=gen, device=device)
+            log_u = torch.log(torch.rand((x.shape[0],), generator=gen, device=device))
+            return mh_step(score, params, x, lp, mult, base_scale, noise, log_u)
 
-    lp = loglik(params, x) + log_prior(x)
-    mult = torch.ones((adapt_blocks,), dtype=torch.float32, device=device)
-    if n_warmup > 0:
-        mu, gamma, t0, kappa = _dual_averaging_consts(1.0)
-        log_m = torch.zeros_like(mult)
-        log_m_bar = torch.zeros_like(mult)
-        h_bar = torch.zeros_like(mult)
-        for i in range(n_warmup):
-            x, lp, a = step(x, lp, torch.exp(log_m))
-            t = i + 1.0
-            h_bar = (1.0 - 1.0 / (t + t0)) * h_bar + (target_accept - a) / (t + t0)
-            if adapt:
-                log_m = mu - math.sqrt(t) / gamma * h_bar
-                w = t ** (-kappa)
-                log_m_bar = w * log_m + (1.0 - w) * log_m_bar
-        mult = torch.exp(log_m_bar)
-    _, buf = _thin_state(n_steps, thin, x)
-    rates = torch.empty((n_steps,), dtype=torch.float32, device=device)
-    for t in range(n_steps):
-        x, lp, a = step(x, lp, mult)
-        _thin_write(buf, t, x, thin)
-        rates[t] = a.mean()
-    scale = float(base_scale.mean())
-    mult = mult.cpu().numpy()
-    return SampleResult(
-        chain=buf.cpu().numpy(),
-        final=x.cpu().numpy(),
-        logp=lp.cpu().numpy(),
-        accept_rate=rates.cpu().numpy(),
-        step_size=float(np.mean(mult)) * scale,
-        block_step_sizes=mult * scale,
-    )
+        lp = loglik(params, x) + log_prior(x)
+        mult = torch.ones((adapt_blocks,), dtype=torch.float32, device=device)
+    with span("warmup", SAMPLER):
+        if n_warmup > 0:
+            mu, gamma, t0, kappa = _dual_averaging_consts(1.0)
+            log_m = torch.zeros_like(mult)
+            log_m_bar = torch.zeros_like(mult)
+            h_bar = torch.zeros_like(mult)
+            for i in range(n_warmup):
+                x, lp, a = step(x, lp, torch.exp(log_m))
+                t = i + 1.0
+                h_bar = (1.0 - 1.0 / (t + t0)) * h_bar + (target_accept - a) / (t + t0)
+                if adapt:
+                    log_m = mu - math.sqrt(t) / gamma * h_bar
+                    w = t ** (-kappa)
+                    log_m_bar = w * log_m + (1.0 - w) * log_m_bar
+            mult = torch.exp(log_m_bar)
+    with span("draws", SAMPLER):
+        _, buf = _thin_state(n_steps, thin, x)
+        rates = torch.empty((n_steps,), dtype=torch.float32, device=device)
+        for t in range(n_steps):
+            x, lp, a = step(x, lp, mult)
+            _thin_write(buf, t, x, thin)
+            rates[t] = a.mean()
+    with span("collect", SAMPLER):
+        scale = float(base_scale.mean())
+        mult = mult.cpu().numpy()
+        return SampleResult(
+            chain=buf.cpu().numpy(),
+            final=x.cpu().numpy(),
+            logp=lp.cpu().numpy(),
+            accept_rate=rates.cpu().numpy(),
+            step_size=float(np.mean(mult)) * scale,
+            block_step_sizes=mult * scale,
+        )
 
 
 def stretch_proposal(xa, xb, a: float, u, j):

@@ -1,50 +1,204 @@
 """Profiling, tracing and timing utilities (the port of
 ``tpu21cmvae/utils/profiling.py``), over ``torch.profiler``:
 
+* :func:`span`, :func:`count` and :func:`recording` — the program's own
+  spans and counters, recorded in memory while a :func:`recording` is
+  open and free (one flag test) while none is;
 * :func:`trace` — a Chrome trace of the enclosed region written to
-  ``logdir`` (CPU ops, and CUDA kernels where a card is present);
-* :func:`annotate` — a named region that shows up inside the trace;
+  ``logdir``: the profiler's CPU ops and CUDA kernels, and the program's
+  spans beside them;
 * :func:`benchmark` — timing with warmup excluded and the device
   synchronized after every sample;
 * :func:`device_memory_stats` — the CUDA caching allocator's counters;
 * :func:`debug_guard` — an opt-in NaN (and Inf) trap for debug runs;
-* :func:`matmul_flops_per_row` and :func:`mfu_line` — roofline
-  accounting against the H100's peaks.
+* :func:`padded_flops_per_row` — K1's products per row, padding
+  included, that the tuner ranks trials by.
+
+**Spans.** The program opens a span at each layer boundary of its hot
+path, in one of four layers (:data:`ENTRY`, :data:`SAMPLER`,
+:data:`WRAPPERS`, :data:`KERNELS`): ``device_call`` (or ``call``)
+with its ``split_rows``, ``run`` and ``merge_rows`` at the entry point;
+``sample_posterior`` with its ``start``, ``warmup``, ``draws`` and
+``collect`` in the sampler loop; one per likelihood wrapper call, named
+by the wrapper (``K1``, ``K2``, ``K3``, ``kernel_value``,
+``autograd_valgrad``); one per kernel launch, named by the C entry, around
+the launch alone. Counters: ``operand.hit``/``operand.fold`` (the
+wrappers' folded weights) and ``memo.hit``/``memo.miss`` (the models'
+likelihood memo). Spans are stamped with ``time.time_ns()``, the Unix-epoch
+clock on which ``torch.profiler`` reports its events, so a span and the
+runtime call or kernel it launched compare directly (the profiler's
+device timestamps have been seen to run off its host timestamps by up
+to 17 ms within some slices on an H100: ``port_bench/spans.py`` checks
+each slice).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import statistics
+import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+
+# the layers of the hot path, from the entry point down: each span names one
+ENTRY, SAMPLER, WRAPPERS, KERNELS = ("entry point", "sampler loop", "likelihood wrappers",
+                                     "kernels")
+LAYERS = (ENTRY, SAMPLER, WRAPPERS, KERNELS)
+
+
+class Span:
+    """One span of a :func:`recording`: its ``name`` and ``layer``,
+    ``start_ns`` and ``end_ns`` (``time.time_ns()``; ``end_ns`` None while
+    it is open), the index of its ``parent`` in the recording's spans
+    (None for a root), the index of its ``root`` (itself for a root: every
+    span of one request shares it) and the ``thread`` that opened it. The
+    context manager :func:`span` returns while recording."""
+
+    __slots__ = ("name", "layer", "start_ns", "end_ns", "parent", "root", "thread", "_rec")
+
+    def __init__(self, name: str, layer: str, start_ns: int = 0, end_ns: Optional[int] = None,
+                 parent: Optional[int] = None, root: Optional[int] = None,
+                 thread: Optional[int] = None):
+        self.name, self.layer = name, layer
+        self.start_ns, self.end_ns = start_ns, end_ns
+        self.parent, self.root, self.thread = parent, root, thread
+        self._rec = None
+
+    def __enter__(self):
+        rec = self._rec
+        stack = rec._stack()
+        with rec._lock:
+            index = len(rec.spans)
+            rec.spans.append(self)
+        self.thread = threading.get_ident()
+        if stack:
+            self.parent = stack[-1]
+            self.root = rec.spans[self.parent].root
+        else:
+            self.root = index
+        stack.append(index)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        self._rec._stack().pop()
+        return False
+
+
+class Recording:
+    """What :func:`recording` yields: ``spans`` (:class:`Span`, in the
+    order they opened) and ``counters`` (name → total), filled while the
+    recording is open, from every thread."""
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.counters: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+
+class _Noop:
+    """The context :func:`span` returns while nothing records: shared,
+    reentrant, and cheaper to enter than ``contextlib.nullcontext``."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_active: Optional[Recording] = None
+_NOOP = _Noop()
+
+
+def span(name: str, layer: str):
+    """A context manager that records the enclosed region as a
+    :class:`Span` of ``layer`` (one of :data:`LAYERS`) while a
+    :func:`recording` is open; the
+    shared no-op context otherwise (no allocation, no clock read)."""
+    rec = _active
+    if rec is None:
+        return _NOOP
+    s = Span(name, layer)
+    s._rec = rec
+    return s
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name`` while a
+    :func:`recording` is open; nothing otherwise."""
+    rec = _active
+    if rec is None:
+        return
+    with rec._lock:
+        rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the program's spans and counters while the body runs, in
+    memory, and yield the :class:`Recording` that holds them. One at a
+    time per process; nothing is written out."""
+    global _active
+    if _active is not None:
+        raise RuntimeError("a recording is already open in this process")
+    rec = _active = Recording()
+    try:
+        yield rec
+    finally:
+        _active = None
+
+
+def _span_events(spans, base_ns: int, pid: int) -> list:
+    """``spans`` as Chrome trace complete events (``"X"``), microseconds
+    after ``base_ns``."""
+    return [{"ph": "X", "cat": s.layer, "name": s.name, "pid": pid, "tid": s.thread,
+             "ts": (s.start_ns - base_ns) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+             "args": {"layer": s.layer, "span": i, "parent": s.parent, "root": s.root}}
+            for i, s in enumerate(spans) if s.end_ns is not None]
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the enclosed region with ``torch.profiler`` and write a
     Chrome trace (``trace_<ns>.json``) into ``logdir``; view it in
-    Perfetto or ``chrome://tracing``. Yields the profiler. CUDA activity
-    is recorded where a card is present; synchronize inside the region so
-    that no queued kernel escapes it."""
+    Perfetto or ``chrome://tracing``. The region runs inside a
+    :func:`recording`, whose spans join the profiler's events in the file.
+    Yields the profiler. CUDA activity is recorded where a card is
+    present; synchronize inside the region so that no queued kernel
+    escapes it."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.json"))
-
-
-def annotate(name: str):
-    """A named region on the trace timeline
-    (``torch.profiler.record_function``); a context manager."""
-    return torch.profiler.record_function(name)
+        with recording() as rec:
+            yield prof
+    path = os.path.join(logdir, f"trace_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        doc = json.load(fh)
+    doc["traceEvents"].extend(_span_events(rec.spans, doc.get("baseTimeNanoseconds", 0),
+                                           os.getpid()))
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
 
 
 @dataclasses.dataclass
@@ -154,32 +308,7 @@ def debug_guard(nans: bool = True, infs: bool = False):
         yield
 
 
-# -- roofline accounting ------------------------------------------------------
-
-#: Published dense peaks of one H100 SXM at its 700 W limit: bf16 on the
-#: tensor cores, fp32 on the CUDA cores, and the HBM3 rate (the numbers
-#: ``chip_smoke.py`` prices its kernels' bounds with).
-H100_BF16_PEAK_FLOPS = 989e12
-H100_F32_PEAK_FLOPS = 67e12
-H100_HBM_BYTES_PER_S = 3.35e12
-
-#: Per tier: the type whose peak prices a product and the passes a
-#: product costs on it (bf16x3: three bf16 products; the fp32 tiers run
-#: on the CUDA cores).
-TIER_PASSES = {"highest": ("f32", 1), "contract": ("f32", 1), "high": ("bf16", 3),
-               "default": ("bf16", 1)}
-
-
-def matmul_flops_per_row(sizes, skip_first: bool = True) -> int:
-    """Matmul FLOPs per batch row of a dense chain of ``sizes``, unpadded
-    (Hopper's tensor cores take any multiple of 16 without a 128-lane
-    tile to fill). ``skip_first`` drops a skinny first layer (fan-in ≤ 8),
-    which the kernels run as exact fp32 FMA on the CUDA cores, as
-    ``chip_smoke.py::bound`` prices it apart."""
-    pairs = list(zip(sizes[:-1], sizes[1:]))
-    if skip_first and pairs and sizes[0] <= 8:
-        pairs = pairs[1:]
-    return 2 * sum(a * b for a, b in pairs)
+# -- pricing ------------------------------------------------------------------
 
 
 def padded_flops_per_row(sizes, tier: str = "highest") -> int:
@@ -190,8 +319,9 @@ def padded_flops_per_row(sizes, tier: str = "highest") -> int:
     (``ops/kernels/_common.py``: ``PAD_K``, ``SLAB_N``); at the bf16
     tiers (``csrc/fused_mlp_mma.cu``) both to multiples of 16, the
     ``mma.m16n8k16`` fragments. A skinny first layer (fan-in ≤ 8) runs
-    apart, unpadded, on the CUDA cores, and is left out, as in
-    :func:`matmul_flops_per_row`. The cost the tuner ranks trials by."""
+    apart, unpadded, on the CUDA cores, and is left out, as
+    ``chip_smoke.py::bound`` prices it apart. The cost the tuner ranks
+    trials by."""
     from tpu21cmvae_torch.ops.fold import resolve_tier
     from tpu21cmvae_torch.ops.kernels._common import PAD_K, SLAB_N
 
@@ -203,17 +333,3 @@ def padded_flops_per_row(sizes, tier: str = "highest") -> int:
     if pairs and sizes[0] <= 8:
         pairs = pairs[1:]
     return 2 * sum(up(a, k_pad) * up(b, n_pad) for a, b in pairs)
-
-
-def mfu_line(label: str, rows_per_s: float, flops_per_row: float, tier: str,
-             peak: Optional[float] = None) -> str:
-    """One-line roofline statement: the logical FLOP rate, and the share
-    of the H100 peak of the tier's type that it takes once the tier's
-    passes are charged (bf16x3 costs three bf16 products per product).
-    ``peak`` overrides the table's peak (another card, another limit)."""
-    kind, passes = TIER_PASSES.get(tier.lower(), ("bf16", 1))
-    if peak is None:
-        peak = H100_F32_PEAK_FLOPS if kind == "f32" else H100_BF16_PEAK_FLOPS
-    rate = rows_per_s * flops_per_row
-    return (f"MFU[{label}]: {rate / 1e12:.1f} TFLOP/s logical; x {passes} {kind} pass(es) "
-            f"({tier}) -> {rate * passes / peak * 100:.1f}% of the H100 {kind} peak")

@@ -2135,3 +2135,86 @@ def test_member_count_beyond_the_grid_is_refused(cuda, route, monkeypatch):
     for g, w in zip(got, want):
         assert g.shape == (_common.MAX_MEMBERS, *w.shape)
         assert torch.equal(g, w.expand_as(g))
+
+
+# K3 on 64-row wgmma tiles (csrc/fused_gram_tall.cu): the pair it is built
+# for, on the flagship and on a narrow network whose widths need padding;
+# the other bf16 pairs keep the 16-row kernel
+TALL_PAIRS = [("high", "default")]
+BF16_PAIRS = [("high", "default"), ("high", "high"), ("default", "default"), ("default", "high")]
+TALL_NETS = [(288, 352, 288, 224), (32, 48, 32, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", TALL_NETS, ids=["flagship", "narrow"])
+@pytest.mark.parametrize("tiers", TALL_PAIRS, ids=[f"{a}-{b}" for a, b in TALL_PAIRS])
+def test_k3_tall_matches_plain(cuda, hidden, tiers):
+    """Batches at the crossover, at 65,536 and at a ragged 65,536 + 37
+    rows run the tall kernel, one launch each: values within the value
+    tier's tolerance of the plain version, gradients under the gradient
+    gate, every row's value and gradient finite (the ragged last tile's
+    too), the fx == 0 slot exactly 0."""
+    m, obs, _ = _model(hidden, cuda)
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], device=cuda)
+    assert fn.tall_plan is not None
+    ops = fn.operands(m.params)
+    for n in (fused_loglik.tall_crossover(fn.sm_count), 65_536, 65_536 + 37):
+        x = _prior_rows(n, cuda)
+        fn.launches = fn.tall_launches = 0
+        vk, gk = fn(m.params, x)
+        vp, gp = loglik_grad_gram_reference(ops, x)
+        torch.cuda.synchronize()
+        assert fn.batch_route(n) == "tall" and fn.launches == fn.tall_launches == 1
+        vk, gk, vp, gp = (t.cpu().numpy() for t in (vk, gk, vp, gp))
+        assert vk.shape == (n,) and gk.shape == (n, 7)
+        assert np.isfinite(vk).all() and np.isfinite(gk).all()
+        _close_values(vk, vp, float(ops.c), tiers[0])
+        assert grad_gate_violation(gk, gp) <= 0.0
+        assert gk[0, 2] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", BF16_PAIRS, ids=[f"{a}-{b}" for a, b in BF16_PAIRS])
+def test_k3_below_the_crossover_keeps_the_16_row_kernel(cuda, tiers):
+    """Below the crossover (one row short of it, HMC's 4096 walkers, a
+    single row), and at any batch at the bf16 pairs the tall kernel is not
+    built for, a call runs ``fused_gram_mma.cu`` as before: bit for bit
+    its direct launch, the tall count unmoved."""
+    m, obs, _ = _model((288, 352, 288, 224), cuda)
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], device=cuda)
+    ops = fn.operands(m.params)
+    assert (fn.tall_plan is not None) == (tiers in TALL_PAIRS)
+    first = fused_loglik.tall_crossover(fn.sm_count) - 1 if fn.tall_plan else 65_536
+    for n in (first, 4096, 1):
+        x = _prior_rows(n, cuda)
+        got = fn(m.params, x)
+        want = fused_loglik._loglik_grad_gram_cuda(ops, x)
+        assert fn.batch_route(n) == "mma" and fn.tall_launches == 0
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k3_tall_launch_is_found_as_k3_and_counted(cuda):
+    """One profiled call at 65,536 rows shows a single launch, under a
+    name the benchmark's K3 pattern finds (``port_bench/readers.py``) and
+    its K2 pattern does not, and the route counter counts it."""
+    from port_bench import readers, trace
+    from tpu21cmvae_torch.utils.profiling import recording
+
+    m, obs, _ = _model((288, 352, 288, 224), cuda)
+    fn = make_fused_loglik_grad_gram(m.config, m.normalizer, obs, 25.0, precision="high",
+                                     grad_precision="default", device=cuda)
+    x = _prior_rows(65_536, cuda)
+    fn(m.params, x)
+    torch.cuda.synchronize()
+    with trace.profiled() as out, recording() as rec:
+        fn(m.params, x)
+        torch.cuda.synchronize()
+    kernels = [name for name, _, _, kind in out["device"] if kind == "kernel"]
+    k3 = [name for name in kernels if readers.KERNELS["k3"].search(name)]
+    assert len(k3) == 1 and "tall" in k3[0], kernels
+    assert not readers.KERNELS["k2"].search(k3[0])
+    assert rec.counters.get("k3.route.tall") == 1 and "k3.route.mma" not in rec.counters

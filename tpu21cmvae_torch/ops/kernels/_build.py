@@ -131,11 +131,14 @@ def load_library() -> ctypes.CDLL:
     lib.k3_fused_loglik_grad_gram_mma.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
     lib.k3_fused_loglik_grad_gram_mixed.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p]
     lib.k3_fused_loglik_grad_gram_reverse.argtypes = [p, p, p, i, i, p, p, p, i, i, p]
+    # the tall route: both tier codes, then its plan and its grid
+    lib.k3_fused_loglik_grad_gram_tall.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p, i, p]
     for entry in ("k1_fused_mlp", "k1_fused_mlp_mma", "k1_fused_mlp_wide",
                   "k2_fused_loglik_gram", "k2_fused_loglik_gram_mma", "k2_fused_loglik_gram_wide",
                   "k3_fused_loglik_grad_gram",
                   "k3_fused_loglik_grad_gram_f32", "k3_fused_loglik_grad_gram_mma",
-                  "k3_fused_loglik_grad_gram_mixed", "k3_fused_loglik_grad_gram_reverse"):
+                  "k3_fused_loglik_grad_gram_mixed", "k3_fused_loglik_grad_gram_reverse",
+                  "k3_fused_loglik_grad_gram_tall"):
         getattr(lib, entry).restype = i
     lib.t21_error_string.argtypes = [i]
     lib.t21_error_string.restype = ctypes.c_char_p

@@ -21,7 +21,12 @@ Each routes by tier (:func:`gram_on_tensor_cores`, :func:`gram_mixed`,
 :func:`gram_reverse`): at the bf16 tiers both run
 ``csrc/fused_gram_mma.cu`` on the tensor cores (K2 is its forward alone),
 from operands :func:`pack_gram_operands` packed once per model into bf16
-``mma`` fragments; at the fp32 tier K2 runs
+``mma`` fragments, and K3 at (bf16x3, bf16) on one model at a batch
+that fills the card (:func:`k3_batch_route`) ``csrc/fused_gram_tall.cu``: 64-row tiles on
+``wgmma``, the weights streamed through a ring of shared memory by bulk
+copies from the stream :func:`pack_tall` packs once per model, each
+weight byte read from L2 once per 64 rows rather than per 16 (its shared
+memory :func:`tall_plan`); at the fp32 tier K2 runs
 ``csrc/fused_loglik_gram.cu``, register-tiled on the CUDA cores from the
 fp32 slabs of :func:`pack_gram_slabs` (``csrc/tile_f32.cuh``), and K3 at
 (fp32, fp32) ``csrc/fused_loglik_grad_gram_f32.cu``, the same forward and
@@ -93,6 +98,7 @@ from tpu21cmvae_torch.ops.kernels._common import (
     check_tile_rows,
     f32_tile_bytes,
     f32_tile_rows,
+    hi_lo,
     launch,
     member_layers,
     member_strides,
@@ -124,7 +130,7 @@ from tpu21cmvae_torch.ops.kernels.wide import (
     wide_tail,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
-from tpu21cmvae_torch.utils.profiling import WRAPPERS, span
+from tpu21cmvae_torch.utils.profiling import WRAPPERS, count, span
 
 
 class GramPacked(NamedTuple):
@@ -172,7 +178,9 @@ class GramOperands:
     (:func:`~tpu21cmvae_torch.ops.kernels.wide.program_table`), else
     None; ``frags``: its fragment buffer
     (:func:`~tpu21cmvae_torch.ops.kernels.wide.pack_wide_frags`; None
-    where no op runs on the tensor cores). ``members``: M where
+    where no op runs on the tensor cores). ``tall``: the weight stream of
+    ``fused_gram_tall.cu`` (:func:`pack_tall`) where a K3 wrapper takes
+    that kernel for large batches, else None. ``members``: M where
     every tensor is M members' stacked on a leading axis (``c`` as ``(M,
     1)``), else None.
     """
@@ -195,6 +203,7 @@ class GramOperands:
     members: Optional[int] = None
     dense: bool = False
     w0t: Optional[torch.Tensor] = None
+    tall: Optional[torch.Tensor] = None
 
     @property
     def widths(self) -> tuple:
@@ -508,6 +517,39 @@ def _loglik_grad_gram_cuda(ops: GramOperands, x: torch.Tensor, rows: Optional[in
     return _value(ops, quad), -dx
 
 
+def _tall_args(ops: GramOperands, plan: TallPlan, ctas: int) -> tuple:
+    """The arguments of ``k3_fused_loglik_grad_gram_tall`` after the row
+    count: the trunk's layer count and widths, the pointers of ``w0``,
+    ``b0``, each padded bias, ``u`` and the stream (:func:`pack_tall`),
+    their member strides (zero: one model), one member, the tier codes,
+    ``plan`` as ints (the arena's bytes, the ring's slots, each stage's
+    input then output offsets) and the persistent grid's ``ctas``; built
+    once per fold and grid (:func:`cached_args`)."""
+
+    def make():
+        p = ops.packed
+        tensors = [ops.w0, ops.b0, *p.b, p.u, ops.tall]
+        ints = (plan.arena, plan.ring, *plan.in_off, *plan.out_off)
+        widths = (ctypes.c_int * len(ops.widths))(*ops.widths)
+        return (len(ops.widths) - 1, widths, pointers(tensors), member_strides(tensors, None), 1,
+                TIER_CODE[ops.tier], TIER_CODE[ops.grad_tier], (ctypes.c_int * len(ints))(*ints),
+                ctas)
+
+    return cached_args(ops, ("tall", ctas), make)
+
+
+def _loglik_grad_gram_tall_cuda(ops: GramOperands, x: torch.Tensor, plan: TallPlan, ctas: int):
+    """Launch K3 on ``fused_gram_tall.cu`` on PyTorch's current stream (no
+    synchronisation): one model's operands with their :func:`pack_tall`
+    stream, a non-empty batch, ``plan`` the operands' :func:`tall_plan`,
+    a persistent grid of at most ``ctas`` CTAs."""
+    quad = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    launch("K3", "k3_fused_loglik_grad_gram_tall", x, x.data_ptr(), quad.data_ptr(),
+           dx.data_ptr(), x.shape[0], *_tall_args(ops, plan, ctas))
+    return _value(ops, quad), -dx
+
+
 class WideLaunch(wide.WideLaunch):
     """:class:`~tpu21cmvae_torch.ops.kernels.wide.WideLaunch` of K3's
     operands where ``k3``, else K2's."""
@@ -723,6 +765,205 @@ def gram_shared_bytes(widths, tier: str = "f32", rows: Optional[int] = None) -> 
     return plan_bytes(plan, rows or plan.heights[0])
 
 
+# csrc/fused_gram_tall.cu: K3 at the bf16 pairs on 64-row wgmma tiles
+# (kRows), a layer's columns cut into chunks of at most 11 16-column units
+# (kMaxUnits), one warpgroup's chunk and k-step a ring slot, 2 to 12 slots
+# (kMinRing, kMaxRing). A K3 wrapper takes it for a batch of at least
+# TALL_WAVES waves of 64-row tiles over the card's SMs
+# (:func:`tall_crossover`): half a wave, the batch that fills one wave of
+# fused_gram_mma.cu's 16-row CTAs at two an SM. On an H100 the two run
+# 4096 rows in the same time and the tall kernel 6144 and more in half of
+# it (PERF.md §6).
+TALL_ROWS = 64
+TALL_MAX_UNITS = 11
+TALL_RING = (2, 12)
+TALL_WAVES = 0.5
+# the tier pairs it is built for: HMC's default; every other pair would
+# add ~18 s of nvcc to the build's critical path (PERF.md §6)
+TALL_PAIRS = (("bf16x3", "bf16"),)
+
+
+class TallPlan(NamedTuple):
+    """``fused_gram_tall.cu``'s shared memory for one network and tier
+    pair (:func:`tall_plan`): the arena's bytes, the ring's slots and the
+    bytes of one slot, each stage's input and output tile as byte offsets
+    into the arena (stages: trunk layers 1 … n−1, the gram head, the
+    backward's layers n−1 … 1), and the CTA's dynamic shared memory in
+    all."""
+
+    arena: int
+    ring: int
+    slot_bytes: int
+    in_off: tuple
+    out_off: tuple
+    smem: int
+
+
+def tall_split(n: int) -> tuple:
+    """``split_of`` in ``csrc/fused_gram_tall.cu``: a layer of ``n``
+    columns as ``(u0, u1, nch)``: 16-column units for the first and the
+    second warpgroup (the first takes the odd one), each cut into ``nch``
+    chunks of at most :data:`TALL_MAX_UNITS` units."""
+    u = _pad16(n) // 16
+    u0 = (u + 1) // 2
+    return u0, u - u0, -(-u0 // TALL_MAX_UNITS)
+
+
+def tall_part(u: int, nch: int, c: int) -> int:
+    """``part``: the units of chunk ``c`` of ``u`` units cut into ``nch``;
+    chunks 0 … c−1 hold ``c·u // nch`` of them."""
+    return (c + 1) * u // nch - c * u // nch
+
+
+def tall_chunks(n: int) -> list:
+    """For each chunk of a layer of ``n`` columns, the ``(first column,
+    width)`` of the first and of the second warpgroup's block, in the
+    order the stream holds them."""
+    u0, u1, nch = tall_split(n)
+    return [((16 * (c * u0 // nch), 16 * tall_part(u0, nch, c)),
+             (16 * (u0 + c * u1 // nch), 16 * tall_part(u1, nch, c))) for c in range(nch)]
+
+
+def tall_stages(widths, tier: str, grad_tier: str) -> list:
+    """``stage_of`` for every stage: ``(k, n, parts)`` of trunk layers 1
+    … n−1 and the gram head at ``tier``, then the backward's layers n−1 …
+    1 at ``grad_tier``."""
+    pf, pb = TIER_CODE[tier], TIER_CODE[grad_tier]  # a bf16 tier's code is its parts
+    n = len(widths) - 1
+    return ([(widths[i], widths[i + 1], pf) for i in range(1, n)] + [(widths[n], widths[n], pf)]
+            + [(widths[i + 1], widths[i], pb) for i in range(n - 1, 0, -1)])
+
+
+def tall_block_bytes(parts: int, units: int) -> int:
+    """``block_bytes``: one warpgroup's block of one k-step, ``parts``
+    planes of 16 k rows by 16·``units`` columns of bf16."""
+    return parts * units * 512
+
+
+def _tall_arena(widths, pf: int, pb: int):
+    """The arena's bytes and each stage's (input, output) byte offsets.
+    Activation i (the skinny layer's is 1) lives at the low end for odd
+    i, the high end for even; a layer's output at the other end from its
+    input. The last trunk layer writes ``h`` in fp32; its A tile for the
+    gram head goes where that layer's input was, and the gram head's
+    output ``e`` beside it, ``h`` still live at the other end; each
+    backward layer's output at the other end from its input, layer 1's
+    ``e`` in fp32 (``fused_gram_tall.cu``, steps 3–6)."""
+    n = len(widths) - 1
+    hidden = widths[n]
+
+    def a(w, parts):  # a 64-row bf16 tile, `parts` planes
+        return 2 * TALL_ROWS * _pad16(w) * parts
+
+    def f(w):  # a 64-row fp32 tile, rows padded by 8 floats
+        return 4 * TALL_ROWS * (_pad16(w) + 8)
+
+    def end(i):
+        return i % 2  # 1: the low end
+
+    # each stage's live buffers as (bytes, low end?, bytes before it from its end)
+    stages = [[(a(widths[i], pf), end(i), 0),
+               (f(hidden) if i == n - 1 else a(widths[i + 1], pf), end(i + 1), 0)]
+              for i in range(1, n)]
+    side = end(n - 1)
+    gram_in = (a(hidden, pf), side, 0)
+    e = (a(hidden, pb), side, gram_in[0])
+    stages.append([gram_in, e, (f(hidden), end(n), 0)])
+    for i in range(n - 1, 0, -1):
+        out = (a(widths[i], pb) if i > 1 else f(widths[1]), 1 - e[1], 0)
+        stages.append([e, out])
+        e = out
+    arena = max(sum(max((size + before for size, low, before in live if low == lo), default=0)
+                    for lo in (0, 1)) for live in stages)
+
+    def offset(buf):
+        size, low, before = buf
+        return before if low else arena - before - size
+
+    return arena, [offset(live[0]) for live in stages], [offset(live[1]) for live in stages]
+
+
+def tall_plan(widths, tier: str, grad_tier: str) -> Optional[TallPlan]:
+    """``fused_gram_tall.cu``'s plan for trunk ``widths`` at (``tier``,
+    ``grad_tier``), one of :data:`TALL_PAIRS`, mirrored by ``launch_tall``
+    there:
+    the ring's slots, then the arena, the mask words (8 bytes per padded
+    column of activations 0 … n−2), the input tile, the two warpgroups'
+    quad partials and the ring's barriers; as many slots as fit, up to
+    twelve. None at another pair, where the network is not one the kernel
+    takes (a skinny first layer, 2 to 8 trunk layers, each wider than 16,
+    so that each warpgroup has a block in every chunk) or where fewer than
+    two slots fit."""
+    n = len(widths) - 1
+    if not (2 <= n <= MAX_LAYERS and widths[0] <= SKINNY_DENSE_MAX_IN and min(widths[1:]) > 16
+            and (tier, grad_tier) in TALL_PAIRS):
+        return None
+    pf, pb = TIER_CODE[tier], TIER_CODE[grad_tier]
+    slot = max(tall_block_bytes(parts, width // 16)
+               for _, n_out, parts in tall_stages(widths, tier, grad_tier)
+               for chunk in tall_chunks(n_out) for _, width in chunk)
+    arena, in_off, out_off = _tall_arena(widths, pf, pb)
+    fixed = (arena + 8 * sum(_pad16(w) for w in widths[1:-1])
+             + -(-4 * TALL_ROWS * widths[0] // 16) * 16 + 4 * 2 * TALL_ROWS)
+    ring = min(TALL_RING[1], (MAX_SHARED_BYTES - fixed) // (slot + 16))
+    if ring < TALL_RING[0]:
+        return None
+    return TallPlan(arena=arena, ring=ring, slot_bytes=slot, in_off=tuple(in_off),
+                    out_off=tuple(out_off), smem=fixed + ring * (slot + 16))
+
+
+def tall_crossover(sm_count: int) -> int:
+    """The least batch a K3 wrapper runs on ``fused_gram_tall.cu``:
+    :data:`TALL_WAVES` waves of 64-row tiles over the card's
+    ``sm_count`` SMs."""
+    return int(sm_count * TALL_ROWS * TALL_WAVES)
+
+
+def k3_batch_route(route: str, plan: Optional[TallPlan], n_rows: int,
+                   sm_count: Optional[int]) -> str:
+    """The kernel a K3 wrapper of :func:`k3_route` ``route`` launches for
+    a batch of ``n_rows`` rows on a card of ``sm_count`` SMs: ``"tall"``
+    (``fused_gram_tall.cu``) where the wrapper has its ``plan`` and the
+    batch reaches :func:`tall_crossover`, else ``route``."""
+    if plan is not None and sm_count and n_rows >= tall_crossover(sm_count):
+        return "tall"
+    return route
+
+
+def _core_matrices(block: torch.Tensor) -> torch.Tensor:
+    """A (parts, K, N) block, K and N multiples of 8, as wgmma's K-major
+    core matrices without swizzle, flat: per part, core matrix (k8, n8)
+    at (k8·N/8 + n8)·64 elements, its 8 n rows of 8 consecutive k."""
+    p, k, n = block.shape
+    return block.reshape(p, k // 8, 8, n // 8, 8).permute(0, 1, 3, 4, 2).reshape(-1)
+
+
+def pack_tall(ops: GramOperands) -> torch.Tensor:
+    """``ops``' weights as ``fused_gram_tall.cu``'s producer streams them,
+    once per model: for each stage (:func:`tall_stages`: trunk layers 1 …
+    n−1 and ``G`` at ``ops.tier``, ``W_iᵀ`` for i = n−1 … 1 at
+    ``ops.grad_tier``), zero-padded to multiples of 16, for each chunk
+    (:func:`tall_chunks`), for each k-step of 16 rows: the
+    first, then the second warpgroup's block, each its
+    parts (``w_hi`` then ``w_lo`` at bf16x3) in core-matrix layout
+    (:func:`_core_matrices`). bf16, exact: the values are
+    bf16-representable."""
+    mats = ([(w, ops.tier) for w in ops.w] + [(ops.g, ops.tier)]
+            + [(wt, ops.grad_tier) for wt in reversed(ops.wt)])
+    blocks = []
+    for op, tier in mats:
+        parts = [p for p in hi_lo(op, tier) if p is not None]
+        k, n = parts[0].shape
+        kp = _pad16(k)
+        w = op.new_zeros((len(parts), kp, _pad16(n)))
+        w[:, :k, :n] = torch.stack(parts)
+        for chunk in tall_chunks(n):
+            for k0 in range(0, kp, 16):
+                blocks += [_core_matrices(w[:, k0: k0 + 16, c: c + width])
+                           for c, width in chunk if width]
+    return torch.cat(blocks).to(torch.bfloat16)
+
+
 class _GramWrapper:
     """What K2's and K3's wrappers share: the routing and the refusals,
     the folded observation and noise, the operand cache, the wide
@@ -796,6 +1037,14 @@ class _GramWrapper:
                          if self.device.type == "cuda" else None)
         self.n_params = config.n_params
         self.members = check_members(members)
+        # K3 at a bf16 pair on one model: batches of tall_crossover rows or
+        # more run fused_gram_tall.cu where its plan fits, the rest
+        # fused_gram_mma.cu (k3_batch_route)
+        self.route = route
+        self.tall_plan = (tall_plan(widths, self.tier, self.grad_tier)
+                          if route == "mma" and self.grad_tier is not None and members is None
+                          else None)
+        self.tall_launches = 0
         # the wide route's launches and workspace
         self.wide_launch = (WideLaunch(self.plan, self.grad_tier is not None, self.sm_count,
                                        self.device, self.members) if self.wide else None)
@@ -817,7 +1066,9 @@ class _GramWrapper:
             if self.wide:
                 return pack_wide_operands(ops)
             if self.tensor_cores:
-                return dataclasses.replace(ops, packed=pack_gram_operands(ops))
+                ops = dataclasses.replace(ops, packed=pack_gram_operands(ops))
+                return ops if self.tall_plan is None else dataclasses.replace(
+                    ops, tall=pack_tall(ops))
             if self.grad_tier is None:
                 return dataclasses.replace(ops, slabs=pack_gram_slabs(ops))
             if self.mixed:  # K2's forward stream and the backward's fragments
@@ -849,10 +1100,24 @@ class _GramWrapper:
         return self.tile_rows or pick_grad_rows(self.heights, n_rows, self.sm_count,
                                                 self.members or 1)
 
+    def batch_route(self, n_rows: int) -> str:
+        """The kernel a CUDA call of ``n_rows`` rows launches
+        (:func:`k3_batch_route`): ``"tall"`` or the route this wrapper was
+        built on (:func:`k3_route`, :func:`k2_route`)."""
+        return k3_batch_route(self.route, self.tall_plan, n_rows, self.sm_count)
+
     def _launch_kernel(self, launch_fn, ops, x):
         """``launch_fn(ops, x, rows)`` at the height this batch takes
         (:meth:`rows_for`; K2's fp32 kernel its own); the wide route's
-        through :attr:`wide_launch`."""
+        through :attr:`wide_launch`; K3's large batches at a bf16 pair on
+        ``fused_gram_tall.cu`` (:meth:`batch_route`), each K3 call counted
+        by its route (``k3.route.<route>``)."""
+        if self.grad_tier is not None:
+            route = self.batch_route(x.shape[0])
+            count(f"k3.route.{route}")
+            if route == "tall":
+                self.tall_launches += 1
+                return _loglik_grad_gram_tall_cuda(ops, x, self.tall_plan, self.sm_count)
         rows = self.rows_for(x.shape[0]) if self.grad_tier is not None or self.wide else (
             self.tile_rows)
         if self.wide:
@@ -921,7 +1186,11 @@ class FusedLoglikGradGram(_GramWrapper):
     batch; at a reverse pair (a bf16 value tier, an fp32 backward)
     ``fused_gram_mma.cu`` with its fp32 backward, 16-row tiles
     (:attr:`reverse`); every bf16 or bf16x3 pair ``fused_gram_mma.cu``
-    with a tensor-core backward (:attr:`tensor_cores`); any pair on a
+    with a tensor-core backward (:attr:`tensor_cores`), and at (bf16x3,
+    bf16) on one model a batch of :func:`tall_crossover` rows or more
+    ``fused_gram_tall.cu`` where its plan fits (:attr:`tall_plan`; :meth:`batch_route` names the
+    kernel a batch runs, :attr:`tall_launches` counts its launches, which
+    :attr:`launches` includes); any pair on a
     network its kernel cannot hold (too wide, or deeper than eight
     layers) ``fused_loglik_grad_gram.cu`` (:attr:`wide`, 32- or 16-row
     tiles by batch); ``tile_rows`` (one of

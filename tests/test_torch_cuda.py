@@ -2218,3 +2218,77 @@ def test_k3_tall_launch_is_found_as_k3_and_counted(cuda):
     assert len(k3) == 1 and "tall" in k3[0], kernels
     assert not readers.KERNELS["k2"].search(k3[0])
     assert rec.counters.get("k3.route.tall") == 1 and "k3.route.mma" not in rec.counters
+
+
+# the benchmark configurations' prior box (port_bench/configs/*.json)
+BOX_CELL = np.array([[1e-4, 0.5], [4.2, 100.0], [1e-4, 1000.0], [0.04, 0.09], [1.0, 1.5],
+                     [0.1, 3.0], [10.0, 50.0]])
+
+
+@pytest.mark.cuda
+def test_ensemble_hmc_at_65536_walkers_holds_to_the_float64_mixture(cuda):
+    """The shipped three-member ensemble's HMC at the published widths and
+    65,536 walkers (100 + 200, the benchmark's ``ensemble-hmc-65k``),
+    through the member-batched K3 at (bf16x3, bf16), against the plain
+    float64 mixture (``port_bench/reference_ensemble.py``), in blocks:
+    the carried log-density at the final walkers less the log-Jacobian,
+    and the mixture's value and gradient there, under the cell's own
+    limits (set between the program's sound runs and the control's,
+    PERF.md §2), which the control (the reference at bf16, its gradient at
+    fp8 e4m3) fails. Every K3 call is one launch at a batch the tall
+    kernel takes on one model, so ``k3.tall_declined`` counts each."""
+    import json
+    import os
+
+    from port_bench.reference import in_blocks, jacobian_logdet
+    from port_bench.reference_ensemble import MixtureReference
+    from tpu21cmvae_torch.models.ensemble import DeepEnsemble
+    from tpu21cmvae_torch.utils.profiling import recording
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    directory = os.path.join(root, "pretrained", "ensemble_direct")
+    with open(os.path.join(root, "port_bench", "workloads", "ensemble-hmc-65k.json")) as fh:
+        limits = {k: v["limit"] for k, v in json.load(fh)["limits"].items()}
+    ens = DeepEnsemble.load(directory, device=cuda)
+    ref = MixtureReference(directory, device=cuda)
+    rng = np.random.default_rng(26)
+    truth = BOX_CELL[:, 0] + rng.uniform(0.05, 0.95, (1, 7)) * (BOX_CELL[:, 1] - BOX_CELL[:, 0])
+    obs = (ref.forward(truth).cpu().numpy()[0] + rng.normal(0, 5.0, 451)).astype(np.float32)
+    valgrad = ens._hmc_valgrad(obs, 25.0)
+    valgrad.launches = 0
+    with recording() as rec:
+        res = ens.sample_posterior(obs, 25.0, sampler="hmc", bounds=BOX_CELL.astype(np.float32),
+                                   n_walkers=65_536, n_warmup=100, n_steps=200, seed=1)
+        torch.cuda.synchronize()
+    calls = sum(n for k, n in rec.counters.items() if k.startswith("k3.route."))
+    assert calls == valgrad.launches > 300 and rec.counters["k3.route.mma"] == calls
+    assert rec.counters["k3.tall_declined"] == calls
+    assert sum(s.name == "mixture" for s in rec.spans) == calls
+
+    lo, hi = torch.as_tensor(BOX_CELL.astype(np.float32), dtype=torch.float64).T
+    x = torch.as_tensor(res.final, dtype=torch.float64)
+    f = (x - lo) / (hi - lo)
+    inside = torch.all((f > 1e-4) & (f < 1 - 1e-4), dim=-1)
+    jac = jacobian_logdet(x, lo, hi)
+
+    def q999(lp):
+        return float(torch.quantile(torch.abs(lp - want)[inside], 0.999))
+
+    want = in_blocks(lambda r: ref.loglik(r, obs, 25.0), res.final) + jac
+    assert q999(torch.as_tensor(res.logp, dtype=torch.float64)) <= limits["logp_gap_q999"]
+    assert q999(in_blocks(lambda r: ref.loglik(r, obs, 25.0, "bf16"), res.final) + jac) > (
+        limits["logp_gap_q999"])
+    xf = torch.as_tensor(res.final, device=cuda)
+    with torch.no_grad():
+        ll, g = valgrad(ens.params, xf)
+    assert q999(ll.double().cpu() + jac) <= limits["logp_gap_q999"]
+    _, g_ref = in_blocks(lambda r: ref.loglik_and_grad(r, obs, 25.0), res.final)
+    _, g_ctrl = in_blocks(lambda r: ref.loglik_and_grad(r, obs, 25.0, "bf16", "fp8"), res.final)
+
+    def grad_err(gg):
+        rel = torch.linalg.vector_norm(gg.double().cpu() - g_ref, dim=-1) / (
+            torch.linalg.vector_norm(g_ref, dim=-1))
+        return float(torch.quantile(rel, 0.99))
+
+    assert grad_err(g) <= limits["grad_err"] < grad_err(g_ctrl)
+

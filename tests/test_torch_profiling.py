@@ -235,6 +235,117 @@ def test_the_autoencoders_sampler_records_its_autograd_wrapper():
     assert rec.counters == {"memo.miss": 1}
 
 
+def _ensemble(monkeypatch):
+    """The shipped three-member ensemble on the CPU, its samplers routed
+    through the member-batched kernel wrappers (their plain versions
+    here)."""
+    from tpu21cmvae_torch.models.ensemble import DeepEnsemble
+
+    torch.set_num_threads(1)
+    ens = DeepEnsemble.load(os.path.join(ROOT, "pretrained/ensemble_direct"), device="cpu")
+    monkeypatch.setattr(ens, "_backend", lambda: "kernel")
+    return ens
+
+
+def test_each_mixture_call_is_a_span_around_its_member_wrapper(monkeypatch):
+    ens = _ensemble(monkeypatch)
+    obs = ens.predict(THETA)
+    x = torch.as_tensor(np.tile(THETA, (16, 1)), dtype=torch.float32)
+    valgrad = ens.loglik_and_grad_fn(obs, 25.0, backend="kernel", grad_precision="default")
+    value = ens.loglik_fn(obs, 25.0, backend="kernel")
+    with profiling.recording() as rec:
+        valgrad(ens.params, x)
+        value(ens.params, x)
+    # the value's member-batched wrapper is the kernel value shell around K2
+    assert [(s.name, s.layer, s.parent) for s in rec.spans] == [
+        ("mixture", profiling.WRAPPERS, None), ("K3", profiling.WRAPPERS, 0),
+        ("mixture", profiling.WRAPPERS, None), ("kernel_value", profiling.WRAPPERS, 2),
+        ("K2", profiling.WRAPPERS, 3)]
+    for outer, inner in (rec.spans[:2], rec.spans[2:4]):
+        assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
+    # HMC: the first gradient, then 4 iterations of 3 leapfrog steps, each
+    # one mixture call around one member-batched K3
+    call = dict(n_walkers=16, n_warmup=2, n_steps=2, n_leapfrog=3, jitter=False, thin=1)
+    ens.sample_posterior(obs, 25.0, **call)
+    with profiling.recording() as rec:
+        ens.sample_posterior(obs, 25.0, **call)
+    _sampler_phases(rec)
+    mixtures = [i for i, s in enumerate(rec.spans) if s.name == "mixture"]
+    assert len(mixtures) == 13
+    assert [(s.name, rec.spans[s.parent].name) for s in _named(rec, profiling.WRAPPERS)
+            if s.name != "mixture"] == [("K3", "mixture")] * 13
+    assert all(rec.spans[i + 1].parent == i for i in mixtures)
+
+
+def test_a_mixture_records_nothing_with_recording_off(monkeypatch):
+    ens = _ensemble(monkeypatch)
+    obs = ens.predict(THETA)
+    fn = ens.loglik_and_grad_fn(obs, 25.0, backend="kernel", grad_precision="default")
+    x = torch.as_tensor(np.tile(THETA, (8, 1)), dtype=torch.float32)
+    fn(ens.params, x)  # fold before the clock goes
+
+    def no_clock():
+        raise AssertionError("the clock was read with recording off")
+
+    def not_asked(n_rows):
+        raise AssertionError("the declined flag was computed with recording off")
+
+    monkeypatch.setattr(profiling.time, "time_ns", no_clock)
+    k3 = fn.members
+    monkeypatch.setattr(k3, "tall_declined", not_asked)
+    ops = k3.operands(ens.params)
+    k3.sm_count = 132
+    fn(ens.params, x)
+    k3._launch_kernel(lambda o, rows, h: None, ops, torch.zeros(65_536, 7))
+    monkeypatch.undo()
+    with profiling.recording() as rec:
+        pass
+    assert rec.spans == [] and rec.counters == {}
+
+
+TALL, NOT_TALL = ("high", "default"), ("high", "high")
+
+
+@pytest.mark.parametrize("members", [None, 3])
+@pytest.mark.parametrize("tiers", [TALL, NOT_TALL], ids=["high-default", "high-high"])
+def test_the_tall_kernel_declines_a_member_axis(monkeypatch, tiers, members):
+    """The decision on the CPU, with an H100's 132 SMs: a K3 call is
+    declined where the one-model wrapper would take the tall kernel (its
+    pair, (bf16x3, bf16), and a batch from the crossover on) and the call
+    carries a member axis; inside a recording each member-batched K3 call
+    adds 1 or 0 to ``k3.tall_declined`` beside its route (the launch
+    stubbed), a one-model call nothing."""
+    from tpu21cmvae_torch.ops.kernels.fused_loglik import (
+        make_fused_loglik_grad_gram,
+        tall_crossover,
+    )
+
+    ens = _ensemble(monkeypatch)
+    obs = ens.predict(THETA)
+    fn = make_fused_loglik_grad_gram(ens.config, ens.normalizer, obs, 25.0, precision=tiers[0],
+                                     grad_precision=tiers[1], members=members, device="cpu")
+    assert fn.tall_plan is None or members is None
+    assert not fn.tall_declined(65_536)  # no card: no SMs, no crossover
+    fn.sm_count = 132  # as read from an H100
+    edge = tall_crossover(132)
+    batches = (1, 4096, edge - 1, edge, 65_536)
+    want = [tiers == TALL and members is not None and n >= edge for n in batches]
+    assert [fn.tall_declined(n) for n in batches] == want
+    ops = fn.operands(ens.params if members else ens.members[0].params)
+    monkeypatch.setattr("tpu21cmvae_torch.ops.kernels.fused_loglik._loglik_grad_gram_tall_cuda",
+                        lambda *a: None)
+    with profiling.recording() as rec:
+        for n in batches:
+            fn._launch_kernel(lambda o, x, rows: None, ops, torch.zeros(n, 7))
+    routes = {k: v for k, v in rec.counters.items() if k.startswith("k3.route.")}
+    assert sum(routes.values()) == len(batches)
+    if members is None:
+        assert "k3.tall_declined" not in rec.counters
+    else:
+        assert routes == {"k3.route.mma": len(batches)}
+        assert rec.counters["k3.tall_declined"] == sum(want)
+
+
 def test_device_memory_stats_is_none_on_the_cpu():
     assert profiling.device_memory_stats("cpu") is None
 

@@ -38,6 +38,7 @@ from tpu21cmvae_torch.models.direct import DirectEmulator, _host
 from tpu21cmvae_torch.ops.transforms import FIELDS
 from tpu21cmvae_torch.utils.config import DIRECT_TRAIN_DEFAULT, DirectEmulatorConfig, TrainConfig
 from tpu21cmvae_torch.utils.metrics import error
+from tpu21cmvae_torch.utils.profiling import SAMPLER, WRAPPERS, span
 
 
 def _operand_cache(fn):
@@ -105,7 +106,8 @@ class MixtureLoglik:
     (a member-batched kernel wrapper, or :class:`PlainMembers`).
     :attr:`launches` is its kernel launches (one per call on a CUDA
     ensemble), :attr:`folds` its operand folds (None for plain
-    members)."""
+    members). Each call is a ``mixture`` span of the likelihood wrappers'
+    layer, the member-batched wrapper's own span inside it."""
 
     def __init__(self, members, n_members: int):
         self.members = members
@@ -136,7 +138,8 @@ class MixtureLoglik:
         return self if members is self.members else type(self)(members, self.n_members)
 
     def __call__(self, stacked, raw):
-        return torch.logsumexp(self.members(stacked, raw), dim=0) - self._log_m
+        with span("mixture", WRAPPERS):
+            return torch.logsumexp(self.members(stacked, raw), dim=0) - self._log_m
 
 
 class MixtureValGrad(MixtureLoglik):
@@ -146,9 +149,10 @@ class MixtureValGrad(MixtureLoglik):
     ∇ logsumexp = Σ softmax·∇l)."""
 
     def __call__(self, stacked, raw):
-        lm, gm = self.members(stacked, raw)
-        w = torch.softmax(lm, dim=0)
-        return torch.logsumexp(lm, dim=0) - self._log_m, torch.sum(w[..., None] * gm, dim=0)
+        with span("mixture", WRAPPERS):
+            lm, gm = self.members(stacked, raw)
+            w = torch.softmax(lm, dim=0)
+            return torch.logsumexp(lm, dim=0) - self._log_m, torch.sum(w[..., None] * gm, dim=0)
 
 
 class DeepEnsemble:
@@ -424,30 +428,31 @@ class DeepEnsemble:
         stretch ensemble, PT and SMC launch the member-batched K2 at bf16x3
         once per proposal batch, HMC, ChEES and NUTS the member-batched K3
         at (high, default) once per leapfrog step."""
-        if sampler in ("mh", "ensemble", "pt", "smc"):
-            from tpu21cmvae_torch.sampling.driver import sample_to_ess
-            from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
-            from tpu21cmvae_torch.sampling.pt import sample_pt
-            from tpu21cmvae_torch.sampling.smc import sample_smc
+        with span("sample_posterior", SAMPLER):
+            if sampler in ("mh", "ensemble", "pt", "smc"):
+                from tpu21cmvae_torch.sampling.driver import sample_to_ess
+                from tpu21cmvae_torch.sampling.mh import sample_ensemble, sample_mh
+                from tpu21cmvae_torch.sampling.pt import sample_pt
+                from tpu21cmvae_torch.sampling.smc import sample_smc
 
-            if sampler == "mh" and "target_ess" in kwargs:
-                run = sample_to_ess
-            else:
-                run = {"mh": sample_mh, "ensemble": sample_ensemble, "pt": sample_pt,
-                       "smc": sample_smc}[sampler]
-            return run(self.loglik_fn(obs, noise_var, backend=self._backend()), self.params,
-                       bounds=bounds, device=self.device, **kwargs)
-        if sampler not in ("hmc", "chees", "nuts"):
-            raise ValueError(
-                "sampler must be 'mh', 'ensemble', 'hmc', 'chees', 'nuts', "
-                f"'pt' or 'smc'; got {sampler!r}"
-            )
-        from tpu21cmvae_torch.sampling import gradient
+                if sampler == "mh" and "target_ess" in kwargs:
+                    run = sample_to_ess
+                else:
+                    run = {"mh": sample_mh, "ensemble": sample_ensemble, "pt": sample_pt,
+                           "smc": sample_smc}[sampler]
+                return run(self.loglik_fn(obs, noise_var, backend=self._backend()), self.params,
+                           bounds=bounds, device=self.device, **kwargs)
+            if sampler not in ("hmc", "chees", "nuts"):
+                raise ValueError(
+                    "sampler must be 'mh', 'ensemble', 'hmc', 'chees', 'nuts', "
+                    f"'pt' or 'smc'; got {sampler!r}"
+                )
+            from tpu21cmvae_torch.sampling import gradient
 
-        run = {"hmc": gradient.sample_hmc, "chees": gradient.sample_chees,
-               "nuts": gradient.sample_nuts}[sampler]
-        return run(self._hmc_valgrad(obs, noise_var), self.params, bounds=bounds,
-                   device=self.device, **kwargs)
+            run = {"hmc": gradient.sample_hmc, "chees": gradient.sample_chees,
+                   "nuts": gradient.sample_nuts}[sampler]
+            return run(self._hmc_valgrad(obs, noise_var), self.params, bounds=bounds,
+                       device=self.device, **kwargs)
 
     def sample_posterior_batch(self, obs_batch, noise_var=1.0, *, sampler: str = "mh",
                                n_walkers: int = 256, bounds=None, method: str = "gram",

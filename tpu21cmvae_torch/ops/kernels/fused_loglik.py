@@ -130,7 +130,7 @@ from tpu21cmvae_torch.ops.kernels.wide import (
     wide_tail,
 )
 from tpu21cmvae_torch.ops.mlp import SKINNY_DENSE_MAX_IN, fused_skinny_dense
-from tpu21cmvae_torch.utils.profiling import WRAPPERS, count, span
+from tpu21cmvae_torch.utils.profiling import WRAPPERS, count, recording_open, span
 
 
 class GramPacked(NamedTuple):
@@ -1041,9 +1041,12 @@ class _GramWrapper:
         # more run fused_gram_tall.cu where its plan fits, the rest
         # fused_gram_mma.cu (k3_batch_route)
         self.route = route
-        self.tall_plan = (tall_plan(widths, self.tier, self.grad_tier)
-                          if route == "mma" and self.grad_tier is not None and members is None
-                          else None)
+        plan = (tall_plan(widths, self.tier, self.grad_tier)
+                if route == "mma" and self.grad_tier is not None else None)
+        self.tall_plan = plan if members is None else None
+        # the plan a one-model wrapper would take, which the member axis
+        # declines (tall_declined)
+        self.declined_plan = plan if members is not None else None
         self.tall_launches = 0
         # the wide route's launches and workspace
         self.wide_launch = (WideLaunch(self.plan, self.grad_tier is not None, self.sm_count,
@@ -1106,15 +1109,27 @@ class _GramWrapper:
         built on (:func:`k3_route`, :func:`k2_route`)."""
         return k3_batch_route(self.route, self.tall_plan, n_rows, self.sm_count)
 
+    def tall_declined(self, n_rows: int) -> bool:
+        """Whether a call of ``n_rows`` rows misses ``fused_gram_tall.cu``
+        only because it carries a member axis: the wrapper's pair and
+        network are ones the tall kernel takes on one model and the batch
+        reaches :func:`tall_crossover` on the wrapper's card."""
+        return self.declined_plan is not None and k3_batch_route(
+            self.route, self.declined_plan, n_rows, self.sm_count) == "tall"
+
     def _launch_kernel(self, launch_fn, ops, x):
         """``launch_fn(ops, x, rows)`` at the height this batch takes
         (:meth:`rows_for`; K2's fp32 kernel its own); the wide route's
         through :attr:`wide_launch`; K3's large batches at a bf16 pair on
         ``fused_gram_tall.cu`` (:meth:`batch_route`), each K3 call counted
-        by its route (``k3.route.<route>``)."""
+        by its route (``k3.route.<route>``) and, with a member axis, by
+        whether the tall kernel declined it (``k3.tall_declined``, 0 or
+        1: :meth:`tall_declined`)."""
         if self.grad_tier is not None:
             route = self.batch_route(x.shape[0])
             count(f"k3.route.{route}")
+            if self.members is not None and recording_open():
+                count("k3.tall_declined", int(self.tall_declined(x.shape[0])))
             if route == "tall":
                 self.tall_launches += 1
                 return _loglik_grad_gram_tall_cuda(ops, x, self.tall_plan, self.sm_count)

@@ -21,10 +21,13 @@ with its ``split_rows``, ``run`` and ``merge_rows`` at the entry point;
 ``sample_posterior`` with its ``start``, ``warmup``, ``draws`` and
 ``collect`` in the sampler loop; one per likelihood wrapper call, named
 by the wrapper (``K1``, ``K2``, ``K3``, ``kernel_value``,
-``autograd_valgrad``); one per kernel launch, named by the C entry, around
-the launch alone. Counters: ``operand.hit``/``operand.fold`` (the
-wrappers' folded weights) and ``memo.hit``/``memo.miss`` (the models'
-likelihood memo). Spans are stamped with ``time.time_ns()``, the Unix-epoch
+``autograd_valgrad``, and a deep ensemble's ``mixture`` around its
+member-batched wrapper's); one per kernel launch, named by the C entry,
+around the launch alone. Counters: ``operand.hit``/``operand.fold`` (the
+wrappers' folded weights), ``memo.hit``/``memo.miss`` (the models'
+likelihood memo), ``k3.route.<route>`` (each K3 call on the card by the
+kernel it runs) and ``k3.tall_declined`` (each member-batched K3 call on
+the card that the one-model tall kernel would have taken: 1, else 0). Spans are stamped with ``time.time_ns()``, the Unix-epoch
 clock on which ``torch.profiler`` reports its events, so a span and the
 runtime call or kernel it launched compare directly (the profiler's
 device timestamps have been seen to run off its host timestamps by up
@@ -149,6 +152,12 @@ def count(name: str, n: int = 1) -> None:
         return
     with rec._lock:
         rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+def recording_open() -> bool:
+    """Whether a :func:`recording` is open: a counter whose value costs
+    work to compute is computed only then."""
+    return _active is not None
 
 
 @contextlib.contextmanager
